@@ -38,3 +38,9 @@ def tiny_params():
         "norm": {"s": jnp.ones((32,))},
         "lm_head": {"w": jax.random.normal(jax.random.PRNGKey(3), (32, 64))},
     }
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card (the port's kernels); skipped "
+        "without one")
