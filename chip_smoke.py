@@ -5,20 +5,31 @@ NVIDIA H100.
     python3 chip_smoke.py [--seed N]
 
 Run from the root of a checkout. It builds the port's CUDA kernels with
-nvcc, then runs five phases and fails (non-zero exit, no result line) if
-any of them fails:
+nvcc (one process per source, in parallel), then runs six phases and fails
+(non-zero exit, no result line) if any of them fails:
 
 1. device: the card's name and power limit, the kernels' ptxas report;
 2. every kernel against its plain PyTorch version on the card, at the
-   serving path's shapes and at the edge cases, with stated tolerances;
-3. the port's main path: greedy serving of llama-130m at full width and
+   main paths' shapes and at the edge cases, with stated tolerances; the
+   optimizer kernels also run twice (bitwise equal) and show that they
+   write in place where the TPU kernels alias;
+3. the serving path: greedy serving of llama-130m at full width and
    depth (bf16, seeded random weights; batch 8, a 512-token prompt, 64
    new tokens), checked against a full-sequence forward, with the kernel
    launch counts of the run;
 4. kernel times with CUDA events beside their bound, the plain version
    and one PyTorch library call computing the same function;
 5. where the serving time goes: device busy time and the top kernels of
-   one prefill and of decode steps, from torch.profiler.
+   one prefill and of decode steps, from torch.profiler;
+6. the optimizer path: SCALE steps of llama-1b at full width and depth
+   (bf16 params and grads from the seed, the clip factor from the global
+   norm, ``scale_fused`` with the warmup-cosine schedule and lr_scaling):
+   three ``update_params`` steps and three ``update`` + ``apply_updates``
+   steps, their kernel launch counts checked per step, the result held
+   against ``impl="jnp"`` on the same card, one step under
+   ``torch.cuda.set_sync_debug_mode("error")``, step times beside the
+   bound, the step's device busy time and top kernels (torch.profiler),
+   and peak memory.
 
 The line before the last is a JSON ``{"kernels": [...]}`` summary, the
 last line ``{"ok": true, "device": {...}}``. It needs a CUDA card and
@@ -57,6 +68,38 @@ SERVE_ATOL, SERVE_RTOL = 5e-2, 5e-2
 
 SRC_MHA = "src/repro_torch/kernels/attention/csrc/mha_fwd.cu"
 TPU_MHA = "src/repro/kernels/attention/attention.py:223"
+SRC_COLNORM = "src/repro_torch/kernels/colnorm/csrc/colnorm.cu"
+SRC_MOMENTUM = "src/repro_torch/kernels/scale_head/csrc/momentum_sumsq.cu"
+TPU_KERNELS = {  # the Pallas kernel bodies each CUDA kernel replaces
+    "norm_sumsq": "src/repro/kernels/colnorm/colnorm.py:113",
+    "update_apply": "src/repro/kernels/colnorm/colnorm.py:219",
+    "norm_apply": "src/repro/kernels/colnorm/colnorm.py:176",
+    "momentum_sumsq": "src/repro/kernels/scale_head/scale_head.py:36",
+}
+
+# Optimizer kernels against their plain versions (phase 2), per element:
+# sums of squares (f32): both sides sum positive f32 terms in other
+# orders, the kernel in chains of at most 64 + 8 + S terms (S splits),
+# torch in its own; the relative error of such a chain is at most
+# (n - 1) * 2**-24, 1.5e-5 at n = 256.
+SS_RTOL = 2e-5
+# element-wise outputs, given the same ss: the same IEEE f32 operations in
+# the same order on both sides (the kernels use _rn intrinsics, so nvcc
+# contracts nothing into FMAs), one rounding to the output dtype: at most
+# one ulp of the output dtype at the scale of the formula's terms.
+EW_ULPS = 1
+# Phase 6, impl="fused" against impl="jnp" after the six steps, per
+# element of the bf16 params: each step rounds theta once on each route,
+# and the routes round differently by design (the fused write rounds
+# theta - lr*g/norm once from f32; the jnp route rounds the f32 update to
+# bf16 and then the sum; its colnorm multiplies by a reciprocal, the kernel
+# divides): at most 1.5 bf16 ulps of the element's peak magnitude (the
+# largest |theta| or |step| of its trajectory) per step, so 8 in six steps.
+STEP_ULPS = 8
+# the f32 momentum: the kernel forms 1 - beta in f32 (as the TPU kernel),
+# the jnp route in double (as JAX's jnp route), 2.4e-7 apart relative; six
+# EMA steps of that plus rounding stay within 4e-6 of the leaf's max |m|.
+MOMENTUM_RTOL = 4e-6
 
 
 def card() -> str:
@@ -147,6 +190,151 @@ def phase_kernels(torch, gen):
                 raise AssertionError(f"mha_fwd disagrees with the plain "
                                      f"version: {name} {tag}")
             errs[(name, tag)] = e_out
+    return errs
+
+
+def ulp(torch, x, dtype):
+    """Spacing of ``dtype``'s numbers at |x| (f32 tensor)."""
+    mant = 7 if dtype == torch.bfloat16 else 23
+    x = x.float().abs().clamp_min(torch.finfo(torch.float32).tiny)
+    return torch.exp2(torch.floor(torch.log2(x)) - mant)
+
+
+def optimizer_shapes():
+    # name -> canonical (L, m, n): ragged, odd rows, and llama-1b's leaves
+    return {
+        "ragged (3,77,129)": (3, 77, 129),
+        "(1,5461,2048)": (1, 5461, 2048),
+        "w_gate/w_up (24,2048,5461)": (24, 2048, 5461),
+        "w_down (24,5461,2048)": (24, 5461, 2048),
+        "tok_embed (1,32000,2048)": (1, 32000, 2048),
+        "lm_head (1,2048,32000)": (1, 2048, 32000),
+    }
+
+
+def _check_ew(torch, name, got, want, scale, dtype, errs, key):
+    """got against want within EW_ULPS ulps of dtype at ``scale``."""
+    d = (got.float() - want.float()).abs()
+    tol = EW_ULPS * ulp(torch, scale, dtype)
+    worst = (d / tol).max().item()
+    if not (bool(torch.isfinite(got.float()).all()) and worst <= 1.0):
+        raise AssertionError(f"{name} disagrees with the plain version: "
+                             f"{key}, max err {d.max().item():.3e}, "
+                             f"{worst:.2f} x tol")
+    errs[key] = max(errs.get(key, 0.0), d.max().item())
+    return d.max().item()
+
+
+def _check_ss(torch, name, got, want, errs, key):
+    rel = ((got - want).abs() / want.abs().clamp_min(1e-30)).max().item()
+    if not (bool(torch.isfinite(got).all()) and rel <= SS_RTOL):
+        raise AssertionError(f"{name}: sums of squares off by {rel:.3e} "
+                             f"relative (tol {SS_RTOL:g}): {key}")
+    errs[key] = max(errs.get(key, 0.0), (got - want).abs().max().item())
+    return rel
+
+
+def _bitwise_again(torch, name, first, again, key):
+    if not torch.equal(first, again):
+        raise AssertionError(f"{name}: a second run on the same inputs "
+                             f"differs: {key}")
+
+
+def phase_optimizer_kernels(torch, gen):
+    """Phase 2: the four optimizer kernels against their plain versions.
+
+    -> {(kernel, shape name, dtype): max abs error}.
+    """
+    from repro_torch.kernels.colnorm import colnorm as C
+    from repro_torch.kernels.colnorm import ref as CR
+    from repro_torch.kernels.scale_head import ref as HR
+    from repro_torch.kernels.scale_head import scale_head as H
+    errs = {}
+    lr = torch.tensor(0.01, device="cuda")
+    for sname, shape in optimizer_shapes().items():
+        for dtype in (torch.bfloat16, torch.float32):
+            g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            theta = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            m32 = 0.1 * torch.randn(shape, generator=gen, device="cuda")
+            tag = str(dtype).replace("torch.", "")
+            for axis in ("col", "row"):
+                for gs in (None, 0.37):
+                    # gscale and beta by value (Python) and by device pointer
+                    gscale = None if gs is None else torch.tensor(
+                        gs, device="cuda")
+                    beta = 0.9 if gs is None else torch.tensor(
+                        0.9, device="cuda")
+                    key = f"{sname} {tag} {axis} gscale={gs}"
+                    # norm_sumsq
+                    ss = C.norm_sumsq(g, axis, gscale=gscale)
+                    ss_p = CR.norm_sumsq_ref(g, axis, gscale=gscale)
+                    r_ss = _check_ss(torch, "norm_sumsq", ss, ss_p, errs,
+                                     ("norm_sumsq", sname, tag))
+                    _bitwise_again(torch, "norm_sumsq", ss,
+                                   C.norm_sumsq(g, axis, gscale=gscale), key)
+                    # norm_apply, in g's dtype and in f32 (the update path)
+                    e_na = 0.0
+                    for out_dtype in {dtype, torch.float32}:
+                        out = C.norm_apply(g, ss_p, axis, gscale=gscale,
+                                           out_dtype=out_dtype)
+                        want = CR.norm_apply_ref(g, ss_p, axis, gscale=gscale,
+                                                 out_dtype=out_dtype)
+                        e_na = max(e_na, _check_ew(
+                            torch, "norm_apply", out, want, want, out_dtype,
+                            errs, ("norm_apply", sname, tag)))
+                        _bitwise_again(torch, "norm_apply", out, C.norm_apply(
+                            g, ss_p, axis, gscale=gscale,
+                            out_dtype=out_dtype), key)
+                    # update_apply, in place
+                    th = theta.clone()
+                    got = C.update_apply(th, g, ss_p, lr, axis,
+                                         gscale=gscale)
+                    if got is not th or got.data_ptr() != th.data_ptr():
+                        raise AssertionError(f"update_apply not in place: "
+                                             f"{key}")
+                    want = CR.update_apply_ref(theta.clone(), g, ss_p, lr,
+                                               axis, gscale=gscale)
+                    e_ua = _check_ew(torch, "update_apply", got, want,
+                                     torch.maximum(theta.float().abs(),
+                                                   want.float().abs()),
+                                     dtype, errs, ("update_apply", sname, tag))
+                    th2 = theta.clone()
+                    C.update_apply(th2, g, ss_p, lr, axis, gscale=gscale)
+                    _bitwise_again(torch, "update_apply", got, th2, key)
+                    # momentum_sumsq, in place, f32 and bf16 storage
+                    e_m = r_m = 0.0
+                    for mdt in (torch.float32, torch.bfloat16):
+                        m0 = m32.to(mdt)
+                        m = m0.clone()
+                        got_m, got_ss = H.momentum_sumsq(m, g, beta, axis,
+                                                         gscale=gscale)
+                        if got_m is not m or got_m.data_ptr() != m.data_ptr():
+                            raise AssertionError(f"momentum_sumsq not in "
+                                                 f"place: {key}")
+                        want_m, want_ss = HR.momentum_sumsq_ref(
+                            m0.clone(), g, beta, axis, gscale=gscale)
+                        terms = (0.9 * m0.float().abs()
+                                 + 0.1 * (gs or 1.0) * g.float().abs())
+                        mk = ("momentum_sumsq", sname,
+                              f"{tag} m {str(mdt).replace('torch.', '')}")
+                        e_m = max(e_m, _check_ew(torch, "momentum_sumsq",
+                                                 got_m, want_m, terms, mdt,
+                                                 errs, mk))
+                        r_m = max(r_m, _check_ss(torch, "momentum_sumsq",
+                                                 got_ss, want_ss, errs, mk))
+                        m2 = m0.clone()
+                        _, ss2 = H.momentum_sumsq(m2, g, beta, axis,
+                                                  gscale=gscale)
+                        _bitwise_again(torch, "momentum_sumsq", got_m, m2,
+                                       key)
+                        _bitwise_again(torch, "momentum_sumsq", got_ss, ss2,
+                                       key)
+                    torch.cuda.synchronize()
+                    print(f"  {key:52s} sumsq rel {r_ss:.2e}; norm_apply "
+                          f"{e_na:.2e}; update_apply {e_ua:.2e}; momentum "
+                          f"{e_m:.2e} (ss rel {r_m:.2e}); in place, "
+                          f"bitwise repeatable")
+            del g, theta, m32
     return errs
 
 
@@ -309,6 +497,76 @@ def phase_timing(torch, gen, power, serve, errs):
     return rows
 
 
+def optimizer_timing(torch, gen, power, errs):
+    """Phase 4, optimizer kernels at their largest llama-1b shapes (bf16
+    operands, col as on the main path): kernel, plain version, bound by
+    bytes and one PyTorch library call doing the same work."""
+    from repro_torch.kernels.colnorm import colnorm as C
+    from repro_torch.kernels.colnorm import ref as CR
+    from repro_torch.kernels.scale_head import ref as HR
+    from repro_torch.kernels.scale_head import scale_head as H
+    big, head = (24, 2048, 5461), (1, 2048, 32000)
+    bf = torch.bfloat16
+    g = torch.randn(big, generator=gen, device="cuda").to(bf)
+    theta = torch.randn(big, generator=gen, device="cuda").to(bf)
+    ss = C.norm_sumsq(g, "col")
+    denom = torch.sqrt(ss) + 1e-8  # the library calls' divisor, f32
+    lr = torch.tensor(1e-6, device="cuda")
+    n, L, cols = g.numel(), big[0], big[2]
+    gh = torch.randn(head, generator=gen, device="cuda").to(bf)
+    m = 1e-3 * torch.randn(head, generator=gen, device="cuda")
+    gh32 = gh.float()  # lerp_ takes its end in m's dtype
+    nh = gh.numel()
+    cases = [
+        # name, shape name, bytes moved once, kernel, plain, library, note
+        ("norm_sumsq", "w_gate/w_up (24,2048,5461)", 2 * n + 4 * L * cols,
+         lambda: C.norm_sumsq(g, "col"),
+         lambda: CR.norm_sumsq_ref(g, "col"),
+         lambda: torch.linalg.vector_norm(g, dim=1, keepdim=True,
+                                          dtype=torch.float32),
+         "torch.linalg.vector_norm(dim=1, dtype=float32)"),
+        ("update_apply", "w_gate/w_up (24,2048,5461)",
+         3 * 2 * n + 4 * L * cols,
+         lambda: C.update_apply(theta, g, ss, lr, "col"),
+         lambda: CR.update_apply_ref(theta, g, ss, lr, "col"),
+         lambda: theta.addcdiv_(g, denom, value=-1e-6),
+         "theta.addcdiv_(g, sqrt(ss)+eps, value=-lr)"),
+        ("norm_apply", "w_gate/w_up (24,2048,5461)",
+         (2 + 4) * n + 4 * L * cols,
+         lambda: C.norm_apply(g, ss, "col", out_dtype=torch.float32),
+         lambda: CR.norm_apply_ref(g, ss, "col", out_dtype=torch.float32),
+         lambda: torch.div(g, denom),
+         "torch.div(g, sqrt(ss)+eps) -> float32"),
+        ("momentum_sumsq", "lm_head (1,2048,32000)",
+         (4 + 2 + 4) * nh + 4 * head[2],
+         lambda: H.momentum_sumsq(m, gh, 0.9, "col"),
+         lambda: HR.momentum_sumsq_ref(m, gh, 0.9, "col"),
+         lambda: m.lerp_(gh32, 0.1),
+         "m.lerp_(g, 1-beta), EMA only, g in f32"),
+    ]
+    rows = []
+    for name, sname, nbytes, kern, plain, lib, lib_note in cases:
+        src = SRC_MOMENTUM if name == "momentum_sumsq" else SRC_COLNORM
+        ms = time_ms(torch, kern, 50)
+        plain_ms = time_ms(torch, plain, 10)
+        lib_ms = time_ms(torch, lib, 50)
+        bound = 1e3 * nbytes / HBM_BYTES_PER_S
+        # phase 2's error at this shape and these dtypes (bf16 g; the
+        # head's momentum in f32)
+        dts = "bfloat16 m float32" if name == "momentum_sumsq" else "bfloat16"
+        err = errs[(name, sname, dts)]
+        print(f"  [{power}] {name} {sname} bf16 col: {ms:.4f} ms (bound "
+              f"{bound:.4f} ms by bytes, {nbytes / 1e6:.1f} MB; "
+              f"{nbytes / ms / 1e6:.0f} GB/s; plain {plain_ms:.4f} ms; "
+              f"{lib_note} {lib_ms:.4f} ms)")
+        rows.append({"name": name, "shape": sname, "route": "cuda",
+                     "source": src, "replaces": TPU_KERNELS[name],
+                     "launches": None, "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound,
+                     "bound_by": "bytes", "library_ms": lib_ms})
+    return rows
+
+
 def phase_profile(torch, seed, power, serve):
     """Phase 5: device busy time of one prefill and of decode steps.
 
@@ -359,6 +617,188 @@ def phase_profile(torch, seed, power, serve):
                   f"x{e.count // n:<4d} {e.key[:90]}")
 
 
+def counts():
+    from repro_torch.kernels.colnorm import colnorm as C
+    from repro_torch.kernels.scale_head import scale_head as H
+    return {"norm_sumsq": C.norm_sumsq.launches,
+            "update_apply": C.update_apply.launches,
+            "norm_apply": C.norm_apply.launches,
+            "momentum_sumsq": H.momentum_sumsq.launches}
+
+
+def zero_counts():
+    from repro_torch.kernels.colnorm import colnorm as C
+    from repro_torch.kernels.scale_head import scale_head as H
+    for fn in (C.norm_sumsq, C.update_apply, C.norm_apply, H.momentum_sumsq):
+        fn.launches = 0
+
+
+def step_bytes(params, labels):
+    """Bytes an update_params step of SCALE must move (each once): a
+    stateless matrix reads g twice (sums of squares, apply) and theta once
+    and writes theta; the head reads g, reads and writes the f32 momentum,
+    reads it again and reads and writes theta; an Adam vector reads g,
+    reads and writes theta and both f32 moments."""
+    total = 0
+    for k, p in params.items():
+        n, b = p.numel(), p.element_size()
+        total += n * {"vector": 3 * b + 16, "last": 3 * b + 12}.get(
+            labels[k], 4 * b)
+    return total
+
+
+def profile_step(torch, power, step, untraced_ms, n=3):
+    """Device busy time and top kernels of ``n`` optimizer steps
+    (torch.profiler); the idle share is against the untraced step time."""
+    from torch.profiler import ProfilerActivity, profile
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n
+    if busy_ms == 0:
+        print("  the profiler recorded no device time (busy share not "
+              "measured)")
+        return
+    print(f"  [{power}] update_params step: device busy {busy_ms:.3f} ms of "
+          f"{untraced_ms:.3f} ms untraced (idle share "
+          f"{1 - busy_ms / untraced_ms:.3f}); "
+          f"{sum(e.count for e in kernels) // n} kernel launches")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"    {e.self_device_time_total / 1e3 / n:8.3f} ms "
+              f"x{e.count // n:<4d} {e.key[:90]}")
+
+
+def phase_optimizer(torch, seed, power):
+    """Phase 6: SCALE optimizer steps of llama-1b at full width and depth."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import (apply_updates, global_norm, label_tree,
+                                  linear_warmup_cosine, make_optimizer)
+    from repro_torch.core.pipeline import jax_mul
+    from repro_torch.models import init_params
+    from repro_torch.models.model import flatten
+    cfg = get_arch("llama-1b")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = {k: p.detach() for k, p in
+              flatten(init_params(cfg, gen, device="cuda")).items()}
+    grads = {k: torch.randn(p.shape, generator=gen, device="cuda").to(p.dtype)
+             for k, p in params.items()}
+    labels = label_tree(params, require_last=True)
+    n_el = sum(p.numel() for p in params.values())
+    print(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}; {len(params)} "
+          f"leaves, {n_el / 1e9:.3f} G params; labels "
+          f"{sorted(set(labels.values()))}")
+    # the trainer's clip: gscale = min(1, clip / (|g| + 1e-9)), clip 1.0
+    gnorm = global_norm(grads)
+    gscale = torch.minimum(torch.ones_like(gnorm), 1.0 / (gnorm + 1e-9))
+    # update() takes no grad_scale: the trainer scales the tree, and JAX
+    # promotes bf16 * f32 to f32
+    scaled = {k: jax_mul(g, gscale) for k, g in grads.items()}
+    sched = linear_warmup_cosine(1e-3, 1000)
+    fused = make_optimizer("scale_fused", sched, lr_scaling=True)
+    plain = make_optimizer("scale", sched, lr_scaling=True)
+    pf = {k: p.clone() for k, p in params.items()}
+    pr = {k: p.clone() for k, p in params.items()}
+    sf, sr = fused.init(pf), plain.init(pr)
+    torch.cuda.synchronize()
+    expect = {"update_params": {"norm_sumsq": 8, "update_apply": 9,
+                                "norm_apply": 0, "momentum_sumsq": 1},
+              "update": {"norm_sumsq": 8, "update_apply": 0,
+                         "norm_apply": 9, "momentum_sumsq": 1}}
+
+    def step(tx, p, s, entry):
+        if entry == "update_params":
+            return tx.update_params(grads, s, p, grad_scale=gscale)
+        u, s = tx.update(scaled, s, p)
+        return apply_updates(p, u), s
+
+    entries = ["update_params"] * 3 + ["update"] * 3
+    # the main path: counts set to 0 just before it, read just after
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    per_step = []
+    for entry in entries:
+        before = counts()
+        pf, sf = step(fused, pf, sf, entry)
+        per_step.append((entry, {k: v - before[k]
+                                 for k, v in counts().items()}))
+    torch.cuda.synchronize()
+    launches = counts()
+    peak_mem = torch.cuda.max_memory_allocated()
+    for i, (entry, c) in enumerate(per_step):
+        print(f"  step {i} {entry:13s} launches {c}")
+        if c != expect[entry]:
+            raise AssertionError(f"step {i} ({entry}) launched {c}, not "
+                                 f"{expect[entry]}")
+    print(f"  launches over the six steps: {launches}")
+
+    # the same six steps on the plain jnp route, tracking each element's
+    # peak |theta| or |step| for the per-element bound
+    peak = {k: p.float().abs() for k, p in pr.items()}
+    for entry in entries:
+        old = {k: p.clone() for k, p in pr.items()}
+        pr, sr = step(plain, pr, sr, entry)
+        for k, p in pr.items():
+            peak[k] = torch.maximum(peak[k], torch.maximum(
+                p.float().abs(), (p.float() - old[k].float()).abs()))
+        del old
+    worst, changed, moved = 0.0, 0, 0
+    for k, p in pf.items():
+        d = (p.float() - pr[k].float()).abs()
+        worst = max(worst, (d / ulp(torch, peak[k], p.dtype)).max().item())
+        changed += int((d > 0).sum())
+        moved += int((pr[k] != params[k]).sum())
+        if not bool(torch.isfinite(p.float()).all()):
+            raise AssertionError(f"non-finite params in {k}")
+    mf, mr = sf.mu["lm_head/w"], sr.mu["lm_head/w"]
+    m_rel = ((mf - mr).abs().max() / mr.abs().max()).item()
+    print(f"  fused vs jnp after 6 steps: params differ in {changed} of "
+          f"{n_el} elements, at most {worst:.2f} bf16 ulps of the element's "
+          f"peak (bound {STEP_ULPS}); {moved} elements moved from their "
+          f"start; lm_head momentum max err {m_rel:.3e} of max |m| (bound "
+          f"{MOMENTUM_RTOL:g}); count {int(sf.count)} / {int(sr.count)}")
+    if worst > STEP_ULPS or m_rel > MOMENTUM_RTOL or int(sf.count) != 6:
+        raise AssertionError("impl='fused' and impl='jnp' disagree")
+    del pr, sr, peak
+
+    # one step with any host synchronisation an error
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pf, sf = fused.update_params(grads, sf, pf, grad_scale=gscale)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print("  update_params under set_sync_debug_mode('error'): no host "
+          "synchronisation")
+
+    nbytes = step_bytes(pf, labels)
+    bound = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_fused = time_ms(torch, lambda: fused.update_params(
+        grads, sf, pf, grad_scale=gscale), 10)
+    t_upd = time_ms(torch, lambda: apply_updates(pf, fused.update(
+        scaled, sf, pf)[0]), 5)
+    pr = {k: p.clone() for k, p in params.items()}
+    sr = plain.init(pr)
+    t_plain = time_ms(torch, lambda: plain.update_params(
+        grads, sr, pr, grad_scale=gscale), 3)
+    print(f"  [{power}] update_params step: fused {t_fused:.3f} ms "
+          f"({nbytes / t_fused / 1e6:.0f} GB/s), jnp {t_plain:.3f} ms; bound "
+          f"{bound:.3f} ms ({nbytes / 1e9:.3f} GB by bytes)")
+    print(f"  [{power}] update + apply_updates step (fused): {t_upd:.3f} ms")
+    profile_step(torch, power, lambda: fused.update_params(
+        grads, sf, pf, grad_scale=gscale), t_fused)
+    print(f"  [{power}] torch.cuda.max_memory_allocated over the six steps "
+          f"{peak_mem / 2**20:.1f} MiB")
+    return {"launches": launches, "step_ms": t_fused, "bound_ms": bound}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -393,12 +833,22 @@ def main() -> int:
 
     print("phase 2: kernels against their plain versions on the card")
     errs = phase_kernels(torch, gen)
+    opt_errs = phase_optimizer_kernels(torch, gen)
     print("phase 3: greedy serving, llama-130m, full width and depth")
     serve = phase_serving(torch, args.seed, power)
     print("phase 4: kernel times (CUDA events)")
     rows = phase_timing(torch, gen, power, serve, errs)
+    opt_rows = optimizer_timing(torch, gen, power, opt_errs)
     print("phase 5: where the serving time goes (torch.profiler)")
     phase_profile(torch, args.seed, power, serve)
+    print("phase 6: SCALE optimizer steps, llama-1b, full width and depth")
+    opt = phase_optimizer(torch, args.seed, power)
+    for row in opt_rows:
+        row["launches"] = opt["launches"][row["name"]]
+        if not row["launches"]:
+            raise AssertionError(f"{row['name']} was not launched on the "
+                                 "optimizer path")
+    rows += opt_rows
     print(power)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,14 +1,33 @@
-"""Kernel entry points for the model code.
+"""Kernel entry points for the model code and the optimizer.
 
-Forward-only attention in this slice. Routing is by the tensors' device
-alone: the wrapper runs the plain version on the CPU and the CUDA kernel on
-the card. Unlike ``repro.kernels.dispatch`` there is no ``REPRO_FUSED``
-switch and no guarded fallback: a kernel that fails on the card raises
+Routing is by the tensors' device alone: a wrapper runs the plain version
+on the CPU and the CUDA kernel on the card. Unlike
+``repro.kernels.dispatch`` there is no ``REPRO_FUSED`` switch, no guarded
+fallback and no sharding plan: a kernel that fails on the card raises
 instead of quietly becoming the reference.
+
+Optimizer coverage (``supported``), as in the JAX package: 2-D and stacked
+3-D leaves, norm kinds col/row/larger (``larger`` resolved per shape by
+``resolve_kind``), float32/bfloat16 on the card, arbitrary shapes. Other
+leaves take the plain path of the same maths (the jnp oracle of
+``repro.kernels.dispatch``); that is coverage, not a fallback.
+
+The write-mode entry points (``norm_update``, ``momentum_norm_update``)
+update theta and the momentum in place on every route and return them;
+``momentum_norm`` updates the momentum in place.
 """
 from __future__ import annotations
 
+import torch
+
 from .attention.attention import mha_fwd
+from .colnorm import ref as _cref
+from .colnorm.colnorm import canon3, norm_apply, norm_sumsq, update_apply
+from .scale_head.ref import one_minus
+from .scale_head.scale_head import head_update_apply, momentum_sumsq
+
+FUSED_KINDS = ("col", "row", "larger")
+FUSED_NDIMS = (2, 3)
 
 
 def flash_attention(q, k, v, *, scale: float, causal: bool = True,
@@ -22,3 +41,116 @@ def flash_attention(q, k, v, *, scale: float, causal: bool = True,
     Returns (B, S, H, hdv) in q's dtype.
     """
     return mha_fwd(q, k, v, kv_len, scale=scale, causal=causal)[0]
+
+
+# -------------------------------------------------------------- optimizer
+
+def resolve_kind(kind: str, shape) -> str:
+    """Resolve ``larger`` to col/row by shape (ties go to col); see
+    ``core.normalization.resolve_larger``, the one source of the rule."""
+    from repro_torch.core.normalization import resolve_larger
+    return resolve_larger(kind, shape)
+
+
+def supported(shape, kind: str) -> bool:
+    """True when (shape, kind) is covered by the optimizer kernels."""
+    if len(shape) not in FUSED_NDIMS or kind not in FUSED_KINDS:
+        return False
+    return all(d >= 1 for d in shape)
+
+
+def _ref_norm(g, kind: str, eps: float, out_dtype=None):
+    """Plain normalization for any kind (col/row honour eps; the others
+    delegate to ``core.normalization``, whose kinds have no eps knob)."""
+    kind = resolve_kind(kind, g.shape)
+    if kind in ("col", "row"):
+        return _cref.normalize(g, kind, eps, out_dtype)
+    from repro_torch.core.normalization import normalize as _core_normalize
+    out = _core_normalize(g, kind)
+    return out if out_dtype is None else out.to(out_dtype)
+
+
+def _scaled_ref(g, gscale):
+    # the JAX oracle multiplies by gscale as an f32 array, so a bf16 g
+    # promotes to f32 there
+    if gscale is None:
+        return g
+    return (g.to(torch.promote_types(g.dtype, torch.float32))
+            * _cref.f32_scalar(gscale))
+
+
+def normalize(g, kind: str = "col", eps: float = 1e-8, *, gscale=None,
+              out_dtype=None):
+    """gscale * g / (||slice|| + eps): two kernels (``norm_sumsq``,
+    ``norm_apply``) on covered leaves.
+
+    Math is f32; the result has ``out_dtype`` (default: g's, or f32 where
+    gscale promotes g on the plain path, as in JAX).
+    ``normalize(g, out_dtype=torch.float32)`` is the JAX package's
+    ``normalize(g.astype(f32))`` without the f32 copy of g.
+    """
+    if not supported(g.shape, kind):
+        return _ref_norm(_scaled_ref(g, gscale), kind, eps, out_dtype)
+    axis = resolve_kind(kind, g.shape)
+    g3 = canon3(g)
+    ss = norm_sumsq(g3, axis, gscale=gscale)
+    return norm_apply(g3, ss, axis, eps=eps, gscale=gscale,
+                      out_dtype=out_dtype).reshape(g.shape)
+
+
+def norm_update(theta, g, lr, kind: str = "col", eps: float = 1e-8, *,
+                gscale=None):
+    """theta - lr * normalize(gscale * g), written into theta (returned).
+
+    Covered leaves take two kernels: ``norm_sumsq`` then the in-place
+    ``update_apply`` (4 passes over a matrix: g; theta, g, theta').
+    """
+    if not supported(theta.shape, kind):
+        d = _ref_norm(_scaled_ref(g, gscale), kind, eps)
+        return theta.copy_(theta.float() - _cref.f32_scalar(lr) * d.float())
+    axis = resolve_kind(kind, theta.shape)
+    g3 = canon3(g)
+    ss = norm_sumsq(g3, axis, gscale=gscale)
+    update_apply(canon3(theta), g3, ss, lr, axis, eps=eps, gscale=gscale)
+    return theta
+
+
+def _momentum_ref(m, g, beta, gscale):
+    b = _cref.f32_scalar(beta)
+    m_new = b * m.float() + one_minus(b) * _scaled_ref(g, gscale).float()
+    m.copy_(m_new)  # cast-on-write: storage in m's dtype
+    return m_new
+
+
+def momentum_norm(m, g, beta, kind: str = "col", eps: float = 1e-8, *,
+                  gscale=None):
+    """(m', d): m' = beta*m + (1-beta)*gscale*g written into m (returned),
+    d = normalize(m') in f32.
+
+    On covered leaves ``momentum_sumsq`` forms m' and its f32 sums of
+    squares in one kernel and ``norm_apply`` reads the *stored* m' (bf16
+    under bf16 momentum storage); the plain path normalizes the pre-cast
+    f32 m', as in JAX.
+    """
+    if not supported(m.shape, kind):
+        m_new = _momentum_ref(m, g, beta, gscale)
+        return m, _ref_norm(m_new, kind, eps)
+    axis = resolve_kind(kind, m.shape)
+    m3, ss = momentum_sumsq(canon3(m), canon3(g), beta, axis, gscale=gscale)
+    d = norm_apply(m3, ss, axis, eps=eps, out_dtype=torch.float32)
+    return m, d.reshape(m.shape)
+
+
+def momentum_norm_update(theta, m, g, beta, lr, kind: str = "col",
+                         eps: float = 1e-8, *, gscale=None):
+    """(theta', m'), both written in place: ``momentum_sumsq`` then the
+    head's ``update_apply`` on covered leaves (two kernel calls)."""
+    if not supported(theta.shape, kind):
+        m_new = _momentum_ref(m, g, beta, gscale)
+        d = _ref_norm(m_new, kind, eps)
+        theta.copy_(theta.float() - _cref.f32_scalar(lr) * d.float())
+        return theta, m
+    axis = resolve_kind(kind, theta.shape)
+    m3, ss = momentum_sumsq(canon3(m), canon3(g), beta, axis, gscale=gscale)
+    head_update_apply(canon3(theta), m3, ss, lr, axis, eps=eps)
+    return theta, m

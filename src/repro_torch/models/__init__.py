@@ -1,8 +1,9 @@
 from .config import ModelConfig
 from .model import (Params, forward, head_weight, init_cache, init_params,
                     logits_from_hidden, model_spec, param_shapes)
-from .weights import load_flat, to_flat
+from .weights import (load_flat, load_opt_state, opt_state_to_flat,
+                      to_flat)
 
 __all__ = ["ModelConfig", "Params", "forward", "head_weight", "init_cache",
            "init_params", "logits_from_hidden", "model_spec", "param_shapes",
-           "load_flat", "to_flat"]
+           "load_flat", "load_opt_state", "opt_state_to_flat", "to_flat"]

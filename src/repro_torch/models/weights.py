@@ -38,3 +38,39 @@ def to_flat(params: Params) -> dict:
     """:class:`Params` -> ``{path_str: f32 np.ndarray}`` (inverse of load_flat)."""
     return {k: v.detach().float().cpu().numpy()
             for k, v in flatten(params).items()}
+
+
+def load_opt_state(flat: dict, params, tx, device=None):
+    """``{"count", "mu/<path>", "nu/<path>": np.ndarray}`` -> the port's
+    optimizer state for ``params`` under ``tx`` on ``device`` (cuda)."""
+    device = resolve_device(device)
+    want = tx.init(params)
+    flat = {k.lstrip("."): v for k, v in flat.items()}
+    keys = {"count", *(f"{part}/{k}" for part in ("mu", "nu")
+                       for k in getattr(want, part))}
+    if set(flat) != keys:
+        raise KeyError(f"optimizer state paths differ: missing "
+                       f"{sorted(keys - set(flat))}, unexpected "
+                       f"{sorted(set(flat) - keys)}")
+
+    def cast(key, like):
+        a = np.asarray(flat[key])
+        if a.shape != tuple(like.shape):
+            raise ValueError(f"{key}: shape {a.shape}, expected "
+                             f"{tuple(like.shape)}")
+        return torch.tensor(a).to(device=device, dtype=like.dtype)
+
+    return want._replace(
+        count=cast("count", want.count),
+        mu={k: cast(f"mu/{k}", x) for k, x in want.mu.items()},
+        nu={k: cast(f"nu/{k}", x) for k, x in want.nu.items()})
+
+
+def opt_state_to_flat(state) -> dict:
+    """The port's optimizer state -> ``{"count", "mu/<path>", "nu/<path>"}``
+    numpy (f32 moments, int32 count; inverse of load_opt_state)."""
+    out = {"count": state.count.detach().cpu().numpy()}
+    for part in ("mu", "nu"):
+        for k, x in getattr(state, part).items():
+            out[f"{part}/{k}"] = x.detach().float().cpu().numpy()
+    return out

@@ -6,14 +6,24 @@ imports no JAX, so it runs on a machine that has only PyTorch:
     PYTHONPATH=src python -m pytest -q -m gpu --noconftest tests/test_torch_gpu.py
 
 (``--noconftest`` because ``tests/conftest.py`` imports JAX.) The kernel
-cases are those of phase 2 of ``chip_smoke.py``; a last test serves a small
-model on the card through the kernel. Kernel tolerances, per element:
+cases are those of phase 2 of ``chip_smoke.py``; a test serves a small
+model on the card through the attention kernel, and the last ones take
+SCALE optimizer steps through the optimizer kernels. Attention tolerances,
+per element:
   * f32 out: 2e-5 absolute (unit-scale values summed in other orders);
   * bf16 out: 2e-2 + 2e-2*|ref| — the kernel rounds the running,
     unnormalized p to bf16, the plain version the normalized p, and the
     output itself has 8 bits of mantissa;
   * lse (f32 from exact products in both dtypes): 1e-4 + 1e-5*|ref|, on
     rows with at least one valid key.
+Optimizer kernels (``norm_sumsq``, ``norm_apply``, ``update_apply``,
+``momentum_sumsq``) against their plain versions:
+  * sums of squares: 2e-5 relative — positive f32 terms summed in chains
+    of a few hundred at most, in other orders ((n - 1) * 2**-24 bound);
+  * element-wise outputs, given the same sums: 1 ulp of the output dtype
+    at the scale of the formula's terms (the same IEEE operations, one
+    rounding);
+  * a second run is bitwise equal, and theta and m are written in place.
 """
 import numpy as np
 import pytest
@@ -114,3 +124,153 @@ def test_serving_on_card_goes_through_the_kernel(cuda, dtype):
     torch.testing.assert_close(logits[:, -1].float()[:, :cfg.vocab_size],
                                ref.float()[:, :cfg.vocab_size], atol=atol,
                                rtol=rtol)
+
+
+OPT_SHAPES = {"ragged_3x77x129": (3, 77, 129),
+              "odd_rows_1x5461x2048": (1, 5461, 2048),
+              "wide_1x2048x32000": (1, 2048, 32000)}
+
+
+def _ulp(x, dtype):
+    mant = 7 if dtype == torch.bfloat16 else 23
+    x = x.float().abs().clamp_min(torch.finfo(torch.float32).tiny)
+    return torch.exp2(torch.floor(torch.log2(x)) - mant)
+
+
+def _within_ulp(got, want, scale, dtype):
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= _ulp(scale, dtype)).all()), err.max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gs", ["nogs", "gs0.37"])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("axis", ["col", "row"])
+@pytest.mark.parametrize("shape", list(OPT_SHAPES))
+def test_optimizer_kernels_match_plain_on_card(cuda, shape, axis, dtype, gs):
+    from repro_torch.kernels.colnorm import colnorm as C
+    from repro_torch.kernels.colnorm import ref as CR
+    from repro_torch.kernels.scale_head import ref as HR
+    from repro_torch.kernels.scale_head import scale_head as H
+    td = DTYPES[dtype]
+    rng = np.random.default_rng(3)
+    g, th, m = (torch.from_numpy(rng.standard_normal(
+        OPT_SHAPES[shape], dtype=np.float32)).to(cuda) for _ in range(3))
+    g, th = g.to(td), th.to(td)
+    gscale = None if gs == "nogs" else torch.tensor(0.37, device=cuda)
+    lr = torch.tensor(0.01, device=cuda)
+    before = (C.norm_sumsq.launches, C.norm_apply.launches,
+              C.update_apply.launches, H.momentum_sumsq.launches)
+
+    ss = C.norm_sumsq(g, axis, gscale=gscale)
+    ss_p = CR.norm_sumsq_ref(g, axis, gscale=gscale)
+    torch.testing.assert_close(ss, ss_p, rtol=2e-5, atol=0)
+    assert torch.equal(ss, C.norm_sumsq(g, axis, gscale=gscale))
+
+    for out_dtype in (td, torch.float32):
+        out = C.norm_apply(g, ss_p, axis, gscale=gscale, out_dtype=out_dtype)
+        want = CR.norm_apply_ref(g, ss_p, axis, gscale=gscale,
+                                 out_dtype=out_dtype)
+        assert out.dtype == out_dtype
+        _within_ulp(out, want, want, out_dtype)
+
+    t1, t2 = th.clone(), th.clone()
+    got = C.update_apply(t1, g, ss_p, lr, axis, gscale=gscale)
+    assert got is t1
+    want = CR.update_apply_ref(th.clone(), g, ss_p, lr, axis, gscale=gscale)
+    _within_ulp(got, want, torch.maximum(th.float().abs(), want.float().abs()),
+                td)
+    C.update_apply(t2, g, ss_p, lr, axis, gscale=gscale)
+    assert torch.equal(t1, t2)
+
+    for mdt in (torch.float32, torch.bfloat16):
+        m0 = (0.1 * m).to(mdt)
+        m1, m2 = m0.clone(), m0.clone()
+        got_m, got_ss = H.momentum_sumsq(m1, g, 0.9, axis, gscale=gscale)
+        assert got_m is m1 and got_m.dtype == mdt
+        want_m, want_ss = HR.momentum_sumsq_ref(m0.clone(), g, 0.9, axis,
+                                                gscale=gscale)
+        gsv = 1.0 if gscale is None else 0.37
+        _within_ulp(got_m, want_m, 0.9 * m0.float().abs()
+                    + 0.1 * gsv * g.float().abs(), mdt)
+        torch.testing.assert_close(got_ss, want_ss, rtol=2e-5, atol=0)
+        _, ss2 = H.momentum_sumsq(m2, g, 0.9, axis, gscale=gscale)
+        assert torch.equal(m1, m2) and torch.equal(got_ss, ss2)
+    torch.cuda.synchronize()
+    after = (C.norm_sumsq.launches, C.norm_apply.launches,
+             C.update_apply.launches, H.momentum_sumsq.launches)
+    assert [a - b for a, b in zip(after, before)] == [2, 2, 2, 4]
+
+
+def _scale_model(cuda):
+    from repro_torch.models import ModelConfig, init_params
+    from repro_torch.models.model import flatten
+    cfg = ModelConfig(name="gpu", n_layers=2, d_model=128, n_heads=4,
+                      n_kv_heads=4, d_ff=347, vocab_size=1000,
+                      dtype="bfloat16")
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = {k: p.detach() for k, p in
+              flatten(init_params(cfg, gen, device=cuda)).items()}
+    grads = {k: torch.randn(p.shape, generator=gen, device=cuda).to(p.dtype)
+             for k, p in params.items()}
+    return params, grads
+
+
+@pytest.mark.gpu
+def test_scale_fused_steps_on_card_go_through_the_kernels(cuda):
+    """update_params through the kernels: 8 norm_sumsq, 9 update_apply and
+    1 momentum_sumsq launches per step (8 stateless matrices and the head),
+    within 1.5 bf16 ulps of each element's peak per step of impl="jnp"."""
+    from repro_torch.core import (global_norm, linear_warmup_cosine,
+                                  make_optimizer)
+    from repro_torch.kernels.colnorm import colnorm as C
+    from repro_torch.kernels.scale_head import scale_head as H
+    params, grads = _scale_model(cuda)
+    gnorm = global_norm(grads)
+    gscale = torch.minimum(torch.ones_like(gnorm), 1.0 / (gnorm + 1e-9))
+    sched = linear_warmup_cosine(1e-2, 10)
+    fused = make_optimizer("scale_fused", sched, lr_scaling=True)
+    plain = make_optimizer("scale", sched, lr_scaling=True)
+    pf = {k: p.clone() for k, p in params.items()}
+    pr = {k: p.clone() for k, p in params.items()}
+    sf, sr = fused.init(pf), plain.init(pr)
+    peak = {k: p.float().abs() for k, p in pr.items()}
+    for _ in range(3):
+        before = (C.norm_sumsq.launches, C.update_apply.launches,
+                  C.norm_apply.launches, H.momentum_sumsq.launches)
+        pf, sf = fused.update_params(grads, sf, pf, grad_scale=gscale)
+        after = (C.norm_sumsq.launches, C.update_apply.launches,
+                 C.norm_apply.launches, H.momentum_sumsq.launches)
+        assert [a - b for a, b in zip(after, before)] == [8, 9, 0, 1]
+        old = {k: p.clone() for k, p in pr.items()}
+        pr, sr = plain.update_params(grads, sr, pr, grad_scale=gscale)
+        for k, p in pr.items():
+            peak[k] = torch.maximum(peak[k], torch.maximum(
+                p.float().abs(), (p.float() - old[k].float()).abs()))
+    torch.cuda.synchronize()
+    for k, p in pf.items():
+        err = (p.float() - pr[k].float()).abs()
+        assert bool((err <= 4.5 * _ulp(peak[k], p.dtype)).all()), k
+    torch.testing.assert_close(sf.mu["lm_head/w"], sr.mu["lm_head/w"],
+                               rtol=0, atol=4e-6 * sr.mu["lm_head/w"]
+                               .abs().max().item())
+
+
+@pytest.mark.gpu
+def test_update_params_does_not_synchronise_with_the_host(cuda):
+    from repro_torch.core import (global_norm, linear_warmup_cosine,
+                                  make_optimizer)
+    params, grads = _scale_model(cuda)
+    gnorm = global_norm(grads)
+    gscale = torch.minimum(torch.ones_like(gnorm), 1.0 / (gnorm + 1e-9))
+    tx = make_optimizer("scale_fused", linear_warmup_cosine(1e-3, 100),
+                        lr_scaling=True)
+    state = tx.init(params)
+    tx.update_params(grads, state, params, grad_scale=gscale)  # warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tx.update_params(grads, state, params, grad_scale=gscale)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
