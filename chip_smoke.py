@@ -5,7 +5,7 @@ NVIDIA H100.
     python3 chip_smoke.py [--seed N]
 
 Run from the root of a checkout. It builds the port's CUDA kernels with
-nvcc (one process per source, in parallel), then runs six phases and fails
+nvcc (one process per source, in parallel), then runs seven phases and fails
 (non-zero exit, no result line) if any of them fails:
 
 1. device: the card's name and power limit, the kernels' ptxas report;
@@ -29,7 +29,16 @@ nvcc (one process per source, in parallel), then runs six phases and fails
    against ``impl="jnp"`` on the same card, one step under
    ``torch.cuda.set_sync_debug_mode("error")``, step times beside the
    bound, the step's device busy time and top kernels (torch.profiler),
-   and peak memory.
+   and peak memory;
+7. the loss path: llama-1b at full width and depth (bf16, seeded random
+   weights; batch 16 of 256 tokens from the ported ``SyntheticLM``):
+   ``make_eval_step`` (exactly 24 ``mha_fwd`` and 1 ``xent_fwd``
+   launches), its loss against the plain full-logit route on the same
+   hidden, against a forward whose attention is the plain ``mha_fwd_ref``,
+   and beside ln(V) + sigma^2/2; the loss and its gradient at the
+   head (exactly 1 launch of each xent kernel), held against the plain
+   route's autograd, once under ``set_sync_debug_mode("error")``; times,
+   top device kernels and the peak memory each route adds.
 
 The line before the last is a JSON ``{"kernels": [...]}`` summary, the
 last line ``{"ok": true, "device": {...}}``. It needs a CUDA card and
@@ -70,12 +79,17 @@ SRC_MHA = "src/repro_torch/kernels/attention/csrc/mha_fwd.cu"
 TPU_MHA = "src/repro/kernels/attention/attention.py:223"
 SRC_COLNORM = "src/repro_torch/kernels/colnorm/csrc/colnorm.cu"
 SRC_MOMENTUM = "src/repro_torch/kernels/scale_head/csrc/momentum_sumsq.cu"
+SRC_XENT = "src/repro_torch/kernels/xent/csrc/xent.cu"
 TPU_KERNELS = {  # the Pallas kernel bodies each CUDA kernel replaces
     "norm_sumsq": "src/repro/kernels/colnorm/colnorm.py:113",
     "update_apply": "src/repro/kernels/colnorm/colnorm.py:219",
     "norm_apply": "src/repro/kernels/colnorm/colnorm.py:176",
     "momentum_sumsq": "src/repro/kernels/scale_head/scale_head.py:36",
+    "xent_fwd": "src/repro/kernels/xent/xent.py:149",
+    "xent_bwd_dh": "src/repro/kernels/xent/xent.py:218",
+    "xent_bwd_dw": "src/repro/kernels/xent/xent.py:291",
 }
+XENT_KERNELS = ("xent_fwd", "xent_bwd_dh", "xent_bwd_dw")
 
 # Optimizer kernels against their plain versions (phase 2), per element:
 # sums of squares (f32): both sides sum positive f32 terms in other
@@ -100,6 +114,27 @@ STEP_ULPS = 8
 # the jnp route in double (as JAX's jnp route), 2.4e-7 apart relative; six
 # EMA steps of that plus rounding stay within 4e-6 of the leaf's max |m|.
 MOMENTUM_RTOL = 4e-6
+# Cross-entropy kernels against their plain versions (phase 2), with lse
+# from the plain forward:
+# lse and ll: f32 sums of D exact products in other orders (logits of
+# order 1), and a log-sum-exp over V terms.
+XENT_LSE_ATOL, XENT_LSE_RTOL = 1e-4, 1e-5
+# dh and dw: f32 sums over the vocab (dh) or the tokens (dw) of recomputed
+# logits, in other orders: 1e-5 of the largest |ref| plus 1e-4 relative;
+# written as bf16, one rounding on each side adds 2**-8 relative, so 8e-3.
+XENT_GRAD_SCALE_ATOL = 1e-5
+XENT_GRAD_RTOL = {"float32": 1e-4, "bfloat16": 8e-3}
+# Phase 7: the mean loss against the plain route on the same hidden (f32
+# means of 4096 per-token losses of order 10, summed in other orders).
+LOSS_ATOL = 1e-4
+# Phase 7: the eval loss against a forward whose attention is mha_fwd_ref.
+# The two forwards differ by the bf16 roundings of each attention output
+# (the kernel rounds the running p, the plain version the normalized p),
+# carried through 24 residual layers; a relative change e of the final
+# hidden moves a per-token loss by about e times the spread of the logits
+# (about 1 at this init), and the mean of 4096 such moves of either sign
+# by far less than e.
+EVAL_REF_ATOL = 2e-3
 
 
 def card() -> str:
@@ -144,6 +179,7 @@ def attention_cases():
         "ragged S=T=37": (8, 37, 37, 12, 12, 64, True, None),
         "hd=128": (4, 512, 512, 8, 8, 128, True, None),
         "hd=256": (2, 512, 512, 8, 1, 256, True, None),
+        "eval llama-1b": (16, 256, 256, 32, 32, 64, True, None),
     }
 
 
@@ -454,7 +490,8 @@ def attention_bound_ms(B, S, T, H, K, hd, causal, kv_len, el_bytes):
 
 
 def phase_timing(torch, gen, power, serve, errs):
-    """Phase 4: kernel, plain version and SDPA at the serving shapes."""
+    """Phase 4: kernel, plain version and SDPA at the serving shapes and
+    at the llama-1b eval step's (its launches are filled in after phase 7)."""
     import torch.nn.functional as F
     from repro_torch.kernels.attention.attention import mha_fwd
     from repro_torch.kernels.attention.ref import mha_fwd_ref
@@ -464,6 +501,8 @@ def phase_timing(torch, gen, power, serve, errs):
                     serve["prefill_launches"], 50, "prefill llama-130m"),
         "decode": ((8, 1, 576, 12, 12, 64, False, kl),
                    serve["decode_launches"], 500, "decode kv_len=300"),
+        "eval": ((16, 256, 256, 32, 32, 64, True, None), None, 50,
+                 "eval llama-1b"),
     }
     rows = []
     for phase, (shape, launches, iters, err_case) in shapes.items():
@@ -647,8 +686,9 @@ def step_bytes(params, labels):
     return total
 
 
-def profile_step(torch, power, step, untraced_ms, n=3):
-    """Device busy time and top kernels of ``n`` optimizer steps
+def profile_step(torch, power, step, untraced_ms, n=3,
+                 label="update_params step"):
+    """Device busy time and top kernels of ``n`` calls of ``step``
     (torch.profiler); the idle share is against the untraced step time."""
     from torch.profiler import ProfilerActivity, profile
     step()
@@ -665,7 +705,7 @@ def profile_step(torch, power, step, untraced_ms, n=3):
         print("  the profiler recorded no device time (busy share not "
               "measured)")
         return
-    print(f"  [{power}] update_params step: device busy {busy_ms:.3f} ms of "
+    print(f"  [{power}] {label}: device busy {busy_ms:.3f} ms of "
           f"{untraced_ms:.3f} ms untraced (idle share "
           f"{1 - busy_ms / untraced_ms:.3f}); "
           f"{sum(e.count for e in kernels) // n} kernel launches")
@@ -799,6 +839,367 @@ def phase_optimizer(torch, seed, power):
     return {"launches": launches, "step_ms": t_fused, "bound_ms": bound}
 
 
+# ------------------------------------------------------- the loss path
+
+
+def xent_counts():
+    from repro_torch.kernels.attention.attention import mha_fwd
+    from repro_torch.kernels.xent import xent as X
+    return {"mha_fwd": mha_fwd.launches,
+            **{k: getattr(X, k).launches for k in XENT_KERNELS}}
+
+
+def zero_xent_counts():
+    from repro_torch.kernels.attention.attention import mha_fwd
+    from repro_torch.kernels.xent import xent as X
+    for fn in (mha_fwd, *(getattr(X, k) for k in XENT_KERNELS)):
+        fn.launches = 0
+
+
+def xent_cases():
+    # name -> (N, D, V, vocab_size, share of -1 labels)
+    return {
+        "llama-1b N=4096": (4096, 2048, 32000, 32000, 0.0),
+        "N=1": (1, 2048, 32000, 32000, 0.0),
+        "N=4097 vocab_size=31990": (4097, 2048, 32000, 31990, 0.1),
+        "all labels -1": (300, 2048, 32000, 32000, 1.0),
+    }
+
+
+def xent_inputs(torch, gen, N, D, V, masked, dtype):
+    h = torch.randn((N, D), generator=gen, device="cuda").to(dtype)
+    w = (torch.randn((D, V), generator=gen, device="cuda")
+         / D ** 0.5).to(dtype)
+    labels = torch.randint(0, V, (N,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    drop = torch.rand((N,), generator=gen, device="cuda") < masked
+    labels = torch.where(drop, -1, labels)
+    gl = torch.rand((N,), generator=gen, device="cuda")
+    return h, w, labels, gl
+
+
+def _grad_check(torch, name, got, want, dtype, key):
+    scale = want.float().abs().max().item()
+    tag = str(dtype).replace("torch.", "")
+    d = (got.float() - want.float()).abs()
+    tol = XENT_GRAD_SCALE_ATOL * scale + XENT_GRAD_RTOL[tag] * want.float().abs()
+    ok = bool(torch.isfinite(got.float()).all()) and bool((d <= tol).all())
+    if not ok:
+        raise AssertionError(f"{name} disagrees with the plain version: {key}, "
+                             f"max err {d.max().item():.3e}")
+    return d.max().item()
+
+
+def phase_xent_kernels(torch, gen):
+    """Phase 2: the three xent kernels against their plain versions, each
+    run twice (bitwise equal). -> {(kernel, case, dtype): max abs error}."""
+    from repro_torch.kernels.xent import ref as XR
+    from repro_torch.kernels.xent import xent as X
+    errs = {}
+    for cname, (N, D, V, vs, masked) in xent_cases().items():
+        for dtype in (torch.bfloat16, torch.float32):
+            tag = str(dtype).replace("torch.", "")
+            key = f"{cname} {tag}"
+            h, w, labels, gl = xent_inputs(torch, gen, N, D, V, masked, dtype)
+            lse, ll = X.xent_fwd(h, w, labels, vocab_size=vs)
+            torch.cuda.synchronize()
+            want_lse, want_ll = XR.xent_fwd_ref(h, w, labels, vocab_size=vs)
+            e_f = 0.0
+            for got, want in ((lse, want_lse), (ll, want_ll)):
+                d = (got - want).abs()
+                if not (bool(torch.isfinite(got).all()) and bool(
+                        (d <= XENT_LSE_ATOL + XENT_LSE_RTOL
+                         * want.abs()).all())):
+                    raise AssertionError(f"xent_fwd disagrees with the plain "
+                                         f"version: {key}")
+                e_f = max(e_f, d.max().item())
+            bad = (labels < 0) | (labels >= vs)
+            if not bool((ll[bad] == 0).all()):
+                raise AssertionError(f"xent_fwd: ll of a masked label is not "
+                                     f"0: {key}")
+            _bitwise_again(torch, "xent_fwd", torch.stack([lse, ll]),
+                           torch.stack(X.xent_fwd(h, w, labels,
+                                                  vocab_size=vs)), key)
+            errs[("xent_fwd", cname, tag)] = e_f
+            msg = [f"fwd {e_f:.2e}"]
+            if X.mma_layout(h, w) != (dtype == torch.bfloat16):
+                raise AssertionError(f"xent_fwd: unexpected kernel for {key}")
+            # the FMA kernels, which other bf16 layouts take
+            w_cols = w.T.contiguous().T if dtype == torch.bfloat16 else None
+            if dtype == torch.bfloat16:
+                e_fma = 0.0
+                for got, want in zip(X.xent_fwd(h, w_cols, labels,
+                                                vocab_size=vs),
+                                     (want_lse, want_ll)):
+                    d = (got - want).abs()
+                    if not bool((d <= XENT_LSE_ATOL + XENT_LSE_RTOL
+                                 * want.abs()).all()):
+                        raise AssertionError(f"xent_fwd (FMA kernel) "
+                                             f"disagrees: {key}")
+                    e_fma = max(e_fma, d.max().item())
+                msg.append(f"fwd FMA kernel {e_fma:.2e}")
+            for name, fn, ref in (("xent_bwd_dh", X.xent_bwd_dh,
+                                   XR.xent_bwd_dh_ref),
+                                  ("xent_bwd_dw", X.xent_bwd_dw,
+                                   XR.xent_bwd_dw_ref)):
+                e = e_fma = 0.0
+                for out_dtype in {dtype, torch.float32}:
+                    args = (h, w, labels, want_lse, gl)
+                    got = fn(*args, vocab_size=vs, out_dtype=out_dtype)
+                    want = ref(*args, vocab_size=vs, out_dtype=out_dtype)
+                    if got.dtype != out_dtype or got.shape != want.shape:
+                        raise AssertionError(f"{name}: {got.dtype} "
+                                             f"{tuple(got.shape)}: {key}")
+                    e = max(e, _grad_check(torch, name, got, want, out_dtype,
+                                           key))
+                    _bitwise_again(torch, name, got, fn(
+                        *args, vocab_size=vs, out_dtype=out_dtype), key)
+                    if name == "xent_bwd_dw" and not bool(
+                            (got[:, vs:] == 0).all()):
+                        raise AssertionError(f"xent_bwd_dw: padded columns "
+                                             f"not 0: {key}")
+                    if w_cols is not None:
+                        e_fma = max(e_fma, _grad_check(
+                            torch, f"{name} (FMA kernel)",
+                            fn(h, w_cols, labels, want_lse, gl, vocab_size=vs,
+                               out_dtype=out_dtype), want, out_dtype, key))
+                    del got, want
+                errs[(name, cname, tag)] = e
+                msg.append(f"{name[5:]} {e:.2e}")
+                if w_cols is not None:
+                    msg.append(f"{name[5:]} FMA kernel {e_fma:.2e}")
+            torch.cuda.synchronize()
+            print(f"  xent {key:34s} max err {'; '.join(msg)} (tols: lse/ll "
+                  f"{XENT_LSE_ATOL:g}+{XENT_LSE_RTOL:g}|ref|, grads "
+                  f"{XENT_GRAD_SCALE_ATOL:g}max|ref|+{XENT_GRAD_RTOL[tag]:g}"
+                  f"|ref|); bitwise repeatable")
+            del h, w, w_cols, labels, gl
+    return errs
+
+
+def xent_bound_ms(N, D, ncols, el_bytes, kernel):
+    """Least time: max(bytes once / HBM rate, FLOPs / bf16 peak); the
+    backward kernels recompute the logits, so they do twice the forward's
+    products. -> (ms, "bytes" | "operations")."""
+    flops = 2 * N * D * ncols * (1 if kernel == "xent_fwd" else 2)
+    nbytes = el_bytes * (N * D + D * ncols) + 4 * N + 4 * 2 * N
+    if kernel == "xent_bwd_dh":
+        nbytes += el_bytes * N * D
+    elif kernel == "xent_bwd_dw":
+        nbytes += el_bytes * D * ncols
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+    return 1e3 * max(t_b, t_f), "bytes" if t_b >= t_f else "operations"
+
+
+def xent_timing(torch, gen, power, errs):
+    """Phase 4, the xent kernels at llama-1b's loss shape (bf16): kernel,
+    plain version, bound, and the library route (torch.matmul +
+    F.cross_entropy forward; the autograd backward of that pair for dh and
+    dw together)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.xent import ref as XR
+    from repro_torch.kernels.xent import xent as X
+    N, D, V = 4096, 2048, 32000
+    h, w, labels, _ = xent_inputs(torch, gen, N, D, V, 0.0, torch.bfloat16)
+    lse, _ = X.xent_fwd(h, w, labels, vocab_size=V)
+    gl = torch.full((N,), 1.0 / N, device="cuda")
+    args = (h, w, labels, lse, gl)
+    bf = torch.bfloat16
+    hl, wl = h.detach().requires_grad_(), w.detach().requires_grad_()
+    lib_loss = F.cross_entropy((hl @ wl).float(), labels.long(),
+                               reduction="mean")
+    lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
+        lib_loss, [hl, wl], retain_graph=True), 10)
+    lib_fwd = time_ms(torch, lambda: F.cross_entropy(
+        (h @ w).float(), labels.long(), reduction="none"), 10)
+    del lib_loss
+    cases = {
+        "xent_fwd": (lambda: X.xent_fwd(h, w, labels, vocab_size=V),
+                     lambda: XR.xent_fwd_ref(h, w, labels, vocab_size=V),
+                     lib_fwd, "torch.matmul + F.cross_entropy"),
+        "xent_bwd_dh": (lambda: X.xent_bwd_dh(*args, vocab_size=V,
+                                              out_dtype=bf),
+                        lambda: XR.xent_bwd_dh_ref(*args, vocab_size=V,
+                                                   out_dtype=bf),
+                        lib_bwd, "autograd of matmul + cross_entropy "
+                                 "(dh and dw together)"),
+        "xent_bwd_dw": (lambda: X.xent_bwd_dw(*args, vocab_size=V,
+                                              out_dtype=bf),
+                        lambda: XR.xent_bwd_dw_ref(*args, vocab_size=V,
+                                                   out_dtype=bf),
+                        lib_bwd, "autograd of matmul + cross_entropy "
+                                 "(dh and dw together)"),
+    }
+    rows = []
+    for name, (kern, plain, lib_ms, lib_note) in cases.items():
+        ms = time_ms(torch, kern, 5)
+        plain_ms = time_ms(torch, plain, 5)
+        bound, by = xent_bound_ms(N, D, V, 2, name)
+        print(f"  [{power}] {name} N={N} D={D} V={V} bf16: {ms:.4f} ms "
+              f"(bound {bound:.4f} ms by {by}, {bound / ms:.4f} of it; plain "
+              f"{plain_ms:.4f} ms; {lib_note} {lib_ms:.4f} ms)")
+        rows.append({"name": name, "shape": f"N={N} D={D} V={V} bf16",
+                     "route": "cuda", "source": SRC_XENT,
+                     "replaces": TPU_KERNELS[name], "launches": None,
+                     "max_abs_err": errs[(name, "llama-1b N=4096",
+                                          "bfloat16")],
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                     "bound_by": by, "library_ms": lib_ms,
+                     "library_note": lib_note})
+    return rows
+
+
+def phase_loss(torch, seed, power):
+    """Phase 7: the loss path of llama-1b at full width and depth."""
+    import math
+    from repro_torch.configs import get_arch
+    from unittest import mock
+    from repro_torch.data import make_dataset
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.attention.ref import mha_fwd_ref
+    from repro_torch.kernels.xent import ref as XR
+    from repro_torch.models import forward, init_params, lm_loss
+    from repro_torch.training import make_eval_step
+    cfg = get_arch("llama-1b")
+    B, S = 16, 256
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = init_params(cfg, gen, device="cuda")
+    batch = make_dataset(cfg, S, B, seed=seed,
+                         device="cuda").global_batch_at(0)
+    labels = batch["labels"]
+    n_tok = int((labels >= 0).sum())
+    print(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"vocab {cfg.vocab_size}, {cfg.dtype}; batch {B} x {S} from "
+          f"SyntheticLM (seed {seed}), {n_tok} labelled tokens")
+    eval_step = make_eval_step(cfg)
+    eval_step(params, batch)  # warm-up, not counted
+    torch.cuda.synchronize()
+
+    # the main path: counts set to 0 just before it, read just after
+    zero_xent_counts()
+    out = eval_step(params, batch)
+    torch.cuda.synchronize()
+    c_eval = xent_counts()
+    want = {"mha_fwd": cfg.n_layers, "xent_fwd": 1, "xent_bwd_dh": 0,
+            "xent_bwd_dw": 0}
+    print(f"  make_eval_step launches {c_eval} (expect {want})")
+    if c_eval != want:
+        raise AssertionError(f"eval step launched {c_eval}, not {want}")
+    loss, ppl = out["loss"].item(), out["perplexity"].item()
+    with torch.no_grad():
+        hidden, _, _ = forward(params, cfg, batch["tokens"])
+        w0 = params["lm_head"]["w"]
+        plain = (XR.losses(hidden, w0, labels, cfg.vocab_size).sum()
+                 / n_tok).item()
+        sigma2 = (hidden.float().square().sum(-1).mean()
+                  * w0.float().var()).item()
+    expect = math.log(cfg.vocab_size) + sigma2 / 2
+    print(f"  eval loss {loss:.6f} (perplexity {ppl:.2f}); plain full-logit "
+          f"route on the same hidden {plain:.6f} (|diff| "
+          f"{abs(loss - plain):.2e}, tol {LOSS_ATOL:g}); ln V + sigma^2/2 = "
+          f"{expect:.4f} at this init (sigma^2 = {sigma2:.4f})")
+    if not (math.isfinite(loss) and abs(loss - plain) <= LOSS_ATOL
+            and abs(ppl - math.exp(loss)) <= 1e-4 * ppl):
+        raise AssertionError("eval loss disagrees with the plain route")
+    # the whole eval against a forward whose attention is the plain
+    # mha_fwd_ref (dispatch's name swapped for this one call), with the
+    # plain full-logit loss on its hidden
+    with mock.patch.object(dispatch, "mha_fwd", mha_fwd_ref), \
+            torch.no_grad():
+        ref_hidden, _, _ = forward(params, cfg, batch["tokens"])
+        ref_loss = (XR.losses(ref_hidden, w0, labels, cfg.vocab_size).sum()
+                    / n_tok).item()
+        h_err = ((hidden.float() - ref_hidden.float()).abs().max()
+                 / ref_hidden.float().abs().max()).item()
+    del ref_hidden
+    print(f"  eval loss against a forward through mha_fwd_ref: "
+          f"{ref_loss:.6f} (|diff| {abs(loss - ref_loss):.2e}, tol "
+          f"{EVAL_REF_ATOL:g}); final hidden max |diff| / max |ref| "
+          f"{h_err:.2e}")
+    if not abs(loss - ref_loss) <= EVAL_REF_ATOL:
+        raise AssertionError("eval loss disagrees with the forward through "
+                             "the plain attention")
+
+    # the loss and its gradient at the head
+    w = params["lm_head"]["w"].requires_grad_(True)
+    h = hidden.detach().requires_grad_()
+
+    def kernel_route():
+        return torch.autograd.grad(lm_loss(params, cfg, h, labels)[0], [h, w])
+
+    def plain_route():
+        ls = XR.losses(h, w, labels, cfg.vocab_size).sum() / n_tok
+        return torch.autograd.grad(ls, [h, w])
+
+    kernel_route()  # warm-up, not counted
+    torch.cuda.synchronize()
+    zero_xent_counts()
+    gh, gw = kernel_route()
+    torch.cuda.synchronize()
+    c_grad = xent_counts()
+    want = {"mha_fwd": 0, "xent_fwd": 1, "xent_bwd_dh": 1, "xent_bwd_dw": 1}
+    print(f"  loss-and-grad at the head launches {c_grad} (expect {want})")
+    if c_grad != want:
+        raise AssertionError(f"loss-and-grad launched {c_grad}, not {want}")
+    launches = {k: c_eval[k] + c_grad[k] for k in c_eval}
+    wh, ww = plain_route()
+    e_h = _grad_check(torch, "dH", gh, wh, torch.bfloat16, "phase 7")
+    e_w = _grad_check(torch, "dW", gw, ww, torch.bfloat16, "phase 7")
+    print(f"  dH {tuple(gh.shape)} and dW {tuple(gw.shape)} against the "
+          f"plain route's autograd: max err {e_h:.3e} and {e_w:.3e} (tol "
+          f"{XENT_GRAD_SCALE_ATOL:g}max|ref| + "
+          f"{XENT_GRAD_RTOL['bfloat16']:g}|ref|); max |dW| "
+          f"{ww.float().abs().max().item():.3e}")
+    del wh, ww, gh, gw
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        kernel_route()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print("  loss-and-grad under set_sync_debug_mode('error'): no host "
+          "synchronisation")
+
+    t_eval = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eval_step(params, batch)
+        torch.cuda.synchronize()
+        t_eval.append(time.perf_counter() - t0)
+    eval_s = min(t_eval)
+    grad_ms = time_ms(torch, kernel_route, 3)
+    plain_ms = time_ms(torch, plain_route, 3)
+    print(f"  [{power}] eval step {eval_s * 1e3:.3f} ms (best of 3; "
+          f"{B * S / eval_s:.0f} tokens/s); loss-and-grad at the head "
+          f"{grad_ms:.3f} ms, plain route {plain_ms:.3f} ms")
+    profile_step(torch, power, lambda: eval_step(params, batch),
+                 eval_s * 1e3, n=1, label="eval step")
+    # two calls: the first launch of a traced window can go unrecorded
+    profile_step(torch, power, kernel_route, grad_ms, n=2,
+                 label="loss-and-grad at the head")
+
+    for name, fn in (("kernel route", kernel_route),
+                     ("plain route", plain_route)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        res = fn()
+        torch.cuda.synchronize()
+        added = torch.cuda.max_memory_allocated() - base
+        del res
+        print(f"  [{power}] peak memory the loss-and-grad call adds, {name}: "
+              f"{added / 2**20:.1f} MiB (N*V*4 = "
+              f"{B * S * cfg.vocab_size * 4 / 2**20:.1f} MiB)")
+        if name == "kernel route" and added >= B * S * cfg.vocab_size * 4:
+            raise AssertionError("the kernel route holds (N, V) logits")
+    w.requires_grad_(False)
+    return {"launches": launches, "eval_ms": eval_s * 1e3,
+            "grad_ms": grad_ms}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -834,21 +1235,33 @@ def main() -> int:
     print("phase 2: kernels against their plain versions on the card")
     errs = phase_kernels(torch, gen)
     opt_errs = phase_optimizer_kernels(torch, gen)
+    xent_errs = phase_xent_kernels(torch, gen)
     print("phase 3: greedy serving, llama-130m, full width and depth")
     serve = phase_serving(torch, args.seed, power)
     print("phase 4: kernel times (CUDA events)")
-    rows = phase_timing(torch, gen, power, serve, errs)
+    mha_rows = phase_timing(torch, gen, power, serve, errs)
     opt_rows = optimizer_timing(torch, gen, power, opt_errs)
+    xent_rows = xent_timing(torch, gen, power, xent_errs)
     print("phase 5: where the serving time goes (torch.profiler)")
     phase_profile(torch, args.seed, power, serve)
     print("phase 6: SCALE optimizer steps, llama-1b, full width and depth")
     opt = phase_optimizer(torch, args.seed, power)
-    for row in opt_rows:
-        row["launches"] = opt["launches"][row["name"]]
-        if not row["launches"]:
-            raise AssertionError(f"{row['name']} was not launched on the "
-                                 "optimizer path")
-    rows += opt_rows
+    print("phase 7: the loss path, llama-1b, full width and depth")
+    loss = phase_loss(torch, args.seed, power)
+    for path, path_rows, launches in (("optimizer", opt_rows, opt["launches"]),
+                                      ("loss", xent_rows, loss["launches"])):
+        for row in path_rows:
+            row["launches"] = launches[row["name"]]
+            if not row["launches"]:
+                raise AssertionError(f"{row['name']} was not launched on the "
+                                     f"{path} path")
+    # one row per kernel: mha_fwd's prefill numbers, with both serving
+    # shapes and the eval step's beside them
+    mha = {k: v for k, v in mha_rows[0].items() if k != "shape"}
+    mha["launches"] = serve["launches"]
+    mha_rows[2]["launches"] = loss["launches"]["mha_fwd"]
+    mha["shapes"] = mha_rows
+    rows = [mha] + opt_rows + xent_rows
     print(power)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

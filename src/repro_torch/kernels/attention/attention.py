@@ -7,6 +7,10 @@ device of its tensors: CPU tensors go to the plain PyTorch version
 ``repro.kernels.attention.attention.mha_fwd``. On the card there is no
 fallback: a build or launch failure raises. ``mha_fwd.launches`` counts
 kernel launches, so a run can show that it went through the kernel.
+
+The kernel's output carries no autograd history, so on the card a call
+that would need a gradient raises until attention backward is ported;
+the CPU route stays differentiable.
 """
 from __future__ import annotations
 
@@ -81,6 +85,12 @@ def mha_fwd(q, k, v, kv_len=None, *, scale: float, causal: bool = True):
         return mha_fwd_ref(q, k, v, kv_len, scale=scale, causal=causal)
     if q.device.type != "cuda":
         raise ValueError(f"mha_fwd: unsupported device {q.device}")
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        raise NotImplementedError(
+            "mha_fwd: the CUDA kernel has no backward yet, so its output would "
+            "silently drop the gradient of q, k and v; attention backward "
+            "(kernels mha_bwd_dq and mha_bwd_dkv) lands with the training "
+            "step. Call under torch.no_grad(), or on CPU tensors")
     for name, x in (("q", q), ("k", k), ("v", v)):
         if not _strides_ok(x):
             raise ValueError(f"mha_fwd: {name} needs a contiguous last dim, "

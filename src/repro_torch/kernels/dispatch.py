@@ -15,6 +15,11 @@ leaves take the plain path of the same maths (the jnp oracle of
 The write-mode entry points (``norm_update``, ``momentum_norm_update``)
 update theta and the momentum in place on every route and return them;
 ``momentum_norm`` updates the momentum in place.
+
+Cross-entropy (``xent_loss``) is the LM head's loss as a
+``torch.autograd.Function`` over the three xent kernels, with the contract
+of the JAX package's ``custom_vjp``; h of 2 or 3 dims against a 2-D head
+is covered (``xent_supported``), and other shapes raise.
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ from .colnorm import ref as _cref
 from .colnorm.colnorm import canon3, norm_apply, norm_sumsq, update_apply
 from .scale_head.ref import one_minus
 from .scale_head.scale_head import head_update_apply, momentum_sumsq
+from .xent.xent import xent_bwd_dh, xent_bwd_dw, xent_fwd
 
 FUSED_KINDS = ("col", "row", "larger")
 FUSED_NDIMS = (2, 3)
@@ -41,6 +47,87 @@ def flash_attention(q, k, v, *, scale: float, causal: bool = True,
     Returns (B, S, H, hdv) in q's dtype.
     """
     return mha_fwd(q, k, v, kv_len, scale=scale, causal=causal)[0]
+
+
+# --------------------------------------------------------- cross-entropy
+
+def xent_supported(h_shape, w_shape, transposed: bool = False) -> bool:
+    """True when (h, w) shapes are covered by the xent kernels.
+
+    ``transposed``: w is a tied embedding stored (V, D) (its kernels are
+    not ported yet: ``xent_loss`` raises).
+    """
+    if len(h_shape) not in (2, 3) or len(w_shape) != 2:
+        return False
+    if h_shape[-1] != w_shape[1 if transposed else 0]:
+        return False
+    return all(d >= 1 for d in tuple(h_shape) + tuple(w_shape))
+
+
+class XentLoss(torch.autograd.Function):
+    """Per-token cross-entropy of the LM head, kernels both ways.
+
+    forward(h (..., D), w (D, V), labels int32 h.shape[:-1], vocab_size):
+    ``xent_fwd`` gives (lse, ll), and the losses are lse - ll where the
+    label is >= 0, else 0. It saves (h, w, labels, lse). backward: with
+    gl = g * (labels >= 0) in f32, dH from ``xent_bwd_dh`` in h's dtype and
+    dW from ``xent_bwd_dw`` in w's dtype, each only when asked for; the
+    labels get no gradient. h is flattened to (N, D) as the JAX package's
+    ``_fwd_parts`` does.
+    """
+
+    @staticmethod
+    def forward(ctx, h, w, labels, vocab_size: int):
+        lab = labels.reshape(-1)
+        lse, ll = xent_fwd(h.reshape(-1, h.shape[-1]), w, lab,
+                           vocab_size=vocab_size)
+        ctx.save_for_backward(h, w, labels, lse)
+        ctx.vocab_size = vocab_size
+        return torch.where(lab >= 0, lse - ll, 0.0).reshape(labels.shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w, labels, lse = ctx.saved_tensors
+        lab = labels.reshape(-1)
+        gl = g.reshape(-1).float() * (lab >= 0)
+        args = (h.reshape(-1, h.shape[-1]), w, lab, lse, gl)
+        dh = dw = None
+        if ctx.needs_input_grad[0]:
+            dh = xent_bwd_dh(*args, vocab_size=ctx.vocab_size,
+                             out_dtype=h.dtype).reshape(h.shape)
+        if ctx.needs_input_grad[1]:
+            dw = xent_bwd_dw(*args, vocab_size=ctx.vocab_size,
+                             out_dtype=w.dtype)
+        return dh, dw, None, None
+
+
+def xent_loss(h, w, labels, *, vocab_size: int, weights=None,
+              transposed: bool = False):
+    """Per-token LM-head cross-entropy (see :class:`XentLoss`).
+
+    h (..., D), w (D, V), labels h.shape[:-1] (-1 = masked). Returns f32
+    losses of labels.shape; masked tokens are 0 in the value and in the
+    (h, w) gradients. ``weights`` (labels.shape, f32) scales each token's
+    loss and gradient outside the Function, as in JAX: zero-weight tokens
+    are demoted to label -1 before the kernels. Columns at or past
+    ``vocab_size`` never enter the log-sum-exp. ``transposed=True`` (the
+    tied head) raises until its kernels are ported, and so do shapes
+    ``xent_supported`` does not cover.
+    """
+    if transposed:
+        raise NotImplementedError(
+            "xent_loss: transposed=True (the tied (V, D) head) is not ported "
+            "yet; ROADMAP.md Queue 1 item 7")
+    if not xent_supported(h.shape, w.shape):
+        raise ValueError(f"xent_loss: h {tuple(h.shape)} and w "
+                         f"{tuple(w.shape)}; need h (B, S, D) or (N, D) and "
+                         "w (D, V)")
+    if weights is not None:
+        labels = torch.where(weights > 0, labels, -1)
+    losses = XentLoss.apply(h, w, labels.to(torch.int32), vocab_size)
+    if weights is not None:
+        losses = losses * weights.to(losses.dtype)
+    return losses
 
 
 # -------------------------------------------------------------- optimizer

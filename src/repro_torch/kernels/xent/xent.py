@@ -1,0 +1,227 @@
+"""Fused LM-head cross-entropy: wrappers around the Hopper CUDA kernels in
+``csrc/xent.cu``.
+
+They replace the TPU kernels of ``repro.kernels.xent.xent``
+(``xent_fwd``, ``xent_bwd_dh``, ``xent_bwd_dw``) with the same arguments,
+less ``block`` and ``interpret``: tile sizes are the kernels' own. Routing
+is by the tensors' device: CPU tensors go to the plain PyTorch versions in
+``ref.py``, CUDA tensors to the kernels. On the card there is no
+fallback: a build or launch failure raises. Each wrapper counts its kernel
+launches in ``.launches``.
+
+The kernels take h (N, D) and w (D, V) of any strides, both bfloat16 or
+both float32, with D <= 2048 (the backward's per-block accumulator),
+labels (N,) int32 and, for the backward, lse and gl (N,) float32. Each
+function has two kernels: bf16 operands whose rows are contiguous and
+16-byte aligned, with D a multiple of 16 (``mma_layout``), take the
+tensor-core one, other layouts and float32 the f32-FMA one; the launch
+counters count both. Not
+ported yet, and raising ``NotImplementedError``: ``transposed=True`` (the
+tied (V, D) head, ROADMAP Queue 1 item 7) and a non-zero ``col_offset``
+(vocab-sharded heads, item 12).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import _build
+from .ref import xent_bwd_dh_ref, xent_bwd_dw_ref, xent_fwd_ref
+
+__all__ = ["xent_fwd", "xent_bwd_dh", "xent_bwd_dw", "MAX_D"]
+
+_DTYPES = (torch.float32, torch.bfloat16)
+MAX_D = 2048  # 4 accumulator columns per thread of a 512-thread block
+# tensor-core forward: 64 token rows per block, vocab tiles of 128 columns,
+# the vocab split so that about 4 blocks of 128 threads land on each SM
+_MMA_ROWS, _MMA_COLS, _MMA_TARGET_BLOCKS = 64, 128, 4 * 132
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    if lib.xent_fwd.argtypes is None:
+        p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        head = [p, i64, i64, p, i64, i64, i]  # h, strides, w, strides, is_bf16
+        lib.xent_fwd.argtypes = head + [p, p, p, i, i, i, p]
+        for fn in (lib.xent_bwd_dh, lib.xent_bwd_dw):
+            fn.argtypes = head + [p, p, p, p, i, i, i, i, i, p]
+        lib.xent_fwd_mma.argtypes = [p, i64, p, i64, p, p, p, p, i, i, i, i,
+                                     i, i, p]
+        lib.xent_bwd_mma.argtypes = [i, p, i64, p, i64, p, p, p, p, i, i, i,
+                                     i, i, p]
+        for fn in (lib.xent_fwd, lib.xent_fwd_mma, lib.xent_bwd_dh,
+                   lib.xent_bwd_dw, lib.xent_bwd_mma):
+            fn.restype = i
+        lib.cuda_error_string.argtypes = [i]
+        lib.cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _not_ported(op: str, col_offset, transposed: bool) -> None:
+    if transposed:
+        raise NotImplementedError(
+            f"{op}: transposed=True (the tied (V, D) head) is not ported yet; "
+            "ROADMAP.md Queue 1 item 7")
+    if not (isinstance(col_offset, int) and col_offset == 0):
+        raise NotImplementedError(
+            f"{op}: a non-zero col_offset (vocab-sharded heads) is not ported "
+            "yet; ROADMAP.md Queue 1 item 12")
+
+
+def _check(op: str, h, w, labels, vectors=()) -> torch.device:
+    """Shape and device checks on every route; dtype and size checks on the
+    card. -> the operands' device."""
+    if h.ndim != 2 or w.ndim != 2 or h.shape[1] != w.shape[0]:
+        raise ValueError(f"{op}: need h (N, D) and w (D, V), got "
+                         f"{tuple(h.shape)} and {tuple(w.shape)}")
+    N, D = h.shape
+    V = w.shape[1]
+    for name, x in (("labels", labels), *vectors):
+        if tuple(x.shape) != (N,):
+            raise ValueError(f"{op}: {name} must be ({N},), got "
+                             f"{tuple(x.shape)}")
+    dev = h.device
+    for x in (w, labels, *(x for _, x in vectors)):
+        if x.device != dev:
+            raise ValueError(f"{op}: operands on {x.device} and {dev}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{op}: unsupported device {dev}")
+    if dev.type == "cuda":
+        if h.dtype not in _DTYPES or w.dtype != h.dtype:
+            raise ValueError(f"{op}: dtypes {h.dtype}, {w.dtype}; the kernel "
+                             "takes h and w both float32 or both bfloat16")
+        if labels.dtype != torch.int32:
+            raise ValueError(f"{op}: labels must be int32, got {labels.dtype}")
+        for name, x in vectors:
+            if x.dtype != torch.float32:
+                raise ValueError(f"{op}: {name} must be float32, got "
+                                 f"{x.dtype}")
+        if min(N, D, V) < 1 or D > MAX_D or N >= 2**31 or V >= 2**31:
+            raise ValueError(f"{op}: shape N={N} D={D} V={V}; the kernel takes "
+                             f"1 <= D <= {MAX_D} and nonempty N, V")
+    return dev
+
+
+def _launch(op: str, dev, *args) -> None:
+    lib = _bind(_build.library("xent"))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, op)(*args, stream)
+    if err:
+        raise RuntimeError(f"{op}: CUDA launch failed: "
+                           f"{lib.cuda_error_string(err).decode()} ({err})")
+
+
+def _head_args(h, w):
+    return (h.data_ptr(), *h.stride(), w.data_ptr(), *w.stride(),
+            int(h.dtype == torch.bfloat16))
+
+
+def mma_layout(h, w) -> bool:
+    """True when the tensor-core kernels take (h, w): bf16, rows contiguous
+    along D and V and 16-byte aligned, D a multiple of 16 and V of 8."""
+    return (h.dtype == w.dtype == torch.bfloat16
+            and h.stride(1) == 1 and w.stride(1) == 1
+            and h.stride(0) % 8 == 0 and w.stride(0) % 8 == 0
+            and h.shape[1] % 16 == 0 and w.shape[1] % 8 == 0
+            and h.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+
+
+def split_plan(N: int, ncols: int) -> tuple:
+    """(splits, vocab tiles per split) of the tensor-core forward: the
+    vocab tiles cut so that the grid holds about ``_MMA_TARGET_BLOCKS``
+    blocks. Depends on the shape alone, so runs sum in the same order."""
+    row_tiles = -(-N // _MMA_ROWS)
+    v_tiles = -(-ncols // _MMA_COLS)
+    splits = max(1, min(v_tiles, _MMA_TARGET_BLOCKS // row_tiles))
+    per = -(-v_tiles // splits)
+    return -(-v_tiles // per), per
+
+
+def _ncols(w, vocab_size: int) -> int:
+    if vocab_size < 1:
+        raise ValueError(f"vocab_size must be >= 1, got {vocab_size}")
+    return min(w.shape[1], vocab_size)
+
+
+def xent_fwd(h, w, labels, *, vocab_size: int, col_offset=0,
+             transposed: bool = False):
+    """Per-token (lse, ll): h (N, D), w (D, V), labels (N,) int32.
+
+    Returns two (N,) f32 tensors: the log-sum-exp over the valid columns
+    (< V and < vocab_size) and the logit at the label (0 for a -1 label or
+    one on an invalid column). ``loss = lse - ll`` for valid tokens.
+    """
+    _not_ported("xent_fwd", col_offset, transposed)
+    dev = _check("xent_fwd", h, w, labels)
+    ncols = _ncols(w, vocab_size)
+    if dev.type == "cpu":
+        return xent_fwd_ref(h, w, labels, vocab_size=vocab_size)
+    N, D = h.shape
+    lse = torch.empty(N, dtype=torch.float32, device=dev)
+    ll = torch.empty(N, dtype=torch.float32, device=dev)
+    labels = labels.contiguous()
+    if mma_layout(h, w):
+        splits, per = split_plan(N, ncols)
+        part = torch.empty((3, N, splits), dtype=torch.float32, device=dev)
+        _launch("xent_fwd_mma", dev, h.data_ptr(), h.stride(0), w.data_ptr(),
+                w.stride(0), labels.data_ptr(), part.data_ptr(),
+                lse.data_ptr(), ll.data_ptr(), N, D, w.shape[1], ncols,
+                splits, per)
+    else:
+        _launch("xent_fwd", dev, *_head_args(h, w), labels.data_ptr(),
+                lse.data_ptr(), ll.data_ptr(), N, D, ncols)
+    xent_fwd.launches += 1
+    return lse, ll
+
+
+def _bwd(op: str, h, w, labels, lse, gl, vocab_size, col_offset, out_dtype,
+         transposed, ref, out_shape):
+    _not_ported(op, col_offset, transposed)
+    dev = _check(op, h, w, labels, (("lse", lse), ("gl", gl)))
+    ncols = _ncols(w, vocab_size)
+    if dev.type == "cpu":
+        return ref(h, w, labels, lse, gl, vocab_size=vocab_size,
+                   out_dtype=out_dtype)
+    if out_dtype not in _DTYPES:
+        raise ValueError(f"{op}: out_dtype {out_dtype}; the kernel writes "
+                         "float32 and bfloat16")
+    (N, D), V = h.shape, w.shape[1]
+    out = torch.empty(out_shape, dtype=out_dtype, device=dev)
+    labels, lse, gl = labels.contiguous(), lse.contiguous(), gl.contiguous()
+    tail = (labels.data_ptr(), lse.data_ptr(), gl.data_ptr(), out.data_ptr(),
+            int(out_dtype == torch.bfloat16), N, D, V, ncols)
+    if mma_layout(h, w):
+        _launch("xent_bwd_mma", dev, int(op == "xent_bwd_dh"), h.data_ptr(),
+                h.stride(0), w.data_ptr(), w.stride(0), *tail)
+    else:
+        _launch(op, dev, *_head_args(h, w), *tail)
+    return out
+
+
+def xent_bwd_dh(h, w, labels, lse, gl, *, vocab_size: int, col_offset=0,
+                out_dtype=torch.float32, transposed: bool = False):
+    """dH (N, D) in ``out_dtype``: the gl-weighted (softmax - onehot)
+    contracted with w. ``gl`` (N,) f32 is the per-token cotangent (0 for
+    masked labels), ``lse`` the forward's log-sum-exp."""
+    out = _bwd("xent_bwd_dh", h, w, labels, lse, gl, vocab_size, col_offset,
+               out_dtype, transposed, xent_bwd_dh_ref, tuple(h.shape))
+    if h.device.type == "cuda":
+        xent_bwd_dh.launches += 1
+    return out
+
+
+def xent_bwd_dw(h, w, labels, lse, gl, *, vocab_size: int, col_offset=0,
+                out_dtype=torch.float32, transposed: bool = False):
+    """dW (D, V) in ``out_dtype``: h^T contracted with the gl-weighted
+    (softmax - onehot); columns at or past ``vocab_size`` are 0."""
+    out = _bwd("xent_bwd_dw", h, w, labels, lse, gl, vocab_size, col_offset,
+               out_dtype, transposed, xent_bwd_dw_ref, tuple(w.shape))
+    if h.device.type == "cuda":
+        xent_bwd_dw.launches += 1
+    return out
+
+
+xent_fwd.launches = 0
+xent_bwd_dh.launches = 0
+xent_bwd_dw.launches = 0

@@ -1,4 +1,4 @@
-"""Top-level model API: spec, init, caches, forward, logits (dense).
+"""Top-level model API: spec, init, caches, forward, logits, loss (dense).
 
 Parameter tree layout, as in ``repro.models.model``::
 
@@ -20,6 +20,7 @@ import torch
 import torch.nn as nn
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels import dispatch
 
 from . import layers as L
 from . import transformer as T
@@ -75,7 +76,7 @@ class Params(nn.ModuleDict):
     """The parameter tree as nested ``ModuleDict``/``ParameterDict``s.
 
     Built from ``{path_str: tensor}``; parameters do not require grad
-    (this slice serves only).
+    until a caller turns it on (``requires_grad_``).
     """
 
     def __init__(self, flat: dict):
@@ -190,3 +191,55 @@ def _mask_pad_vocab(logits, cfg: ModelConfig):
     return torch.where(idx < cfg.vocab_size, logits,
                        torch.tensor(-1e9, dtype=logits.dtype,
                                     device=logits.device))
+
+
+# --------------------------------------------------------------------- loss
+
+def lm_loss(params, cfg: ModelConfig, hidden, labels, weights=None):
+    """Cross-entropy over the LM head without full-sequence logits.
+
+    The route is ``kernels.dispatch.xent_loss``: the xent kernels behind a
+    ``torch.autograd.Function``, whose logits live only as a tile. The JAX
+    package's chunked-scan route (``REPRO_FUSED=off``) has no counterpart:
+    the port has no such switch. labels (B, S) int, -1 = masked;
+    ``weights`` (optional, (B, S) f32) scales each token's loss, and the
+    mean divides by the summed effective weight of the tokens with label
+    >= 0 (an all-masked batch gives loss 0). Returns (mean_loss,
+    total_weight). The tied head and the audio codebook heads raise until
+    they are ported (ROADMAP.md Queue 1 items 7 and 13).
+    """
+    if cfg.family == "audio":
+        raise NotImplementedError("lm_loss: the audio codebook heads are not "
+                                  "ported yet; ROADMAP.md Queue 1 item 13")
+    w, tied = head_weight(params, cfg)
+    if tied:
+        raise NotImplementedError("lm_loss: the tied head in training is not "
+                                  "ported yet; ROADMAP.md Queue 1 item 7")
+    losses = dispatch.xent_loss(hidden, w, labels, vocab_size=cfg.vocab_size,
+                                weights=weights)
+    valid = labels >= 0
+    if weights is not None:
+        ws = torch.where(valid, weights.float(), 0.0).sum()
+    else:
+        ws = valid.float().sum()
+    return losses.sum() / torch.where(ws > 0, ws, 1.0), ws
+
+
+def loss_fn(params, cfg: ModelConfig, batch: dict, aux_coef: float = 0.01):
+    """Full training loss. batch: tokens, labels, [positions,
+    loss_weights]. -> (total, {"loss", "aux", "weight"}).
+
+    Segment ids (packed documents) and image embeddings are not ported yet
+    and raise (ROADMAP.md Queue 1 items 6 and 13).
+    """
+    for key, item in (("segment_ids", 6), ("image_embeds", 13)):
+        if batch.get(key) is not None:
+            raise NotImplementedError(f"loss_fn: batch[{key!r}] is not "
+                                      f"ported yet; ROADMAP.md Queue 1 item "
+                                      f"{item}")
+    hidden, _, aux = forward(params, cfg, batch["tokens"], mode="train",
+                             positions=batch.get("positions"))
+    loss, weight = lm_loss(params, cfg, hidden, batch["labels"],
+                           weights=batch.get("loss_weights"))
+    total = loss + aux_coef * aux
+    return total, {"loss": loss, "aux": aux, "weight": weight}

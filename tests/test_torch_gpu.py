@@ -24,6 +24,27 @@ Optimizer kernels (``norm_sumsq``, ``norm_apply``, ``update_apply``,
     at the scale of the formula's terms (the same IEEE operations, one
     rounding);
   * a second run is bitwise equal, and theta and m are written in place.
+Cross-entropy kernels (``xent_fwd``, ``xent_bwd_dh``, ``xent_bwd_dw``)
+against their plain versions, with lse from the plain forward:
+  * lse and ll: 1e-4 + 1e-5*|ref| — f32 sums of D exact products in other
+    orders, and a log-sum-exp over V terms;
+  * dh and dw in f32: 1e-5*max|ref| + 1e-4*|ref| — f32 sums over the vocab
+    (dh) or the tokens (dw) in other orders, of recomputed logits;
+  * dh and dw in bf16: the same plus one bf16 rounding on each side,
+    8e-3*|ref|;
+  * a second run is bitwise equal;
+  * each function's two kernels meet these bounds: the tensor-core one
+    (aligned bf16) and the FMA one (float32, other bf16 layouts, here w
+    read through its columns); the tensor-core backward splits G into
+    two bf16 halves, which carry it to about 2**-16 of itself;
+  * ``dispatch.xent_loss`` gradients against the plain losses' autograd:
+    the same bounds in the inputs' dtype.
+The CUDA ``mha_fwd`` raises under grad (its output has no autograd
+history) and runs under ``torch.no_grad()``. The eval step's loss is held
+to 1e-4 against the plain full-logit loss of the same hidden (f32 means
+summed in other orders), and to 2e-3 against the loss of a forward whose
+attention is ``mha_fwd_ref`` (the bf16 roundings of the attention outputs
+differ, and move each per-token loss by about their relative size).
 """
 import numpy as np
 import pytest
@@ -68,6 +89,7 @@ GPU_CASES = {
     "ragged37": (8, 37, 37, 12, 12, 64, True, None),
     "hd128": (4, 512, 512, 8, 8, 128, True, None),
     "hd256": (2, 512, 512, 8, 1, 256, True, None),
+    "eval_llama1b": (16, 256, 256, 32, 32, 64, True, None),
 }
 
 
@@ -274,3 +296,185 @@ def test_update_params_does_not_synchronise_with_the_host(cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
+
+
+# (N, D, V, vocab_size, share of -1 labels): the chip_smoke.py phase-2 cases
+XENT_CASES = {
+    "llama1b_4096": (4096, 2048, 32000, 32000, 0.0),
+    "n1": (1, 2048, 32000, 32000, 0.0),
+    "n4097_padvocab": (4097, 2048, 32000, 31990, 0.1),
+    "all_masked": (300, 2048, 32000, 32000, 1.0),
+    "small_d64": (300, 64, 1000, 1000, 0.2),
+}
+
+
+def _xent_inputs(cuda, case, td, seed=5):
+    N, D, V, vs, masked = XENT_CASES[case]
+    rng = np.random.default_rng(seed)
+    h = torch.from_numpy(rng.standard_normal((N, D), dtype=np.float32))
+    w = torch.from_numpy(rng.standard_normal((D, V), dtype=np.float32)
+                         / np.sqrt(D))
+    labels = rng.integers(0, V, N).astype(np.int32)
+    labels[rng.random(N) < masked] = -1
+    gl = torch.from_numpy(rng.random(N).astype(np.float32))
+    return (h.to(cuda, td), w.to(cuda, td), torch.from_numpy(labels).to(cuda),
+            gl.to(cuda), vs)
+
+
+def _xent_close(got, want, out_dtype):
+    scale = want.float().abs().max().item()
+    rtol = 1e-4 if out_dtype == torch.float32 else 8e-3
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=1e-5 * scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", list(XENT_CASES))
+def test_xent_kernels_match_plain_on_card(cuda, case, dtype):
+    from repro_torch.kernels.xent import ref as XR
+    from repro_torch.kernels.xent import xent as X
+    td = DTYPES[dtype]
+    h, w, labels, gl, vs = _xent_inputs(cuda, case, td)
+    before = (X.xent_fwd.launches, X.xent_bwd_dh.launches,
+              X.xent_bwd_dw.launches)
+    lse, ll = X.xent_fwd(h, w, labels, vocab_size=vs)
+    want_lse, want_ll = XR.xent_fwd_ref(h, w, labels, vocab_size=vs)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(ll, want_ll, atol=1e-4, rtol=1e-5)
+    assert (ll[(labels < 0) | (labels >= vs)] == 0).all()
+    lse2, ll2 = X.xent_fwd(h, w, labels, vocab_size=vs)
+    assert torch.equal(lse, lse2) and torch.equal(ll, ll2)
+    assert X.mma_layout(h, w) == (td == torch.bfloat16)
+    n_fwd = 2
+    w_cols = w.T.contiguous().T if td == torch.bfloat16 else None
+    if td == torch.bfloat16:  # the FMA forward, which other layouts take
+        assert not X.mma_layout(h, w_cols)
+        lse3, ll3 = X.xent_fwd(h, w_cols, labels, vocab_size=vs)
+        torch.testing.assert_close(lse3, want_lse, atol=1e-4, rtol=1e-5)
+        torch.testing.assert_close(ll3, want_ll, atol=1e-4, rtol=1e-5)
+        n_fwd = 3
+    n_bwd = 0
+    for out_dtype in {td, torch.float32}:
+        for fn, ref in ((X.xent_bwd_dh, XR.xent_bwd_dh_ref),
+                        (X.xent_bwd_dw, XR.xent_bwd_dw_ref)):
+            got = fn(h, w, labels, want_lse, gl, vocab_size=vs,
+                     out_dtype=out_dtype)
+            want = ref(h, w, labels, want_lse, gl, vocab_size=vs,
+                       out_dtype=out_dtype)
+            assert got.dtype == out_dtype and got.shape == want.shape
+            _xent_close(got, want, out_dtype)
+            assert torch.equal(got, fn(h, w, labels, want_lse, gl,
+                                       vocab_size=vs, out_dtype=out_dtype))
+            if fn is X.xent_bwd_dw:
+                assert (got[:, vs:] == 0).all()
+            if td == torch.bfloat16:  # the FMA kernel of other layouts
+                _xent_close(fn(h, w_cols, labels, want_lse, gl,
+                               vocab_size=vs, out_dtype=out_dtype),
+                            want, out_dtype)
+            n_bwd += 1
+    torch.cuda.synchronize()
+    per = 3 if td == torch.bfloat16 else 2
+    after = (X.xent_fwd.launches, X.xent_bwd_dh.launches,
+             X.xent_bwd_dw.launches)
+    assert [a - b for a, b in zip(after, before)] == [n_fwd, per * n_bwd // 2,
+                                                      per * n_bwd // 2]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_xent_loss_grads_on_card_match_plain_autograd(cuda, dtype):
+    """The autograd Function launches one kernel each way, and its value
+    and (dh, dw) match the plain losses' autograd on the card."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.xent import ref as XR
+    from repro_torch.kernels.xent import xent as X
+    td = DTYPES[dtype]
+    h, w, labels, _, vs = _xent_inputs(cuda, "n4097_padvocab", td, seed=6)
+    h3 = h[:4096].reshape(16, 256, -1).detach().requires_grad_()
+    w = w.detach().requires_grad_()
+    lab = labels[:4096].reshape(16, 256)
+    weights = torch.rand(lab.shape, device=cuda)
+    before = (X.xent_fwd.launches, X.xent_bwd_dh.launches,
+              X.xent_bwd_dw.launches)
+    got = dispatch.xent_loss(h3, w, lab, vocab_size=vs, weights=weights)
+    gh, gw = torch.autograd.grad(got.sum(), [h3, w])
+    torch.cuda.synchronize()
+    after = (X.xent_fwd.launches, X.xent_bwd_dh.launches,
+             X.xent_bwd_dw.launches)
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+    want = XR.losses(h3, w, torch.where(weights > 0, lab, -1), vs) * weights
+    wh, ww = torch.autograd.grad(want.sum(), [h3, w])
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
+    assert gh.dtype == td and gw.dtype == td
+    _xent_close(gh, wh, td)
+    _xent_close(gw, ww, td)
+
+
+@pytest.mark.gpu
+def test_mha_fwd_raises_under_grad_on_card(cuda):
+    q, k, v = (torch.from_numpy(x).to(cuda, torch.bfloat16)
+               for x in _inputs(7, 2, 64, 64, 4, 4, 64))
+    q.requires_grad_()
+    before = mha_fwd.launches
+    with pytest.raises(NotImplementedError, match="backward"):
+        mha_fwd(q, k, v, scale=0.125, causal=True)
+    assert mha_fwd.launches == before
+    with torch.no_grad():
+        out, _ = mha_fwd(q, k, v, scale=0.125, causal=True)
+    torch.cuda.synchronize()
+    assert mha_fwd.launches == before + 1 and out.shape == q.shape
+    ref, _ = mha_fwd_ref(q.detach(), k, v, scale=0.125, causal=True)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.gpu
+def test_eval_step_and_head_grad_on_card(cuda, monkeypatch):
+    """make_eval_step launches n_layers mha_fwd and one xent_fwd, and its
+    loss matches the plain full-logit loss of the same hidden (1e-4) and
+    that of a forward whose attention is mha_fwd_ref (2e-3); the head's
+    loss and gradient launch one kernel of each xent kind."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.data import make_dataset
+    from repro_torch.kernels.xent import ref as XR
+    from repro_torch.kernels.xent import xent as X
+    from repro_torch.models import ModelConfig, forward, init_params, lm_loss
+    from repro_torch.training import make_eval_step
+    cfg = ModelConfig(name="gpu", n_layers=2, d_model=256, n_heads=4,
+                      n_kv_heads=2, d_ff=512, vocab_size=1000,
+                      dtype="bfloat16")
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         device=cuda)
+    batch = make_dataset(cfg, 128, 4, seed=1, device=cuda).global_batch_at(0)
+    before = (mha_fwd.launches, X.xent_fwd.launches)
+    out = make_eval_step(cfg)(params, batch)
+    torch.cuda.synchronize()
+    assert (mha_fwd.launches - before[0], X.xent_fwd.launches - before[1]) \
+        == (cfg.n_layers, 1)
+    with torch.no_grad():
+        hidden, _, _ = forward(params, cfg, batch["tokens"])
+    lab = batch["labels"]
+    want = XR.losses(hidden, params["lm_head"]["w"], lab, cfg.vocab_size)
+    want = want.sum() / (lab >= 0).sum()
+    torch.testing.assert_close(out["loss"], want, atol=1e-4, rtol=0)
+    torch.testing.assert_close(out["perplexity"], torch.exp(want), atol=0,
+                               rtol=1e-4)
+    with monkeypatch.context() as m, torch.no_grad():
+        m.setattr(dispatch, "mha_fwd", mha_fwd_ref)
+        ref_hidden, _, _ = forward(params, cfg, batch["tokens"])
+    ref = XR.losses(ref_hidden, params["lm_head"]["w"], lab, cfg.vocab_size)
+    torch.testing.assert_close(out["loss"], ref.sum() / (lab >= 0).sum(),
+                               atol=2e-3, rtol=0)
+    w = params["lm_head"]["w"].requires_grad_(True)
+    h = hidden.detach().requires_grad_()
+    before = (X.xent_fwd.launches, X.xent_bwd_dh.launches,
+              X.xent_bwd_dw.launches)
+    gh, gw = torch.autograd.grad(lm_loss(params, cfg, h, lab)[0], [h, w])
+    after = (X.xent_fwd.launches, X.xent_bwd_dh.launches,
+             X.xent_bwd_dw.launches)
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+    plain = XR.losses(h, w, lab, cfg.vocab_size).sum() / (lab >= 0).sum()
+    wh, ww = torch.autograd.grad(plain, [h, w])
+    _xent_close(gh, wh, torch.bfloat16)
+    _xent_close(gw, ww, torch.bfloat16)
+    w.requires_grad_(False)
