@@ -5,14 +5,15 @@ NVIDIA H100.
     python3 chip_smoke.py [--seed N]
 
 Run from the root of a checkout. It builds the port's CUDA kernels with
-nvcc (one process per source, in parallel), then runs seven phases and fails
+nvcc (one process per source, in parallel), then runs eight phases and fails
 (non-zero exit, no result line) if any of them fails:
 
 1. device: the card's name and power limit, the kernels' ptxas report;
 2. every kernel against its plain PyTorch version on the card, at the
    main paths' shapes and at the edge cases, with stated tolerances; the
-   optimizer kernels also run twice (bitwise equal) and show that they
-   write in place where the TPU kernels alias;
+   optimizer, cross-entropy and attention-backward kernels also run twice
+   (bitwise equal), and the optimizer kernels show that they write in
+   place where the TPU kernels alias;
 3. the serving path: greedy serving of llama-130m at full width and
    depth (bf16, seeded random weights; batch 8, a 512-token prompt, 64
    new tokens), checked against a full-sequence forward, with the kernel
@@ -38,7 +39,19 @@ nvcc (one process per source, in parallel), then runs seven phases and fails
    and beside ln(V) + sigma^2/2; the loss and its gradient at the
    head (exactly 1 launch of each xent kernel), held against the plain
    route's autograd, once under ``set_sync_debug_mode("error")``; times,
-   top device kernels and the peak memory each route adds.
+   top device kernels and the peak memory each route adds;
+8. the training step: llama-1b at full width and depth (bf16, seeded
+   random weights, batches of 16 x 256 from ``SyntheticLM``,
+   ``scale_fused`` with clip 1.0 and ``remat="full"``): the launcher's
+   ``main`` for three steps, then ``make_train_step`` for eight, each step's
+   launches checked on every kernel counter (48 ``mha_fwd``, 24 of each
+   attention backward kernel, one of each xent kernel, 8 ``norm_sumsq``, 9
+   ``update_apply``, one ``momentum_sumsq``), the loss falling and held to
+   the curve of the same steps with attention through plain ``mha_fwd_ref``
+   autograd, one step under ``set_sync_debug_mode("error")``, every leaf's
+   gradient held against the plain-attention route (bf16 at full depth,
+   f32 at 4 layers), the step's time, tokens/s, device busy time, idle
+   share, top kernels and peak memory.
 
 The line before the last is a JSON ``{"kernels": [...]}`` summary, the
 last line ``{"ok": true, "device": {...}}``. It needs a CUDA card and
@@ -77,6 +90,7 @@ SERVE_ATOL, SERVE_RTOL = 5e-2, 5e-2
 
 SRC_MHA = "src/repro_torch/kernels/attention/csrc/mha_fwd.cu"
 TPU_MHA = "src/repro/kernels/attention/attention.py:223"
+SRC_MHA_BWD = "src/repro_torch/kernels/attention/csrc/mha_bwd.cu"
 SRC_COLNORM = "src/repro_torch/kernels/colnorm/csrc/colnorm.cu"
 SRC_MOMENTUM = "src/repro_torch/kernels/scale_head/csrc/momentum_sumsq.cu"
 SRC_XENT = "src/repro_torch/kernels/xent/csrc/xent.cu"
@@ -88,7 +102,10 @@ TPU_KERNELS = {  # the Pallas kernel bodies each CUDA kernel replaces
     "xent_fwd": "src/repro/kernels/xent/xent.py:149",
     "xent_bwd_dh": "src/repro/kernels/xent/xent.py:218",
     "xent_bwd_dw": "src/repro/kernels/xent/xent.py:291",
+    "mha_bwd_dq": "src/repro/kernels/attention/attention.py:321",
+    "mha_bwd_dkv": "src/repro/kernels/attention/attention.py:401",
 }
+BWD_KERNELS = ("mha_bwd_dq", "mha_bwd_dkv")
 XENT_KERNELS = ("xent_fwd", "xent_bwd_dh", "xent_bwd_dw")
 
 # Optimizer kernels against their plain versions (phase 2), per element:
@@ -135,6 +152,34 @@ LOSS_ATOL = 1e-4
 # (about 1 at this init), and the mean of 4096 such moves of either sign
 # by far less than e.
 EVAL_REF_ATOL = 2e-3
+# Attention backward kernels against their plain versions (phase 2), with
+# lse and delta from the plain forward, per element: f32, sums of up to a
+# few thousand terms (dK of qwen2's 7-head groups over 512 rows) in other
+# orders; bf16, p and ds are rounded to bf16 at the same places on both
+# sides but from f32 values that differ in their last bits, so a rare term
+# lands one bf16 ulp apart, and each output is rounded once on each side.
+BWD_SCALE_ATOL = {"float32": 1e-5, "bfloat16": 2e-3}
+BWD_RTOL = {"float32": 1e-5, "bfloat16": 8e-3}
+# Phase 8, one loss-and-grad of llama-1b against the same call with the
+# attention through plain mha_fwd_ref autograd, per leaf:
+# f32 at full width and 4 layers, per element against the leaf's largest
+# |gradient|: the two attentions agree to f32 rounding (about 1e-6
+# relative, phase 2), which the backward through 4 layers carries at that
+# size; 1e-4 leaves a wide margin.
+TRAIN_GRAD_F32 = 1e-4
+# bf16 at full depth, the leaf's relative error in norm: the forwards round
+# each attention output differently (the kernel rounds the running p, the
+# plain version the normalized p), about 2**-8 relative where they differ,
+# compounding through 24 layers forward and back, and at random init the
+# attention gradients are sums that cancel toward zero (ROADMAP reference
+# caveat 1), where a few roundings are a large share.
+TRAIN_GRAD_BF16 = 5e-2
+# Phase 8, the loss curve of 8 steps against the plain-attention route's:
+# each step's update differs by the gradients' bf16 difference above (a few
+# % of a column-normalized step), which moves the next loss by a few % of
+# that step's loss change (about 0.05 here), accumulating over 8 steps.
+LOSS_CURVE_ATOL = 2e-2
+TRAIN_STEPS = 8
 
 
 def card() -> str:
@@ -226,6 +271,86 @@ def phase_kernels(torch, gen):
                 raise AssertionError(f"mha_fwd disagrees with the plain "
                                      f"version: {name} {tag}")
             errs[(name, tag)] = e_out
+    return errs
+
+
+def bwd_cases():
+    # name -> (B, S, T, H, K, hd, causal, kv_len)
+    return {
+        "train llama-1b": (16, 256, 256, 32, 32, 64, True, None),
+        "gqa qwen2-500m H=14 K=2": (8, 512, 512, 14, 2, 64, True, None),
+        "hd=128": (4, 512, 512, 8, 8, 128, True, None),
+        "ragged S=T=200": (8, 200, 200, 12, 12, 64, True, None),
+        "rect causal S=64 T=576": (8, 64, 576, 12, 12, 64, True, None),
+        "kv_len=300 K=4": (8, 16, 576, 12, 4, 64, False, 300),
+        "kv_len=0": (8, 16, 576, 12, 12, 64, False, 0),
+    }
+
+
+def bwd_inputs(torch, gen, B, S, T, H, K, hd, causal, kl, dtype):
+    """(q, k, v, dout, lse, delta, kv_len) with lse and delta from the plain
+    forward, so both sides get the same statistics."""
+    from repro_torch.kernels.attention.ref import mha_fwd_ref
+    q, k, v = make_qkv(torch, gen, B, S, T, H, K, hd, dtype)
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+    kv_len = None if kl is None else torch.tensor(kl, dtype=torch.int32,
+                                                  device="cuda")
+    out, lse = mha_fwd_ref(q, k, v, kv_len, scale=hd ** -0.5, causal=causal)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    return q, k, v, do, lse, delta, kv_len
+
+
+def _bwd_check(torch, name, got, want, tag, key):
+    scale = want.float().abs().max().item()
+    d = (got.float() - want.float()).abs()
+    tol = BWD_SCALE_ATOL[tag] * scale + BWD_RTOL[tag] * want.float().abs()
+    if not (bool(torch.isfinite(got.float()).all()) and bool((d <= tol).all())
+            and got.dtype == want.dtype and got.shape == want.shape):
+        raise AssertionError(f"{name} disagrees with the plain version: {key}, "
+                             f"max err {d.max().item():.3e}")
+    return d.max().item()
+
+
+def phase_bwd_kernels(torch, gen):
+    """Phase 2: mha_bwd_dq and mha_bwd_dkv against their plain versions on
+    the card, each run twice (bitwise equal). -> {(kernel, case, dtype):
+    max abs error}."""
+    from repro_torch.kernels.attention.attention import mha_bwd_dkv, mha_bwd_dq
+    from repro_torch.kernels.attention.ref import (mha_bwd_dkv_ref,
+                                                   mha_bwd_dq_ref)
+    errs = {}
+    for name, (B, S, T, H, K, hd, causal, kl) in bwd_cases().items():
+        for dtype in (torch.bfloat16, torch.float32):
+            tag = str(dtype).replace("torch.", "")
+            key = f"{name} {tag}"
+            args = bwd_inputs(torch, gen, B, S, T, H, K, hd, causal, kl, dtype)
+            kw = dict(scale=hd ** -0.5, causal=causal)
+            dq = mha_bwd_dq(*args, **kw)
+            dk, dv = mha_bwd_dkv(*args, **kw)
+            torch.cuda.synchronize()
+            e_q = _bwd_check(torch, "mha_bwd_dq", dq,
+                             mha_bwd_dq_ref(*args, **kw), tag, key)
+            want_k, want_v = mha_bwd_dkv_ref(*args, **kw)
+            e_k = _bwd_check(torch, "mha_bwd_dkv dK", dk, want_k, tag, key)
+            e_v = _bwd_check(torch, "mha_bwd_dkv dV", dv, want_v, tag, key)
+            del want_k, want_v
+            _bitwise_again(torch, "mha_bwd_dq", dq, mha_bwd_dq(*args, **kw),
+                           key)
+            dk2, dv2 = mha_bwd_dkv(*args, **kw)
+            _bitwise_again(torch, "mha_bwd_dkv", torch.cat(
+                [dk.flatten(), dv.flatten()]), torch.cat(
+                [dk2.flatten(), dv2.flatten()]), key)
+            if kl == 0 and not all(bool((g == 0).all()) for g in (dq, dk, dv)):
+                raise AssertionError(f"kv_len=0 gradients are not 0: {key}")
+            errs[("mha_bwd_dq", name, tag)] = e_q
+            errs[("mha_bwd_dkv", name, tag)] = max(e_k, e_v)
+            torch.cuda.synchronize()
+            mx = [x.float().abs().max().item() for x in (dq, dk, dv)]
+            print(f"  {key:34s} dQ err {e_q:.3e}, dK {e_k:.3e}, dV {e_v:.3e} "
+                  f"(max |dQ|, |dK|, |dV| {mx[0]:.3g}, {mx[1]:.3g}, "
+                  f"{mx[2]:.3g}; tol {BWD_SCALE_ATOL[tag]:g}max|ref| + "
+                  f"{BWD_RTOL[tag]:g}|ref|); bitwise repeatable")
+            del args, dq, dk, dv, dk2, dv2
     return errs
 
 
@@ -536,6 +661,65 @@ def phase_timing(torch, gen, power, serve, errs):
     return rows
 
 
+def bwd_bound_ms(B, S, T, H, K, hd, causal, kv_len, el_bytes, kernel):
+    """Least time of an attention backward kernel: max(bytes once / HBM
+    rate, FLOPs / bf16 peak). dQ: s, dp and ds.k, three products per valid
+    (query, key) pair; dK, dV: four. Both read q, k, v, dout, lse and delta;
+    dQ writes dQ, the other dK and dV."""
+    keys = kv_len if kv_len is not None else T
+    pairs = S * (T - S) + S * (S + 1) // 2 if causal else S * keys
+    flops = (3 if kernel == "mha_bwd_dq" else 4) * 2 * hd * pairs * B * H
+    q_el, kv_el = B * S * H * hd, B * T * K * hd
+    nbytes = el_bytes * (2 * q_el + 2 * B * keys * K * hd) + 2 * 4 * B * H * S
+    nbytes += el_bytes * (q_el if kernel == "mha_bwd_dq" else 2 * kv_el)
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+    return 1e3 * max(t_b, t_f), "bytes" if t_b >= t_f else "operations"
+
+
+def bwd_timing(torch, gen, power, errs):
+    """Phase 4, the backward kernels at the training step's shape (llama-1b,
+    B=16, S=T=256, 32 heads of 64, causal, bf16): kernel, plain version,
+    bound, and the library route (the backward of
+    F.scaled_dot_product_attention: dQ, dK and dV together)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.attention.attention import mha_bwd_dkv, mha_bwd_dq
+    from repro_torch.kernels.attention.ref import (mha_bwd_dkv_ref,
+                                                   mha_bwd_dq_ref)
+    B, S, T, H, K, hd = 16, 256, 256, 32, 32, 64
+    args = bwd_inputs(torch, gen, B, S, T, H, K, hd, True, None,
+                      torch.bfloat16)
+    kw = dict(scale=hd ** -0.5, causal=True)
+    q, k, v, do = args[:4]
+    # SDPA's own (B, H, S, hd) layout, contiguous, for its best time
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                       scale=hd ** -0.5)
+    dot = do.transpose(1, 2).contiguous()
+    lib_ms = time_ms(torch, lambda: torch.autograd.grad(
+        o, [qt, kt, vt], dot, retain_graph=True), 20)
+    note = "backward of F.scaled_dot_product_attention (dQ, dK, dV together)"
+    rows = []
+    for name, kern, plain in (("mha_bwd_dq", mha_bwd_dq, mha_bwd_dq_ref),
+                              ("mha_bwd_dkv", mha_bwd_dkv, mha_bwd_dkv_ref)):
+        ms = time_ms(torch, lambda: kern(*args, **kw), 20)
+        plain_ms = time_ms(torch, lambda: plain(*args, **kw), 5)
+        bound, by = bwd_bound_ms(B, S, T, H, K, hd, True, None, 2, name)
+        print(f"  [{power}] {name} B={B} S={S} T={T} H={H} hd={hd} causal "
+              f"bf16: {ms:.4f} ms (bound {bound:.4f} ms by {by}; plain "
+              f"{plain_ms:.4f} ms; {note} {lib_ms:.4f} ms)")
+        rows.append({"name": name, "shape": f"B={B} S={S} T={T} H={H} "
+                     f"K={K} hd={hd} causal bf16", "route": "cuda",
+                     "source": SRC_MHA_BWD, "replaces": TPU_KERNELS[name],
+                     "launches": None,
+                     "max_abs_err": errs[(name, "train llama-1b",
+                                          "bfloat16")],
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                     "bound_by": by, "library_ms": lib_ms,
+                     "library_note": note})
+    return rows
+
+
 def optimizer_timing(torch, gen, power, errs):
     """Phase 4, optimizer kernels at their largest llama-1b shapes (bf16
     operands, col as on the main path): kernel, plain version, bound by
@@ -687,7 +871,7 @@ def step_bytes(params, labels):
 
 
 def profile_step(torch, power, step, untraced_ms, n=3,
-                 label="update_params step"):
+                 label="update_params step", top=8):
     """Device busy time and top kernels of ``n`` calls of ``step``
     (torch.profiler); the idle share is against the untraced step time."""
     from torch.profiler import ProfilerActivity, profile
@@ -709,7 +893,7 @@ def profile_step(torch, power, step, untraced_ms, n=3,
           f"{untraced_ms:.3f} ms untraced (idle share "
           f"{1 - busy_ms / untraced_ms:.3f}); "
           f"{sum(e.count for e in kernels) // n} kernel launches")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"    {e.self_device_time_total / 1e3 / n:8.3f} ms "
               f"x{e.count // n:<4d} {e.key[:90]}")
 
@@ -719,7 +903,7 @@ def phase_optimizer(torch, seed, power):
     from repro_torch.configs import get_arch
     from repro_torch.core import (apply_updates, global_norm, label_tree,
                                   linear_warmup_cosine, make_optimizer)
-    from repro_torch.core.pipeline import jax_mul
+    from repro_torch.core import pipeline
     from repro_torch.models import init_params
     from repro_torch.models.model import flatten
     cfg = get_arch("llama-1b")
@@ -739,7 +923,7 @@ def phase_optimizer(torch, seed, power):
     gscale = torch.minimum(torch.ones_like(gnorm), 1.0 / (gnorm + 1e-9))
     # update() takes no grad_scale: the trainer scales the tree, and JAX
     # promotes bf16 * f32 to f32
-    scaled = {k: jax_mul(g, gscale) for k, g in grads.items()}
+    scaled = {k: pipeline.jax_mul(g, gscale) for k, g in grads.items()}
     sched = linear_warmup_cosine(1e-3, 1000)
     fused = make_optimizer("scale_fused", sched, lr_scaling=True)
     plain = make_optimizer("scale", sched, lr_scaling=True)
@@ -1200,6 +1384,191 @@ def phase_loss(torch, seed, power):
             "grad_ms": grad_ms}
 
 
+# ------------------------------------------------------- the training step
+
+
+def train_counts():
+    from repro_torch.kernels.attention import attention as A
+    return {**counts(), **xent_counts(),
+            **{k: getattr(A, k).launches for k in BWD_KERNELS}}
+
+
+def zero_train_counts():
+    from repro_torch.kernels.attention import attention as A
+    zero_counts()
+    zero_xent_counts()
+    for k in BWD_KERNELS:
+        getattr(A, k).launches = 0
+
+
+def phase_train(torch, seed, power):
+    """Phase 8: the training step of llama-1b at full width and depth."""
+    import dataclasses
+    import math
+    from unittest import mock
+    from repro_torch.configs import get_arch
+    from repro_torch.core import linear_warmup_cosine, make_optimizer
+    from repro_torch.data import make_dataset
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.attention.ref import mha_fwd_ref
+    from repro_torch.launch import train as launcher
+    from repro_torch.models import Params, init_params
+    from repro_torch.models.model import flatten
+    from repro_torch.training import (init_state, make_train_step,
+                                      value_and_grad)
+    cfg = get_arch("llama-1b")
+    B, S = 16, 256
+    L = cfg.n_layers
+    print(f"  {cfg.name}: {L} layers, d_model {cfg.d_model}, d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab_size}, {cfg.dtype}, remat {cfg.remat!r}; batch "
+          f"{B} x {S} from SyntheticLM (seed {seed}); scale_fused, clip 1.0, "
+          f"linear_warmup_cosine(1e-3, steps)")
+
+    # the launcher, as a user runs it
+    argv = ["--arch", "llama-1b", "--optimizer", "scale_fused", "--batch",
+            str(B), "--seq", str(S), "--steps", "3", "--log-every", "1",
+            "--seed", str(seed)]
+    print(f"  python -m repro_torch.launch.train {' '.join(argv)}:")
+    t0 = time.perf_counter()
+    final = launcher.main(argv)
+    print(f"  launcher: 3 steps in {time.perf_counter() - t0:.1f} s (build, "
+          f"init and first-call costs included), final loss {final:.4f}")
+    if not math.isfinite(final):
+        raise AssertionError("the launcher's loss is not finite")
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = init_params(cfg, gen, device="cuda")
+    ref_params = Params({k: p.detach().clone()
+                         for k, p in flatten(params).items()})
+    ds = make_dataset(cfg, S, B, seed=seed, device="cuda")
+    batches = [ds.global_batch_at(i) for i in range(TRAIN_STEPS)]
+
+    def builder():
+        tx = make_optimizer("scale_fused",
+                            linear_warmup_cosine(1e-3, TRAIN_STEPS))
+        return tx, make_train_step(cfg, tx, clip_norm=1.0)
+
+    # the main path: counts set to 0 just before it, read just after
+    tx, step = builder()
+    state = init_state(params, tx)
+    torch.cuda.synchronize()
+    zero_train_counts()
+    per_step, losses = [], []
+    for b in batches:
+        before = train_counts()
+        state, metrics = step(state, b)
+        per_step.append({k: v - before[k] for k, v in train_counts().items()})
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    launches = train_counts()
+    want = {"mha_fwd": 2 * L, "mha_bwd_dq": L, "mha_bwd_dkv": L,
+            "xent_fwd": 1, "xent_bwd_dh": 1, "xent_bwd_dw": 1,
+            "norm_sumsq": 8, "update_apply": 9, "momentum_sumsq": 1,
+            "norm_apply": 0}
+    for i, c in enumerate(per_step):
+        if c != want:
+            raise AssertionError(f"train step {i} launched {c}, not {want}")
+    print(f"  make_train_step: every one of {TRAIN_STEPS} steps launched "
+          f"{want}; over the run {launches}")
+    losses = [float(x) for x in losses]
+
+    # the same steps with attention through plain mha_fwd_ref autograd
+    tx_r, step_r = builder()
+    state_r = init_state(ref_params, tx_r)
+    with mock.patch.object(dispatch, "mha_fwd", mha_fwd_ref):
+        ref_losses = []
+        for b in batches:
+            state_r, m = step_r(state_r, b)
+            ref_losses.append(float(m["loss"]))
+    del state_r, ref_params, tx_r, step_r
+    gap = max(abs(a - b) for a, b in zip(losses, ref_losses))
+    print(f"  loss over {TRAIN_STEPS} steps: "
+          f"{' '.join(f'{x:.4f}' for x in losses)}")
+    print(f"  plain-attention route:   "
+          f"{' '.join(f'{x:.4f}' for x in ref_losses)} (max |diff| "
+          f"{gap:.2e}, tol {LOSS_CURVE_ATOL:g})")
+    if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]
+            and gap <= LOSS_CURVE_ATOL):
+        raise AssertionError("the training loss does not fall, or leaves the "
+                             "plain-attention route's curve")
+
+    # one step with any host synchronisation an error
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, metrics = step(state, batches[0])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print("  train step under set_sync_debug_mode('error'): no host "
+          "synchronisation")
+
+    # every leaf's gradient against the plain-attention route: bf16 at full
+    # depth, then f32 at full width and 4 layers
+    batch = batches[0]
+
+    def grads_both(c, p):
+        _, _, g = value_and_grad(p, c, batch)
+        with mock.patch.object(dispatch, "mha_fwd", mha_fwd_ref):
+            _, _, r = value_and_grad(p, c, batch)
+        return g, r
+
+    g, r = grads_both(cfg, state.params)
+    worst_k, worst = "", 0.0
+    for k, x in g.items():
+        rel = ((x.float() - r[k].float()).norm()
+               / r[k].float().norm().clamp_min(1e-30)).item()
+        if rel > worst:
+            worst_k, worst = k, rel
+    print(f"  bf16 gradients, {len(g)} leaves at full depth, against the "
+          f"plain-attention route: worst relative error in norm {worst:.3e} "
+          f"({worst_k}; tol {TRAIN_GRAD_BF16:g})")
+    if not worst <= TRAIN_GRAD_BF16:
+        raise AssertionError("bf16 gradients disagree with plain attention")
+    del g, r
+    cfg4 = dataclasses.replace(cfg, n_layers=4, dtype="float32")
+    p4 = init_params(cfg4, torch.Generator(device="cuda").manual_seed(seed),
+                     device="cuda")
+    g, r = grads_both(cfg4, p4)
+    worst_k, worst = "", 0.0
+    for k, x in g.items():
+        e = ((x - r[k]).abs().max() / r[k].abs().max().clamp_min(1e-30)).item()
+        if e > worst:
+            worst_k, worst = k, e
+    print(f"  f32 gradients, 4 layers at full width, against the "
+          f"plain-attention route: worst max |diff| / max |ref| per leaf "
+          f"{worst:.3e} ({worst_k}; tol {TRAIN_GRAD_F32:g})")
+    if not worst <= TRAIN_GRAD_F32:
+        raise AssertionError("f32 gradients disagree with plain attention")
+    del g, r, p4
+
+    # times: host clock best of 3, the profile of one step, peak memory
+    def one():
+        nonlocal state
+        state, _ = step(state, batch)
+
+    t_step = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one()
+        torch.cuda.synchronize()
+        t_step.append(time.perf_counter() - t0)
+    step_s = min(t_step)
+    print(f"  [{power}] train step {step_s * 1e3:.3f} ms (best of 3; "
+          f"{B * S / step_s:.0f} tokens/s)")
+    profile_step(torch, power, one, step_s * 1e3, n=1, label="train step",
+                 top=16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    one()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  [{power}] torch.cuda.max_memory_allocated over one train step "
+          f"{peak / 2**20:.1f} MiB")
+    return {"launches": launches, "step_ms": step_s * 1e3, "peak": peak}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1234,12 +1603,14 @@ def main() -> int:
 
     print("phase 2: kernels against their plain versions on the card")
     errs = phase_kernels(torch, gen)
+    bwd_errs = phase_bwd_kernels(torch, gen)
     opt_errs = phase_optimizer_kernels(torch, gen)
     xent_errs = phase_xent_kernels(torch, gen)
     print("phase 3: greedy serving, llama-130m, full width and depth")
     serve = phase_serving(torch, args.seed, power)
     print("phase 4: kernel times (CUDA events)")
     mha_rows = phase_timing(torch, gen, power, serve, errs)
+    bwd_rows = bwd_timing(torch, gen, power, bwd_errs)
     opt_rows = optimizer_timing(torch, gen, power, opt_errs)
     xent_rows = xent_timing(torch, gen, power, xent_errs)
     print("phase 5: where the serving time goes (torch.profiler)")
@@ -1248,20 +1619,32 @@ def main() -> int:
     opt = phase_optimizer(torch, args.seed, power)
     print("phase 7: the loss path, llama-1b, full width and depth")
     loss = phase_loss(torch, args.seed, power)
-    for path, path_rows, launches in (("optimizer", opt_rows, opt["launches"]),
-                                      ("loss", xent_rows, loss["launches"])):
-        for row in path_rows:
-            row["launches"] = launches[row["name"]]
-            if not row["launches"]:
-                raise AssertionError(f"{row['name']} was not launched on the "
-                                     f"{path} path")
-    # one row per kernel: mha_fwd's prefill numbers, with both serving
-    # shapes and the eval step's beside them
+    print("phase 8: the training step, llama-1b, full width and depth")
+    train = phase_train(torch, args.seed, power)
+    # one row per kernel; launches summed over the main paths that run it,
+    # each counted from 0 just before its path and read just after
+    by_path = {"serving": {"mha_fwd": serve["launches"]},
+               "optimizer": opt["launches"], "loss": loss["launches"],
+               "train": train["launches"]}
+    # mha_fwd's prefill numbers, with both serving shapes and the eval and
+    # training steps' shape beside them
     mha = {k: v for k, v in mha_rows[0].items() if k != "shape"}
-    mha["launches"] = serve["launches"]
     mha_rows[2]["launches"] = loss["launches"]["mha_fwd"]
+    mha_rows.append({**mha_rows[2], "shape": "train",
+                     "launches": train["launches"]["mha_fwd"]})
     mha["shapes"] = mha_rows
-    rows = [mha] + opt_rows + xent_rows
+    rows = [mha] + bwd_rows + opt_rows + xent_rows
+    for row in rows:
+        row["launches_by_path"] = {p: c[row["name"]]
+                                   for p, c in by_path.items()
+                                   if c.get(row["name"])}
+        row["launches"] = sum(row["launches_by_path"].values())
+    for path, c in by_path.items():
+        for name, n in c.items():
+            # norm_apply serves only the update entry point (phase 6)
+            if not n and not (path == "train" and name == "norm_apply"):
+                raise AssertionError(f"{name} was not launched on the "
+                                     f"{path} path")
     print(power)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -43,6 +43,14 @@ def apply_updates(params, updates) -> dict:
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in f32 on the leaves'
-    device (no host synchronisation)."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
-                          for x in flatten(tree).values()))
+    device (no host synchronisation).
+
+    Each leaf's f32 norm comes from one fused reduction that reads the leaf
+    once and materializes no f32 copy of it (``torch._foreach_norm``); the
+    result is the f32 norm of those norms.
+    """
+    leaves = list(flatten(tree).values())
+    if not leaves:
+        return torch.zeros(())
+    norms = torch._foreach_norm(leaves, 2, dtype=torch.float32)
+    return torch.linalg.vector_norm(torch.stack(norms))

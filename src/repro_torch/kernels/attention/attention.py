@@ -1,16 +1,20 @@
-"""Flash-attention forward: the wrapper around the Hopper CUDA kernel.
+"""Flash attention: the wrappers around the Hopper CUDA kernels.
 
-``mha_fwd`` takes the model's (B, S, H, hd) layout and routes by the
-device of its tensors: CPU tensors go to the plain PyTorch version
-(``ref.mha_fwd_ref``), CUDA tensors to the hand-written kernel in
-``csrc/mha_fwd.cu``, which replaces the TPU kernel
-``repro.kernels.attention.attention.mha_fwd``. On the card there is no
-fallback: a build or launch failure raises. ``mha_fwd.launches`` counts
-kernel launches, so a run can show that it went through the kernel.
+``mha_fwd`` (forward: out and the per-row lse), ``mha_bwd_dq`` (dQ) and
+``mha_bwd_dkv`` (dK, dV) take the model's (B, S, H, hd) layout and route
+by the device of their tensors: CPU tensors go to the plain PyTorch
+versions (``ref``), CUDA tensors to the hand-written kernels in
+``csrc/mha_fwd.cu`` and ``csrc/mha_bwd.cu``, which replace the TPU kernels
+of the same names in ``repro.kernels.attention.attention``. On the card
+there is no fallback: a build or launch failure raises. Each wrapper's
+``launches`` counts its kernel launches, so a run can show that it went
+through the kernel.
 
-The kernel's output carries no autograd history, so on the card a call
-that would need a gradient raises until attention backward is ported;
-the CPU route stays differentiable.
+A kernel's output carries no autograd history. The differentiable route
+is ``dispatch.flash_attention``, an autograd Function whose backward runs
+the two backward kernels; on the card a direct ``mha_fwd`` call that
+would need a gradient raises rather than silently drop it. The CPU route
+stays differentiable.
 """
 from __future__ import annotations
 
@@ -19,10 +23,14 @@ import ctypes
 import torch
 
 from .. import _build
-from .ref import mha_fwd_ref
+from .ref import mha_bwd_dkv_ref, mha_bwd_dq_ref, mha_fwd_ref
 
 _DTYPES = (torch.bfloat16, torch.float32)
 _MAX_HEAD_DIM = 256  # the largest K+V tile that fits the H100's shared memory
+# the backward kernels keep a row's dQ (or a key's dK and dV) in 16
+# registers per lane; wider heads (gemma-2b's 256) wait for ROADMAP.md
+# Queue 1 item 20
+_MAX_BWD_HEAD_DIM = 128
 
 
 def _bind(lib: ctypes.CDLL):
@@ -38,29 +46,44 @@ def _bind(lib: ctypes.CDLL):
     return fn
 
 
-def _check(q, k, v, kv_len, causal):
+def _bind_bwd(lib: ctypes.CDLL, name: str):
+    """``mha_bwd_dq`` or ``mha_bwd_dkv`` of ``csrc/mha_bwd.cu`` (dkv has one
+    more output pointer)."""
+    fn = getattr(lib, name)
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        outs = [p, p] if name == "mha_bwd_dkv" else [p]
+        fn.argtypes = [p, p, p, p, p, p, p, *outs, i, i, i, i, i, i, i, i,
+                       ctypes.POINTER(ctypes.c_int64), ctypes.c_float, i, p]
+        fn.restype = i
+        lib.cuda_error_string.argtypes = [i]
+        lib.cuda_error_string.restype = ctypes.c_char_p
+    return fn
+
+
+def _check(q, k, v, kv_len, causal, name="mha_fwd", max_hd=_MAX_HEAD_DIM):
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
-        raise ValueError("mha_fwd: q, k, v must be 4-D (B, S|T, H|K, hd)")
+        raise ValueError(f"{name}: q, k, v must be 4-D (B, S|T, H|K, hd)")
     B, S, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
     if k.shape[0] != B or k.shape[3] != hd or v.shape[:3] != k.shape[:3]:
-        raise ValueError(f"mha_fwd: shapes q {tuple(q.shape)}, k "
+        raise ValueError(f"{name}: shapes q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} do not match")
     if min(B, S, H, T, K) < 1 or H % K:
-        raise ValueError(f"mha_fwd: need nonempty shapes and H % K == 0, got "
+        raise ValueError(f"{name}: need nonempty shapes and H % K == 0, got "
                          f"H={H} K={K}")
-    for name, d in (("hd", hd), ("hdv", v.shape[3])):
-        if d % 8 or not 8 <= d <= _MAX_HEAD_DIM:
-            raise ValueError(f"mha_fwd: {name}={d} must be a multiple of 8 "
-                             f"in [8, {_MAX_HEAD_DIM}]")
+    for what, d in (("hd", hd), ("hdv", v.shape[3])):
+        if d % 8 or not 8 <= d <= max_hd:
+            raise ValueError(f"{name}: {what}={d} must be a multiple of 8 "
+                             f"in [8, {max_hd}]")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"mha_fwd: dtypes {q.dtype}, {k.dtype}, {v.dtype}; "
+        raise ValueError(f"{name}: dtypes {q.dtype}, {k.dtype}, {v.dtype}; "
                          "need one of bfloat16, float32 for all three")
     if not (q.device == k.device == v.device):
-        raise ValueError("mha_fwd: q, k, v on different devices")
+        raise ValueError(f"{name}: q, k, v on different devices")
     if causal and kv_len is not None:
         raise ValueError(
-            "mha_fwd: kv_len requires causal=False — the decode window is "
+            f"{name}: kv_len requires causal=False — the decode window is "
             "non-causal within the filled cache")
     if causal and T < S:
         raise ValueError(f"causal attention needs T >= S, got S={S} T={T}")
@@ -86,20 +109,17 @@ def mha_fwd(q, k, v, kv_len=None, *, scale: float, causal: bool = True):
     if q.device.type != "cuda":
         raise ValueError(f"mha_fwd: unsupported device {q.device}")
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
-        raise NotImplementedError(
-            "mha_fwd: the CUDA kernel has no backward yet, so its output would "
-            "silently drop the gradient of q, k and v; attention backward "
-            "(kernels mha_bwd_dq and mha_bwd_dkv) lands with the training "
-            "step. Call under torch.no_grad(), or on CPU tensors")
+        raise RuntimeError(
+            "mha_fwd: the kernel's output has no autograd history, so it "
+            "would silently drop the gradient of q, k and v; differentiate "
+            "through dispatch.flash_attention (whose backward runs "
+            "mha_bwd_dq and mha_bwd_dkv), or call under torch.no_grad()")
     for name, x in (("q", q), ("k", k), ("v", v)):
         if not _strides_ok(x):
             raise ValueError(f"mha_fwd: {name} needs a contiguous last dim, "
                              "8-element-aligned strides and a 16-byte-aligned "
                              "start")
-    if kv_len is not None:
-        kv_len = torch.as_tensor(kv_len, dtype=torch.int32, device=q.device)
-        if kv_len.numel() != 1:
-            raise ValueError("mha_fwd: kv_len must be a scalar")
+    kv_len = _kv_len_tensor(kv_len, q.device, "mha_fwd")
     B, S, H, hd = q.shape
     T, K, hdv = k.shape[1], k.shape[2], v.shape[3]
     out = torch.empty((B, S, H, hdv), dtype=q.dtype, device=q.device)
@@ -122,3 +142,103 @@ def mha_fwd(q, k, v, kv_len=None, *, scale: float, causal: bool = True):
 
 
 mha_fwd.launches = 0
+
+
+def _kv_len_tensor(kv_len, device, name):
+    if kv_len is None:
+        return None
+    kv_len = torch.as_tensor(kv_len, dtype=torch.int32, device=device)
+    if kv_len.numel() != 1:
+        raise ValueError(f"{name}: kv_len must be a scalar")
+    return kv_len
+
+
+def _check_bwd(name, q, k, v, dout, lse, delta, kv_len, causal):
+    """Shape, dtype and device checks of the backward kernels' operands."""
+    _check(q, k, v, kv_len, causal, name, _MAX_BWD_HEAD_DIM)
+    B, S, H, _ = q.shape
+    if tuple(dout.shape) != (B, S, H, v.shape[3]) or dout.dtype != q.dtype:
+        raise ValueError(f"{name}: dout {tuple(dout.shape)} {dout.dtype}; "
+                         f"need {(B, S, H, v.shape[3])} in {q.dtype}")
+    for what, x in (("lse", lse), ("delta", delta)):
+        if tuple(x.shape) != (B, H, S) or x.dtype != torch.float32:
+            raise ValueError(f"{name}: {what} {tuple(x.shape)} {x.dtype}; "
+                             f"need {(B, H, S)} float32")
+    if not all(x.device == q.device for x in (dout, lse, delta)):
+        raise ValueError(f"{name}: operands on different devices")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {q.device}")
+
+
+def _launch_bwd(name, outs, q, k, v, dout, lse, delta, kv_len, scale, causal):
+    """Launch ``name`` of ``csrc/mha_bwd.cu`` writing ``outs``; raises on
+    operands the kernel does not take and on a failed launch."""
+    for what, x in (("q", q), ("k", k), ("v", v), ("dout", dout)):
+        if not _strides_ok(x):
+            raise ValueError(f"{name}: {what} needs a contiguous last dim, "
+                             "8-element-aligned strides and a 16-byte-aligned "
+                             "start")
+    for what, x in (("lse", lse), ("delta", delta)):
+        if not x.is_contiguous():
+            raise ValueError(f"{name}: {what} must be contiguous")
+    kv_len = _kv_len_tensor(kv_len, q.device, name)
+    B, S, H, hd = q.shape
+    T, K, hdv = k.shape[1], k.shape[2], v.shape[3]
+    strides = (ctypes.c_int64 * 12)(*q.stride()[:3], *k.stride()[:3],
+                                      *v.stride()[:3], *dout.stride()[:3])
+    lib = _build.library("mha_bwd")
+    fn = _bind_bwd(lib, name)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(),
+                 None if kv_len is None else kv_len.data_ptr(),
+                 *(o.data_ptr() for o in outs), int(q.dtype == torch.bfloat16),
+                 B, S, T, H, K, hd, hdv, strides, float(scale), int(causal),
+                 stream)
+    if err:
+        raise RuntimeError(f"{name}: CUDA launch failed: "
+                           f"{lib.cuda_error_string(err).decode()} ({err})")
+
+
+def mha_bwd_dq(q, k, v, dout, lse, delta, kv_len=None, *, scale: float,
+               causal: bool = True):
+    """dQ (B, S, H, hd) in q's dtype.
+
+    q, k, v as for ``mha_fwd``; dout (B, S, H, hdv) in q's dtype; ``lse``
+    (B, H, S) f32 is the forward's log-sum-exp and ``delta`` (B, H, S) f32
+    is ``sum(f32(dout) * f32(out), -1)``. Masks as ``mha_fwd``'s.
+    """
+    _check_bwd("mha_bwd_dq", q, k, v, dout, lse, delta, kv_len, causal)
+    if q.device.type == "cpu":
+        return mha_bwd_dq_ref(q, k, v, dout, lse, delta, kv_len, scale=scale,
+                              causal=causal)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _launch_bwd("mha_bwd_dq", (dq,), q, k, v, dout, lse, delta, kv_len,
+                scale, causal)
+    mha_bwd_dq.launches += 1
+    return dq
+
+
+def mha_bwd_dkv(q, k, v, dout, lse, delta, kv_len=None, *, scale: float,
+                causal: bool = True):
+    """(dK (B, T, K, hd), dV (B, T, K, hdv)) in k's and v's dtype.
+
+    The G = H / K query heads of each kv head are summed inside the kernel,
+    so the gradients come out in the kv storage layout. Operands as for
+    ``mha_bwd_dq``.
+    """
+    _check_bwd("mha_bwd_dkv", q, k, v, dout, lse, delta, kv_len, causal)
+    if q.device.type == "cpu":
+        return mha_bwd_dkv_ref(q, k, v, dout, lse, delta, kv_len,
+                               scale=scale, causal=causal)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    _launch_bwd("mha_bwd_dkv", (dk, dv), q, k, v, dout, lse, delta, kv_len,
+                scale, causal)
+    mha_bwd_dkv.launches += 1
+    return dk, dv
+
+
+mha_bwd_dq.launches = 0
+mha_bwd_dkv.launches = 0

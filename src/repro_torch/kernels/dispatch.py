@@ -16,6 +16,9 @@ The write-mode entry points (``norm_update``, ``momentum_norm_update``)
 update theta and the momentum in place on every route and return them;
 ``momentum_norm`` updates the momentum in place.
 
+Attention (``flash_attention``) is the autograd ``FlashAttention`` over
+``mha_fwd``, ``mha_bwd_dq`` and ``mha_bwd_dkv``.
+
 Cross-entropy (``xent_loss``) is the LM head's loss as a
 ``torch.autograd.Function`` over the three xent kernels, with the contract
 of the JAX package's ``custom_vjp``; h of 2 or 3 dims against a 2-D head
@@ -25,7 +28,8 @@ from __future__ import annotations
 
 import torch
 
-from .attention.attention import mha_fwd
+from .attention import attention as _attn
+from .attention.attention import mha_bwd_dkv, mha_bwd_dq, mha_fwd
 from .colnorm import ref as _cref
 from .colnorm.colnorm import canon3, norm_apply, norm_sumsq, update_apply
 from .scale_head.ref import one_minus
@@ -36,17 +40,60 @@ FUSED_KINDS = ("col", "row", "larger")
 FUSED_NDIMS = (2, 3)
 
 
+class FlashAttention(torch.autograd.Function):
+    """Blockwise (flash) attention, kernels both ways: the counterpart of
+    the JAX package's ``custom_vjp`` (``dispatch._attn_fused``).
+
+    forward(q, k, v, kv_len, scale, causal): ``mha_fwd`` gives (out, lse),
+    and (q, k, v, out, lse) are saved. backward: delta = rowsum(f32(dO) *
+    f32(out)) in the (B, H, S) layout, formed here outside the kernels as
+    JAX's ``_bwd_parts`` does, then ``mha_bwd_dq`` for dQ and
+    ``mha_bwd_dkv`` for dK and dV, each only when asked for. ``kv_len``,
+    ``scale`` and ``causal`` get no gradient. Each step takes its plain
+    version on CPU tensors and its kernel on CUDA tensors.
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_len, scale: float, causal: bool):
+        out, lse = mha_fwd(q, k, v, kv_len, scale=scale, causal=causal)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kv_len, ctx.scale, ctx.causal = kv_len, scale, causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dout = dout.contiguous()  # autograd may hand an expanded gradient
+        delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)
+        args = (q, k, v, dout, lse, delta.contiguous(), ctx.kv_len)
+        kw = dict(scale=ctx.scale, causal=ctx.causal)
+        dq = dk = dv = None
+        if ctx.needs_input_grad[0]:
+            dq = mha_bwd_dq(*args, **kw)
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            dk, dv = mha_bwd_dkv(*args, **kw)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q, k, v, *, scale: float, causal: bool = True,
                     kv_len=None):
-    """Blockwise (flash) attention; see ``attention.mha_fwd``.
+    """Blockwise (flash) attention through :class:`FlashAttention`.
 
     q (B, S, H, hd); k (B, T, K, hd), v (B, T, K, hdv) with H % K == 0 —
-    the GQA repeat is never materialized. ``kv_len`` bounds the key
-    positions for decode over a partially filled cache and needs
-    ``causal=False`` (the kernel implements no causal-over-fill mask).
-    Returns (B, S, H, hdv) in q's dtype.
+    the GQA repeat is never materialized, and dK, dV come back in kv's own
+    (B, T, K, *) layout. ``kv_len`` bounds the key positions for decode
+    over a partially filled cache and needs ``causal=False`` (the kernels
+    implement no causal-over-fill mask). Returns (B, S, H, hdv) in q's
+    dtype.
+
+    Where a caller has put another forward in this module's ``mha_fwd``
+    (the tests and ``chip_smoke.py`` swap in ``mha_fwd_ref`` this way),
+    that forward is differentiated by plain autograd instead: an
+    independent reference for the kernels' gradients.
     """
-    return mha_fwd(q, k, v, kv_len, scale=scale, causal=causal)[0]
+    if mha_fwd is not _attn.mha_fwd:
+        return mha_fwd(q, k, v, kv_len, scale=scale, causal=causal)[0]
+    return FlashAttention.apply(q, k, v, kv_len, scale, causal)
 
 
 # --------------------------------------------------------- cross-entropy

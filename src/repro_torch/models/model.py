@@ -81,15 +81,20 @@ class Params(nn.ModuleDict):
 
     def __init__(self, flat: dict):
         super().__init__()
-        tree: dict = {}
-        for path, t in flat.items():
-            *parents, leaf = path.split("/")
-            node = tree
-            for p in parents:
-                node = node.setdefault(p, {})
-            node[leaf] = t
-        for k, v in _modules(tree).items():
+        for k, v in _modules(unflatten(flat)).items():
             self[k] = v
+
+
+def unflatten(flat: dict, sep: str = "/") -> dict:
+    """Nested dict of a ``{path: leaf}`` mapping (inverse of ``flatten``)."""
+    tree: dict = {}
+    for path, t in flat.items():
+        *parents, leaf = path.split(sep)
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = t
+    return tree
 
 
 def _modules(tree: dict) -> dict:

@@ -2,14 +2,25 @@
 
 The JAX package scans each segment of homogeneous super-blocks over params
 stacked on a leading (L, ...) axis; the port keeps that layout and loops in
-Python, slicing layer ``l`` out of every stacked tensor (and cache). No
-remat: this slice is inference only.
+Python. Each stacked tensor is cut into its L layers once per segment
+(``unbind``), so the backward stacks each leaf's layer gradients once
+instead of adding L full-size zero-padded slices; caches are indexed per
+layer.
+
+Rematerialization follows ``cfg.remat`` when a gradient is being taken
+(grad mode on, no cache), as ``jax.checkpoint`` around each super-block
+does there: ``"full"`` saves nothing inside a super-block and recomputes
+its forward in the backward (``nothing_saveable``); ``"dots"`` saves the
+outputs of the 2-D matrix products and recomputes the rest
+(``dots_with_no_batch_dims_saveable``); ``"none"`` saves everything.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
+from torch.utils import checkpoint as _ckpt
 
 from . import layers as L
 from .config import ModelConfig
@@ -63,6 +74,38 @@ def _layer(tree, l: int):
             for n, t in tree.items()}
 
 
+def _unbind(tree, n: int) -> list:
+    """The ``n`` layers of a (nested) dict of stacked tensors: one
+    ``unbind`` per leaf, whose backward stacks the layer gradients once."""
+    leaves = {k: _unbind(t, n) if hasattr(t, "items") else t.unbind(0)
+              for k, t in tree.items()}
+    return [{k: v[l] for k, v in leaves.items()} for l in range(n)]
+
+
+# the 2-D matrix products (x @ w reaches aten.mm): what "dots" saves
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (_ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else _ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg: ModelConfig, fn):
+    """``fn`` under ``cfg.remat`` (see the module docstring)."""
+    if cfg.remat == "none":
+        return fn
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            _ckpt.create_selective_checkpoint_contexts, _dots_policy)
+    elif cfg.remat != "full":
+        raise ValueError(f"remat must be none|dots|full, got {cfg.remat!r}")
+    # the model draws no random numbers, so no RNG state is kept
+    return functools.partial(_ckpt.checkpoint, fn, use_reentrant=False,
+                             preserve_rng_state=False, **kw)
+
+
 def apply_superblock(kind: str, cfg: ModelConfig, params, x, positions,
                      mode: str, cache: Optional[dict], cache_index):
     new_cache = dict(cache) if cache is not None else None
@@ -84,14 +127,19 @@ def apply_segment(kind: str, n_blocks: int, cfg: ModelConfig, stacked, x,
     (L, B, S, K, hd); decode writes the stacked cache in place and returns
     it; train returns None.
     """
-    outs = []
-    for l in range(n_blocks):
-        c = _layer(cache, l) if cache is not None else None
-        x, c = apply_superblock(kind, cfg, _layer(stacked, l), x, positions,
-                                mode, c, cache_index)
-        outs.append(c)
+    layers = _unbind(stacked, n_blocks)
     if cache is None:
+        block = functools.partial(apply_superblock, kind, cfg)
+        if torch.is_grad_enabled():
+            block = _remat(cfg, block)
+        for p in layers:
+            x, _ = block(p, x, positions, mode, None, cache_index)
         return x, None
+    outs = []
+    for l, p in enumerate(layers):
+        x, c = apply_superblock(kind, cfg, p, x, positions, mode,
+                                _layer(cache, l), cache_index)
+        outs.append(c)
     if mode == "decode":
         return x, cache
     return x, _stack(outs)

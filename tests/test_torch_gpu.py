@@ -7,8 +7,9 @@ imports no JAX, so it runs on a machine that has only PyTorch:
 
 (``--noconftest`` because ``tests/conftest.py`` imports JAX.) The kernel
 cases are those of phase 2 of ``chip_smoke.py``; a test serves a small
-model on the card through the attention kernel, and the last ones take
-SCALE optimizer steps through the optimizer kernels. Attention tolerances,
+model on the card through the attention kernel, others take SCALE
+optimizer steps through the optimizer kernels, and one trains a small
+llama through every kernel of the training step. Attention tolerances,
 per element:
   * f32 out: 2e-5 absolute (unit-scale values summed in other orders);
   * bf16 out: 2e-2 + 2e-2*|ref| — the kernel rounds the running,
@@ -39,8 +40,18 @@ against their plain versions, with lse from the plain forward:
     two bf16 halves, which carry it to about 2**-16 of itself;
   * ``dispatch.xent_loss`` gradients against the plain losses' autograd:
     the same bounds in the inputs' dtype.
-The CUDA ``mha_fwd`` raises under grad (its output has no autograd
-history) and runs under ``torch.no_grad()``. The eval step's loss is held
+Attention backward (``mha_bwd_dq``, ``mha_bwd_dkv``) against the plain
+versions, with lse and delta from the plain forward:
+  * f32: 1e-5*max|ref| + 1e-5*|ref| (sums of up to a few thousand terms in
+    other orders); bf16: 2e-3*max|ref| + 8e-3*|ref| (p and ds rounded to
+    bf16 from f32 values that differ in their last bits, so a rare term
+    lands one ulp apart, then one rounding of each output);
+  * a second run is bitwise equal;
+  * ``dispatch.flash_attention`` gradients against plain autograd through
+    ``mha_fwd_ref``: the forward's tolerances, scaled by max|ref| (2e-5 in
+    f32, 1e-2 in bf16). A direct CUDA ``mha_fwd`` call under grad raises
+    (its output has no autograd history).
+The eval step's loss is held
 to 1e-4 against the plain full-logit loss of the same hidden (f32 means
 summed in other orders), and to 2e-3 against the loss of a forward whose
 attention is ``mha_fwd_ref`` (the bf16 roundings of the attention outputs
@@ -411,21 +422,179 @@ def test_xent_loss_grads_on_card_match_plain_autograd(cuda, dtype):
     _xent_close(gw, ww, td)
 
 
+# (B, S, T, H, K, hd, causal, kv_len): the chip_smoke.py phase-2 cases of
+# the backward kernels
+BWD_CASES = {
+    "train_llama1b": (16, 256, 256, 32, 32, 64, True, None),
+    "gqa_qwen2_500m": (8, 512, 512, 14, 2, 64, True, None),
+    "hd128": (4, 512, 512, 8, 8, 128, True, None),
+    "ragged200": (8, 200, 200, 12, 12, 64, True, None),
+    "rect_causal_64x576": (8, 64, 576, 12, 12, 64, True, None),
+    "kvlen300": (8, 16, 576, 12, 4, 64, False, 300),
+    "kvlen0": (8, 16, 576, 12, 12, 64, False, 0),
+}
+
+
+def _bwd_close(got, want, dtype):
+    """Backward kernels against their plain versions, per element:
+    f32 1e-5*max|ref| + 1e-5*|ref| (f32 sums of up to a few thousand terms
+    in other orders); bf16 2e-3*max|ref| + 8e-3*|ref| (p and ds are rounded
+    to bf16 at the same places on both sides, but from f32 values that
+    differ in their last bits, so a rare term rounds one ulp apart; then one
+    rounding of each output)."""
+    scale = want.float().abs().max().item()
+    atol, rtol = (1e-5, 1e-5) if dtype == "f32" else (2e-3, 8e-3)
+    d = (got.float() - want.float()).abs()
+    tol = atol * scale + rtol * want.float().abs()
+    assert bool(torch.isfinite(got.float()).all())
+    assert bool((d <= tol).all()), d.max().item()
+
+
+def _bwd_inputs(cuda, case, td, seed=8):
+    """(q, k, v, dout, lse, delta, kv_len) with lse and delta from the plain
+    forward, fed to both sides."""
+    B, S, T, H, K, hd, causal, kv_len = BWD_CASES[case]
+    q, k, v = (torch.from_numpy(x).to(cuda, td)
+               for x in _inputs(seed, B, S, T, H, K, hd))
+    rng = np.random.default_rng(seed + 1)
+    do = torch.from_numpy(rng.standard_normal(q.shape, dtype=np.float32)
+                          ).to(cuda, td)
+    kl = None if kv_len is None else torch.tensor(kv_len, dtype=torch.int32,
+                                                  device=cuda)
+    out, lse = mha_fwd_ref(q, k, v, kl, scale=hd ** -0.5, causal=causal)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    return q, k, v, do, lse, delta, kl
+
+
 @pytest.mark.gpu
-def test_mha_fwd_raises_under_grad_on_card(cuda):
-    q, k, v = (torch.from_numpy(x).to(cuda, torch.bfloat16)
-               for x in _inputs(7, 2, 64, 64, 4, 4, 64))
-    q.requires_grad_()
-    before = mha_fwd.launches
-    with pytest.raises(NotImplementedError, match="backward"):
-        mha_fwd(q, k, v, scale=0.125, causal=True)
-    assert mha_fwd.launches == before
-    with torch.no_grad():
-        out, _ = mha_fwd(q, k, v, scale=0.125, causal=True)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", list(BWD_CASES))
+def test_bwd_kernels_match_plain_on_card(cuda, case, dtype):
+    """mha_bwd_dq and mha_bwd_dkv against their plain versions; each runs
+    twice and is bitwise repeatable (no atomics)."""
+    from repro_torch.kernels.attention.attention import (mha_bwd_dkv,
+                                                         mha_bwd_dq)
+    from repro_torch.kernels.attention.ref import (mha_bwd_dkv_ref,
+                                                   mha_bwd_dq_ref)
+    B, S, T, H, K, hd, causal, kv_len = BWD_CASES[case]
+    args = _bwd_inputs(cuda, case, DTYPES[dtype])
+    kw = dict(scale=hd ** -0.5, causal=causal)
+    before = (mha_bwd_dq.launches, mha_bwd_dkv.launches)
+    dq = mha_bwd_dq(*args, **kw)
+    dk, dv = mha_bwd_dkv(*args, **kw)
     torch.cuda.synchronize()
-    assert mha_fwd.launches == before + 1 and out.shape == q.shape
-    ref, _ = mha_fwd_ref(q.detach(), k, v, scale=0.125, causal=True)
-    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
+    assert (mha_bwd_dq.launches - before[0],
+            mha_bwd_dkv.launches - before[1]) == (1, 1)
+    assert dq.shape == args[0].shape and dk.shape == args[1].shape \
+        and dv.shape == args[2].shape
+    _bwd_close(dq, mha_bwd_dq_ref(*args, **kw), dtype)
+    want_dk, want_dv = mha_bwd_dkv_ref(*args, **kw)
+    _bwd_close(dk, want_dk, dtype)
+    _bwd_close(dv, want_dv, dtype)
+    assert torch.equal(dq, mha_bwd_dq(*args, **kw))
+    dk2, dv2 = mha_bwd_dkv(*args, **kw)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    if kv_len == 0:
+        assert all(bool((g == 0).all()) for g in (dq, dk, dv))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_flash_attention_grads_on_card_launch_the_backward_kernels(
+        cuda, dtype, monkeypatch):
+    """dispatch.flash_attention is differentiable on the card: one backward
+    launches one mha_bwd_dq and one mha_bwd_dkv, and the gradients match
+    plain autograd through mha_fwd_ref (the forward swapped into dispatch);
+    the bf16 tolerance is the forward's, whose roundings differ. A direct
+    mha_fwd call under grad still raises rather than drop the gradient."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.attention.attention import (mha_bwd_dkv,
+                                                         mha_bwd_dq)
+    td = DTYPES[dtype]
+    x = _inputs(7, 2, 128, 128, 8, 2, 64)
+    q, k, v = (torch.from_numpy(a).to(cuda, td).requires_grad_() for a in x)
+    do = torch.randn(q.shape, generator=torch.Generator(device=cuda)
+                     .manual_seed(0), device=cuda).to(td)
+    before = (mha_fwd.launches, mha_bwd_dq.launches, mha_bwd_dkv.launches)
+    out = dispatch.flash_attention(q, k, v, scale=0.125, causal=True)
+    got = torch.autograd.grad(out, [q, k, v], do)
+    torch.cuda.synchronize()
+    after = (mha_fwd.launches, mha_bwd_dq.launches, mha_bwd_dkv.launches)
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+    monkeypatch.setattr(dispatch, "mha_fwd", mha_fwd_ref)
+    ref = dispatch.flash_attention(q, k, v, scale=0.125, causal=True)
+    want = torch.autograd.grad(ref, [q, k, v], do)
+    assert mha_bwd_dq.launches == after[1]  # the plain route: no kernel
+    atol, rtol = _tol(dtype)
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+    for g, w in zip(got, want):
+        assert g.dtype == td
+        scale = w.float().abs().max().item()
+        torch.testing.assert_close(g.float(), w.float(), rtol=rtol,
+                                   atol=(2e-5 if dtype == "f32" else 1e-2)
+                                   * scale)
+    with pytest.raises(RuntimeError, match="flash_attention"):
+        mha_fwd(q, k, v, scale=0.125, causal=True)
+
+
+def _train_counts():
+    from repro_torch.kernels.attention import attention as A
+    from repro_torch.kernels.colnorm import colnorm as C
+    from repro_torch.kernels.scale_head import scale_head as SH
+    from repro_torch.kernels.xent import xent as X
+    fns = (A.mha_fwd, A.mha_bwd_dq, A.mha_bwd_dkv, X.xent_fwd,
+           X.xent_bwd_dh, X.xent_bwd_dw, C.norm_sumsq, C.update_apply,
+           SH.momentum_sumsq, C.norm_apply)
+    return {f.__name__: f.launches for f in fns}
+
+
+@pytest.mark.gpu
+def test_train_step_on_card_goes_through_the_kernels(cuda, monkeypatch):
+    """make_train_step of scale_fused (clip 1.0, remat full) on a small
+    llama: per step 2L mha_fwd (forward and recompute), L of each backward
+    kernel, one of each xent kernel, 8 norm_sumsq, 9 update_apply, one
+    momentum_sumsq and no norm_apply; the loss falls over four steps, and
+    one loss-and-grad matches plain attention's autograd (bf16 at 2 layers:
+    per leaf, 3e-2 of its largest |gradient|, the roundings of the
+    attention outputs differing)."""
+    from repro_torch.core import linear_warmup_cosine, make_optimizer
+    from repro_torch.data import make_dataset
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import ModelConfig, init_params
+    from repro_torch.training import (init_state, make_train_step,
+                                      value_and_grad)
+    cfg = ModelConfig(name="gpu", n_layers=2, d_model=256, n_heads=4,
+                      n_kv_heads=2, d_ff=512, vocab_size=1000,
+                      dtype="bfloat16")
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         device=cuda)
+    ds = make_dataset(cfg, 128, 4, seed=1, device=cuda)
+    batch = ds.global_batch_at(0)
+    _, _, grads = value_and_grad(params, cfg, batch)
+    with monkeypatch.context() as m:
+        m.setattr(dispatch, "mha_fwd", mha_fwd_ref)
+        _, _, ref = value_and_grad(params, cfg, batch)
+    for k, g in grads.items():
+        scale = ref[k].float().abs().max().item()
+        d = (g.float() - ref[k].float()).abs().max().item()
+        assert d <= 3e-2 * scale, (k, d, scale)
+    tx = make_optimizer("scale_fused", linear_warmup_cosine(1e-2, 8))
+    step = make_train_step(cfg, tx, clip_norm=1.0)
+    state = init_state(params, tx)
+    want = {"mha_fwd": 2 * cfg.n_layers, "mha_bwd_dq": cfg.n_layers,
+            "mha_bwd_dkv": cfg.n_layers, "xent_fwd": 1, "xent_bwd_dh": 1,
+            "xent_bwd_dw": 1, "norm_sumsq": 8, "update_apply": 9,
+            "momentum_sumsq": 1, "norm_apply": 0}
+    losses = []
+    for i in range(4):
+        before = _train_counts()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        after = _train_counts()
+        assert {k: after[k] - before[k] for k in want} == want, i
+        losses.append(float(metrics["loss"]))
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    assert int(state.step) == 4
 
 
 @pytest.mark.gpu
