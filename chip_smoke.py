@@ -10,16 +10,22 @@ nvcc (one process per source, in parallel), then runs eight phases and fails
 
 1. device: the card's name and power limit, the kernels' ptxas report;
 2. every kernel against its plain PyTorch version on the card, at the
-   main paths' shapes and at the edge cases, with stated tolerances; the
-   optimizer, cross-entropy and attention-backward kernels also run twice
-   (bitwise equal), and the optimizer kernels show that they write in
-   place where the TPU kernels alias;
+   main paths' shapes and at the edge cases, with stated tolerances;
+   ``mha_fwd`` on the route its wrapper picks (``mma`` tensor cores,
+   ``fma`` or ``decode``), with the route counted, and the fma kernel
+   also at the eval shape in bf16; the tensor-core forward, the optimizer,
+   cross-entropy and attention-backward kernels also run twice (bitwise
+   equal), and the optimizer kernels show that they write in place where
+   the TPU kernels alias;
 3. the serving path: greedy serving of llama-130m at full width and
    depth (bf16, seeded random weights; batch 8, a 512-token prompt, 64
    new tokens), checked against a full-sequence forward, with the kernel
-   launch counts of the run;
+   launch counts of the run (the prefill's on the ``mma`` route, every
+   decode step's on ``decode``);
 4. kernel times with CUDA events beside their bound, the plain version
-   and one PyTorch library call computing the same function;
+   and one PyTorch library call computing the same function; for
+   ``mha_fwd`` also its device time (torch.profiler) and, where it takes
+   the tensor cores, the fma kernel's time at the same shape;
 5. where the serving time goes: device busy time and the top kernels of
    one prefill and of decode steps, from torch.profiler;
 6. the optimizer path: SCALE steps of llama-1b at full width and depth
@@ -33,8 +39,8 @@ nvcc (one process per source, in parallel), then runs eight phases and fails
    and peak memory;
 7. the loss path: llama-1b at full width and depth (bf16, seeded random
    weights; batch 16 of 256 tokens from the ported ``SyntheticLM``):
-   ``make_eval_step`` (exactly 24 ``mha_fwd`` and 1 ``xent_fwd``
-   launches), its loss against the plain full-logit route on the same
+   ``make_eval_step`` (exactly 24 ``mha_fwd``, all on the ``mma`` route,
+   and 1 ``xent_fwd`` launches), its loss against the plain full-logit route on the same
    hidden, against a forward whose attention is the plain ``mha_fwd_ref``,
    and beside ln(V) + sigma^2/2; the loss and its gradient at the
    head (exactly 1 launch of each xent kernel), held against the plain
@@ -44,7 +50,8 @@ nvcc (one process per source, in parallel), then runs eight phases and fails
    random weights, batches of 16 x 256 from ``SyntheticLM``,
    ``scale_fused`` with clip 1.0 and ``remat="full"``): the launcher's
    ``main`` for three steps, then ``make_train_step`` for eight, each step's
-   launches checked on every kernel counter (48 ``mha_fwd``, 24 of each
+   launches checked on every kernel counter (48 ``mha_fwd``, all on the
+   ``mma`` route, 24 of each
    attention backward kernel, one of each xent kernel, 8 ``norm_sumsq``, 9
    ``update_apply``, one ``momentum_sumsq``), the loss falling and held to
    the curve of the same steps with attention through plain ``mha_fwd_ref``
@@ -80,7 +87,10 @@ F32_OUT_ATOL = 2e-5
 # bf16 out: the kernel rounds the running, unnormalized p to bf16, the plain
 # version the normalized p; the output itself has 8 bits of mantissa.
 BF16_OUT_ATOL, BF16_OUT_RTOL = 2e-2, 2e-2
-# lse is f32 in both dtypes, from exact f32 products of the inputs.
+# lse is f32 in both dtypes. f32 scores are f32 FMAs; bf16 scores (the
+# tensor-core route) are exact bf16 products summed in f32 inside mma.sync,
+# chained over at most 8 k-steps through its truncating f32 accumulator:
+# some 1e-6 of a unit-scale score, and lse moves no more than its scores.
 LSE_ATOL, LSE_RTOL = 1e-4, 1e-5
 # Last decode step's logits against the full-sequence forward (bf16,
 # 12 layers): the two paths round each bf16 matmul output at different
@@ -225,7 +235,32 @@ def attention_cases():
         "hd=128": (4, 512, 512, 8, 8, 128, True, None),
         "hd=256": (2, 512, 512, 8, 1, 256, True, None),
         "eval llama-1b": (16, 256, 256, 32, 32, 64, True, None),
+        # the edges of the tensor-core (mma) route
+        "S=5 past decode": (8, 5, 5, 12, 12, 64, True, None),
+        "ragged S=T=200": (8, 200, 200, 12, 12, 64, True, None),
+        "rect causal S=64 T=576 hd=128": (8, 64, 576, 12, 12, 128, True,
+                                          None),
+        "gqa H=14 K=2 S=T=100 hd=128": (4, 100, 100, 14, 2, 128, True, None),
+        "kv_len=300 S=16": (8, 16, 576, 12, 12, 64, False, 300),
     }
+
+
+def route_counts():
+    from repro_torch.kernels.attention.attention import mha_fwd
+    return dict(mha_fwd.route_launches)
+
+
+def zero_route_counts():
+    from repro_torch.kernels.attention.attention import mha_fwd
+    for r in mha_fwd.route_launches:
+        mha_fwd.route_launches[r] = 0
+
+
+def check_routes(got, want, what):
+    want = {"mma": 0, "fma": 0, "decode": 0, **want}
+    print(f"  {what}: mha_fwd launches by route {got} (expect {want})")
+    if got != want:
+        raise AssertionError(f"{what}: mha_fwd routes {got}, not {want}")
 
 
 def make_qkv(torch, gen, B, S, T, H, K, hd, dtype):
@@ -235,42 +270,64 @@ def make_qkv(torch, gen, B, S, T, H, K, hd, dtype):
 
 
 def phase_kernels(torch, gen):
-    """Phase 2: mha_fwd against mha_fwd_ref on the card. -> max errors."""
-    from repro_torch.kernels.attention.attention import mha_fwd
+    """Phase 2: mha_fwd against mha_fwd_ref on the card, each case on the
+    route ``_fwd_route`` picks; at the eval shape in bf16 also the fma
+    kernel that took it before the tensor-core route (phase 4 times it).
+    -> max errors."""
+    from repro_torch.kernels.attention.attention import (_fwd_route,
+                                                         _launch_fwd, mha_fwd)
     from repro_torch.kernels.attention.ref import mha_fwd_ref
     errs = {}
-    for name, (B, S, T, H, K, hd, causal, kl) in attention_cases().items():
-        for dtype in (torch.bfloat16, torch.float32):
-            q, k, v = make_qkv(torch, gen, B, S, T, H, K, hd, dtype)
-            kv_len = None if kl is None else torch.tensor(
-                kl, dtype=torch.int32, device="cuda")
+    cases = [(name, shape, dtype, None) for name, shape in
+             attention_cases().items()
+             for dtype in (torch.bfloat16, torch.float32)]
+    cases.append(("eval llama-1b", attention_cases()["eval llama-1b"],
+                  torch.bfloat16, "fma"))
+    for name, (B, S, T, H, K, hd, causal, kl), dtype, forced in cases:
+        q, k, v = make_qkv(torch, gen, B, S, T, H, K, hd, dtype)
+        kv_len = None if kl is None else torch.tensor(
+            kl, dtype=torch.int32, device="cuda")
+        route = forced or _fwd_route(q, k, v)
+        before = route_counts()
+        if forced:
+            out, lse = _launch_fwd(forced, q, k, v, kv_len,
+                                   hd ** -0.5, causal)
+        else:
             out, lse = mha_fwd(q, k, v, kv_len, scale=hd ** -0.5,
                                causal=causal)
-            torch.cuda.synchronize()
-            ref, ref_lse = mha_fwd_ref(q, k, v, kv_len, scale=hd ** -0.5,
-                                       causal=causal)
-            if dtype == torch.float32:
-                atol, rtol = F32_OUT_ATOL, 0.0
-            else:
-                atol, rtol = BF16_OUT_ATOL, BF16_OUT_RTOL
-            d = (out.float() - ref.float()).abs()
-            out_ok = bool((d <= atol + rtol * ref.float().abs()).all())
-            rows = ref_lse > -1e29  # rows with at least one valid key
-            dl = (lse - ref_lse).abs()[rows]
-            lse_ok = bool((dl <= LSE_ATOL + LSE_RTOL
-                           * ref_lse[rows].abs()).all())
-            finite = bool(torch.isfinite(out.float()).all())
-            zero_ok = kl != 0 or bool((out == 0).all())
-            e_out = d.max().item()
-            e_lse = dl.max().item() if dl.numel() else 0.0
-            tag = str(dtype).replace("torch.", "")
-            print(f"  {name:26s} {tag:9s} out err {e_out:.3e} "
-                  f"(tol {atol:g} + {rtol:g}|ref|)  lse err {e_lse:.3e} "
-                  f"(tol {LSE_ATOL:g} + {LSE_RTOL:g}|ref|)")
-            if not (out_ok and lse_ok and finite and zero_ok):
-                raise AssertionError(f"mha_fwd disagrees with the plain "
-                                     f"version: {name} {tag}")
-            errs[(name, tag)] = e_out
+        torch.cuda.synchronize()
+        after = route_counts()
+        if not forced and after != {**before, route: before[route] + 1}:
+            raise AssertionError(f"mha_fwd {name}: routes {before} -> "
+                                 f"{after}, expected one {route}")
+        if route == "mma":  # bitwise on a second run
+            again = mha_fwd(q, k, v, kv_len, scale=hd ** -0.5, causal=causal)
+            if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])):
+                raise AssertionError(f"mha_fwd {name}: a second run differs")
+        ref, ref_lse = mha_fwd_ref(q, k, v, kv_len, scale=hd ** -0.5,
+                                   causal=causal)
+        if dtype == torch.float32:
+            atol, rtol = F32_OUT_ATOL, 0.0
+        else:
+            atol, rtol = BF16_OUT_ATOL, BF16_OUT_RTOL
+        d = (out.float() - ref.float()).abs()
+        out_ok = bool((d <= atol + rtol * ref.float().abs()).all())
+        rows = ref_lse > -1e29  # rows with at least one valid key
+        dl = (lse - ref_lse).abs()[rows]
+        lse_ok = bool((dl <= LSE_ATOL + LSE_RTOL
+                       * ref_lse[rows].abs()).all())
+        finite = bool(torch.isfinite(out.float()).all())
+        zero_ok = kl != 0 or bool((out == 0).all())
+        e_out = d.max().item()
+        e_lse = dl.max().item() if dl.numel() else 0.0
+        tag = str(dtype).replace("torch.", "")
+        print(f"  {name:29s} {tag:8s} {route:6s} out err {e_out:.3e} "
+              f"(tol {atol:g} + {rtol:g}|ref|)  lse err {e_lse:.3e} "
+              f"(tol {LSE_ATOL:g} + {LSE_RTOL:g}|ref|)")
+        if not (out_ok and lse_ok and finite and zero_ok):
+            raise AssertionError(f"mha_fwd disagrees with the plain "
+                                 f"version: {name} {tag} {route}")
+        errs[(name, tag) if not forced else (name, tag, forced)] = e_out
     return errs
 
 
@@ -523,17 +580,22 @@ def phase_serving(torch, seed, power):
     # the main path: counts set to 0 just before it, read just after
     torch.cuda.reset_peak_memory_stats()
     mha_fwd.launches = 0
+    zero_route_counts()
     t0 = time.perf_counter()
     out = greedy_generate(cfg, params, prompt, N, max_seq)
     torch.cuda.synchronize()
     e2e_s = time.perf_counter() - t0
     launches = mha_fwd.launches
+    routes = route_counts()
     peak = torch.cuda.max_memory_allocated()
     want = cfg.n_layers * (1 + (N - 1))
     print(f"  greedy_generate: mha_fwd launches {launches} (expect "
           f"{cfg.n_layers} x (1 + {N - 1}) = {want})")
     if launches != want:
         raise AssertionError(f"mha_fwd launched {launches} times, not {want}")
+    # the prompt's prefill on the tensor cores, every decode step on decode
+    check_routes(routes, {"mma": cfg.n_layers,
+                          "decode": cfg.n_layers * (N - 1)}, "greedy_generate")
     if out.shape != (B, N) or not bool(((out >= 0)
                                         & (out < cfg.vocab_size)).all()):
         raise AssertionError(f"bad generated tokens {tuple(out.shape)}")
@@ -542,12 +604,14 @@ def phase_serving(torch, seed, power):
     prefill = make_prefill_step(cfg, max_seq)
     decode = make_decode_step(cfg)
     mha_fwd.launches = 0
+    zero_route_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state, logits = prefill(params, prompt)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     n_prefill = mha_fwd.launches
+    check_routes(route_counts(), {"mma": cfg.n_layers}, "prefill")
     mha_fwd.launches = 0
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
@@ -600,6 +664,29 @@ def time_ms(torch, fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def device_ms(torch, fn, n, match=""):
+    """Device time per call of the kernels whose name contains ``match``
+    (all kernels by default), over ``n`` calls of ``fn`` under
+    torch.profiler: the kernels' own time, without the host's launch cost
+    that back-to-back CUDA-event timing includes when the host is the
+    slower side. None if the profiler recorded no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type.name == "CUDA" and match in e.key)
+    return total / 1e3 / n if total else None
+
+
+def fmt_ms(x):
+    return "not measured" if x is None else f"{x:.4f} ms"
+
+
 def attention_bound_ms(B, S, T, H, K, hd, causal, kv_len, el_bytes):
     """Least time: max(bytes once / HBM rate, FLOPs / bf16 peak)."""
     keys = kv_len if kv_len is not None else T
@@ -616,9 +703,12 @@ def attention_bound_ms(B, S, T, H, K, hd, causal, kv_len, el_bytes):
 
 def phase_timing(torch, gen, power, serve, errs):
     """Phase 4: kernel, plain version and SDPA at the serving shapes and
-    at the llama-1b eval step's (its launches are filled in after phase 7)."""
+    at the llama-1b eval step's (its launches are filled in after phase 7).
+    Where the tensor-core route runs, the fma kernel that ran these shapes
+    before it is timed beside it, in the same run."""
     import torch.nn.functional as F
-    from repro_torch.kernels.attention.attention import mha_fwd
+    from repro_torch.kernels.attention.attention import (_fwd_route,
+                                                         _launch_fwd, mha_fwd)
     from repro_torch.kernels.attention.ref import mha_fwd_ref
     kl = serve["mean_kv_len"]
     shapes = {
@@ -636,28 +726,46 @@ def phase_timing(torch, gen, power, serve, errs):
         kl_t = None if kv_len is None else torch.tensor(
             kv_len, dtype=torch.int32, device="cuda")
         scale = hd ** -0.5
+        route = _fwd_route(q, k, v)
         ms = time_ms(torch, lambda: mha_fwd(q, k, v, kl_t, scale=scale,
                                             causal=causal), iters)
+        dev_ms = device_ms(torch, lambda: mha_fwd(
+            q, k, v, kl_t, scale=scale, causal=causal), 10, "mha_fwd")
+        fma_ms = fma_dev_ms = None
+        if route == "mma":
+            def fma():
+                return _launch_fwd("fma", q, k, v, kl_t, scale, causal)
+            fma_ms = time_ms(torch, fma, max(iters // 5, 5))
+            fma_dev_ms = device_ms(torch, fma, 5, "mha_fwd")
         plain_ms = time_ms(torch, lambda: mha_fwd_ref(
             q, k, v, kl_t, scale=scale, causal=causal), max(iters // 10, 5))
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         mask = None
         if kv_len is not None:
             mask = (torch.arange(T, device="cuda") < kv_len)[None, None, None]
-        lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, is_causal=causal, scale=scale),
-            iters)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, is_causal=causal, scale=scale)
+        lib_ms = time_ms(torch, sdpa, iters)
+        lib_dev_ms = device_ms(torch, sdpa, 10)
         bound, by = attention_bound_ms(B, S, T, H, K, hd, causal, kv_len, 2)
         print(f"  [{power}] mha_fwd {phase} B={B} S={S} T={T} H={H} hd={hd}"
-              f"{' kv_len=%d' % kv_len if kv_len is not None else ''}: "
-              f"{ms:.4f} ms (bound {bound:.4f} ms by {by}; plain "
-              f"{plain_ms:.4f} ms; SDPA {lib_ms:.4f} ms)")
+              f"{' kv_len=%d' % kv_len if kv_len is not None else ''}, "
+              f"{route} route: {ms:.4f} ms (device time {fmt_ms(dev_ms)}; "
+              f"bound {bound:.4f} ms by {by}; plain {plain_ms:.4f} ms; SDPA "
+              f"{lib_ms:.4f} ms, device time {fmt_ms(lib_dev_ms)})"
+              + ("" if fma_ms is None else f"; the fma kernel at this shape "
+                 f"{fma_ms:.4f} ms (device time {fmt_ms(fma_dev_ms)})"))
         rows.append({"name": "mha_fwd", "shape": phase, "route": "cuda",
+                     "kernel_route": route,
                      "source": SRC_MHA, "replaces": TPU_MHA,
                      "launches": launches,
                      "max_abs_err": errs[(err_case, "bfloat16")],
-                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                     "bound_by": by, "library_ms": lib_ms})
+                     "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                     "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
+                     "library_device_ms": lib_dev_ms, "fma_ms": fma_ms,
+                     "fma_device_ms": fma_dev_ms})
     return rows
 
 
@@ -696,8 +804,10 @@ def bwd_timing(torch, gen, power, errs):
     o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                        scale=hd ** -0.5)
     dot = do.transpose(1, 2).contiguous()
-    lib_ms = time_ms(torch, lambda: torch.autograd.grad(
-        o, [qt, kt, vt], dot, retain_graph=True), 20)
+    def sdpa_bwd():
+        return torch.autograd.grad(o, [qt, kt, vt], dot, retain_graph=True)
+    lib_ms = time_ms(torch, sdpa_bwd, 20)
+    lib_dev_ms = device_ms(torch, sdpa_bwd, 10)
     note = "backward of F.scaled_dot_product_attention (dQ, dK, dV together)"
     rows = []
     for name, kern, plain in (("mha_bwd_dq", mha_bwd_dq, mha_bwd_dq_ref),
@@ -707,7 +817,8 @@ def bwd_timing(torch, gen, power, errs):
         bound, by = bwd_bound_ms(B, S, T, H, K, hd, True, None, 2, name)
         print(f"  [{power}] {name} B={B} S={S} T={T} H={H} hd={hd} causal "
               f"bf16: {ms:.4f} ms (bound {bound:.4f} ms by {by}; plain "
-              f"{plain_ms:.4f} ms; {note} {lib_ms:.4f} ms)")
+              f"{plain_ms:.4f} ms; {note} {lib_ms:.4f} ms, device time "
+              f"{fmt_ms(lib_dev_ms)})")
         rows.append({"name": name, "shape": f"B={B} S={S} T={T} H={H} "
                      f"K={K} hd={hd} causal bf16", "route": "cuda",
                      "source": SRC_MHA_BWD, "replaces": TPU_KERNELS[name],
@@ -716,7 +827,7 @@ def bwd_timing(torch, gen, power, errs):
                                           "bfloat16")],
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                      "bound_by": by, "library_ms": lib_ms,
-                     "library_note": note})
+                     "library_device_ms": lib_dev_ms, "library_note": note})
     return rows
 
 
@@ -1261,9 +1372,11 @@ def phase_loss(torch, seed, power):
 
     # the main path: counts set to 0 just before it, read just after
     zero_xent_counts()
+    zero_route_counts()
     out = eval_step(params, batch)
     torch.cuda.synchronize()
     c_eval = xent_counts()
+    check_routes(route_counts(), {"mma": cfg.n_layers}, "make_eval_step")
     want = {"mha_fwd": cfg.n_layers, "xent_fwd": 1, "xent_bwd_dh": 0,
             "xent_bwd_dw": 0}
     print(f"  make_eval_step launches {c_eval} (expect {want})")
@@ -1453,14 +1566,18 @@ def phase_train(torch, seed, power):
     state = init_state(params, tx)
     torch.cuda.synchronize()
     zero_train_counts()
-    per_step, losses = [], []
+    zero_route_counts()
+    per_step, per_step_routes, losses = [], [], []
     for b in batches:
-        before = train_counts()
+        before, before_r = train_counts(), route_counts()
         state, metrics = step(state, b)
         per_step.append({k: v - before[k] for k, v in train_counts().items()})
+        per_step_routes.append({k: v - before_r[k]
+                                for k, v in route_counts().items()})
         losses.append(metrics["loss"])
     torch.cuda.synchronize()
     launches = train_counts()
+    routes = route_counts()
     want = {"mha_fwd": 2 * L, "mha_bwd_dq": L, "mha_bwd_dkv": L,
             "xent_fwd": 1, "xent_bwd_dh": 1, "xent_bwd_dw": 1,
             "norm_sumsq": 8, "update_apply": 9, "momentum_sumsq": 1,
@@ -1470,6 +1587,12 @@ def phase_train(torch, seed, power):
             raise AssertionError(f"train step {i} launched {c}, not {want}")
     print(f"  make_train_step: every one of {TRAIN_STEPS} steps launched "
           f"{want}; over the run {launches}")
+    # the forward and its recompute on the tensor cores, every step
+    for i, c in enumerate(per_step_routes):
+        if c != {"mma": 2 * L, "fma": 0, "decode": 0}:
+            raise AssertionError(f"train step {i}: mha_fwd routes {c}")
+    check_routes(routes, {"mma": 2 * L * TRAIN_STEPS},
+                 f"{TRAIN_STEPS} train steps")
     losses = [float(x) for x in losses]
 
     # the same steps with attention through plain mha_fwd_ref autograd
@@ -1558,7 +1681,7 @@ def phase_train(torch, seed, power):
     print(f"  [{power}] train step {step_s * 1e3:.3f} ms (best of 3; "
           f"{B * S / step_s:.0f} tokens/s)")
     profile_step(torch, power, one, step_s * 1e3, n=1, label="train step",
-                 top=16)
+                 top=24)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     one()

@@ -10,6 +10,13 @@ there is no fallback: a build or launch failure raises. Each wrapper's
 ``launches`` counts its kernel launches, so a run can show that it went
 through the kernel.
 
+The forward has three CUDA kernels, one per route, chosen by
+``_fwd_route`` from dtype and shape alone: ``mma`` (tensor cores, bf16
+with hd == hdv in {64, 128}: training, eval and prefill), ``decode``
+(S <= 4) and ``fma`` (f32 FMAs: float32, and bf16 heads the tensor-core
+kernel does not take). ``mha_fwd.route_launches`` counts launches by
+route beside ``mha_fwd.launches``.
+
 A kernel's output carries no autograd history. The differentiable route
 is ``dispatch.flash_attention``, an autograd Function whose backward runs
 the two backward kernels; on the card a direct ``mha_fwd`` call that
@@ -26,15 +33,38 @@ from .. import _build
 from .ref import mha_bwd_dkv_ref, mha_bwd_dq_ref, mha_fwd_ref
 
 _DTYPES = (torch.bfloat16, torch.float32)
-_MAX_HEAD_DIM = 256  # the largest K+V tile that fits the H100's shared memory
+# the forward's fma and decode kernels stage K and V tiles as f32: 256 is
+# the widest head whose tiles fit the H100's shared memory
+_MAX_HEAD_DIM = 256
+# the tensor-core forward keeps a warp's (16, hdv) f32 output in registers;
+# at 256 it would spill (csrc/mha_fwd.cu), so those heads take fma
+_MMA_HEAD_DIMS = (64, 128)
+# S at or below this takes the decode kernel (the C entry mha_fwd, which
+# runs decode and fma, applies the same bound)
+_DECODE_ROWS = 4
 # the backward kernels keep a row's dQ (or a key's dK and dV) in 16
 # registers per lane; wider heads (gemma-2b's 256) wait for ROADMAP.md
 # Queue 1 item 20
 _MAX_BWD_HEAD_DIM = 128
 
 
-def _bind(lib: ctypes.CDLL):
-    fn = lib.mha_fwd
+def _fwd_route(q, k, v) -> str:
+    """The forward kernel a CUDA call takes: "decode" for S <= 4, "mma" for
+    bf16 with hd == hdv in {64, 128}, "fma" otherwise (float32, and bf16
+    with hd 256 or hd != hdv). By dtype and shape alone; every route
+    computes the same function."""
+    if q.shape[1] <= _DECODE_ROWS:
+        return "decode"
+    if (q.dtype == torch.bfloat16 and k.shape[3] == v.shape[3]
+            and k.shape[3] in _MMA_HEAD_DIMS):
+        return "mma"
+    return "fma"
+
+
+def _bind(lib: ctypes.CDLL, name: str = "mha_fwd"):
+    """``mha_fwd`` (fma and decode kernels) or ``mha_fwd_mma`` of
+    ``csrc/mha_fwd.cu``: one argument list."""
+    fn = getattr(lib, name)
     if fn.argtypes is None:
         p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i,
@@ -119,13 +149,29 @@ def mha_fwd(q, k, v, kv_len=None, *, scale: float, causal: bool = True):
             raise ValueError(f"mha_fwd: {name} needs a contiguous last dim, "
                              "8-element-aligned strides and a 16-byte-aligned "
                              "start")
+    route = _fwd_route(q, k, v)
+    out, lse = _launch_fwd(route, q, k, v, kv_len, scale, causal)
+    mha_fwd.launches += 1
+    mha_fwd.route_launches[route] += 1
+    return out, lse
+
+
+mha_fwd.launches = 0
+mha_fwd.route_launches = {"mma": 0, "fma": 0, "decode": 0}
+
+
+def _launch_fwd(route, q, k, v, kv_len, scale, causal):
+    """(out, lse) from the kernel of ``route`` on checked CUDA operands.
+    ``mha_fwd`` passes ``_fwd_route``'s choice; chip_smoke.py also times
+    the fma kernel at shapes the mma route takes, beside it. Counts
+    nothing."""
     kv_len = _kv_len_tensor(kv_len, q.device, "mha_fwd")
     B, S, H, hd = q.shape
     T, K, hdv = k.shape[1], k.shape[2], v.shape[3]
     out = torch.empty((B, S, H, hdv), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     lib = _build.library("mha_fwd")
-    fn = _bind(lib)
+    fn = _bind(lib, "mha_fwd_mma" if route == "mma" else "mha_fwd")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -135,13 +181,9 @@ def mha_fwd(q, k, v, kv_len=None, *, scale: float, causal: bool = True):
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                  float(scale), int(causal), stream)
     if err:
-        raise RuntimeError(f"mha_fwd: CUDA launch failed: "
+        raise RuntimeError(f"mha_fwd: CUDA launch failed ({route} route): "
                            f"{lib.cuda_error_string(err).decode()} ({err})")
-    mha_fwd.launches += 1
     return out, lse
-
-
-mha_fwd.launches = 0
 
 
 def _kv_len_tensor(kv_len, device, name):

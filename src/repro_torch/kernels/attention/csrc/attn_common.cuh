@@ -1,6 +1,8 @@
 // Helpers shared by the attention kernels (mha_fwd.cu, mha_bwd.cu): dtype
 // conversion, 16-byte row loads and the staging of a tile into shared
-// memory as f32.
+// memory as f32 for the FMA kernels; cp.async copies, ldmatrix fragment
+// loads and the mma.sync m16n8k16 product (bf16 products, f32 sums) for the
+// tensor-core kernels.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -56,6 +58,64 @@ __device__ __forceinline__ void stage(float* dst, int ld, const T* src, int64_t 
 #pragma unroll
     for (int i = 0; i < 8; ++i) dst[r * ld + d + i] = tmp[i];
   }
+}
+
+// ---------------------------------------------------------------- tensor cores
+// Fragments of mma.sync.m16n8k16.row.col (lane = 4 * g + t4):
+//   A (16 x 16, bf16): a0 (row g, cols 2t4, 2t4+1), a1 (row g+8, same cols),
+//     a2 (row g, cols 2t4+8, +9), a3 (row g+8, cols 2t4+8, +9);
+//   B (16 x 8, bf16): b0 (rows 2t4, 2t4+1, col g), b1 (rows 2t4+8, +9, col g);
+//   C (16 x 8, f32): c0, c1 (row g, cols 2t4, 2t4+1), c2, c3 (row g+8).
+// The lower-indexed element of each bf16 pair sits in the low half.
+
+// Copy the first n of 16 bytes (n is 0 or 16 here) into shared memory and
+// fill the rest with zeros: the ragged edge of a tile reads nothing.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int n) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's committed copy groups are in flight.
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8 x 8 bf16 matrices; lane l gives the address of row l % 8 of
+// matrix l / 8, 16-byte aligned. Without .trans, lane 4g + t4 receives
+// elements (g, 2t4) and (g, 2t4+1) of each; with .trans, (2t4, g) and
+// (2t4+1, g).
+__device__ __forceinline__ void ldmatrix_x4(unsigned* r, const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a)
+               : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned* r, const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a)
+               : "memory");
+}
+
+// c += a b, bf16 products exact in f32, f32 sums.
+__device__ __forceinline__ void mma_bf16(float* c, const unsigned* a, unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two f32 values rounded to nearest-even bf16, lo in the low half: the A
+// fragment register of two adjacent C columns.
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<unsigned*>(&v);
 }
 
 }  // namespace

@@ -16,26 +16,65 @@
 //   * the epilogue clamps l at 1e-30, so a fully masked row (kv_len = 0)
 //     gives exactly 0, and lse = m + log(l).
 //
-// What bounds it on an H100: bytes. At the serving path's prefill shape
-// (B=8, S=T=512, H=K=12, hd=64, causal) q, k, v and out are 6.3 MB each,
-// about 25 MB moved against about 3.2 GFLOP, far below the 295 FLOP/byte
-// ridge; a decode step (S=1) reads the whole filled cache once for one
-// query row per head.
+// What bounds it on an H100: bytes. At the training step's shape (B=16,
+// S=T=256, 32 heads of 64, causal, bf16) q, k, v and out are 16.8 MB each,
+// about 67 MB moved against about 4.3 GFLOP, far below the 295 FLOP/byte
+// ridge; at llama-130m's prefill (B=8, S=T=512, 12 heads of 64) 25 MB
+// against 3.2 GFLOP; a decode step (S=1) reads the filled cache once for one
+// query row per head. On an H100 80GB HBM3 at 700 W (chip_smoke.py phase 4)
+// the mma route takes about 0.06 ms of device time at the training shape
+// against a 0.020 ms byte bound: a block has only 1 to 4 kv tiles at
+// S = 256, so its first tile's copy is never hidden, each K and V tile is
+// read again (from L2) by every q tile of its head, and at 136 registers a
+// lane (178 at hd 128) three blocks fit an SM.
 //
-// The design is the simple one: one thread block per (q tile, head, batch)
-// walks the kv tiles in order (the loop takes the place of the TPU's
-// sequential kv grid axis) with the running max, sum and f32 accumulator in
-// registers. K and V tiles are staged in shared memory as f32 with 16-byte
-// loads straight from the model's (B, T, K, hd) layout, read through strides.
-// Each query row is owned by TPR consecutive lanes of one warp: lane t
-// computes the scores of columns t, t+TPR, ... and accumulates output dims
-// t, t+TPR, ...; row max and sum are warp shuffles. Products are plain f32
-// FMAs (no mma.sync, wgmma or TMA), so at prefill the kernel is bound by its
-// shared-memory reads, not by HBM. The kv loop stops at the last tile that
-// any row of the block can see (kv_len bound and causal diagonal), as the
-// TPU kernel skips fully masked tiles. Small S (decode) takes a 4-row tile
-// with a full warp per row. A decode step still gets only B*H blocks, one
-// row each; splitting the cache across blocks (split-KV) is the next step.
+// Three kernels, one per route. The wrapper (attention.py, `_fwd_route`)
+// chooses by dtype and shape alone, and calls `mha_fwd_mma` for the first
+// and `mha_fwd` for the other two; none is a fallback of another.
+//
+//   * mma (bf16, S > 4, hd == hdv in {64, 128}: the training and eval steps
+//     and prefill) -- FlashAttention-2 on mma.sync. One block of 4 warps
+//     per (64-row q tile, head, batch), the q-tile index reversed so that
+//     the blocks with the most causal work start first. The Q tile is
+//     copied once into shared memory as bf16 (16-byte cp.async straight
+//     through the model's strides) and held in registers as A fragments
+//     (ldmatrix) for the whole kv loop. K and V tiles of 64 keys are bf16
+//     in two shared buffers: the next tile's cp.async is in flight while
+//     the current one is multiplied. Rows are padded by 8 elements (16
+//     bytes), so the 8 rows an ldmatrix reads fall in distinct banks. Keys
+//     at or past the block's last visible key are zero-filled through the
+//     copy's source size, so no stale cache value reaches P.V. Each warp
+//     owns 16 query rows: S = Q K^T is mma.sync m16n8k16 (bf16 products,
+//     exact in f32; f32 sums), the masks are applied to the accumulator
+//     fragment (only on the diagonal and kv_len edge tiles), the row max
+//     and sum are taken over the 4 lanes of a quad, and the C fragments of
+//     two adjacent score tiles, packed to bf16 (the rounding of p to v's
+//     dtype), are the A fragment of P.V, with V read by ldmatrix.trans.
+//     Nothing but the copies goes through shared memory until the epilogue,
+//     which stages each warp's output rows in its own rows of the Q tile
+//     for 16-byte stores. The kv loop stops at the last tile any row of
+//     the block can see.
+//     Tensor-core sums: each product's 16 terms are summed inside the
+//     mma, and the 4 (hd 64) or 8 (hd 128) k-steps are chained through
+//     its f32 accumulator, whose additions truncate rather than round.
+//     With scores of order 1 and at most 8 chained steps, the difference
+//     from a rounded f32 sum is some 1e-6 of a score, and lse moves by no
+//     more than its largest score does, well inside 1e-4 + 1e-5 |lse|.
+//     (xent.cu's backward chains far longer sums over D = 2048 and adds
+//     each step's product with an IEEE add; here that is not needed.)
+//     hd = 256 does not take this route: a warp's (16, 256) f32 output
+//     accumulator is 128 registers a lane, and with the Q fragments (64)
+//     and the scores (32) it leaves no room below the 255-register limit
+//     without spills.
+//   * fma (f32; bf16 with hd = 256 or hd != hdv) -- the simple design: one
+//     block per (q tile, head, batch) walks the kv tiles with the running
+//     max, sum and f32 accumulator in registers; K and V tiles are staged
+//     in shared memory as f32; each query row is owned by TPR lanes of one
+//     warp, and every product is an f32 FMA with one shared-memory operand,
+//     so it is bound by its shared-memory reads, not by HBM.
+//   * decode (S <= 4) -- the fma kernel with a 4-row tile and a full warp
+//     per row. A decode step still gets only B*H blocks, one row each;
+//     splitting the cache across blocks (split-KV) is the next step.
 #include "attn_common.cuh"
 
 namespace {
@@ -202,6 +241,222 @@ cudaError_t launch_t(const void* q, const void* k, const void* v, const int* kv_
                             causal, stream);
 }
 
+// ---------------------------------------------------------------------------
+// The mma route (design in the note at the top). HD == hd == hdv.
+constexpr int kMmaBQ = 64;       // query rows per block, 16 per warp
+constexpr int kMmaThreads = 128;
+
+template <int HD>
+constexpr size_t mma_smem_bytes() {  // Q tile and two K and two V tiles
+  return sizeof(__nv_bfloat16) * (kMmaBQ + 4 * kBK) * (HD + 8);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kMmaThreads)
+mha_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                   const __nv_bfloat16* __restrict__ v, const int* __restrict__ kv_len,
+                   __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int S, int T_len,
+                   int H, int G, int64_t sqb, int64_t sqs, int64_t sqh, int64_t skb,
+                   int64_t skt, int64_t skh, int64_t svb, int64_t svt, int64_t svh,
+                   float scale, int causal) {
+  constexpr int LD = HD + 8;      // padded rows: conflict-free ldmatrix
+  constexpr int TILE = kBK * LD;  // elements of one K or V buffer
+  constexpr int CH = HD / 8;      // 16-byte chunks per row
+  constexpr int NS = kBK / 8;     // n8 score tiles per warp
+  constexpr int NO = HD / 8;      // n8 output tiles per warp
+  constexpr int KQ = HD / 16;     // k16 steps of Q K^T
+  static_assert(kBK == kMmaBQ && HD % 16 == 0, "tile shapes");
+
+  extern __shared__ __align__(16) unsigned char mma_smem[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(mma_smem);  // (64, LD)
+  __nv_bfloat16* Ks = Qs + kMmaBQ * LD;                            // 2 x (64, LD)
+  __nv_bfloat16* Vs = Ks + 2 * TILE;                               // 2 x (64, LD)
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;   // fragment row and column pair
+  const int mi = lane >> 3, r8 = lane & 7;  // ldmatrix: matrix and row of this lane's address
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kMmaBQ;  // most causal work first
+  const int h = blockIdx.y, b = blockIdx.z, kvh = h / G;
+  const int offset = T_len - S;
+  const int row0 = q0 + warp * 16 + g;  // this lane's rows: row0 and row0 + 8
+
+  // Keys at or past klim are masked for every row; at or past kend for
+  // every row of this block.
+  const int kl = kv_len ? *kv_len : T_len;
+  const int klim = min(T_len, max(kl, 0));
+  int kend = klim;
+  if (causal) kend = min(kend, offset + min(q0 + kMmaBQ, S));
+  const int n_tiles = (kend + kBK - 1) / kBK;
+
+  const __nv_bfloat16* qb = q + b * sqb + h * sqh;
+  const __nv_bfloat16* kb = k + b * skb + kvh * skh;
+  const __nv_bfloat16* vb = v + b * svb + kvh * svh;
+  for (int c = threadIdx.x; c < kMmaBQ * CH; c += kMmaThreads) {
+    const int r = c / CH, d = (c % CH) * 8;
+    const bool ok = q0 + r < S;  // rows past S are zeros
+    cp_async16(Qs + r * LD + d, ok ? qb + (int64_t)(q0 + r) * sqs + d : qb, ok ? 16 : 0);
+  }
+  auto load_kv = [&](int j, int buf) {
+    const int k0 = j * kBK;
+    for (int c = threadIdx.x; c < kBK * CH; c += kMmaThreads) {
+      const int r = c / CH, d = (c % CH) * 8;
+      const bool ok = k0 + r < kend;  // keys past kend are zeros
+      cp_async16(Ks + buf * TILE + r * LD + d, ok ? kb + (int64_t)(k0 + r) * skt + d : kb,
+                 ok ? 16 : 0);
+      cp_async16(Vs + buf * TILE + r * LD + d, ok ? vb + (int64_t)(k0 + r) * svt + d : vb,
+                 ok ? 16 : 0);
+    }
+  };
+  if (n_tiles > 0) load_kv(0, 0);
+  cp_async_commit();  // group 0: the Q tile and kv tile 0
+
+  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};  // l: this lane's share of the row sum
+  float o[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  unsigned qf[KQ][4];
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int buf = j & 1, k0 = j * kBK;
+    if (j + 1 < n_tiles) {
+      load_kv(j + 1, buf ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile j (and at j = 0 the Q tile) is in shared memory
+    if (j == 0) {
+#pragma unroll
+      for (int ks = 0; ks < KQ; ++ks)
+        ldmatrix_x4(qf[ks], Qs + (warp * 16 + (mi & 1) * 8 + r8) * LD + ks * 16 + (mi >> 1) * 8);
+    }
+    const __nv_bfloat16* Kt = Ks + buf * TILE;
+    const __nv_bfloat16* Vt = Vs + buf * TILE;
+
+    float s[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KQ; ++ks)
+#pragma unroll
+      for (int np = 0; np < NS / 2; ++np) {
+        unsigned kf[4];  // B fragments of key tiles 2np and 2np+1
+        ldmatrix_x4(kf, Kt + (np * 16 + (mi >> 1) * 8 + r8) * LD + ks * 16 + (mi & 1) * 8);
+        mma_bf16(s[2 * np], qf[ks], kf[0], kf[1]);
+        mma_bf16(s[2 * np + 1], qf[ks], kf[2], kf[3]);
+      }
+
+    // Only the diagonal and kv_len edge tiles mask element by element.
+    const bool edge = k0 + kBK > klim || (causal && k0 + kBK - 1 > offset + q0);
+    auto valid = [&](int n, int e) {
+      const int col = k0 + n * 8 + 2 * t4 + (e & 1), row = row0 + 8 * (e >> 1);
+      return !edge || (col < klim && (!causal || offset + row >= col));
+    };
+    float mx[2] = {kNeg, kNeg};
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = valid(n, e) ? s[n][e] * scale : kNeg;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+      }
+    float m_new[2], alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      m_new[i] = fmaxf(m[i], mx[i]);
+      alpha[i] = expf(m[i] - m_new[i]);
+      m[i] = m_new[i];
+      l[i] *= alpha[i];
+    }
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = valid(n, e) ? expf(s[n][e] - m_new[e >> 1]) : 0.f;
+        l[e >> 1] += p;  // the sum takes p in f32, P.V in v's dtype
+        s[n][e] = p;
+      }
+
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      const unsigned pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int np = 0; np < NO / 2; ++np) {
+        unsigned vf[4];  // B fragments of output tiles 2np and 2np+1
+        ldmatrix_x4_trans(vf, Vt + (kk * 16 + (mi & 1) * 8 + r8) * LD + np * 16 + (mi >> 1) * 8);
+        mma_bf16(o[2 * np], pa, vf[0], vf[1]);
+        mma_bf16(o[2 * np + 1], pa, vf[2], vf[3]);
+      }
+    }
+    __syncthreads();  // buffer buf is free for the copy of tile j + 2
+  }
+
+  cp_async_wait<0>();  // with no tile, the Q copy may still be in flight
+  __syncthreads();     // every copy into Qs has landed before it is reused
+  float lc[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    lc[i] = fmaxf(l[i], 1e-30f);  // fully masked rows -> 0 output
+  }
+  // This warp's 16 output rows through its own rows of Qs, then 16-byte
+  // stores of whole rows.
+  __nv_bfloat16* Os = Qs + warp * 16 * LD;
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    const int d = n * 8 + 2 * t4;
+    *reinterpret_cast<unsigned*>(Os + g * LD + d) = pack_bf16(o[n][0] / lc[0], o[n][1] / lc[0]);
+    *reinterpret_cast<unsigned*>(Os + (g + 8) * LD + d) =
+        pack_bf16(o[n][2] / lc[1], o[n][3] / lc[1]);
+  }
+  __syncwarp();
+  for (int c = lane; c < 16 * CH; c += 32) {
+    const int r = c / CH, d = (c % CH) * 8, row = q0 + warp * 16 + r;
+    if (row < S)
+      *reinterpret_cast<uint4*>(out + (((int64_t)b * S + row) * H + h) * HD + d) =
+          *reinterpret_cast<const uint4*>(Os + r * LD + d);
+  }
+  if (t4 == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = row0 + 8 * i;
+      if (row < S) lse[((int64_t)b * H + h) * S + row] = m[i] + logf(lc[i]);
+    }
+  }
+}
+
+template <int HD>
+cudaError_t launch_mma(const void* q, const void* k, const void* v, const int* kv_len,
+                       void* out, float* lse, int B, int S, int T_len, int H, int K,
+                       const int64_t* st, float scale, int causal, cudaStream_t stream) {
+  constexpr size_t smem = mma_smem_bytes<HD>();  // 46 KB at hd 64, 85 KB at hd 128
+  cudaError_t e = cudaFuncSetAttribute(mha_fwd_mma_kernel<HD>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid((S + kMmaBQ - 1) / kMmaBQ, H, B);
+  mha_fwd_mma_kernel<HD><<<grid, kMmaThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), kv_len, static_cast<__nv_bfloat16*>(out), lse, S,
+      T_len, H, H / K, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], scale,
+      causal);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -221,6 +476,24 @@ int mha_fwd(const void* q, const void* k, const void* v, const int* kv_len, void
                                         st, scale, causal, s)
               : launch_t<float>(q, k, v, kv_len, out, lse, B, S, T_len, H, K, hd, hdv, st,
                                 scale, causal, s);
+  return static_cast<int>(e);
+}
+
+// The mma route: the arguments of mha_fwd, for bf16 with hd == hdv in
+// {64, 128} only (anything else is cudaErrorInvalidValue).
+int mha_fwd_mma(const void* q, const void* k, const void* v, const int* kv_len, void* out,
+                float* lse, int is_bf16, int B, int S, int T_len, int H, int K, int hd,
+                int hdv, int64_t sqb, int64_t sqs, int64_t sqh, int64_t skb, int64_t skt,
+                int64_t skh, int64_t svb, int64_t svt, int64_t svh, float scale, int causal,
+                void* stream) {
+  const int64_t st[9] = {sqb, sqs, sqh, skb, skt, skh, svb, svt, svh};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!is_bf16 || hd != hdv) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = cudaErrorInvalidValue;
+  if (hd == 64)
+    e = launch_mma<64>(q, k, v, kv_len, out, lse, B, S, T_len, H, K, st, scale, causal, s);
+  else if (hd == 128)
+    e = launch_mma<128>(q, k, v, kv_len, out, lse, B, S, T_len, H, K, st, scale, causal, s);
   return static_cast<int>(e);
 }
 

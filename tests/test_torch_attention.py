@@ -24,7 +24,8 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels.attention import attention as jattn  # noqa: E402
 from repro.kernels.attention import mask as jmask  # noqa: E402
 from repro_torch.kernels.attention import mask as tmask  # noqa: E402
-from repro_torch.kernels.attention.attention import mha_fwd  # noqa: E402
+from repro_torch.kernels.attention.attention import (  # noqa: E402
+    _fwd_route, mha_fwd)
 from repro_torch.kernels.attention.ref import mha_fwd_ref  # noqa: E402
 from repro_torch.kernels import dispatch  # noqa: E402
 
@@ -156,8 +157,39 @@ def test_wrapper_rejects_bad_inputs():
 
 def test_dispatch_routes_cpu_tensors_to_plain_version():
     q, k, v = (torch.from_numpy(x) for x in _inputs(0, 2, 9, 9, 4, 2, 16))
-    before = mha_fwd.launches
+    before = mha_fwd.launches, dict(mha_fwd.route_launches)
     out = dispatch.flash_attention(q, k, v, scale=0.25, causal=True)
     torch.testing.assert_close(out, mha_fwd_ref(q, k, v, scale=0.25,
                                                 causal=True)[0], rtol=0, atol=0)
-    assert mha_fwd.launches == before  # the CPU path launches no kernel
+    # the CPU path launches no kernel, on any route
+    assert (mha_fwd.launches, mha_fwd.route_launches) == before
+
+
+# (B, S, T, H, K, hd, hdv, dtype) -> the CUDA forward kernel it takes
+ROUTE_CASES = {
+    "train_llama1b": ((16, 256, 256, 32, 32, 64, 64, "bf16"), "mma"),
+    "rect_s256_t300": ((16, 256, 300, 32, 32, 64, 64, "bf16"), "mma"),
+    "prefill_llama130m": ((8, 512, 512, 12, 12, 64, 64, "bf16"), "mma"),
+    "hd128": ((4, 512, 512, 8, 8, 128, 128, "bf16"), "mma"),
+    "gqa_s5": ((8, 5, 5, 14, 2, 64, 64, "bf16"), "mma"),
+    "decode_s1": ((8, 1, 576, 12, 12, 64, 64, "bf16"), "decode"),
+    "decode_s4": ((8, 4, 576, 12, 12, 128, 128, "bf16"), "decode"),
+    "decode_s1_f32": ((8, 1, 576, 12, 12, 64, 64, "f32"), "decode"),
+    "train_f32": ((16, 256, 256, 32, 32, 64, 64, "f32"), "fma"),
+    "hd256": ((2, 512, 512, 8, 1, 256, 256, "bf16"), "fma"),
+    "hd64_hdv128": ((2, 64, 64, 8, 8, 64, 128, "bf16"), "fma"),
+    "hd32": ((2, 64, 64, 8, 8, 32, 32, "bf16"), "fma"),
+}
+
+
+@pytest.mark.parametrize("case", list(ROUTE_CASES))
+def test_fwd_route_choice(case):
+    """The forward kernel is chosen by dtype and shape alone: tensor cores
+    (mma) for bf16 heads of 64 and 128 past S = 4 (the training, eval and
+    prefill shapes), decode at S <= 4, f32 FMAs (fma) otherwise."""
+    (B, S, T, H, K, hd, hdv, dtype), want = ROUTE_CASES[case]
+    td = DTYPES[dtype][1]
+    q = torch.empty(B, S, H, hd, dtype=td, device="meta")
+    k = torch.empty(B, T, K, hd, dtype=td, device="meta")
+    v = torch.empty(B, T, K, hdv, dtype=td, device="meta")
+    assert _fwd_route(q, k, v) == want

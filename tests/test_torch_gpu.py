@@ -15,8 +15,12 @@ per element:
   * bf16 out: 2e-2 + 2e-2*|ref| — the kernel rounds the running,
     unnormalized p to bf16, the plain version the normalized p, and the
     output itself has 8 bits of mantissa;
-  * lse (f32 from exact products in both dtypes): 1e-4 + 1e-5*|ref|, on
+  * lse (f32 in both dtypes; bf16 scores are exact bf16 products summed
+    in f32 on the tensor cores, f32 ones f32 FMAs): 1e-4 + 1e-5*|ref|, on
     rows with at least one valid key.
+Every case also checks the forward's route count (``_fwd_route``: mma
+for bf16 heads of 64 and 128 past S = 4, decode at S <= 4, fma else), and
+a call at the training shape is bitwise equal on a second run.
 Optimizer kernels (``norm_sumsq``, ``norm_apply``, ``update_apply``,
 ``momentum_sumsq``) against their plain versions:
   * sums of squares: 2e-5 relative — positive f32 terms summed in chains
@@ -62,7 +66,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels.attention.attention import mha_fwd  # noqa: E402
+from repro_torch.kernels.attention.attention import (  # noqa: E402
+    _fwd_route, mha_fwd)
 from repro_torch.kernels.attention.ref import mha_fwd_ref  # noqa: E402
 
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
@@ -101,6 +106,12 @@ GPU_CASES = {
     "hd128": (4, 512, 512, 8, 8, 128, True, None),
     "hd256": (2, 512, 512, 8, 1, 256, True, None),
     "eval_llama1b": (16, 256, 256, 32, 32, 64, True, None),
+    # the edges of the tensor-core (mma) route
+    "s5_past_decode": (8, 5, 5, 12, 12, 64, True, None),
+    "ragged200": (8, 200, 200, 12, 12, 64, True, None),
+    "rect_causal_64x576_hd128": (8, 64, 576, 12, 12, 128, True, None),
+    "gqa14x2_ragged100_hd128": (4, 100, 100, 14, 2, 128, True, None),
+    "kvlen300_s16": (8, 16, 576, 12, 12, 64, False, 300),
 }
 
 
@@ -114,10 +125,12 @@ def test_kernel_matches_plain_on_card(cuda, case, dtype):
                for x in _inputs(1, B, S, T, H, K, hd))
     kl = None if kv_len is None else torch.tensor(kv_len, dtype=torch.int32,
                                                   device=cuda)
-    before = mha_fwd.launches
+    route = _fwd_route(q, k, v)
+    before = mha_fwd.launches, dict(mha_fwd.route_launches)
     out, lse = mha_fwd(q, k, v, kl, scale=hd ** -0.5, causal=causal)
     torch.cuda.synchronize()
-    assert mha_fwd.launches == before + 1
+    assert mha_fwd.launches == before[0] + 1
+    assert mha_fwd.route_launches == {**before[1], route: before[1][route] + 1}
     ref, ref_lse = mha_fwd_ref(q, k, v, kl, scale=hd ** -0.5, causal=causal)
     atol, rtol = _tol(dtype)
     torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
@@ -125,6 +138,22 @@ def test_kernel_matches_plain_on_card(cuda, case, dtype):
     torch.testing.assert_close(lse[rows], ref_lse[rows], atol=1e-4, rtol=1e-5)
     if kv_len == 0:
         assert (out == 0).all()
+
+
+@pytest.mark.gpu
+def test_train_shape_takes_the_mma_route_bitwise_repeatably(cuda):
+    """A bf16 call at the training step's shape (llama-1b: B=16, S=T=256,
+    32 heads of 64, causal) launches the tensor-core kernel exactly once,
+    and a second run gives the same bits."""
+    B, S, T, H, K, hd = 16, 256, 256, 32, 32, 64
+    q, k, v = (torch.from_numpy(x).to(cuda, torch.bfloat16)
+               for x in _inputs(2, B, S, T, H, K, hd))
+    before = dict(mha_fwd.route_launches)
+    out, lse = mha_fwd(q, k, v, scale=hd ** -0.5, causal=True)
+    torch.cuda.synchronize()
+    assert mha_fwd.route_launches == {**before, "mma": before["mma"] + 1}
+    out2, lse2 = mha_fwd(q, k, v, scale=hd ** -0.5, causal=True)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
 
 
 @pytest.mark.gpu
