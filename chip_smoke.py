@@ -13,19 +13,24 @@ nvcc (one process per source, in parallel), then runs eight phases and fails
    main paths' shapes and at the edge cases, with stated tolerances;
    ``mha_fwd`` on the route its wrapper picks (``mma`` tensor cores,
    ``fma`` or ``decode``), with the route counted, and the fma kernel
-   also at the eval shape in bf16; the tensor-core forward, the optimizer,
-   cross-entropy and attention-backward kernels also run twice (bitwise
-   equal), and the optimizer kernels show that they write in place where
-   the TPU kernels alias;
+   also at the eval shape in bf16; ``mha_bwd_dq`` and ``mha_bwd_dkv`` on
+   the route their wrappers pick (``mma`` tensor cores for bf16, ``fma``
+   for f32), counted, and the fma kernels also at the training shape in
+   bf16; the tensor-core forward, the optimizer, cross-entropy and
+   attention-backward kernels also run twice (bitwise equal), and the
+   optimizer kernels show that they write in place where the TPU kernels
+   alias;
 3. the serving path: greedy serving of llama-130m at full width and
    depth (bf16, seeded random weights; batch 8, a 512-token prompt, 64
    new tokens), checked against a full-sequence forward, with the kernel
    launch counts of the run (the prefill's on the ``mma`` route, every
    decode step's on ``decode``);
 4. kernel times with CUDA events beside their bound, the plain version
-   and one PyTorch library call computing the same function; for
-   ``mha_fwd`` also its device time (torch.profiler) and, where it takes
-   the tensor cores, the fma kernel's time at the same shape;
+   and one PyTorch library call computing the same function; for the
+   attention kernels also their device time (torch.profiler) and, where
+   they take the tensor cores, the fma kernels' time at the same shape
+   (the backward pair at the training shape and at qwen2-500m's GQA
+   shape);
 5. where the serving time goes: device busy time and the top kernels of
    one prefill and of decode steps, from torch.profiler;
 6. the optimizer path: SCALE steps of llama-1b at full width and depth
@@ -52,7 +57,8 @@ nvcc (one process per source, in parallel), then runs eight phases and fails
    ``main`` for three steps, then ``make_train_step`` for eight, each step's
    launches checked on every kernel counter (48 ``mha_fwd``, all on the
    ``mma`` route, 24 of each
-   attention backward kernel, one of each xent kernel, 8 ``norm_sumsq``, 9
+   attention backward kernel, all on the ``mma`` route, one of each xent
+   kernel, 8 ``norm_sumsq``, 9
    ``update_apply``, one ``momentum_sumsq``), the loss falling and held to
    the curve of the same steps with attention through plain ``mha_fwd_ref``
    autograd, one step under ``set_sync_debug_mode("error")``, every leaf's
@@ -245,22 +251,31 @@ def attention_cases():
     }
 
 
+ROUTED = ("mha_fwd", *BWD_KERNELS)  # the wrappers that count routes
+
+
 def route_counts():
-    from repro_torch.kernels.attention.attention import mha_fwd
-    return dict(mha_fwd.route_launches)
+    """{attention wrapper: its launches by route}."""
+    from repro_torch.kernels.attention import attention as A
+    return {k: dict(getattr(A, k).route_launches) for k in ROUTED}
 
 
 def zero_route_counts():
-    from repro_torch.kernels.attention.attention import mha_fwd
-    for r in mha_fwd.route_launches:
-        mha_fwd.route_launches[r] = 0
+    from repro_torch.kernels.attention import attention as A
+    for k in ROUTED:
+        for r in getattr(A, k).route_launches:
+            getattr(A, k).route_launches[r] = 0
 
 
-def check_routes(got, want, what):
-    want = {"mma": 0, "fma": 0, "decode": 0, **want}
-    print(f"  {what}: mha_fwd launches by route {got} (expect {want})")
+def check_routes(got, want, what, show=True):
+    """``got`` (as route_counts gives it) against ``want``, {wrapper:
+    {route: launches}}; a route left out of ``want`` is expected at 0."""
+    want = {k: {r: want.get(k, {}).get(r, 0) for r in c}
+            for k, c in got.items()}
+    if show:
+        print(f"  {what}: attention launches by route {got} (expect {want})")
     if got != want:
-        raise AssertionError(f"{what}: mha_fwd routes {got}, not {want}")
+        raise AssertionError(f"{what}: attention routes {got}, not {want}")
 
 
 def make_qkv(torch, gen, B, S, T, H, K, hd, dtype):
@@ -297,7 +312,9 @@ def phase_kernels(torch, gen):
                                causal=causal)
         torch.cuda.synchronize()
         after = route_counts()
-        if not forced and after != {**before, route: before[route] + 1}:
+        fwd = before["mha_fwd"]
+        if not forced and after != {**before, "mha_fwd": {
+                **fwd, route: fwd[route] + 1}}:
             raise AssertionError(f"mha_fwd {name}: routes {before} -> "
                                  f"{after}, expected one {route}")
         if route == "mma":  # bitwise on a second run
@@ -341,7 +358,25 @@ def bwd_cases():
         "rect causal S=64 T=576": (8, 64, 576, 12, 12, 64, True, None),
         "kv_len=300 K=4": (8, 16, 576, 12, 4, 64, False, 300),
         "kv_len=0": (8, 16, 576, 12, 12, 64, False, 0),
+        # the edges of the tensor-core (mma) route: dK, dV chained over
+        # 4 x 1024 query rows, and the hd 128 layout on a ragged tile
+        "long gqa S=T=1024 H=8 K=2": (1, 1024, 1024, 8, 2, 64, True, None),
+        "hd=128 ragged S=T=200": (2, 200, 200, 4, 4, 128, True, None),
+        # a bf16 head the mma route does not take: the fma kernels in bf16
+        "hd=32 gqa ragged S=T=200": (4, 200, 200, 8, 4, 32, True, None),
     }
+
+
+def bwd_fma(torch, name, args, kw):
+    """The fma kernel of backward kernel ``name`` on ``bwd_inputs``'s
+    ``args``, whatever route the wrapper would take: phase 2 checks it, and
+    phase 4 times it, at shapes the mma route takes. Counts nothing."""
+    from repro_torch.kernels.attention.attention import _launch_bwd
+    q, k, v = args[:3]
+    outs = ((torch.empty_like(q),) if name == "mha_bwd_dq"
+            else (torch.empty_like(k), torch.empty_like(v)))
+    _launch_bwd(name, "fma", outs, *args, kw["scale"], kw["causal"])
+    return outs[0] if name == "mha_bwd_dq" else outs
 
 
 def bwd_inputs(torch, gen, B, S, T, H, K, hd, causal, kl, dtype):
@@ -358,6 +393,9 @@ def bwd_inputs(torch, gen, B, S, T, H, K, hd, causal, kl, dtype):
 
 
 def _bwd_check(torch, name, got, want, tag, key):
+    """-> (max abs error, the largest error over its element's tolerance,
+    that element's error in ulps of the output dtype at its |ref|: 1 is
+    one rounding of the output landing apart, more is drift)."""
     scale = want.float().abs().max().item()
     d = (got.float() - want.float()).abs()
     tol = BWD_SCALE_ATOL[tag] * scale + BWD_RTOL[tag] * want.float().abs()
@@ -365,49 +403,79 @@ def _bwd_check(torch, name, got, want, tag, key):
             and got.dtype == want.dtype and got.shape == want.shape):
         raise AssertionError(f"{name} disagrees with the plain version: {key}, "
                              f"max err {d.max().item():.3e}")
-    return d.max().item()
+    ratio = (d / tol.clamp_min(1e-30)).flatten()
+    i = int(ratio.argmax())
+    w = want.flatten()[i:i + 1]
+    return (d.max().item(), ratio[i].item(),
+            (d.flatten()[i] / ulp(torch, w, want.dtype)[0]).item())
 
 
 def phase_bwd_kernels(torch, gen):
     """Phase 2: mha_bwd_dq and mha_bwd_dkv against their plain versions on
-    the card, each run twice (bitwise equal). -> {(kernel, case, dtype):
-    max abs error}."""
-    from repro_torch.kernels.attention.attention import mha_bwd_dkv, mha_bwd_dq
+    the card, each case on the route ``_bwd_route`` picks (counted), each
+    run twice (bitwise equal); at the training shape in bf16 also the fma
+    kernels that took it before the tensor-core route (phase 4 times
+    them). Prints each case's largest error over its element's tolerance,
+    which shows the tensor cores' chained sums drifting. -> {(kernel,
+    case, dtype[, forced route]): max abs error}."""
+    from repro_torch.kernels.attention.attention import (_bwd_route,
+                                                         mha_bwd_dkv,
+                                                         mha_bwd_dq)
     from repro_torch.kernels.attention.ref import (mha_bwd_dkv_ref,
                                                    mha_bwd_dq_ref)
     errs = {}
-    for name, (B, S, T, H, K, hd, causal, kl) in bwd_cases().items():
-        for dtype in (torch.bfloat16, torch.float32):
-            tag = str(dtype).replace("torch.", "")
-            key = f"{name} {tag}"
-            args = bwd_inputs(torch, gen, B, S, T, H, K, hd, causal, kl, dtype)
-            kw = dict(scale=hd ** -0.5, causal=causal)
-            dq = mha_bwd_dq(*args, **kw)
-            dk, dv = mha_bwd_dkv(*args, **kw)
-            torch.cuda.synchronize()
-            e_q = _bwd_check(torch, "mha_bwd_dq", dq,
-                             mha_bwd_dq_ref(*args, **kw), tag, key)
-            want_k, want_v = mha_bwd_dkv_ref(*args, **kw)
-            e_k = _bwd_check(torch, "mha_bwd_dkv dK", dk, want_k, tag, key)
-            e_v = _bwd_check(torch, "mha_bwd_dkv dV", dv, want_v, tag, key)
-            del want_k, want_v
-            _bitwise_again(torch, "mha_bwd_dq", dq, mha_bwd_dq(*args, **kw),
-                           key)
-            dk2, dv2 = mha_bwd_dkv(*args, **kw)
-            _bitwise_again(torch, "mha_bwd_dkv", torch.cat(
-                [dk.flatten(), dv.flatten()]), torch.cat(
-                [dk2.flatten(), dv2.flatten()]), key)
-            if kl == 0 and not all(bool((g == 0).all()) for g in (dq, dk, dv)):
-                raise AssertionError(f"kv_len=0 gradients are not 0: {key}")
-            errs[("mha_bwd_dq", name, tag)] = e_q
-            errs[("mha_bwd_dkv", name, tag)] = max(e_k, e_v)
-            torch.cuda.synchronize()
-            mx = [x.float().abs().max().item() for x in (dq, dk, dv)]
-            print(f"  {key:34s} dQ err {e_q:.3e}, dK {e_k:.3e}, dV {e_v:.3e} "
-                  f"(max |dQ|, |dK|, |dV| {mx[0]:.3g}, {mx[1]:.3g}, "
-                  f"{mx[2]:.3g}; tol {BWD_SCALE_ATOL[tag]:g}max|ref| + "
-                  f"{BWD_RTOL[tag]:g}|ref|); bitwise repeatable")
-            del args, dq, dk, dv, dk2, dv2
+    cases = [(name, shape, dtype, None) for name, shape in bwd_cases().items()
+             for dtype in (torch.bfloat16, torch.float32)]
+    cases.append(("train llama-1b", bwd_cases()["train llama-1b"],
+                  torch.bfloat16, "fma"))
+    for name, (B, S, T, H, K, hd, causal, kl), dtype, forced in cases:
+        tag = str(dtype).replace("torch.", "")
+        key = f"{name} {tag}"
+        args = bwd_inputs(torch, gen, B, S, T, H, K, hd, causal, kl, dtype)
+        kw = dict(scale=hd ** -0.5, causal=causal)
+        route = forced or _bwd_route(*args[:3])
+
+        def run():
+            if forced:
+                return (bwd_fma(torch, "mha_bwd_dq", args, kw),
+                        *bwd_fma(torch, "mha_bwd_dkv", args, kw))
+            return mha_bwd_dq(*args, **kw), *mha_bwd_dkv(*args, **kw)
+        before = route_counts()
+        dq, dk, dv = run()
+        torch.cuda.synchronize()
+        after = route_counts()
+        if not forced and after != {
+                k: {**c, route: c[route] + (k in BWD_KERNELS)}
+                for k, c in before.items()}:
+            raise AssertionError(f"attention backward {key}: routes {before} "
+                                 f"-> {after}, expected one {route} each")
+        e_q, r_q, u_q = _bwd_check(torch, "mha_bwd_dq", dq,
+                                   mha_bwd_dq_ref(*args, **kw), tag, key)
+        want_k, want_v = mha_bwd_dkv_ref(*args, **kw)
+        e_k, r_k, u_k = _bwd_check(torch, "mha_bwd_dkv dK", dk, want_k, tag,
+                                   key)
+        e_v, r_v, u_v = _bwd_check(torch, "mha_bwd_dkv dV", dv, want_v, tag,
+                                   key)
+        del want_k, want_v
+        again = run()
+        _bitwise_again(torch, "mha_bwd_dq", dq, again[0], key)
+        _bitwise_again(torch, "mha_bwd_dkv", torch.cat(
+            [dk.flatten(), dv.flatten()]), torch.cat(
+            [again[1].flatten(), again[2].flatten()]), key)
+        if kl == 0 and not all(bool((g == 0).all()) for g in (dq, dk, dv)):
+            raise AssertionError(f"kv_len=0 gradients are not 0: {key}")
+        ek = (name, tag) if not forced else (name, tag, forced)
+        errs[("mha_bwd_dq", *ek)] = e_q
+        errs[("mha_bwd_dkv", *ek)] = max(e_k, e_v)
+        torch.cuda.synchronize()
+        mx = [x.float().abs().max().item() for x in (dq, dk, dv)]
+        print(f"  {key:35s} {route:3s} dQ err {e_q:.3e}, dK {e_k:.3e}, dV "
+              f"{e_v:.3e} (max |dQ|, |dK|, |dV| {mx[0]:.3g}, {mx[1]:.3g}, "
+              f"{mx[2]:.3g}; tol {BWD_SCALE_ATOL[tag]:g}max|ref| + "
+              f"{BWD_RTOL[tag]:g}|ref|; err/tol at most dQ {r_q:.3f}, dK "
+              f"{r_k:.3f}, dV {r_v:.3f}, there {u_q:.3g}, {u_k:.3g}, "
+              f"{u_v:.3g} ulps); bitwise repeatable")
+        del args, dq, dk, dv, again
     return errs
 
 
@@ -594,8 +662,9 @@ def phase_serving(torch, seed, power):
     if launches != want:
         raise AssertionError(f"mha_fwd launched {launches} times, not {want}")
     # the prompt's prefill on the tensor cores, every decode step on decode
-    check_routes(routes, {"mma": cfg.n_layers,
-                          "decode": cfg.n_layers * (N - 1)}, "greedy_generate")
+    check_routes(routes, {"mha_fwd": {"mma": cfg.n_layers,
+                                      "decode": cfg.n_layers * (N - 1)}},
+                 "greedy_generate")
     if out.shape != (B, N) or not bool(((out >= 0)
                                         & (out < cfg.vocab_size)).all()):
         raise AssertionError(f"bad generated tokens {tuple(out.shape)}")
@@ -611,7 +680,8 @@ def phase_serving(torch, seed, power):
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     n_prefill = mha_fwd.launches
-    check_routes(route_counts(), {"mma": cfg.n_layers}, "prefill")
+    check_routes(route_counts(), {"mha_fwd": {"mma": cfg.n_layers}},
+                 "prefill")
     mha_fwd.launches = 0
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
@@ -785,50 +855,80 @@ def bwd_bound_ms(B, S, T, H, K, hd, causal, kv_len, el_bytes, kernel):
 
 
 def bwd_timing(torch, gen, power, errs):
-    """Phase 4, the backward kernels at the training step's shape (llama-1b,
-    B=16, S=T=256, 32 heads of 64, causal, bf16): kernel, plain version,
-    bound, and the library route (the backward of
-    F.scaled_dot_product_attention: dQ, dK and dV together)."""
+    """Phase 4, the backward kernels at the training step's shape (llama-1b:
+    B=16, S=T=256, 32 heads of 64, causal, bf16) and at qwen2-500m's GQA
+    shape (B=8, S=T=512, 14 heads over 2 kv heads of 64): each kernel on
+    its route by CUDA events and by device time (torch.profiler), the fma
+    kernel that took these shapes before the mma route beside it in the
+    same run, the plain version, the bound, and the library route (the
+    backward of F.scaled_dot_product_attention: dQ, dK and dV together,
+    in its own (B, H, S, hd) layout). -> one row per kernel, its training
+    shape's numbers on top and both shapes under "shapes"."""
     import torch.nn.functional as F
-    from repro_torch.kernels.attention.attention import mha_bwd_dkv, mha_bwd_dq
+    from repro_torch.kernels.attention.attention import (_bwd_route,
+                                                         mha_bwd_dkv,
+                                                         mha_bwd_dq)
     from repro_torch.kernels.attention.ref import (mha_bwd_dkv_ref,
                                                    mha_bwd_dq_ref)
-    B, S, T, H, K, hd = 16, 256, 256, 32, 32, 64
-    args = bwd_inputs(torch, gen, B, S, T, H, K, hd, True, None,
-                      torch.bfloat16)
-    kw = dict(scale=hd ** -0.5, causal=True)
-    q, k, v, do = args[:4]
-    # SDPA's own (B, H, S, hd) layout, contiguous, for its best time
-    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
-                  for x in (q, k, v))
-    o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                       scale=hd ** -0.5)
-    dot = do.transpose(1, 2).contiguous()
-    def sdpa_bwd():
-        return torch.autograd.grad(o, [qt, kt, vt], dot, retain_graph=True)
-    lib_ms = time_ms(torch, sdpa_bwd, 20)
-    lib_dev_ms = device_ms(torch, sdpa_bwd, 10)
+    shapes = {"train": ((16, 256, 256, 32, 32, 64), "train llama-1b"),
+              "gqa": ((8, 512, 512, 14, 2, 64), "gqa qwen2-500m H=14 K=2")}
     note = "backward of F.scaled_dot_product_attention (dQ, dK, dV together)"
-    rows = []
-    for name, kern, plain in (("mha_bwd_dq", mha_bwd_dq, mha_bwd_dq_ref),
-                              ("mha_bwd_dkv", mha_bwd_dkv, mha_bwd_dkv_ref)):
-        ms = time_ms(torch, lambda: kern(*args, **kw), 20)
-        plain_ms = time_ms(torch, lambda: plain(*args, **kw), 5)
-        bound, by = bwd_bound_ms(B, S, T, H, K, hd, True, None, 2, name)
-        print(f"  [{power}] {name} B={B} S={S} T={T} H={H} hd={hd} causal "
-              f"bf16: {ms:.4f} ms (bound {bound:.4f} ms by {by}; plain "
-              f"{plain_ms:.4f} ms; {note} {lib_ms:.4f} ms, device time "
-              f"{fmt_ms(lib_dev_ms)})")
-        rows.append({"name": name, "shape": f"B={B} S={S} T={T} H={H} "
-                     f"K={K} hd={hd} causal bf16", "route": "cuda",
-                     "source": SRC_MHA_BWD, "replaces": TPU_KERNELS[name],
-                     "launches": None,
-                     "max_abs_err": errs[(name, "train llama-1b",
-                                          "bfloat16")],
-                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                     "bound_by": by, "library_ms": lib_ms,
-                     "library_device_ms": lib_dev_ms, "library_note": note})
-    return rows
+    rows = {name: [] for name in BWD_KERNELS}
+    for shape, ((B, S, T, H, K, hd), err_case) in shapes.items():
+        args = bwd_inputs(torch, gen, B, S, T, H, K, hd, True, None,
+                          torch.bfloat16)
+        kw = dict(scale=hd ** -0.5, causal=True)
+        q, k, v, do = args[:4]
+        route = _bwd_route(q, k, v)
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                      for x in (q, k, v))
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                           scale=hd ** -0.5,
+                                           enable_gqa=K != H)
+        dot = do.transpose(1, 2).contiguous()
+
+        def sdpa_bwd():
+            return torch.autograd.grad(o, [qt, kt, vt], dot,
+                                       retain_graph=True)
+        lib_ms = time_ms(torch, sdpa_bwd, 20)
+        lib_dev_ms = device_ms(torch, sdpa_bwd, 10)
+        for name, kern, plain in (("mha_bwd_dq", mha_bwd_dq, mha_bwd_dq_ref),
+                                  ("mha_bwd_dkv", mha_bwd_dkv,
+                                   mha_bwd_dkv_ref)):
+            def call():
+                return kern(*args, **kw)
+
+            def fma():
+                return bwd_fma(torch, name, args, kw)
+            ms = time_ms(torch, call, 20)
+            dev_ms = device_ms(torch, call, 10, name)
+            fma_ms = time_ms(torch, fma, 5)
+            fma_dev_ms = device_ms(torch, fma, 5, name)
+            plain_ms = time_ms(torch, lambda: plain(*args, **kw), 5)
+            bound, by = bwd_bound_ms(B, S, T, H, K, hd, True, None, 2, name)
+            print(f"  [{power}] {name} {shape} B={B} S={S} T={T} H={H} K={K} "
+                  f"hd={hd} causal bf16, {route} route: {ms:.4f} ms (device "
+                  f"time {fmt_ms(dev_ms)}; bound {bound:.4f} ms by {by}; the "
+                  f"fma kernel at this shape {fma_ms:.4f} ms, device time "
+                  f"{fmt_ms(fma_dev_ms)}; plain {plain_ms:.4f} ms; {note} "
+                  f"{lib_ms:.4f} ms, device time {fmt_ms(lib_dev_ms)})")
+            rows[name].append({
+                "name": name, "shape": f"{shape}: B={B} S={S} T={T} H={H} "
+                f"K={K} hd={hd} causal bf16", "route": "cuda",
+                "kernel_route": route, "source": SRC_MHA_BWD,
+                "replaces": TPU_KERNELS[name], "launches": None,
+                "max_abs_err": errs[(name, err_case, "bfloat16")],
+                "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
+                "library_device_ms": lib_dev_ms, "library_note": note,
+                "fma_ms": fma_ms, "fma_device_ms": fma_dev_ms})
+        del args, q, k, v, do, qt, kt, vt, o, dot
+    out = []
+    for name in BWD_KERNELS:
+        row = {k: v for k, v in rows[name][0].items() if k != "shape"}
+        row["shapes"] = rows[name]
+        out.append(row)
+    return out
 
 
 def optimizer_timing(torch, gen, power, errs):
@@ -1376,7 +1476,8 @@ def phase_loss(torch, seed, power):
     out = eval_step(params, batch)
     torch.cuda.synchronize()
     c_eval = xent_counts()
-    check_routes(route_counts(), {"mma": cfg.n_layers}, "make_eval_step")
+    check_routes(route_counts(), {"mha_fwd": {"mma": cfg.n_layers}},
+                 "make_eval_step")
     want = {"mha_fwd": cfg.n_layers, "xent_fwd": 1, "xent_bwd_dh": 0,
             "xent_bwd_dw": 0}
     print(f"  make_eval_step launches {c_eval} (expect {want})")
@@ -1572,8 +1673,9 @@ def phase_train(torch, seed, power):
         before, before_r = train_counts(), route_counts()
         state, metrics = step(state, b)
         per_step.append({k: v - before[k] for k, v in train_counts().items()})
-        per_step_routes.append({k: v - before_r[k]
-                                for k, v in route_counts().items()})
+        per_step_routes.append({k: {r: n - before_r[k][r]
+                                    for r, n in c.items()}
+                                for k, c in route_counts().items()})
         losses.append(metrics["loss"])
     torch.cuda.synchronize()
     launches = train_counts()
@@ -1587,12 +1689,15 @@ def phase_train(torch, seed, power):
             raise AssertionError(f"train step {i} launched {c}, not {want}")
     print(f"  make_train_step: every one of {TRAIN_STEPS} steps launched "
           f"{want}; over the run {launches}")
-    # the forward and its recompute on the tensor cores, every step
+    # the forward, its recompute and the backward pair on the tensor
+    # cores, every step
+    want_r = {"mha_fwd": {"mma": 2 * L},
+              **{k: {"mma": L} for k in BWD_KERNELS}}
     for i, c in enumerate(per_step_routes):
-        if c != {"mma": 2 * L, "fma": 0, "decode": 0}:
-            raise AssertionError(f"train step {i}: mha_fwd routes {c}")
-    check_routes(routes, {"mma": 2 * L * TRAIN_STEPS},
-                 f"{TRAIN_STEPS} train steps")
+        check_routes(c, want_r, f"train step {i}", show=False)
+    check_routes(routes, {k: {"mma": TRAIN_STEPS * c["mma"]}
+                          for k, c in want_r.items()},
+                 f"{TRAIN_STEPS} train steps (every step {want_r})")
     losses = [float(x) for x in losses]
 
     # the same steps with attention through plain mha_fwd_ref autograd
@@ -1681,7 +1786,7 @@ def phase_train(torch, seed, power):
     print(f"  [{power}] train step {step_s * 1e3:.3f} ms (best of 3; "
           f"{B * S / step_s:.0f} tokens/s)")
     profile_step(torch, power, one, step_s * 1e3, n=1, label="train step",
-                 top=24)
+                 top=30)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     one()
@@ -1731,7 +1836,7 @@ def main() -> int:
     xent_errs = phase_xent_kernels(torch, gen)
     print("phase 3: greedy serving, llama-130m, full width and depth")
     serve = phase_serving(torch, args.seed, power)
-    print("phase 4: kernel times (CUDA events)")
+    print("phase 4: kernel times (CUDA events; attention also device time)")
     mha_rows = phase_timing(torch, gen, power, serve, errs)
     bwd_rows = bwd_timing(torch, gen, power, bwd_errs)
     opt_rows = optimizer_timing(torch, gen, power, opt_errs)
@@ -1756,6 +1861,8 @@ def main() -> int:
     mha_rows.append({**mha_rows[2], "shape": "train",
                      "launches": train["launches"]["mha_fwd"]})
     mha["shapes"] = mha_rows
+    for row in bwd_rows:
+        row["shapes"][0]["launches"] = train["launches"][row["name"]]
     rows = [mha] + bwd_rows + opt_rows + xent_rows
     for row in rows:
         row["launches_by_path"] = {p: c[row["name"]]

@@ -15,7 +15,10 @@ The forward has three CUDA kernels, one per route, chosen by
 with hd == hdv in {64, 128}: training, eval and prefill), ``decode``
 (S <= 4) and ``fma`` (f32 FMAs: float32, and bf16 heads the tensor-core
 kernel does not take). ``mha_fwd.route_launches`` counts launches by
-route beside ``mha_fwd.launches``.
+route beside ``mha_fwd.launches``. The backward kernels have two routes
+each, chosen by ``_bwd_route``: ``mma`` (tensor cores, bf16 with hd ==
+hdv in {64, 128}: training) and ``fma`` (the rest); ``mha_bwd_dq`` and
+``mha_bwd_dkv`` count theirs in ``route_launches`` too.
 
 A kernel's output carries no autograd history. The differentiable route
 is ``dispatch.flash_attention``, an autograd Function whose backward runs
@@ -42,9 +45,9 @@ _MMA_HEAD_DIMS = (64, 128)
 # S at or below this takes the decode kernel (the C entry mha_fwd, which
 # runs decode and fma, applies the same bound)
 _DECODE_ROWS = 4
-# the backward kernels keep a row's dQ (or a key's dK and dV) in 16
-# registers per lane; wider heads (gemma-2b's 256) wait for ROADMAP.md
-# Queue 1 item 20
+# the backward's fma kernels keep a row's dQ (or a key's dK and dV) in 16
+# registers per lane, and its mma kernels a warp's (16, hd) f32 gradients;
+# wider heads (gemma-2b's 256) wait for ROADMAP.md Queue 1 item 20
 _MAX_BWD_HEAD_DIM = 128
 
 
@@ -55,6 +58,17 @@ def _fwd_route(q, k, v) -> str:
     computes the same function."""
     if q.shape[1] <= _DECODE_ROWS:
         return "decode"
+    if (q.dtype == torch.bfloat16 and k.shape[3] == v.shape[3]
+            and k.shape[3] in _MMA_HEAD_DIMS):
+        return "mma"
+    return "fma"
+
+
+def _bwd_route(q, k, v) -> str:
+    """The backward kernels a CUDA call takes: "mma" for bf16 with hd ==
+    hdv in {64, 128}, "fma" otherwise (float32, and bf16 with hd != hdv or
+    other widths). By dtype and shape alone; both routes compute the same
+    function."""
     if (q.dtype == torch.bfloat16 and k.shape[3] == v.shape[3]
             and k.shape[3] in _MMA_HEAD_DIMS):
         return "mma"
@@ -77,12 +91,13 @@ def _bind(lib: ctypes.CDLL, name: str = "mha_fwd"):
 
 
 def _bind_bwd(lib: ctypes.CDLL, name: str):
-    """``mha_bwd_dq`` or ``mha_bwd_dkv`` of ``csrc/mha_bwd.cu`` (dkv has one
-    more output pointer)."""
+    """``mha_bwd_dq`` or ``mha_bwd_dkv`` of ``csrc/mha_bwd.cu``, or their
+    ``_mma`` twins with the same argument lists (dkv has one more output
+    pointer)."""
     fn = getattr(lib, name)
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        outs = [p, p] if name == "mha_bwd_dkv" else [p]
+        outs = [p, p] if name.startswith("mha_bwd_dkv") else [p]
         fn.argtypes = [p, p, p, p, p, p, p, *outs, i, i, i, i, i, i, i, i,
                        ctypes.POINTER(ctypes.c_int64), ctypes.c_float, i, p]
         fn.restype = i
@@ -212,9 +227,13 @@ def _check_bwd(name, q, k, v, dout, lse, delta, kv_len, causal):
         raise ValueError(f"{name}: unsupported device {q.device}")
 
 
-def _launch_bwd(name, outs, q, k, v, dout, lse, delta, kv_len, scale, causal):
-    """Launch ``name`` of ``csrc/mha_bwd.cu`` writing ``outs``; raises on
-    operands the kernel does not take and on a failed launch."""
+def _launch_bwd(name, route, outs, q, k, v, dout, lse, delta, kv_len, scale,
+                causal):
+    """Launch the ``route`` kernel of ``name`` in ``csrc/mha_bwd.cu`` writing
+    ``outs``; raises on operands the kernel does not take and on a failed
+    launch. The wrappers pass ``_bwd_route``'s choice; chip_smoke.py also
+    times the fma kernels at shapes the mma route takes, beside it. Counts
+    nothing."""
     for what, x in (("q", q), ("k", k), ("v", v), ("dout", dout)):
         if not _strides_ok(x):
             raise ValueError(f"{name}: {what} needs a contiguous last dim, "
@@ -229,7 +248,7 @@ def _launch_bwd(name, outs, q, k, v, dout, lse, delta, kv_len, scale, causal):
     strides = (ctypes.c_int64 * 12)(*q.stride()[:3], *k.stride()[:3],
                                       *v.stride()[:3], *dout.stride()[:3])
     lib = _build.library("mha_bwd")
-    fn = _bind_bwd(lib, name)
+    fn = _bind_bwd(lib, f"{name}_mma" if route == "mma" else name)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
@@ -239,7 +258,7 @@ def _launch_bwd(name, outs, q, k, v, dout, lse, delta, kv_len, scale, causal):
                  B, S, T, H, K, hd, hdv, strides, float(scale), int(causal),
                  stream)
     if err:
-        raise RuntimeError(f"{name}: CUDA launch failed: "
+        raise RuntimeError(f"{name}: CUDA launch failed ({route} route): "
                            f"{lib.cuda_error_string(err).decode()} ({err})")
 
 
@@ -255,10 +274,12 @@ def mha_bwd_dq(q, k, v, dout, lse, delta, kv_len=None, *, scale: float,
     if q.device.type == "cpu":
         return mha_bwd_dq_ref(q, k, v, dout, lse, delta, kv_len, scale=scale,
                               causal=causal)
+    route = _bwd_route(q, k, v)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch_bwd("mha_bwd_dq", (dq,), q, k, v, dout, lse, delta, kv_len,
-                scale, causal)
+    _launch_bwd("mha_bwd_dq", route, (dq,), q, k, v, dout, lse, delta,
+                kv_len, scale, causal)
     mha_bwd_dq.launches += 1
+    mha_bwd_dq.route_launches[route] += 1
     return dq
 
 
@@ -274,13 +295,17 @@ def mha_bwd_dkv(q, k, v, dout, lse, delta, kv_len=None, *, scale: float,
     if q.device.type == "cpu":
         return mha_bwd_dkv_ref(q, k, v, dout, lse, delta, kv_len,
                                scale=scale, causal=causal)
+    route = _bwd_route(q, k, v)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    _launch_bwd("mha_bwd_dkv", (dk, dv), q, k, v, dout, lse, delta, kv_len,
-                scale, causal)
+    _launch_bwd("mha_bwd_dkv", route, (dk, dv), q, k, v, dout, lse, delta,
+                kv_len, scale, causal)
     mha_bwd_dkv.launches += 1
+    mha_bwd_dkv.route_launches[route] += 1
     return dk, dv
 
 
 mha_bwd_dq.launches = 0
+mha_bwd_dq.route_launches = {"mma": 0, "fma": 0}
 mha_bwd_dkv.launches = 0
+mha_bwd_dkv.route_launches = {"mma": 0, "fma": 0}

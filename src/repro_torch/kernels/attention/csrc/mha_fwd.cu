@@ -243,12 +243,10 @@ cudaError_t launch_t(const void* q, const void* k, const void* v, const int* kv_
 
 // ---------------------------------------------------------------------------
 // The mma route (design in the note at the top). HD == hd == hdv.
-constexpr int kMmaBQ = 64;       // query rows per block, 16 per warp
-constexpr int kMmaThreads = 128;
 
 template <int HD>
 constexpr size_t mma_smem_bytes() {  // Q tile and two K and two V tiles
-  return sizeof(__nv_bfloat16) * (kMmaBQ + 4 * kBK) * (HD + 8);
+  return sizeof(__nv_bfloat16) * (kMmaTile + 4 * kBK) * (HD + 8);
 }
 
 template <int HD>
@@ -261,21 +259,19 @@ mha_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
                    float scale, int causal) {
   constexpr int LD = HD + 8;      // padded rows: conflict-free ldmatrix
   constexpr int TILE = kBK * LD;  // elements of one K or V buffer
-  constexpr int CH = HD / 8;      // 16-byte chunks per row
   constexpr int NS = kBK / 8;     // n8 score tiles per warp
   constexpr int NO = HD / 8;      // n8 output tiles per warp
   constexpr int KQ = HD / 16;     // k16 steps of Q K^T
-  static_assert(kBK == kMmaBQ && HD % 16 == 0, "tile shapes");
+  static_assert(kBK == kMmaTile && HD % 16 == 0, "tile shapes");
 
   extern __shared__ __align__(16) unsigned char mma_smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(mma_smem);  // (64, LD)
-  __nv_bfloat16* Ks = Qs + kMmaBQ * LD;                            // 2 x (64, LD)
-  __nv_bfloat16* Vs = Ks + 2 * TILE;                               // 2 x (64, LD)
+  bf16* Qs = reinterpret_cast<bf16*>(mma_smem);  // (64, LD)
+  bf16* Ks = Qs + kMmaTile * LD;                 // 2 x (64, LD)
+  bf16* Vs = Ks + 2 * TILE;                      // 2 x (64, LD)
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3;   // fragment row and column pair
-  const int mi = lane >> 3, r8 = lane & 7;  // ldmatrix: matrix and row of this lane's address
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kMmaBQ;  // most causal work first
+  const int g = lane >> 2, t4 = lane & 3;  // fragment row and column pair
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kMmaTile;  // most causal work first
   const int h = blockIdx.y, b = blockIdx.z, kvh = h / G;
   const int offset = T_len - S;
   const int row0 = q0 + warp * 16 + g;  // this lane's rows: row0 and row0 + 8
@@ -285,27 +281,15 @@ mha_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
   const int kl = kv_len ? *kv_len : T_len;
   const int klim = min(T_len, max(kl, 0));
   int kend = klim;
-  if (causal) kend = min(kend, offset + min(q0 + kMmaBQ, S));
+  if (causal) kend = min(kend, offset + min(q0 + kMmaTile, S));
   const int n_tiles = (kend + kBK - 1) / kBK;
 
   const __nv_bfloat16* qb = q + b * sqb + h * sqh;
   const __nv_bfloat16* kb = k + b * skb + kvh * skh;
   const __nv_bfloat16* vb = v + b * svb + kvh * svh;
-  for (int c = threadIdx.x; c < kMmaBQ * CH; c += kMmaThreads) {
-    const int r = c / CH, d = (c % CH) * 8;
-    const bool ok = q0 + r < S;  // rows past S are zeros
-    cp_async16(Qs + r * LD + d, ok ? qb + (int64_t)(q0 + r) * sqs + d : qb, ok ? 16 : 0);
-  }
-  auto load_kv = [&](int j, int buf) {
-    const int k0 = j * kBK;
-    for (int c = threadIdx.x; c < kBK * CH; c += kMmaThreads) {
-      const int r = c / CH, d = (c % CH) * 8;
-      const bool ok = k0 + r < kend;  // keys past kend are zeros
-      cp_async16(Ks + buf * TILE + r * LD + d, ok ? kb + (int64_t)(k0 + r) * skt + d : kb,
-                 ok ? 16 : 0);
-      cp_async16(Vs + buf * TILE + r * LD + d, ok ? vb + (int64_t)(k0 + r) * svt + d : vb,
-                 ok ? 16 : 0);
-    }
+  copy_tile<HD>(Qs, qb, sqs, q0, S);    // rows past S are zeros
+  auto load_kv = [&](int j, int buf) {  // keys past kend are zeros
+    copy_tile_pair<HD>(Ks + buf * TILE, kb, skt, Vs + buf * TILE, vb, svt, j * kBK, kend);
   };
   if (n_tiles > 0) load_kv(0, 0);
   cp_async_commit();  // group 0: the Q tile and kv tile 0
@@ -330,8 +314,7 @@ mha_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
     __syncthreads();  // tile j (and at j = 0 the Q tile) is in shared memory
     if (j == 0) {
 #pragma unroll
-      for (int ks = 0; ks < KQ; ++ks)
-        ldmatrix_x4(qf[ks], Qs + (warp * 16 + (mi & 1) * 8 + r8) * LD + ks * 16 + (mi >> 1) * 8);
+      for (int ks = 0; ks < KQ; ++ks) frag_a<LD>(qf[ks], Qs, warp, ks, lane);
     }
     const __nv_bfloat16* Kt = Ks + buf * TILE;
     const __nv_bfloat16* Vt = Vs + buf * TILE;
@@ -346,7 +329,7 @@ mha_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
 #pragma unroll
       for (int np = 0; np < NS / 2; ++np) {
         unsigned kf[4];  // B fragments of key tiles 2np and 2np+1
-        ldmatrix_x4(kf, Kt + (np * 16 + (mi >> 1) * 8 + r8) * LD + ks * 16 + (mi & 1) * 8);
+        frag_bt<LD>(kf, Kt, np * 16, ks, lane);
         mma_bf16(s[2 * np], qf[ks], kf[0], kf[1]);
         mma_bf16(s[2 * np + 1], qf[ks], kf[2], kf[3]);
       }
@@ -390,14 +373,12 @@ mha_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
 
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk) {
-      const unsigned pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      unsigned pa[4];
+      pack_a(pa, s + 2 * kk);
 #pragma unroll
       for (int np = 0; np < NO / 2; ++np) {
         unsigned vf[4];  // B fragments of output tiles 2np and 2np+1
-        ldmatrix_x4_trans(vf, Vt + (kk * 16 + (mi & 1) * 8 + r8) * LD + np * 16 + (mi >> 1) * 8);
+        frag_b<LD>(vf, Vt, kk * 16, np * 16, lane);
         mma_bf16(o[2 * np], pa, vf[0], vf[1]);
         mma_bf16(o[2 * np + 1], pa, vf[2], vf[3]);
       }
@@ -414,23 +395,15 @@ mha_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     lc[i] = fmaxf(l[i], 1e-30f);  // fully masked rows -> 0 output
   }
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] /= lc[e >> 1];
   // This warp's 16 output rows through its own rows of Qs, then 16-byte
   // stores of whole rows.
-  __nv_bfloat16* Os = Qs + warp * 16 * LD;
-#pragma unroll
-  for (int n = 0; n < NO; ++n) {
-    const int d = n * 8 + 2 * t4;
-    *reinterpret_cast<unsigned*>(Os + g * LD + d) = pack_bf16(o[n][0] / lc[0], o[n][1] / lc[0]);
-    *reinterpret_cast<unsigned*>(Os + (g + 8) * LD + d) =
-        pack_bf16(o[n][2] / lc[1], o[n][3] / lc[1]);
-  }
-  __syncwarp();
-  for (int c = lane; c < 16 * CH; c += 32) {
-    const int r = c / CH, d = (c % CH) * 8, row = q0 + warp * 16 + r;
-    if (row < S)
-      *reinterpret_cast<uint4*>(out + (((int64_t)b * S + row) * H + h) * HD + d) =
-          *reinterpret_cast<const uint4*>(Os + r * LD + d);
-  }
+  const int w0 = q0 + warp * 16;
+  store_rows<HD>(Qs + warp * 16 * LD, o, out + (((int64_t)b * S + w0) * H + h) * HD,
+                 (int64_t)H * HD, S - w0, lane);
   if (t4 == 0) {
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -448,7 +421,7 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, const int* k
   cudaError_t e = cudaFuncSetAttribute(mha_fwd_mma_kernel<HD>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  dim3 grid((S + kMmaBQ - 1) / kMmaBQ, H, B);
+  dim3 grid((S + kMmaTile - 1) / kMmaTile, H, B);
   mha_fwd_mma_kernel<HD><<<grid, kMmaThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), kv_len, static_cast<__nv_bfloat16*>(out), lse, S,

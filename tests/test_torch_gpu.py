@@ -51,6 +51,8 @@ versions, with lse and delta from the plain forward:
     bf16 from f32 values that differ in their last bits, so a rare term
     lands one ulp apart, then one rounding of each output);
   * a second run is bitwise equal;
+  * each case takes the route ``_bwd_route`` names: the tensor-core (mma)
+    kernels for bf16 heads of 64 and 128, the f32-FMA (fma) ones for f32;
   * ``dispatch.flash_attention`` gradients against plain autograd through
     ``mha_fwd_ref``: the forward's tolerances, scaled by max|ref| (2e-5 in
     f32, 1e-2 in bf16). A direct CUDA ``mha_fwd`` call under grad raises
@@ -461,6 +463,12 @@ BWD_CASES = {
     "rect_causal_64x576": (8, 64, 576, 12, 12, 64, True, None),
     "kvlen300": (8, 16, 576, 12, 4, 64, False, 300),
     "kvlen0": (8, 16, 576, 12, 12, 64, False, 0),
+    # the edges of the tensor-core (mma) route: dK, dV chained over 4 x 1024
+    # query rows, and the hd 128 layout on a ragged tile
+    "long_gqa_1024": (1, 1024, 1024, 8, 2, 64, True, None),
+    "hd128_ragged": (2, 200, 200, 4, 4, 128, True, None),
+    # a bf16 head the mma route does not take: the fma kernels in bf16
+    "hd32_gqa_ragged": (4, 200, 200, 8, 4, 32, True, None),
 }
 
 
@@ -499,21 +507,29 @@ def _bwd_inputs(cuda, case, td, seed=8):
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("case", list(BWD_CASES))
 def test_bwd_kernels_match_plain_on_card(cuda, case, dtype):
-    """mha_bwd_dq and mha_bwd_dkv against their plain versions; each runs
-    twice and is bitwise repeatable (no atomics)."""
-    from repro_torch.kernels.attention.attention import (mha_bwd_dkv,
+    """mha_bwd_dq and mha_bwd_dkv against their plain versions, each on its
+    route (mma for bf16 heads of 64 and 128, fma for f32 and the bf16 head
+    of 32); each runs twice and is bitwise repeatable (no atomics)."""
+    from repro_torch.kernels.attention.attention import (_bwd_route,
+                                                         mha_bwd_dkv,
                                                          mha_bwd_dq)
     from repro_torch.kernels.attention.ref import (mha_bwd_dkv_ref,
                                                    mha_bwd_dq_ref)
     B, S, T, H, K, hd, causal, kv_len = BWD_CASES[case]
     args = _bwd_inputs(cuda, case, DTYPES[dtype])
     kw = dict(scale=hd ** -0.5, causal=causal)
-    before = (mha_bwd_dq.launches, mha_bwd_dkv.launches)
+    route = "mma" if dtype == "bf16" and hd in (64, 128) else "fma"
+    assert _bwd_route(*args[:3]) == route
+    before = (mha_bwd_dq.launches, mha_bwd_dkv.launches,
+              dict(mha_bwd_dq.route_launches),
+              dict(mha_bwd_dkv.route_launches))
     dq = mha_bwd_dq(*args, **kw)
     dk, dv = mha_bwd_dkv(*args, **kw)
     torch.cuda.synchronize()
     assert (mha_bwd_dq.launches - before[0],
             mha_bwd_dkv.launches - before[1]) == (1, 1)
+    for fn, was in ((mha_bwd_dq, before[2]), (mha_bwd_dkv, before[3])):
+        assert fn.route_launches == {**was, route: was[route] + 1}
     assert dq.shape == args[0].shape and dk.shape == args[1].shape \
         and dv.shape == args[2].shape
     _bwd_close(dq, mha_bwd_dq_ref(*args, **kw), dtype)
@@ -581,14 +597,16 @@ def _train_counts():
 def test_train_step_on_card_goes_through_the_kernels(cuda, monkeypatch):
     """make_train_step of scale_fused (clip 1.0, remat full) on a small
     llama: per step 2L mha_fwd (forward and recompute), L of each backward
-    kernel, one of each xent kernel, 8 norm_sumsq, 9 update_apply, one
-    momentum_sumsq and no norm_apply; the loss falls over four steps, and
+    kernel (all on the tensor-core mma route), one of each xent kernel, 8
+    norm_sumsq, 9 update_apply, one momentum_sumsq and no norm_apply; the
+    loss falls over four steps, and
     one loss-and-grad matches plain attention's autograd (bf16 at 2 layers:
     per leaf, 3e-2 of its largest |gradient|, the roundings of the
     attention outputs differing)."""
     from repro_torch.core import linear_warmup_cosine, make_optimizer
     from repro_torch.data import make_dataset
     from repro_torch.kernels import dispatch
+    from repro_torch.kernels.attention import attention as A
     from repro_torch.models import ModelConfig, init_params
     from repro_torch.training import (init_state, make_train_step,
                                       value_and_grad)
@@ -617,10 +635,15 @@ def test_train_step_on_card_goes_through_the_kernels(cuda, monkeypatch):
     losses = []
     for i in range(4):
         before = _train_counts()
+        routes = [dict(f.route_launches) for f in (A.mha_bwd_dq,
+                                                   A.mha_bwd_dkv)]
         state, metrics = step(state, batch)
         torch.cuda.synchronize()
         after = _train_counts()
         assert {k: after[k] - before[k] for k in want} == want, i
+        for f, was in zip((A.mha_bwd_dq, A.mha_bwd_dkv), routes):
+            assert {r: f.route_launches[r] - was[r] for r in was} == \
+                {"mma": cfg.n_layers, "fma": 0}, (f.__name__, i)
         losses.append(float(metrics["loss"]))
     assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
     assert int(state.step) == 4
