@@ -16,10 +16,13 @@ nvcc (one process per source, in parallel), then runs eight phases and fails
    also at the eval shape in bf16; ``mha_bwd_dq`` and ``mha_bwd_dkv`` on
    the route their wrappers pick (``mma`` tensor cores for bf16, ``fma``
    for f32), counted, and the fma kernels also at the training shape in
-   bf16; the tensor-core forward, the optimizer, cross-entropy and
-   attention-backward kernels also run twice (bitwise equal), and the
-   optimizer kernels show that they write in place where the TPU kernels
-   alias;
+   bf16; ``xent_bwd_dh`` and ``xent_bwd_dw`` on the route their wrappers
+   pick (``mma``, the chunked tensor-core backward, for aligned bf16;
+   ``fma`` for f32 and other layouts), counted, with each output's
+   largest error over its tolerance; the tensor-core forward, the
+   optimizer, cross-entropy and attention-backward kernels also run twice
+   (bitwise equal), and the optimizer kernels show that they write in
+   place where the TPU kernels alias;
 3. the serving path: greedy serving of llama-130m at full width and
    depth (bf16, seeded random weights; batch 8, a 512-token prompt, 64
    new tokens), checked against a full-sequence forward, with the kernel
@@ -30,7 +33,10 @@ nvcc (one process per source, in parallel), then runs eight phases and fails
    attention kernels also their device time (torch.profiler) and, where
    they take the tensor cores, the fma kernels' time at the same shape
    (the backward pair at the training shape and at qwen2-500m's GQA
-   shape);
+   shape); for the xent kernels also their device time and, for the
+   backward, a second library yardstick that recomputes the logits, and
+   two variants of ``xent.cu`` built beside it (the fold taken out; the
+   copies taken out) timed against the backward kernels;
 5. where the serving time goes: device busy time and the top kernels of
    one prefill and of decode steps, from torch.profiler;
 6. the optimizer path: SCALE steps of llama-1b at full width and depth
@@ -48,7 +54,8 @@ nvcc (one process per source, in parallel), then runs eight phases and fails
    and 1 ``xent_fwd`` launches), its loss against the plain full-logit route on the same
    hidden, against a forward whose attention is the plain ``mha_fwd_ref``,
    and beside ln(V) + sigma^2/2; the loss and its gradient at the
-   head (exactly 1 launch of each xent kernel), held against the plain
+   head (exactly 1 launch of each xent kernel, the backward pair on the
+   ``mma`` route), held against the plain
    route's autograd, once under ``set_sync_debug_mode("error")``; times,
    top device kernels and the peak memory each route adds;
 8. the training step: llama-1b at full width and depth (bf16, seeded
@@ -58,7 +65,7 @@ nvcc (one process per source, in parallel), then runs eight phases and fails
    launches checked on every kernel counter (48 ``mha_fwd``, all on the
    ``mma`` route, 24 of each
    attention backward kernel, all on the ``mma`` route, one of each xent
-   kernel, 8 ``norm_sumsq``, 9
+   kernel, the backward pair on the ``mma`` route, 8 ``norm_sumsq``, 9
    ``update_apply``, one ``momentum_sumsq``), the loss falling and held to
    the curve of the same steps with attention through plain ``mha_fwd_ref``
    autograd, one step under ``set_sync_debug_mode("error")``, every leaf's
@@ -73,6 +80,7 @@ imports neither JAX nor the JAX package.
 from __future__ import annotations
 
 import argparse
+import atexit
 import json
 import re
 import shutil
@@ -251,20 +259,25 @@ def attention_cases():
     }
 
 
-ROUTED = ("mha_fwd", *BWD_KERNELS)  # the wrappers that count routes
+# the wrappers that count launches by route
+ROUTED = ("mha_fwd", *BWD_KERNELS, "xent_bwd_dh", "xent_bwd_dw")
+
+
+def _routed():
+    from repro_torch.kernels.attention import attention as A
+    from repro_torch.kernels.xent import xent as X
+    return {k: getattr(X if k.startswith("xent") else A, k) for k in ROUTED}
 
 
 def route_counts():
-    """{attention wrapper: its launches by route}."""
-    from repro_torch.kernels.attention import attention as A
-    return {k: dict(getattr(A, k).route_launches) for k in ROUTED}
+    """{routed wrapper: its launches by route}."""
+    return {k: dict(f.route_launches) for k, f in _routed().items()}
 
 
 def zero_route_counts():
-    from repro_torch.kernels.attention import attention as A
-    for k in ROUTED:
-        for r in getattr(A, k).route_launches:
-            getattr(A, k).route_launches[r] = 0
+    for f in _routed().values():
+        for r in f.route_launches:
+            f.route_launches[r] = 0
 
 
 def check_routes(got, want, what, show=True):
@@ -273,9 +286,9 @@ def check_routes(got, want, what, show=True):
     want = {k: {r: want.get(k, {}).get(r, 0) for r in c}
             for k, c in got.items()}
     if show:
-        print(f"  {what}: attention launches by route {got} (expect {want})")
+        print(f"  {what}: launches by route {got} (expect {want})")
     if got != want:
-        raise AssertionError(f"{what}: attention routes {got}, not {want}")
+        raise AssertionError(f"{what}: routes {got}, not {want}")
 
 
 def make_qkv(torch, gen, B, S, T, H, K, hd, dtype):
@@ -1258,6 +1271,12 @@ def xent_cases():
         "N=1": (1, 2048, 32000, 32000, 0.0),
         "N=4097 vocab_size=31990": (4097, 2048, 32000, 31990, 0.1),
         "all labels -1": (300, 2048, 32000, 32000, 1.0),
+        # D not a multiple of the tensor-core backward's K-tile of 32
+        "D=80": (300, 80, 1000, 1000, 0.2),
+        # chunk_plan cuts the vocabulary into 32 chunks of 1024
+        "N=16384": (16384, 2048, 32000, 32000, 0.0),
+        # and the tokens into two chunks (dW summed across them)
+        "N=140000 D=16 V=128": (140000, 16, 128, 128, 0.1),
     }
 
 
@@ -1274,6 +1293,8 @@ def xent_inputs(torch, gen, N, D, V, masked, dtype):
 
 
 def _grad_check(torch, name, got, want, dtype, key):
+    """-> (max abs error, the largest error over its element's
+    tolerance)."""
     scale = want.float().abs().max().item()
     tag = str(dtype).replace("torch.", "")
     d = (got.float() - want.float()).abs()
@@ -1282,12 +1303,15 @@ def _grad_check(torch, name, got, want, dtype, key):
     if not ok:
         raise AssertionError(f"{name} disagrees with the plain version: {key}, "
                              f"max err {d.max().item():.3e}")
-    return d.max().item()
+    return d.max().item(), (d / tol.clamp_min(1e-30)).max().item()
 
 
 def phase_xent_kernels(torch, gen):
     """Phase 2: the three xent kernels against their plain versions, each
-    run twice (bitwise equal). -> {(kernel, case, dtype): max abs error}."""
+    run twice (bitwise equal), the backward on the route its wrapper picks
+    (counted: ``mma`` for aligned bf16, ``fma`` for f32 and for w read
+    through its columns). Prints each backward output's largest error over
+    its element's tolerance. -> {(kernel, case, dtype): max abs error}."""
     from repro_torch.kernels.xent import ref as XR
     from repro_torch.kernels.xent import xent as X
     errs = {}
@@ -1333,20 +1357,30 @@ def phase_xent_kernels(torch, gen):
                                              f"disagrees: {key}")
                     e_fma = max(e_fma, d.max().item())
                 msg.append(f"fwd FMA kernel {e_fma:.2e}")
+            route = "mma" if dtype == torch.bfloat16 else "fma"
             for name, fn, ref in (("xent_bwd_dh", X.xent_bwd_dh,
                                    XR.xent_bwd_dh_ref),
                                   ("xent_bwd_dw", X.xent_bwd_dw,
                                    XR.xent_bwd_dw_ref)):
                 e = e_fma = 0.0
-                for out_dtype in {dtype, torch.float32}:
+                r, r_fma = {}, {}  # err/tol by out dtype
+                for out_dtype in (dtype, torch.float32)[:1 + (
+                        dtype != torch.float32)]:
+                    otag = str(out_dtype).replace("torch.", "")
                     args = (h, w, labels, want_lse, gl)
+                    was = dict(fn.route_launches)
                     got = fn(*args, vocab_size=vs, out_dtype=out_dtype)
+                    if fn.route_launches != {**was, route: was[route] + 1}:
+                        raise AssertionError(f"{name}: routes {was} -> "
+                                             f"{fn.route_launches}, expected "
+                                             f"one {route}: {key}")
                     want = ref(*args, vocab_size=vs, out_dtype=out_dtype)
                     if got.dtype != out_dtype or got.shape != want.shape:
                         raise AssertionError(f"{name}: {got.dtype} "
                                              f"{tuple(got.shape)}: {key}")
-                    e = max(e, _grad_check(torch, name, got, want, out_dtype,
-                                           key))
+                    e1, r[otag] = _grad_check(torch, name, got, want,
+                                              out_dtype, key)
+                    e = max(e, e1)
                     _bitwise_again(torch, name, got, fn(
                         *args, vocab_size=vs, out_dtype=out_dtype), key)
                     if name == "xent_bwd_dw" and not bool(
@@ -1354,20 +1388,30 @@ def phase_xent_kernels(torch, gen):
                         raise AssertionError(f"xent_bwd_dw: padded columns "
                                              f"not 0: {key}")
                     if w_cols is not None:
-                        e_fma = max(e_fma, _grad_check(
+                        was = dict(fn.route_launches)
+                        e1, r_fma[otag] = _grad_check(
                             torch, f"{name} (FMA kernel)",
                             fn(h, w_cols, labels, want_lse, gl, vocab_size=vs,
-                               out_dtype=out_dtype), want, out_dtype, key))
+                               out_dtype=out_dtype), want, out_dtype, key)
+                        e_fma = max(e_fma, e1)
+                        if fn.route_launches != {**was, "fma": was["fma"] + 1}:
+                            raise AssertionError(f"{name}: w_cols did not take "
+                                                 f"the fma route: {key}")
                     del got, want
                 errs[(name, cname, tag)] = e
-                msg.append(f"{name[5:]} {e:.2e}")
+                ratios = ", ".join(f"{k} out {v:.3f}" for k, v in r.items())
+                msg.append(f"{name[5:]} {route} {e:.2e} (err/tol {ratios})")
                 if w_cols is not None:
-                    msg.append(f"{name[5:]} FMA kernel {e_fma:.2e}")
+                    ratios = ", ".join(f"{k} out {v:.3f}"
+                                       for k, v in r_fma.items())
+                    msg.append(f"{name[5:]} fma {e_fma:.2e} (err/tol "
+                               f"{ratios})")
             torch.cuda.synchronize()
             print(f"  xent {key:34s} max err {'; '.join(msg)} (tols: lse/ll "
                   f"{XENT_LSE_ATOL:g}+{XENT_LSE_RTOL:g}|ref|, grads "
                   f"{XENT_GRAD_SCALE_ATOL:g}max|ref|+{XENT_GRAD_RTOL[tag]:g}"
-                  f"|ref|); bitwise repeatable")
+                  f"|ref| in each out dtype; err/tol is the largest error "
+                  f"over its element's tolerance); bitwise repeatable")
             del h, w, w_cols, labels, gl
     return errs
 
@@ -1387,10 +1431,13 @@ def xent_bound_ms(N, D, ncols, el_bytes, kernel):
 
 
 def xent_timing(torch, gen, power, errs):
-    """Phase 4, the xent kernels at llama-1b's loss shape (bf16): kernel,
-    plain version, bound, and the library route (torch.matmul +
-    F.cross_entropy forward; the autograd backward of that pair for dh and
-    dw together)."""
+    """Phase 4, the xent kernels at llama-1b's loss shape (bf16): kernel by
+    CUDA events and by device time (torch.profiler, every kernel of the
+    call), plain version, bound, and two library routes: torch.matmul +
+    F.cross_entropy for the forward; for the backward, the autograd
+    backward of that pair (dh and dw together, reusing the saved logits),
+    and that forward and backward together, which recomputes the logits as
+    the kernels by contract do."""
     import torch.nn.functional as F
     from repro_torch.kernels.xent import ref as XR
     from repro_torch.kernels.xent import xent as X
@@ -1403,45 +1450,181 @@ def xent_timing(torch, gen, power, errs):
     hl, wl = h.detach().requires_grad_(), w.detach().requires_grad_()
     lib_loss = F.cross_entropy((hl @ wl).float(), labels.long(),
                                reduction="mean")
-    lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
-        lib_loss, [hl, wl], retain_graph=True), 10)
-    lib_fwd = time_ms(torch, lambda: F.cross_entropy(
-        (h @ w).float(), labels.long(), reduction="none"), 10)
+
+    def lib_bwd():
+        return torch.autograd.grad(lib_loss, [hl, wl], retain_graph=True)
+
+    def lib_fwd():
+        return F.cross_entropy((h @ w).float(), labels.long(),
+                               reduction="none")
+
+    def lib_full():
+        hf, wf = h.detach().requires_grad_(), w.detach().requires_grad_()
+        loss = F.cross_entropy((hf @ wf).float(), labels.long(),
+                               reduction="mean")
+        return torch.autograd.grad(loss, [hf, wf])
+    libs = {k: (time_ms(torch, f, 10), device_ms(torch, f, 3))
+            for k, f in (("fwd", lib_fwd), ("bwd", lib_bwd),
+                         ("full", lib_full))}
     del lib_loss
+    note_bwd = ("autograd of matmul + cross_entropy (dh and dw together, "
+                "from saved logits)")
+    note_full = ("matmul + cross_entropy and its autograd backward (dh and "
+                 "dw together, logits recomputed)")
     cases = {
         "xent_fwd": (lambda: X.xent_fwd(h, w, labels, vocab_size=V),
                      lambda: XR.xent_fwd_ref(h, w, labels, vocab_size=V),
-                     lib_fwd, "torch.matmul + F.cross_entropy"),
+                     "fwd", "torch.matmul + F.cross_entropy", None),
         "xent_bwd_dh": (lambda: X.xent_bwd_dh(*args, vocab_size=V,
                                               out_dtype=bf),
                         lambda: XR.xent_bwd_dh_ref(*args, vocab_size=V,
                                                    out_dtype=bf),
-                        lib_bwd, "autograd of matmul + cross_entropy "
-                                 "(dh and dw together)"),
+                        "bwd", note_bwd, "full"),
         "xent_bwd_dw": (lambda: X.xent_bwd_dw(*args, vocab_size=V,
                                               out_dtype=bf),
                         lambda: XR.xent_bwd_dw_ref(*args, vocab_size=V,
                                                    out_dtype=bf),
-                        lib_bwd, "autograd of matmul + cross_entropy "
-                                 "(dh and dw together)"),
+                        "bwd", note_bwd, "full"),
     }
     rows = []
-    for name, (kern, plain, lib_ms, lib_note) in cases.items():
+    for name, (kern, plain, lib, lib_note, lib2) in cases.items():
         ms = time_ms(torch, kern, 5)
+        dev_ms = device_ms(torch, kern, 5)
         plain_ms = time_ms(torch, plain, 5)
         bound, by = xent_bound_ms(N, D, V, 2, name)
+        (lib_ms, lib_dev), (lib2_ms, lib2_dev) = libs[lib], libs.get(
+            lib2, (None, None))
         print(f"  [{power}] {name} N={N} D={D} V={V} bf16: {ms:.4f} ms "
-              f"(bound {bound:.4f} ms by {by}, {bound / ms:.4f} of it; plain "
-              f"{plain_ms:.4f} ms; {lib_note} {lib_ms:.4f} ms)")
+              f"(device time {fmt_ms(dev_ms)}; bound {bound:.4f} ms by {by}, "
+              f"{bound / ms:.4f} of it; plain {plain_ms:.4f} ms; {lib_note} "
+              f"{lib_ms:.4f} ms, device time {fmt_ms(lib_dev)}"
+              + ("" if lib2 is None else f"; {note_full} {lib2_ms:.4f} ms, "
+                 f"device time {fmt_ms(lib2_dev)}") + ")")
         rows.append({"name": name, "shape": f"N={N} D={D} V={V} bf16",
                      "route": "cuda", "source": SRC_XENT,
                      "replaces": TPU_KERNELS[name], "launches": None,
                      "max_abs_err": errs[(name, "llama-1b N=4096",
                                           "bfloat16")],
-                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                     "bound_by": by, "library_ms": lib_ms,
-                     "library_note": lib_note})
+                     "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                     "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
+                     "library_device_ms": lib_dev, "library_note": lib_note,
+                     "library_recompute_ms": lib2_ms,
+                     "library_recompute_device_ms": lib2_dev,
+                     "library_recompute_note": None if lib2 is None
+                     else note_full})
     return rows
+
+
+# Phase 4: variants of xent.cu that measure the tensor-core backward's
+# design at the train shape, each a text substitution on the source:
+# "chained" takes out the fold (each K-tile's products chain in the
+# accumulator, which truncates), "no copies" fills the ring once and leaves
+# stale tiles after (wrong results: a time only, the loop without its
+# cp.async traffic).
+XENT_VARIANTS = {
+    "chained": (('      "mov.f32 t0, 0f00000000;\\nmov.f32 t1, 0f00000000;\\n"\n'
+                 '      "mov.f32 t2, 0f00000000;\\nmov.f32 t3, 0f00000000;\\n"\n',
+                 '      "mov.f32 t0, %0;\\nmov.f32 t1, %1;\\n"\n'
+                 '      "mov.f32 t2, %2;\\nmov.f32 t3, %3;\\n"\n'),
+                ('      "add.rn.f32 %0, %0, t0;\\nadd.rn.f32 %1, %1, t1;\\n"\n'
+                 '      "add.rn.f32 %2, %2, t2;\\nadd.rn.f32 %3, %3, t3;\\n}\\n"\n',
+                 '      "mov.f32 %0, t0;\\nmov.f32 %1, t1;\\n"\n'
+                 '      "mov.f32 %2, t2;\\nmov.f32 %3, t3;\\n}\\n"\n')),
+    "no copies": (("    if (kt + kGemmStages - 1 < nk) load(kt + kGemmStages - 1);\n",
+                   ""),),
+}
+
+
+def start_xent_variants():
+    """Start one nvcc per XENT_VARIANTS entry, beside the kernels' build.
+    -> {name: (process, library path)}."""
+    from repro_torch.kernels import _build
+    out = _build.BUILD_DIR / "variants"
+    out.mkdir(parents=True, exist_ok=True)
+    src = (ROOT / SRC_XENT).read_text()
+    procs = {}
+    for name, subs in XENT_VARIANTS.items():
+        text = src
+        for old, new in subs:
+            if text.count(old) != 1:
+                raise AssertionError(f"xent variant {name!r}: its text is not "
+                                     f"in {SRC_XENT} once")
+            text = text.replace(old, new)
+        stem = name.replace(" ", "_")
+        cu, lib = out / f"xent_{stem}.cu", out / f"libxent_{stem}.so"
+        cu.write_text(text)
+        procs[name] = (subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
+    atexit.register(_stop, [proc for proc, _ in procs.values()])
+    return procs
+
+
+def _stop(procs):
+    """Kill what is still running of ``procs`` (a failed run exits early)."""
+    for proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def xent_variant_timing(torch, gen, power, procs, rows):
+    """Phase 4: both backward kernels of each variant at the train shape
+    (bf16 out) by CUDA events, beside the real kernels timed again in the
+    same loop, and their f32-out error over tolerance against the plain
+    version. Adds the results to the xent rows under "variants"."""
+    import ctypes
+    import math
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.xent import ref as XR
+    from repro_torch.kernels.xent import xent as X
+    N, D, V = 4096, 2048, 32000
+    h, w, labels, gl = xent_inputs(torch, gen, N, D, V, 0.1, torch.bfloat16)
+    lse, _ = XR.xent_fwd_ref(h, w, labels, vocab_size=V)
+    rows_c, cols = X.chunk_plan(N, V)
+    g = torch.empty((2, rows_c, cols), dtype=torch.bfloat16, device="cuda")
+    acc = torch.empty((rows_c, D), dtype=torch.float32, device="cuda")
+    libs = {"kernel": X._bind(_build.library("xent"))}
+    for name, (proc, lib) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"xent variant {name!r}: nvcc failed\n{log}")
+        libs[name] = X._bind(ctypes.CDLL(str(lib)))
+    res = {}
+    for name in ("xent_bwd_dh", "xent_bwd_dw"):
+        dh = name == "xent_bwd_dh"
+        want = (XR.xent_bwd_dh_ref if dh else XR.xent_bwd_dw_ref)(
+            h, w, labels, lse, gl, vocab_size=V)
+        for variant, lib in libs.items():
+            def run(bf, lib=lib):
+                out = torch.empty((N, D) if dh else (D, V), device="cuda",
+                                  dtype=torch.bfloat16 if bf else torch.float32)
+                err = lib.xent_bwd_chunks(
+                    int(dh), h.data_ptr(), h.stride(0), w.data_ptr(),
+                    w.stride(0), labels.data_ptr(), lse.data_ptr(),
+                    gl.data_ptr(), g.data_ptr(), acc.data_ptr(),
+                    out.data_ptr(), int(bf), N, D, V, V, rows_c, cols,
+                    torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"{name} ({variant}): CUDA error {err}")
+                return out
+            ms = time_ms(torch, lambda: run(True), 5)
+            got = run(False)
+            d = (got - want).abs()
+            tol = (XENT_GRAD_SCALE_ATOL * want.abs().max()
+                   + XENT_GRAD_RTOL["float32"] * want.abs())
+            ratio = (d / tol).max().item()
+            ratio = ratio if math.isfinite(ratio) else None  # stale tiles
+            res.setdefault(name, {})[variant] = {"ms": ms, "f32_err_over_tol":
+                                                 ratio}
+            print(f"  [{power}] {name} {variant}: {ms:.4f} ms, f32 out "
+                  f"err/tol " + ("not finite (stale tiles)" if ratio is None
+                                 else f"{ratio:.3f}"))
+            del got, d, tol
+        del want
+    for row in rows:
+        if row["name"] in res:
+            row["variants"] = res[row["name"]]
 
 
 def phase_loss(torch, seed, power):
@@ -1532,6 +1715,7 @@ def phase_loss(torch, seed, power):
     kernel_route()  # warm-up, not counted
     torch.cuda.synchronize()
     zero_xent_counts()
+    zero_route_counts()
     gh, gw = kernel_route()
     torch.cuda.synchronize()
     c_grad = xent_counts()
@@ -1539,15 +1723,18 @@ def phase_loss(torch, seed, power):
     print(f"  loss-and-grad at the head launches {c_grad} (expect {want})")
     if c_grad != want:
         raise AssertionError(f"loss-and-grad launched {c_grad}, not {want}")
+    check_routes(route_counts(), {"xent_bwd_dh": {"mma": 1},
+                                  "xent_bwd_dw": {"mma": 1}},
+                 "loss-and-grad at the head")
     launches = {k: c_eval[k] + c_grad[k] for k in c_eval}
     wh, ww = plain_route()
-    e_h = _grad_check(torch, "dH", gh, wh, torch.bfloat16, "phase 7")
-    e_w = _grad_check(torch, "dW", gw, ww, torch.bfloat16, "phase 7")
+    e_h, r_h = _grad_check(torch, "dH", gh, wh, torch.bfloat16, "phase 7")
+    e_w, r_w = _grad_check(torch, "dW", gw, ww, torch.bfloat16, "phase 7")
     print(f"  dH {tuple(gh.shape)} and dW {tuple(gw.shape)} against the "
           f"plain route's autograd: max err {e_h:.3e} and {e_w:.3e} (tol "
           f"{XENT_GRAD_SCALE_ATOL:g}max|ref| + "
-          f"{XENT_GRAD_RTOL['bfloat16']:g}|ref|); max |dW| "
-          f"{ww.float().abs().max().item():.3e}")
+          f"{XENT_GRAD_RTOL['bfloat16']:g}|ref|; err/tol at most {r_h:.3f} "
+          f"and {r_w:.3f}); max |dW| {ww.float().abs().max().item():.3e}")
     del wh, ww, gh, gw
 
     torch.cuda.synchronize()
@@ -1689,10 +1876,11 @@ def phase_train(torch, seed, power):
             raise AssertionError(f"train step {i} launched {c}, not {want}")
     print(f"  make_train_step: every one of {TRAIN_STEPS} steps launched "
           f"{want}; over the run {launches}")
-    # the forward, its recompute and the backward pair on the tensor
-    # cores, every step
+    # the forward, its recompute, the backward pair and the xent backward
+    # on the tensor cores, every step
     want_r = {"mha_fwd": {"mma": 2 * L},
-              **{k: {"mma": L} for k in BWD_KERNELS}}
+              **{k: {"mma": L} for k in BWD_KERNELS},
+              "xent_bwd_dh": {"mma": 1}, "xent_bwd_dw": {"mma": 1}}
     for i, c in enumerate(per_step_routes):
         check_routes(c, want_r, f"train step {i}", show=False)
     check_routes(routes, {k: {"mma": TRAIN_STEPS * c["mma"]}
@@ -1794,7 +1982,8 @@ def phase_train(torch, seed, power):
     peak = torch.cuda.max_memory_allocated()
     print(f"  [{power}] torch.cuda.max_memory_allocated over one train step "
           f"{peak / 2**20:.1f} MiB")
-    return {"launches": launches, "step_ms": step_s * 1e3, "peak": peak}
+    return {"launches": launches, "per_step": per_step[0],
+            "step_ms": step_s * 1e3, "peak": peak}
 
 
 def main() -> int:
@@ -1819,6 +2008,7 @@ def main() -> int:
     print(f"phase 1: device {kind} (nvidia-smi: {power}); torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
+    variants = start_xent_variants()
     libs = _build.build_all()
     print(f"  built {len(libs)} kernel libraries for sm_90a in "
           f"{time.perf_counter() - t0:.1f} s: {sorted(libs)}")
@@ -1836,11 +2026,13 @@ def main() -> int:
     xent_errs = phase_xent_kernels(torch, gen)
     print("phase 3: greedy serving, llama-130m, full width and depth")
     serve = phase_serving(torch, args.seed, power)
-    print("phase 4: kernel times (CUDA events; attention also device time)")
+    print("phase 4: kernel times (CUDA events; attention and xent also "
+          "device time)")
     mha_rows = phase_timing(torch, gen, power, serve, errs)
     bwd_rows = bwd_timing(torch, gen, power, bwd_errs)
     opt_rows = optimizer_timing(torch, gen, power, opt_errs)
     xent_rows = xent_timing(torch, gen, power, xent_errs)
+    xent_variant_timing(torch, gen, power, variants, xent_rows)
     print("phase 5: where the serving time goes (torch.profiler)")
     phase_profile(torch, args.seed, power, serve)
     print("phase 6: SCALE optimizer steps, llama-1b, full width and depth")
@@ -1869,6 +2061,7 @@ def main() -> int:
                                    for p, c in by_path.items()
                                    if c.get(row["name"])}
         row["launches"] = sum(row["launches_by_path"].values())
+        row["launches_per_train_step"] = train["per_step"].get(row["name"])
     for path, c in by_path.items():
         for name, n in c.items():
             # norm_apply serves only the update entry point (phase 6)

@@ -13,14 +13,16 @@
 //                G[n, c] = (exp(logits[n, c] - lse[n]) - [c == labels[n]])
 //                * gl[n] for c < ncols and n < N, else 0; columns of dW at
 //                or past ncols are 0.
-// The logit and G matrices never leave a block: no (N, V) array is written.
+// The FMA kernels and the tensor-core forward keep the logits inside a
+// block; the tensor-core backward writes G for one chunk of the vocabulary
+// at a time to a workspace of at most 64 MiB (no (N, V) array).
 //
-// Numerics follow the TPU kernel bodies: f32 products of the inputs (bf16 or
-// f32, read as f32) summed in f32; the running max starts at the finite
-// -1e30 and every exp is masked explicitly, so a tile of padding adds
-// nothing; w columns past ncols and h rows past N are read as 0 in both
-// operands of every contraction. No f32 atomics: each output has one owner
-// and every sum runs in a fixed order, so two runs are bitwise equal.
+// Numerics follow the TPU kernel bodies: products of the inputs (bf16 or
+// f32) summed in f32; the running max starts at the finite -1e30 and every
+// exp is masked explicitly, so a tile of padding adds nothing; w columns
+// past ncols and h rows past N are read as 0 in both operands of every
+// contraction. No f32 atomics: each output has one owner and every sum
+// runs in a fixed order, so two runs are bitwise equal.
 //
 // What bounds them on an H100: operations. At llama-1b's loss (N = 4096
 // tokens, D = 2048, V = 32000) the forward is 2*N*D*V = 0.537 TFLOP and each
@@ -29,26 +31,32 @@
 //
 // Design. The TPU kernel's blocks are sized for VMEM and do not fit
 // Hopper's 227 KB of shared memory, and its sequential grid carries the
-// log-sum-exp and the accumulators from step to step. Here a block owns a narrow tile and walks
-// the other axis in a loop: token rows walking the vocab (forward, dH), or
-// vocab columns walking the tokens (dW). Each function has two kernels:
+// log-sum-exp and the accumulators from step to step. Each function has
+// two routes:
 //   * tensor cores (mma.sync m16n8k16, bf16 products, f32 sums) for bf16
-//     operands whose rows are contiguous and 16-byte aligned, the main path;
-//     their notes are at xent_fwd_mma_kernel and xent_bwd_mma_kernel;
-//   * f32 FMAs for f32 operands and any other layout, below.
-// The FMA kernels: a block of 512 threads owns IT items (16 for bf16, 8 for
-// f32: 32 bytes per row of D), kept in shared memory as (D, IT), and stages
-// IT items of the other operand per step (2 * 32 * D bytes: 128 KB at
-// D = 2048; above 48 KB by the opt-in). The IT x IT logit tile is a sum over
-// D split across the 16 warps (each lane 8 or 2 outputs over its warp's
-// share of D), and the 16 partials are added in warp order. The forward
-// folds the tile into a running (max, sum, label logit) per row; the
-// backward forms the G tile and adds G @ (streamed operand)^T into an
-// (IT, D) f32 accumulator held in registers, each thread owning IT rows of
-// 4 columns of D (so D <= 2048).
+//     operands whose rows are contiguous and 16-byte aligned, the main
+//     path: the forward's blocks own 64 token rows and walk a split of the
+//     vocabulary (note at xent_fwd_mma_kernel); the backward is chunked,
+//     a G kernel and a product per chunk, both on one GEMM template of
+//     128 x 128 tiles (note at xent_gemm_kernel), with no accumulator that
+//     grows with D;
+//   * f32 FMAs for f32 operands and any other layout, below. A block of
+//     512 threads owns IT items (16 for bf16, 8 for f32: 32 bytes per row
+//     of D): token rows walking the vocab (forward, dH) or vocab columns
+//     walking the tokens (dW), kept in shared memory as (D, IT), and stages
+//     IT items of the other operand per step (2 * 32 * D bytes: 128 KB at
+//     D = 2048; above 48 KB by the opt-in). The IT x IT logit tile is a sum
+//     over D split across the 16 warps (each lane 8 or 2 outputs over its
+//     warp's share of D), and the 16 partials are added in warp order. The
+//     forward folds the tile into a running (max, sum, label logit) per
+//     row; the backward forms the G tile and adds G @ (streamed operand)^T
+//     into an (IT, D) f32 accumulator held in registers, each thread owning
+//     IT rows of 4 columns of D: this is what limits D to 2048.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -522,196 +530,380 @@ __global__ void xent_fwd_combine_kernel(const float* __restrict__ part, float* _
 }
 
 // ---------------------------------------------------------------------------
-// The bf16 backward on tensor cores, for the same layouts as the forward
-// above (D a multiple of 16). A block of 16 warps owns 16 items: token rows
-// for dH, vocab columns for dW. Both operands of a step sit in shared
-// memory: 16 rows of h as (16, D) and 16 columns of w as (D, 16). Each step
-//   * forms the 16 x 16 logit tile with mma.sync (bf16 products, f32 sums),
-//     the 16 warps each over a share of D, adding their partials in warp
-//     order;
-//   * forms G = (softmax - onehot) * gl in f32 and splits it into two bf16
-//     halves, hi + lo, which carry G to about 2^-16 of itself;
-//   * adds G @ w_tile^T (dH) or G^T @ h_tile (dW) into a (16, D) f32
-//     accumulator held in registers: warp k owns columns [128k, 128k + 128)
-//     of D, so D <= 2048. Each step's product is formed in a fresh tile
-//     and added with an IEEE add: the tensor cores' accumulation truncates,
-//     which over the ~2000 steps of one accumulator drifts by 1e-4.
-// The streamed tile is copied with cp.async and not overlapped with the
-// math (one buffer: the two operands take 160 KB at D = 2048).
-constexpr int kBwdIt = 16;            // items (tokens or vocab columns) per block and step
-constexpr int kWsStride = kBwdIt + 8;  // 48-byte rows of the (D, 16) w tile
-constexpr int kGStride = kBwdIt + 8;
+// The bf16 backward on tensor cores, for the layouts of the forward above
+// (D a multiple of 16). The vocabulary is cut into chunks of Vc columns
+// and, past 2^17 tokens, the tokens into chunks too (`chunk_plan` in
+// xent.py: a function of (N, ncols) alone, with G's workspace at most
+// 64 MiB). Each chunk takes two launches of one GEMM template,
+// xent_gemm_kernel, with two epilogues:
+//   * the G kernel: the chunk's logits h @ w[:, chunk] on the tensor cores,
+//     then G = (exp(x - lse) - onehot) * gl in f32, 0 on rows >= N and
+//     columns >= ncols, written to a (rows, Vc) workspace as two bf16
+//     halves, hi = bf16(G) and lo = bf16(G - hi), which carry G to about
+//     2^-16 of itself;
+//   * the product: dH (rows, D) += G_c @ w_c^T, summed over the vocabulary
+//     chunks in order in f32 (the output itself when it is f32, else a
+//     (rows, D) f32 sum whose last chunk writes the output); or dW[:, c] =
+//     h^T @ G_c, disjoint per vocabulary chunk (summed over token chunks
+//     in order the same way). dW's columns in [ncols, V) are set to 0. A
+//     block loads the earlier chunks' sum into its accumulator before its
+//     main loop, so the loads land while the ring fills (read in the
+//     epilogue instead, they stalled each block).
+// The GEMM: a block of 4 warps owns a 128 x 128 tile of C, each warp 64 x
+// 64 of it in f32 registers; K-tiles of 32 are staged through a 3-deep
+// cp.async ring, the next two copies in flight while one is multiplied
+// (two blocks an SM: 255 registers a thread, at most 92 KB each). An
+// operand is held as stored: "K-major" (rows along M or N, k contiguous:
+// h for the logits, dH's G and w chunk) is read by ldmatrix, the other
+// ("M-/N-major": w for the logits, dW's h and G) by ldmatrix.trans. The
+// operand split into hi and lo shares the other's fragments: two mma per
+// fragment. In the products each K-tile's 4 mma (2 k-steps, hi and lo)
+// chain in a fresh fragment that an IEEE add folds into the accumulator:
+// the tensor cores' own accumulation truncates, and over the 2,000
+// k-steps of dH's sum (the accumulator starts from the earlier chunks')
+// it drifts past the f32 tolerance (chip_smoke.py's "chained" variant:
+// dH's f32 error over tolerance 1.5 against 0.19 with the fold, dW's 0.41
+// against 0.20; the fold costs 8% of dH and 2% of dW: PERF.md). The
+// logits chain over D in the accumulator, as the forward's loop does.
+// Elements outside an operand's valid extent are zero-filled by
+// cp.async's source size and never read. No atomics: every sum runs in a
+// fixed order, so two runs are bitwise equal. The G kernel forms its
+// logits on this template and not on the forward's loop above, whose
+// 64 x 128 tiles of 16-row warps reach 157 TFLOP/s (PERF.md): a 64 x 64
+// warp tile reads half the fragments per mma. What bounds the template is
+// shared memory: with 64 x 64 warp tiles every mma takes 96-128 bytes of
+// ldmatrix, and the cp.async copies write into the same banks
+// (chip_smoke.py's "no copies" variant runs the pair 1.3-1.5x faster;
+// wider blocks or a deeper ring did not help).
+constexpr int kGemmT = 128, kGemmK = 32, kGemmStages = 3, kGemmThreads = 128;
+using bf16 = __nv_bfloat16;
+using Acc = float[4][8][4];  // a warp's 64 x 64 of C: [16 rows][8 columns][fragment]
 
-inline size_t bwd_mma_smem(int D) {
-  return 2 * ((size_t)kBwdIt * (D + 8) + (size_t)D * kWsStride + 2 * kBwdIt * kGStride) +
-         sizeof(float) * kWarps * kBwdIt * kBwdIt;
-}
-
-__device__ __forceinline__ void store2(void* out, int out_bf16, int64_t i, float a, float b) {
-  if (out_bf16)
-    *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(out) + i) =
-        __floats2bfloat162_rn(a, b);
-  else
-    *reinterpret_cast<float2*>(static_cast<float*>(out) + i) = make_float2(a, b);
-}
-__device__ __forceinline__ void store1(void* out, int out_bf16, int64_t i, float a) {
-  if (out_bf16)
-    static_cast<__nv_bfloat16*>(out)[i] = __float2bfloat16_rn(a);
-  else
-    static_cast<float*>(out)[i] = a;
-}
-
-template <bool DH>
-__global__ void __launch_bounds__(kThreads, 1)
-xent_bwd_mma_kernel(const __nv_bfloat16* __restrict__ h, int64_t sh,
-                    const __nv_bfloat16* __restrict__ w, int64_t sw, const int* __restrict__ labels,
-                    const float* __restrict__ lse, const float* __restrict__ gl, void* out,
-                    int out_bf16, int N, int D, int V, int ncols) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int hs = D + 8;  // row stride of the h tile, in elements
-  __nv_bfloat16* Hs = reinterpret_cast<__nv_bfloat16*>(smem);  // (16, D)
-  __nv_bfloat16* Ws = Hs + kBwdIt * hs;                           // (D, 16)
-  __nv_bfloat16* Ghi = Ws + (size_t)D * kWsStride;                // (16 tokens, 16 columns)
-  __nv_bfloat16* Glo = Ghi + kBwdIt * kGStride;
-  float* red = reinterpret_cast<float*>(Glo + kBwdIt * kGStride);  // (16 warps, 16, 16)
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3, mi = lane >> 3, r8 = lane & 7;
-  const int f0 = blockIdx.x * kBwdIt;
-
-  auto load_h = [&](int r0) {  // rows [r0, r0 + 16) of h; rows >= N are 0
-    const int pieces = D / 8;
-    for (int p = threadIdx.x; p < kBwdIt * pieces; p += kThreads) {
-      const int r = p / pieces, c = (p % pieces) * 8;
-      const bool ok = r0 + r < N;
-      cp_async16(Hs + r * hs + c, ok ? h + (int64_t)(r0 + r) * sh + c : h, ok ? 16 : 0);
-    }
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-  };
-  auto load_w = [&](int c0) {  // columns [c0, c0 + 16) of w; columns >= ncols are 0
-    for (int p = threadIdx.x; p < D * 2; p += kThreads) {
-      const int d = p >> 1, c = (p & 1) * 8;
-      const int n = 2 * max(0, min(8, ncols - c0 - c));
-      cp_async16(Ws + d * kWsStride + c, n ? w + (int64_t)d * sw + c0 + c : w, n);
-    }
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-  };
-
-  float acc[16][4];  // (16 items, this warp's 128 columns of D)
+__device__ __forceinline__ void zero(Acc& acc) {
 #pragma unroll
-  for (int j = 0; j < 16; ++j)
+  for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+}
 
-  int n_stream;
-  if (DH) {
-    load_h(f0);
-    n_stream = ncols;
-  } else {
-    n_stream = f0 < ncols ? N : 0;
-    if (n_stream) load_w(f0);
+// A GEMM operand as stored: row-major bf16 (row stride ld elements, rows
+// 16-byte aligned), of which rows < rows and columns < cols are read and
+// the rest reads as 0; lo is the offset of the low half of a split operand.
+struct Mat {
+  const bf16* p;
+  int64_t ld;
+  int rows, cols;
+  int64_t lo;
+};
+
+// A stage's tile of an operand as stored: K-major, 128 rows (along M or N)
+// of 32 k; else 32 rows of k by 128. Rows are padded by 16 bytes (80 or
+// 272 bytes), so ldmatrix's eight row addresses hit distinct banks.
+template <bool KM>
+struct Tile {
+  static constexpr int rows = KM ? kGemmT : kGemmK, cols = KM ? kGemmK : kGemmT;
+  static constexpr int stride = cols + 8, size = rows * stride;
+};
+
+template <bool KM>
+__device__ __forceinline__ void copy_gemm_tile(bf16* s, const bf16* p, int64_t ld, int rows,
+                                               int cols, int r0, int c0) {
+  using T = Tile<KM>;
+  constexpr int PPR = T::cols / 8;  // 16-byte pieces per row
+#pragma unroll
+  for (int i = 0; i < T::rows * PPR / kGemmThreads; ++i) {
+    const int piece = threadIdx.x + i * kGemmThreads, r = piece / PPR, c = (piece % PPR) * 8;
+    const int n = r0 + r < rows ? 2 * max(0, min(8, cols - c0 - c)) : 0;
+    cp_async16(s + r * T::stride + c, n ? p + (int64_t)(r0 + r) * ld + c0 + c : p, n);
   }
-  const int ksteps = D / 16, ks_per = (ksteps + kWarps - 1) / kWarps;
-  const int ks0 = warp * ks_per, ks1 = min(ksteps, ks0 + ks_per);
-  const int d_warp = warp * 128;
+}
 
-  for (int s0 = 0; s0 < n_stream; s0 += kBwdIt) {
-    if (DH)
-      load_w(s0);
-    else
-      load_h(s0);
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-    __syncthreads();
+// The A fragment of rows [m, m + 16) and k [kk, kk + 16).
+template <bool KM>
+__device__ __forceinline__ void frag_a(unsigned* r, const bf16* s, int m, int kk, int lane) {
+  constexpr int S = Tile<KM>::stride;
+  const int q = lane >> 3, r8 = lane & 7;
+  if (KM)
+    ldmatrix_x4(r, s + (m + (q & 1) * 8 + r8) * S + kk + (q >> 1) * 8);
+  else
+    ldmatrix_x4_trans(r, s + (kk + (q >> 1) * 8 + r8) * S + m + (q & 1) * 8);
+}
+// The B fragments of columns [n, n + 8) (r[0], r[1]) and [n + 8, n + 16)
+// (r[2], r[3]) over k [kk, kk + 16).
+template <bool KM>
+__device__ __forceinline__ void frag_b(unsigned* r, const bf16* s, int n, int kk, int lane) {
+  constexpr int S = Tile<KM>::stride;
+  const int q = lane >> 3, r8 = lane & 7;
+  if (KM)
+    ldmatrix_x4(r, s + (n + (q >> 1) * 8 + r8) * S + kk + (q & 1) * 8);
+  else
+    ldmatrix_x4_trans(r, s + (kk + (q & 1) * 8 + r8) * S + n + (q >> 1) * 8);
+}
 
-    // this warp's share of the logit tile (tokens x columns) over D
-    float lg[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-    for (int ks = ks0; ks < ks1; ++ks) {
-      unsigned a[4], b[4];
-      ldmatrix_x4(a, Hs + ((mi & 1) * 8 + r8) * hs + ks * 16 + (mi >> 1) * 8);
-      ldmatrix_x4_trans(b, Ws + (ks * 16 + (mi & 1) * 8 + r8) * kWsStride + (mi >> 1) * 8);
-      mma_bf16(lg[0], a, b[0], b[1]);
-      mma_bf16(lg[1], a, b[2], b[3]);
-    }
-    float* rw = red + warp * kBwdIt * kBwdIt;
+// c += a0 b0 + ... + a3 b3: the products chained in a fresh fragment,
+// scoped inside the asm, added to c with round-to-nearest.
+__device__ __forceinline__ void mma_fold4(float* c, const unsigned* a0, const unsigned* b0,
+                                          const unsigned* a1, const unsigned* b1,
+                                          const unsigned* a2, const unsigned* b2,
+                                          const unsigned* a3, const unsigned* b3) {
+  asm volatile(
+      "{\n.reg .f32 t0, t1, t2, t3;\n"
+      "mov.f32 t0, 0f00000000;\nmov.f32 t1, 0f00000000;\n"
+      "mov.f32 t2, 0f00000000;\nmov.f32 t3, 0f00000000;\n"
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {t0, t1, t2, t3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {t0, t1, t2, t3};\n"
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {t0, t1, t2, t3}, "
+      "{%10, %11, %12, %13}, {%14, %15}, {t0, t1, t2, t3};\n"
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {t0, t1, t2, t3}, "
+      "{%16, %17, %18, %19}, {%20, %21}, {t0, t1, t2, t3};\n"
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {t0, t1, t2, t3}, "
+      "{%22, %23, %24, %25}, {%26, %27}, {t0, t1, t2, t3};\n"
+      "add.rn.f32 %0, %0, t0;\nadd.rn.f32 %1, %1, t1;\n"
+      "add.rn.f32 %2, %2, t2;\nadd.rn.f32 %3, %3, t3;\n}\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0[0]), "r"(a0[1]), "r"(a0[2]), "r"(a0[3]), "r"(b0[0]), "r"(b0[1]), "r"(a1[0]),
+        "r"(a1[1]), "r"(a1[2]), "r"(a1[3]), "r"(b1[0]), "r"(b1[1]), "r"(a2[0]), "r"(a2[1]),
+        "r"(a2[2]), "r"(a2[3]), "r"(b2[0]), "r"(b2[1]), "r"(a3[0]), "r"(a3[1]), "r"(a3[2]),
+        "r"(a3[3]), "r"(b3[0]), "r"(b3[1]));
+}
+
+// One K-tile of a warp's 64 x 64 tile at (wm, wn) of the block: as and bs
+// are the stage's A and B tiles (the lo half of a split one follows its hi
+// half). All of the unsplit operand's fragments are held while the split
+// one's are loaded 16 rows (or columns) at a time; each fragment of C
+// takes its hi and lo products over the K-tile's two k-steps in one fold.
+// Without a split (the logits) the products chain in acc, as the forward's
+// loop does.
+template <bool A_KM, bool B_KM, bool SPLIT_A, bool SPLIT_B>
+__device__ __forceinline__ void gemm_ktile(Acc& acc, const bf16* as, const bf16* bs, int wm,
+                                           int wn, int lane) {
+  static_assert(!(SPLIT_A && SPLIT_B), "one split operand");
+  if constexpr (!SPLIT_B) {
+    unsigned b[2][4][4];  // [k-step][16 columns]
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
+    for (int ks = 0; ks < 2; ++ks)
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        rw[g * kBwdIt + j * 8 + 2 * t4 + e] = lg[j][e];
-        rw[(g + 8) * kBwdIt + j * 8 + 2 * t4 + e] = lg[j][2 + e];
+      for (int np = 0; np < 4; ++np) frag_b<B_KM>(b[ks][np], bs, wn + np * 16, ks * 16, lane);
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi) {
+      unsigned a[2][4], al[2][4];
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        frag_a<A_KM>(a[ks], as, wm + mi * 16, ks * 16, lane);
+        if constexpr (SPLIT_A)
+          frag_a<A_KM>(al[ks], as + Tile<A_KM>::size, wm + mi * 16, ks * 16, lane);
       }
-    __syncthreads();
-
-    if (threadIdx.x < kBwdIt * kBwdIt) {
-      float x = 0.f;
 #pragma unroll
-      for (int k = 0; k < kWarps; ++k) x += red[k * kBwdIt * kBwdIt + threadIdx.x];
-      const int ti = threadIdx.x / kBwdIt, ci = threadIdx.x % kBwdIt;
-      const int tok = DH ? f0 + ti : s0 + ti;
-      const int col = DH ? s0 + ci : f0 + ci;
-      float gv = 0.f;
-      if (tok < N && col < ncols)
-        gv = (expf(x - lse[tok]) - (col == labels[tok] ? 1.f : 0.f)) * gl[tok];
-      const __nv_bfloat16 hi = __float2bfloat16_rn(gv);
-      Ghi[ti * kGStride + ci] = hi;
-      Glo[ti * kGStride + ci] = __float2bfloat16_rn(gv - __bfloat162float(hi));
-    }
-    __syncthreads();
-
-    if (d_warp < D) {
-      unsigned ahi[4], alo[4];
-      if (DH) {  // A = G (tokens x columns)
-        ldmatrix_x4(ahi, Ghi + ((mi & 1) * 8 + r8) * kGStride + (mi >> 1) * 8);
-        ldmatrix_x4(alo, Glo + ((mi & 1) * 8 + r8) * kGStride + (mi >> 1) * 8);
-      } else {  // A = G^T (columns x tokens)
-        ldmatrix_x4_trans(ahi, Ghi + ((mi >> 1) * 8 + r8) * kGStride + (mi & 1) * 8);
-        ldmatrix_x4_trans(alo, Glo + ((mi >> 1) * 8 + r8) * kGStride + (mi & 1) * 8);
-      }
-#pragma unroll
-      for (int np = 0; np < 8; ++np) {
-        const int d0 = d_warp + np * 16;
-        if (d0 < D) {
-          unsigned b[4];
-          if (DH)  // B[k = column][n = d] = w[d][column]
-            ldmatrix_x4(b, Ws + (d0 + (mi >> 1) * 8 + r8) * kWsStride + (mi & 1) * 8);
-          else  // B[k = token][n = d] = h[token][d]
-            ldmatrix_x4_trans(b, Hs + ((mi & 1) * 8 + r8) * hs + d0 + (mi >> 1) * 8);
-          // each step's product goes to a fresh tile that an IEEE add folds
-          // into acc: the tensor cores' own accumulation truncates, and
-          // over thousands of steps into one register it drifts by 1e-4
-          float p0[4] = {0.f, 0.f, 0.f, 0.f}, p1[4] = {0.f, 0.f, 0.f, 0.f};
-          mma_bf16(p0, ahi, b[0], b[1]);
-          mma_bf16(p0, alo, b[0], b[1]);
-          mma_bf16(p1, ahi, b[2], b[3]);
-          mma_bf16(p1, alo, b[2], b[3]);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            acc[2 * np][e] += p0[e];
-            acc[2 * np + 1][e] += p1[e];
-          }
+      for (int ni = 0; ni < 8; ++ni) {
+        const unsigned* b0 = &b[0][ni >> 1][(ni & 1) * 2];
+        const unsigned* b1 = &b[1][ni >> 1][(ni & 1) * 2];
+        if constexpr (SPLIT_A) {
+          mma_fold4(acc[mi][ni], a[0], b0, al[0], b0, a[1], b1, al[1], b1);
+        } else {
+          mma_bf16(acc[mi][ni], a[0], b0[0], b0[1]);
+          mma_bf16(acc[mi][ni], a[1], b1[0], b1[1]);
         }
       }
     }
-    __syncthreads();  // the tiles are free for the next copy
-  }
-
-  // acc rows: items g and g + 8; columns d_warp + 8j + 2*t4 + {0, 1}
+  } else {
+    unsigned a[2][4][4];  // [k-step][16 rows]
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    const int d = d_warp + j * 8 + 2 * t4;
-    if (d >= D) continue;
+    for (int ks = 0; ks < 2; ++ks)
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int item = f0 + g + 8 * i;
-      if (DH) {
-        if (item < N) store2(out, out_bf16, (int64_t)item * D + d, acc[j][2 * i], acc[j][2 * i + 1]);
-      } else if (item < V) {
-        store1(out, out_bf16, (int64_t)d * V + item, acc[j][2 * i]);
-        store1(out, out_bf16, (int64_t)(d + 1) * V + item, acc[j][2 * i + 1]);
+      for (int mi = 0; mi < 4; ++mi) frag_a<A_KM>(a[ks][mi], as, wm + mi * 16, ks * 16, lane);
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      unsigned bh[2][4], bl[2][4];
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        frag_b<B_KM>(bh[ks], bs, wn + np * 16, ks * 16, lane);
+        frag_b<B_KM>(bl[ks], bs + Tile<B_KM>::size, wn + np * 16, ks * 16, lane);
       }
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int mi = 0; mi < 4; ++mi)
+          mma_fold4(acc[mi][2 * np + j], a[0][mi], &bh[0][2 * j], a[0][mi], &bl[0][2 * j],
+                    a[1][mi], &bh[1][2 * j], a[1][mi], &bl[1][2 * j]);
     }
   }
 }
+
+// A stage of the ring: A's tile (hi, then lo when split), then B's.
+template <bool A_KM, bool B_KM, bool SPLIT_A, bool SPLIT_B>
+struct Stage {
+  static constexpr int a_size = Tile<A_KM>::size * (1 + SPLIT_A);
+  static constexpr int size = a_size + Tile<B_KM>::size * (1 + SPLIT_B);
+  static constexpr size_t ring_bytes = sizeof(bf16) * kGemmStages * size;
+};
+
+// C (M x N) = A (M x K) @ B (K x N) in f32, handed to the epilogue: A held
+// K-major (stored M x K) or M-major (stored K x M), B K-major (stored N x K)
+// or N-major (stored K x N). Grid: (N tiles, M tiles).
+template <bool A_KM, bool B_KM, bool SPLIT_A, bool SPLIT_B, class Epi>
+__global__ void __launch_bounds__(kGemmThreads, 2)
+xent_gemm_kernel(Mat A, Mat B, int K, Epi epi) {
+  using St = Stage<A_KM, B_KM, SPLIT_A, SPLIT_B>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int m0 = blockIdx.y * kGemmT, n0 = blockIdx.x * kGemmT;
+  const int wm = (warp >> 1) * 64, wn = (warp & 1) * 64;
+  const int nk = (K + kGemmK - 1) / kGemmK;
+
+  auto load = [&](int kt) {
+    bf16* s = smem + (kt % kGemmStages) * St::size;
+    bf16* sb = s + St::a_size;
+    const int k0 = kt * kGemmK;
+    const int ar = A_KM ? m0 : k0, ac = A_KM ? k0 : m0;
+    const int br = B_KM ? n0 : k0, bc = B_KM ? k0 : n0;
+    copy_gemm_tile<A_KM>(s, A.p, A.ld, A.rows, A.cols, ar, ac);
+    if (SPLIT_A)
+      copy_gemm_tile<A_KM>(s + Tile<A_KM>::size, A.p + A.lo, A.ld, A.rows, A.cols, ar, ac);
+    copy_gemm_tile<B_KM>(sb, B.p, B.ld, B.rows, B.cols, br, bc);
+    if (SPLIT_B)
+      copy_gemm_tile<B_KM>(sb + Tile<B_KM>::size, B.p + B.lo, B.ld, B.rows, B.cols, br, bc);
+  };
+
+  Acc acc;
+  epi.init(acc, m0 + wm, n0 + wn, lane);  // its loads land while the ring fills
+
+#pragma unroll
+  for (int st = 0; st < kGemmStages - 1; ++st) {
+    if (st < nk) load(st);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kGemmStages - 2) : "memory");
+    __syncthreads();  // stage kt has landed; stage kt - 1 is free for the copy below
+    if (kt + kGemmStages - 1 < nk) load(kt + kGemmStages - 1);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    const bf16* s = smem + (kt % kGemmStages) * St::size;
+    gemm_ktile<A_KM, B_KM, SPLIT_A, SPLIT_B>(acc, s, s + St::a_size, wm, wn, lane);
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();  // the ring is free for the epilogue
+  epi(acc, m0, n0, wm, wn, lane, smem);
+}
+
+// acc[mi][ni][2 * i + e] is C[m + 16 mi + g + 8 i][n + 8 ni + 2 t4 + e] for
+// the warp's (m, n), g = lane / 4 and t4 = lane % 4.
+
+// The G kernel's epilogue: G of a logit tile, as bf16 hi and lo halves,
+// on rows < M and columns < ncols of the chunk (exactly 0 past ncols),
+// staged in shared memory and written in 16-byte pieces, every column of
+// the tile (the workspace is as wide as the chunk's tiles of 128).
+struct GEpilogue {
+  const int* labels;  // the chunk's first row's
+  const float* lse;
+  const float* gl;
+  bf16* g;
+  int64_t ld, lo;
+  int M, ncols, c0;  // c0: the chunk's first vocabulary column
+  static constexpr int S = kGemmT + 8;  // the staged tile's row stride
+  static constexpr size_t smem = sizeof(bf16) * 2 * kGemmT * S;
+  __device__ __forceinline__ void init(Acc& acc, int, int, int) const { zero(acc); }
+  __device__ __forceinline__ void operator()(const Acc& acc, int m0, int n0, int wm, int wn,
+                                             int lane, bf16* smem) const {
+    const int g8 = lane >> 2, t4 = lane & 3;
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = wm + mi * 16 + g8 + 8 * i, row = m0 + r;
+        const bool ok = row < M;
+        const int lab = ok ? labels[row] - c0 : -1;  // -1 and other chunks' labels match nothing
+        const float l = ok ? lse[row] : 0.f, s = ok ? gl[row] : 0.f;
+#pragma unroll
+        for (int ni = 0; ni < 8; ++ni) {
+          const int c = wn + ni * 8 + 2 * t4, col = n0 + c;
+          float v[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            v[e] = ok && col + e < ncols
+                       ? (expf(acc[mi][ni][2 * i + e] - l) - (col + e == lab ? 1.f : 0.f)) * s
+                       : 0.f;
+          const __nv_bfloat162 vh = __floats2bfloat162_rn(v[0], v[1]);
+          *reinterpret_cast<__nv_bfloat162*>(smem + r * S + c) = vh;
+          *reinterpret_cast<__nv_bfloat162*>(smem + (kGemmT + r) * S + c) = __floats2bfloat162_rn(
+              __fsub_rn(v[0], __low2float(vh)), __fsub_rn(v[1], __high2float(vh)));
+        }
+      }
+    __syncthreads();
+    constexpr int PPR = kGemmT / 8;  // 16-byte pieces per row
+    for (int p = threadIdx.x; p < 2 * kGemmT * PPR; p += kGemmThreads) {
+      const int hr = p / PPR, half = hr / kGemmT, r = hr % kGemmT, c = p % PPR * 8;
+      if (m0 + r < M)
+        *reinterpret_cast<uint4*>(g + half * lo + (int64_t)(m0 + r) * ld + n0 + c) =
+            *reinterpret_cast<const uint4*>(smem + hr * S + c);
+    }
+  }
+};
+
+// The products' epilogue: C starts from in, the f32 sum of the earlier
+// chunks (0 on the first), the chunk's products fold into it, and it is
+// written as f32 or bf16 on rows < M and columns < N.
+struct StoreEpilogue {
+  const float* in;
+  int64_t ld_in;
+  void* out;
+  int64_t ld;
+  int out_bf16, M, N;
+  static constexpr size_t smem = 0;
+  __device__ __forceinline__ void init(Acc& acc, int m, int n, int lane) const {
+    zero(acc);
+    if (!in) return;
+    const int g8 = lane >> 2, t4 = lane & 3;
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = m + mi * 16 + g8 + 8 * i;
+        if (row >= M) continue;
+#pragma unroll
+        for (int ni = 0; ni < 8; ++ni) {
+          const int col = n + ni * 8 + 2 * t4;
+          const float* p = in + (int64_t)row * ld_in + col;
+          if (col < N) acc[mi][ni][2 * i] = p[0];
+          if (col + 1 < N) acc[mi][ni][2 * i + 1] = p[1];
+        }
+      }
+  }
+  __device__ __forceinline__ void operator()(const Acc& acc, int m0, int n0, int wm, int wn,
+                                             int lane, bf16*) const {
+    const int g8 = lane >> 2, t4 = lane & 3, m = m0 + wm, n = n0 + wn;
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = m + mi * 16 + g8 + 8 * i;
+        if (row >= M) continue;
+#pragma unroll
+        for (int ni = 0; ni < 8; ++ni) {
+          const int col = n + ni * 8 + 2 * t4;
+          if (col >= N) continue;
+          const bool two = col + 1 < N;
+          const float x0 = acc[mi][ni][2 * i], x1 = acc[mi][ni][2 * i + 1];
+          const int64_t o = (int64_t)row * ld + col;
+          if (out_bf16) {
+            bf16* p = static_cast<bf16*>(out) + o;
+            if (two)
+              *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x0, x1);
+            else
+              *p = __float2bfloat16_rn(x0);
+          } else {
+            float* p = static_cast<float*>(out) + o;
+            if (two)
+              *reinterpret_cast<float2*>(p) = make_float2(x0, x1);
+            else
+              *p = x0;
+          }
+        }
+      }
+  }
+};
 
 template <typename K>
 cudaError_t prepare(K kernel, size_t smem) {
@@ -755,6 +947,84 @@ cudaError_t bwd(int is_bf16, int out_bf16, Operand h, Operand w, const int* labe
                     : launch_bwd<bf, float, TOK_F>(h, w, labels, lse, gl, out, N, D, V, ncols, s);
   return out_bf16 ? launch_bwd<float, bf, TOK_F>(h, w, labels, lse, gl, out, N, D, V, ncols, s)
                   : launch_bwd<float, float, TOK_F>(h, w, labels, lse, gl, out, N, D, V, ncols, s);
+}
+
+template <bool A_KM, bool B_KM, bool SPLIT_A, bool SPLIT_B, class Epi>
+cudaError_t gemm(Mat A, Mat B, int M, int N, int K, Epi epi, cudaStream_t s) {
+  const size_t smem = std::max(Stage<A_KM, B_KM, SPLIT_A, SPLIT_B>::ring_bytes, Epi::smem);
+  auto kernel = xent_gemm_kernel<A_KM, B_KM, SPLIT_A, SPLIT_B, Epi>;
+  cudaError_t e = prepare(kernel, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((N + kGemmT - 1) / kGemmT, (M + kGemmT - 1) / kGemmT);
+  kernel<<<grid, kGemmThreads, smem, s>>>(A, B, K, epi);
+  return cudaGetLastError();
+}
+
+// The tensor-core backward's operands and chunk plan (see the C entries).
+struct Bwd {
+  const bf16 *h, *w;
+  int64_t sh, sw;
+  const int* labels;
+  const float *lse, *gl;
+  bf16* g;      // (2, min(N, rows), cols): hi, then lo
+  float* acc;   // the f32 sum when the output is bf16 and takes several chunks
+  void* out;
+  int out_bf16, N, D, V, ncols, rows, cols;
+  int64_t lo() const { return (int64_t)std::min(N, rows) * cols; }
+};
+
+// G of rows [r0, r0 + nr) and vocabulary columns [c0, c0 + width).
+cudaError_t g_chunk(const Bwd& b, int r0, int nr, int c0, int width, cudaStream_t s) {
+  const GEpilogue epi{b.labels + r0, b.lse + r0, b.gl + r0, b.g, b.cols, b.lo(), nr, width, c0};
+  return gemm<true, false, false, false>({b.h + (int64_t)r0 * b.sh, b.sh, nr, b.D, 0},
+                                         {b.w + c0, b.sw, b.D, width, 0}, nr, width, b.D, epi, s);
+}
+
+cudaError_t bwd_dh_mma(const Bwd& b, cudaStream_t s) {
+  const size_t el = b.out_bf16 ? 2 : 4;
+  for (int r0 = 0; r0 < b.N; r0 += b.rows) {
+    const int nr = std::min(b.rows, b.N - r0);
+    char* out = static_cast<char*>(b.out) + (int64_t)r0 * b.D * el;
+    float* sum = b.out_bf16 ? b.acc : reinterpret_cast<float*>(out);
+    for (int c0 = 0; c0 < b.ncols; c0 += b.cols) {
+      const int width = std::min(b.cols, b.ncols - c0);
+      const bool last = c0 + b.cols >= b.ncols;
+      cudaError_t e = g_chunk(b, r0, nr, c0, width, s);
+      if (e != cudaSuccess) return e;
+      const StoreEpilogue epi{c0 ? sum : nullptr, b.D, last ? out : static_cast<void*>(sum),
+                              b.D, last && b.out_bf16, nr, b.D};
+      e = gemm<true, true, true, false>({b.g, b.cols, nr, width, b.lo()},
+                                        {b.w + c0, b.sw, b.D, width, 0}, nr, b.D, width, epi, s);
+      if (e != cudaSuccess) return e;
+    }
+  }
+  return cudaSuccess;
+}
+
+cudaError_t bwd_dw_mma(const Bwd& b, cudaStream_t s) {
+  const size_t el = b.out_bf16 ? 2 : 4;
+  for (int c0 = 0; c0 < b.ncols; c0 += b.cols) {
+    const int width = std::min(b.cols, b.ncols - c0);
+    char* out = static_cast<char*>(b.out) + c0 * el;
+    float* sum = b.out_bf16 ? b.acc : reinterpret_cast<float*>(out);
+    const int64_t ld_sum = b.out_bf16 ? b.cols : b.V;
+    for (int r0 = 0; r0 < b.N; r0 += b.rows) {
+      const int nr = std::min(b.rows, b.N - r0);
+      const bool last = r0 + b.rows >= b.N;
+      cudaError_t e = g_chunk(b, r0, nr, c0, width, s);
+      if (e != cudaSuccess) return e;
+      const StoreEpilogue epi{r0 ? sum : nullptr, ld_sum, last ? out : static_cast<void*>(sum),
+                              last ? b.V : ld_sum, last && b.out_bf16, b.D, width};
+      e = gemm<false, false, false, true>({b.h + (int64_t)r0 * b.sh, b.sh, nr, b.D, 0},
+                                          {b.g, b.cols, nr, width, b.lo()}, b.D, width, nr, epi,
+                                          s);
+      if (e != cudaSuccess) return e;
+    }
+  }
+  if (b.ncols < b.V)  // no gradient for the padded vocabulary
+    return cudaMemset2DAsync(static_cast<char*>(b.out) + b.ncols * el, b.V * el, 0,
+                             (b.V - b.ncols) * el, b.D, s);
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -811,29 +1081,21 @@ int xent_bwd_dw(const void* h, int64_t sh_n, int64_t sh_d, const void* w, int64_
                                      static_cast<cudaStream_t>(stream)));
 }
 
-// The tensor-core dH (dh = 1, (N, D)) or dW (dh = 0, (D, V)), contiguous, in
+// The tensor-core dH (N, D) (dh = 1) or dW (D, V) (dh = 0), contiguous, in
 // f32 or bf16 (out_bf16), for the layouts of xent_fwd_mma with D a multiple
-// of 16 and D <= 2048.
-int xent_bwd_mma(int dh, const void* h, int64_t sh, const void* w, int64_t sw,
-                 const int* labels, const float* lse, const float* gl, void* out, int out_bf16,
-                 int N, int D, int V, int ncols, void* stream) {
+// of 16. rows and cols are the chunk plan (cols a multiple of 128); g is a
+// (2, min(N, rows), cols) bf16 workspace; acc an f32 workspace, (min(N,
+// rows), D) for dH and (D, cols) for dW, needed only for a bf16 output
+// summed over several chunks (more than one vocabulary chunk for dH, more
+// than one token chunk for dW), else null.
+int xent_bwd_chunks(int dh, const void* h, int64_t sh, const void* w, int64_t sw,
+                    const int* labels, const float* lse, const float* gl, void* g, float* acc,
+                    void* out, int out_bf16, int N, int D, int V, int ncols, int rows,
+                    int cols, void* stream) {
+  const Bwd b{static_cast<const bf16*>(h), static_cast<const bf16*>(w), sh, sw, labels, lse, gl,
+              static_cast<bf16*>(g), acc, out, out_bf16, N, D, V, ncols, rows, cols};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = bwd_mma_smem(D);
-  auto hp = static_cast<const __nv_bfloat16*>(h);
-  auto wp = static_cast<const __nv_bfloat16*>(w);
-  cudaError_t e;
-  if (dh) {
-    e = prepare(xent_bwd_mma_kernel<true>, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    xent_bwd_mma_kernel<true><<<(N + kBwdIt - 1) / kBwdIt, kThreads, smem, s>>>(
-        hp, sh, wp, sw, labels, lse, gl, out, out_bf16, N, D, V, ncols);
-  } else {
-    e = prepare(xent_bwd_mma_kernel<false>, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    xent_bwd_mma_kernel<false><<<(V + kBwdIt - 1) / kBwdIt, kThreads, smem, s>>>(
-        hp, sh, wp, sw, labels, lse, gl, out, out_bf16, N, D, V, ncols);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(dh ? bwd_dh_mma(b, s) : bwd_dw_mma(b, s));
 }
 
 const char* cuda_error_string(int code) {

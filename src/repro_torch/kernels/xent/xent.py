@@ -10,15 +10,22 @@ fallback: a build or launch failure raises. Each wrapper counts its kernel
 launches in ``.launches``.
 
 The kernels take h (N, D) and w (D, V) of any strides, both bfloat16 or
-both float32, with D <= 2048 (the backward's per-block accumulator),
-labels (N,) int32 and, for the backward, lse and gl (N,) float32. Each
-function has two kernels: bf16 operands whose rows are contiguous and
-16-byte aligned, with D a multiple of 16 (``mma_layout``), take the
-tensor-core one, other layouts and float32 the f32-FMA one; the launch
-counters count both. Not
-ported yet, and raising ``NotImplementedError``: ``transposed=True`` (the
-tied (V, D) head, ROADMAP Queue 1 item 7) and a non-zero ``col_offset``
-(vocab-sharded heads, item 12).
+both float32, with D <= 2048, labels (N,) int32 and, for the backward,
+lse and gl (N,) float32. Each function has two routes: bf16 operands
+whose rows are contiguous and 16-byte aligned, with D a multiple of 16
+(``mma_layout``), take the tensor cores (``mma``), other layouts and
+float32 the f32-FMA kernels (``fma``). The tensor-core backward is
+chunked: per chunk of the vocabulary (and, past 2**17 tokens, of the
+tokens; ``chunk_plan``) a G kernel writes G = (softmax - onehot) * gl as
+two bf16 halves to a workspace of at most 64 MiB, and a GEMM contracts it
+with w (dH, summed over the chunks in f32) or h (dW). It has no
+accumulator that grows with D: the D <= 2048 limit comes from the FMA
+kernels' register accumulator and ``_check`` alone (ROADMAP.md Queue 2
+item 16b). ``.launches`` counts one per wrapper call, however many chunk
+launches it makes; the backward wrappers also count by route in
+``route_launches``. Not ported yet, and raising ``NotImplementedError``:
+``transposed=True`` (the tied (V, D) head, ROADMAP Queue 1 item 7) and a
+non-zero ``col_offset`` (vocab-sharded heads, item 12).
 """
 from __future__ import annotations
 
@@ -29,13 +36,16 @@ import torch
 from .. import _build
 from .ref import xent_bwd_dh_ref, xent_bwd_dw_ref, xent_fwd_ref
 
-__all__ = ["xent_fwd", "xent_bwd_dh", "xent_bwd_dw", "MAX_D"]
+__all__ = ["xent_fwd", "xent_bwd_dh", "xent_bwd_dw", "MAX_D", "chunk_plan"]
 
 _DTYPES = (torch.float32, torch.bfloat16)
-MAX_D = 2048  # 4 accumulator columns per thread of a 512-thread block
+MAX_D = 2048  # the FMA kernels: 4 accumulator columns per thread of 512
 # tensor-core forward: 64 token rows per block, vocab tiles of 128 columns,
 # the vocab split so that about 4 blocks of 128 threads land on each SM
 _MMA_ROWS, _MMA_COLS, _MMA_TARGET_BLOCKS = 64, 128, 4 * 132
+# tensor-core backward: G's hi and lo halves of one chunk (4 bytes per
+# element) fit this; chunks are whole GEMM tiles of 128 columns
+_G_BYTES, _G_TILE = 64 * 2**20, 128
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -47,10 +57,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
             fn.argtypes = head + [p, p, p, p, i, i, i, i, i, p]
         lib.xent_fwd_mma.argtypes = [p, i64, p, i64, p, p, p, p, i, i, i, i,
                                      i, i, p]
-        lib.xent_bwd_mma.argtypes = [i, p, i64, p, i64, p, p, p, p, i, i, i,
-                                     i, i, p]
+        lib.xent_bwd_chunks.argtypes = [i, p, i64, p, i64, p, p, p, p, p, p,
+                                        i, i, i, i, i, i, i, p]
         for fn in (lib.xent_fwd, lib.xent_fwd_mma, lib.xent_bwd_dh,
-                   lib.xent_bwd_dw, lib.xent_bwd_mma):
+                   lib.xent_bwd_dw, lib.xent_bwd_chunks):
             fn.restype = i
         lib.cuda_error_string.argtypes = [i]
         lib.cuda_error_string.restype = ctypes.c_char_p
@@ -138,6 +148,20 @@ def split_plan(N: int, ncols: int) -> tuple:
     return -(-v_tiles // per), per
 
 
+def chunk_plan(N: int, ncols: int) -> tuple:
+    """(rows, cols) of one chunk of the tensor-core backward: the vocab is
+    cut into chunks of ``cols`` columns (a multiple of 128; the last chunk
+    takes the rest) and the tokens into chunks of ``rows``, so that G's two
+    bf16 halves, (min(N, rows), cols), fit ``_G_BYTES``. Tokens are cut
+    only when a chunk of 128 columns over all N does not fit (N > 2**17).
+    Depends on (N, ncols) alone, so runs sum in the same order."""
+    tiles = -(-ncols // _G_TILE)
+    cols = _G_TILE * max(1, min(tiles, _G_BYTES // (4 * N * _G_TILE)))
+    rows = N if 4 * N * cols <= _G_BYTES else (
+        _G_BYTES // (4 * cols) // _G_TILE * _G_TILE)
+    return rows, cols
+
+
 def _ncols(w, vocab_size: int) -> int:
     if vocab_size < 1:
         raise ValueError(f"vocab_size must be >= 1, got {vocab_size}")
@@ -175,8 +199,9 @@ def xent_fwd(h, w, labels, *, vocab_size: int, col_offset=0,
     return lse, ll
 
 
-def _bwd(op: str, h, w, labels, lse, gl, vocab_size, col_offset, out_dtype,
+def _bwd(fn, h, w, labels, lse, gl, vocab_size, col_offset, out_dtype,
          transposed, ref, out_shape):
+    op = fn.__name__
     _not_ported(op, col_offset, transposed)
     dev = _check(op, h, w, labels, (("lse", lse), ("gl", gl)))
     ncols = _ncols(w, vocab_size)
@@ -189,13 +214,29 @@ def _bwd(op: str, h, w, labels, lse, gl, vocab_size, col_offset, out_dtype,
     (N, D), V = h.shape, w.shape[1]
     out = torch.empty(out_shape, dtype=out_dtype, device=dev)
     labels, lse, gl = labels.contiguous(), lse.contiguous(), gl.contiguous()
-    tail = (labels.data_ptr(), lse.data_ptr(), gl.data_ptr(), out.data_ptr(),
-            int(out_dtype == torch.bfloat16), N, D, V, ncols)
+    out_bf16 = int(out_dtype == torch.bfloat16)
     if mma_layout(h, w):
-        _launch("xent_bwd_mma", dev, int(op == "xent_bwd_dh"), h.data_ptr(),
-                h.stride(0), w.data_ptr(), w.stride(0), *tail)
+        route, dh = "mma", op == "xent_bwd_dh"
+        rows, cols = chunk_plan(N, ncols)
+        g = torch.empty((2, min(N, rows), cols), dtype=torch.bfloat16,
+                        device=dev)
+        # an f32 sum across chunks, unless the output is f32 and holds it
+        summed = ncols > cols if dh else N > rows
+        acc = (torch.empty((min(N, rows), D) if dh else (D, cols),
+                           dtype=torch.float32, device=dev)
+               if out_bf16 and summed else None)
+        _launch("xent_bwd_chunks", dev, int(dh), h.data_ptr(), h.stride(0),
+                w.data_ptr(), w.stride(0), labels.data_ptr(), lse.data_ptr(),
+                gl.data_ptr(), g.data_ptr(),
+                None if acc is None else acc.data_ptr(), out.data_ptr(),
+                out_bf16, N, D, V, ncols, rows, cols)
     else:
-        _launch(op, dev, *_head_args(h, w), *tail)
+        route = "fma"
+        _launch(op, dev, *_head_args(h, w), labels.data_ptr(),
+                lse.data_ptr(), gl.data_ptr(), out.data_ptr(), out_bf16, N, D,
+                V, ncols)
+    fn.launches += 1
+    fn.route_launches[route] += 1
     return out
 
 
@@ -204,24 +245,20 @@ def xent_bwd_dh(h, w, labels, lse, gl, *, vocab_size: int, col_offset=0,
     """dH (N, D) in ``out_dtype``: the gl-weighted (softmax - onehot)
     contracted with w. ``gl`` (N,) f32 is the per-token cotangent (0 for
     masked labels), ``lse`` the forward's log-sum-exp."""
-    out = _bwd("xent_bwd_dh", h, w, labels, lse, gl, vocab_size, col_offset,
-               out_dtype, transposed, xent_bwd_dh_ref, tuple(h.shape))
-    if h.device.type == "cuda":
-        xent_bwd_dh.launches += 1
-    return out
+    return _bwd(xent_bwd_dh, h, w, labels, lse, gl, vocab_size, col_offset,
+                out_dtype, transposed, xent_bwd_dh_ref, tuple(h.shape))
 
 
 def xent_bwd_dw(h, w, labels, lse, gl, *, vocab_size: int, col_offset=0,
                 out_dtype=torch.float32, transposed: bool = False):
     """dW (D, V) in ``out_dtype``: h^T contracted with the gl-weighted
     (softmax - onehot); columns at or past ``vocab_size`` are 0."""
-    out = _bwd("xent_bwd_dw", h, w, labels, lse, gl, vocab_size, col_offset,
-               out_dtype, transposed, xent_bwd_dw_ref, tuple(w.shape))
-    if h.device.type == "cuda":
-        xent_bwd_dw.launches += 1
-    return out
+    return _bwd(xent_bwd_dw, h, w, labels, lse, gl, vocab_size, col_offset,
+                out_dtype, transposed, xent_bwd_dw_ref, tuple(w.shape))
 
 
 xent_fwd.launches = 0
 xent_bwd_dh.launches = 0
 xent_bwd_dw.launches = 0
+xent_bwd_dh.route_launches = {"mma": 0, "fma": 0}
+xent_bwd_dw.route_launches = {"mma": 0, "fma": 0}

@@ -38,10 +38,12 @@ against their plain versions, with lse from the plain forward:
   * dh and dw in bf16: the same plus one bf16 rounding on each side,
     8e-3*|ref|;
   * a second run is bitwise equal;
-  * each function's two kernels meet these bounds: the tensor-core one
-    (aligned bf16) and the FMA one (float32, other bf16 layouts, here w
-    read through its columns); the tensor-core backward splits G into
-    two bf16 halves, which carry it to about 2**-16 of itself;
+  * each function's two routes meet these bounds, counted in the backward
+    wrappers' ``route_launches``: ``mma`` on the tensor cores (aligned
+    bf16) and ``fma`` (float32, other bf16 layouts, here w read through
+    its columns); the tensor-core backward is chunked over the vocab (and
+    past 2**17 tokens over the tokens) and carries G as two bf16 halves,
+    to about 2**-16 of itself;
   * ``dispatch.xent_loss`` gradients against the plain losses' autograd:
     the same bounds in the inputs' dtype.
 Attention backward (``mha_bwd_dq``, ``mha_bwd_dkv``) against the plain
@@ -347,7 +349,14 @@ XENT_CASES = {
     "n4097_padvocab": (4097, 2048, 32000, 31990, 0.1),
     "all_masked": (300, 2048, 32000, 32000, 1.0),
     "small_d64": (300, 64, 1000, 1000, 0.2),
+    "d80": (300, 80, 1000, 1000, 0.2),  # D not a multiple of the K-tile
+    "n16384": (16384, 2048, 32000, 32000, 0.0),  # a narrower chunk_plan
+    "n140000_d16": (140000, 16, 128, 128, 0.1),  # two token chunks
 }
+
+
+def _bwd_routes(X):
+    return [dict(f.route_launches) for f in (X.xent_bwd_dh, X.xent_bwd_dw)]
 
 
 def _xent_inputs(cuda, case, td, seed=5):
@@ -380,6 +389,7 @@ def test_xent_kernels_match_plain_on_card(cuda, case, dtype):
     h, w, labels, gl, vs = _xent_inputs(cuda, case, td)
     before = (X.xent_fwd.launches, X.xent_bwd_dh.launches,
               X.xent_bwd_dw.launches)
+    routes = _bwd_routes(X)
     lse, ll = X.xent_fwd(h, w, labels, vocab_size=vs)
     want_lse, want_ll = XR.xent_fwd_ref(h, w, labels, vocab_size=vs)
     torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
@@ -421,6 +431,13 @@ def test_xent_kernels_match_plain_on_card(cuda, case, dtype):
              X.xent_bwd_dw.launches)
     assert [a - b for a, b in zip(after, before)] == [n_fwd, per * n_bwd // 2,
                                                       per * n_bwd // 2]
+    # aligned bf16 on the tensor cores (twice per out dtype: the bitwise
+    # rerun), f32 and w read through its columns on the FMA kernels
+    n_out = n_bwd // 2
+    want = ({"mma": 2 * n_out, "fma": n_out} if td == torch.bfloat16
+            else {"mma": 0, "fma": 2 * n_out})
+    for now, was in zip(_bwd_routes(X), routes):
+        assert {r: now[r] - was[r] for r in was} == want
 
 
 @pytest.mark.gpu
@@ -439,12 +456,17 @@ def test_xent_loss_grads_on_card_match_plain_autograd(cuda, dtype):
     weights = torch.rand(lab.shape, device=cuda)
     before = (X.xent_fwd.launches, X.xent_bwd_dh.launches,
               X.xent_bwd_dw.launches)
+    routes = _bwd_routes(X)
     got = dispatch.xent_loss(h3, w, lab, vocab_size=vs, weights=weights)
     gh, gw = torch.autograd.grad(got.sum(), [h3, w])
     torch.cuda.synchronize()
     after = (X.xent_fwd.launches, X.xent_bwd_dh.launches,
              X.xent_bwd_dw.launches)
     assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+    route = "mma" if td == torch.bfloat16 else "fma"
+    for now, was in zip(_bwd_routes(X), routes):
+        assert {r: now[r] - was[r] for r in was} == {
+            r: int(r == route) for r in was}
     want = XR.losses(h3, w, torch.where(weights > 0, lab, -1), vs) * weights
     wh, ww = torch.autograd.grad(want.sum(), [h3, w])
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)

@@ -204,6 +204,42 @@ def test_forward_kernel_choice_and_split_plan():
         assert -(-N // 64) * splits <= max(528, -(-N // 64))
 
 
+@pytest.mark.parametrize("N,ncols", [(1, 32000), (4096, 32000),
+                                     (4097, 31990), (300, 1000),
+                                     (16384, 32000), (10 ** 6, 50257)])
+def test_backward_chunk_plan(N, ncols):
+    """The tensor-core backward's chunks cover the vocab and the tokens
+    exactly once, every vocab chunk but the last is whole tiles of 128, and
+    G's two bf16 halves fit 64 MiB."""
+    rows, cols = TX.chunk_plan(N, ncols)
+    col_spans = [(c, min(cols, ncols - c)) for c in range(0, ncols, cols)]
+    row_spans = [(r, min(rows, N - r)) for r in range(0, N, rows)]
+    for spans, total in ((col_spans, ncols), (row_spans, N)):
+        covered = np.zeros(total, dtype=np.int64)
+        for start, width in spans:
+            assert width >= 1
+            covered[start:start + width] += 1
+        assert (covered == 1).all()
+    assert cols % 128 == 0
+    assert all(width % 128 == 0 for _, width in col_spans[:-1])
+    assert 2 * min(N, rows) * cols * 2 <= 64 * 2**20
+    assert TX.chunk_plan(N, ncols) == (rows, cols)  # a function of the shape
+    if N == 4096 and ncols == 32000:  # llama-1b's loss: 8 chunks, the last
+        assert (rows, len(col_spans), col_spans[-1][1]) == (4096, 8, 3328)
+
+
+def test_cpu_backward_leaves_the_launch_counters():
+    """On CPU tensors the backward wrappers run their plain versions and
+    count no launch, on either route."""
+    _, (h, w, labels, lse, gl), vs = _inputs("small", "bf16")
+    fns = (TX.xent_bwd_dh, TX.xent_bwd_dw)
+    before = [(f.launches, dict(f.route_launches)) for f in fns]
+    for f in fns:
+        f(h, w, labels, lse, gl, vocab_size=vs, out_dtype=torch.bfloat16)
+    assert [(f.launches, dict(f.route_launches)) for f in fns] == before
+    assert all(set(f.route_launches) == {"mma", "fma"} for f in fns)
+
+
 def test_xent_supported_matches_jax():
     for hs, ws, tr in (((4, 8), (8, 16), False), ((2, 4, 8), (8, 16), False),
                        ((4, 8), (16, 8), True), ((4, 8), (9, 16), False),
