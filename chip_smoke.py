@@ -16,10 +16,11 @@ nvcc (one process per source, in parallel), then runs eight phases and fails
    also at the eval shape in bf16; ``mha_bwd_dq`` and ``mha_bwd_dkv`` on
    the route their wrappers pick (``mma`` tensor cores for bf16, ``fma``
    for f32), counted, and the fma kernels also at the training shape in
-   bf16; ``xent_bwd_dh`` and ``xent_bwd_dw`` on the route their wrappers
-   pick (``mma``, the chunked tensor-core backward, for aligned bf16;
-   ``fma`` for f32 and other layouts), counted, with each output's
-   largest error over its tolerance; the tensor-core forward, the
+   bf16; the xent kernels on the route their wrappers pick (for aligned
+   bf16 ``wgmma``, the forward on wgmma and TMA, and ``mma``, the chunked
+   tensor-core backward; ``fma`` for f32 and other layouts), counted,
+   with each backward output's largest error over its tolerance; the
+   tensor-core forwards, the
    optimizer, cross-entropy and attention-backward kernels also run twice
    (bitwise equal), and the optimizer kernels show that they write in
    place where the TPU kernels alias;
@@ -35,8 +36,11 @@ nvcc (one process per source, in parallel), then runs eight phases and fails
    (the backward pair at the training shape and at qwen2-500m's GQA
    shape); for the xent kernels also their device time and, for the
    backward, a second library yardstick that recomputes the logits, and
-   two variants of ``xent.cu`` built beside it (the fold taken out; the
-   copies taken out) timed against the backward kernels;
+   variants of the xent sources built beside them, timed against the
+   real kernels (of the backward: the fold taken out, the copies taken
+   out; of the forward: the softmax epilogue taken out, and the wgmma
+   too); the optimizer kernels and their library calls also by device
+   time, in turns;
 5. where the serving time goes: device busy time and the top kernels of
    one prefill and of decode steps, from torch.profiler;
 6. the optimizer path: SCALE steps of llama-1b at full width and depth
@@ -51,22 +55,22 @@ nvcc (one process per source, in parallel), then runs eight phases and fails
 7. the loss path: llama-1b at full width and depth (bf16, seeded random
    weights; batch 16 of 256 tokens from the ported ``SyntheticLM``):
    ``make_eval_step`` (exactly 24 ``mha_fwd``, all on the ``mma`` route,
-   and 1 ``xent_fwd`` launches), its loss against the plain full-logit route on the same
-   hidden, against a forward whose attention is the plain ``mha_fwd_ref``,
-   and beside ln(V) + sigma^2/2; the loss and its gradient at the
-   head (exactly 1 launch of each xent kernel, the backward pair on the
-   ``mma`` route), held against the plain
-   route's autograd, once under ``set_sync_debug_mode("error")``; times,
+   and 1 ``xent_fwd``, on ``wgmma``), its loss against the plain
+   full-logit route on the same hidden, against a forward whose attention
+   is the plain ``mha_fwd_ref``, and beside ln(V) + sigma^2/2; the loss
+   and its gradient at the head (exactly 1 launch of each xent kernel, the
+   forward on ``wgmma``, the backward pair on ``mma``), held against the
+   plain route's autograd, once under ``set_sync_debug_mode("error")``; times,
    top device kernels and the peak memory each route adds;
 8. the training step: llama-1b at full width and depth (bf16, seeded
    random weights, batches of 16 x 256 from ``SyntheticLM``,
    ``scale_fused`` with clip 1.0 and ``remat="full"``): the launcher's
    ``main`` for three steps, then ``make_train_step`` for eight, each step's
    launches checked on every kernel counter (48 ``mha_fwd``, all on the
-   ``mma`` route, 24 of each
-   attention backward kernel, all on the ``mma`` route, one of each xent
-   kernel, the backward pair on the ``mma`` route, 8 ``norm_sumsq``, 9
-   ``update_apply``, one ``momentum_sumsq``), the loss falling and held to
+   ``mma`` route, 24 of each attention backward kernel, all on the ``mma``
+   route, one of each xent kernel, the forward on ``wgmma``, the backward
+   pair on ``mma``, 8 ``norm_sumsq``, 9 ``update_apply``, one
+   ``momentum_sumsq``), the loss falling and held to
    the curve of the same steps with attention through plain ``mha_fwd_ref``
    autograd, one step under ``set_sync_debug_mode("error")``, every leaf's
    gradient held against the plain-attention route (bf16 at full depth,
@@ -118,6 +122,7 @@ SRC_MHA_BWD = "src/repro_torch/kernels/attention/csrc/mha_bwd.cu"
 SRC_COLNORM = "src/repro_torch/kernels/colnorm/csrc/colnorm.cu"
 SRC_MOMENTUM = "src/repro_torch/kernels/scale_head/csrc/momentum_sumsq.cu"
 SRC_XENT = "src/repro_torch/kernels/xent/csrc/xent.cu"
+SRC_HOPPER = "src/repro_torch/kernels/xent/csrc/hopper_gemm.cuh"
 TPU_KERNELS = {  # the Pallas kernel bodies each CUDA kernel replaces
     "norm_sumsq": "src/repro/kernels/colnorm/colnorm.py:113",
     "update_apply": "src/repro/kernels/colnorm/colnorm.py:219",
@@ -260,7 +265,7 @@ def attention_cases():
 
 
 # the wrappers that count launches by route
-ROUTED = ("mha_fwd", *BWD_KERNELS, "xent_bwd_dh", "xent_bwd_dw")
+ROUTED = ("mha_fwd", *BWD_KERNELS, *XENT_KERNELS)
 
 
 def _routed():
@@ -458,7 +463,7 @@ def phase_bwd_kernels(torch, gen):
         torch.cuda.synchronize()
         after = route_counts()
         if not forced and after != {
-                k: {**c, route: c[route] + (k in BWD_KERNELS)}
+                k: {**c, route: c[route] + 1} if k in BWD_KERNELS else c
                 for k, c in before.items()}:
             raise AssertionError(f"attention backward {key}: routes {before} "
                                  f"-> {after}, expected one {route} each")
@@ -752,18 +757,33 @@ def device_ms(torch, fn, n, match=""):
     (all kernels by default), over ``n`` calls of ``fn`` under
     torch.profiler: the kernels' own time, without the host's launch cost
     that back-to-back CUDA-event timing includes when the host is the
-    slower side. None if the profiler recorded no device time."""
+    slower side. In a long process the profiler now and then records
+    fewer launches than ran, or none: a session in which some kernel's
+    recorded launches are not a multiple of ``n`` is made again (it says
+    so), up to three sessions; the last one counts each kernel's mean
+    time per recorded launch times its launches per call, rounded where
+    that is not 0. None if no session recorded device time."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type.name == "CUDA" and match in e.key)
-    return total / 1e3 / n if total else None
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [(e.key, e.count, e.self_device_time_total)
+                   for e in prof.key_averages()
+                   if e.device_type.name == "CUDA" and match in e.key
+                   and e.count]
+        short = [f"{c} of {k[:50]}" for k, c, _ in kernels if c % n]
+        if kernels and not short:
+            break
+        print(f"  profiler, session {attempt + 1}: recorded "
+              f"{', '.join(short) if kernels else 'no device time'} over "
+              f"{n} calls")
+    total = sum(t / c * (round(c / n) or c / n) for _, c, t in kernels)
+    return total / 1e3 if total else None
 
 
 def fmt_ms(x):
@@ -997,6 +1017,12 @@ def optimizer_timing(torch, gen, power, errs):
         ms = time_ms(torch, kern, 50)
         plain_ms = time_ms(torch, plain, 10)
         lib_ms = time_ms(torch, lib, 50)
+        # kernel and library call also by device time, in turns (kernel,
+        # library, library, kernel), so that the card's drift falls on both
+        turns = [device_ms(torch, f, 20) for f in (kern, lib, lib, kern)]
+        k1, l1, l2, k2 = turns
+        dev = tuple(None if None in pair else sum(pair) / 2
+                    for pair in ((k1, k2), (l1, l2)))
         bound = 1e3 * nbytes / HBM_BYTES_PER_S
         # phase 2's error at this shape and these dtypes (bf16 g; the
         # head's momentum in f32)
@@ -1005,12 +1031,17 @@ def optimizer_timing(torch, gen, power, errs):
         print(f"  [{power}] {name} {sname} bf16 col: {ms:.4f} ms (bound "
               f"{bound:.4f} ms by bytes, {nbytes / 1e6:.1f} MB; "
               f"{nbytes / ms / 1e6:.0f} GB/s; plain {plain_ms:.4f} ms; "
-              f"{lib_note} {lib_ms:.4f} ms)")
+              f"{lib_note} {lib_ms:.4f} ms)" + (
+                  "" if None in dev else
+                  f"; device time in turns (kernel, library, library, "
+                  f"kernel) {', '.join(fmt_ms(t) for t in turns)}: kernel "
+                  f"{dev[0] / dev[1]:.3f}x the library"))
         rows.append({"name": name, "shape": sname, "route": "cuda",
                      "source": src, "replaces": TPU_KERNELS[name],
                      "launches": None, "max_abs_err": err, "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": bound,
-                     "bound_by": "bytes", "library_ms": lib_ms})
+                     "bound_by": "bytes", "library_ms": lib_ms,
+                     "device_ms": dev[0], "library_device_ms": dev[1]})
     return rows
 
 
@@ -1277,6 +1308,10 @@ def xent_cases():
         "N=16384": (16384, 2048, 32000, 32000, 0.0),
         # and the tokens into two chunks (dW summed across them)
         "N=140000 D=16 V=128": (140000, 16, 128, 128, 0.1),
+        # one 128 x 256 tile of the wgmma forward, h and w exactly 64 x 64
+        # and 64 x 256; one row with ragged K and vocab tiles
+        "single tile N=64 D=64 V=256": (64, 64, 256, 256, 0.0),
+        "N=1 D=96 V=264 vocab_size=260": (1, 96, 264, 260, 0.0),
     }
 
 
@@ -1308,10 +1343,11 @@ def _grad_check(torch, name, got, want, dtype, key):
 
 def phase_xent_kernels(torch, gen):
     """Phase 2: the three xent kernels against their plain versions, each
-    run twice (bitwise equal), the backward on the route its wrapper picks
-    (counted: ``mma`` for aligned bf16, ``fma`` for f32 and for w read
-    through its columns). Prints each backward output's largest error over
-    its element's tolerance. -> {(kernel, case, dtype): max abs error}."""
+    run twice (bitwise equal), on the route its wrapper picks (counted:
+    ``wgmma`` for the forward and ``mma`` for the backward on aligned bf16,
+    ``fma`` for f32 and for w read through its columns). Prints each
+    backward output's largest error over its element's tolerance.
+    -> {(kernel, case, dtype): max abs error}."""
     from repro_torch.kernels.xent import ref as XR
     from repro_torch.kernels.xent import xent as X
     errs = {}
@@ -1320,8 +1356,15 @@ def phase_xent_kernels(torch, gen):
             tag = str(dtype).replace("torch.", "")
             key = f"{cname} {tag}"
             h, w, labels, gl = xent_inputs(torch, gen, N, D, V, masked, dtype)
+            fwd_route = "wgmma" if dtype == torch.bfloat16 else "fma"
+            was = dict(X.xent_fwd.route_launches)
             lse, ll = X.xent_fwd(h, w, labels, vocab_size=vs)
             torch.cuda.synchronize()
+            if X.xent_fwd.route_launches != {**was, fwd_route:
+                                             was[fwd_route] + 1}:
+                raise AssertionError(f"xent_fwd: routes {was} -> "
+                                     f"{X.xent_fwd.route_launches}, expected "
+                                     f"one {fwd_route}: {key}")
             want_lse, want_ll = XR.xent_fwd_ref(h, w, labels, vocab_size=vs)
             e_f = 0.0
             for got, want in ((lse, want_lse), (ll, want_ll)):
@@ -1340,16 +1383,19 @@ def phase_xent_kernels(torch, gen):
                            torch.stack(X.xent_fwd(h, w, labels,
                                                   vocab_size=vs)), key)
             errs[("xent_fwd", cname, tag)] = e_f
-            msg = [f"fwd {e_f:.2e}"]
+            msg = [f"fwd {fwd_route} {e_f:.2e}"]
             if X.mma_layout(h, w) != (dtype == torch.bfloat16):
                 raise AssertionError(f"xent_fwd: unexpected kernel for {key}")
             # the FMA kernels, which other bf16 layouts take
             w_cols = w.T.contiguous().T if dtype == torch.bfloat16 else None
             if dtype == torch.bfloat16:
                 e_fma = 0.0
-                for got, want in zip(X.xent_fwd(h, w_cols, labels,
-                                                vocab_size=vs),
-                                     (want_lse, want_ll)):
+                was = dict(X.xent_fwd.route_launches)
+                got_cols = X.xent_fwd(h, w_cols, labels, vocab_size=vs)
+                if X.xent_fwd.route_launches != {**was, "fma": was["fma"] + 1}:
+                    raise AssertionError(f"xent_fwd: w_cols did not take the "
+                                         f"fma route: {key}")
+                for got, want in zip(got_cols, (want_lse, want_ll)):
                     d = (got - want).abs()
                     if not bool((d <= XENT_LSE_ATOL + XENT_LSE_RTOL
                                  * want.abs()).all()):
@@ -1486,6 +1532,8 @@ def xent_timing(torch, gen, power, errs):
                                                    out_dtype=bf),
                         "bwd", note_bwd, "full"),
     }
+    kernel_routes = {"xent_fwd": "wgmma", "xent_bwd_dh": "mma",
+                     "xent_bwd_dw": "mma"}
     rows = []
     for name, (kern, plain, lib, lib_note, lib2) in cases.items():
         ms = time_ms(torch, kern, 5)
@@ -1494,14 +1542,25 @@ def xent_timing(torch, gen, power, errs):
         bound, by = xent_bound_ms(N, D, V, 2, name)
         (lib_ms, lib_dev), (lib2_ms, lib2_dev) = libs[lib], libs.get(
             lib2, (None, None))
-        print(f"  [{power}] {name} N={N} D={D} V={V} bf16: {ms:.4f} ms "
-              f"(device time {fmt_ms(dev_ms)}; bound {bound:.4f} ms by {by}, "
-              f"{bound / ms:.4f} of it; plain {plain_ms:.4f} ms; {lib_note} "
+        # products executed: the backward's logits, then G's hi and lo
+        # halves contracted
+        tflop = 2 * N * D * V * (1 if name == "xent_fwd" else 3) / 1e12
+        print(f"  [{power}] {name} N={N} D={D} V={V} bf16, "
+              f"{kernel_routes[name]}: {ms:.4f} ms "
+              f"(device time {fmt_ms(dev_ms)}; {tflop / ms * 1e3:.1f} TFLOP/s "
+              f"of the {tflop:.3f} TFLOP it executes; bound {bound:.4f} ms "
+              f"by {by}, {bound / ms:.4f} of it; plain {plain_ms:.4f} ms; "
+              f"{lib_note} "
               f"{lib_ms:.4f} ms, device time {fmt_ms(lib_dev)}"
               + ("" if lib2 is None else f"; {note_full} {lib2_ms:.4f} ms, "
                  f"device time {fmt_ms(lib2_dev)}") + ")")
         rows.append({"name": name, "shape": f"N={N} D={D} V={V} bf16",
-                     "route": "cuda", "source": SRC_XENT,
+                     "route": "cuda", "kernel_route": kernel_routes[name],
+                     "source": SRC_XENT,
+                     # the forward's mainloop is in the header xent.cu
+                     # includes
+                     "sources": [SRC_XENT] + ([SRC_HOPPER]
+                                              if name == "xent_fwd" else []),
                      "replaces": TPU_KERNELS[name], "launches": None,
                      "max_abs_err": errs[(name, "llama-1b N=4096",
                                           "bfloat16")],
@@ -1515,44 +1574,75 @@ def xent_timing(torch, gen, power, errs):
     return rows
 
 
-# Phase 4: variants of xent.cu that measure the tensor-core backward's
-# design at the train shape, each a text substitution on the source:
-# "chained" takes out the fold (each K-tile's products chain in the
-# accumulator, which truncates), "no copies" fills the ring once and leaves
-# stale tiles after (wrong results: a time only, the loop without its
-# cp.async traffic).
+# Phase 4: variants of the xent sources that measure the tensor-core
+# kernels' designs at the train shape, each text substitutions on xent.cu
+# or hopper_gemm.cuh (wrong results where a step is taken out: a time
+# only). Of the backward: "chained" takes out the fold (each K-tile's
+# products chain in the accumulator, which truncates), "no copies" fills
+# the ring once and leaves stale tiles after (the loop without its
+# cp.async traffic). Of the forward: "fwd no epilogue" replaces the
+# softmax fold of each tile by one add of one logit (the wgmma mainloop
+# alone: with no read of the accumulator left, ptxas drops the wgmma),
+# "fwd loads only" also drops the wgmma (the TMA ring alone: how fast L2
+# and memory feed the tiles).
+_FWD_FOLD = ("    if (n0 + hopper::kBN <= ncols)\n"
+             "      fold<false>(r, acc, n0);\n"
+             "    else\n"
+             "      fold<true>(r, acc, n0);\n", "    r.s[0] += acc[0];\n")
+_FWD_WGMMA = ("#pragma unroll\n"
+              "        for (int kk = 0; kk < kBK / 16; ++kk)\n"
+              "          wgmma_m64n256k16_bt(acc, "
+              "sw128_desc(a + 32 * kk, 16, 1024),\n"
+              "                              "
+              "sw128_desc(b + 16 * 128 * kk, kBBoxBytes, 1024), "
+              "kt > 0 || kk > 0);\n", "")
 XENT_VARIANTS = {
-    "chained": (('      "mov.f32 t0, 0f00000000;\\nmov.f32 t1, 0f00000000;\\n"\n'
-                 '      "mov.f32 t2, 0f00000000;\\nmov.f32 t3, 0f00000000;\\n"\n',
-                 '      "mov.f32 t0, %0;\\nmov.f32 t1, %1;\\n"\n'
-                 '      "mov.f32 t2, %2;\\nmov.f32 t3, %3;\\n"\n'),
-                ('      "add.rn.f32 %0, %0, t0;\\nadd.rn.f32 %1, %1, t1;\\n"\n'
-                 '      "add.rn.f32 %2, %2, t2;\\nadd.rn.f32 %3, %3, t3;\\n}\\n"\n',
-                 '      "mov.f32 %0, t0;\\nmov.f32 %1, t1;\\n"\n'
-                 '      "mov.f32 %2, t2;\\nmov.f32 %3, t3;\\n}\\n"\n')),
-    "no copies": (("    if (kt + kGemmStages - 1 < nk) load(kt + kGemmStages - 1);\n",
-                   ""),),
+    # name: (the kernels it times, ((source, old text, new text), ...))
+    "chained": (("xent_bwd_dh", "xent_bwd_dw"), (
+        (SRC_XENT,
+         '      "mov.f32 t0, 0f00000000;\\nmov.f32 t1, 0f00000000;\\n"\n'
+         '      "mov.f32 t2, 0f00000000;\\nmov.f32 t3, 0f00000000;\\n"\n',
+         '      "mov.f32 t0, %0;\\nmov.f32 t1, %1;\\n"\n'
+         '      "mov.f32 t2, %2;\\nmov.f32 t3, %3;\\n"\n'),
+        (SRC_XENT,
+         '      "add.rn.f32 %0, %0, t0;\\nadd.rn.f32 %1, %1, t1;\\n"\n'
+         '      "add.rn.f32 %2, %2, t2;\\nadd.rn.f32 %3, %3, t3;\\n}\\n"\n',
+         '      "mov.f32 %0, t0;\\nmov.f32 %1, t1;\\n"\n'
+         '      "mov.f32 %2, t2;\\nmov.f32 %3, t3;\\n}\\n"\n'))),
+    "no copies": (("xent_bwd_dh", "xent_bwd_dw"), (
+        (SRC_XENT,
+         "    if (kt + kGemmStages - 1 < nk) load(kt + kGemmStages - 1);\n",
+         ""),)),
+    "fwd no epilogue": (("xent_fwd",), ((SRC_XENT, *_FWD_FOLD),)),
+    "fwd loads only": (("xent_fwd",), ((SRC_XENT, *_FWD_FOLD),
+                                       (SRC_HOPPER, *_FWD_WGMMA))),
 }
 
 
 def start_xent_variants():
-    """Start one nvcc per XENT_VARIANTS entry, beside the kernels' build.
-    -> {name: (process, library path)}."""
+    """Start one nvcc per XENT_VARIANTS entry beside the kernels' build:
+    each into its own directory of ``build/repro_torch/variants/``, with
+    its copies of the sources. -> {name: (process, library path)}."""
     from repro_torch.kernels import _build
     out = _build.BUILD_DIR / "variants"
-    out.mkdir(parents=True, exist_ok=True)
-    src = (ROOT / SRC_XENT).read_text()
-    procs = {}
-    for name, subs in XENT_VARIANTS.items():
-        text = src
-        for old, new in subs:
-            if text.count(old) != 1:
+    texts = {rel: (ROOT / rel).read_text() for rel in (SRC_XENT, SRC_HOPPER)}
+    jobs = {}
+    for name, (_, subs) in XENT_VARIANTS.items():
+        var = dict(texts)
+        for rel, old, new in subs:
+            if var[rel].count(old) != 1:
                 raise AssertionError(f"xent variant {name!r}: its text is not "
-                                     f"in {SRC_XENT} once")
-            text = text.replace(old, new)
-        stem = name.replace(" ", "_")
-        cu, lib = out / f"xent_{stem}.cu", out / f"libxent_{stem}.so"
-        cu.write_text(text)
+                                     f"in {rel} once")
+            var[rel] = var[rel].replace(old, new)
+        d = out / name.replace(" ", "_")
+        d.mkdir(parents=True, exist_ok=True)
+        for rel, text in var.items():
+            (d / Path(rel).name).write_text(text)
+        jobs[name] = d / Path(SRC_XENT).name
+    procs = {}
+    for name, cu in jobs.items():
+        lib = out / name.replace(" ", "_") / "libxent.so"
+        lib.parent.mkdir(parents=True, exist_ok=True)
         procs[name] = (subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
@@ -1568,12 +1658,41 @@ def _stop(procs):
             proc.wait()
 
 
-def xent_variant_timing(torch, gen, power, procs, rows):
-    """Phase 4: both backward kernels of each variant at the train shape
-    (bf16 out) by CUDA events, beside the real kernels timed again in the
-    same loop, and their f32-out error over tolerance against the plain
-    version. Adds the results to the xent rows under "variants"."""
+def _variant_lib(procs, name):
+    """The loaded library of variant ``name`` once its nvcc has ended."""
     import ctypes
+    proc, lib = procs[name]
+    log, _ = proc.communicate()
+    if proc.returncode:
+        raise RuntimeError(f"xent variant {name!r}: nvcc failed\n{log}")
+    return ctypes.CDLL(str(lib))
+
+
+def _fwd_wgmma_call(torch, lib, h, w, labels, ncols):
+    """A call of a library's xent_fwd_wgmma C entry with this tree's plan,
+    on buffers made once."""
+    from repro_torch.kernels.xent import xent as X
+    N, D = h.shape
+    splits, per = X.split_plan(N, ncols)
+    part = torch.empty((3, N, splits), device="cuda")
+    lse, ll = (torch.empty(N, device="cuda") for _ in range(2))
+
+    def call():
+        err = lib.xent_fwd_wgmma(
+            h.data_ptr(), h.stride(0), w.data_ptr(), w.stride(0),
+            labels.data_ptr(), part.data_ptr(), lse.data_ptr(), ll.data_ptr(),
+            N, D, ncols, splits, per, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"xent_fwd_wgmma: CUDA error {err}")
+    return call
+
+
+def xent_variant_timing(torch, gen, power, procs, rows):
+    """Phase 4: the kernels each variant times, at the train shape (the
+    backward with bf16 out), by CUDA events, beside the real kernels timed
+    again in the same loop (the forward's in turns, there and back); for
+    the backward also the f32-out error over tolerance against the plain
+    version. Adds the results to the xent rows under "variants"."""
     import math
     from repro_torch.kernels import _build
     from repro_torch.kernels.xent import ref as XR
@@ -1585,17 +1704,36 @@ def xent_variant_timing(torch, gen, power, procs, rows):
     g = torch.empty((2, rows_c, cols), dtype=torch.bfloat16, device="cuda")
     acc = torch.empty((rows_c, D), dtype=torch.float32, device="cuda")
     libs = {"kernel": X._bind(_build.library("xent"))}
-    for name, (proc, lib) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"xent variant {name!r}: nvcc failed\n{log}")
-        libs[name] = X._bind(ctypes.CDLL(str(lib)))
+    for name in XENT_VARIANTS:
+        libs[name] = X._bind(_variant_lib(procs, name))
     res = {}
+    flops = 2 * N * D * V
+    # the forward's, in turns there and back: the card's clock drifts as it
+    # heats over back-to-back products. Its TMA loads ask L2 for one 48 KB
+    # stage (128 rows of h, 256 columns of w, 64 deep) per row tile,
+    # vocab tile and K-tile.
+    tma_bytes = -(-N // 128) * -(-V // 256) * -(-D // 64) * 49152
+    fwd = [v for v in libs
+           if v == "kernel" or "xent_fwd" in XENT_VARIANTS[v][0]]
+    calls = {v: _fwd_wgmma_call(torch, libs[v], h, w, labels, V) for v in fwd}
+    times = {v: [] for v in fwd}
+    for v in fwd + fwd[::-1]:
+        times[v].append(time_ms(torch, calls[v], 10))
+    for v, t in times.items():
+        ms = sum(t) / len(t)
+        res.setdefault("xent_fwd", {})[v] = {"ms": ms, "runs": t}
+        print(f"  [{power}] xent_fwd {v}: {ms:.4f} ms (mean of "
+              f"{' and '.join(f'{x:.4f}' for x in t)}; {flops / ms / 1e9:.1f} "
+              f"TFLOP/s of logits; its {tma_bytes / 1e9:.2f} GB of TMA loads "
+              f"at {tma_bytes / ms / 1e9:.2f} TB/s)")
     for name in ("xent_bwd_dh", "xent_bwd_dw"):
         dh = name == "xent_bwd_dh"
         want = (XR.xent_bwd_dh_ref if dh else XR.xent_bwd_dw_ref)(
             h, w, labels, lse, gl, vocab_size=V)
         for variant, lib in libs.items():
+            if variant != "kernel" and name not in XENT_VARIANTS[variant][0]:
+                continue
+
             def run(bf, lib=lib):
                 out = torch.empty((N, D) if dh else (D, V), device="cuda",
                                   dtype=torch.bfloat16 if bf else torch.float32)
@@ -1659,7 +1797,8 @@ def phase_loss(torch, seed, power):
     out = eval_step(params, batch)
     torch.cuda.synchronize()
     c_eval = xent_counts()
-    check_routes(route_counts(), {"mha_fwd": {"mma": cfg.n_layers}},
+    check_routes(route_counts(), {"mha_fwd": {"mma": cfg.n_layers},
+                                  "xent_fwd": {"wgmma": 1}},
                  "make_eval_step")
     want = {"mha_fwd": cfg.n_layers, "xent_fwd": 1, "xent_bwd_dh": 0,
             "xent_bwd_dw": 0}
@@ -1723,7 +1862,8 @@ def phase_loss(torch, seed, power):
     print(f"  loss-and-grad at the head launches {c_grad} (expect {want})")
     if c_grad != want:
         raise AssertionError(f"loss-and-grad launched {c_grad}, not {want}")
-    check_routes(route_counts(), {"xent_bwd_dh": {"mma": 1},
+    check_routes(route_counts(), {"xent_fwd": {"wgmma": 1},
+                                  "xent_bwd_dh": {"mma": 1},
                                   "xent_bwd_dw": {"mma": 1}},
                  "loss-and-grad at the head")
     launches = {k: c_eval[k] + c_grad[k] for k in c_eval}
@@ -1876,14 +2016,15 @@ def phase_train(torch, seed, power):
             raise AssertionError(f"train step {i} launched {c}, not {want}")
     print(f"  make_train_step: every one of {TRAIN_STEPS} steps launched "
           f"{want}; over the run {launches}")
-    # the forward, its recompute, the backward pair and the xent backward
+    # the forward, its recompute, the backward pair and the xent kernels
     # on the tensor cores, every step
     want_r = {"mha_fwd": {"mma": 2 * L},
               **{k: {"mma": L} for k in BWD_KERNELS},
+              "xent_fwd": {"wgmma": 1},
               "xent_bwd_dh": {"mma": 1}, "xent_bwd_dw": {"mma": 1}}
     for i, c in enumerate(per_step_routes):
         check_routes(c, want_r, f"train step {i}", show=False)
-    check_routes(routes, {k: {"mma": TRAIN_STEPS * c["mma"]}
+    check_routes(routes, {k: {r: TRAIN_STEPS * n for r, n in c.items()}
                           for k, c in want_r.items()},
                  f"{TRAIN_STEPS} train steps (every step {want_r})")
     losses = [float(x) for x in losses]

@@ -13,9 +13,9 @@
 //                G[n, c] = (exp(logits[n, c] - lse[n]) - [c == labels[n]])
 //                * gl[n] for c < ncols and n < N, else 0; columns of dW at
 //                or past ncols are 0.
-// The FMA kernels and the tensor-core forward keep the logits inside a
-// block; the tensor-core backward writes G for one chunk of the vocabulary
-// at a time to a workspace of at most 64 MiB (no (N, V) array).
+// The FMA kernels and the tensor-core forward keep the logits on chip;
+// the tensor-core backward writes G for one chunk of the vocabulary at a
+// time to a workspace of at most 64 MiB (no (N, V) array).
 //
 // Numerics follow the TPU kernel bodies: products of the inputs (bf16 or
 // f32) summed in f32; the running max starts at the finite -1e30 and every
@@ -33,13 +33,23 @@
 // Hopper's 227 KB of shared memory, and its sequential grid carries the
 // log-sum-exp and the accumulators from step to step. Each function has
 // two routes:
-//   * tensor cores (mma.sync m16n8k16, bf16 products, f32 sums) for bf16
-//     operands whose rows are contiguous and 16-byte aligned, the main
-//     path: the forward's blocks own 64 token rows and walk a split of the
-//     vocabulary (note at xent_fwd_mma_kernel); the backward is chunked,
-//     a G kernel and a product per chunk, both on one GEMM template of
-//     128 x 128 tiles (note at xent_gemm_kernel), with no accumulator that
-//     grows with D;
+//   * tensor cores for bf16 operands whose rows are contiguous and 16-byte
+//     aligned, the main path. The forward runs on wgmma and TMA (the
+//     mainloop of hopper_gemm.cuh; note at FwdEpilogue): it replaces an
+//     mma.sync kernel whose 64 x 128 tiles of 16-row warps reached 157
+//     TFLOP/s, bound by the ldmatrix traffic every mma.sync needs and by
+//     cp.async copies into the same shared memory. wgmma reads both
+//     operands from shared memory through descriptors (no ldmatrix, no
+//     fragments in registers), TMA copies with no thread instructions, and
+//     a 128 x 256 tile per block halves the bytes staged per product; the
+//     tile's logits stay in the consumers' registers for the softmax
+//     epilogue. It is bound by the tensor cores: its mainloop alone takes
+//     about nine tenths of its time, the TMA ring alone about seven tenths,
+//     and the epilogue, during which both consumers leave the tensor cores
+//     idle, the rest (chip_smoke.py's "fwd" variants; PERF.md). The
+//     backward is chunked, a G kernel and a product per chunk, both on one
+//     mma.sync GEMM template of 128 x 128 tiles (note at xent_gemm_kernel),
+//     with no accumulator that grows with D;
 //   * f32 FMAs for f32 operands and any other layout, below. A block of
 //     512 threads owns IT items (16 for bf16, 8 for f32: 32 bytes per row
 //     of D): token rows walking the vocab (forward, dH) or vocab columns
@@ -57,6 +67,8 @@
 #include <stdint.h>
 
 #include <algorithm>
+
+#include "hopper_gemm.cuh"
 
 namespace {
 
@@ -338,20 +350,120 @@ xent_bwd_kernel(Operand h, Operand w, const int* __restrict__ labels,
 }
 
 // ---------------------------------------------------------------------------
-// The bf16 forward on tensor cores. A block of 4 warps owns 64 token rows
-// (16 per warp) and a range of the vocab tiles of 128 columns (a split of
-// the vocab, so that the 132 SMs fill at N = 4096); the logit tile is
-// mma.sync m16n8k16 (bf16 products, f32 sums) over D in chunks of 32,
-// staged by cp.async in two buffers, the next chunk's copy in flight while
-// the current one is multiplied. Each split writes a partial (max, sum,
-// label logit) per row to a workspace, and a second launch combines the
-// splits in order: no atomics. Needs rows of h and w contiguous along D and
-// V, 16-byte aligned (D and V multiples of 8); other bf16 layouts and f32
-// take the FMA kernel above.
-constexpr int kMmaBM = 64, kMmaBN = 128, kMmaBK = 32, kMmaThreads = 128;
-constexpr int kAStride = kMmaBK + 8;  // 80-byte rows: ldmatrix without bank conflicts
-constexpr int kBStride = kMmaBN + 8;  // 272-byte rows
+// The bf16 forward on wgmma and TMA (the mainloop of hopper_gemm.cuh), for
+// h and w rows contiguous and 16-byte aligned, D a multiple of 16. A block
+// owns 128 token rows and a contiguous range of vocab tiles of 256 columns
+// (a split of the vocabulary: `split_plan` in xent.py, a function of (N,
+// ncols) alone, so that about one block per SM fills the card); a tile's
+// logits chain over D in the consumers' registers and never leave them.
+// The epilogue below folds each finished tile into every row's running
+// (max, sum, label logit). TMA zero-fills past the tensor maps' edges (w's
+// ends at ncols), and a zero is a logit, so columns >= ncols are masked
+// here; -1 labels and labels >= ncols match nothing. Each split writes its
+// partial per row to a (3, N, splits) workspace, and a second launch
+// combines the splits in order: no atomics, so two runs are bitwise equal.
+struct FwdEpilogue {
+  const int* labels;
+  float* part;  // (3, N, splits): max, sum, label logit
+  int N, ncols;
+  struct Rows {
+    int row, label[2];
+    float m[2], s[2], lab[2];
+  };
+  __device__ __forceinline__ Rows begin(int row) const {
+    Rows r;
+    r.row = row;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      r.label[i] = row + 8 * i < N ? labels[row + 8 * i] : -1;
+      r.m[i] = kNeg;
+      r.s[i] = 0.f;
+      r.lab[i] = 0.f;
+    }
+    return r;
+  }
+  // acc[4 j + 2 i + e] is the logit of row r.row + 8 i and column
+  // n0 + 8 j + 2 (lane % 4) + e; RAGGED: the tile reaches past ncols.
+  template <bool RAGGED>
+  __device__ __forceinline__ void fold(Rows& r, const float (&acc)[hopper::kAcc], int n0) const {
+    const int c0 = n0 + 2 * (threadIdx.x & 3);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float tmax = kNeg;
+#pragma unroll
+      for (int j = 0; j < hopper::kAcc / 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (!RAGGED || c0 + 8 * j + e < ncols) tmax = fmaxf(tmax, acc[4 * j + 2 * i + e]);
+      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
+      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
+      const float m_new = fmaxf(r.m[i], tmax);
+      float s = r.s[i] * expf(r.m[i] - m_new);
+#pragma unroll
+      for (int j = 0; j < hopper::kAcc / 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (!RAGGED || c0 + 8 * j + e < ncols) s += expf(acc[4 * j + 2 * i + e] - m_new);
+      r.s[i] = s;
+      r.m[i] = m_new;
+      const int label = r.label[i];  // in at most one tile of the vocabulary
+      if (label < ncols && (unsigned)(label - n0) < (unsigned)hopper::kBN) {
+#pragma unroll
+        for (int j = 0; j < hopper::kAcc / 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (c0 + 8 * j + e == label) r.lab[i] += acc[4 * j + 2 * i + e];
+      }
+    }
+  }
+  __device__ __forceinline__ void tile(Rows& r, const float (&acc)[hopper::kAcc], int n0) const {
+    if (n0 + hopper::kBN <= ncols)
+      fold<false>(r, acc, n0);
+    else
+      fold<true>(r, acc, n0);
+  }
+  __device__ __forceinline__ void end(const Rows& r) const {
+    const int split = blockIdx.y, splits = gridDim.y;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float s = r.s[i], l = r.lab[i];
+      s += __shfl_xor_sync(0xffffffffu, s, 1);
+      s += __shfl_xor_sync(0xffffffffu, s, 2);
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const int row = r.row + 8 * i;
+      if ((threadIdx.x & 3) == 0 && row < N) {
+        float* p = part + (int64_t)row * splits + split;
+        p[0] = r.m[i];
+        p[(int64_t)N * splits] = s;
+        p[2 * (int64_t)N * splits] = l;
+      }
+    }
+  }
+};
 
+// lse and ll of each row from its splits' partial (max, sum, label logit),
+// added in split order.
+__global__ void xent_fwd_combine_kernel(const float* __restrict__ part, float* __restrict__ lse,
+                                        float* __restrict__ ll, int N, int splits) {
+  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= N) return;
+  const float* pm = part + (int64_t)row * splits;
+  const float* ps = pm + (int64_t)N * splits;
+  const float* pl = ps + (int64_t)N * splits;
+  float m = kNeg;
+  for (int k = 0; k < splits; ++k) m = fmaxf(m, pm[k]);
+  float s = 0.f, l = 0.f;
+  for (int k = 0; k < splits; ++k) {
+    s += ps[k] * expf(pm[k] - m);
+    l += pl[k];
+  }
+  lse[row] = m + logf(s);
+  ll[row] = l;
+}
+
+// ---------------------------------------------------------------------------
+// mma.sync helpers of the tensor-core backward below.
 // Copy the first n of 16 bytes (0 <= n <= 16) and fill the rest with zeros.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int n) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -378,155 +490,6 @@ __device__ __forceinline__ void mma_bf16(float* c, const unsigned* a, unsigned b
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__global__ void __launch_bounds__(kMmaThreads)
-xent_fwd_mma_kernel(const __nv_bfloat16* __restrict__ h, int64_t sh, const __nv_bfloat16* __restrict__ w,
-                    int64_t sw, const int* __restrict__ labels, float* __restrict__ part, int N, int D,
-                    int V, int ncols, int tiles_per_split) {
-  __shared__ __align__(16) __nv_bfloat16 As[2][kMmaBM * kAStride];
-  __shared__ __align__(16) __nv_bfloat16 Bs[2][kMmaBK * kBStride];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int n0 = blockIdx.x * kMmaBM;
-  const int split = blockIdx.y, splits = gridDim.y;
-  const int jt0 = split * tiles_per_split;
-  const int n_vt = (ncols + kMmaBN - 1) / kMmaBN;
-  const int n_tiles = max(0, min(n_vt, jt0 + tiles_per_split) - jt0);
-  const int nk = (D + kMmaBK - 1) / kMmaBK;
-  const int total = n_tiles * nk;
-
-  // the copy of step idx = (vocab tile, D chunk) into buffer buf
-  auto load = [&](int idx, int buf) {
-    const int v0 = (jt0 + idx / nk) * kMmaBN, k0 = (idx % nk) * kMmaBK;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {  // A: 64 rows x 4 pieces of 8
-      const int p = threadIdx.x + i * kMmaThreads, r = p >> 2, c = (p & 3) * 8;
-      const bool ok = n0 + r < N && k0 + c < D;
-      cp_async16(&As[buf][r * kAStride + c], ok ? h + (int64_t)(n0 + r) * sh + k0 + c : h,
-                 ok ? 16 : 0);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {  // B: 32 rows x 16 pieces of 8
-      const int p = threadIdx.x + i * kMmaThreads, r = p >> 4, c = (p & 15) * 8;
-      const bool ok = k0 + r < D && v0 + c < V;
-      cp_async16(&Bs[buf][r * kBStride + c], ok ? w + (int64_t)(k0 + r) * sw + v0 + c : w,
-                 ok ? 16 : 0);
-    }
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-  };
-
-  int label[2];
-  float m[2], sum[2], lab[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = n0 + warp * 16 + g + 8 * i;
-    label[i] = row < N ? labels[row] : -1;
-    m[i] = kNeg;
-    sum[i] = 0.f;
-    lab[i] = 0.f;
-  }
-  float acc[kMmaBN / 8][4];
-#pragma unroll
-  for (int j = 0; j < kMmaBN / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-
-  if (total > 0) load(0, 0);
-  for (int idx = 0; idx < total; ++idx) {
-    const int buf = idx & 1;
-    if (idx + 1 < total) {
-      load(idx + 1, buf ^ 1);
-      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-    } else {
-      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-    }
-    __syncthreads();
-#pragma unroll
-    for (int ks = 0; ks < kMmaBK / 16; ++ks) {
-      unsigned a[4];
-      const int mi = lane >> 3, r8 = lane & 7;
-      ldmatrix_x4(a, &As[buf][(warp * 16 + (mi & 1) * 8 + r8) * kAStride + ks * 16 + (mi >> 1) * 8]);
-#pragma unroll
-      for (int np = 0; np < kMmaBN / 16; ++np) {
-        unsigned b[4];
-        ldmatrix_x4_trans(b, &Bs[buf][(ks * 16 + (mi & 1) * 8 + r8) * kBStride + np * 16 + (mi >> 1) * 8]);
-        mma_bf16(acc[2 * np], a, b[0], b[1]);
-        mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
-      }
-    }
-    __syncthreads();  // buffer buf is free for the copy of step idx + 2
-    if (idx % nk == nk - 1) {  // the tile is complete: fold it into the rows
-      const int v0 = (jt0 + idx / nk) * kMmaBN;
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        float tmax = kNeg;
-#pragma unroll
-        for (int j = 0; j < kMmaBN / 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int col = v0 + j * 8 + 2 * t4 + e;
-            if (col < ncols) tmax = fmaxf(tmax, acc[j][2 * i + e]);
-          }
-        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
-        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
-        const float m_new = fmaxf(m[i], tmax);
-        float s = sum[i] * expf(m[i] - m_new);
-#pragma unroll
-        for (int j = 0; j < kMmaBN / 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int col = v0 + j * 8 + 2 * t4 + e;
-            const float x = acc[j][2 * i + e];
-            if (col < ncols) {
-              s += expf(x - m_new);
-              if (col == label[i]) lab[i] += x;
-            }
-          }
-        sum[i] = s;
-        m[i] = m_new;
-      }
-#pragma unroll
-      for (int j = 0; j < kMmaBN / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    float s = sum[i], l = lab[i];
-    s += __shfl_xor_sync(0xffffffffu, s, 1);
-    s += __shfl_xor_sync(0xffffffffu, s, 2);
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    const int row = n0 + warp * 16 + g + 8 * i;
-    if (t4 == 0 && row < N) {
-      float* p = part + (int64_t)row * splits + split;  // part (3, N, splits)
-      p[0] = m[i];
-      p[(int64_t)N * splits] = s;
-      p[2 * (int64_t)N * splits] = l;
-    }
-  }
-}
-
-// lse and ll of each row from its splits' partial (max, sum, label logit),
-// added in split order.
-__global__ void xent_fwd_combine_kernel(const float* __restrict__ part, float* __restrict__ lse,
-                                        float* __restrict__ ll, int N, int splits) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= N) return;
-  const float* pm = part + (int64_t)row * splits;
-  const float* ps = pm + (int64_t)N * splits;
-  const float* pl = ps + (int64_t)N * splits;
-  float m = kNeg;
-  for (int k = 0; k < splits; ++k) m = fmaxf(m, pm[k]);
-  float s = 0.f, l = 0.f;
-  for (int k = 0; k < splits; ++k) {
-    s += ps[k] * expf(pm[k] - m);
-    l += pl[k];
-  }
-  lse[row] = m + logf(s);
-  ll[row] = l;
 }
 
 // ---------------------------------------------------------------------------
@@ -564,17 +527,16 @@ __global__ void xent_fwd_combine_kernel(const float* __restrict__ part, float* _
 // it drifts past the f32 tolerance (chip_smoke.py's "chained" variant:
 // dH's f32 error over tolerance 1.5 against 0.19 with the fold, dW's 0.41
 // against 0.20; the fold costs 8% of dH and 2% of dW: PERF.md). The
-// logits chain over D in the accumulator, as the forward's loop does.
+// logits chain over D in the accumulator, as the forward's wgmma does.
 // Elements outside an operand's valid extent are zero-filled by
 // cp.async's source size and never read. No atomics: every sum runs in a
-// fixed order, so two runs are bitwise equal. The G kernel forms its
-// logits on this template and not on the forward's loop above, whose
-// 64 x 128 tiles of 16-row warps reach 157 TFLOP/s (PERF.md): a 64 x 64
-// warp tile reads half the fragments per mma. What bounds the template is
+// fixed order, so two runs are bitwise equal. What bounds the template is
 // shared memory: with 64 x 64 warp tiles every mma takes 96-128 bytes of
 // ldmatrix, and the cp.async copies write into the same banks
 // (chip_smoke.py's "no copies" variant runs the pair 1.3-1.5x faster;
-// wider blocks or a deeper ring did not help).
+// wider blocks or a deeper ring did not help). The forward's wgmma + TMA
+// mainloop (hopper_gemm.cuh) has neither cost, and is where the G kernel
+// and the products go next (ROADMAP item 16a, continued).
 constexpr int kGemmT = 128, kGemmK = 32, kGemmStages = 3, kGemmThreads = 128;
 using bf16 = __nv_bfloat16;
 using Acc = float[4][8][4];  // a warp's 64 x 64 of C: [16 rows][8 columns][fragment]
@@ -675,7 +637,7 @@ __device__ __forceinline__ void mma_fold4(float* c, const unsigned* a0, const un
 // one's are loaded 16 rows (or columns) at a time; each fragment of C
 // takes its hi and lo products over the K-tile's two k-steps in one fold.
 // Without a split (the logits) the products chain in acc, as the forward's
-// loop does.
+// wgmma does.
 template <bool A_KM, bool B_KM, bool SPLIT_A, bool SPLIT_B>
 __device__ __forceinline__ void gemm_ktile(Acc& acc, const bf16* as, const bf16* bs, int wm,
                                            int wn, int lane) {
@@ -1044,20 +1006,16 @@ int xent_fwd(const void* h, int64_t sh_n, int64_t sh_d, const void* w, int64_t s
   return static_cast<int>(e);
 }
 
-// The tensor-core forward for bf16: h rows and w rows contiguous and 16-byte
-// aligned (strides sh, sw in elements, multiples of 8; D and V multiples of
-// 8), part a (3, N, splits) f32 workspace, each split taking tiles_per_split
-// vocab tiles of 128 columns.
-int xent_fwd_mma(const void* h, int64_t sh, const void* w, int64_t sw, const int* labels,
-                 float* part, float* lse, float* ll, int N, int D, int V, int ncols, int splits,
-                 int tiles_per_split, void* stream) {
+// The tensor-core forward for bf16, on wgmma and TMA: h (N, D) and w (D,
+// V) with rows contiguous and 16-byte aligned (row strides sh, sw in
+// elements, multiples of 8; D a multiple of 16), part a (3, N, splits) f32
+// workspace, each split taking tiles_per_split vocab tiles of 256 columns.
+int xent_fwd_wgmma(const void* h, int64_t sh, const void* w, int64_t sw, const int* labels,
+                   float* part, float* lse, float* ll, int N, int D, int ncols, int splits,
+                   int tiles_per_split, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dim3 grid((N + kMmaBM - 1) / kMmaBM, splits);
-  xent_fwd_mma_kernel<<<grid, kMmaThreads, 0, s>>>(static_cast<const __nv_bfloat16*>(h), sh,
-                                                   static_cast<const __nv_bfloat16*>(w), sw,
-                                                   labels, part, N, D, V, ncols,
-                                                   tiles_per_split);
-  cudaError_t e = cudaGetLastError();
+  const FwdEpilogue epi{labels, part, N, ncols};
+  cudaError_t e = hopper::gemm_rows(h, sh, w, sw, N, ncols, D, splits, tiles_per_split, epi, s);
   if (e != cudaSuccess) return static_cast<int>(e);
   xent_fwd_combine_kernel<<<(N + 255) / 256, 256, 0, s>>>(part, lse, ll, N, splits);
   return static_cast<int>(cudaGetLastError());
@@ -1082,8 +1040,8 @@ int xent_bwd_dw(const void* h, int64_t sh_n, int64_t sh_d, const void* w, int64_
 }
 
 // The tensor-core dH (N, D) (dh = 1) or dW (D, V) (dh = 0), contiguous, in
-// f32 or bf16 (out_bf16), for the layouts of xent_fwd_mma with D a multiple
-// of 16. rows and cols are the chunk plan (cols a multiple of 128); g is a
+// f32 or bf16 (out_bf16), for the layouts of xent_fwd_wgmma (D a multiple
+// of 16). rows and cols are the chunk plan (cols a multiple of 128); g is a
 // (2, min(N, rows), cols) bf16 workspace; acc an f32 workspace, (min(N,
 // rows), D) for dH and (D, cols) for dW, needed only for a bf16 output
 // summed over several chunks (more than one vocabulary chunk for dH, more

@@ -13,16 +13,19 @@ The kernels take h (N, D) and w (D, V) of any strides, both bfloat16 or
 both float32, with D <= 2048, labels (N,) int32 and, for the backward,
 lse and gl (N,) float32. Each function has two routes: bf16 operands
 whose rows are contiguous and 16-byte aligned, with D a multiple of 16
-(``mma_layout``), take the tensor cores (``mma``), other layouts and
-float32 the f32-FMA kernels (``fma``). The tensor-core backward is
+(``mma_layout``), take the tensor cores, other layouts and float32 the
+f32-FMA kernels (``fma``). The tensor-core forward (``wgmma``) runs on
+wgmma and TMA: blocks of 128 token rows walk a split of the vocabulary
+(``split_plan``) in tiles of 256 columns, and a second launch combines the
+splits' partials in order. The tensor-core backward (``mma``) is
 chunked: per chunk of the vocabulary (and, past 2**17 tokens, of the
 tokens; ``chunk_plan``) a G kernel writes G = (softmax - onehot) * gl as
 two bf16 halves to a workspace of at most 64 MiB, and a GEMM contracts it
 with w (dH, summed over the chunks in f32) or h (dW). It has no
 accumulator that grows with D: the D <= 2048 limit comes from the FMA
 kernels' register accumulator and ``_check`` alone (ROADMAP.md Queue 2
-item 16b). ``.launches`` counts one per wrapper call, however many chunk
-launches it makes; the backward wrappers also count by route in
+item 16b). ``.launches`` counts one per wrapper call, however many
+launches it makes; each wrapper also counts by route in
 ``route_launches``. Not ported yet, and raising ``NotImplementedError``:
 ``transposed=True`` (the tied (V, D) head, ROADMAP Queue 1 item 7) and a
 non-zero ``col_offset`` (vocab-sharded heads, item 12).
@@ -40,9 +43,10 @@ __all__ = ["xent_fwd", "xent_bwd_dh", "xent_bwd_dw", "MAX_D", "chunk_plan"]
 
 _DTYPES = (torch.float32, torch.bfloat16)
 MAX_D = 2048  # the FMA kernels: 4 accumulator columns per thread of 512
-# tensor-core forward: 64 token rows per block, vocab tiles of 128 columns,
-# the vocab split so that about 4 blocks of 128 threads land on each SM
-_MMA_ROWS, _MMA_COLS, _MMA_TARGET_BLOCKS = 64, 128, 4 * 132
+# tensor-core forward: 128 token rows per block, vocab tiles of 256
+# columns, the vocab split so that the grid holds about one block (of 192 KB
+# of shared memory) per SM of the H100
+_WG_ROWS, _WG_COLS, _WG_TARGET_BLOCKS = 128, 256, 132
 # tensor-core backward: G's hi and lo halves of one chunk (4 bytes per
 # element) fit this; chunks are whole GEMM tiles of 128 columns
 _G_BYTES, _G_TILE = 64 * 2**20, 128
@@ -55,11 +59,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.xent_fwd.argtypes = head + [p, p, p, i, i, i, p]
         for fn in (lib.xent_bwd_dh, lib.xent_bwd_dw):
             fn.argtypes = head + [p, p, p, p, i, i, i, i, i, p]
-        lib.xent_fwd_mma.argtypes = [p, i64, p, i64, p, p, p, p, i, i, i, i,
-                                     i, i, p]
+        lib.xent_fwd_wgmma.argtypes = [p, i64, p, i64, p, p, p, p, i, i, i,
+                                       i, i, p]
         lib.xent_bwd_chunks.argtypes = [i, p, i64, p, i64, p, p, p, p, p, p,
                                         i, i, i, i, i, i, i, p]
-        for fn in (lib.xent_fwd, lib.xent_fwd_mma, lib.xent_bwd_dh,
+        for fn in (lib.xent_fwd, lib.xent_fwd_wgmma, lib.xent_bwd_dh,
                    lib.xent_bwd_dw, lib.xent_bwd_chunks):
             fn.restype = i
         lib.cuda_error_string.argtypes = [i]
@@ -139,11 +143,13 @@ def mma_layout(h, w) -> bool:
 
 def split_plan(N: int, ncols: int) -> tuple:
     """(splits, vocab tiles per split) of the tensor-core forward: the
-    vocab tiles cut so that the grid holds about ``_MMA_TARGET_BLOCKS``
-    blocks. Depends on the shape alone, so runs sum in the same order."""
-    row_tiles = -(-N // _MMA_ROWS)
-    v_tiles = -(-ncols // _MMA_COLS)
-    splits = max(1, min(v_tiles, _MMA_TARGET_BLOCKS // row_tiles))
+    vocab tiles of ``_WG_COLS`` cut so that the grid of row tiles by splits
+    holds at most ``_WG_TARGET_BLOCKS`` blocks (or one split when the row
+    tiles alone are more). Depends on the shape alone, so runs sum in the
+    same order."""
+    row_tiles = -(-N // _WG_ROWS)
+    v_tiles = -(-ncols // _WG_COLS)
+    splits = max(1, min(v_tiles, _WG_TARGET_BLOCKS // row_tiles))
     per = -(-v_tiles // splits)
     return -(-v_tiles // per), per
 
@@ -186,16 +192,18 @@ def xent_fwd(h, w, labels, *, vocab_size: int, col_offset=0,
     ll = torch.empty(N, dtype=torch.float32, device=dev)
     labels = labels.contiguous()
     if mma_layout(h, w):
+        route = "wgmma"
         splits, per = split_plan(N, ncols)
         part = torch.empty((3, N, splits), dtype=torch.float32, device=dev)
-        _launch("xent_fwd_mma", dev, h.data_ptr(), h.stride(0), w.data_ptr(),
-                w.stride(0), labels.data_ptr(), part.data_ptr(),
-                lse.data_ptr(), ll.data_ptr(), N, D, w.shape[1], ncols,
-                splits, per)
+        _launch("xent_fwd_wgmma", dev, h.data_ptr(), h.stride(0),
+                w.data_ptr(), w.stride(0), labels.data_ptr(), part.data_ptr(),
+                lse.data_ptr(), ll.data_ptr(), N, D, ncols, splits, per)
     else:
+        route = "fma"
         _launch("xent_fwd", dev, *_head_args(h, w), labels.data_ptr(),
                 lse.data_ptr(), ll.data_ptr(), N, D, ncols)
     xent_fwd.launches += 1
+    xent_fwd.route_launches[route] += 1
     return lse, ll
 
 
@@ -258,6 +266,7 @@ def xent_bwd_dw(h, w, labels, lse, gl, *, vocab_size: int, col_offset=0,
 
 
 xent_fwd.launches = 0
+xent_fwd.route_launches = {"wgmma": 0, "fma": 0}
 xent_bwd_dh.launches = 0
 xent_bwd_dw.launches = 0
 xent_bwd_dh.route_launches = {"mma": 0, "fma": 0}

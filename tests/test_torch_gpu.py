@@ -38,12 +38,14 @@ against their plain versions, with lse from the plain forward:
   * dh and dw in bf16: the same plus one bf16 rounding on each side,
     8e-3*|ref|;
   * a second run is bitwise equal;
-  * each function's two routes meet these bounds, counted in the backward
-    wrappers' ``route_launches``: ``mma`` on the tensor cores (aligned
-    bf16) and ``fma`` (float32, other bf16 layouts, here w read through
-    its columns); the tensor-core backward is chunked over the vocab (and
-    past 2**17 tokens over the tokens) and carries G as two bf16 halves,
-    to about 2**-16 of itself;
+  * each function's two routes meet these bounds, counted in the
+    wrappers' ``route_launches``: the tensor cores for aligned bf16
+    (``wgmma`` for the forward, on wgmma and TMA; ``mma`` for the
+    backward) and ``fma`` (float32, other bf16 layouts, here w read
+    through its columns); the tensor-core backward is chunked over the
+    vocab (and past 2**17 tokens over the tokens) and carries G as two
+    bf16 halves, to about 2**-16 of itself; the forward's cases include
+    one 128 x 256 tile and a single row with ragged K and vocab tiles;
   * ``dispatch.xent_loss`` gradients against the plain losses' autograd:
     the same bounds in the inputs' dtype.
 Attention backward (``mha_bwd_dq``, ``mha_bwd_dkv``) against the plain
@@ -352,11 +354,19 @@ XENT_CASES = {
     "d80": (300, 80, 1000, 1000, 0.2),  # D not a multiple of the K-tile
     "n16384": (16384, 2048, 32000, 32000, 0.0),  # a narrower chunk_plan
     "n140000_d16": (140000, 16, 128, 128, 0.1),  # two token chunks
+    # one tile of the wgmma forward (128 x 256; h and w exactly 64 x 64 and
+    # 64 x 256), and one row with a ragged K-tile and a ragged vocab tile
+    "single_tile": (64, 64, 256, 256, 0.0),
+    "n1_ragged": (1, 96, 264, 260, 0.0),
 }
 
 
 def _bwd_routes(X):
     return [dict(f.route_launches) for f in (X.xent_bwd_dh, X.xent_bwd_dw)]
+
+
+def _route_delta(now, was):
+    return {r: now[r] - was[r] for r in was}
 
 
 def _xent_inputs(cuda, case, td, seed=5):
@@ -390,6 +400,7 @@ def test_xent_kernels_match_plain_on_card(cuda, case, dtype):
     before = (X.xent_fwd.launches, X.xent_bwd_dh.launches,
               X.xent_bwd_dw.launches)
     routes = _bwd_routes(X)
+    fwd_routes = dict(X.xent_fwd.route_launches)
     lse, ll = X.xent_fwd(h, w, labels, vocab_size=vs)
     want_lse, want_ll = XR.xent_fwd_ref(h, w, labels, vocab_size=vs)
     torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
@@ -437,7 +448,12 @@ def test_xent_kernels_match_plain_on_card(cuda, case, dtype):
     want = ({"mma": 2 * n_out, "fma": n_out} if td == torch.bfloat16
             else {"mma": 0, "fma": 2 * n_out})
     for now, was in zip(_bwd_routes(X), routes):
-        assert {r: now[r] - was[r] for r in was} == want
+        assert _route_delta(now, was) == want
+    # the forward: aligned bf16 on wgmma (the call and its bitwise rerun),
+    # w read through its columns on the FMA kernel; f32 twice on the FMA
+    assert _route_delta(X.xent_fwd.route_launches, fwd_routes) == (
+        {"wgmma": 2, "fma": 1} if td == torch.bfloat16
+        else {"wgmma": 0, "fma": 2})
 
 
 @pytest.mark.gpu
@@ -457,6 +473,7 @@ def test_xent_loss_grads_on_card_match_plain_autograd(cuda, dtype):
     before = (X.xent_fwd.launches, X.xent_bwd_dh.launches,
               X.xent_bwd_dw.launches)
     routes = _bwd_routes(X)
+    fwd_routes = dict(X.xent_fwd.route_launches)
     got = dispatch.xent_loss(h3, w, lab, vocab_size=vs, weights=weights)
     gh, gw = torch.autograd.grad(got.sum(), [h3, w])
     torch.cuda.synchronize()
@@ -465,8 +482,10 @@ def test_xent_loss_grads_on_card_match_plain_autograd(cuda, dtype):
     assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
     route = "mma" if td == torch.bfloat16 else "fma"
     for now, was in zip(_bwd_routes(X), routes):
-        assert {r: now[r] - was[r] for r in was} == {
-            r: int(r == route) for r in was}
+        assert _route_delta(now, was) == {r: int(r == route) for r in was}
+    fwd_route = "wgmma" if td == torch.bfloat16 else "fma"
+    assert _route_delta(X.xent_fwd.route_launches, fwd_routes) == {
+        r: int(r == fwd_route) for r in fwd_routes}
     want = XR.losses(h3, w, torch.where(weights > 0, lab, -1), vs) * weights
     wh, ww = torch.autograd.grad(want.sum(), [h3, w])
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
@@ -619,8 +638,8 @@ def _train_counts():
 def test_train_step_on_card_goes_through_the_kernels(cuda, monkeypatch):
     """make_train_step of scale_fused (clip 1.0, remat full) on a small
     llama: per step 2L mha_fwd (forward and recompute), L of each backward
-    kernel (all on the tensor-core mma route), one of each xent kernel, 8
-    norm_sumsq, 9 update_apply, one momentum_sumsq and no norm_apply; the
+    kernel (all on the tensor-core mma route), one of each xent kernel (the
+    forward on wgmma), 8 norm_sumsq, 9 update_apply, one momentum_sumsq and no norm_apply; the
     loss falls over four steps, and
     one loss-and-grad matches plain attention's autograd (bf16 at 2 layers:
     per leaf, 3e-2 of its largest |gradient|, the roundings of the
@@ -629,6 +648,7 @@ def test_train_step_on_card_goes_through_the_kernels(cuda, monkeypatch):
     from repro_torch.data import make_dataset
     from repro_torch.kernels import dispatch
     from repro_torch.kernels.attention import attention as A
+    from repro_torch.kernels.xent import xent as X
     from repro_torch.models import ModelConfig, init_params
     from repro_torch.training import (init_state, make_train_step,
                                       value_and_grad)
@@ -659,6 +679,7 @@ def test_train_step_on_card_goes_through_the_kernels(cuda, monkeypatch):
         before = _train_counts()
         routes = [dict(f.route_launches) for f in (A.mha_bwd_dq,
                                                    A.mha_bwd_dkv)]
+        fwd_routes = dict(X.xent_fwd.route_launches)
         state, metrics = step(state, batch)
         torch.cuda.synchronize()
         after = _train_counts()
@@ -666,6 +687,8 @@ def test_train_step_on_card_goes_through_the_kernels(cuda, monkeypatch):
         for f, was in zip((A.mha_bwd_dq, A.mha_bwd_dkv), routes):
             assert {r: f.route_launches[r] - was[r] for r in was} == \
                 {"mma": cfg.n_layers, "fma": 0}, (f.__name__, i)
+        assert _route_delta(X.xent_fwd.route_launches, fwd_routes) == {
+            "wgmma": 1, "fma": 0}, i
         losses.append(float(metrics["loss"]))
     assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
     assert int(state.step) == 4
@@ -690,10 +713,13 @@ def test_eval_step_and_head_grad_on_card(cuda, monkeypatch):
                          device=cuda)
     batch = make_dataset(cfg, 128, 4, seed=1, device=cuda).global_batch_at(0)
     before = (mha_fwd.launches, X.xent_fwd.launches)
+    fwd_routes = dict(X.xent_fwd.route_launches)
     out = make_eval_step(cfg)(params, batch)
     torch.cuda.synchronize()
     assert (mha_fwd.launches - before[0], X.xent_fwd.launches - before[1]) \
         == (cfg.n_layers, 1)
+    assert _route_delta(X.xent_fwd.route_launches, fwd_routes) == {
+        "wgmma": 1, "fma": 0}
     with torch.no_grad():
         hidden, _, _ = forward(params, cfg, batch["tokens"])
     lab = batch["labels"]

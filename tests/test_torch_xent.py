@@ -187,8 +187,9 @@ def test_xent_loss_and_grads_match_jax(dtype, weights):
 
 
 def test_forward_kernel_choice_and_split_plan():
-    """Aligned bf16 rows take the tensor-core forward; its vocab split
-    covers every tile exactly once and fills about 4 blocks per SM."""
+    """Aligned bf16 rows take the tensor-core forward (``wgmma``); its plan
+    cuts llama-1b's loss (N = 4096, V = 32000) into 32 row tiles of 128
+    by 4 splits of 32 vocab tiles of 256: 128 blocks, one per SM."""
     h = torch.zeros(64, 2048, dtype=torch.bfloat16)
     w = torch.zeros(2048, 32000, dtype=torch.bfloat16)
     assert TX.mma_layout(h, w)
@@ -196,12 +197,30 @@ def test_forward_kernel_choice_and_split_plan():
     assert not TX.mma_layout(h, w.T.contiguous().T)       # columns contiguous
     assert not TX.mma_layout(h[:, 1:], w[1:])              # 16-byte misaligned
     assert not TX.mma_layout(h[:, :100], w[:100, :1000].contiguous())  # D % 8
-    for N, ncols in ((1, 32000), (4096, 32000), (4097, 31990), (300, 1000),
-                     (10 ** 6, 50257)):
-        splits, per = TX.split_plan(N, ncols)
-        tiles = -(-ncols // 128)
-        assert (splits - 1) * per < tiles <= splits * per
-        assert -(-N // 64) * splits <= max(528, -(-N // 64))
+    assert TX.split_plan(4096, 32000) == (4, 32)
+    assert TX.split_plan(1, 32000) == (125, 1)  # one tile a block
+    assert TX.split_plan(10 ** 6, 50257) == (1, 197)  # row tiles fill the card
+
+
+@pytest.mark.parametrize("N,ncols", [(1, 32000), (4096, 32000), (4097, 31990),
+                                     (300, 1000), (10 ** 6, 50257)])
+def test_forward_split_plan(N, ncols):
+    """The forward's splits cover every vocab tile of 256 exactly once, in
+    contiguous ranges of ``per`` tiles (the last may be shorter, never
+    empty); the grid of row tiles of 128 by splits stays within 132 blocks
+    unless the row tiles alone are more; the plan is a function of the
+    shape alone."""
+    splits, per = TX.split_plan(N, ncols)
+    tiles = -(-ncols // 256)
+    covered = np.zeros(tiles, dtype=np.int64)
+    for s in range(splits):
+        span = range(s * per, min(tiles, (s + 1) * per))
+        assert len(span) >= 1
+        covered[span.start:span.stop] += 1
+    assert (covered == 1).all()
+    row_tiles = -(-N // 128)
+    assert row_tiles * splits <= max(132, row_tiles)
+    assert TX.split_plan(N, ncols) == (splits, per)
 
 
 @pytest.mark.parametrize("N,ncols", [(1, 32000), (4096, 32000),
@@ -238,6 +257,16 @@ def test_cpu_backward_leaves_the_launch_counters():
         f(h, w, labels, lse, gl, vocab_size=vs, out_dtype=torch.bfloat16)
     assert [(f.launches, dict(f.route_launches)) for f in fns] == before
     assert all(set(f.route_launches) == {"mma", "fma"} for f in fns)
+
+
+def test_cpu_forward_leaves_the_launch_counters():
+    """On CPU tensors the forward wrapper runs its plain version and counts
+    no launch, on either route."""
+    _, (h, w, labels, _, _), vs = _inputs("small", "bf16")
+    before = (TX.xent_fwd.launches, dict(TX.xent_fwd.route_launches))
+    TX.xent_fwd(h, w, labels, vocab_size=vs)
+    assert (TX.xent_fwd.launches, dict(TX.xent_fwd.route_launches)) == before
+    assert set(TX.xent_fwd.route_launches) == {"wgmma", "fma"}
 
 
 def test_xent_supported_matches_jax():
