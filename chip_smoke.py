@@ -23,7 +23,12 @@ nvcc (one process per source, in parallel), then runs eight phases and fails
    tensor-core forwards, the
    optimizer, cross-entropy and attention-backward kernels also run twice
    (bitwise equal), and the optimizer kernels show that they write in
-   place where the TPU kernels alias;
+   place where the TPU kernels alias; ``update_apply`` on its ``vec`` route
+   (16-byte vectors over the flat run) at a common offset of 0-7 elements
+   of theta and g, for bf16, bf16 with an f32 g and f32, col and row, lr
+   and gscale by value and by device pointer, bitwise equal to its
+   ``strided`` route on the same values laid out transposed, with both
+   routes counted;
 3. the serving path: greedy serving of llama-130m at full width and
    depth (bf16, seeded random weights; batch 8, a 512-token prompt, 64
    new tokens), checked against a full-sequence forward, with the kernel
@@ -40,14 +45,17 @@ nvcc (one process per source, in parallel), then runs eight phases and fails
    real kernels (of the backward: the fold taken out, the copies taken
    out; of the forward: the softmax epilogue taken out, and the wgmma
    too); the optimizer kernels and their library calls also by device
-   time, in turns;
+   time, in turns; ``update_apply`` also at the head (bf16 theta, f32 m')
+   and, in turns, beside its ``strided`` route on the same bytes and a
+   variant that only loads and stores them;
 5. where the serving time goes: device busy time and the top kernels of
    one prefill and of decode steps, from torch.profiler;
 6. the optimizer path: SCALE steps of llama-1b at full width and depth
    (bf16 params and grads from the seed, the clip factor from the global
    norm, ``scale_fused`` with the warmup-cosine schedule and lr_scaling):
    three ``update_params`` steps and three ``update`` + ``apply_updates``
-   steps, their kernel launch counts checked per step, the result held
+   steps, their kernel launch counts checked per step (``update_apply``'s
+   on the ``vec`` route), the result held
    against ``impl="jnp"`` on the same card, one step under
    ``torch.cuda.set_sync_debug_mode("error")``, step times beside the
    bound, the step's device busy time and top kernels (torch.profiler),
@@ -69,8 +77,8 @@ nvcc (one process per source, in parallel), then runs eight phases and fails
    launches checked on every kernel counter (48 ``mha_fwd``, all on the
    ``mma`` route, 24 of each attention backward kernel, all on the ``mma``
    route, one of each xent kernel, the forward on ``wgmma``, the backward
-   pair on ``mma``, 8 ``norm_sumsq``, 9 ``update_apply``, one
-   ``momentum_sumsq``), the loss falling and held to
+   pair on ``mma``, 8 ``norm_sumsq``, 9 ``update_apply``, all on the
+   ``vec`` route, one ``momentum_sumsq``), the loss falling and held to
    the curve of the same steps with attention through plain ``mha_fwd_ref``
    autograd, one step under ``set_sync_debug_mode("error")``, every leaf's
    gradient held against the plain-attention route (bf16 at full depth,
@@ -265,13 +273,15 @@ def attention_cases():
 
 
 # the wrappers that count launches by route
-ROUTED = ("mha_fwd", *BWD_KERNELS, *XENT_KERNELS)
+ROUTED = ("mha_fwd", *BWD_KERNELS, *XENT_KERNELS, "update_apply")
 
 
 def _routed():
     from repro_torch.kernels.attention import attention as A
+    from repro_torch.kernels.colnorm import colnorm as C
     from repro_torch.kernels.xent import xent as X
-    return {k: getattr(X if k.startswith("xent") else A, k) for k in ROUTED}
+    return {k: getattr(C if k == "update_apply" else X if k.startswith("xent")
+                       else A, k) for k in ROUTED}
 
 
 def route_counts():
@@ -642,6 +652,103 @@ def phase_optimizer_kernels(torch, gen):
     return errs
 
 
+# update_apply's routes (phase 2): (theta dtype, g dtype) and shapes
+UPDATE_PAIRS = {"bfloat16 g bfloat16": ("bfloat16", "bfloat16"),
+                "bfloat16 g float32": ("bfloat16", "float32"),
+                "float32 g float32": ("float32", "float32")}
+UPDATE_SHAPES = {"ragged (3,77,129)": (3, 77, 129),
+                 "w_gate/w_up (24,2048,5461)": (24, 2048, 5461),
+                 "lm_head (1,2048,32000)": (1, 2048, 32000)}
+
+
+def _on_route(fn, route, call):
+    """call() -> its result, checking that it made exactly one launch of
+    ``fn`` and that on ``route``."""
+    was = dict(fn.route_launches)
+    out = call()
+    if fn.route_launches != {**was, route: was[route] + 1}:
+        raise AssertionError(f"routes {was} -> {fn.route_launches}, expected "
+                             f"one {route}")
+    return out
+
+
+def phase_update_routes(torch, gen):
+    """Phase 2: update_apply's vec route against its strided route on the
+    same values: contiguous at a common offset of 0-7 elements into their
+    buffers (vec), and laid out transposed in memory and viewed back
+    (strided), bitwise equal; the strided result within EW_ULPS of the
+    plain version; vec in place and bitwise repeatable; operands at
+    mismatched offsets on strided. -> {(kernel, shape, dtypes): max abs
+    error against the plain version}."""
+    from repro_torch.kernels.colnorm import colnorm as C
+    from repro_torch.kernels.colnorm import ref as CR
+    fn, errs = C.update_apply, {}
+    for sname, (L, m, n) in UPDATE_SHAPES.items():
+        def transposed(x):
+            t = torch.empty((L, n, m), dtype=x.dtype, device="cuda")
+            return t.transpose(1, 2).copy_(x)
+
+        def at(x, off):
+            buf = torch.empty(x.numel() + off, dtype=x.dtype, device="cuda")
+            return buf[off:].view(x.shape).copy_(x)
+
+        for pname, (tdn, gdn) in UPDATE_PAIRS.items():
+            td, gd = getattr(torch, tdn), getattr(torch, gdn)
+            theta = torch.randn((L, m, n), generator=gen, device="cuda").to(td)
+            g = torch.randn((L, m, n), generator=gen, device="cuda").to(gd)
+            key = ("update_apply", sname, pname)
+            for axis in ("col", "row"):
+                ss = CR.norm_sumsq_ref(g, axis)
+                err = 0.0
+                for by in ("value", "pointer"):
+                    lr, gscale = (0.01, 0.37) if by == "value" else (
+                        torch.tensor(0.01, device="cuda"),
+                        torch.tensor(0.37, device="cuda"))
+                    tag = f"{sname} {pname} {axis}, lr and gscale by {by}"
+                    want = CR.update_apply_ref(theta.clone(), g, ss, lr, axis,
+                                               gscale=gscale)
+                    strided, gt = transposed(theta), transposed(g)
+                    _on_route(fn, "strided", lambda: C.update_apply(
+                        strided, gt, ss, lr, axis, gscale=gscale))
+                    del gt
+                    err = max(err, _check_ew(
+                        torch, "update_apply", strided, want,
+                        torch.maximum(theta.float().abs(), want.float().abs()),
+                        td, errs, key))
+                    del want
+                    for off in range(8):
+                        th, gv = at(theta, off), at(g, off)
+                        got = _on_route(fn, "vec", lambda: C.update_apply(
+                            th, gv, ss, lr, axis, gscale=gscale))
+                        if got is not th or not torch.equal(th, strided):
+                            raise AssertionError(
+                                f"update_apply vec at offset {off} differs "
+                                f"from strided or is not in place: {tag}")
+                        if off == 0:  # bitwise repeatable
+                            th = at(theta, 0)
+                            C.update_apply(th, gv, ss, lr, axis, gscale=gscale)
+                            if not torch.equal(th, strided):
+                                raise AssertionError(f"update_apply vec: a "
+                                                     f"second run differs: {tag}")
+                    # theta and g at offsets whose 16-byte boundaries differ
+                    th, gv = at(theta, 1), at(g, 2)
+                    _on_route(fn, "strided", lambda: C.update_apply(
+                        th, gv, ss, lr, axis, gscale=gscale))
+                    if not torch.equal(th, strided):
+                        raise AssertionError(f"update_apply at mismatched "
+                                             f"offsets differs: {tag}")
+                    del th, gv, strided
+                torch.cuda.synchronize()
+                print(f"  update_apply {sname:27s} {pname:19s} {axis}: vec at "
+                      f"offsets 0-7 bitwise equal to strided (transposed "
+                      f"layout) and repeatable, lr and gscale by value and by "
+                      f"pointer; mismatched offsets strided; max err "
+                      f"{err:.2e} against the plain version (tol {EW_ULPS} "
+                      f"ulp)")
+            del theta, g
+    return errs
+
+
 def phase_serving(torch, seed, power):
     """Phase 3: greedy serving of llama-130m through the port's entry points."""
     from repro_torch.configs import get_arch
@@ -964,10 +1071,114 @@ def bwd_timing(torch, gen, power, errs):
     return out
 
 
-def optimizer_timing(torch, gen, power, errs):
+def update_call(torch, lib, route, theta, g, ss, lr):
+    """A call of a colnorm library's update_apply C entry for ``route``
+    ("vec" with this tree's split, or "strided") on these tensors, col,
+    with no gscale."""
+    from repro_torch.kernels.colnorm import colnorm as C
+    L, m, n = theta.shape
+    lr_p, lr_v = C.scalar_arg(lr, "lr", theta.device)
+    T, G = C._DTYPES[theta.dtype], C._DTYPES[g.dtype]
+    if route == "vec":
+        split = C.vec_split(theta.numel(), C.vec_head(theta, g),
+                            C.vec_width(theta, g))
+        entry, args = lib.update_apply_vec, (
+            theta.data_ptr(), T, g.data_ptr(), G, ss.data_ptr(), L, m, n, 0,
+            *split, lr_p, lr_v, None, 1.0, C.EPS)
+    else:
+        entry, args = lib.update_apply, (
+            theta.data_ptr(), T, *theta.stride(), g.data_ptr(), G,
+            *g.stride(), ss.data_ptr(), L, m, n, 0, lr_p, lr_v, None, 1.0,
+            C.EPS)
+
+    def call():
+        err = entry(*args, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"update_apply ({route}): CUDA error {err}")
+    return call
+
+
+def update_timing(torch, gen, power, errs, procs, row, theta, g, ss, lr):
+    """Phase 4, update_apply beyond its w_gate row: at the head (bf16
+    theta, f32 m', as head_update_apply calls it) against its bound and
+    addcdiv_; at w_gate, in turns there and back, the vec kernel, the
+    strided kernel on the same bytes and the "update loads and stores only"
+    variant, by CUDA events and by device time. Adds them to ``row``."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.colnorm import colnorm as C
+    from repro_torch.kernels.colnorm import ref as CR
+    head = (1, 2048, 32000)
+    th = torch.randn(head, generator=gen, device="cuda").to(torch.bfloat16)
+    m = 1e-3 * torch.randn(head, generator=gen, device="cuda")
+    ss_h = C.norm_sumsq(m, "col")
+    denom = torch.sqrt(ss_h) + 1e-8
+    nh = th.numel()
+    nbytes = (2 + 2 + 4) * nh + 4 * head[2]
+    bound = 1e3 * nbytes / HBM_BYTES_PER_S
+    kern = lambda: C.update_apply(th, m, ss_h, lr, "col")  # noqa: E731
+    lib = lambda: th.addcdiv_(m, denom, value=-1e-6)  # noqa: E731
+    if C._route(th, m) != "vec":
+        raise AssertionError("update_apply at the head is not on vec")
+    ms = time_ms(torch, kern, 50)
+    plain_ms = time_ms(torch, lambda: CR.update_apply_ref(
+        th, m, ss_h, lr, "col"), 10)
+    lib_ms = time_ms(torch, lib, 50)
+    turns = [device_ms(torch, f, 20) for f in (kern, lib, lib, kern)]
+    dev = tuple(None if None in pair else sum(pair) / 2
+                for pair in ((turns[0], turns[3]), (turns[1], turns[2])))
+    print(f"  [{power}] update_apply lm_head (1,2048,32000) bf16 theta, f32 "
+          f"m', col, vec: {ms:.4f} ms (bound {bound:.4f} ms by bytes, "
+          f"{nbytes / 1e6:.1f} MB, {bound / ms:.3f} of it; plain "
+          f"{plain_ms:.4f} ms; theta.addcdiv_(m, sqrt(ss)+eps, value=-lr) "
+          f"{lib_ms:.4f} ms); device time in turns (kernel, library, "
+          f"library, kernel) {', '.join(fmt_ms(t) for t in turns)}")
+    row["shapes"] = [
+        {k: row[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
+                             "library_ms", "device_ms", "library_device_ms",
+                             "max_abs_err")},
+        {"shape": "lm_head (1,2048,32000) theta bf16, m' f32", "ms": ms,
+         "plain_ms": plain_ms, "bound_ms": bound, "library_ms": lib_ms,
+         "device_ms": dev[0], "library_device_ms": dev[1],
+         "max_abs_err": errs[("update_apply", "lm_head (1,2048,32000)",
+                              "bfloat16 g float32")]}]
+    del th, m, ss_h, denom
+    # w_gate: the two routes and the variant on the same bytes, in turns
+    lib = C._bind(_build.library("colnorm"))
+    var = C._bind(_variant_lib(procs, "update loads and stores only"))
+    calls = {"vec": update_call(torch, lib, "vec", theta, g, ss, lr),
+             "strided": update_call(torch, lib, "strided", theta, g, ss, lr),
+             "loads and stores only": update_call(torch, var, "vec", theta,
+                                                  g, ss, lr)}
+    order = list(calls) + list(calls)[::-1]
+    ev, dv = {k: [] for k in calls}, {k: [] for k in calls}
+    for k in order:
+        ev[k].append(time_ms(torch, calls[k], 20))
+    for k in order:
+        dv[k].append(device_ms(torch, calls[k], 20))
+    res = {}
+    for k in calls:
+        e = sum(ev[k]) / 2
+        d = None if None in dv[k] else sum(dv[k]) / 2
+        res[k] = {"ms": e, "device_ms": d, "runs": ev[k], "device_runs": dv[k]}
+        print(f"  [{power}] update_apply w_gate bf16 col, {k}: {e:.4f} ms "
+              f"(events, {' and '.join(f'{x:.4f}' for x in ev[k])}), device "
+              f"{fmt_ms(d)} ({', '.join(fmt_ms(x) for x in dv[k])}); "
+              f"{row['bound_ms'] / e:.3f} of the {row['bound_ms']:.4f} ms "
+              f"bound")
+    v, st = res["vec"], res["strided"]
+    print(f"  [{power}] update_apply w_gate: vec {st['ms'] / v['ms']:.2f}x "
+          f"the strided kernel by events" + (
+              "" if None in (v["device_ms"], st["device_ms"]) else
+              f", {st['device_ms'] / v['device_ms']:.2f}x by device time"))
+    row["kernel_route"] = "vec"
+    row["variants"] = res
+
+
+def optimizer_timing(torch, gen, power, errs, procs):
     """Phase 4, optimizer kernels at their largest llama-1b shapes (bf16
     operands, col as on the main path): kernel, plain version, bound by
-    bytes and one PyTorch library call doing the same work."""
+    bytes and one PyTorch library call doing the same work; update_apply
+    also as ``update_timing`` says."""
     from repro_torch.kernels.colnorm import colnorm as C
     from repro_torch.kernels.colnorm import ref as CR
     from repro_torch.kernels.scale_head import ref as HR
@@ -1029,7 +1240,8 @@ def optimizer_timing(torch, gen, power, errs):
         dts = "bfloat16 m float32" if name == "momentum_sumsq" else "bfloat16"
         err = errs[(name, sname, dts)]
         print(f"  [{power}] {name} {sname} bf16 col: {ms:.4f} ms (bound "
-              f"{bound:.4f} ms by bytes, {nbytes / 1e6:.1f} MB; "
+              f"{bound:.4f} ms by bytes, {nbytes / 1e6:.1f} MB, "
+              f"{bound / ms:.3f} of it; "
               f"{nbytes / ms / 1e6:.0f} GB/s; plain {plain_ms:.4f} ms; "
               f"{lib_note} {lib_ms:.4f} ms)" + (
                   "" if None in dev else
@@ -1042,6 +1254,7 @@ def optimizer_timing(torch, gen, power, errs):
                      "plain_ms": plain_ms, "bound_ms": bound,
                      "bound_by": "bytes", "library_ms": lib_ms,
                      "device_ms": dev[0], "library_device_ms": dev[1]})
+    update_timing(torch, gen, power, errs, procs, rows[1], theta, g, ss, lr)
     return rows
 
 
@@ -1128,7 +1341,8 @@ def step_bytes(params, labels):
 def profile_step(torch, power, step, untraced_ms, n=3,
                  label="update_params step", top=8):
     """Device busy time and top kernels of ``n`` calls of ``step``
-    (torch.profiler); the idle share is against the untraced step time."""
+    (torch.profiler), and the update_apply kernels' sum where they ran; the
+    idle share is against the untraced step time."""
     from torch.profiler import ProfilerActivity, profile
     step()
     torch.cuda.synchronize()
@@ -1151,6 +1365,11 @@ def profile_step(torch, power, step, untraced_ms, n=3,
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"    {e.self_device_time_total / 1e3 / n:8.3f} ms "
               f"x{e.count // n:<4d} {e.key[:90]}")
+    ua = [e for e in kernels if "update_apply" in e.key]
+    if ua:  # both update_apply kernels (the head's may miss the top)
+        print(f"  [{power}] {label}: update_apply kernels "
+              f"{sum(e.self_device_time_total for e in ua) / 1e3 / n:.3f} ms "
+              f"of device time, {sum(e.count for e in ua) // n} launches")
 
 
 def phase_optimizer(torch, seed, power):
@@ -1190,6 +1409,8 @@ def phase_optimizer(torch, seed, power):
                                 "norm_apply": 0, "momentum_sumsq": 1},
               "update": {"norm_sumsq": 8, "update_apply": 0,
                          "norm_apply": 9, "momentum_sumsq": 1}}
+    # every update_apply on the vec route
+    expect_r = {"update_params": {"update_apply": {"vec": 9}}, "update": {}}
 
     def step(tx, p, s, entry):
         if entry == "update_params":
@@ -1201,20 +1422,25 @@ def phase_optimizer(torch, seed, power):
     # the main path: counts set to 0 just before it, read just after
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
+    zero_route_counts()
     per_step = []
     for entry in entries:
-        before = counts()
+        before, before_r = counts(), route_counts()
         pf, sf = step(fused, pf, sf, entry)
         per_step.append((entry, {k: v - before[k]
-                                 for k, v in counts().items()}))
+                                 for k, v in counts().items()},
+                         {k: {r: n - before_r[k][r] for r, n in c.items()}
+                          for k, c in route_counts().items()}))
     torch.cuda.synchronize()
     launches = counts()
     peak_mem = torch.cuda.max_memory_allocated()
-    for i, (entry, c) in enumerate(per_step):
-        print(f"  step {i} {entry:13s} launches {c}")
+    for i, (entry, c, r) in enumerate(per_step):
+        print(f"  step {i} {entry:13s} launches {c}; update_apply by route "
+              f"{r['update_apply']}")
         if c != expect[entry]:
             raise AssertionError(f"step {i} ({entry}) launched {c}, not "
                                  f"{expect[entry]}")
+        check_routes(r, expect_r[entry], f"step {i} ({entry})", show=False)
     print(f"  launches over the six steps: {launches}")
 
     # the same six steps on the plain jnp route, tracking each element's
@@ -1619,29 +1845,43 @@ XENT_VARIANTS = {
 }
 
 
-def start_xent_variants():
-    """Start one nvcc per XENT_VARIANTS entry beside the kernels' build:
-    each into its own directory of ``build/repro_torch/variants/``, with
-    its copies of the sources. -> {name: (process, library path)}."""
+# Phase 4: a variant of colnorm.cu that measures update_apply's vec route.
+# "update loads and stores only" writes back theta + 0 * g (ptxas drops a
+# load whose value nothing reads, volatile or not), so it moves the
+# kernel's bytes in its pattern with no other math and no ss reads: the
+# card's ceiling for them.
+COLNORM_VARIANTS = {
+    "update loads and stores only": (("update_apply",), (
+        (SRC_COLNORM,
+         "update_value(th[u].get(k), gv[u].get(k), sv[u][k], lr, gs, eps)",
+         "__fadd_rn(th[u].get(k), __fmul_rn(0.f, gv[u].get(k)))"),)),
+}
+
+
+def start_variants(variants, sources):
+    """Start one nvcc per entry of ``variants`` beside the kernels' build:
+    each into its own directory of ``build/repro_torch/variants/``, with its
+    copies of ``sources`` (the first is the one compiled). -> {name:
+    (process, library path)}."""
     from repro_torch.kernels import _build
     out = _build.BUILD_DIR / "variants"
-    texts = {rel: (ROOT / rel).read_text() for rel in (SRC_XENT, SRC_HOPPER)}
+    texts = {rel: (ROOT / rel).read_text() for rel in sources}
     jobs = {}
-    for name, (_, subs) in XENT_VARIANTS.items():
+    for name, (_, subs) in variants.items():
         var = dict(texts)
         for rel, old, new in subs:
             if var[rel].count(old) != 1:
-                raise AssertionError(f"xent variant {name!r}: its text is not "
+                raise AssertionError(f"variant {name!r}: its text is not "
                                      f"in {rel} once")
             var[rel] = var[rel].replace(old, new)
         d = out / name.replace(" ", "_")
         d.mkdir(parents=True, exist_ok=True)
         for rel, text in var.items():
             (d / Path(rel).name).write_text(text)
-        jobs[name] = d / Path(SRC_XENT).name
+        jobs[name] = d / Path(sources[0]).name
     procs = {}
     for name, cu in jobs.items():
-        lib = out / name.replace(" ", "_") / "libxent.so"
+        lib = out / name.replace(" ", "_") / f"lib{cu.stem}.so"
         lib.parent.mkdir(parents=True, exist_ok=True)
         procs[name] = (subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(cu)],
@@ -1664,7 +1904,7 @@ def _variant_lib(procs, name):
     proc, lib = procs[name]
     log, _ = proc.communicate()
     if proc.returncode:
-        raise RuntimeError(f"xent variant {name!r}: nvcc failed\n{log}")
+        raise RuntimeError(f"variant {name!r}: nvcc failed\n{log}")
     return ctypes.CDLL(str(lib))
 
 
@@ -2021,7 +2261,8 @@ def phase_train(torch, seed, power):
     want_r = {"mha_fwd": {"mma": 2 * L},
               **{k: {"mma": L} for k in BWD_KERNELS},
               "xent_fwd": {"wgmma": 1},
-              "xent_bwd_dh": {"mma": 1}, "xent_bwd_dw": {"mma": 1}}
+              "xent_bwd_dh": {"mma": 1}, "xent_bwd_dw": {"mma": 1},
+              "update_apply": {"vec": 9}}
     for i, c in enumerate(per_step_routes):
         check_routes(c, want_r, f"train step {i}", show=False)
     check_routes(routes, {k: {r: TRAIN_STEPS * n for r, n in c.items()}
@@ -2124,7 +2365,8 @@ def phase_train(torch, seed, power):
     print(f"  [{power}] torch.cuda.max_memory_allocated over one train step "
           f"{peak / 2**20:.1f} MiB")
     return {"launches": launches, "per_step": per_step[0],
-            "step_ms": step_s * 1e3, "peak": peak}
+            "routes": per_step_routes[0], "step_ms": step_s * 1e3,
+            "peak": peak}
 
 
 def main() -> int:
@@ -2149,7 +2391,8 @@ def main() -> int:
     print(f"phase 1: device {kind} (nvidia-smi: {power}); torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
-    variants = start_xent_variants()
+    variants = {**start_variants(XENT_VARIANTS, (SRC_XENT, SRC_HOPPER)),
+                **start_variants(COLNORM_VARIANTS, (SRC_COLNORM,))}
     libs = _build.build_all()
     print(f"  built {len(libs)} kernel libraries for sm_90a in "
           f"{time.perf_counter() - t0:.1f} s: {sorted(libs)}")
@@ -2164,6 +2407,7 @@ def main() -> int:
     errs = phase_kernels(torch, gen)
     bwd_errs = phase_bwd_kernels(torch, gen)
     opt_errs = phase_optimizer_kernels(torch, gen)
+    opt_errs.update(phase_update_routes(torch, gen))
     xent_errs = phase_xent_kernels(torch, gen)
     print("phase 3: greedy serving, llama-130m, full width and depth")
     serve = phase_serving(torch, args.seed, power)
@@ -2171,7 +2415,7 @@ def main() -> int:
           "device time)")
     mha_rows = phase_timing(torch, gen, power, serve, errs)
     bwd_rows = bwd_timing(torch, gen, power, bwd_errs)
-    opt_rows = optimizer_timing(torch, gen, power, opt_errs)
+    opt_rows = optimizer_timing(torch, gen, power, opt_errs, variants)
     xent_rows = xent_timing(torch, gen, power, xent_errs)
     xent_variant_timing(torch, gen, power, variants, xent_rows)
     print("phase 5: where the serving time goes (torch.profiler)")
@@ -2203,6 +2447,9 @@ def main() -> int:
                                    if c.get(row["name"])}
         row["launches"] = sum(row["launches_by_path"].values())
         row["launches_per_train_step"] = train["per_step"].get(row["name"])
+        if row["name"] in train["routes"]:
+            row["launches_per_train_step_by_route"] = train["routes"][
+                row["name"]]
     for path, c in by_path.items():
         for name, n in c.items():
             # norm_apply serves only the update entry point (phase 6)

@@ -16,6 +16,18 @@ operands' device, which the kernels read from device memory (no host
 synchronisation), or Python numbers, passed by value as f32.
 ``gscale=None`` means 1. Tensors of any strides and alignment are taken;
 dtypes are float32 and bfloat16.
+
+``update_apply`` has two CUDA routes, chosen by ``_route`` from the
+operands' dtypes, shapes, strides and addresses alone (nothing is read
+from the device) and counted in ``update_apply.route_launches``:
+``vec`` where theta and g are contiguous and reach a 16-byte boundary at
+the same element (every launch of the training step): the tensor is
+walked as one flat run, split by ``vec_split`` into a ragged head, 16-byte
+vectors and a ragged tail, by a persistent grid; ``strided`` for any other
+layout (transposed views, operands at different offsets), one block per
+row per 1024 columns through the tensors' strides. Both compute each
+element with the same operations in the same order, so they agree bit
+for bit.
 """
 from __future__ import annotations
 
@@ -36,6 +48,8 @@ _TARGET_BLOCKS = 132 * 8
 _MAX_TERMS, _MIN_TERMS = 64, 8
 _MAX_SPLITS = 65535  # gridDim.y
 _EW_COLS = 1024      # element-wise kernels: columns per block
+_VEC_BYTES = 16      # update_apply's vec route: 16-byte accesses
+_VEC_MAX = 2**31     # its flat offsets and divisions are 32-bit
 
 
 def cdiv(a: int, b: int) -> int:
@@ -109,6 +123,43 @@ def check_distinct(op: str, out, inp):
                          "input")
 
 
+def vec_width(theta, g) -> int:
+    """Elements per vector of the vec route: 16 bytes of the narrower
+    operand (8 with a bf16 operand, 4 for two f32 ones)."""
+    return _VEC_BYTES // min(theta.element_size(), g.element_size())
+
+
+def vec_head(theta, g):
+    """The fewest leading elements (fewer than ``vec_width``) after which
+    theta and g both start on a 16-byte boundary, or None if there is no
+    such count."""
+    for h in range(vec_width(theta, g)):
+        if all((t.data_ptr() + h * t.element_size()) % _VEC_BYTES == 0
+               for t in (theta, g)):
+            return h
+    return None
+
+
+def vec_split(numel: int, head: int, width: int) -> tuple:
+    """(head, vectors, tail) of the vec route's flat run of ``numel``
+    elements: ``head`` elements one by one, then ``vectors`` runs of
+    ``width``, then the ``tail`` elements one by one."""
+    head = min(head, numel)
+    nvec = (numel - head) // width
+    return head, nvec, numel - head - nvec * width
+
+
+def _route(theta, g) -> str:
+    """The update_apply kernel a CUDA call takes: "vec" where theta and g
+    are contiguous, reach a 16-byte boundary at the same element and hold
+    fewer than 2**31 elements; "strided" otherwise. By dtype, shape,
+    strides and address alone; both routes compute the same function."""
+    if (theta.is_contiguous() and g.is_contiguous()
+            and theta.numel() < _VEC_MAX and vec_head(theta, g) is not None):
+        return "vec"
+    return "strided"
+
+
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     if lib.norm_sumsq.argtypes is None:
         p, i, i64, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
@@ -117,9 +168,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                                    p, i, i, p]
         lib.update_apply.argtypes = [p, i, i64, i64, i64, p, i, i64, i64, i64,
                                      p, i, i, i, i, p, f, p, f, f, p]
+        lib.update_apply_vec.argtypes = [p, i, p, i, p, i, i, i, i, i, i, i,
+                                         p, f, p, f, f, p]
         lib.norm_apply.argtypes = [p, i, i64, i64, i64, p, p, i, i, i, i, i,
                                    p, f, f, p]
-        for fn in (lib.norm_sumsq, lib.update_apply, lib.norm_apply):
+        for fn in (lib.norm_sumsq, lib.update_apply, lib.update_apply_vec,
+                   lib.norm_apply):
             fn.restype = i
         lib.cuda_error_string.argtypes = [i]
         lib.cuda_error_string.restype = ctypes.c_char_p
@@ -193,7 +247,8 @@ def update_apply(theta, g, ss, lr, axis: str = "col", *, eps: float = EPS,
     """theta - lr * gscale * g / (sqrt(ss) + eps), written into theta.
 
     The fused SCALE parameter write: theta is updated in place (the TPU
-    kernel aliases it to its output) and returned.
+    kernel aliases it to its output) and returned. On the card the kernel
+    is the one ``_route`` names.
     """
     check_axis(axis)
     dev = check_operands("update_apply", theta, g)
@@ -208,14 +263,24 @@ def update_apply(theta, g, ss, lr, axis: str = "col", *, eps: float = EPS,
     check_distinct("update_apply", theta, g)
     lr_p, lr_v = scalar_arg(lr, "lr", dev)
     gs_p, gs_v = scalar_arg(1.0 if gscale is None else gscale, "gscale", dev)
-    launch("colnorm", _bind, "update_apply", dev, theta.data_ptr(),
-           _DTYPES[theta.dtype], *theta.stride(), g.data_ptr(),
-           _DTYPES[g.dtype], *g.stride(), ss.data_ptr(), L, m, n,
-           int(axis == "row"), lr_p, lr_v, gs_p, gs_v, float(eps))
+    route = _route(theta, g)
+    if route == "vec":
+        split = vec_split(L * m * n, vec_head(theta, g), vec_width(theta, g))
+        launch("colnorm", _bind, "update_apply_vec", dev, theta.data_ptr(),
+               _DTYPES[theta.dtype], g.data_ptr(), _DTYPES[g.dtype],
+               ss.data_ptr(), L, m, n, int(axis == "row"), *split, lr_p,
+               lr_v, gs_p, gs_v, float(eps))
+    else:
+        launch("colnorm", _bind, "update_apply", dev, theta.data_ptr(),
+               _DTYPES[theta.dtype], *theta.stride(), g.data_ptr(),
+               _DTYPES[g.dtype], *g.stride(), ss.data_ptr(), L, m, n,
+               int(axis == "row"), lr_p, lr_v, gs_p, gs_v, float(eps))
     update_apply.launches += 1
+    update_apply.route_launches[route] += 1
     return theta
 
 
 norm_sumsq.launches = 0
 norm_apply.launches = 0
 update_apply.launches = 0
+update_apply.route_launches = {"vec": 0, "strided": 0}

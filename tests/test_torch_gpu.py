@@ -28,7 +28,13 @@ Optimizer kernels (``norm_sumsq``, ``norm_apply``, ``update_apply``,
   * element-wise outputs, given the same sums: 1 ulp of the output dtype
     at the scale of the formula's terms (the same IEEE operations, one
     rounding);
-  * a second run is bitwise equal, and theta and m are written in place.
+  * a second run is bitwise equal, and theta and m are written in place;
+  * ``update_apply``'s ``vec`` route (16-byte vectors over the flat run,
+    for contiguous operands at a common offset of 0-7 elements) is bitwise
+    equal to its ``strided`` route on the same values laid out transposed
+    (the two compute each element with the same operations), for bf16,
+    bf16 theta with an f32 g, and f32, col and row, lr and gscale by value
+    and by device pointer; each call is counted on its route.
 Cross-entropy kernels (``xent_fwd``, ``xent_bwd_dh``, ``xent_bwd_dw``)
 against their plain versions, with lse from the plain forward:
   * lse and ll: 1e-4 + 1e-5*|ref| — f32 sums of D exact products in other
@@ -270,6 +276,63 @@ def test_optimizer_kernels_match_plain_on_card(cuda, shape, axis, dtype, gs):
     assert [a - b for a, b in zip(after, before)] == [2, 2, 2, 4]
 
 
+VEC_SHAPES = {"ragged_3x77x129": (3, 77, 129),
+              "w_gate_24x2048x5461": (24, 2048, 5461),
+              "head_1x2048x32000": (1, 2048, 32000)}
+VEC_PAIRS = {"bf16-bf16": ("bfloat16", "bfloat16"),
+             "bf16-f32": ("bfloat16", "float32"),
+             "f32-f32": ("float32", "float32")}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("axis", ["col", "row"])
+@pytest.mark.parametrize("pair", list(VEC_PAIRS))
+@pytest.mark.parametrize("shape", list(VEC_SHAPES))
+def test_update_apply_vec_route_matches_strided_on_card(cuda, shape, pair,
+                                                        axis):
+    from repro_torch.kernels.colnorm import colnorm as C
+    from repro_torch.kernels.colnorm import ref as CR
+    td, gd = (getattr(torch, d) for d in VEC_PAIRS[pair])
+    L, m, n = VEC_SHAPES[shape]
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    th0 = torch.randn((L, m, n), generator=gen, device=cuda).to(td)
+    g0 = torch.randn((L, m, n), generator=gen, device=cuda).to(gd)
+    ss = CR.norm_sumsq_ref(g0, axis)
+
+    def transposed(x):
+        t = torch.empty((L, n, m), dtype=x.dtype, device=cuda)
+        return t.transpose(1, 2).copy_(x)
+
+    def at(x, off):
+        buf = torch.empty(x.numel() + off, dtype=x.dtype, device=cuda)
+        return buf[off:].view(x.shape).copy_(x)
+
+    def one(route, th, g, lr, gscale):
+        was = dict(C.update_apply.route_launches)
+        assert C._route(th, g) == route
+        got = C.update_apply(th, g, ss, lr, axis, gscale=gscale)
+        assert got is th
+        assert C.update_apply.route_launches == {**was, route: was[route] + 1}
+
+    for lr, gscale in ((0.01, 0.37), (torch.tensor(0.01, device=cuda),
+                                      torch.tensor(0.37, device=cuda))):
+        strided = transposed(th0)
+        one("strided", strided, transposed(g0), lr, gscale)
+        want = CR.update_apply_ref(th0.clone(), g0, ss, lr, axis,
+                                   gscale=gscale)
+        _within_ulp(strided, want, torch.maximum(th0.float().abs(),
+                                                 want.float().abs()), td)
+        del want
+        for off in range(8):
+            th, g = at(th0, off), at(g0, off)
+            one("vec", th, g, lr, gscale)
+            assert torch.equal(th, strided), off
+        th = at(th0, 0)
+        one("vec", th, g0, lr, gscale)
+        assert torch.equal(th, strided)
+    torch.cuda.synchronize()
+
+
 def _scale_model(cuda):
     from repro_torch.models import ModelConfig, init_params
     from repro_torch.models.model import flatten
@@ -288,7 +351,8 @@ def _scale_model(cuda):
 def test_scale_fused_steps_on_card_go_through_the_kernels(cuda):
     """update_params through the kernels: 8 norm_sumsq, 9 update_apply and
     1 momentum_sumsq launches per step (8 stateless matrices and the head),
-    within 1.5 bf16 ulps of each element's peak per step of impl="jnp"."""
+    within 1.5 bf16 ulps of each element's peak per step of impl="jnp";
+    every update_apply on the vec route."""
     from repro_torch.core import (global_norm, linear_warmup_cosine,
                                   make_optimizer)
     from repro_torch.kernels.colnorm import colnorm as C
@@ -306,10 +370,13 @@ def test_scale_fused_steps_on_card_go_through_the_kernels(cuda):
     for _ in range(3):
         before = (C.norm_sumsq.launches, C.update_apply.launches,
                   C.norm_apply.launches, H.momentum_sumsq.launches)
+        routes = dict(C.update_apply.route_launches)
         pf, sf = fused.update_params(grads, sf, pf, grad_scale=gscale)
         after = (C.norm_sumsq.launches, C.update_apply.launches,
                  C.norm_apply.launches, H.momentum_sumsq.launches)
         assert [a - b for a, b in zip(after, before)] == [8, 9, 0, 1]
+        assert C.update_apply.route_launches == {
+            "vec": routes["vec"] + 9, "strided": routes["strided"]}
         old = {k: p.clone() for k, p in pr.items()}
         pr, sr = plain.update_params(grads, sr, pr, grad_scale=gscale)
         for k, p in pr.items():
@@ -639,7 +706,8 @@ def test_train_step_on_card_goes_through_the_kernels(cuda, monkeypatch):
     """make_train_step of scale_fused (clip 1.0, remat full) on a small
     llama: per step 2L mha_fwd (forward and recompute), L of each backward
     kernel (all on the tensor-core mma route), one of each xent kernel (the
-    forward on wgmma), 8 norm_sumsq, 9 update_apply, one momentum_sumsq and no norm_apply; the
+    forward on wgmma), 8 norm_sumsq, 9 update_apply (all on the vec route),
+    one momentum_sumsq and no norm_apply; the
     loss falls over four steps, and
     one loss-and-grad matches plain attention's autograd (bf16 at 2 layers:
     per leaf, 3e-2 of its largest |gradient|, the roundings of the
@@ -648,6 +716,7 @@ def test_train_step_on_card_goes_through_the_kernels(cuda, monkeypatch):
     from repro_torch.data import make_dataset
     from repro_torch.kernels import dispatch
     from repro_torch.kernels.attention import attention as A
+    from repro_torch.kernels.colnorm import colnorm as C
     from repro_torch.kernels.xent import xent as X
     from repro_torch.models import ModelConfig, init_params
     from repro_torch.training import (init_state, make_train_step,
@@ -680,6 +749,7 @@ def test_train_step_on_card_goes_through_the_kernels(cuda, monkeypatch):
         routes = [dict(f.route_launches) for f in (A.mha_bwd_dq,
                                                    A.mha_bwd_dkv)]
         fwd_routes = dict(X.xent_fwd.route_launches)
+        update_routes = dict(C.update_apply.route_launches)
         state, metrics = step(state, batch)
         torch.cuda.synchronize()
         after = _train_counts()
@@ -689,6 +759,8 @@ def test_train_step_on_card_goes_through_the_kernels(cuda, monkeypatch):
                 {"mma": cfg.n_layers, "fma": 0}, (f.__name__, i)
         assert _route_delta(X.xent_fwd.route_launches, fwd_routes) == {
             "wgmma": 1, "fma": 0}, i
+        assert _route_delta(C.update_apply.route_launches,
+                            update_routes) == {"vec": 9, "strided": 0}, i
         losses.append(float(metrics["loss"]))
     assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
     assert int(state.step) == 4
