@@ -5,7 +5,7 @@ NVIDIA H100.
     python3 chip_smoke.py [--seed N]
 
 Run from the root of a checkout. It builds the port's CUDA kernels with
-nvcc (one process per source, in parallel), then runs eight phases and fails
+nvcc (one process per source, in parallel), then runs nine phases and fails
 (non-zero exit, no result line) if any of them fails:
 
 1. device: the card's name and power limit, the kernels' ptxas report;
@@ -15,12 +15,15 @@ nvcc (one process per source, in parallel), then runs eight phases and fails
    ``fma`` or ``decode``), with the route counted, and the fma kernel
    also at the eval shape in bf16; ``mha_bwd_dq`` and ``mha_bwd_dkv`` on
    the route their wrappers pick (``mma`` tensor cores for bf16, ``fma``
-   for f32), counted, and the fma kernels also at the training shape in
-   bf16; the xent kernels on the route their wrappers pick (for aligned
+   for f32 and for gemma-2b's bf16 heads of 256 over one kv head),
+   counted, and the fma kernels also at the training shape in bf16; the
+   xent kernels on the route their wrappers pick (for aligned
    bf16 ``wgmma``, the forward on wgmma and TMA, and ``mma``, the chunked
    tensor-core backward; ``fma`` for f32 and other layouts), counted,
-   with each backward output's largest error over its tolerance; the
-   tensor-core forwards, the
+   with each backward output's largest error over its tolerance, at
+   llama-1b's, llama-7b's (D = 4096) and gemma-2b's (V = 256000) loss
+   shapes among others (and a D of 4100 that ends the FMA kernels' last
+   slab of D mid-way); the tensor-core forwards, the
    optimizer, cross-entropy and attention-backward kernels also run twice
    (bitwise equal), and the optimizer kernels show that they write in
    place where the TPU kernels alias; ``update_apply`` on its ``vec`` route
@@ -39,8 +42,12 @@ nvcc (one process per source, in parallel), then runs eight phases and fails
    attention kernels also their device time (torch.profiler) and, where
    they take the tensor cores, the fma kernels' time at the same shape
    (the backward pair at the training shape and at qwen2-500m's GQA
-   shape); for the xent kernels also their device time and, for the
-   backward, a second library yardstick that recomputes the logits, and
+   shape), and, as ``mha_fwd``, at phase 9's training shapes of llama-7b
+   (hd 128) and gemma-2b (hd 256, the fma route); for the xent kernels,
+   at llama-1b's, llama-7b's and gemma-2b's loss shapes, also their device
+   time and, for the backward, a second library yardstick that recomputes
+   the logits, at llama-1b's and llama-7b's also the FMA kernels (one and
+   two slabs of D), and
    variants of the xent sources built beside them, timed against the
    real kernels (of the backward: the fold taken out, the copies taken
    out; of the forward: the softmax epilogue taken out, and the wgmma
@@ -83,7 +90,21 @@ nvcc (one process per source, in parallel), then runs eight phases and fails
    autograd, one step under ``set_sync_debug_mode("error")``, every leaf's
    gradient held against the plain-attention route (bf16 at full depth,
    f32 at 4 layers), the step's time, tokens/s, device busy time, idle
-   share, top kernels and peak memory.
+   share, top kernels and peak memory;
+9. the training step of the paper's two largest models at full width and
+   depth: llama-7b (32 layers, D = 4096, 32 heads of 128) and gemma-2b (18
+   layers, 8 heads of 256 over one kv head, vocab 256000), each through
+   the launcher for two steps and then ``make_train_step`` for four
+   (bf16, batches of 16 x 256, ``scale_fused``, clip 1.0), every step's
+   launches checked by route (llama-7b: 64 ``mha_fwd``, 32 of each
+   attention backward kernel, all ``mma``; gemma-2b: 36, 18 and 18, all
+   ``fma``; both: one of each xent kernel, the forward on ``wgmma`` and
+   the backward on ``mma``, 8 ``norm_sumsq``, 9 ``update_apply`` on
+   ``vec``, one ``momentum_sumsq``), the loss curve held to the same
+   steps with attention through plain ``mha_fwd_ref`` autograd from the
+   same seeded weights (full depth: the two routes run one after the
+   other), step time, tokens/s, device busy time by kernel family, idle
+   share and peak memory.
 
 The line before the last is a JSON ``{"kernels": [...]}`` summary, the
 last line ``{"ok": true, "device": {...}}``. It needs a CUDA card and
@@ -269,6 +290,10 @@ def attention_cases():
                                           None),
         "gqa H=14 K=2 S=T=100 hd=128": (4, 100, 100, 14, 2, 128, True, None),
         "kv_len=300 S=16": (8, 16, 576, 12, 12, 64, False, 300),
+        # phase 9's training shapes: llama-7b (mma, hd 128) and gemma-2b
+        # (fma, 8 heads of 256 over 1 kv head)
+        "train llama-7b hd=128": (16, 256, 256, 32, 32, 128, True, None),
+        "train gemma-2b H=8 K=1 hd=256": (16, 256, 256, 8, 1, 256, True, None),
     }
 
 
@@ -392,6 +417,12 @@ def bwd_cases():
         "hd=128 ragged S=T=200": (2, 200, 200, 4, 4, 128, True, None),
         # a bf16 head the mma route does not take: the fma kernels in bf16
         "hd=32 gqa ragged S=T=200": (4, 200, 200, 8, 4, 32, True, None),
+        # gemma-2b's head, 8 query heads over 1 kv head of 256, on the fma
+        # kernels: its training shape, the kv_len bound and S != T
+        "train llama-7b hd=128": (16, 256, 256, 32, 32, 128, True, None),
+        "train gemma-2b H=8 K=1 hd=256": (16, 256, 256, 8, 1, 256, True, None),
+        "hd=256 kv_len=300 H=8 K=1": (2, 16, 576, 8, 1, 256, False, 300),
+        "hd=256 rect causal S=64 T=576": (2, 64, 576, 8, 1, 256, True, None),
     }
 
 
@@ -515,7 +546,10 @@ def ulp(torch, x, dtype):
 
 
 def optimizer_shapes():
-    # name -> canonical (L, m, n): ragged, odd rows, and llama-1b's leaves
+    # name -> canonical (L, m, n): ragged, odd rows, llama-1b's leaves, and
+    # the largest leaves of phase 9's models (llama-7b's stacked MLP leaf,
+    # 1.44e9 elements, in bf16 alone: its f32 copies and checks would not
+    # fit the card beside each other; gemma-2b's head)
     return {
         "ragged (3,77,129)": (3, 77, 129),
         "(1,5461,2048)": (1, 5461, 2048),
@@ -523,6 +557,8 @@ def optimizer_shapes():
         "w_down (24,5461,2048)": (24, 5461, 2048),
         "tok_embed (1,32000,2048)": (1, 32000, 2048),
         "lm_head (1,2048,32000)": (1, 2048, 32000),
+        "llama-7b w_gate/w_up (32,4096,11008)": (32, 4096, 11008),
+        "gemma-2b lm_head (1,2048,256000)": (1, 2048, 256000),
     }
 
 
@@ -566,7 +602,8 @@ def phase_optimizer_kernels(torch, gen):
     errs = {}
     lr = torch.tensor(0.01, device="cuda")
     for sname, shape in optimizer_shapes().items():
-        for dtype in (torch.bfloat16, torch.float32):
+        big = shape[0] * shape[1] * shape[2] > 2**30
+        for dtype in (torch.bfloat16, torch.float32)[:1 if big else 2]:
             g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
             theta = torch.randn(shape, generator=gen, device="cuda").to(dtype)
             m32 = 0.1 * torch.randn(shape, generator=gen, device="cuda")
@@ -847,8 +884,8 @@ def phase_serving(torch, seed, power):
             "decode_ms": decode_ms, "mean_kv_len": P + N // 2}
 
 
-def time_ms(torch, fn, iters):
-    for _ in range(5):
+def time_ms(torch, fn, iters, warm=5):
+    for _ in range(warm):
         fn()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
@@ -912,8 +949,9 @@ def attention_bound_ms(B, S, T, H, K, hd, causal, kv_len, el_bytes):
 
 
 def phase_timing(torch, gen, power, serve, errs):
-    """Phase 4: kernel, plain version and SDPA at the serving shapes and
-    at the llama-1b eval step's (its launches are filled in after phase 7).
+    """Phase 4: kernel, plain version and SDPA at the serving shapes, at
+    the llama-1b eval step's (its launches are filled in after phase 7) and
+    at phase 9's training shapes (llama-7b, gemma-2b).
     Where the tensor-core route runs, the fma kernel that ran these shapes
     before it is timed beside it, in the same run."""
     import torch.nn.functional as F
@@ -928,6 +966,11 @@ def phase_timing(torch, gen, power, serve, errs):
                    serve["decode_launches"], 500, "decode kv_len=300"),
         "eval": ((16, 256, 256, 32, 32, 64, True, None), None, 50,
                  "eval llama-1b"),
+        # phase 9's training shapes (their launches are filled in after it)
+        "train llama-7b": ((16, 256, 256, 32, 32, 128, True, None), None, 50,
+                           "train llama-7b hd=128"),
+        "train gemma-2b": ((16, 256, 256, 8, 1, 256, True, None), None, 10,
+                           "train gemma-2b H=8 K=1 hd=256"),
     }
     rows = []
     for phase, (shape, launches, iters, err_case) in shapes.items():
@@ -996,14 +1039,17 @@ def bwd_bound_ms(B, S, T, H, K, hd, causal, kv_len, el_bytes, kernel):
 
 def bwd_timing(torch, gen, power, errs):
     """Phase 4, the backward kernels at the training step's shape (llama-1b:
-    B=16, S=T=256, 32 heads of 64, causal, bf16) and at qwen2-500m's GQA
-    shape (B=8, S=T=512, 14 heads over 2 kv heads of 64): each kernel on
-    its route by CUDA events and by device time (torch.profiler), the fma
-    kernel that took these shapes before the mma route beside it in the
-    same run, the plain version, the bound, and the library route (the
-    backward of F.scaled_dot_product_attention: dQ, dK and dV together,
-    in its own (B, H, S, hd) layout). -> one row per kernel, its training
-    shape's numbers on top and both shapes under "shapes"."""
+    B=16, S=T=256, 32 heads of 64, causal, bf16), at qwen2-500m's GQA
+    shape (B=8, S=T=512, 14 heads over 2 kv heads of 64), and at phase 9's
+    llama-7b (32 heads of 128) and gemma-2b (B=16, S=T=256, 8 heads over 1
+    kv head of 256, the fma route): each
+    kernel on its route by CUDA events and by device time (torch.profiler),
+    where the mma route runs the fma kernel that took these shapes before
+    it beside it in the same run, the plain version, the bound, and the
+    library route (the backward of F.scaled_dot_product_attention: dQ, dK
+    and dV together, in its own (B, H, S, hd) layout). -> one row per
+    kernel, its training shape's numbers on top and every shape under
+    "shapes"."""
     import torch.nn.functional as F
     from repro_torch.kernels.attention.attention import (_bwd_route,
                                                          mha_bwd_dkv,
@@ -1011,7 +1057,11 @@ def bwd_timing(torch, gen, power, errs):
     from repro_torch.kernels.attention.ref import (mha_bwd_dkv_ref,
                                                    mha_bwd_dq_ref)
     shapes = {"train": ((16, 256, 256, 32, 32, 64), "train llama-1b"),
-              "gqa": ((8, 512, 512, 14, 2, 64), "gqa qwen2-500m H=14 K=2")}
+              "gqa": ((8, 512, 512, 14, 2, 64), "gqa qwen2-500m H=14 K=2"),
+              "llama-7b": ((16, 256, 256, 32, 32, 128),
+                           "train llama-7b hd=128"),
+              "gemma-2b": ((16, 256, 256, 8, 1, 256),
+                           "train gemma-2b H=8 K=1 hd=256")}
     note = "backward of F.scaled_dot_product_attention (dQ, dK, dV together)"
     rows = {name: [] for name in BWD_KERNELS}
     for shape, ((B, S, T, H, K, hd), err_case) in shapes.items():
@@ -1042,16 +1092,20 @@ def bwd_timing(torch, gen, power, errs):
                 return bwd_fma(torch, name, args, kw)
             ms = time_ms(torch, call, 20)
             dev_ms = device_ms(torch, call, 10, name)
-            fma_ms = time_ms(torch, fma, 5)
-            fma_dev_ms = device_ms(torch, fma, 5, name)
+            fma_ms = fma_dev_ms = None
+            if route == "mma":  # the kernel that took the shape before
+                fma_ms = time_ms(torch, fma, 5)
+                fma_dev_ms = device_ms(torch, fma, 5, name)
             plain_ms = time_ms(torch, lambda: plain(*args, **kw), 5)
             bound, by = bwd_bound_ms(B, S, T, H, K, hd, True, None, 2, name)
             print(f"  [{power}] {name} {shape} B={B} S={S} T={T} H={H} K={K} "
                   f"hd={hd} causal bf16, {route} route: {ms:.4f} ms (device "
-                  f"time {fmt_ms(dev_ms)}; bound {bound:.4f} ms by {by}; the "
-                  f"fma kernel at this shape {fma_ms:.4f} ms, device time "
-                  f"{fmt_ms(fma_dev_ms)}; plain {plain_ms:.4f} ms; {note} "
-                  f"{lib_ms:.4f} ms, device time {fmt_ms(lib_dev_ms)})")
+                  f"time {fmt_ms(dev_ms)}; bound {bound:.4f} ms by {by}"
+                  + ("" if fma_ms is None else f"; the fma kernel at this "
+                     f"shape {fma_ms:.4f} ms, device time "
+                     f"{fmt_ms(fma_dev_ms)}")
+                  + f"; plain {plain_ms:.4f} ms; {note} {lib_ms:.4f} ms, "
+                  f"device time {fmt_ms(lib_dev_ms)})")
             rows[name].append({
                 "name": name, "shape": f"{shape}: B={B} S={S} T={T} H={H} "
                 f"K={K} hd={hd} causal bf16", "route": "cuda",
@@ -1342,7 +1396,8 @@ def profile_step(torch, power, step, untraced_ms, n=3,
                  label="update_params step", top=8):
     """Device busy time and top kernels of ``n`` calls of ``step``
     (torch.profiler), and the update_apply kernels' sum where they ran; the
-    idle share is against the untraced step time."""
+    idle share is against the untraced step time. -> (busy ms per call or
+    None, [(kernel, launches per call, device ms per call)])."""
     from torch.profiler import ProfilerActivity, profile
     step()
     torch.cuda.synchronize()
@@ -1357,7 +1412,7 @@ def profile_step(torch, power, step, untraced_ms, n=3,
     if busy_ms == 0:
         print("  the profiler recorded no device time (busy share not "
               "measured)")
-        return
+        return None, []
     print(f"  [{power}] {label}: device busy {busy_ms:.3f} ms of "
           f"{untraced_ms:.3f} ms untraced (idle share "
           f"{1 - busy_ms / untraced_ms:.3f}); "
@@ -1370,6 +1425,8 @@ def profile_step(torch, power, step, untraced_ms, n=3,
         print(f"  [{power}] {label}: update_apply kernels "
               f"{sum(e.self_device_time_total for e in ua) / 1e3 / n:.3f} ms "
               f"of device time, {sum(e.count for e in ua) // n} launches")
+    return busy_ms, [(e.key, e.count / n, e.self_device_time_total / 1e3 / n)
+                     for e in kernels]
 
 
 def phase_optimizer(torch, seed, power):
@@ -1538,6 +1595,14 @@ def xent_cases():
         # and 64 x 256; one row with ragged K and vocab tiles
         "single tile N=64 D=64 V=256": (64, 64, 256, 256, 0.0),
         "N=1 D=96 V=264 vocab_size=260": (1, 96, 264, 260, 0.0),
+        # llama-7b's loss: D = 4096, two slabs of D on the FMA kernels
+        "llama-7b N=4096 D=4096": (4096, 4096, 32000, 32000, 0.0),
+        # a D that ends the FMA kernels' last slab mid-way (not a multiple
+        # of 16: bf16 takes the FMA kernels too)
+        "D=4100": (300, 4100, 1000, 1000, 0.2),
+        # gemma-2b's loss: V = 256000, 4 splits of the forward, 63 chunks
+        # of the backward
+        "gemma-2b N=4096 V=256000": (4096, 2048, 256000, 256000, 0.05),
     }
 
 
@@ -1582,7 +1647,10 @@ def phase_xent_kernels(torch, gen):
             tag = str(dtype).replace("torch.", "")
             key = f"{cname} {tag}"
             h, w, labels, gl = xent_inputs(torch, gen, N, D, V, masked, dtype)
-            fwd_route = "wgmma" if dtype == torch.bfloat16 else "fma"
+            # aligned bf16 on the tensor cores; f32 and a D that is not a
+            # multiple of 16 on the FMA kernels
+            tc = dtype == torch.bfloat16 and D % 16 == 0
+            fwd_route = "wgmma" if tc else "fma"
             was = dict(X.xent_fwd.route_launches)
             lse, ll = X.xent_fwd(h, w, labels, vocab_size=vs)
             torch.cuda.synchronize()
@@ -1610,11 +1678,11 @@ def phase_xent_kernels(torch, gen):
                                                   vocab_size=vs)), key)
             errs[("xent_fwd", cname, tag)] = e_f
             msg = [f"fwd {fwd_route} {e_f:.2e}"]
-            if X.mma_layout(h, w) != (dtype == torch.bfloat16):
+            if X.mma_layout(h, w) != tc:
                 raise AssertionError(f"xent_fwd: unexpected kernel for {key}")
             # the FMA kernels, which other bf16 layouts take
-            w_cols = w.T.contiguous().T if dtype == torch.bfloat16 else None
-            if dtype == torch.bfloat16:
+            w_cols = w.T.contiguous().T if tc else None
+            if tc:
                 e_fma = 0.0
                 was = dict(X.xent_fwd.route_launches)
                 got_cols = X.xent_fwd(h, w_cols, labels, vocab_size=vs)
@@ -1629,7 +1697,7 @@ def phase_xent_kernels(torch, gen):
                                              f"disagrees: {key}")
                     e_fma = max(e_fma, d.max().item())
                 msg.append(f"fwd FMA kernel {e_fma:.2e}")
-            route = "mma" if dtype == torch.bfloat16 else "fma"
+            route = "mma" if tc else "fma"
             for name, fn, ref in (("xent_bwd_dh", X.xent_bwd_dh,
                                    XR.xent_bwd_dh_ref),
                                   ("xent_bwd_dw", X.xent_bwd_dw,
@@ -1703,101 +1771,119 @@ def xent_bound_ms(N, D, ncols, el_bytes, kernel):
 
 
 def xent_timing(torch, gen, power, errs):
-    """Phase 4, the xent kernels at llama-1b's loss shape (bf16): kernel by
-    CUDA events and by device time (torch.profiler, every kernel of the
-    call), plain version, bound, and two library routes: torch.matmul +
+    """Phase 4, the xent kernels (bf16) at the loss shapes of llama-1b,
+    llama-7b (D = 4096) and gemma-2b (V = 256000): kernel by CUDA events
+    and by device time (torch.profiler, every kernel of the call), plain
+    version, bound, and two library routes: torch.matmul +
     F.cross_entropy for the forward; for the backward, the autograd
     backward of that pair (dh and dw together, reusing the saved logits),
     and that forward and backward together, which recomputes the logits as
-    the kernels by contract do."""
+    the kernels by contract do. At llama-1b's and llama-7b's shapes also
+    the FMA kernels (w read through its columns), which walk D in one and
+    in two slabs of 2048. -> one row per
+    kernel, llama-1b's numbers on top and every shape under "shapes"."""
     import torch.nn.functional as F
     from repro_torch.kernels.xent import ref as XR
     from repro_torch.kernels.xent import xent as X
-    N, D, V = 4096, 2048, 32000
-    h, w, labels, _ = xent_inputs(torch, gen, N, D, V, 0.0, torch.bfloat16)
-    lse, _ = X.xent_fwd(h, w, labels, vocab_size=V)
-    gl = torch.full((N,), 1.0 / N, device="cuda")
-    args = (h, w, labels, lse, gl)
-    bf = torch.bfloat16
-    hl, wl = h.detach().requires_grad_(), w.detach().requires_grad_()
-    lib_loss = F.cross_entropy((hl @ wl).float(), labels.long(),
-                               reduction="mean")
-
-    def lib_bwd():
-        return torch.autograd.grad(lib_loss, [hl, wl], retain_graph=True)
-
-    def lib_fwd():
-        return F.cross_entropy((h @ w).float(), labels.long(),
-                               reduction="none")
-
-    def lib_full():
-        hf, wf = h.detach().requires_grad_(), w.detach().requires_grad_()
-        loss = F.cross_entropy((hf @ wf).float(), labels.long(),
-                               reduction="mean")
-        return torch.autograd.grad(loss, [hf, wf])
-    libs = {k: (time_ms(torch, f, 10), device_ms(torch, f, 3))
-            for k, f in (("fwd", lib_fwd), ("bwd", lib_bwd),
-                         ("full", lib_full))}
-    del lib_loss
+    shapes = {"llama-1b": ((4096, 2048, 32000), "llama-1b N=4096"),
+              "llama-7b": ((4096, 4096, 32000), "llama-7b N=4096 D=4096"),
+              "gemma-2b": ((4096, 2048, 256000), "gemma-2b N=4096 V=256000")}
     note_bwd = ("autograd of matmul + cross_entropy (dh and dw together, "
                 "from saved logits)")
     note_full = ("matmul + cross_entropy and its autograd backward (dh and "
                  "dw together, logits recomputed)")
-    cases = {
-        "xent_fwd": (lambda: X.xent_fwd(h, w, labels, vocab_size=V),
-                     lambda: XR.xent_fwd_ref(h, w, labels, vocab_size=V),
-                     "fwd", "torch.matmul + F.cross_entropy", None),
-        "xent_bwd_dh": (lambda: X.xent_bwd_dh(*args, vocab_size=V,
-                                              out_dtype=bf),
-                        lambda: XR.xent_bwd_dh_ref(*args, vocab_size=V,
-                                                   out_dtype=bf),
-                        "bwd", note_bwd, "full"),
-        "xent_bwd_dw": (lambda: X.xent_bwd_dw(*args, vocab_size=V,
-                                              out_dtype=bf),
-                        lambda: XR.xent_bwd_dw_ref(*args, vocab_size=V,
-                                                   out_dtype=bf),
-                        "bwd", note_bwd, "full"),
-    }
     kernel_routes = {"xent_fwd": "wgmma", "xent_bwd_dh": "mma",
                      "xent_bwd_dw": "mma"}
-    rows = []
-    for name, (kern, plain, lib, lib_note, lib2) in cases.items():
-        ms = time_ms(torch, kern, 5)
-        dev_ms = device_ms(torch, kern, 5)
-        plain_ms = time_ms(torch, plain, 5)
-        bound, by = xent_bound_ms(N, D, V, 2, name)
-        (lib_ms, lib_dev), (lib2_ms, lib2_dev) = libs[lib], libs.get(
-            lib2, (None, None))
-        # products executed: the backward's logits, then G's hi and lo
-        # halves contracted
-        tflop = 2 * N * D * V * (1 if name == "xent_fwd" else 3) / 1e12
-        print(f"  [{power}] {name} N={N} D={D} V={V} bf16, "
-              f"{kernel_routes[name]}: {ms:.4f} ms "
-              f"(device time {fmt_ms(dev_ms)}; {tflop / ms * 1e3:.1f} TFLOP/s "
-              f"of the {tflop:.3f} TFLOP it executes; bound {bound:.4f} ms "
-              f"by {by}, {bound / ms:.4f} of it; plain {plain_ms:.4f} ms; "
-              f"{lib_note} "
-              f"{lib_ms:.4f} ms, device time {fmt_ms(lib_dev)}"
-              + ("" if lib2 is None else f"; {note_full} {lib2_ms:.4f} ms, "
-                 f"device time {fmt_ms(lib2_dev)}") + ")")
-        rows.append({"name": name, "shape": f"N={N} D={D} V={V} bf16",
-                     "route": "cuda", "kernel_route": kernel_routes[name],
-                     "source": SRC_XENT,
-                     # the forward's mainloop is in the header xent.cu
-                     # includes
-                     "sources": [SRC_XENT] + ([SRC_HOPPER]
-                                              if name == "xent_fwd" else []),
-                     "replaces": TPU_KERNELS[name], "launches": None,
-                     "max_abs_err": errs[(name, "llama-1b N=4096",
-                                          "bfloat16")],
-                     "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
-                     "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
-                     "library_device_ms": lib_dev, "library_note": lib_note,
-                     "library_recompute_ms": lib2_ms,
-                     "library_recompute_device_ms": lib2_dev,
-                     "library_recompute_note": None if lib2 is None
-                     else note_full})
-    return rows
+    bf = torch.bfloat16
+    rows = {name: [] for name in XENT_KERNELS}
+    for model, ((N, D, V), err_case) in shapes.items():
+        h, w, labels, _ = xent_inputs(torch, gen, N, D, V, 0.0, bf)
+        lse, _ = X.xent_fwd(h, w, labels, vocab_size=V)
+        gl = torch.full((N,), 1.0 / N, device="cuda")
+        args = (h, w, labels, lse, gl)
+        w_cols = w.T.contiguous().T if model != "gemma-2b" else None
+        hl, wl = h.detach().requires_grad_(), w.detach().requires_grad_()
+        lib_loss = F.cross_entropy((hl @ wl).float(), labels.long(),
+                                   reduction="mean")
+
+        def lib_bwd():
+            return torch.autograd.grad(lib_loss, [hl, wl], retain_graph=True)
+
+        def lib_fwd():
+            return F.cross_entropy((h @ w).float(), labels.long(),
+                                   reduction="none")
+
+        def lib_full():
+            hf, wf = h.detach().requires_grad_(), w.detach().requires_grad_()
+            loss = F.cross_entropy((hf @ wf).float(), labels.long(),
+                                   reduction="mean")
+            return torch.autograd.grad(loss, [hf, wf])
+        libs = {k: (time_ms(torch, f, 10), device_ms(torch, f, 3))
+                for k, f in (("fwd", lib_fwd), ("bwd", lib_bwd),
+                             ("full", lib_full))}
+        del lib_loss
+        fns = {"xent_fwd": (X.xent_fwd, XR.xent_fwd_ref, (h, w, labels), {},
+                            "fwd", "torch.matmul + F.cross_entropy", None),
+               "xent_bwd_dh": (X.xent_bwd_dh, XR.xent_bwd_dh_ref, args,
+                               {"out_dtype": bf}, "bwd", note_bwd, "full"),
+               "xent_bwd_dw": (X.xent_bwd_dw, XR.xent_bwd_dw_ref, args,
+                               {"out_dtype": bf}, "bwd", note_bwd, "full")}
+        for name, (fn, ref, a, kw, lib, lib_note, lib2) in fns.items():
+            def kern():
+                return fn(*a, vocab_size=V, **kw)
+            ms = time_ms(torch, kern, 5)
+            dev_ms = device_ms(torch, kern, 5)
+            plain_ms = time_ms(torch, lambda: ref(*a, vocab_size=V, **kw), 3)
+            bound, by = xent_bound_ms(N, D, V, 2, name)
+            (lib_ms, lib_dev), (lib2_ms, lib2_dev) = libs[lib], libs.get(
+                lib2, (None, None))
+            # products executed: the backward's logits, then G's hi and lo
+            # halves contracted
+            tflop = 2 * N * D * V * (1 if name == "xent_fwd" else 3) / 1e12
+            fma_ms = fma_dev_ms = None
+            if w_cols is not None:  # the FMA kernel: one or two slabs of D
+                a_cols = (h, w_cols, *a[2:])
+
+                def fma():
+                    return fn(*a_cols, vocab_size=V, **kw)
+                fma_ms = time_ms(torch, fma, 2, warm=1)
+                fma_dev_ms = device_ms(torch, fma, 1)
+            print(f"  [{power}] {name} {model} N={N} D={D} V={V} bf16, "
+                  f"{kernel_routes[name]}: {ms:.4f} ms (device time "
+                  f"{fmt_ms(dev_ms)}; {tflop / ms * 1e3:.1f} TFLOP/s of the "
+                  f"{tflop:.3f} TFLOP it executes; bound {bound:.4f} ms by "
+                  f"{by}, {bound / ms:.4f} of it; plain {plain_ms:.4f} ms; "
+                  f"{lib_note} {lib_ms:.4f} ms, device time {fmt_ms(lib_dev)}"
+                  + ("" if lib2 is None else f"; {note_full} {lib2_ms:.4f} "
+                     f"ms, device time {fmt_ms(lib2_dev)}")
+                  + ("" if fma_ms is None else f"; the FMA kernel (w read "
+                     f"through its columns, {-(-D // 2048)} slab(s) of D) "
+                     f"{fma_ms:.4f} ms, device time {fmt_ms(fma_dev_ms)}")
+                  + ")")
+            rows[name].append({
+                "name": name, "shape": f"{model}: N={N} D={D} V={V} bf16",
+                "route": "cuda", "kernel_route": kernel_routes[name],
+                "source": SRC_XENT,
+                # the forward's mainloop is in the header xent.cu includes
+                "sources": [SRC_XENT] + ([SRC_HOPPER]
+                                         if name == "xent_fwd" else []),
+                "replaces": TPU_KERNELS[name], "launches": None,
+                "max_abs_err": errs[(name, err_case, "bfloat16")],
+                "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
+                "library_device_ms": lib_dev, "library_note": lib_note,
+                "library_recompute_ms": lib2_ms,
+                "library_recompute_device_ms": lib2_dev,
+                "library_recompute_note": None if lib2 is None
+                else note_full, "fma_ms": fma_ms,
+                "fma_device_ms": fma_dev_ms})
+        del h, w, w_cols, labels, lse, gl, args, hl, wl
+    out = []
+    for name in XENT_KERNELS:
+        row = {k: v for k, v in rows[name][0].items() if k != "shape"}
+        row["shapes"] = rows[name]
+        out.append(row)
+    return out
 
 
 # Phase 4: variants of the xent sources that measure the tensor-core
@@ -2369,6 +2455,189 @@ def phase_train(torch, seed, power):
             "peak": peak}
 
 
+# ------------------------------------------- the paper's two largest models
+
+PAPER_MODELS = ("llama-7b", "gemma-2b")
+PAPER_STEPS = 4  # make_train_step steps of each model in phase 9
+# a train step's device time by kernel family (phase 9): the first family
+# whose substring is in a kernel's name takes it
+KERNEL_FAMILIES = (
+    ("mha_fwd", "attention forward (mha_fwd)"),
+    ("mha_bwd_dq", "attention backward dQ (mha_bwd_dq)"),
+    ("mha_bwd_dkv", "attention backward dK, dV (mha_bwd_dkv)"),
+    ("gemm_rows_kernel", "xent_fwd (wgmma mainloop and softmax epilogue)"),
+    ("xent_fwd", "xent_fwd (split combine)"),
+    ("GEpilogue", "xent backward: G kernels"),
+    ("StoreEpilogue", "xent backward: dH and dW products"),
+    ("update_apply", "update_apply"),
+    ("sumsq", "norm_sumsq and momentum_sumsq"),
+    ("momentum", "norm_sumsq and momentum_sumsq"),
+    ("finish_kernel", "norm_sumsq and momentum_sumsq"),
+    ("gemm", "cuBLAS GEMMs (projections, MLP, head)"),
+    ("nvjet", "cuBLAS GEMMs (projections, MLP, head)"),
+    ("", "other (copies, element-wise, reductions)"),
+)
+
+
+def by_family(kernels):
+    """{family: (device ms, launches)} of profile_step's kernel list."""
+    out = {}
+    for key, n, ms in kernels:
+        fam = next(f for sub, f in KERNEL_FAMILIES if sub in key)
+        t, c = out.get(fam, (0.0, 0))
+        out[fam] = (t + ms, c + round(n))
+    return out
+
+
+def train_paper_model(torch, seed, power, arch):
+    """One model of phase 9, at full width and depth: the launcher for two
+    steps, then ``make_train_step`` for PAPER_STEPS steps (the main path:
+    counts from 0 just before, read just after, every step's launches by
+    route checked), its loss curve against the same steps with attention
+    through plain ``mha_fwd_ref`` autograd from the same seeded weights
+    (run after the kernel route's state is freed, so the two never share
+    the card), step time, tokens/s, device busy time by kernel family, idle
+    share and peak memory."""
+    import math
+    from unittest import mock
+    from repro_torch.configs import get_arch
+    from repro_torch.core import linear_warmup_cosine, make_optimizer
+    from repro_torch.data import make_dataset
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.attention.ref import mha_fwd_ref
+    from repro_torch.launch import train as launcher
+    from repro_torch.models import init_params
+    from repro_torch.models.model import count_params, param_shapes
+    from repro_torch.training import init_state, make_train_step
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks
+    cfg = get_arch(arch)
+    B, S = 16, 256
+    L = cfg.n_layers
+    n_params = count_params(param_shapes(cfg))
+    print(f"  {arch}: {L} layers, d_model {cfg.d_model}, {cfg.n_heads} heads "
+          f"over {cfg.n_kv_heads} kv heads of {cfg.head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}, {n_params / 1e9:.3f} G params, "
+          f"{cfg.dtype}, remat {cfg.remat!r}; batch {B} x {S} from "
+          f"SyntheticLM (seed {seed}); scale_fused, clip 1.0, "
+          f"linear_warmup_cosine(1e-3, steps)")
+    argv = ["--arch", arch, "--optimizer", "scale_fused", "--batch", str(B),
+            "--seq", str(S), "--steps", "2", "--log-every", "1", "--seed",
+            str(seed)]
+    print(f"  python -m repro_torch.launch.train {' '.join(argv)}:")
+    t0 = time.perf_counter()
+    final = launcher.main(argv)
+    print(f"  launcher: 2 steps in {time.perf_counter() - t0:.1f} s (init "
+          f"and first-call costs included), final loss {final:.4f}")
+    if not math.isfinite(final):
+        raise AssertionError(f"{arch}: the launcher's loss is not finite")
+    torch.cuda.empty_cache()
+
+    ds = make_dataset(cfg, S, B, seed=seed, device="cuda")
+    batches = [ds.global_batch_at(i) for i in range(PAPER_STEPS)]
+
+    def start():
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        tx = make_optimizer("scale_fused",
+                            linear_warmup_cosine(1e-3, PAPER_STEPS))
+        return (init_state(init_params(cfg, gen, device="cuda"), tx),
+                make_train_step(cfg, tx, clip_norm=1.0))
+
+    # the main path: counts set to 0 just before it, read just after
+    state, step = start()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_train_counts()
+    zero_route_counts()
+    per_step, per_step_routes, losses = [], [], []
+    for b in batches:
+        before, before_r = train_counts(), route_counts()
+        state, metrics = step(state, b)
+        per_step.append({k: v - before[k] for k, v in train_counts().items()})
+        per_step_routes.append({k: {r: n - before_r[k][r]
+                                    for r, n in c.items()}
+                                for k, c in route_counts().items()})
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = train_counts()
+    want = {"mha_fwd": 2 * L, "mha_bwd_dq": L, "mha_bwd_dkv": L,
+            "xent_fwd": 1, "xent_bwd_dh": 1, "xent_bwd_dw": 1,
+            "norm_sumsq": 8, "update_apply": 9, "momentum_sumsq": 1,
+            "norm_apply": 0}
+    for i, c in enumerate(per_step):
+        if c != want:
+            raise AssertionError(f"{arch} train step {i} launched {c}, not "
+                                 f"{want}")
+    # hd 128 takes the tensor cores both ways, hd 256 the fma kernels
+    attn = "mma" if cfg.head_dim in (64, 128) else "fma"
+    want_r = {"mha_fwd": {attn: 2 * L}, **{k: {attn: L} for k in BWD_KERNELS},
+              "xent_fwd": {"wgmma": 1}, "xent_bwd_dh": {"mma": 1},
+              "xent_bwd_dw": {"mma": 1}, "update_apply": {"vec": 9}}
+    for i, c in enumerate(per_step_routes):
+        check_routes(c, want_r, f"{arch} train step {i}", show=False)
+    print(f"  {arch} make_train_step: every one of {PAPER_STEPS} steps "
+          f"launched {want}, by route {want_r}")
+    losses = [float(x) for x in losses]
+
+    # times: host clock best of 3, the profile of one step
+    def one():
+        nonlocal state
+        state, _ = step(state, batches[0])
+
+    t_step = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one()
+        torch.cuda.synchronize()
+        t_step.append(time.perf_counter() - t0)
+    step_s = min(t_step)
+    print(f"  [{power}] {arch} train step {step_s * 1e3:.3f} ms (best of 3; "
+          f"{B * S / step_s:.0f} tokens/s); torch.cuda.max_memory_allocated "
+          f"over its {PAPER_STEPS} main-path steps {peak / 2**20:.1f} MiB")
+    busy, kernels = profile_step(torch, power, one, step_s * 1e3, n=1,
+                                 label=f"{arch} train step", top=12)
+    fams = by_family(kernels)
+    for fam, (ms, n) in sorted(fams.items(), key=lambda x: -x[1][0]):
+        print(f"    {ms:9.3f} ms {100 * ms / busy:5.1f}% x{n:<5d} {fam}")
+    del state, step
+    torch.cuda.empty_cache()
+
+    # the same steps with attention through plain mha_fwd_ref autograd,
+    # from the same seeded weights
+    state, step = start()
+    with mock.patch.object(dispatch, "mha_fwd", mha_fwd_ref):
+        ref_losses = []
+        for b in batches:
+            state, m = step(state, b)
+            ref_losses.append(float(m["loss"]))
+    del state, step
+    torch.cuda.empty_cache()
+    gap = max(abs(a - b) for a, b in zip(losses, ref_losses))
+    print(f"  {arch} loss over {PAPER_STEPS} steps: "
+          f"{' '.join(f'{x:.4f}' for x in losses)}")
+    print(f"  {arch} plain-attention route (full depth): "
+          f"{' '.join(f'{x:.4f}' for x in ref_losses)} (max |diff| "
+          f"{gap:.2e}, tol {LOSS_CURVE_ATOL:g})")
+    if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]
+            and gap <= LOSS_CURVE_ATOL):
+        raise AssertionError(f"{arch}: the training loss does not fall, or "
+                             "leaves the plain-attention route's curve")
+    return {"launches": launches, "per_step": per_step[0],
+            "routes": per_step_routes[0], "step_ms": step_s * 1e3,
+            "tokens_per_s": B * S / step_s, "busy_ms": busy,
+            "idle_share": None if busy is None else 1 - busy / (step_s * 1e3),
+            "peak_mib": peak / 2**20, "losses": losses,
+            "ref_losses": ref_losses, "loss_gap": gap,
+            "device_ms_by_family": {f: ms for f, (ms, _) in fams.items()}}
+
+
+def phase_paper_models(torch, seed, power):
+    """Phase 9: llama-7b and gemma-2b train at full width and depth."""
+    return {arch: train_paper_model(torch, seed, power, arch)
+            for arch in PAPER_MODELS}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2426,20 +2695,31 @@ def main() -> int:
     loss = phase_loss(torch, args.seed, power)
     print("phase 8: the training step, llama-1b, full width and depth")
     train = phase_train(torch, args.seed, power)
+    print("phase 9: the training step, llama-7b and gemma-2b, full width and "
+          "depth")
+    paper = phase_paper_models(torch, args.seed, power)
     # one row per kernel; launches summed over the main paths that run it,
     # each counted from 0 just before its path and read just after
     by_path = {"serving": {"mha_fwd": serve["launches"]},
                "optimizer": opt["launches"], "loss": loss["launches"],
-               "train": train["launches"]}
+               "train": train["launches"],
+               **{f"train {a}": r["launches"] for a, r in paper.items()}}
     # mha_fwd's prefill numbers, with both serving shapes and the eval and
     # training steps' shape beside them
     mha = {k: v for k, v in mha_rows[0].items() if k != "shape"}
     mha_rows[2]["launches"] = loss["launches"]["mha_fwd"]
+    for entry, arch in zip(mha_rows[3:], PAPER_MODELS):
+        entry["launches"] = paper[arch]["launches"]["mha_fwd"]
     mha_rows.append({**mha_rows[2], "shape": "train",
                      "launches": train["launches"]["mha_fwd"]})
     mha["shapes"] = mha_rows
     for row in bwd_rows:
         row["shapes"][0]["launches"] = train["launches"][row["name"]]
+        for entry, arch in zip(row["shapes"][2:], PAPER_MODELS):
+            entry["launches"] = paper[arch]["launches"][row["name"]]
+    for row in xent_rows:
+        for entry, path in zip(row["shapes"], (train, *paper.values())):
+            entry["launches"] = path["launches"][row["name"]]
     rows = [mha] + bwd_rows + opt_rows + xent_rows
     for row in rows:
         row["launches_by_path"] = {p: c[row["name"]]
@@ -2450,10 +2730,15 @@ def main() -> int:
         if row["name"] in train["routes"]:
             row["launches_per_train_step_by_route"] = train["routes"][
                 row["name"]]
+        row["launches_per_train_step_by_model"] = {
+            a: {"launches": r["per_step"].get(row["name"]),
+                "by_route": r["routes"].get(row["name"])}
+            for a, r in (("llama-1b", train), *paper.items())}
     for path, c in by_path.items():
         for name, n in c.items():
             # norm_apply serves only the update entry point (phase 6)
-            if not n and not (path == "train" and name == "norm_apply"):
+            if not n and not (path.startswith("train")
+                              and name == "norm_apply"):
                 raise AssertionError(f"{name} was not launched on the "
                                      f"{path} path")
     print(power)

@@ -36,8 +36,9 @@ from .. import _build
 from .ref import mha_bwd_dkv_ref, mha_bwd_dq_ref, mha_fwd_ref
 
 _DTYPES = (torch.bfloat16, torch.float32)
-# the forward's fma and decode kernels stage K and V tiles as f32: 256 is
-# the widest head whose tiles fit the H100's shared memory
+# the fma and decode kernels, forward and backward, stage their tiles as
+# f32: 256 (gemma-2b's head) is the widest head whose tiles fit the H100's
+# shared memory (csrc/mha_fwd.cu, csrc/mha_bwd.cu)
 _MAX_HEAD_DIM = 256
 # the tensor-core forward keeps a warp's (16, hdv) f32 output in registers;
 # at 256 it would spill (csrc/mha_fwd.cu), so those heads take fma
@@ -45,10 +46,6 @@ _MMA_HEAD_DIMS = (64, 128)
 # S at or below this takes the decode kernel (the C entry mha_fwd, which
 # runs decode and fma, applies the same bound)
 _DECODE_ROWS = 4
-# the backward's fma kernels keep a row's dQ (or a key's dK and dV) in 16
-# registers per lane, and its mma kernels a warp's (16, hd) f32 gradients;
-# wider heads (gemma-2b's 256) wait for ROADMAP.md Queue 1 item 20
-_MAX_BWD_HEAD_DIM = 128
 
 
 def _fwd_route(q, k, v) -> str:
@@ -106,7 +103,7 @@ def _bind_bwd(lib: ctypes.CDLL, name: str):
     return fn
 
 
-def _check(q, k, v, kv_len, causal, name="mha_fwd", max_hd=_MAX_HEAD_DIM):
+def _check(q, k, v, kv_len, causal, name="mha_fwd"):
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError(f"{name}: q, k, v must be 4-D (B, S|T, H|K, hd)")
     B, S, H, hd = q.shape
@@ -118,9 +115,9 @@ def _check(q, k, v, kv_len, causal, name="mha_fwd", max_hd=_MAX_HEAD_DIM):
         raise ValueError(f"{name}: need nonempty shapes and H % K == 0, got "
                          f"H={H} K={K}")
     for what, d in (("hd", hd), ("hdv", v.shape[3])):
-        if d % 8 or not 8 <= d <= max_hd:
+        if d % 8 or not 8 <= d <= _MAX_HEAD_DIM:
             raise ValueError(f"{name}: {what}={d} must be a multiple of 8 "
-                             f"in [8, {max_hd}]")
+                             f"in [8, {_MAX_HEAD_DIM}]")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"{name}: dtypes {q.dtype}, {k.dtype}, {v.dtype}; "
                          "need one of bfloat16, float32 for all three")
@@ -212,7 +209,7 @@ def _kv_len_tensor(kv_len, device, name):
 
 def _check_bwd(name, q, k, v, dout, lse, delta, kv_len, causal):
     """Shape, dtype and device checks of the backward kernels' operands."""
-    _check(q, k, v, kv_len, causal, name, _MAX_BWD_HEAD_DIM)
+    _check(q, k, v, kv_len, causal, name)
     B, S, H, _ = q.shape
     if tuple(dout.shape) != (B, S, H, v.shape[3]) or dout.dtype != q.dtype:
         raise ValueError(f"{name}: dout {tuple(dout.shape)} {dout.dtype}; "

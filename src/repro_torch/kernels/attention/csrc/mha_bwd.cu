@@ -100,6 +100,14 @@
 //       (the causal diagonal) on. Rows past S and keys past T are zero on
 //       both operand sides and masked, so their lse and delta never enter
 //       a sum.
+//     Each kernel is built for heads of up to 64, 128 and 256 (DMAX; a
+//     lane holds DMAX / 8 accumulators of each gradient). Head dim 256 is
+//     gemma-2b's (8 query heads over 1 kv head): its staged f32 tiles take
+//     201 KB of shared memory for dQ and 209.5 KB for dK, dV, so one block
+//     runs on an SM, and a lane holds 32 dQ sums, or 32 dK and 32 dV sums.
+//     That is the widest head whose tiles fit the H100's 227 KB. A
+//     tensor-core backward at 256 would need two (16, 256) f32 gradient
+//     fragments a warp, more than the registers hold (ROADMAP Queue 2).
 #include "attn_common.cuh"
 
 namespace {
@@ -389,7 +397,10 @@ cudaError_t launch_d(bool dkv, const void* q, const void* k, const void* v, cons
   if (hd <= 64 && hdv <= 64)
     return launch<T, 64>(dkv, q, k, v, dout, lse, delta, kv_len, o1, o2, B, S, T_len, H, K,
                          hd, hdv, st, scale, causal, stream);
-  return launch<T, 128>(dkv, q, k, v, dout, lse, delta, kv_len, o1, o2, B, S, T_len, H, K,
+  if (hd <= 128 && hdv <= 128)
+    return launch<T, 128>(dkv, q, k, v, dout, lse, delta, kv_len, o1, o2, B, S, T_len, H, K,
+                          hd, hdv, st, scale, causal, stream);
+  return launch<T, 256>(dkv, q, k, v, dout, lse, delta, kv_len, o1, o2, B, S, T_len, H, K,
                         hd, hdv, st, scale, causal, stream);
 }
 

@@ -53,15 +53,22 @@
 //   * f32 FMAs for f32 operands and any other layout, below. A block of
 //     512 threads owns IT items (16 for bf16, 8 for f32: 32 bytes per row
 //     of D): token rows walking the vocab (forward, dH) or vocab columns
-//     walking the tokens (dW), kept in shared memory as (D, IT), and stages
-//     IT items of the other operand per step (2 * 32 * D bytes: 128 KB at
-//     D = 2048; above 48 KB by the opt-in). The IT x IT logit tile is a sum
-//     over D split across the 16 warps (each lane 8 or 2 outputs over its
-//     warp's share of D), and the 16 partials are added in warp order. The
-//     forward folds the tile into a running (max, sum, label logit) per
-//     row; the backward forms the G tile and adds G @ (streamed operand)^T
-//     into an (IT, D) f32 accumulator held in registers, each thread owning
-//     IT rows of 4 columns of D: this is what limits D to 2048.
+//     walking the tokens (dW). D is walked in slabs of kSlab = 2048: each
+//     step stages a slab of the block's IT items and of IT items of the
+//     other operand in shared memory as (slab, IT) (2 * 32 * 2048 bytes:
+//     128 KB; above 48 KB by the opt-in). With one slab (D <= 2048) the
+//     block's own items stay staged; with more, both operands are staged
+//     slab by slab. The IT x IT logit tile of a slab is a sum over the
+//     slab split across the 16 warps (each lane 8 or 2 outputs over its
+//     warp's share), the 16 partials are added in warp order, and the
+//     slabs' tiles in slab order, before the tile is used: a fixed order,
+//     so two runs are bitwise equal. The forward folds the tile into a
+//     running (max, sum, label logit) per row; the backward forms the G
+//     tile and adds G @ (streamed operand)^T into an (IT, kSlab) f32
+//     accumulator held in registers, each thread owning IT rows of 4
+//     columns of D. A block owns one slab of the output's D (grid y), and
+//     recomputes the whole logit tile for it: at D = 4096 the logits are
+//     formed twice. Nothing of this limits D.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -75,7 +82,8 @@ namespace {
 constexpr float kNeg = -1e30f;  // finite -inf stand-in, as the TPU kernel's
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-constexpr int kNdt = 4;  // accumulator columns of D per thread: D <= 2048
+constexpr int kNdt = 4;  // accumulator columns of D per thread
+constexpr int kSlab = kNdt * kThreads;  // D staged (and accumulated) at once
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -120,18 +128,20 @@ struct Operand {
   int64_t s0, s1;  // element strides: h (n, d), w (d, v)
 };
 
-// IT rows [row0, row0 + nvalid) of h into dst (D, IT); rows past nvalid are
-// 0. Each thread gathers one d of all IT rows (coalesced along d) and
-// writes its 32-byte row at once.
+// IT rows [row0, row0 + nvalid) of h, columns [d0, d0 + D), into dst (D,
+// IT); rows past nvalid are 0. Each thread gathers one d of all IT rows
+// (coalesced along d) and writes its 32-byte row at once.
 template <typename T>
-__device__ __forceinline__ void load_rows(T* dst, Operand h, int row0, int nvalid, int D) {
+__device__ __forceinline__ void load_rows(T* dst, Operand h, int row0, int nvalid, int d0,
+                                          int D) {
   constexpr int IT = Items<T>::n;
   const T* src = static_cast<const T*>(h.p);
   for (int d = threadIdx.x; d < D; d += kThreads) {
     alignas(16) T v[IT];
 #pragma unroll
     for (int j = 0; j < IT; ++j)
-      v[j] = j < nvalid ? src[(int64_t)(row0 + j) * h.s0 + (int64_t)d * h.s1] : zero<T>();
+      v[j] = j < nvalid ? src[(int64_t)(row0 + j) * h.s0 + (int64_t)(d0 + d) * h.s1]
+                         : zero<T>();
     uint4* out = reinterpret_cast<uint4*>(dst + (int64_t)d * IT);
     const uint4* in = reinterpret_cast<const uint4*>(v);
     out[0] = in[0];
@@ -139,15 +149,17 @@ __device__ __forceinline__ void load_rows(T* dst, Operand h, int row0, int nvali
   }
 }
 
-// IT columns [col0, col0 + nvalid) of w into dst (D, IT); columns past
-// nvalid are 0. Consecutive threads take consecutive columns of a row.
+// IT columns [col0, col0 + nvalid) of w, rows [d0, d0 + D), into dst (D,
+// IT); columns past nvalid are 0. Consecutive threads take consecutive
+// columns of a row.
 template <typename T>
-__device__ __forceinline__ void load_cols(T* dst, Operand w, int col0, int nvalid, int D) {
+__device__ __forceinline__ void load_cols(T* dst, Operand w, int col0, int nvalid, int d0,
+                                          int D) {
   constexpr int IT = Items<T>::n;
   const T* src = static_cast<const T*>(w.p);
   for (int e = threadIdx.x; e < D * IT; e += kThreads) {
     const int d = e / IT, j = e % IT;
-    dst[e] = j < nvalid ? src[(int64_t)d * w.s0 + (int64_t)(col0 + j) * w.s1] : zero<T>();
+    dst[e] = j < nvalid ? src[(int64_t)(d0 + d) * w.s0 + (int64_t)(col0 + j) * w.s1] : zero<T>();
   }
 }
 
@@ -184,10 +196,42 @@ __device__ __forceinline__ float logit_tile(const T* F, const T* S, float* red, 
   return x;
 }
 
-// F and S (32 bytes per d each), the warps' partial tiles and the G tile.
+// F and S (32 bytes per d of a slab each), the warps' partial tiles and
+// the G tile.
 template <typename T>
 constexpr size_t smem_bytes(int D) {
-  return 2 * (size_t)D * 32 + sizeof(float) * (kWarps + 1) * Items<T>::n * Items<T>::n;
+  return 2 * (size_t)std::min(D, kSlab) * 32 +
+         sizeof(float) * (kWarps + 1) * Items<T>::n * Items<T>::n;
+}
+
+// The IT x IT logit tile of the block's items F (rows of h or columns of w,
+// at f0) against the streamed items S (at s0), summed over D's slabs in
+// order, for the threads t < IT * IT. With one slab F is staged by the
+// caller, once; with more, each slab of both is staged here. Leaves the
+// last slab of S staged; ends synchronized.
+template <typename T, bool TOK_F>
+__device__ __forceinline__ float logits(T* F, T* S, float* red, Operand h, Operand w, int f0,
+                                        int nf, int s0, int ns, int D) {
+  const int nslab = (D + kSlab - 1) / kSlab;
+  float x = 0.f;
+  for (int k = 0; k < nslab; ++k) {
+    const int d0 = k * kSlab, dn = min(kSlab, D - d0);
+    __syncthreads();  // the previous tile or slab is consumed (and F staged)
+    if (nslab > 1) {
+      if (TOK_F)
+        load_rows<T>(F, h, f0, nf, d0, dn);
+      else
+        load_cols<T>(F, w, f0, nf, d0, dn);
+    }
+    if (TOK_F)
+      load_cols<T>(S, w, s0, ns, d0, dn);
+    else
+      load_rows<T>(S, h, s0, ns, d0, dn);
+    __syncthreads();
+    const float part = logit_tile<T>(F, S, red, dn);
+    x = k ? x + part : part;
+  }
+  return x;
 }
 
 // One block per IT token rows; walks the vocab tiles.
@@ -198,11 +242,11 @@ xent_fwd_kernel(Operand h, Operand w, const int* __restrict__ labels, float* __r
   constexpr int IT = Items<T>::n;
   extern __shared__ __align__(16) unsigned char smem[];
   T* F = reinterpret_cast<T*>(smem);
-  T* S = F + (size_t)D * IT;
-  float* red = reinterpret_cast<float*>(S + (size_t)D * IT);
+  T* S = F + (size_t)min(D, kSlab) * IT;
+  float* red = reinterpret_cast<float*>(S + (size_t)min(D, kSlab) * IT);
 
-  const int n0 = blockIdx.x * IT;
-  load_rows<T>(F, h, n0, min(IT, N - n0), D);
+  const int n0 = blockIdx.x * IT, nf = min(IT, N - n0);
+  if (D <= kSlab) load_rows<T>(F, h, n0, nf, 0, D);
   const int t = threadIdx.x, f = t / IT, s = t % IT;
   const int row = n0 + f;
   const bool owner = t < IT * IT;
@@ -210,10 +254,7 @@ xent_fwd_kernel(Operand h, Operand w, const int* __restrict__ labels, float* __r
   float m = kNeg, sum = 0.f, lab = 0.f;  // sum and lab are this lane's share
 
   for (int v0 = 0; v0 < ncols; v0 += IT) {
-    __syncthreads();  // the previous tile is consumed (and F is staged)
-    load_cols<T>(S, w, v0, min(IT, ncols - v0), D);
-    __syncthreads();
-    const float x = logit_tile<T>(F, S, red, D);
+    const float x = logits<T, true>(F, S, red, h, w, n0, nf, v0, min(IT, ncols - v0), D);
     if (owner) {
       const int col = v0 + s;
       const bool valid = col < ncols;
@@ -255,11 +296,12 @@ xent_bwd_kernel(Operand h, Operand w, const int* __restrict__ labels,
   constexpr int IT = Items<T>::n;
   extern __shared__ __align__(16) unsigned char smem[];
   T* F = reinterpret_cast<T*>(smem);
-  T* S = F + (size_t)D * IT;
-  float* red = reinterpret_cast<float*>(S + (size_t)D * IT);
+  T* S = F + (size_t)min(D, kSlab) * IT;
+  float* red = reinterpret_cast<float*>(S + (size_t)min(D, kSlab) * IT);
   float* G = red + kWarps * IT * IT;
 
   const int f0 = blockIdx.x * IT;
+  const int d0 = blockIdx.y * kSlab, dn = min(kSlab, D - d0);  // this block's slab of D
   const int t = threadIdx.x, f = t / IT, s = t % IT;
   const bool owner = t < IT * IT;
   float acc[IT][kNdt];
@@ -268,11 +310,12 @@ xent_bwd_kernel(Operand h, Operand w, const int* __restrict__ labels,
 #pragma unroll
     for (int k = 0; k < kNdt; ++k) acc[i][k] = 0.f;
 
-  int n_stream;
+  int n_stream, nf;
   int lab_f = -1;
   float lse_f = 0.f, gl_f = 0.f;
   if (TOK_F) {
-    load_rows<T>(F, h, f0, min(IT, N - f0), D);
+    nf = min(IT, N - f0);
+    if (D <= kSlab) load_rows<T>(F, h, f0, nf, 0, D);
     n_stream = ncols;
     if (owner && f0 + f < N) {
       lab_f = labels[f0 + f];
@@ -281,18 +324,22 @@ xent_bwd_kernel(Operand h, Operand w, const int* __restrict__ labels,
     }
   } else {
     // vocab columns past ncols get no gradient: skip straight to the writes
+    nf = min(IT, ncols - f0);
     n_stream = f0 < ncols ? N : 0;
-    if (n_stream) load_cols<T>(F, w, f0, min(IT, ncols - f0), D);
+    if (n_stream && D <= kSlab) load_cols<T>(F, w, f0, nf, 0, D);
   }
 
   for (int s0 = 0; s0 < n_stream; s0 += IT) {
-    __syncthreads();  // the previous tile is consumed (and F is staged)
-    if (TOK_F)
-      load_cols<T>(S, w, s0, min(IT, ncols - s0), D);
-    else
-      load_rows<T>(S, h, s0, min(IT, N - s0), D);
-    __syncthreads();
-    const float x = logit_tile<T>(F, S, red, D);
+    const int ns = min(IT, (TOK_F ? ncols : N) - s0);
+    const float x = logits<T, TOK_F>(F, S, red, h, w, f0, nf, s0, ns, D);
+    // S holds D's last slab; this block's own slab, if another, replaces
+    // it (every read of S in logits came before its last barrier)
+    if (d0 + kSlab < D) {
+      if (TOK_F)
+        load_cols<T>(S, w, s0, ns, d0, dn);
+      else
+        load_rows<T>(S, h, s0, ns, d0, dn);
+    }
     if (owner) {
       const int tok = TOK_F ? f0 + f : s0 + s;
       const int col = TOK_F ? s0 + s : f0 + f;
@@ -313,7 +360,7 @@ xent_bwd_kernel(Operand h, Operand w, const int* __restrict__ labels,
 #pragma unroll
     for (int k = 0; k < kNdt; ++k) {
       const int d = t + k * kThreads;
-      if (d < D) {
+      if (d < dn) {
         float sv[IT];
         load_f32<IT>(S + (size_t)d * IT, sv);
 #pragma unroll
@@ -336,8 +383,8 @@ xent_bwd_kernel(Operand h, Operand w, const int* __restrict__ labels,
 
 #pragma unroll
   for (int k = 0; k < kNdt; ++k) {
-    const int d = t + k * kThreads;
-    if (d >= D) continue;
+    const int d = d0 + t + k * kThreads;
+    if (t + k * kThreads >= dn) continue;
 #pragma unroll
     for (int i = 0; i < IT; ++i) {
       if (TOK_F) {
@@ -893,7 +940,7 @@ cudaError_t launch_bwd(Operand h, Operand w, const int* labels, const float* lse
   cudaError_t e = prepare(xent_bwd_kernel<T, O, TOK_F>, smem);
   if (e != cudaSuccess) return e;
   const int IT = Items<T>::n;
-  const int blocks = TOK_F ? (N + IT - 1) / IT : (V + IT - 1) / IT;
+  const dim3 blocks(TOK_F ? (N + IT - 1) / IT : (V + IT - 1) / IT, (D + kSlab - 1) / kSlab);
   xent_bwd_kernel<T, O, TOK_F><<<blocks, kThreads, smem, stream>>>(
       h, w, labels, lse, gl, static_cast<O*>(out), N, D, V, ncols);
   return cudaGetLastError();

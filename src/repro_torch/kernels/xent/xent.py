@@ -10,23 +10,26 @@ fallback: a build or launch failure raises. Each wrapper counts its kernel
 launches in ``.launches``.
 
 The kernels take h (N, D) and w (D, V) of any strides, both bfloat16 or
-both float32, with D <= 2048, labels (N,) int32 and, for the backward,
-lse and gl (N,) float32. Each function has two routes: bf16 operands
-whose rows are contiguous and 16-byte aligned, with D a multiple of 16
-(``mma_layout``), take the tensor cores, other layouts and float32 the
-f32-FMA kernels (``fma``). The tensor-core forward (``wgmma``) runs on
+both float32, with N, D and V below 2**31, labels (N,) int32 and, for the
+backward, lse and gl (N,) float32. Each function has two routes: bf16
+operands whose rows are contiguous and 16-byte aligned, with D a multiple
+of 16 (``mma_layout``), take the tensor cores, other layouts and float32
+the f32-FMA kernels (``fma``). The tensor-core forward (``wgmma``) runs on
 wgmma and TMA: blocks of 128 token rows walk a split of the vocabulary
-(``split_plan``) in tiles of 256 columns, and a second launch combines the
-splits' partials in order. The tensor-core backward (``mma``) is
-chunked: per chunk of the vocabulary (and, past 2**17 tokens, of the
-tokens; ``chunk_plan``) a G kernel writes G = (softmax - onehot) * gl as
-two bf16 halves to a workspace of at most 64 MiB, and a GEMM contracts it
-with w (dH, summed over the chunks in f32) or h (dW). It has no
-accumulator that grows with D: the D <= 2048 limit comes from the FMA
-kernels' register accumulator and ``_check`` alone (ROADMAP.md Queue 2
-item 16b). ``.launches`` counts one per wrapper call, however many
-launches it makes; each wrapper also counts by route in
-``route_launches``. Not ported yet, and raising ``NotImplementedError``:
+(``split_plan``) in tiles of 256 columns, their K loop over D in tiles of
+64, and a second launch combines the splits' partials in order. The
+tensor-core backward (``mma``) is chunked: per chunk of the vocabulary
+(and, past 2**17 tokens, of the tokens; ``chunk_plan``) a G kernel writes
+G = (softmax - onehot) * gl as two bf16 halves to a workspace of at most
+64 MiB, and a GEMM contracts it with w (dH, summed over the chunks in f32)
+or h (dW). The FMA kernels walk D in slabs of 2048 (two at llama-7b's
+D = 4096), summing each logit tile over the slabs in order before they use
+it; the backward's blocks each own one slab of the output's D and
+recompute the logits for it. No route holds an on-chip accumulator that
+grows with D, and every sum runs in a fixed order, so two runs are bitwise equal.
+``.launches`` counts one per wrapper call, however many launches it
+makes; each wrapper also counts by route in ``route_launches``. Not
+ported yet, and raising ``NotImplementedError``:
 ``transposed=True`` (the tied (V, D) head, ROADMAP Queue 1 item 7) and a
 non-zero ``col_offset`` (vocab-sharded heads, item 12).
 """
@@ -39,10 +42,9 @@ import torch
 from .. import _build
 from .ref import xent_bwd_dh_ref, xent_bwd_dw_ref, xent_fwd_ref
 
-__all__ = ["xent_fwd", "xent_bwd_dh", "xent_bwd_dw", "MAX_D", "chunk_plan"]
+__all__ = ["xent_fwd", "xent_bwd_dh", "xent_bwd_dw", "chunk_plan"]
 
 _DTYPES = (torch.float32, torch.bfloat16)
-MAX_D = 2048  # the FMA kernels: 4 accumulator columns per thread of 512
 # tensor-core forward: 128 token rows per block, vocab tiles of 256
 # columns, the vocab split so that the grid holds about one block (of 192 KB
 # of shared memory) per SM of the H100
@@ -110,9 +112,10 @@ def _check(op: str, h, w, labels, vectors=()) -> torch.device:
             if x.dtype != torch.float32:
                 raise ValueError(f"{op}: {name} must be float32, got "
                                  f"{x.dtype}")
-        if min(N, D, V) < 1 or D > MAX_D or N >= 2**31 or V >= 2**31:
+        # the kernels index rows, columns and D with 32-bit ints
+        if min(N, D, V) < 1 or max(N, D, V) >= 2**31:
             raise ValueError(f"{op}: shape N={N} D={D} V={V}; the kernel takes "
-                             f"1 <= D <= {MAX_D} and nonempty N, V")
+                             "N, D and V in [1, 2**31)")
     return dev
 
 

@@ -200,9 +200,9 @@ def test_backward_wrappers_reject_bad_inputs():
             fn(q, k, k, q, lse.double(), lse, scale=1.0)
         with pytest.raises(ValueError, match="delta"):
             fn(q, k, k, q, lse, lse[:, :2], scale=1.0)
-        with pytest.raises(ValueError, match=r"in \[8, 128\]"):
-            w = torch.zeros(1, 4, 2, 136)
-            fn(torch.zeros(1, 4, 4, 136), w, w, torch.zeros(1, 4, 4, 136),
+        with pytest.raises(ValueError, match=r"in \[8, 256\]"):
+            w = torch.zeros(1, 4, 2, 264)
+            fn(torch.zeros(1, 4, 4, 264), w, w, torch.zeros(1, 4, 4, 264),
                lse, lse, scale=1.0)
         with pytest.raises(ValueError, match="kv_len requires causal=False"):
             fn(q, k, k, q, lse, lse, 2, scale=1.0, causal=True)

@@ -52,6 +52,8 @@ against their plain versions, with lse from the plain forward:
     vocab (and past 2**17 tokens over the tokens) and carries G as two
     bf16 halves, to about 2**-16 of itself; the forward's cases include
     one 128 x 256 tile and a single row with ragged K and vocab tiles;
+    llama-7b's D = 4096 (the FMA kernels walk D in two slabs of 2048), a
+    D of 4100 that ends a slab mid-way, and gemma-2b's V = 256000;
   * ``dispatch.xent_loss`` gradients against the plain losses' autograd:
     the same bounds in the inputs' dtype.
 Attention backward (``mha_bwd_dq``, ``mha_bwd_dkv``) against the plain
@@ -62,7 +64,8 @@ versions, with lse and delta from the plain forward:
     lands one ulp apart, then one rounding of each output);
   * a second run is bitwise equal;
   * each case takes the route ``_bwd_route`` names: the tensor-core (mma)
-    kernels for bf16 heads of 64 and 128, the f32-FMA (fma) ones for f32;
+    kernels for bf16 heads of 64 and 128, the f32-FMA (fma) ones for f32
+    and other bf16 heads (32, and gemma-2b's 256 over one kv head);
   * ``dispatch.flash_attention`` gradients against plain autograd through
     ``mha_fwd_ref``: the forward's tolerances, scaled by max|ref| (2e-5 in
     f32, 1e-2 in bf16). A direct CUDA ``mha_fwd`` call under grad raises
@@ -202,7 +205,12 @@ def test_serving_on_card_goes_through_the_kernel(cuda, dtype):
 
 OPT_SHAPES = {"ragged_3x77x129": (3, 77, 129),
               "odd_rows_1x5461x2048": (1, 5461, 2048),
-              "wide_1x2048x32000": (1, 2048, 32000)}
+              "wide_1x2048x32000": (1, 2048, 32000),
+              "w_gate_llama7b_32x4096x11008": (32, 4096, 11008)}
+# past this many elements the operands are drawn on the card (numpy would
+# take minutes) and the element-wise checks run one layer at a time (the
+# full-size temporaries of a check would not fit beside the operands)
+_BIG = 2**28
 
 
 def _ulp(x, dtype):
@@ -216,6 +224,13 @@ def _within_ulp(got, want, scale, dtype):
     assert bool((err <= _ulp(scale, dtype)).all()), err.max().item()
 
 
+def _within_ulp_by_layer(got, want, scale, dtype):
+    """``_within_ulp`` on each slice of dim 0; ``scale(l)`` is layer l's
+    scale."""
+    for l in range(got.shape[0]):
+        _within_ulp(got[l], want[l], scale(l), dtype)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("gs", ["nogs", "gs0.37"])
 @pytest.mark.parametrize("dtype", list(DTYPES))
@@ -227,9 +242,15 @@ def test_optimizer_kernels_match_plain_on_card(cuda, shape, axis, dtype, gs):
     from repro_torch.kernels.scale_head import ref as HR
     from repro_torch.kernels.scale_head import scale_head as H
     td = DTYPES[dtype]
-    rng = np.random.default_rng(3)
-    g, th, m = (torch.from_numpy(rng.standard_normal(
-        OPT_SHAPES[shape], dtype=np.float32)).to(cuda) for _ in range(3))
+    shape_ = OPT_SHAPES[shape]
+    if np.prod(shape_) > _BIG:
+        gen = torch.Generator(device=cuda).manual_seed(3)
+        g, th, m = (torch.randn(shape_, generator=gen, device=cuda)
+                    for _ in range(3))
+    else:
+        rng = np.random.default_rng(3)
+        g, th, m = (torch.from_numpy(rng.standard_normal(
+            shape_, dtype=np.float32)).to(cuda) for _ in range(3))
     g, th = g.to(td), th.to(td)
     gscale = None if gs == "nogs" else torch.tensor(0.37, device=cuda)
     lr = torch.tensor(0.01, device=cuda)
@@ -246,16 +267,18 @@ def test_optimizer_kernels_match_plain_on_card(cuda, shape, axis, dtype, gs):
         want = CR.norm_apply_ref(g, ss_p, axis, gscale=gscale,
                                  out_dtype=out_dtype)
         assert out.dtype == out_dtype
-        _within_ulp(out, want, want, out_dtype)
+        _within_ulp_by_layer(out, want, lambda l: want[l], out_dtype)
+        del out, want
 
     t1, t2 = th.clone(), th.clone()
     got = C.update_apply(t1, g, ss_p, lr, axis, gscale=gscale)
     assert got is t1
     want = CR.update_apply_ref(th.clone(), g, ss_p, lr, axis, gscale=gscale)
-    _within_ulp(got, want, torch.maximum(th.float().abs(), want.float().abs()),
-                td)
+    _within_ulp_by_layer(got, want, lambda l: torch.maximum(
+        th[l].float().abs(), want[l].float().abs()), td)
     C.update_apply(t2, g, ss_p, lr, axis, gscale=gscale)
     assert torch.equal(t1, t2)
+    del t1, t2, got, want, th
 
     for mdt in (torch.float32, torch.bfloat16):
         m0 = (0.1 * m).to(mdt)
@@ -265,11 +288,12 @@ def test_optimizer_kernels_match_plain_on_card(cuda, shape, axis, dtype, gs):
         want_m, want_ss = HR.momentum_sumsq_ref(m0.clone(), g, 0.9, axis,
                                                 gscale=gscale)
         gsv = 1.0 if gscale is None else 0.37
-        _within_ulp(got_m, want_m, 0.9 * m0.float().abs()
-                    + 0.1 * gsv * g.float().abs(), mdt)
+        _within_ulp_by_layer(got_m, want_m, lambda l: 0.9 * m0[l].float()
+                             .abs() + 0.1 * gsv * g[l].float().abs(), mdt)
         torch.testing.assert_close(got_ss, want_ss, rtol=2e-5, atol=0)
         _, ss2 = H.momentum_sumsq(m2, g, 0.9, axis, gscale=gscale)
         assert torch.equal(m1, m2) and torch.equal(got_ss, ss2)
+        del m0, m1, m2, got_m, want_m
     torch.cuda.synchronize()
     after = (C.norm_sumsq.launches, C.norm_apply.launches,
              C.update_apply.launches, H.momentum_sumsq.launches)
@@ -278,7 +302,8 @@ def test_optimizer_kernels_match_plain_on_card(cuda, shape, axis, dtype, gs):
 
 VEC_SHAPES = {"ragged_3x77x129": (3, 77, 129),
               "w_gate_24x2048x5461": (24, 2048, 5461),
-              "head_1x2048x32000": (1, 2048, 32000)}
+              "head_1x2048x32000": (1, 2048, 32000),
+              "w_gate_llama7b_32x4096x11008": (32, 4096, 11008)}
 VEC_PAIRS = {"bf16-bf16": ("bfloat16", "bfloat16"),
              "bf16-f32": ("bfloat16", "float32"),
              "f32-f32": ("float32", "float32")}
@@ -320,8 +345,8 @@ def test_update_apply_vec_route_matches_strided_on_card(cuda, shape, pair,
         one("strided", strided, transposed(g0), lr, gscale)
         want = CR.update_apply_ref(th0.clone(), g0, ss, lr, axis,
                                    gscale=gscale)
-        _within_ulp(strided, want, torch.maximum(th0.float().abs(),
-                                                 want.float().abs()), td)
+        _within_ulp_by_layer(strided, want, lambda l: torch.maximum(
+            th0[l].float().abs(), want[l].float().abs()), td)
         del want
         for off in range(8):
             th, g = at(th0, off), at(g0, off)
@@ -425,6 +450,12 @@ XENT_CASES = {
     # 64 x 256), and one row with a ragged K-tile and a ragged vocab tile
     "single_tile": (64, 64, 256, 256, 0.0),
     "n1_ragged": (1, 96, 264, 260, 0.0),
+    # llama-7b's loss (D = 4096: two slabs of D on the FMA kernels), a D
+    # that ends a slab mid-way (not a multiple of 16, so bf16 takes the FMA
+    # kernels too), and gemma-2b's loss (V = 256000)
+    "llama7b_d4096": (4096, 4096, 32000, 32000, 0.0),
+    "d4100_ragged_slab": (300, 4100, 1000, 1000, 0.2),
+    "gemma2b_v256000": (4096, 2048, 256000, 256000, 0.05),
 }
 
 
@@ -464,6 +495,9 @@ def test_xent_kernels_match_plain_on_card(cuda, case, dtype):
     from repro_torch.kernels.xent import xent as X
     td = DTYPES[dtype]
     h, w, labels, gl, vs = _xent_inputs(cuda, case, td)
+    # aligned bf16 takes the tensor cores; f32 and a D that is not a
+    # multiple of 16 the FMA kernels
+    tc = td == torch.bfloat16 and h.shape[1] % 16 == 0
     before = (X.xent_fwd.launches, X.xent_bwd_dh.launches,
               X.xent_bwd_dw.launches)
     routes = _bwd_routes(X)
@@ -475,10 +509,10 @@ def test_xent_kernels_match_plain_on_card(cuda, case, dtype):
     assert (ll[(labels < 0) | (labels >= vs)] == 0).all()
     lse2, ll2 = X.xent_fwd(h, w, labels, vocab_size=vs)
     assert torch.equal(lse, lse2) and torch.equal(ll, ll2)
-    assert X.mma_layout(h, w) == (td == torch.bfloat16)
+    assert X.mma_layout(h, w) == tc
     n_fwd = 2
-    w_cols = w.T.contiguous().T if td == torch.bfloat16 else None
-    if td == torch.bfloat16:  # the FMA forward, which other layouts take
+    w_cols = w.T.contiguous().T if tc else None
+    if tc:  # the FMA forward, which other layouts take
         assert not X.mma_layout(h, w_cols)
         lse3, ll3 = X.xent_fwd(h, w_cols, labels, vocab_size=vs)
         torch.testing.assert_close(lse3, want_lse, atol=1e-4, rtol=1e-5)
@@ -498,29 +532,29 @@ def test_xent_kernels_match_plain_on_card(cuda, case, dtype):
                                        vocab_size=vs, out_dtype=out_dtype))
             if fn is X.xent_bwd_dw:
                 assert (got[:, vs:] == 0).all()
-            if td == torch.bfloat16:  # the FMA kernel of other layouts
+            if tc:  # the FMA kernel of other layouts
                 _xent_close(fn(h, w_cols, labels, want_lse, gl,
                                vocab_size=vs, out_dtype=out_dtype),
                             want, out_dtype)
             n_bwd += 1
     torch.cuda.synchronize()
-    per = 3 if td == torch.bfloat16 else 2
+    per = 3 if tc else 2
     after = (X.xent_fwd.launches, X.xent_bwd_dh.launches,
              X.xent_bwd_dw.launches)
     assert [a - b for a, b in zip(after, before)] == [n_fwd, per * n_bwd // 2,
                                                       per * n_bwd // 2]
     # aligned bf16 on the tensor cores (twice per out dtype: the bitwise
-    # rerun), f32 and w read through its columns on the FMA kernels
+    # rerun), w read through its columns on the FMA kernels; f32 and a
+    # ragged D on the FMA kernels (twice: the bitwise rerun)
     n_out = n_bwd // 2
-    want = ({"mma": 2 * n_out, "fma": n_out} if td == torch.bfloat16
+    want = ({"mma": 2 * n_out, "fma": n_out} if tc
             else {"mma": 0, "fma": 2 * n_out})
     for now, was in zip(_bwd_routes(X), routes):
         assert _route_delta(now, was) == want
     # the forward: aligned bf16 on wgmma (the call and its bitwise rerun),
-    # w read through its columns on the FMA kernel; f32 twice on the FMA
+    # w read through its columns on the FMA kernel; else twice on the FMA
     assert _route_delta(X.xent_fwd.route_launches, fwd_routes) == (
-        {"wgmma": 2, "fma": 1} if td == torch.bfloat16
-        else {"wgmma": 0, "fma": 2})
+        {"wgmma": 2, "fma": 1} if tc else {"wgmma": 0, "fma": 2})
 
 
 @pytest.mark.gpu
@@ -577,6 +611,11 @@ BWD_CASES = {
     "hd128_ragged": (2, 200, 200, 4, 4, 128, True, None),
     # a bf16 head the mma route does not take: the fma kernels in bf16
     "hd32_gqa_ragged": (4, 200, 200, 8, 4, 32, True, None),
+    # gemma-2b's head (hd 256, 8 query heads over 1 kv head) on the fma
+    # kernels: causal, the kv_len bound, and causal with S != T
+    "hd256": (2, 512, 512, 8, 1, 256, True, None),
+    "hd256_kvlen300": (2, 16, 576, 8, 1, 256, False, 300),
+    "hd256_rect_causal_64x576": (2, 64, 576, 8, 1, 256, True, None),
 }
 
 
