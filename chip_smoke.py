@@ -5,7 +5,7 @@ NVIDIA H100.
     python3 chip_smoke.py [--seed N]
 
 Run from the root of a checkout. It builds the port's CUDA kernels with
-nvcc (one process per source, in parallel), then runs nine phases and fails
+nvcc (one process per source, in parallel), then runs ten phases and fails
 (non-zero exit, no result line) if any of them fails:
 
 1. device: the card's name and power limit, the kernels' ptxas report;
@@ -104,7 +104,28 @@ nvcc (one process per source, in parallel), then runs nine phases and fails
    steps with attention through plain ``mha_fwd_ref`` autograd from the
    same seeded weights (full depth: the two routes run one after the
    other), step time, tokens/s, device busy time by kernel family, idle
-   share and peak memory.
+   share and peak memory;
+10. the optimizer zoo: (a) every name of the registry (and
+   ``sgd_colnorm``/``sgd_rownorm`` also with ``impl="fused"``) trains
+   llama-1b at full width and 2 layers (bf16, batches of 16 x 256 from
+   ``SyntheticLM``, clip 1.0, a constant lr) through ``make_train_step``
+   for three steps: finite losses and state, every updated label group
+   moved, each step's optimizer-kernel launches by route (none for the
+   names that never fuse; ``norm_sumsq`` and ``update_apply`` on ``vec``
+   per matrix for the fused ablations; 8/9/1 for ``scale_fused``), one
+   more step under ``set_sync_debug_mode("error")`` (all but
+   ``sgd_svdnorm``, whose SVD checks its status on the host); the fused
+   ablations against ``impl="jnp"`` on the same gradients; the
+   Newton-Schulz, SVD and SWAN normalizations, the Adam and AdamS leaf and
+   the GaLore projection and its inverse at llama-1b's w_gate and head
+   against the same calls on the CPU; ``adam`` and ``muon`` through the
+   launcher's ``main`` at full depth; (b) the paper's memory axis at full
+   depth (24 layers): ``memory.py``'s methods (SCALE as ``scale_fused``)
+   and ``adams``, two steps each, with the second step's time and
+   tokens/s, peak memory, the optimizer state's allocated bytes beside
+   ``memory_report`` in f32 and under the paper's bf16 protocol, and
+   SCALE's peak over Adam's; GaLore and Fira at the largest depth whose
+   first step (the SVD of every hidden matrix) fits its budget.
 
 The line before the last is a JSON ``{"kernels": [...]}`` summary, the
 last line ``{"ok": true, "device": {...}}``. It needs a CUDA card and
@@ -2521,7 +2542,7 @@ def train_paper_model(torch, seed, power, arch):
           f"SyntheticLM (seed {seed}); scale_fused, clip 1.0, "
           f"linear_warmup_cosine(1e-3, steps)")
     argv = ["--arch", arch, "--optimizer", "scale_fused", "--batch", str(B),
-            "--seq", str(S), "--steps", "2", "--log-every", "1", "--seed",
+            "--seq", str(S), "--steps", "3", "--log-every", "1", "--seed",
             str(seed)]
     print(f"  python -m repro_torch.launch.train {' '.join(argv)}:")
     t0 = time.perf_counter()
@@ -2638,6 +2659,376 @@ def phase_paper_models(torch, seed, power):
             for arch in PAPER_MODELS}
 
 
+# ------------------------------------------------------- the optimizer zoo
+
+ZOO_ARCH = "llama-1b"
+ZOO_LAYERS = 2          # depth of part (a); part (b) runs at full depth
+ZOO_STEPS = 3
+# constant; Adam's first steps are +-lr, which moves the bf16 norm
+# scales (1.0) only above half a bf16 ulp of 1.0 (0.0039)
+ZOO_LR = 5e-3
+ZOO_FUSED = ("sgd_colnorm", "sgd_rownorm")  # also run with impl="fused"
+# torch.linalg.svd on a CUDA tensor checks its solver's status on the
+# host: sgd_svdnorm synchronises every step (GaLore and Fira on refresh
+# steps only, which the sync check below does not take)
+ZOO_SYNCS = ("sgd_svdnorm",)
+# impl="fused" against impl="jnp" on the same gradients, per element of
+# the bf16 params: as phase 6, 1.5 bf16 ulps of the element's peak a step
+ZOO_STEP_ULPS = 1.5 * ZOO_STEPS
+# the card against the CPU at one full-width leaf, f32, per element
+# against the largest |ref| of the leaf. The products sum thousands of f32
+# terms in other orders (cuBLAS/cuSOLVER against the CPU's BLAS/LAPACK;
+# TF32 is off): about sqrt(5461) * 2**-24 = 4.4e-6 relative each. Five
+# quintic Newton-Schulz steps amplify that along the small singular
+# directions by up to a**5 = 3.4445**5 = 484: 2.1e-3 (ns, and swan after
+# its standardization). SVD: each solver's backward error is at most
+# about n * 2**-24 = 3.3e-4 of |G| at n = 5461, which moves the polar
+# factor u @ vt (spectral norm 1) by at most 2 / (1 + sigma_min /
+# sigma_max) = 1.6 times that (sigma_min / sigma_max about 0.24 at
+# w_gate): 5.3e-4, 7e-3 of its largest element (0.077). The projection
+# and its inverse are single products. Adam and AdamS are
+# element-wise, the same IEEE operations, but CUDA's powf need not round
+# b2**t as the CPU's does and 1 - b2**t magnifies an ulp of it (2e-5 at
+# t = 3), so they are held per element, relative.
+ZOO_LEAF_RTOL = {"ns_orthogonalize": 2.1e-3, "swan_normalize": 2.1e-3,
+                 "svd_orthogonalize": 7e-3, "project": 1e-4,
+                 "project_back": 1e-4}
+ZOO_ADAM_RTOL = 1e-4
+# part (b): GaLore and Fira run at full depth if their first step (the SVD
+# of every hidden matrix) is estimated within this budget
+ZOO_REFRESH_BUDGET_S = 10.0
+
+
+def zoo_cases():
+    from repro_torch.core import OPTIMIZER_NAMES
+    return ([(n, {}) for n in OPTIMIZER_NAMES]
+            + [(n, {"impl": "fused"}) for n in ZOO_FUSED])
+
+
+def zoo_tag(name, kw):
+    return name + (" (impl='fused')" if kw else "")
+
+
+def zoo_expect(name, kw, n_mat):
+    """Optimizer-kernel launches a step, and update_apply's by route."""
+    zero = dict.fromkeys(("norm_sumsq", "update_apply", "norm_apply",
+                          "momentum_sumsq"), 0)
+    if name == "scale_fused":  # the stateless matrices and the head
+        return ({**zero, "norm_sumsq": n_mat - 1, "update_apply": n_mat,
+                 "momentum_sumsq": 1}, {"update_apply": {"vec": n_mat}})
+    if kw.get("impl") == "fused":
+        return ({**zero, "norm_sumsq": n_mat, "update_apply": n_mat},
+                {"update_apply": {"vec": n_mat}})
+    return zero, {}
+
+
+def state_bytes(state):
+    """Bytes the optimizer state holds: mu, nu and extra."""
+    from repro_torch.models.model import flatten
+    trees = [state.mu, state.nu] + ([state.extra] if state.extra is not None
+                                    else [])
+    return sum(t.numel() * t.element_size() for tree in trees
+               for t in flatten(tree).values())
+
+
+def zoo_leaf_checks(torch, gen):
+    """The card's result of the zoo's per-leaf maths against the same call
+    on the CPU, at llama-1b's w_gate slice (2048, 5461) and head
+    (2048, 32000), f32."""
+    import importlib
+    from repro_torch.core import make_optimizer
+    from repro_torch.core import normalization as N
+    from repro_torch.core import pipeline as P
+    swan = importlib.import_module("repro_torch.core.swan")
+    bad = []
+
+    def held(what, got, want, rtol, elementwise=False):
+        got = got.float().cpu()
+        want = want.float()
+        err = (got - want).abs()
+        scale = want.abs() if elementwise else want.abs().max()
+        worst = (err / (rtol * scale).clamp_min(1e-30)).max().item()
+        print(f"    {what}: max |card - cpu| {err.max().item():.3e}, "
+              f"{worst:.3f} of the bound ({rtol:g} of "
+              f"{'|ref|' if elementwise else 'max |ref|'})")
+        if not worst <= 1:
+            bad.append(what)
+        return worst
+
+    for leaf, shape in (("w_gate", (2048, 5461)), ("head", (2048, 32000))):
+        g = torch.randn(shape, generator=gen, device="cuda")
+        gc = g.cpu()
+        t0 = time.perf_counter()
+        if leaf == "w_gate":
+            for fn in (N.ns_orthogonalize, N.svd_orthogonalize,
+                       swan.swan_normalize):
+                held(f"{leaf} {fn.__name__}", fn(g), fn(gc),
+                     ZOO_LEAF_RTOL[fn.__name__])
+        # Adam and AdamS at t = 3 from random moments
+        m0 = torch.randn(shape, generator=gen, device="cuda") * 0.1
+        v0 = torch.rand(shape, generator=gen, device="cuda") * 0.01
+        count = torch.tensor(2, dtype=torch.int32, device="cuda")
+        m, v, mc, vc = m0.clone(), v0.clone(), m0.cpu(), v0.cpu()
+        upd = P._adam_leaf(g, m, v, count, 0.9, 0.999, 1e-8)
+        want = P._adam_leaf(gc, mc, vc, count.cpu(), 0.9, 0.999, 1e-8)
+        if held(f"{leaf} _adam_leaf update", upd, want, ZOO_ADAM_RTOL,
+                True) > 1:
+            # the bias corrections and the worst element's inputs, to
+            # tell the two sides' arithmetic apart
+            bc = [(float(1.0 - b ** (count + 1)).hex(),
+                   float(1.0 - b ** (count.cpu() + 1)).hex())
+                  for b in (0.9, 0.999)]
+            i = int(((upd.cpu() - want).abs() / want.abs().clamp_min(1e-30))
+                    .argmax())
+            print(f"      1 - b**3 (card, cpu) for b1, b2: {bc}; element "
+                  f"{i}: card {float(upd.view(-1)[i])!r} cpu "
+                  f"{float(want.view(-1)[i])!r}, g "
+                  f"{float(gc.view(-1)[i])!r}, m0 {float(m0.view(-1)[i])!r},"
+                  f" v0 {float(v0.view(-1)[i])!r}")
+        held(f"{leaf} _adam_leaf m, v", torch.stack([m, v]),
+             torch.stack([mc, vc]), 1e-6, True)
+        # AdamS: its update (delta mode) at t = 3 from the same momentum
+        tx = make_optimizer("adams", 1e-2)
+        p, pc = {"w": torch.zeros(shape, device="cuda")}, {"w": torch.zeros(
+            shape)}
+        s, sc = tx.init(p), tx.init(pc)
+        for st, mm in ((s, m0), (sc, m0.cpu())):
+            st.mu["w"].copy_(mm)
+            st.count.fill_(2)
+        u, _ = tx.update({"w": g}, s, p)
+        uc, _ = tx.update({"w": gc}, sc, pc)
+        held(f"{leaf} AdamS update", u["w"], uc["w"], ZOO_ADAM_RTOL, True)
+        del u, uc, s, sc
+        # the projection and its inverse, rank 256, from the card's SVD
+        r = P._rank_for(shape, 256)
+        pj = P._svd_projector(g, r)
+        R = P._project(g, pj)
+        held(f"{leaf} project (rank {r})", R, P._project(gc, pj.cpu()),
+             ZOO_LEAF_RTOL["project"])
+        held(f"{leaf} project_back", P._project_back(R, pj, shape),
+             P._project_back(R.cpu(), pj.cpu(), shape),
+             ZOO_LEAF_RTOL["project_back"])
+        print(f"    ({leaf}: {time.perf_counter() - t0:.1f} s with the CPU "
+              f"references)")
+        del g, gc, m, v, mc, vc, m0, v0
+    if bad:
+        raise AssertionError(f"the card disagrees with the CPU: {bad}")
+
+
+def phase_zoo(torch, seed, power):
+    """Phase 10: every optimizer of the registry trains llama-1b at full
+    width (part a, 2 layers), and the paper's memory axis at full depth
+    (part b)."""
+    import dataclasses
+    import math
+    from repro_torch.configs import get_arch
+    from repro_torch.core import (label_tree, make_optimizer, memory_report,
+                                  METHODS)
+    from repro_torch.data import make_dataset
+    from repro_torch.launch import train as launcher
+    from repro_torch.models import Params, init_params
+    from repro_torch.models.model import flatten, param_shapes
+    from repro_torch.training import (init_state, make_train_step,
+                                      value_and_grad)
+    full = get_arch(ZOO_ARCH)
+    cfg = dataclasses.replace(full, n_layers=ZOO_LAYERS)
+    B, S = 16, 256
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    base = {k: p.detach() for k, p in
+            flatten(init_params(cfg, gen, device="cuda")).items()}
+    labels = label_tree(base)
+    n_mat = sum(lab != "vector" for lab in labels.values())
+    ds = make_dataset(cfg, S, B, seed=seed, device="cuda")
+    batches = [ds.global_batch_at(i) for i in range(ZOO_STEPS + 1)]
+    print(f"  (a) {cfg.name} at full width, {ZOO_LAYERS} layers, "
+          f"{cfg.dtype}; batch {B} x {S} from SyntheticLM; clip 1.0, "
+          f"constant lr {ZOO_LR:g}; {len(base)} leaves, {n_mat} matrices")
+
+    def fresh():
+        return Params({k: p.clone() for k, p in base.items()})
+
+    # the main path: counts set to 0 just before it, read just after
+    torch.cuda.synchronize()
+    zero_train_counts()
+    zero_route_counts()
+    first_step_s = {}
+    for name, kw in zoo_cases():
+        tag = zoo_tag(name, kw)
+        tx = make_optimizer(name, ZOO_LR, **kw)
+        step = make_train_step(cfg, tx, clip_norm=1.0)
+        state = init_state(fresh(), tx)
+        want, want_r = zoo_expect(name, kw, n_mat)
+        losses, times = [], []
+        for i in range(ZOO_STEPS):
+            before, before_r = counts(), route_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batches[i])
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            got = {k: v - before[k] for k, v in counts().items()}
+            got_r = {k: {r: n - before_r[k][r] for r, n in c.items()}
+                     for k, c in route_counts().items()}
+            if got != want:
+                raise AssertionError(f"{tag} step {i}: optimizer kernels "
+                                     f"{got}, not {want}")
+            check_routes({"update_apply": got_r["update_apply"]}, want_r,
+                         f"{tag} step {i}", show=False)
+            losses.append(float(metrics["loss"]))
+        # one more step with any host synchronisation an error
+        synced = name in ZOO_SYNCS
+        if not synced:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                state, metrics = step(state, batches[ZOO_STEPS])
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+        params = flatten(state.params)
+        moved = {}
+        for k, p in params.items():
+            lab = labels[k]
+            moved[lab] = moved.get(lab, False) or bool((p != base[k]).any())
+        st = state.opt_state
+        finite = all(bool(torch.isfinite(t.float()).all()) for t in
+                     [*params.values(),
+                      *flatten({"mu": st.mu, "nu": st.nu,
+                                "extra": st.extra or {}}).values()])
+        # plain SGD's step on the norm scales (1.0) is lr * g, below half
+        # a bf16 ulp of 1.0 here: only its matrices must move
+        need = ({"first", "last", "matrix"} if name in ("sgd",
+                                                        "sgd_momentum")
+                else set(moved))
+        print(f"  {tag:26s} losses {' '.join(f'{x:.4f}' for x in losses)}; "
+              f"step 0 {times[0] * 1e3:.1f} ms, step 2 {times[2] * 1e3:.1f} "
+              f"ms; kernels a step {want if any(want.values()) else 'none'}"
+              f"; sync check "
+              f"{'skipped (svd)' if synced else 'passed'}; moved "
+              f"{sorted(k for k, v in moved.items() if v)}")
+        if not (finite and all(map(math.isfinite, losses))
+                and all(moved[g] for g in need)):
+            raise AssertionError(f"{tag}: non-finite loss or state, or a "
+                                 f"label group did not move ({moved})")
+        first_step_s[tag] = times[0]
+        del state, step, tx, params, st
+    launches = train_counts()
+    torch.cuda.empty_cache()
+
+    # the fused ablations against impl="jnp" on the same gradients
+    _, _, grads = value_and_grad(fresh(), cfg, batches[0])
+    from repro_torch.core import global_norm
+    gnorm = global_norm(grads)
+    gscale = torch.minimum(torch.ones_like(gnorm), 1.0 / (gnorm + 1e-9))
+    for name in ZOO_FUSED:
+        out = {}
+        for impl in ("fused", "jnp"):
+            tx = make_optimizer(name, ZOO_LR, impl=impl)
+            p = {k: v.clone() for k, v in base.items()}
+            s = tx.init(p)
+            peak = {k: v.float().abs() for k, v in p.items()}
+            for _ in range(ZOO_STEPS):
+                old = {k: v.clone() for k, v in p.items()}
+                p, s = tx.update_params(grads, s, p, grad_scale=gscale)
+                for k, v in p.items():
+                    peak[k] = torch.maximum(peak[k], torch.maximum(
+                        v.float().abs(), (v.float() - old[k].float()).abs()))
+                del old
+            out[impl] = (p, peak)
+        (pf, _), (pr, peak) = out["fused"], out["jnp"]
+        worst = max((((pf[k].float() - pr[k].float()).abs()
+                      / ulp(torch, peak[k], pr[k].dtype)).max().item())
+                    for k in pr)
+        print(f"  {name}: impl='fused' against impl='jnp' after "
+              f"{ZOO_STEPS} update_params steps on the same gradients: at "
+              f"most {worst:.2f} bf16 ulps of the element's peak (bound "
+              f"{ZOO_STEP_ULPS:g})")
+        if worst > ZOO_STEP_ULPS:
+            raise AssertionError(f"{name}: fused and jnp disagree")
+        del out, pf, pr, peak
+    del grads
+
+    print("  the zoo's per-leaf maths, card against CPU (f32):")
+    zoo_leaf_checks(torch, gen)
+
+    # the launcher, as a user runs it
+    for name in ("adam", "muon"):
+        argv = ["--arch", ZOO_ARCH, "--optimizer", name, "--batch", str(B),
+                "--seq", str(S), "--steps", "3", "--log-every", "1",
+                "--seed", str(seed)]
+        print(f"  python -m repro_torch.launch.train {' '.join(argv)}:")
+        t0 = time.perf_counter()
+        final = launcher.main(argv)
+        print(f"  launcher ({name}, full depth): 3 steps in "
+              f"{time.perf_counter() - t0:.1f} s, final loss {final:.4f}")
+        if not math.isfinite(final):
+            raise AssertionError(f"the launcher's loss ({name}) is not "
+                                 "finite")
+        torch.cuda.empty_cache()
+
+    # (b) the paper's memory axis at full depth
+    del base
+    torch.cuda.empty_cache()
+    L = full.n_layers
+    refresh_2 = max(first_step_s["galore"], first_step_s["fira"])
+    per_layer = refresh_2 / ZOO_LAYERS
+    depth = min(L, max(ZOO_LAYERS, int(ZOO_REFRESH_BUDGET_S / per_layer)))
+    print(f"  (b) {full.name} at full width and depth ({L} layers), 2 steps "
+          f"each, clip 1.0, constant lr {ZOO_LR:g}; GaLore and Fira's first "
+          f"step took {refresh_2:.2f} s at {ZOO_LAYERS} layers, so they run "
+          f"at {depth} layers (budget {ZOO_REFRESH_BUDGET_S:g} s)")
+    names = [("scale_fused" if m == "scale" else m) for m in METHODS] + [
+        "adams"]
+    peaks = {}
+    for name in names:
+        c = full if name not in ("galore", "fira") else \
+            dataclasses.replace(full, n_layers=depth)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        tx = make_optimizer(name, ZOO_LR)
+        state = init_state(init_params(c, g, device="cuda"), tx)
+        step = make_train_step(c, tx, clip_norm=1.0)
+        dsf = make_dataset(c, S, B, seed=seed, device="cuda")
+        # the peak of the two steps: weights, state, gradients, activations
+        # and the step's temporaries (init's are not the run's)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state, m1 = step(state, dsf.global_batch_at(0))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m2 = step(state, dsf.global_batch_at(1))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        got = state_bytes(state.opt_state)
+        method = "scale" if name == "scale_fused" else name
+        shapes = param_shapes(c)
+        if method in METHODS:
+            f32 = memory_report(shapes, method, dtype_bytes=4).state_bytes
+            bf16 = memory_report(shapes, method).state_bytes
+        else:
+            f32 = bf16 = None
+        loss = (float(m1["loss"]), float(m2["loss"]))
+        peaks[name] = peak
+        print(f"  [{power}] {name:12s} {c.n_layers:2d} layers: step 2 "
+              f"{dt * 1e3:9.3f} ms ({B * S / dt:8.0f} tokens/s); peak "
+              f"{peak / 2**20:10.1f} MiB; state allocated "
+              f"{got / 1e9:7.3f} GB, memory.py f32 "
+              f"{'n/a' if f32 is None else f'{f32 / 1e9:7.3f}'} GB, paper "
+              f"bf16 protocol {'n/a' if bf16 is None else f'{bf16 / 1e9:7.3f}'}"
+              f" GB; losses {loss[0]:.4f} {loss[1]:.4f}")
+        if not all(map(math.isfinite, loss)):
+            raise AssertionError(f"{name}: non-finite loss at full depth")
+        del state, step, tx, dsf
+    torch.cuda.empty_cache()
+    print(f"  [{power}] peak memory, SCALE over Adam: "
+          f"{peaks['scale_fused'] / peaks['adam']:.4f} "
+          f"({peaks['scale_fused'] / 2**20:.1f} / "
+          f"{peaks['adam'] / 2**20:.1f} MiB)")
+    return {"launches": launches}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2698,12 +3089,16 @@ def main() -> int:
     print("phase 9: the training step, llama-7b and gemma-2b, full width and "
           "depth")
     paper = phase_paper_models(torch, args.seed, power)
+    print("phase 10: the optimizer zoo, llama-1b at full width; the memory "
+          "axis at full depth")
+    zoo = phase_zoo(torch, args.seed, power)
     # one row per kernel; launches summed over the main paths that run it,
     # each counted from 0 just before its path and read just after
     by_path = {"serving": {"mha_fwd": serve["launches"]},
                "optimizer": opt["launches"], "loss": loss["launches"],
                "train": train["launches"],
-               **{f"train {a}": r["launches"] for a, r in paper.items()}}
+               **{f"train {a}": r["launches"] for a, r in paper.items()},
+               "train zoo": zoo["launches"]}
     # mha_fwd's prefill numbers, with both serving shapes and the eval and
     # training steps' shape beside them
     mha = {k: v for k, v in mha_rows[0].items() if k != "shape"}

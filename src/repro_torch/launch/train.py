@@ -21,9 +21,18 @@ modules not ported yet are absent:
 * ``--log-dir``, ``--metrics-every``, ``--stats-every``,
   ``--profile-steps``, ``--profile-dir`` (telemetry, item 10).
 
+``--optimizer`` takes any name of ``repro_torch.core.OPTIMIZER_NAMES``,
+the JAX registry's 20: SCALE (``scale``, ``scale_fused``, ``adapm``) and
+the paper's baselines (``sgd``, ``sgd_momentum``, ``adam``, ``adamw``,
+``adams``, ``stable_spam``, ``muon``, ``swan``, ``galore``, ``fira``,
+``apollo``, ``apollo_mini``, ``sgd_{col,row,sign,ns,svd}norm``), each with
+its registry defaults.
+
 Example (llama-1b on the card, the paper's largest Table-1 model):
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama-1b \\
       --optimizer scale_fused --steps 20 --batch 16 --seq 256
+  PYTHONPATH=src python -m repro_torch.launch.train --arch llama-1b \\
+      --optimizer muon --steps 20 --batch 16 --seq 256
 """
 from __future__ import annotations
 

@@ -40,37 +40,59 @@ def to_flat(params: Params) -> dict:
             for k, v in flatten(params).items()}
 
 
+def _state_leaves(state) -> dict:
+    """``{"count", "mu/<path>", "nu/<path>", "extra/...": tensor}``: the
+    keys ``core.labels.path_str`` gives the JAX state (less its leading
+    '.'): ``extra/norm_ema``, ``extra/max_ema/<path>``,
+    ``extra/proj/<path>``."""
+    out = {"count": state.count}
+    for part in ("mu", "nu"):
+        out.update(flatten(getattr(state, part), part))
+    if state.extra is not None:
+        out.update(flatten(state.extra, "extra"))
+    return out
+
+
+def _rebuild(tree, leaves: dict, prefix: str):
+    """``tree`` with each leaf replaced by ``leaves[<its flat key>]``."""
+    return {k: _rebuild(v, leaves, f"{prefix}/{k}") if hasattr(v, "items")
+            else leaves[f"{prefix}/{k}"] for k, v in tree.items()}
+
+
 def load_opt_state(flat: dict, params, tx, device=None):
-    """``{"count", "mu/<path>", "nu/<path>": np.ndarray}`` -> the port's
-    optimizer state for ``params`` under ``tx`` on ``device`` (cuda)."""
+    """``{"count", "mu/<path>", "nu/<path>", "extra/...": np.ndarray}`` ->
+    the port's optimizer state for ``params`` under ``tx`` on ``device``
+    (cuda), its host step count set from ``count``."""
+    from repro_torch.core.pipeline import HostCount
     device = resolve_device(device)
     want = tx.init(params)
+    like = _state_leaves(want)
     flat = {k.lstrip("."): v for k, v in flat.items()}
-    keys = {"count", *(f"{part}/{k}" for part in ("mu", "nu")
-                       for k in getattr(want, part))}
-    if set(flat) != keys:
+    if set(flat) != set(like):
         raise KeyError(f"optimizer state paths differ: missing "
-                       f"{sorted(keys - set(flat))}, unexpected "
-                       f"{sorted(set(flat) - keys)}")
-
-    def cast(key, like):
+                       f"{sorted(set(like) - set(flat))}, unexpected "
+                       f"{sorted(set(flat) - set(like))}")
+    got = {}
+    for key, x in like.items():
         a = np.asarray(flat[key])
-        if a.shape != tuple(like.shape):
+        if a.shape != tuple(x.shape):
             raise ValueError(f"{key}: shape {a.shape}, expected "
-                             f"{tuple(like.shape)}")
-        return torch.tensor(a).to(device=device, dtype=like.dtype)
-
+                             f"{tuple(x.shape)}")
+        got[key] = torch.tensor(a).to(device=device, dtype=x.dtype)
     return want._replace(
-        count=cast("count", want.count),
-        mu={k: cast(f"mu/{k}", x) for k, x in want.mu.items()},
-        nu={k: cast(f"nu/{k}", x) for k, x in want.nu.items()})
+        count=got["count"],
+        mu=_rebuild(want.mu, got, "mu"), nu=_rebuild(want.nu, got, "nu"),
+        extra=(None if want.extra is None
+               else _rebuild(want.extra, got, "extra")),
+        host_count=HostCount(int(got["count"])))
 
 
 def opt_state_to_flat(state) -> dict:
-    """The port's optimizer state -> ``{"count", "mu/<path>", "nu/<path>"}``
-    numpy (f32 moments, int32 count; inverse of load_opt_state)."""
-    out = {"count": state.count.detach().cpu().numpy()}
-    for part in ("mu", "nu"):
-        for k, x in getattr(state, part).items():
-            out[f"{part}/{k}"] = x.detach().float().cpu().numpy()
+    """The port's optimizer state -> ``{"count", "mu/<path>", "nu/<path>",
+    "extra/...": np.ndarray}`` (f32 moments and extras, int32 count;
+    inverse of load_opt_state)."""
+    out = {}
+    for k, x in _state_leaves(state).items():
+        x = x.detach().cpu()
+        out[k] = (x if k == "count" else x.float()).numpy()
     return out

@@ -436,6 +436,121 @@ def test_update_params_does_not_synchronise_with_the_host(cuda):
     torch.cuda.synchronize()
 
 
+
+def _zoo_cases():
+    from repro_torch.core import OPTIMIZER_NAMES
+    cases = {n: (n, {"rank": 8} if n in ("galore", "fira", "apollo") else {})
+             for n in OPTIMIZER_NAMES}
+    cases.update({"sgd_colnorm_fused": ("sgd_colnorm", {"impl": "fused"}),
+                  "sgd_rownorm_fused": ("sgd_rownorm", {"impl": "fused"})})
+    return cases
+
+
+def _to(state, device):
+    """A pipeline optimizer's state, its tensors copied to ``device``."""
+    def mv(t):
+        return ({k: mv(v) for k, v in t.items()} if isinstance(t, dict)
+                else t.to(device, copy=True))
+    return state._replace(count=mv(state.count), mu=mv(state.mu),
+                          nu=mv(state.nu),
+                          extra=None if state.extra is None
+                          else mv(state.extra))
+
+
+def _opt_launches():
+    from repro_torch.kernels.colnorm import colnorm as C
+    from repro_torch.kernels.scale_head import scale_head as H
+    return {"norm_sumsq": C.norm_sumsq.launches,
+            "update_apply": C.update_apply.launches,
+            "norm_apply": C.norm_apply.launches,
+            "momentum_sumsq": H.momentum_sumsq.launches}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("entry", ["update", "update_params"])
+@pytest.mark.parametrize("case", list(_zoo_cases()))
+def test_zoo_step_on_card_matches_cpu(cuda, case, entry):
+    """One step of every registry name on the card against the same step on
+    the CPU (f32, a two-layer llama of d_model 128, grad_scale 0.37), from
+    a state that took one CPU step first (so APOLLO's projector, drawn per
+    device, is carried). Per element: 8 f32 ulps of the element's peak
+    plus 1e-4 of the leaf's largest step change (f32 sums and products in
+    other orders, Newton-Schulz and SVD among them; TF32 is off). The
+    never-fused names launch no optimizer kernel; the fused ablations
+    launch ``norm_sumsq`` and ``update_apply`` (``update_params``) or
+    ``norm_apply`` (``update``) once per matrix leaf. Every name but
+    ``sgd_svdnorm`` (``torch.linalg.svd`` checks its status on the host)
+    takes its step under ``set_sync_debug_mode("error")``."""
+    from repro_torch.core import apply_updates, make_optimizer
+    from repro_torch.core.pipeline import HostCount, jax_mul
+    from repro_torch.models import ModelConfig, init_params
+    from repro_torch.models.model import flatten
+    name, kw = _zoo_cases()[case]
+    cfg = ModelConfig(name="gpu", n_layers=2, d_model=128, n_heads=4,
+                      n_kv_heads=4, d_ff=347, vocab_size=1000,
+                      dtype="float32")
+    gen = torch.Generator().manual_seed(0)
+    cpu = {k: p.detach() for k, p in
+           flatten(init_params(cfg, gen, device="cpu")).items()}
+    g0, g1 = ({k: torch.randn(p.shape, generator=gen) for k, p in
+               cpu.items()} for _ in range(2))
+    tx = make_optimizer(name, 1e-2, **kw)
+    sc = tx.init(cpu)
+    cpu, sc = tx.update_params(g0, sc, cpu)
+    card = {k: p.to(cuda, copy=True) for k, p in cpu.items()}
+    sg = _to(sc, cuda)._replace(host_count=HostCount(sc.host_count.n))
+    gs_c = torch.tensor(0.37)
+    gs_g = gs_c.to(cuda)
+    g1g = {k: g.to(cuda) for k, g in g1.items()}
+    old = {k: p.clone() for k, p in cpu.items()}
+    if entry == "update":
+        cu, sc = tx.update({k: jax_mul(g, gs_c) for k, g in g1.items()},
+                           sc, cpu)
+        cpu = apply_updates(cpu, cu)
+        scaled = {k: jax_mul(g, gs_g) for k, g in g1g.items()}
+    before = _opt_launches()
+    torch.cuda.synchronize()
+    if name != "sgd_svdnorm":
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        if entry == "update":
+            gu, sg = tx.update(scaled, sg, card)
+            card = apply_updates(card, gu)
+        else:
+            card, sg = tx.update_params(g1g, sg, card, grad_scale=gs_g)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    got = {k: v - before[k] for k, v in _opt_launches().items()}
+    if entry == "update_params":
+        cpu, sc = tx.update_params(g1, sc, cpu, grad_scale=gs_c)
+    n_mat = sum(p.ndim >= 2 and "norm" not in k for k, p in card.items())
+    if kw.get("impl") == "fused":
+        want = ({"norm_sumsq": n_mat, "update_apply": n_mat, "norm_apply": 0,
+                 "momentum_sumsq": 0} if entry == "update_params" else
+                {"norm_sumsq": n_mat, "update_apply": 0,
+                 "norm_apply": n_mat, "momentum_sumsq": 0})
+    elif name in ("scale", "scale_fused", "adapm"):
+        want = got  # SCALE's own counts are checked above
+    else:
+        want = dict.fromkeys(got, 0)
+    assert got == want, got
+    assert int(sg.count) == sg.host_count.n == 2
+    for k, p in card.items():
+        ref = cpu[k]
+        step = (ref - old[k]).abs().max()
+        peak = torch.maximum(ref.abs(), old[k].abs())
+        tol = 8 * _ulp(peak, torch.float32) + 1e-4 * step
+        err = (p.cpu() - ref).abs()
+        assert bool((err <= tol).all()), (k, float(err.max()))
+    for part in ("mu", "nu"):
+        for k, x in getattr(sc, part).items():
+            if x.numel():
+                torch.testing.assert_close(
+                    getattr(sg, part)[k].cpu(), x, rtol=1e-4,
+                    atol=1e-4 * float(x.abs().max()))
+
+
 # (N, D, V, vocab_size, share of -1 labels): the chip_smoke.py phase-2 cases
 XENT_CASES = {
     "llama1b_4096": (4096, 2048, 32000, 32000, 0.0),

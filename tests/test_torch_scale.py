@@ -332,12 +332,6 @@ def test_normalization_matches_jax(kind):
     assert TN.resolve_larger("larger", (8, 8)) == "col"
 
 
-@pytest.mark.parametrize("kind", ["sign", "ns", "svd"])
-def test_unported_norm_kinds_raise(kind):
-    with pytest.raises(ValueError, match="Queue 1 item 8"):
-        TN.normalize(torch.ones(4, 4), kind)
-
-
 # dispatch: kernel entry points (plain versions on CPU) against JAX's
 # dispatch (interpret mode); the 4-D leaf is outside kernel coverage and
 # takes the plain oracle on both sides
@@ -386,15 +380,19 @@ def test_dispatch_matches_jax(op, shape):
 
 
 def test_make_optimizer_registry():
-    assert TCore.OPTIMIZER_NAMES == ("scale", "scale_fused", "adapm")
+    """The JAX registry's 20 names, in its order and with its defaults;
+    every name builds, and an unknown name raises JAX's ValueError."""
+    from repro.core import OPTIMIZER_NAMES as j_names
+    from repro.core import OPTIMIZER_REGISTRY as j_reg
+    assert TCore.OPTIMIZER_NAMES == j_names and len(j_names) == 20
     for name in TCore.OPTIMIZER_NAMES:
-        assert (TCore.OPTIMIZER_REGISTRY[name].defaults
-                == __import__("repro.core", fromlist=["x"])
-                .OPTIMIZER_REGISTRY[name].defaults)
-    for name in ("adam", "nonesuch"):
-        with pytest.raises(KeyError, match="ported: scale, scale_fused"):
-            TCore.make_optimizer(name)
+        assert TCore.OPTIMIZER_REGISTRY[name].defaults == j_reg[name].defaults
+        assert TCore.make_optimizer(name, 1e-3).update_params is not None
+    with pytest.raises(ValueError, match="unknown optimizer 'nonesuch'; "
+                       "valid choices: adam, adams"):
+        TCore.make_optimizer("nonesuch")
     with pytest.raises(ValueError, match="unknown kwarg"):
         TCore.make_optimizer("scale", 1e-3, nesterov=True)
-    with pytest.raises(ValueError, match="Queue 1 item 8"):
-        Stages(nesterov=True)
+    # every Stages field is ported
+    assert Stages(nesterov=True, momentum=0.9, standardize=True,
+                  ns_steps=3, adams=True, weight_decay=0.1).nesterov
