@@ -5,7 +5,7 @@ NVIDIA H100.
     python3 chip_smoke.py [--seed N]
 
 Run from the root of a checkout. It builds the port's CUDA kernels with
-nvcc (one process per source, in parallel), then runs ten phases and fails
+nvcc (one process per source, in parallel), then runs eleven phases and fails
 (non-zero exit, no result line) if any of them fails:
 
 1. device: the card's name and power limit, the kernels' ptxas report;
@@ -125,7 +125,26 @@ nvcc (one process per source, in parallel), then runs ten phases and fails
    tokens/s, peak memory, the optimizer state's allocated bytes beside
    ``memory_report`` in f32 and under the paper's bf16 protocol, and
    SCALE's peak over Adam's; GaLore and Fira at the largest depth whose
-   first step (the SVD of every hidden matrix) fits its budget.
+   first step (the SVD of every hidden matrix) fits its budget;
+11. fault-tolerant training, llama-1b at full width and depth (bf16,
+   batches of 16 x 256, ``scale_fused``, clip 1.0, ``GuardPolicy()``),
+   checkpoints in a temporary directory removed at the end: (a) five
+   guarded ``make_train_step`` steps with ``nan_grad@2`` (each step's
+   launches checked by route as phase 8's; the skipped step launches
+   them too) bitwise equal, in every leaf of params, optimizer state
+   and guard, to the clean guarded run over the batches of steps 0, 1,
+   3 and 4; one guarded step under ``set_sync_debug_mode("error")``;
+   step time and peak memory with the guard on and off, in turns; (b)
+   ``save`` of the whole ``TrainState`` (bytes, s, GB/s), how long
+   ``save_async`` blocks and when it commits, ``restore_latest``
+   (bitwise), and with the newest shard corrupted the fallback to the
+   previous step, with its warning; (c) the launcher's ``main`` for 6
+   steps with ``--ckpt-every 3``, against the same run's committed step
+   3 resumed with ``--resume auto``: step 6's leaves bitwise equal; (d)
+   ``python -m repro_torch.launch.train`` training llama-130m at full
+   width and depth in a subprocess, sent SIGTERM after its first loss
+   line: exit 0, its ``sigterm: checkpointed step N`` line, and a
+   ``COMMITTED`` step N that restores.
 
 The line before the last is a JSON ``{"kernels": [...]}`` summary, the
 last line ``{"ok": true, "device": {...}}``. It needs a CUDA card and
@@ -141,6 +160,7 @@ import shutil
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -3029,6 +3049,343 @@ def phase_zoo(torch, seed, power):
     return {"launches": launches}
 
 
+# --------------------------------------------- fault-tolerant training
+
+def _state_leaves(state, drop=()):
+    """{leaf key: tensor} of a tree, keyed as the checkpointer keys it."""
+    from repro_torch.checkpoint.checkpointer import named_leaves
+    return {k: x for k, x in named_leaves(state) if k not in drop}
+
+
+def _first_unequal(torch, a, b):
+    """The first key whose tensors differ in dtype, device or bits, or
+    None."""
+    if list(a) != list(b):
+        return f"the keys differ: {sorted(set(a) ^ set(b))}"
+    for k, x in a.items():
+        y = b[k]
+        if x.dtype != y.dtype or x.device != y.device or not torch.equal(x, y):
+            return k
+    return None
+
+
+def _dir_bytes(path):
+    return sum(p.stat().st_size for p in Path(path).rglob("*") if p.is_file())
+
+
+def _guard_phase(torch, cfg, batches, seed, power):
+    """Phase 11 (a): the guard around the in-place kernels."""
+    from repro_torch.core import linear_warmup_cosine, make_optimizer
+    from repro_torch.models import init_params
+    from repro_torch.training import (GuardPolicy, init_state,
+                                      make_train_step, parse_faults)
+    L = cfg.n_layers
+
+    def build(plan=None):
+        tx = make_optimizer("scale_fused", linear_warmup_cosine(1e-3, 5))
+        params = init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(seed),
+            device="cuda")
+        return init_state(params, tx, guard=True), make_train_step(
+            cfg, tx, clip_norm=1.0, guard=GuardPolicy(), faults=plan)
+
+    want = {"mha_fwd": 2 * L, "mha_bwd_dq": L, "mha_bwd_dkv": L,
+            "xent_fwd": 1, "xent_bwd_dh": 1, "xent_bwd_dw": 1,
+            "norm_sumsq": 8, "update_apply": 9, "momentum_sumsq": 1,
+            "norm_apply": 0}
+    want_r = {"mha_fwd": {"mma": 2 * L},
+              **{k: {"mma": L} for k in BWD_KERNELS},
+              "xent_fwd": {"wgmma": 1},
+              "xent_bwd_dh": {"mma": 1}, "xent_bwd_dw": {"mma": 1},
+              "update_apply": {"vec": 9}}
+    # the main path: counts set to 0 just before it, read just after
+    state, step = build(parse_faults("nan_grad@2"))
+    torch.cuda.synchronize()
+    zero_train_counts()
+    zero_route_counts()
+    bad = []
+    for i, b in enumerate(batches):
+        before, before_r = train_counts(), route_counts()
+        state, m = step(state, b)
+        got = {k: v - before[k] for k, v in train_counts().items()}
+        if got != want:
+            raise AssertionError(f"guarded step {i} launched {got}, not "
+                                 f"{want}")
+        check_routes({k: {r: n - before_r[k][r] for r, n in c.items()}
+                      for k, c in route_counts().items()}, want_r,
+                     f"guarded step {i}", show=False)
+        bad.append(int(m["bad_step"]))
+    torch.cuda.synchronize()
+    launches = train_counts()
+    print(f"  (a) guarded steps 0-4 with nan_grad@2: every step launched "
+          f"{want}, the skipped one too (its update is computed in place, "
+          f"then discarded); bad_step {bad}, skipped {int(m['skipped'])}")
+    if bad != [0, 0, 1, 0, 0] or int(m["skipped"]) != 1:
+        raise AssertionError("the guard did not skip exactly step 2")
+    drop = (".step", ".guard/.skipped")
+    faulted = {k: x.clone() for k, x in _state_leaves(state, drop).items()}
+    del state, step
+    state, step = build()
+    for i in (0, 1, 3, 4):
+        state, m = step(state, batches[i])
+    diff = _first_unequal(torch, faulted, _state_leaves(state, drop))
+    print(f"  against the clean guarded run over the batches of steps 0, 1, "
+          f"3 and 4: {len(faulted)} leaves (params, optimizer state, guard) "
+          + ("bitwise equal" if diff is None else f"differ at {diff}"))
+    if diff is not None:
+        raise AssertionError(f"the skipped step is not bitwise a dropped "
+                             f"batch: {diff}")
+    del faulted
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, m = step(state, batches[0])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print("  guarded train step under set_sync_debug_mode('error'): no host "
+          "synchronisation")
+
+    # guard on against off in turns (on, off, off, on), 3 steps a turn; the
+    # two step functions train the same parameters
+    tx_off = make_optimizer("scale_fused", linear_warmup_cosine(1e-3, 5))
+    step_off = make_train_step(cfg, tx_off, clip_norm=1.0)
+    state_off = init_state(state.params, tx_off)
+    times, peaks = {"on": [], "off": []}, {"on": 0, "off": 0}
+    for turn in ("on", "off", "off", "on"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for b in batches[:3]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if turn == "on":
+                state, _ = step(state, b)
+            else:
+                state_off, _ = step_off(state_off, b)
+            torch.cuda.synchronize()
+            times[turn].append(time.perf_counter() - t0)
+        peaks[turn] = max(peaks[turn], torch.cuda.max_memory_allocated())
+    del state_off, step_off, tx_off
+    on, off = min(times["on"]) * 1e3, min(times["off"]) * 1e3
+    print(f"  [{power}] train step with the guard on {on:.3f} ms, off "
+          f"{off:.3f} ms (best of 6 each, in turns on, off, off, on): "
+          f"{on - off:+.3f} ms; peak memory on {peaks['on'] / 2**20:.1f} MiB, "
+          f"off {peaks['off'] / 2**20:.1f} MiB "
+          f"({(peaks['on'] - peaks['off']) / 2**20:+.1f} MiB)")
+    return launches, state, {"on_ms": on, "off_ms": off,
+                             "peak_on": peaks["on"], "peak_off": peaks["off"]}
+
+
+def _checkpoint_phase(torch, state, root, power):
+    """Phase 11 (b): save, save_async, restore_latest and the fallback past
+    a corrupt shard, of the whole guarded TrainState."""
+    from repro_torch import checkpoint as ckpt
+    d = str(Path(root) / "b")
+    n_bytes = sum(x.numel() * x.element_size()
+                  for x in _state_leaves(state).values())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = ckpt.save(d, 10, state)
+    t_save = time.perf_counter() - t0
+    on_disk = _dir_bytes(path)
+    shard = [p for p in Path(path).iterdir() if p.name.startswith("shard_")]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    handle = ckpt.save_async(d, 11, state)
+    t_block = time.perf_counter() - t0
+    handle.wait()
+    t_commit = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got, n = ckpt.restore_latest(d, state)
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    want = _state_leaves(state)
+    diff = _first_unequal(torch, want, _state_leaves(got))
+    del got
+    print(f"  (b) [{power}] save of the TrainState ({len(want)} leaves, "
+          f"{n_bytes / 1e9:.3f} GB of tensors; {shard[0].name}, "
+          f"{on_disk / 1e9:.3f} GB on disk): {t_save:.3f} s "
+          f"({on_disk / t_save / 1e9:.2f} GB/s); save_async blocked the "
+          f"caller {t_block:.3f} s and committed after {t_commit:.3f} s; "
+          f"restore_latest (step {n}) {t_restore:.3f} s "
+          f"({on_disk / t_restore / 1e9:.2f} GB/s), "
+          + ("bitwise equal" if diff is None else f"differs at {diff}"))
+    if n != 11 or diff is not None:
+        raise AssertionError(f"restore_latest gave step {n}, leaf {diff}")
+    newest = [p for p in (Path(d) / "step_0000000011").iterdir()
+              if p.name.startswith("shard_")][0]
+    with open(newest, "r+b") as f:
+        f.seek(newest.stat().st_size // 2)
+        f.write(b"\xff\x00\xff\x00")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, n = ckpt.restore_latest(d, state)
+        torch.cuda.synchronize()
+        t_fall = time.perf_counter() - t0
+    said = [str(w.message) for w in caught if "falling back" in str(w.message)]
+    diff = _first_unequal(torch, want, _state_leaves(got))
+    del got, want
+    print(f"  [{power}] newest shard corrupted: restore_latest fell back to "
+          f"step {n} in {t_fall:.3f} s, warning: {said[0][:160] if said else None!r}; "
+          + ("bitwise equal" if diff is None else f"differs at {diff}"))
+    if n != 10 or not said or diff is not None:
+        raise AssertionError("restore_latest did not fall back to step 10")
+    return {"state_bytes": n_bytes, "disk_bytes": on_disk, "save_s": t_save,
+            "async_block_s": t_block, "async_commit_s": t_commit,
+            "restore_s": t_restore, "fallback_s": t_fall}
+
+
+def _resume_phase(torch, seed, root, power):
+    """Phase 11 (c): six launcher steps with a checkpoint every 3, against
+    the same run's committed step 3 resumed with --resume auto."""
+    from repro_torch.checkpoint.checkpointer import _read_verified
+    from repro_torch.launch import train as launcher
+    a, b = Path(root) / "c_full", Path(root) / "c_resumed"
+    argv = ["--arch", "llama-1b", "--optimizer", "scale_fused", "--batch",
+            "16", "--seq", "256", "--steps", "6", "--ckpt-every", "3",
+            "--log-every", "1", "--seed", str(seed)]
+    print(f"  (c) python -m repro_torch.launch.train {' '.join(argv)} "
+          "--ckpt-dir <full>:")
+    t0 = time.perf_counter()
+    launcher.main(argv + ["--ckpt-dir", str(a)])
+    t_full = time.perf_counter() - t0
+    b.mkdir()
+    (a / "step_0000000003").rename(b / "step_0000000003")
+    print("  the same flags with --ckpt-dir <resumed> (holding the full run's "
+          "committed step 3) --resume auto:")
+    t0 = time.perf_counter()
+    launcher.main(argv + ["--ckpt-dir", str(b), "--resume", "auto"])
+    t_resumed = time.perf_counter() - t0
+    fa = _read_verified(str(a / "step_0000000006"), 0)
+    fb = _read_verified(str(b / "step_0000000006"), 0)
+    diff = _first_unequal(torch, fa, fb)
+    worst = ""
+    if diff is not None:
+        errs = {k: ((x.float() - fb[k].float()).abs().max()
+                    / x.float().abs().max().clamp_min(1e-30)).item()
+                for k, x in fa.items() if k in fb and x.numel()}
+        k = max(errs, key=errs.get)
+        worst = f"; worst leaf {k}: max |diff| / max |ref| {errs[k]:.3e}"
+    print(f"  [{power}] full run {t_full:.1f} s, resumed run {t_resumed:.1f} "
+          f"s (init, steps and checkpoints); step 6 of the two: {len(fa)} "
+          f"leaves " + ("bitwise equal" if diff is None
+                        else f"differ at {diff}{worst}"))
+    if diff is not None:
+        raise AssertionError(f"the resumed run left the uninterrupted one: "
+                             f"{diff}{worst}")
+
+
+def _sigterm_phase(torch, seed, root, power):
+    """Phase 11 (d): SIGTERM to the launcher in a subprocess, llama-130m at
+    full width and depth."""
+    import os
+    import signal
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.configs import get_arch
+    from repro_torch.core import make_optimizer
+    from repro_torch.models import init_params
+    from repro_torch.training import init_state
+    d = Path(root) / "d"
+    argv = ["--arch", "llama-130m", "--optimizer", "scale_fused", "--batch",
+            "16", "--seq", "256", "--steps", "100000", "--log-every", "1",
+            "--seed", str(seed), "--ckpt-dir", str(d), "--ckpt-every",
+            "100000", "--resume", "auto"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env.pop("REPRO_FAULTS", None)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.train",
+                             *argv], env=env, cwd=str(ROOT),
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    lines = []
+    try:
+        for line in proc.stdout:
+            lines.append(line.rstrip("\n"))
+            if line.startswith("step "):
+                break
+        t_first = time.perf_counter() - t0
+        proc.send_signal(signal.SIGTERM)
+        lines.extend(ln.rstrip("\n") for ln in proc.stdout)
+        rc = proc.wait(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    t_exit = time.perf_counter() - t0
+    print(f"  (d) [{power}] python -m repro_torch.launch.train "
+          f"{' '.join(argv)}, SIGTERM after its first loss line "
+          f"({t_first:.1f} s in): exit {rc} after {t_exit:.1f} s; its "
+          "output:")
+    for line in lines:
+        print(f"    | {line}")
+    said = [ln for ln in lines if ln.startswith("sigterm: checkpointed step")]
+    if rc != 0 or not said:
+        raise AssertionError("the launcher did not checkpoint and exit "
+                             "cleanly on SIGTERM")
+    n = int(said[0].split()[3].rstrip(","))
+    cfg = get_arch("llama-130m")
+    tx = make_optimizer("scale_fused", 1e-3)
+    like = init_state(init_params(cfg, torch.Generator(device="cuda")
+                                  .manual_seed(seed), device="cuda"), tx,
+                      guard=True)
+    got, step = ckpt.restore_latest(str(d), like)
+    finite = all(torch.isfinite(x).all().item()
+                 for x in _state_leaves(got).values()
+                 if x.is_floating_point())
+    print(f"  COMMITTED step {ckpt.latest_step(str(d))}: restored step "
+          f"{step} (its state's step {int(got.step)}), every leaf finite: "
+          f"{finite}")
+    if not (step == n == int(got.step) and finite):
+        raise AssertionError(f"the SIGTERM checkpoint does not restore as "
+                             f"step {n}")
+
+
+def phase_resilience(torch, seed, power):
+    """Phase 11: fault-tolerant training, llama-1b at full width and depth
+    (SIGTERM at llama-130m's)."""
+    import shutil as _shutil
+    import tempfile
+    from repro_torch.configs import get_arch
+    from repro_torch.data import make_dataset
+    cfg = get_arch("llama-1b")
+    B, S = 16, 256
+    print(f"  {cfg.name}: {cfg.n_layers} layers, {cfg.dtype}, remat "
+          f"{cfg.remat!r}; batch {B} x {S} from SyntheticLM (seed {seed}); "
+          f"scale_fused, clip 1.0, linear_warmup_cosine(1e-3, 5), "
+          f"GuardPolicy() (finite checks)")
+    ds = make_dataset(cfg, S, B, seed=seed, device="cuda")
+    batches = [ds.global_batch_at(i) for i in range(5)]
+    root = tempfile.mkdtemp(prefix="repro_ckpt_")
+    try:
+        print(f"  checkpoints under {root} (free "
+              f"{_shutil.disk_usage(root).free / 1e9:.1f} GB)")
+        t0 = time.perf_counter()
+        launches, state, guard = _guard_phase(torch, cfg, batches, seed,
+                                              power)
+        t_a = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ck = _checkpoint_phase(torch, state, root, power)
+        t_b = time.perf_counter() - t0
+        del state
+        torch.cuda.empty_cache()
+        _shutil.rmtree(Path(root) / "b")
+        t0 = time.perf_counter()
+        _resume_phase(torch, seed, root, power)
+        t_c = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        _sigterm_phase(torch, seed, root, power)
+        t_d = time.perf_counter() - t0
+    finally:
+        _shutil.rmtree(root, ignore_errors=True)
+    print(f"  [{power}] phase 11 parts: (a) {t_a:.1f} s, (b) {t_b:.1f} s, "
+          f"(c) {t_c:.1f} s, (d) {t_d:.1f} s")
+    return {"launches": launches, "guard": guard, "checkpoint": ck}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3092,13 +3449,17 @@ def main() -> int:
     print("phase 10: the optimizer zoo, llama-1b at full width; the memory "
           "axis at full depth")
     zoo = phase_zoo(torch, args.seed, power)
+    print("phase 11: fault-tolerant training, llama-1b at full width and "
+          "depth: the guard, the checkpoint, resume and SIGTERM")
+    res = phase_resilience(torch, args.seed, power)
     # one row per kernel; launches summed over the main paths that run it,
     # each counted from 0 just before its path and read just after
     by_path = {"serving": {"mha_fwd": serve["launches"]},
                "optimizer": opt["launches"], "loss": loss["launches"],
                "train": train["launches"],
                **{f"train {a}": r["launches"] for a, r in paper.items()},
-               "train zoo": zoo["launches"]}
+               "train zoo": zoo["launches"],
+               "train guarded": res["launches"]}
     # mha_fwd's prefill numbers, with both serving shapes and the eval and
     # training steps' shape beside them
     mha = {k: v for k, v in mha_rows[0].items() if k != "shape"}

@@ -4,7 +4,9 @@ Routing is by the tensors' device alone: a wrapper runs the plain version
 on the CPU and the CUDA kernel on the card. Unlike
 ``repro.kernels.dispatch`` there is no ``REPRO_FUSED`` switch, no guarded
 fallback and no sharding plan: a kernel that fails on the card raises
-instead of quietly becoming the reference.
+instead of quietly becoming the reference, and so does an entry point
+that ``REPRO_FAULTS=dispatch_fail@<op>`` names (``FaultError``, before
+any launch; the op names are the entry points' own).
 
 Optimizer coverage (``supported``), as in the JAX package: 2-D and stacked
 3-D leaves, norm kinds col/row/larger (``larger`` resolved per shape by
@@ -26,6 +28,8 @@ is covered (``xent_supported``), and other shapes raise.
 """
 from __future__ import annotations
 
+import os
+
 import torch
 
 from .attention import attention as _attn
@@ -38,6 +42,15 @@ from .xent.xent import xent_bwd_dh, xent_bwd_dw, xent_fwd
 
 FUSED_KINDS = ("col", "row", "larger")
 FUSED_NDIMS = (2, 3)
+
+
+def _fault_gate(op: str) -> None:
+    """``REPRO_FAULTS=dispatch_fail@<op>`` (or ``@*``) makes entry point
+    ``op`` raise ``FaultError`` before any launch; a no-op when the
+    variable is unset (see ``repro_torch.training.faults``)."""
+    if os.environ.get("REPRO_FAULTS"):
+        from repro_torch.training import faults
+        faults.dispatch_gate(op)
 
 
 class FlashAttention(torch.autograd.Function):
@@ -91,6 +104,7 @@ def flash_attention(q, k, v, *, scale: float, causal: bool = True,
     that forward is differentiated by plain autograd instead: an
     independent reference for the kernels' gradients.
     """
+    _fault_gate("flash_attention")
     if mha_fwd is not _attn.mha_fwd:
         return mha_fwd(q, k, v, kv_len, scale=scale, causal=causal)[0]
     return FlashAttention.apply(q, k, v, kv_len, scale, causal)
@@ -161,6 +175,7 @@ def xent_loss(h, w, labels, *, vocab_size: int, weights=None,
     tied head) raises until its kernels are ported, and so do shapes
     ``xent_supported`` does not cover.
     """
+    _fault_gate("xent_loss")
     if transposed:
         raise NotImplementedError(
             "xent_loss: transposed=True (the tied (V, D) head) is not ported "
@@ -223,6 +238,7 @@ def normalize(g, kind: str = "col", eps: float = 1e-8, *, gscale=None,
     ``normalize(g, out_dtype=torch.float32)`` is the JAX package's
     ``normalize(g.astype(f32))`` without the f32 copy of g.
     """
+    _fault_gate("normalize")
     if not supported(g.shape, kind):
         return _ref_norm(_scaled_ref(g, gscale), kind, eps, out_dtype)
     axis = resolve_kind(kind, g.shape)
@@ -239,6 +255,7 @@ def norm_update(theta, g, lr, kind: str = "col", eps: float = 1e-8, *,
     Covered leaves take two kernels: ``norm_sumsq`` then the in-place
     ``update_apply`` (4 passes over a matrix: g; theta, g, theta').
     """
+    _fault_gate("norm_update")
     if not supported(theta.shape, kind):
         d = _ref_norm(_scaled_ref(g, gscale), kind, eps)
         return theta.copy_(theta.float() - _cref.f32_scalar(lr) * d.float())
@@ -266,6 +283,7 @@ def momentum_norm(m, g, beta, kind: str = "col", eps: float = 1e-8, *,
     under bf16 momentum storage); the plain path normalizes the pre-cast
     f32 m', as in JAX.
     """
+    _fault_gate("momentum_norm")
     if not supported(m.shape, kind):
         m_new = _momentum_ref(m, g, beta, gscale)
         return m, _ref_norm(m_new, kind, eps)
@@ -279,6 +297,7 @@ def momentum_norm_update(theta, m, g, beta, lr, kind: str = "col",
                          eps: float = 1e-8, *, gscale=None):
     """(theta', m'), both written in place: ``momentum_sumsq`` then the
     head's ``update_apply`` on covered leaves (two kernel calls)."""
+    _fault_gate("momentum_norm_update")
     if not supported(theta.shape, kind):
         m_new = _momentum_ref(m, g, beta, gscale)
         d = _ref_norm(m_new, kind, eps)

@@ -2,22 +2,37 @@
 
 Runs the training loop of the paper's main path on one device: seeded
 random params, ``SyntheticLM`` batches, ``make_train_step`` with global-norm
-clipping and the optimizer's fused in-place write. It prints a loss line
-every ``--log-every`` steps, the only place it reads a value back to the
-host. It runs on the card (``--device cuda``, the default) unless told
-``--device cpu``, and raises without a card.
+clipping and the optimizer's fused in-place write. It runs on the card
+(``--device cuda``, the default) unless told ``--device cpu``, and raises
+without a card.
 
-The JAX launcher's anomaly guard is on by default; this one runs as
-``--no-guard`` would there, and says so on its first line. Flags of
-modules not ported yet are absent:
+Resilience, as in the JAX launcher: the step runs under the anomaly guard
+(:mod:`repro_torch.training.resilience`, on unless ``--no-guard``): a
+non-finite loss or gradient norm, or a loss spike past ``--spike-factor``
+times the accepted-loss EMA, skips the update bitwise; after
+``--max-bad-steps`` consecutive bad steps the launcher rolls back to the
+last verifiable checkpoint and cuts the peak LR by ``--rollback-lr-cut``
+(rebuilding the step), and gives up after ``--max-rollbacks``. With
+``--ckpt-dir`` it checkpoints every ``--ckpt-every`` steps
+(:mod:`repro_torch.checkpoint`, one asynchronous save in flight) and at
+the end; ``--resume auto`` continues from the newest verifiable
+checkpoint. SIGTERM finishes the current step, writes a final synchronous
+checkpoint and exits 0, so a preempted run under ``--resume auto`` loses
+at most that step. ``REPRO_FAULTS`` (:mod:`repro_torch.training.faults`:
+``nan_grad@K``, ``inf_grad@K``, ``io_error@save|commit:N``,
+``kill@save|commit:N``, ``dispatch_fail@OP``) injects deterministic
+faults into all of it; it is read once, at start.
+
+The console shows ``step N loss L |g| G tok/s T skipped S rollbacks R``
+every ``--log-every`` steps; with the guard on, the loop reads the step's
+``rollback`` flag back every step (as the JAX launcher does), elsewhere
+only the loss lines read the device.
+
+Flags of modules not ported yet are absent:
 
 * ``--smoke`` (the reduced smoke configs), ``--tie-embeddings``
   (ROADMAP.md Queue 1 item 7);
 * ``--pack-documents`` (item 6);
-* ``--ckpt-dir``, ``--ckpt-every``, ``--resume`` (item 5);
-* ``--no-guard``, ``--spike-factor``, ``--spike-warmup``,
-  ``--max-bad-steps``, ``--rollback-lr-cut``, ``--max-rollbacks`` (the
-  guard and rollback, item 9);
 * ``--log-dir``, ``--metrics-every``, ``--stats-every``,
   ``--profile-steps``, ``--profile-dir`` (telemetry, item 10).
 
@@ -28,35 +43,40 @@ the paper's baselines (``sgd``, ``sgd_momentum``, ``adam``, ``adamw``,
 ``apollo``, ``apollo_mini``, ``sgd_{col,row,sign,ns,svd}norm``), each with
 its registry defaults.
 
-Example (llama-1b on the card, the paper's largest Table-1 model):
+Examples (llama-1b on the card, the paper's largest Table-1 model):
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama-1b \\
-      --optimizer scale_fused --steps 20 --batch 16 --seq 256
-  PYTHONPATH=src python -m repro_torch.launch.train --arch llama-1b \\
-      --optimizer muon --steps 20 --batch 16 --seq 256
+      --optimizer scale_fused --steps 20 --batch 16 --seq 256 \\
+      --ckpt-dir /path/to/ckpt --ckpt-every 10 --resume auto
+  REPRO_FAULTS="nan_grad@5" PYTHONPATH=src python -m \\
+      repro_torch.launch.train --arch llama-1b --optimizer muon --steps 20
 """
 from __future__ import annotations
 
 import argparse
+import signal
 import time
 
 import torch
 
+from repro_torch.checkpoint import restore_latest, save, save_async
 from repro_torch.configs import get_arch
 from repro_torch.core import linear_warmup_cosine, make_optimizer
 from repro_torch.data import make_dataset
 from repro_torch.device import resolve_device
 from repro_torch.models import init_params
-from repro_torch.training import init_state, make_train_step
+from repro_torch.training import (GuardPolicy, init_guard_state, init_state,
+                                  make_train_step, resolve_plan)
 
 
-def build(args):
+def build(args, lr_scale: float = 1.0):
     """(cfg, tx) for the run: the JAX launcher's ``build`` on its untied
     branch (the port's kernels choose their own tiles, so the attention
-    block and loss-chunk settings it adjusts have no counterpart)."""
+    block and loss-chunk settings it adjusts have no counterpart).
+    ``lr_scale`` scales the peak LR (the rollback cut)."""
     cfg = get_arch(args.arch)
     if args.dtype:
         cfg.dtype = args.dtype
-    sched = linear_warmup_cosine(args.lr, args.steps)
+    sched = linear_warmup_cosine(args.lr * lr_scale, args.steps)
     return cfg, make_optimizer(args.optimizer, sched)
 
 
@@ -72,36 +92,149 @@ def main(argv=None) -> float:
     ap.add_argument("--clip-norm", type=float, default=1.0)
     ap.add_argument("--dtype", default="")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--ckpt-every", type=int, default=100)
+    ap.add_argument("--resume", default="none", choices=["none", "auto"])
     ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--no-guard", action="store_true",
+                    help="disable the anomaly guard (finite checks "
+                         "on loss/grad norm, step skipping, rollback)")
+    ap.add_argument("--spike-factor", type=float, default=0.0,
+                    help="skip steps whose loss exceeds this multiple of "
+                         "the accepted-loss EMA (0 disables the spike "
+                         "check; finite checks stay on)")
+    ap.add_argument("--spike-warmup", type=int, default=20,
+                    help="accepted steps before the spike check arms")
+    ap.add_argument("--max-bad-steps", type=int, default=10,
+                    help="consecutive guard-skipped steps before rolling "
+                         "back to the last checkpoint with an LR cut "
+                         "(0 = never roll back, skip forever)")
+    ap.add_argument("--rollback-lr-cut", type=float, default=0.5,
+                    help="multiply the peak LR by this on every rollback")
+    ap.add_argument("--max-rollbacks", type=int, default=3,
+                    help="abort the run after this many rollbacks (a "
+                         "deterministic fault replays identically after "
+                         "restore, so an unbounded loop would never "
+                         "terminate)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; never falls back on its own")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
+    guard = None if args.no_guard else GuardPolicy(
+        spike_factor=args.spike_factor, spike_warmup=args.spike_warmup,
+        max_bad_steps=args.max_bad_steps)
+    faults = resolve_plan()  # REPRO_FAULTS, read once
+    if faults is not None:
+        print(f"fault injection active: {faults}", flush=True)
     cfg, tx = build(args)
     print(f"arch={cfg.name} optimizer={args.optimizer} device={device} "
-          "guard=off (the anomaly guard is not ported: ROADMAP.md Queue 1 "
-          "item 9)", flush=True)
+          f"guard={'off' if guard is None else 'on'}", flush=True)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = init_params(cfg, gen, device=device)
-    state = init_state(params, tx)
+    state = init_state(params, tx, guard=guard is not None)
+    del params
+    start_step = 0
+    if args.resume == "auto" and args.ckpt_dir:
+        got = restore_latest(args.ckpt_dir, state)
+        if got is not None:
+            state, start_step = got
+            print(f"resumed from step {start_step}", flush=True)
     ds = make_dataset(cfg, seq_len=args.seq, global_batch=args.batch,
                       seed=args.seed, device=device)
-    step_fn = make_train_step(cfg, tx, grad_accum=args.grad_accum,
-                              clip_norm=args.clip_norm)
+
+    def make_step(tx):
+        return make_train_step(cfg, tx, grad_accum=args.grad_accum,
+                               clip_norm=args.clip_norm, guard=guard,
+                               faults=faults)
+
+    step_fn = make_step(tx)
+
+    # SIGTERM (a preemption notice): finish the current step, write a final
+    # synchronous checkpoint, exit cleanly; --resume auto picks it up
+    stop = {"sigterm": False}
+
+    def _on_sigterm(signum, frame):
+        del signum, frame
+        stop["sigterm"] = True
+
+    try:
+        prev_handler = signal.signal(signal.SIGTERM, _on_sigterm)
+    except ValueError:  # not the main thread (embedded use): no handler
+        prev_handler = None
 
     t0 = time.time()
+    pending = None
     tokens_per_step = args.batch * args.seq
+    step, done_steps = start_step, 0
+    lr_scale, rollbacks = 1.0, 0
     metrics = {"loss": torch.tensor(float("nan"))}
-    for step in range(args.steps):
-        state, metrics = step_fn(state, ds.host_batch_at(step))
-        done = step + 1
-        if done % args.log_every == 0 or done == 1:
-            tput = done * tokens_per_step / max(time.time() - t0, 1e-9)
-            print(f"step {done:6d} loss {float(metrics['loss']):.4f} "
-                  f"|g| {float(metrics['grad_norm']):.3f} tok/s {tput:,.0f}",
+    try:
+        while step < args.steps and not stop["sigterm"]:
+            state, metrics = step_fn(state, ds.host_batch_at(step))
+            rollback_flag = False
+            if guard is not None:
+                rollback_flag = bool(metrics["rollback"])
+                host = getattr(state.opt_state, "host_count", None)
+                if host is not None:
+                    # the host's mirror of the count, which a skipped step
+                    # passed through on the device
+                    host.n = int(state.opt_state.count)
+            if rollback_flag:
+                # a streak of bad steps: restore, cut the LR, rebuild
+                lr_scale *= args.rollback_lr_cut
+                rollbacks += 1
+                if rollbacks > args.max_rollbacks:
+                    raise RuntimeError(
+                        f"giving up after {args.max_rollbacks} rollbacks: "
+                        f"the run keeps hitting {args.max_bad_steps} "
+                        f"consecutive bad steps")
+                got = restore_latest(args.ckpt_dir, state) \
+                    if args.ckpt_dir else None
+                if got is not None:
+                    state, step = got
+                    print(f"rollback #{rollbacks}: restored step {step}, "
+                          f"peak lr x{lr_scale:g}", flush=True)
+                else:
+                    # nothing to roll back to: reset the streak and push on
+                    # with the cut LR (the guard keeps skipping bad steps)
+                    step += 1
+                    print(f"rollback #{rollbacks}: no checkpoint in "
+                          f"{args.ckpt_dir or '<none>'}; continuing with "
+                          f"peak lr x{lr_scale:g}", flush=True)
+                state = state._replace(guard=init_guard_state(device))
+                _, tx = build(args, lr_scale)
+                step_fn = make_step(tx)
+                continue
+            step += 1
+            done_steps += 1
+            if step % args.log_every == 0 or done_steps == 1:
+                tput = (done_steps * tokens_per_step
+                        / max(time.time() - t0, 1e-9))
+                line = (f"step {step:6d} loss {float(metrics['loss']):.4f} "
+                        f"|g| {float(metrics['grad_norm']):.3f} "
+                        f"tok/s {tput:,.0f}")
+                if guard is not None:
+                    line += (f" skipped {int(metrics['skipped'])}"
+                             f" rollbacks {rollbacks}")
+                print(line, flush=True)
+            if args.ckpt_dir and step % args.ckpt_every == 0:
+                if pending is not None:
+                    pending.wait()   # one checkpoint in flight at a time
+                pending = save_async(args.ckpt_dir, step, state)
+        if pending is not None:
+            pending.wait()
+        if args.ckpt_dir:
+            save(args.ckpt_dir, step, state)
+        if stop["sigterm"]:
+            print(f"sigterm: checkpointed step {step}, exiting cleanly",
                   flush=True)
-    print(f"done: final loss {float(metrics['loss']):.4f}", flush=True)
+        else:
+            print(f"done: final loss {float(metrics['loss']):.4f}",
+                  flush=True)
+    finally:
+        if prev_handler is not None:
+            signal.signal(signal.SIGTERM, prev_handler)
     return float(metrics["loss"])
 
 

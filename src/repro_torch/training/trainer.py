@@ -2,36 +2,47 @@
 
 ``make_train_step`` builds the paper's training step: loss and gradient
 (with microbatch accumulation), global-norm clipping folded into the
-optimizer's parameter write, and the update. ``make_eval_step`` is the
-validation loss. Gradients are taken functionally with
-``torch.autograd.grad``; no ``.grad`` state is left on the parameters, and
-no step synchronises with the host: the step counter and every metric stay
-0-d tensors on the device.
+optimizer's parameter write, and the update, optionally vetted by the
+anomaly guard (:mod:`.resilience`). ``make_eval_step`` is the validation
+loss. Gradients are taken functionally with ``torch.autograd.grad``; no
+``.grad`` state is left on the parameters, and no step synchronises with
+the host: the step counter, the guard's verdict and every metric stay 0-d
+tensors on the device.
 """
 from __future__ import annotations
 
 import inspect
-from typing import Any, NamedTuple
+from typing import Any, NamedTuple, Optional
 
 import torch
 
+from repro_torch.checkpoint.checkpointer import named_leaves
 from repro_torch.core import pipeline
 from repro_torch.core.types import (GradientTransformation, apply_updates,
                                     global_norm)
 from repro_torch.models import loss_fn
 from repro_torch.models.model import Params, flatten, unflatten
 
+from .resilience import (GuardPolicy, guard_step, guard_verdict,
+                         guarded_select, init_guard_state,
+                         inject_grad_faults)
+
 
 class TrainState(NamedTuple):
     step: torch.Tensor  # 0-d int32 on the parameters' device
     params: Any         # Params; the fused write updates it in place
     opt_state: Any
+    # a GuardState with the guard on; None has no leaves, so a guard-less
+    # state checkpoints with the 3-field keys
+    guard: Any = None
 
 
-def init_state(params, tx: GradientTransformation) -> TrainState:
+def init_state(params, tx: GradientTransformation,
+               guard: bool = False) -> TrainState:
     dev = next(iter(flatten(params).values())).device
     return TrainState(torch.zeros((), dtype=torch.int32, device=dev), params,
-                      tx.init(params))
+                      tx.init(params),
+                      init_guard_state(dev) if guard else None)
 
 
 def value_and_grad(params, cfg, batch: dict, aux_coef: float = 0.01):
@@ -68,7 +79,8 @@ def _update_norm(new: dict, old: dict) -> torch.Tensor:
 def make_train_step(cfg, tx: GradientTransformation, grad_accum: int = 1,
                     clip_norm: float = 0.0, aux_coef: float = 0.01,
                     accum_dtype: str = "float32", norm_metrics: bool = True,
-                    fused_apply=None):
+                    fused_apply=None, guard: Optional[GuardPolicy] = None,
+                    faults=None):
     """Build ``train_step(state, batch) -> (state, metrics)``.
 
     The semantics of the JAX package's ``make_train_step``:
@@ -89,11 +101,31 @@ def make_train_step(cfg, tx: GradientTransformation, grad_accum: int = 1,
       parameters are overwritten, so ``update_norm`` differences a copy of
       the pre-step parameters in f32, as JAX does: one more parameter-sized
       buffer (2.68 GB at llama-1b in bf16); ``norm_metrics=False`` saves it.
+    * ``guard``: a :class:`~repro_torch.training.resilience.GuardPolicy`.
+      The step then needs a guard-carrying state (``init_state(...,
+      guard=True)``) and vets every update: the verdict reads the loss and
+      the pre-clip gradient norm, and a skipped step leaves params and
+      optimizer state bitwise as they were. The update writes them in
+      place, so the step snapshots what it writes (the parameter copy
+      above, taken whether or not ``norm_metrics`` asks for it, and a copy
+      of every optimizer-state tensor) and selects elementwise against the
+      snapshot after the write (``guarded_select``): no host read. The
+      metrics gain ``skipped``, ``bad_step`` and ``rollback`` (0-d), and
+      ``update_norm`` is taken after the guard (0 on a skipped step).
+      ``PipeState.host_count``, the host's mirror of the count, is read
+      only by a projection stage (GaLore, Fira, APOLLO): for those the
+      step reads the verdict back and the mirror stays the count after
+      the guard; for the others it runs one ahead per skipped step until
+      the launcher re-seats it at its per-step read of ``rollback``.
+    * ``faults``: a :class:`~repro_torch.training.faults.FaultPlan`; its
+      ``nan_grad``/``inf_grad`` clauses fill the gradients with NaN/Inf
+      when the state's device step is a fault step (bitwise inert on the
+      others). ``None`` costs nothing.
 
     Left out, with the modules they need: ``rules`` and ``mesh`` (sharding,
-    ROADMAP.md Queue 1 item 12), ``guard`` and ``faults`` (item 9),
-    ``stats`` (item 10). ``donate`` has no counterpart: ``update_params``
-    already writes the parameters and the momentum in place.
+    ROADMAP.md Queue 1 item 12), ``stats`` (item 10). ``donate`` has no
+    counterpart: ``update_params`` already writes the parameters and the
+    momentum in place.
     """
     acc_dt = torch.float32 if accum_dtype == "float32" else torch.bfloat16
     if fused_apply is None:
@@ -103,6 +135,9 @@ def make_train_step(cfg, tx: GradientTransformation, grad_accum: int = 1,
                          "update_params (fused parameter write)")
     fuse_clip = (fused_apply and clip_norm > 0 and "grad_scale"
                  in inspect.signature(tx.update_params).parameters)
+    # the projection stage decides its refresh from the host count
+    reads_host_count = any(st.project is not None
+                           for st in (tx.plans or {}).values())
 
     def reshape(x):
         if x.shape[0] % grad_accum:
@@ -136,10 +171,15 @@ def make_train_step(cfg, tx: GradientTransformation, grad_accum: int = 1,
 
     @torch.no_grad()
     def train_step(state: TrainState, batch: dict):
+        if guard is not None and state.guard is None:
+            raise ValueError(
+                "make_train_step(guard=...) needs a guard-carrying state: "
+                "build it with init_state(params, tx, guard=True)")
         loss, metrics, grads = compute_grads(state.params, batch)
+        grads = inject_grad_faults(faults, state.step, grads)
         out = {"loss": loss}
         kw = {}
-        if clip_norm > 0 or norm_metrics:
+        if clip_norm > 0 or norm_metrics or guard is not None:
             gnorm = global_norm(grads)
             out["grad_norm"] = gnorm
         if clip_norm > 0:
@@ -150,23 +190,49 @@ def make_train_step(cfg, tx: GradientTransformation, grad_accum: int = 1,
             else:
                 grads = {k: pipeline.jax_mul(g, scale)
                          for k, g in grads.items()}
+        gstate = state.guard
+        if guard is not None:
+            ok = guard_verdict(guard, state.guard, loss, gnorm)
+            gstate, rollback = guard_step(guard, state.guard, ok, loss)
+            # the update writes the optimizer state in place: snapshot it
+            old_state = {k: x.clone()
+                         for k, x in dict(named_leaves(state.opt_state)).items()}
+            host = getattr(state.opt_state, "host_count", None)
+            host_n = host.n if host is not None else None
         if fused_apply:
             old = ({k: p.clone() for k, p in flatten(state.params).items()}
-                   if norm_metrics else None)
+                   if norm_metrics or guard is not None else None)
             _, opt_state = tx.update_params(grads, state.opt_state,
                                             state.params, **kw)
             params = state.params
-            if norm_metrics:
-                out["update_norm"] = _update_norm(flatten(params), old)
-                del old
         else:
+            old = flatten(state.params)  # apply_updates leaves these as is
             updates, opt_state = tx.update(grads, state.opt_state,
                                            state.params)
             params = Params(apply_updates(state.params, updates))
-            if norm_metrics:
-                out["update_norm"] = global_norm(updates)
+        del grads
+        if guard is not None:
+            guarded_select(ok, flatten(params), old)
+            guarded_select(ok, dict(named_leaves(opt_state)), old_state)
+            del old_state
+            if host is not None:
+                # a skip passed the device count through; a projection
+                # stage reads the mirror, so there it follows (one host
+                # read); elsewhere the launcher re-seats it
+                host.n = host_n + (int(ok) if reads_host_count else 1)
+            out["skipped"] = gstate.skipped
+            out["bad_step"] = (~ok).to(torch.int32)
+            out["rollback"] = rollback
+        if norm_metrics:
+            if fused_apply:
+                out["update_norm"] = _update_norm(flatten(params), old)
+            else:
+                unorm = global_norm(updates)
+                out["update_norm"] = (torch.where(ok, unorm, 0.0)
+                                      if guard is not None else unorm)
+        del old
         out.update({k: v for k, v in metrics.items() if k != "loss"})
-        return TrainState(state.step + 1, params, opt_state), out
+        return TrainState(state.step + 1, params, opt_state, gstate), out
 
     return train_step
 

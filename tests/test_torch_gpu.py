@@ -8,8 +8,10 @@ imports no JAX, so it runs on a machine that has only PyTorch:
 (``--noconftest`` because ``tests/conftest.py`` imports JAX.) The kernel
 cases are those of phase 2 of ``chip_smoke.py``; a test serves a small
 model on the card through the attention kernel, others take SCALE
-optimizer steps through the optimizer kernels, and one trains a small
-llama through every kernel of the training step. Attention tolerances,
+optimizer steps through the optimizer kernels, one trains a small
+llama through every kernel of the training step, and one skips a step
+with an injected NaN under the anomaly guard (bitwise a dropped batch,
+sync-free) and checkpoints the guarded state. Attention tolerances,
 per element:
   * f32 out: 2e-5 absolute (unit-scale values summed in other orders);
   * bf16 out: 2e-2 + 2e-2*|ref| — the kernel rounds the running,
@@ -973,3 +975,68 @@ def test_eval_step_and_head_grad_on_card(cuda, monkeypatch):
     _xent_close(gh, wh, torch.bfloat16)
     _xent_close(gw, ww, torch.bfloat16)
     w.requires_grad_(False)
+
+
+@pytest.mark.gpu
+def test_guarded_skip_on_card_is_bitwise_and_does_not_synchronise(cuda):
+    """The anomaly guard around the in-place kernels: scale_fused (clip
+    1.0) with nan_grad@1 over 3 steps on a small bf16 llama equals, bitwise
+    (params, optimizer state, the guard's EMA), the clean run over the
+    batches of steps 0 and 2; every step launches the training step's
+    kernels (update_apply and momentum_sumsq write theta and the head's
+    momentum in place before the verdict is applied); one guarded step
+    runs under set_sync_debug_mode("error"); and a checkpoint of the
+    guarded state restores onto the card bitwise."""
+    import tempfile
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.checkpoint.checkpointer import named_leaves
+    from repro_torch.core import make_optimizer
+    from repro_torch.data import make_dataset
+    from repro_torch.models import ModelConfig, init_params
+    from repro_torch.training import (GuardPolicy, init_state,
+                                      make_train_step, parse_faults)
+    cfg = ModelConfig(name="gpu", n_layers=2, d_model=256, n_heads=4,
+                      n_kv_heads=2, d_ff=512, vocab_size=1000,
+                      dtype="bfloat16")
+    ds = make_dataset(cfg, 128, 4, seed=1, device=cuda)
+    batches = [ds.global_batch_at(i) for i in range(3)]
+
+    def run(ids, plan=None):
+        tx = make_optimizer("scale_fused", 1e-2)
+        params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                             device=cuda)
+        state = init_state(params, tx, guard=True)
+        step = make_train_step(cfg, tx, clip_norm=1.0, guard=GuardPolicy(),
+                               faults=plan)
+        m = None
+        for i in ids:
+            before = _train_counts()
+            state, m = step(state, batches[i])
+            after = _train_counts()
+            assert after["update_apply"] - before["update_apply"] == 9
+            assert after["momentum_sumsq"] - before["momentum_sumsq"] == 1
+        return state, m, step
+
+    faulted, m, step = run(range(3), parse_faults("nan_grad@1"))
+    clean, _, _ = run([0, 2])
+    assert int(m["skipped"]) == 1
+    a = dict(named_leaves(faulted._replace(step=None, guard=faulted.guard._replace(
+        skipped=None))))
+    b = dict(named_leaves(clean._replace(step=None, guard=clean.guard._replace(
+        skipped=None))))
+    assert list(a) == list(b)
+    for k, x in a.items():
+        assert torch.equal(x, b[k]), k
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        faulted, m = step(faulted, batches[0])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(m["bad_step"]) == 0
+    with tempfile.TemporaryDirectory() as d:
+        ckpt.save(d, 4, faulted)
+        back, n = ckpt.restore_latest(d, faulted)
+        assert n == 4
+        for (k, x), (_, y) in zip(named_leaves(faulted), named_leaves(back)):
+            assert y.device == x.device and torch.equal(x, y), k

@@ -262,8 +262,9 @@ def test_launcher_trains_on_cpu():
             "--optimizer", "scale_fused", "--steps", "2", "--batch", "2",
             "--seq", "16", "--log-every", "1"])
     lines = buf.getvalue().splitlines()
-    assert lines[0].startswith("arch=llama-60m optimizer=scale_fused "
-                               "device=cpu guard=off")
+    assert lines[0] == ("arch=llama-60m optimizer=scale_fused device=cpu "
+                        "guard=on")
+    assert lines[1].endswith(" skipped 0 rollbacks 0")
     assert [ln.split()[:2] for ln in lines[1:3]] == [["step", "1"],
                                                      ["step", "2"]]
     assert lines[-1] == f"done: final loss {loss:.4f}"
