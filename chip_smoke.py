@@ -5,7 +5,7 @@ NVIDIA H100.
     python3 chip_smoke.py [--seed N]
 
 Run from the root of a checkout. It builds the port's CUDA kernels with
-nvcc (one process per source, in parallel), then runs eleven phases and fails
+nvcc (one process per source, in parallel), then runs twelve phases and fails
 (non-zero exit, no result line) if any of them fails:
 
 1. device: the card's name and power limit, the kernels' ptxas report;
@@ -23,7 +23,13 @@ nvcc (one process per source, in parallel), then runs eleven phases and fails
    with each backward output's largest error over its tolerance, at
    llama-1b's, llama-7b's (D = 4096) and gemma-2b's (V = 256000) loss
    shapes among others (and a D of 4100 that ends the FMA kernels' last
-   slab of D mid-way); the tensor-core forwards, the
+   slab of D mid-way); the same three kernels with ``transposed=True``
+   (the tied head, w stored (V, D) and read in place) on the tied head's
+   own routes (``wgmma_t``, ``mma_t``; ``fma_t`` for f32, a non-contiguous
+   h and other layouts), counted, at llama-1b's and gemma-2b's tied loss
+   shapes, a V of 32003 with ``vocab_size`` 32000, two token chunks and a
+   single ragged row, dW (V, D) with zero padded rows, and the optimizer
+   kernels also at gemma-2b's tied head (1, 256000, 2048); the tensor-core forwards, the
    optimizer, cross-entropy and attention-backward kernels also run twice
    (bitwise equal), and the optimizer kernels show that they write in
    place where the TPU kernels alias; ``update_apply`` on its ``vec`` route
@@ -51,7 +57,9 @@ nvcc (one process per source, in parallel), then runs eleven phases and fails
    variants of the xent sources built beside them, timed against the
    real kernels (of the backward: the fold taken out, the copies taken
    out; of the forward: the softmax epilogue taken out, and the wgmma
-   too); the optimizer kernels and their library calls also by device
+   too); the transposed xent kernels at llama-1b's and gemma-2b's tied
+   shapes beside the untied kernel on a (D, V) copy and the library call
+   (``h @ w.T`` + ``F.cross_entropy`` and its autograd); the optimizer kernels and their library calls also by device
    time, in turns; ``update_apply`` also at the head (bf16 theta, f32 m')
    and, in turns, beside its ``strided`` route on the same bytes and a
    variant that only loads and stores them;
@@ -144,7 +152,23 @@ nvcc (one process per source, in parallel), then runs eleven phases and fails
    ``python -m repro_torch.launch.train`` training llama-130m at full
    width and depth in a subprocess, sent SIGTERM after its first loss
    line: exit 0, its ``sigterm: checkpointed step N`` line, and a
-   ``COMMITTED`` step N that restores.
+   ``COMMITTED`` step N that restores;
+12. tied-embedding training, llama-1b (the paper's main path with
+   ``--tie-embeddings``) and gemma-2b (18 layers, vocab 256000) at full
+   width and depth (bf16, batches of 16 x 256, ``scale_fused`` under
+   ``LabelRules.tied()``, clip 1.0): the launcher with
+   ``--tie-embeddings`` for two steps; one loss-and-grad against the same
+   call with the plain xent versions swapped into ``dispatch`` (the
+   embedding's gradient, the lookup's plus the head's, and every leaf);
+   ``make_train_step`` for eight steps, each step's launches checked by
+   route (one of each xent kernel on ``wgmma_t``/``mma_t`` and none on
+   an untied route, 7 ``norm_sumsq``, 8 ``update_apply`` on ``vec``, one
+   ``momentum_sumsq``: the tied embedding takes the momentum branch),
+   their loss curve held to the same steps through the plain xent
+   versions; one step under ``set_sync_debug_mode("error")``; step time,
+   tokens/s, device busy time by kernel family, idle share and peak
+   memory. The transposed kernels' rows of the kernels line are named
+   ``xent_fwd transposed`` etc., their launches those of this phase.
 
 The line before the last is a JSON ``{"kernels": [...]}`` summary, the
 last line ``{"ok": true, "device": {...}}``. It needs a CUDA card and
@@ -600,6 +624,9 @@ def optimizer_shapes():
         "lm_head (1,2048,32000)": (1, 2048, 32000),
         "llama-7b w_gate/w_up (32,4096,11008)": (32, 4096, 11008),
         "gemma-2b lm_head (1,2048,256000)": (1, 2048, 256000),
+        # the tied heads (phase 12) are the embeddings' shapes: llama-1b's
+        # is tok_embed's above, gemma-2b's this one (row kind)
+        "gemma-2b tied tok_embed (1,256000,2048)": (1, 256000, 2048),
     }
 
 
@@ -1943,10 +1970,10 @@ _FWD_FOLD = ("    if (n0 + hopper::kBN <= ncols)\n"
              "    else\n"
              "      fold<true>(r, acc, n0);\n", "    r.s[0] += acc[0];\n")
 _FWD_WGMMA = ("#pragma unroll\n"
-              "        for (int kk = 0; kk < kBK / 16; ++kk)\n"
-              "          wgmma_m64n256k16_bt(acc, "
+              "          for (int kk = 0; kk < kBK / 16; ++kk)\n"
+              "            wgmma_m64n256k16<1>(acc, "
               "sw128_desc(a + 32 * kk, 16, 1024),\n"
-              "                              "
+              "                                "
               "sw128_desc(b + 16 * 128 * kk, kBBoxBytes, 1024), "
               "kt > 0 || kk > 0);\n", "")
 XENT_VARIANTS = {
@@ -2048,7 +2075,8 @@ def _fwd_wgmma_call(torch, lib, h, w, labels, ncols):
         err = lib.xent_fwd_wgmma(
             h.data_ptr(), h.stride(0), w.data_ptr(), w.stride(0),
             labels.data_ptr(), part.data_ptr(), lse.data_ptr(), ll.data_ptr(),
-            N, D, ncols, splits, per, torch.cuda.current_stream().cuda_stream)
+            N, D, ncols, splits, per, 0,
+            torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"xent_fwd_wgmma: CUDA error {err}")
     return call
@@ -2108,7 +2136,7 @@ def xent_variant_timing(torch, gen, power, procs, rows):
                     int(dh), h.data_ptr(), h.stride(0), w.data_ptr(),
                     w.stride(0), labels.data_ptr(), lse.data_ptr(),
                     gl.data_ptr(), g.data_ptr(), acc.data_ptr(),
-                    out.data_ptr(), int(bf), N, D, V, V, rows_c, cols,
+                    out.data_ptr(), int(bf), N, D, V, V, rows_c, cols, 0,
                     torch.cuda.current_stream().cuda_stream)
                 if err:
                     raise RuntimeError(f"{name} ({variant}): CUDA error {err}")
@@ -3386,6 +3414,471 @@ def phase_resilience(torch, seed, power):
     return {"launches": launches, "guard": guard, "checkpoint": ck}
 
 
+# ------------------------------------------- the tied head (phases 2, 4, 12)
+
+TIED_MODELS = ("llama-1b", "gemma-2b")
+TIED_STEPS = 8  # make_train_step steps of each tied model in phase 12
+# the tied head's routes of the xent wrappers on the main path, and the
+# names its rows take in the kernels line
+TIED_ROUTES = {"xent_fwd": "wgmma_t", "xent_bwd_dh": "mma_t",
+               "xent_bwd_dw": "mma_t"}
+TIED_ROWS = {k: f"{k} transposed" for k in XENT_KERNELS}
+# Phase 12 holds a tied model's loss-and-grad against the same call with
+# the plain xent versions swapped into dispatch (attention on the same
+# kernels both sides): the head's own dH and dW on a shared hidden per
+# element at phase 2's tolerances (XENT_GRAD_*); every leaf of the whole
+# gradient, the embedding's (the head's dW plus the lookup's) among them,
+# at phase 8's TRAIN_GRAD_BF16 in bf16 at full depth (the heads' dH differ
+# by a bf16 rounding here and there, which the backward through the bf16
+# backbone carries into every leaf and into the lookup's part) and at
+# TRAIN_GRAD_F32 in f32 at 4 layers (the ``fma_t`` route).
+
+
+def tied_cases():
+    # name -> (N, D, V, vocab_size, share of -1 labels, dtype, h's layout)
+    return {
+        "tied llama-1b N=4096": (4096, 2048, 32000, 32000, 0.0, "bfloat16",
+                                 "rows"),
+        "tied gemma-2b N=4096 V=256000": (4096, 2048, 256000, 256000, 0.05,
+                                          "bfloat16", "rows"),
+        # V not a multiple of 8, and padded rows of dW
+        "tied V=32003 vocab_size=32000": (4096, 2048, 32003, 32000, 0.1,
+                                          "bfloat16", "rows"),
+        # the FMA kernels: f32, and an h whose D is not contiguous
+        "tied f32 N=1024": (1024, 2048, 32000, 31990, 0.1, "float32", "rows"),
+        "tied non-contiguous h N=1024": (1024, 2048, 32000, 32000, 0.1,
+                                         "bfloat16", "h strided"),
+        # two token chunks: the bf16 dW summed across them in (cols, D) f32
+        "tied N=140000 D=16 V=128": (140000, 16, 128, 128, 0.1, "bfloat16",
+                                     "rows"),
+        # one row, a ragged K-tile and a ragged vocab tile
+        "tied N=1 D=96 V=264 vocab_size=260": (1, 96, 264, 260, 0.0,
+                                               "bfloat16", "rows"),
+    }
+
+
+def tied_inputs(torch, gen, N, D, V, masked, dtype, layout="rows"):
+    """h (N, D), the tied head's w stored (V, D), labels, gl; with layout
+    "h strided" h is every other column of an (N, 2 D) buffer."""
+    h = torch.randn((N, D), generator=gen, device="cuda").to(dtype)
+    if layout == "h strided":
+        buf = torch.zeros((N, 2 * D), dtype=dtype, device="cuda")
+        buf[:, ::2] = h
+        h = buf[:, ::2]
+    w = (torch.randn((V, D), generator=gen, device="cuda")
+         / D ** 0.5).to(dtype)
+    labels = torch.randint(0, V, (N,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    drop = torch.rand((N,), generator=gen, device="cuda") < masked
+    labels = torch.where(drop, -1, labels)
+    gl = torch.rand((N,), generator=gen, device="cuda")
+    return h, w, labels, gl
+
+
+def phase_xent_tied_kernels(torch, gen):
+    """Phase 2: the three xent kernels with ``transposed=True`` (w the
+    tied head as stored, (V, D)) against their plain versions, each run
+    twice (bitwise equal), every call counted on the tied head's own route
+    (``wgmma_t``/``mma_t`` on aligned bf16, ``fma_t`` else); dW (V, D)
+    with zero padded rows. -> {(kernel, case): max abs error}."""
+    from repro_torch.kernels.xent import ref as XR
+    from repro_torch.kernels.xent import xent as X
+    errs = {}
+    for cname, (N, D, V, vs, masked, dt, layout) in tied_cases().items():
+        dtype = getattr(torch, dt)
+        h, w, labels, gl = tied_inputs(torch, gen, N, D, V, masked, dtype,
+                                       layout)
+        tc = X.mma_layout(h, w, transposed=True)
+        if tc != (dt == "bfloat16" and layout == "rows" and D % 16 == 0):
+            raise AssertionError(f"xent: unexpected route for {cname}")
+        fwd_route, bwd_route = ("wgmma_t", "mma_t") if tc else ("fma_t",
+                                                                "fma_t")
+
+        def fwd():
+            return torch.stack(X.xent_fwd(h, w, labels, vocab_size=vs,
+                                          transposed=True))
+        got = _on_route(X.xent_fwd, fwd_route, fwd)
+        want_lse, want_ll = XR.xent_fwd_ref(h, w, labels, vocab_size=vs,
+                                            transposed=True)
+        e_f = 0.0
+        for g, want in zip(got, (want_lse, want_ll)):
+            d = (g - want).abs()
+            if not (bool(torch.isfinite(g).all()) and bool(
+                    (d <= XENT_LSE_ATOL + XENT_LSE_RTOL * want.abs()).all())):
+                raise AssertionError(f"xent_fwd (transposed) disagrees with "
+                                     f"the plain version: {cname}")
+            e_f = max(e_f, d.max().item())
+        bad = (labels < 0) | (labels >= vs)
+        if not bool((got[1][bad] == 0).all()):
+            raise AssertionError(f"xent_fwd: ll of a masked label is not 0: "
+                                 f"{cname}")
+        _bitwise_again(torch, "xent_fwd", got,
+                       _on_route(X.xent_fwd, fwd_route, fwd), cname)
+        errs[("xent_fwd", cname)] = e_f
+        msg = [f"fwd {fwd_route} {e_f:.2e}"]
+        for name, fn, ref in (("xent_bwd_dh", X.xent_bwd_dh,
+                               XR.xent_bwd_dh_ref),
+                              ("xent_bwd_dw", X.xent_bwd_dw,
+                               XR.xent_bwd_dw_ref)):
+            e, r = 0.0, {}
+            for out_dtype in (dtype, torch.float32)[:1 + (
+                    dtype != torch.float32)]:
+                otag = str(out_dtype).replace("torch.", "")
+                kw = {"vocab_size": vs, "out_dtype": out_dtype,
+                      "transposed": True}
+
+                def call(fn=fn, kw=kw):
+                    return fn(h, w, labels, want_lse, gl, **kw)
+                g = _on_route(fn, bwd_route, call)
+                want = ref(h, w, labels, want_lse, gl, **kw)
+                shape = h.shape if name == "xent_bwd_dh" else w.shape
+                if g.dtype != out_dtype or g.shape != shape:
+                    raise AssertionError(f"{name}: {g.dtype} "
+                                         f"{tuple(g.shape)}: {cname}")
+                e1, r[otag] = _grad_check(torch, f"{name} (transposed)", g,
+                                          want, out_dtype, cname)
+                e = max(e, e1)
+                _bitwise_again(torch, name, g, _on_route(fn, bwd_route, call),
+                               cname)
+                if name == "xent_bwd_dw" and not bool((g[vs:] == 0).all()):
+                    raise AssertionError(f"xent_bwd_dw: padded rows not 0: "
+                                         f"{cname}")
+                del g, want
+            errs[(name, cname)] = e
+            ratios = ", ".join(f"{k} out {v:.3f}" for k, v in r.items())
+            msg.append(f"{name[5:]} {bwd_route} {e:.2e} (err/tol {ratios})")
+        torch.cuda.synchronize()
+        print(f"  xent {cname} {dt}: max err {'; '.join(msg)} (the untied "
+              f"cases' tolerances); bitwise repeatable; dW (V, D)")
+        del h, w, labels, gl, got, want_lse, want_ll
+    return errs
+
+
+def xent_tied_timing(torch, gen, power, errs):
+    """Phase 4, the transposed kernels (bf16) at llama-1b's and gemma-2b's
+    tied loss shapes: CUDA events and device time (every kernel of the
+    call), the bound (the same work as the untied kernels'), the plain
+    version, the untied kernel at the same shape on a (D, V) copy of w, and
+    the library call: torch.matmul(h, w.T) + F.cross_entropy for the
+    forward, that pair's autograd backward (dh and dw together, from saved
+    logits) for the backward. -> one row per kernel, llama-1b's numbers on
+    top and both shapes under "shapes"."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.xent import ref as XR
+    from repro_torch.kernels.xent import xent as X
+    shapes = {"llama-1b tied": ((4096, 2048, 32000), "tied llama-1b N=4096"),
+              "gemma-2b tied": ((4096, 2048, 256000),
+                                "tied gemma-2b N=4096 V=256000")}
+    notes = {"fwd": "torch.matmul(h, w.T) + F.cross_entropy",
+             "bwd": ("autograd of matmul(h, w.T) + cross_entropy (dh and dw "
+                     "together, from saved logits)")}
+    bf = torch.bfloat16
+    rows = {name: [] for name in XENT_KERNELS}
+    for model, ((N, D, V), err_case) in shapes.items():
+        h, w, labels, _ = tied_inputs(torch, gen, N, D, V, 0.0, bf)
+        w_dv = w.T.contiguous()
+        lse, _ = X.xent_fwd(h, w, labels, vocab_size=V, transposed=True)
+        gl = torch.full((N,), 1.0 / N, device="cuda")
+        hl, wl = h.detach().requires_grad_(), w.detach().requires_grad_()
+        lib_loss = F.cross_entropy((hl @ wl.T).float(), labels.long(),
+                                   reduction="mean")
+
+        def lib_fwd():
+            return F.cross_entropy((h @ w.T).float(), labels.long(),
+                                   reduction="none")
+
+        def lib_bwd():
+            return torch.autograd.grad(lib_loss, [hl, wl], retain_graph=True)
+        libs = {k: (time_ms(torch, f, 10), device_ms(torch, f, 3))
+                for k, f in (("fwd", lib_fwd), ("bwd", lib_bwd))}
+        del lib_loss
+        for name in XENT_KERNELS:
+            fn = getattr(X, name)
+            ref = getattr(XR, f"{name}_ref")
+            a = (h, w, labels) if name == "xent_fwd" else (h, w, labels, lse,
+                                                           gl)
+            kw = {} if name == "xent_fwd" else {"out_dtype": bf}
+
+            def kern(a=a, kw=kw, fn=fn):
+                return fn(*a, vocab_size=V, transposed=True, **kw)
+
+            def untied(a=a, kw=kw, fn=fn):
+                return fn(h, w_dv, *a[2:], vocab_size=V, **kw)
+            ms = time_ms(torch, kern, 5)
+            dev_ms = device_ms(torch, kern, 5)
+            untied_ms = time_ms(torch, untied, 5)
+            untied_dev = device_ms(torch, untied, 5)
+            plain_ms = time_ms(torch, lambda: ref(*a, vocab_size=V,
+                                                  transposed=True, **kw), 3)
+            bound, by = xent_bound_ms(N, D, V, 2, name)
+            lib = "fwd" if name == "xent_fwd" else "bwd"
+            lib_ms, lib_dev = libs[lib]
+            print(f"  [{power}] {name} transposed {model} N={N} D={D} V={V} "
+                  f"bf16, {TIED_ROUTES[name]}: {ms:.4f} ms (device time "
+                  f"{fmt_ms(dev_ms)}; bound {bound:.4f} ms by {by}, "
+                  f"{bound / ms:.4f} of it; the untied kernel on a (D, V) "
+                  f"copy {untied_ms:.4f} ms, device time {fmt_ms(untied_dev)};"
+                  f" plain {plain_ms:.4f} ms; {notes[lib]} {lib_ms:.4f} ms, "
+                  f"device time {fmt_ms(lib_dev)})")
+            rows[name].append({
+                "name": TIED_ROWS[name],
+                "shape": f"{model}: N={N} D={D} V={V} bf16, w (V, D)",
+                "route": "cuda", "kernel_route": TIED_ROUTES[name],
+                "source": SRC_XENT,
+                "sources": [SRC_XENT] + ([SRC_HOPPER]
+                                         if name == "xent_fwd" else []),
+                "replaces": TPU_KERNELS[name], "launches": None,
+                "max_abs_err": errs[(name, err_case)],
+                "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
+                "library_device_ms": lib_dev, "library_note": notes[lib],
+                "untied_ms": untied_ms, "untied_device_ms": untied_dev})
+        del h, w, w_dv, labels, lse, gl, hl, wl
+        torch.cuda.empty_cache()
+    out = []
+    for name in XENT_KERNELS:
+        row = {k: v for k, v in rows[name][0].items() if k != "shape"}
+        row["shapes"] = rows[name]
+        out.append(row)
+    return out
+
+
+def train_tied_model(torch, seed, power, arch):
+    """One model of phase 12, tied (``--tie-embeddings``), at full width
+    and depth: the launcher for two steps; one loss-and-grad against the
+    same call with the plain xent versions swapped into dispatch; then
+    ``make_train_step`` (scale_fused under ``LabelRules.tied()``) for
+    TIED_STEPS steps, the main path (counts from 0 just before, read just
+    after, every step's launches by route checked); one step under
+    ``set_sync_debug_mode("error")``; step time, tokens/s, device busy time
+    by kernel family, idle share, peak memory; then the same steps with
+    the plain xent versions from the same seeded weights (after the kernel
+    route's state is freed), the loss curves held together."""
+    import dataclasses
+    import math
+    from unittest import mock
+    from repro_torch.configs import get_arch
+    from repro_torch.core import (LabelRules, linear_warmup_cosine,
+                                  make_optimizer)
+    from repro_torch.data import make_dataset
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.xent import ref as XR
+    from repro_torch.launch import train as launcher
+    from repro_torch.models import forward, init_params, lm_loss
+    from repro_torch.models.model import count_params, param_shapes
+    from repro_torch.training import (init_state, make_train_step,
+                                      value_and_grad)
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks
+    cfg = dataclasses.replace(get_arch(arch), tie_embeddings=True)
+    B, S = 16, 256
+    L = cfg.n_layers
+    n_params = count_params(param_shapes(cfg))
+    print(f"  {arch} tied: {L} layers, d_model {cfg.d_model}, vocab "
+          f"{cfg.vocab_size}, the LM head the (V, D) token embedding, "
+          f"{n_params / 1e9:.3f} G params, {cfg.dtype}, remat "
+          f"{cfg.remat!r}; batch {B} x {S} from SyntheticLM (seed {seed}); "
+          f"scale_fused with LabelRules.tied(), clip 1.0, "
+          f"linear_warmup_cosine(1e-3, steps)")
+    argv = ["--arch", arch, "--tie-embeddings", "--optimizer", "scale_fused",
+            "--batch", str(B), "--seq", str(S), "--steps", "2",
+            "--log-every", "1", "--seed", str(seed)]
+    print(f"  python -m repro_torch.launch.train {' '.join(argv)}:")
+    t0 = time.perf_counter()
+    final = launcher.main(argv)
+    print(f"  launcher: 2 steps in {time.perf_counter() - t0:.1f} s (init "
+          f"and first-call costs included), final loss {final:.4f}")
+    if not math.isfinite(final):
+        raise AssertionError(f"{arch} tied: the launcher's loss is not "
+                             "finite")
+    torch.cuda.empty_cache()
+    ds = make_dataset(cfg, S, B, seed=seed, device="cuda")
+    batches = [ds.global_batch_at(i) for i in range(TIED_STEPS)]
+    plain_xent = mock.patch.multiple(dispatch, xent_fwd=XR.xent_fwd_ref,
+                                     xent_bwd_dh=XR.xent_bwd_dh_ref,
+                                     xent_bwd_dw=XR.xent_bwd_dw_ref)
+
+    def start():
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        tx = make_optimizer("scale_fused",
+                            linear_warmup_cosine(1e-3, TIED_STEPS),
+                            rules=LabelRules.tied())
+        return (init_state(init_params(cfg, gen, device="cuda"), tx),
+                make_train_step(cfg, tx, clip_norm=1.0))
+
+    state, step = start()
+    if "lm_head" in state.params:
+        raise AssertionError(f"{arch} tied: the tree has an lm_head")
+    batch = batches[0]
+    # the head alone, on one hidden: its dH and the embedding's dW
+    with torch.no_grad():
+        hidden = forward(state.params, cfg, batch["tokens"])[0]
+
+    def head_grads():
+        w = state.params["tok_embed"]["w"].detach().requires_grad_()
+        h = hidden.detach().requires_grad_()
+        loss, _ = lm_loss({**state.params, "tok_embed": {"w": w}}, cfg, h,
+                          batch["labels"])
+        return torch.autograd.grad(loss, [h, w])
+    got = head_grads()
+    with plain_xent:
+        want = head_grads()
+    e_head = [_grad_check(torch, f"{arch} tied {n}", a, b, torch.bfloat16,
+                          "phase 12")[1]
+              for n, a, b in zip(("dH", "dW"), got, want)]
+    del hidden, got, want
+    # the whole gradient, bf16 at full depth and f32 at 4 layers
+    loss_k, _, g = value_and_grad(state.params, cfg, batch)
+    with plain_xent:
+        loss_p, _, r = value_and_grad(state.params, cfg, batch)
+    d_loss = abs(loss_k.item() - loss_p.item())
+    rel = {k: ((x.float() - r[k].float()).norm()
+               / r[k].float().norm().clamp_min(1e-30)).item()
+           for k, x in g.items()}
+    worst_k = max(rel, key=rel.get)
+    del g, r
+    cfg4 = dataclasses.replace(cfg, n_layers=4, dtype="float32")
+    p4 = init_params(cfg4, torch.Generator(device="cuda").manual_seed(seed),
+                     device="cuda")
+    zero_route_counts()
+    _, _, g4 = value_and_grad(p4, cfg4, batch)
+    f32_routes = {k: {r: n for r, n in c.items() if n}
+                  for k, c in route_counts().items() if k in XENT_KERNELS}
+    with plain_xent:
+        _, _, r4 = value_and_grad(p4, cfg4, batch)
+    rel4 = {k: ((x - r4[k]).abs().max()
+                / r4[k].abs().max().clamp_min(1e-30)).item()
+            for k, x in g4.items()}
+    worst4 = max(rel4, key=rel4.get)
+    del p4, g4, r4
+    print(f"  {arch} tied loss-and-grad against the plain xent versions: "
+          f"the head on one hidden, dH and dW err/tol {e_head[0]:.3f} and "
+          f"{e_head[1]:.3f} (phase 2's tolerances); loss {loss_k.item():.6f}"
+          f" vs {loss_p.item():.6f} (|diff| {d_loss:.2e}, tol "
+          f"{LOSS_ATOL:g}); bf16 at full depth, relative in norm: "
+          f"tok_embed (the lookup's plus the head's) {rel['tok_embed/w']:.3e},"
+          f" worst of {len(rel)} leaves {rel[worst_k]:.3e} ({worst_k}; tol "
+          f"{TRAIN_GRAD_BF16:g}); f32 at 4 layers (xent routes "
+          f"{f32_routes}), max |diff| / max |ref|: tok_embed "
+          f"{rel4['tok_embed/w']:.3e}, worst {rel4[worst4]:.3e} ({worst4}; "
+          f"tol {TRAIN_GRAD_F32:g})")
+    if not (d_loss <= LOSS_ATOL and rel[worst_k] <= TRAIN_GRAD_BF16
+            and rel4[worst4] <= TRAIN_GRAD_F32
+            and all(c == {"fma_t": 1} for c in f32_routes.values())):
+        raise AssertionError(f"{arch} tied: the gradient disagrees with the "
+                             "plain xent versions")
+    torch.cuda.empty_cache()
+
+    # the main path: counts set to 0 just before it, read just after
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_train_counts()
+    zero_route_counts()
+    per_step, per_step_routes, losses = [], [], []
+    for b in batches:
+        before, before_r = train_counts(), route_counts()
+        state, metrics = step(state, b)
+        per_step.append({k: v - before[k] for k, v in train_counts().items()})
+        per_step_routes.append({k: {r: n - before_r[k][r]
+                                    for r, n in c.items()}
+                                for k, c in route_counts().items()})
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches, routes = train_counts(), route_counts()
+    # the tied embedding takes the momentum branch: 7 hidden matrices
+    # normalized, 8 updates, one momentum
+    want = {"mha_fwd": 2 * L, "mha_bwd_dq": L, "mha_bwd_dkv": L,
+            "xent_fwd": 1, "xent_bwd_dh": 1, "xent_bwd_dw": 1,
+            "norm_sumsq": 7, "update_apply": 8, "momentum_sumsq": 1,
+            "norm_apply": 0}
+    for i, c in enumerate(per_step):
+        if c != want:
+            raise AssertionError(f"{arch} tied train step {i} launched {c}, "
+                                 f"not {want}")
+    attn = "mma" if cfg.head_dim in (64, 128) else "fma"
+    want_r = {"mha_fwd": {attn: 2 * L}, **{k: {attn: L} for k in BWD_KERNELS},
+              **{k: {r: 1} for k, r in TIED_ROUTES.items()},
+              "update_apply": {"vec": 8}}
+    for i, c in enumerate(per_step_routes):
+        check_routes(c, want_r, f"{arch} tied train step {i}", show=False)
+    print(f"  {arch} tied make_train_step: every one of {TIED_STEPS} steps "
+          f"launched {want}, by route {want_r} (no launch on an untied xent "
+          f"route)")
+    losses = [float(x) for x in losses]
+
+    # one step with any host synchronisation an error
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, _ = step(state, batches[0])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print(f"  {arch} tied train step under set_sync_debug_mode('error'): no "
+          f"host synchronisation")
+
+    def one():
+        nonlocal state
+        state, _ = step(state, batches[0])
+
+    t_step = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one()
+        torch.cuda.synchronize()
+        t_step.append(time.perf_counter() - t0)
+    step_s = min(t_step)
+    print(f"  [{power}] {arch} tied train step {step_s * 1e3:.3f} ms (best of "
+          f"3; {B * S / step_s:.0f} tokens/s); torch.cuda.max_memory_allocated "
+          f"over its {TIED_STEPS} main-path steps {peak / 2**20:.1f} MiB")
+    busy, kernels = profile_step(torch, power, one, step_s * 1e3, n=1,
+                                 label=f"{arch} tied train step", top=8)
+    fams = by_family(kernels)
+    for fam, (ms, n) in sorted(fams.items(), key=lambda x: -x[1][0]):
+        print(f"    {ms:9.3f} ms {100 * ms / busy:5.1f}% x{n:<5d} {fam}")
+    del state, step
+    torch.cuda.empty_cache()
+
+    # the same steps with the plain xent versions, from the same weights
+    state, step = start()
+    with plain_xent:
+        ref_losses = []
+        for b in batches:
+            state, m = step(state, b)
+            ref_losses.append(float(m["loss"]))
+    del state, step
+    torch.cuda.empty_cache()
+    gap = max(abs(a - b) for a, b in zip(losses, ref_losses))
+    print(f"  {arch} tied loss over {TIED_STEPS} steps: "
+          f"{' '.join(f'{x:.4f}' for x in losses)}")
+    print(f"  {arch} tied, plain xent versions:     "
+          f"{' '.join(f'{x:.4f}' for x in ref_losses)} (max |diff| "
+          f"{gap:.2e}, tol {LOSS_CURVE_ATOL:g})")
+    if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]
+            and gap <= LOSS_CURVE_ATOL):
+        raise AssertionError(f"{arch} tied: the training loss does not fall, "
+                             "or leaves the plain xent route's curve")
+    return {"launches": launches, "routes_run": routes,
+            "per_step": per_step[0], "routes": per_step_routes[0],
+            "step_ms": step_s * 1e3, "tokens_per_s": B * S / step_s,
+            "busy_ms": busy,
+            "idle_share": None if busy is None else 1 - busy / (step_s * 1e3),
+            "peak_mib": peak / 2**20, "losses": losses,
+            "ref_losses": ref_losses, "loss_gap": gap,
+            "head_err_over_tol": e_head, "grad_rel": rel[worst_k],
+            "tok_embed_grad_rel": rel["tok_embed/w"],
+            "f32_grad_rel": rel4[worst4],
+            "device_ms_by_family": {f: ms for f, (ms, _) in fams.items()}}
+
+
+def phase_tied(torch, seed, power):
+    """Phase 12: llama-1b and gemma-2b train tied at full width and
+    depth."""
+    return {arch: train_tied_model(torch, seed, power, arch)
+            for arch in TIED_MODELS}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3426,6 +3919,7 @@ def main() -> int:
     opt_errs = phase_optimizer_kernels(torch, gen)
     opt_errs.update(phase_update_routes(torch, gen))
     xent_errs = phase_xent_kernels(torch, gen)
+    tied_errs = phase_xent_tied_kernels(torch, gen)
     print("phase 3: greedy serving, llama-130m, full width and depth")
     serve = phase_serving(torch, args.seed, power)
     print("phase 4: kernel times (CUDA events; attention and xent also "
@@ -3435,6 +3929,7 @@ def main() -> int:
     opt_rows = optimizer_timing(torch, gen, power, opt_errs, variants)
     xent_rows = xent_timing(torch, gen, power, xent_errs)
     xent_variant_timing(torch, gen, power, variants, xent_rows)
+    tied_rows = xent_tied_timing(torch, gen, power, tied_errs)
     print("phase 5: where the serving time goes (torch.profiler)")
     phase_profile(torch, args.seed, power, serve)
     print("phase 6: SCALE optimizer steps, llama-1b, full width and depth")
@@ -3452,6 +3947,9 @@ def main() -> int:
     print("phase 11: fault-tolerant training, llama-1b at full width and "
           "depth: the guard, the checkpoint, resume and SIGTERM")
     res = phase_resilience(torch, args.seed, power)
+    print("phase 12: tied-embedding training, llama-1b and gemma-2b, full "
+          "width and depth")
+    tied = phase_tied(torch, args.seed, power)
     # one row per kernel; launches summed over the main paths that run it,
     # each counted from 0 just before its path and read just after
     by_path = {"serving": {"mha_fwd": serve["launches"]},
@@ -3459,7 +3957,15 @@ def main() -> int:
                "train": train["launches"],
                **{f"train {a}": r["launches"] for a, r in paper.items()},
                "train zoo": zoo["launches"],
-               "train guarded": res["launches"]}
+               "train guarded": res["launches"],
+               # the tied runs' xent launches under the transposed rows'
+               # names (every one on a tied route: checked per step)
+               **{f"train tied {a}": {
+                   **{k: n for k, n in r["launches"].items()
+                      if k not in XENT_KERNELS},
+                   **{TIED_ROWS[k]: r["routes_run"][k][route]
+                      for k, route in TIED_ROUTES.items()}}
+                  for a, r in tied.items()}}
     # mha_fwd's prefill numbers, with both serving shapes and the eval and
     # training steps' shape beside them
     mha = {k: v for k, v in mha_rows[0].items() if k != "shape"}
@@ -3476,7 +3982,11 @@ def main() -> int:
     for row in xent_rows:
         for entry, path in zip(row["shapes"], (train, *paper.values())):
             entry["launches"] = path["launches"][row["name"]]
-    rows = [mha] + bwd_rows + opt_rows + xent_rows
+    for row in tied_rows:
+        for entry, arch in zip(row["shapes"], TIED_MODELS):
+            entry["launches"] = tied[arch]["routes_run"][row["name"].split()[
+                0]][row["kernel_route"]]
+    rows = [mha] + bwd_rows + opt_rows + xent_rows + tied_rows
     for row in rows:
         row["launches_by_path"] = {p: c[row["name"]]
                                    for p, c in by_path.items()
@@ -3490,6 +4000,12 @@ def main() -> int:
             a: {"launches": r["per_step"].get(row["name"]),
                 "by_route": r["routes"].get(row["name"])}
             for a, r in (("llama-1b", train), *paper.items())}
+        if row["name"] in TIED_ROWS.values():
+            base = row["name"].split()[0]
+            row["launches_per_train_step_by_model"] = {
+                f"{a} tied": {"launches": r["per_step"][base],
+                              "by_route": r["routes"][base]}
+                for a, r in tied.items()}
     for path, c in by_path.items():
         for name, n in c.items():
             # norm_apply serves only the update entry point (phase 6)

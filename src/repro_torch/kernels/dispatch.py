@@ -115,8 +115,7 @@ def flash_attention(q, k, v, *, scale: float, causal: bool = True,
 def xent_supported(h_shape, w_shape, transposed: bool = False) -> bool:
     """True when (h, w) shapes are covered by the xent kernels.
 
-    ``transposed``: w is a tied embedding stored (V, D) (its kernels are
-    not ported yet: ``xent_loss`` raises).
+    ``transposed``: w is a tied embedding stored (V, D).
     """
     if len(h_shape) not in (2, 3) or len(w_shape) != 2:
         return False
@@ -128,22 +127,24 @@ def xent_supported(h_shape, w_shape, transposed: bool = False) -> bool:
 class XentLoss(torch.autograd.Function):
     """Per-token cross-entropy of the LM head, kernels both ways.
 
-    forward(h (..., D), w (D, V), labels int32 h.shape[:-1], vocab_size):
-    ``xent_fwd`` gives (lse, ll), and the losses are lse - ll where the
-    label is >= 0, else 0. It saves (h, w, labels, lse). backward: with
-    gl = g * (labels >= 0) in f32, dH from ``xent_bwd_dh`` in h's dtype and
-    dW from ``xent_bwd_dw`` in w's dtype, each only when asked for; the
-    labels get no gradient. h is flattened to (N, D) as the JAX package's
-    ``_fwd_parts`` does.
+    forward(h (..., D), w (D, V), labels int32 h.shape[:-1], vocab_size,
+    transposed): ``xent_fwd`` gives (lse, ll), and the losses are lse - ll
+    where the label is >= 0, else 0. It saves (h, w, labels, lse).
+    backward: with gl = g * (labels >= 0) in f32, dH from ``xent_bwd_dh``
+    in h's dtype and dW from ``xent_bwd_dw`` in w's dtype and layout, each
+    only when asked for; the labels get no gradient. ``transposed``: w is
+    the tied head as stored, (V, D), read in place by the kernels both
+    ways, and dW comes back (V, D). h is flattened to (N, D) as the JAX
+    package's ``_fwd_parts`` does.
     """
 
     @staticmethod
-    def forward(ctx, h, w, labels, vocab_size: int):
+    def forward(ctx, h, w, labels, vocab_size: int, transposed: bool):
         lab = labels.reshape(-1)
         lse, ll = xent_fwd(h.reshape(-1, h.shape[-1]), w, lab,
-                           vocab_size=vocab_size)
+                           vocab_size=vocab_size, transposed=transposed)
         ctx.save_for_backward(h, w, labels, lse)
-        ctx.vocab_size = vocab_size
+        ctx.vocab_size, ctx.transposed = vocab_size, transposed
         return torch.where(lab >= 0, lse - ll, 0.0).reshape(labels.shape)
 
     @staticmethod
@@ -152,41 +153,37 @@ class XentLoss(torch.autograd.Function):
         lab = labels.reshape(-1)
         gl = g.reshape(-1).float() * (lab >= 0)
         args = (h.reshape(-1, h.shape[-1]), w, lab, lse, gl)
+        kw = {"vocab_size": ctx.vocab_size, "transposed": ctx.transposed}
         dh = dw = None
         if ctx.needs_input_grad[0]:
-            dh = xent_bwd_dh(*args, vocab_size=ctx.vocab_size,
-                             out_dtype=h.dtype).reshape(h.shape)
+            dh = xent_bwd_dh(*args, out_dtype=h.dtype, **kw).reshape(h.shape)
         if ctx.needs_input_grad[1]:
-            dw = xent_bwd_dw(*args, vocab_size=ctx.vocab_size,
-                             out_dtype=w.dtype)
-        return dh, dw, None, None
+            dw = xent_bwd_dw(*args, out_dtype=w.dtype, **kw)
+        return dh, dw, None, None, None
 
 
 def xent_loss(h, w, labels, *, vocab_size: int, weights=None,
               transposed: bool = False):
     """Per-token LM-head cross-entropy (see :class:`XentLoss`).
 
-    h (..., D), w (D, V), labels h.shape[:-1] (-1 = masked). Returns f32
-    losses of labels.shape; masked tokens are 0 in the value and in the
-    (h, w) gradients. ``weights`` (labels.shape, f32) scales each token's
-    loss and gradient outside the Function, as in JAX: zero-weight tokens
-    are demoted to label -1 before the kernels. Columns at or past
-    ``vocab_size`` never enter the log-sum-exp. ``transposed=True`` (the
-    tied head) raises until its kernels are ported, and so do shapes
-    ``xent_supported`` does not cover.
+    h (..., D), w (D, V), or with ``transposed`` the tied head's (V, D)
+    storage, labels h.shape[:-1] (-1 = masked). Returns f32 losses of
+    labels.shape; masked tokens are 0 in the value and in the (h, w)
+    gradients, and w's gradient comes back in w's own layout. ``weights``
+    (labels.shape, f32) scales each token's loss and gradient outside the
+    Function, as in JAX: zero-weight tokens are demoted to label -1 before
+    the kernels. Columns at or past ``vocab_size`` never enter the
+    log-sum-exp. Shapes ``xent_supported`` does not cover raise.
     """
     _fault_gate("xent_loss")
-    if transposed:
-        raise NotImplementedError(
-            "xent_loss: transposed=True (the tied (V, D) head) is not ported "
-            "yet; ROADMAP.md Queue 1 item 7")
-    if not xent_supported(h.shape, w.shape):
+    if not xent_supported(h.shape, w.shape, transposed):
         raise ValueError(f"xent_loss: h {tuple(h.shape)} and w "
                          f"{tuple(w.shape)}; need h (B, S, D) or (N, D) and "
-                         "w (D, V)")
+                         f"w {'(V, D)' if transposed else '(D, V)'}")
     if weights is not None:
         labels = torch.where(weights > 0, labels, -1)
-    losses = XentLoss.apply(h, w, labels.to(torch.int32), vocab_size)
+    losses = XentLoss.apply(h, w, labels.to(torch.int32), vocab_size,
+                            transposed)
     if weights is not None:
         losses = losses * weights.to(losses.dtype)
     return losses

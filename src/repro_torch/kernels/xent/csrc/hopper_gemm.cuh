@@ -2,16 +2,20 @@
 //
 // C (rows x cols) = A (rows x K) @ B (K x cols) with bf16 operands and f32
 // sums, for a row-major A ("K-major": k contiguous, h of the LM head) and
-// a row-major B ("N-major": columns contiguous, the head's w stored
-// (D, V)), both read as stored: no copy, no transpose. A block owns one
+// a B that is either row-major ("N-major": columns contiguous, the untied
+// head's w stored (D, V)) or stored transposed ("K-major" like A: k
+// contiguous, the tied head's w stored (V, D), the token embedding), both
+// read as stored: no copy, no transpose. A block owns one
 // tile of kBM = 128 rows and walks a contiguous range of column tiles of
 // kBN = 256; each finished 128 x 256 tile of C is handed, in registers,
 // to an epilogue (the caller's), and nothing of C is stored here.
 //
 // The block is three warpgroups. Warpgroup 0 is the producer: one thread
 // issues the TMA loads (cp.async.bulk.tensor) of each K-tile of 64 (A:
-// one 128 x 64 box; B: four 64 x 64 boxes, one per 64 columns) into a
-// ring of kStages stages, and the copy engine signals the stage's "full"
+// one 128 x 64 box; an N-major B: four 64 x 64 boxes, one per 64 columns;
+// a K-major B: one box of 256 columns by 64 k, 128 bytes a column, laid
+// out as A's) into a ring of kStages stages, and the copy engine signals
+// the stage's "full"
 // mbarrier with the bytes it wrote. Warpgroups 1 and 2 are consumers, each
 // owning 64 of the 128 rows: per K-tile four wgmma.mma_async m64n256k16
 // (A and B read from shared memory through descriptors, no ldmatrix), the
@@ -37,7 +41,7 @@ namespace hopper {
 constexpr int kBM = 128, kBN = 256, kBK = 64, kStages = 4;
 constexpr int kConsumers = 2, kThreads = 128 * (1 + kConsumers);
 constexpr int kAcc = kBN / 2;  // f32 sums a consumer thread holds: 64 x 256 / 128
-constexpr int kBoxN = 64;      // B's box: 64 columns (128 bytes, the swizzle span) x kBK
+constexpr int kBoxN = 64;      // an N-major B's box: 64 columns (128 bytes, the swizzle span) x kBK
 constexpr int kABytes = kBM * kBK * 2, kBBoxBytes = kBK * kBoxN * 2;
 constexpr int kStageBytes = kABytes + (kBN / kBoxN) * kBBoxBytes;  // 48 KB
 // the ring, its 1024-byte alignment (the swizzle's period) and the barriers
@@ -86,9 +90,10 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
 }
 
 // A wgmma shared-memory descriptor of a 128-byte-swizzled operand at
-// shared address `addr`: `lbo` and `sbo` in bytes. K-major (A): sbo is
-// the stride of 8-row groups (1024), lbo unused. N-major (B): lbo is the
-// stride between 64-column swizzle atoms, sbo that of 8-row groups of k.
+// shared address `addr`: `lbo` and `sbo` in bytes. K-major (A, and the
+// tied head's B): sbo is the stride of 8-row groups (1024), lbo unused.
+// N-major (the untied head's B): lbo is the stride between 64-column
+// swizzle atoms, sbo that of 8-row groups of k.
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)((lbo & 0x3FFFF) >> 4) << 16 |
          (uint64_t)((sbo & 0x3FFFF) >> 4) << 32 | 1ull << 62;
@@ -111,11 +116,13 @@ __device__ __forceinline__ void fence_acc(float (&d)[kAcc]) {
   for (int i = 0; i < kAcc; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d (64 x 256, f32) = A (64 x 16, K-major) @ B (16 x 256, N-major: the
-// transposed-B flag) + (accumulate ? d : 0). d[4 j + 2 i + e] is row
-// 16 (warp % 4) + lane / 4 + 8 i, column 8 j + 2 (lane % 4) + e.
-__device__ __forceinline__ void wgmma_m64n256k16_bt(float (&d)[kAcc], uint64_t da, uint64_t db,
-                                                    int accumulate) {
+// d (64 x 256, f32) = A (64 x 16, K-major) @ B (16 x 256) + (accumulate
+// ? d : 0), B N-major (the transposed-B flag, kTnspB = 1) or K-major
+// (kTnspB = 0). d[4 j + 2 i + e] is row 16 (warp % 4) + lane / 4 + 8 i,
+// column 8 j + 2 (lane % 4) + e.
+template <int kTnspB>
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[kAcc], uint64_t da, uint64_t db,
+                                                 int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
@@ -127,7 +134,7 @@ __device__ __forceinline__ void wgmma_m64n256k16_bt(float (&d)[kAcc], uint64_t d
       "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
       "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
       "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
-      "%128, %129, p, 1, 1, 0, 1;\n}\n"
+      "%128, %129, p, 1, 1, 0, %131;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -144,19 +151,20 @@ __device__ __forceinline__ void wgmma_m64n256k16_bt(float (&d)[kAcc], uint64_t d
         "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(accumulate));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(kTnspB));
 }
 
 // The mainloop. Grid: (row tiles, column splits); block (x, y) owns rows
 // [128 x, 128 x + 128) and column tiles [y * tiles_per_block, ...) of
-// the col_tiles. The epilogue Epi supplies
+// the col_tiles. B_KM: B is K-major (stored cols x K), else N-major
+// (stored K x cols). The epilogue Epi supplies
 //   struct Rows;                         a consumer thread's state
 //   Rows begin(int row) const;           row: the thread's first row
 //   void tile(Rows&, const float (&acc)[kAcc], int col0) const;
 //   void end(const Rows&) const;
 // with acc laid out as wgmma_m64n256k16_bt's d, its rows offset by `row`
 // and its columns by col0 (the tile's first column).
-template <class Epi>
+template <class Epi, bool B_KM>
 __global__ void __launch_bounds__(kThreads, 1)
 gemm_rows_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_b,
                  int k_tiles, int col_tiles, int tiles_per_block, Epi epi) {
@@ -189,9 +197,14 @@ gemm_rows_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant
           unsigned char* st = ring + stage * kStageBytes;
           mbar_expect_tx(&full[stage], kStageBytes);
           tma_load(st, &tm_a, &full[stage], kt * kBK, m0);
+          if constexpr (B_KM) {
+            tma_load(st + kABytes, &tm_b, &full[stage], kt * kBK, n0);
+          } else {
 #pragma unroll
-          for (int q = 0; q < kBN / kBoxN; ++q)
-            tma_load(st + kABytes + q * kBBoxBytes, &tm_b, &full[stage], n0 + q * kBoxN, kt * kBK);
+            for (int q = 0; q < kBN / kBoxN; ++q)
+              tma_load(st + kABytes + q * kBBoxBytes, &tm_b, &full[stage], n0 + q * kBoxN,
+                       kt * kBK);
+          }
           if (++stage == kStages) {
             stage = 0;
             phase ^= 1;
@@ -213,10 +226,17 @@ gemm_rows_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant
         const uint32_t a = smem_u32(ring + stage * kStageBytes) + c * (64 * kBK * 2);
         const uint32_t b = smem_u32(ring + stage * kStageBytes + kABytes);
         wgmma_fence();
+        if constexpr (B_KM) {
 #pragma unroll
-        for (int kk = 0; kk < kBK / 16; ++kk)
-          wgmma_m64n256k16_bt(acc, sw128_desc(a + 32 * kk, 16, 1024),
-                              sw128_desc(b + 16 * 128 * kk, kBBoxBytes, 1024), kt > 0 || kk > 0);
+          for (int kk = 0; kk < kBK / 16; ++kk)
+            wgmma_m64n256k16<0>(acc, sw128_desc(a + 32 * kk, 16, 1024),
+                                sw128_desc(b + 32 * kk, 16, 1024), kt > 0 || kk > 0);
+        } else {
+#pragma unroll
+          for (int kk = 0; kk < kBK / 16; ++kk)
+            wgmma_m64n256k16<1>(acc, sw128_desc(a + 32 * kk, 16, 1024),
+                                sw128_desc(b + 16 * 128 * kk, kBBoxBytes, 1024), kt > 0 || kk > 0);
+        }
         wgmma_commit();
         wgmma_wait<1>();  // the previous K-tile's wgmma is done: free its stage
         if (kt > 0 && lane == 0) mbar_arrive(&empty[prev]);
@@ -259,8 +279,8 @@ inline EncodeTiledFn encode_tiled() {
 
 // The tensor map of a row-major bf16 matrix (rows x cols, row stride ld
 // elements) read in boxes of box_rows x box_cols (box_cols * 2 <= 128
-// bytes), 128-byte swizzled, out-of-range elements read as 0. Host only;
-// it does not touch the device.
+// bytes, box_rows <= 256), 128-byte swizzled, out-of-range elements read
+// as 0. Host only; it does not touch the device.
 inline cudaError_t bf16_tensor_map(CUtensorMap* map, const void* base, int64_t rows, int64_t cols,
                                    int64_t ld, int box_rows, int box_cols) {
   const EncodeTiledFn fn = encode_tiled();
@@ -275,17 +295,20 @@ inline cudaError_t bf16_tensor_map(CUtensorMap* map, const void* base, int64_t r
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// C = A (rows x K) @ B (K x cols), both row-major bf16, tile by tile into
-// the epilogue, on a grid of (row tiles, splits) with tiles_per_block
-// column tiles per split.
-template <class Epi>
+// C = A (rows x K) @ B (K x cols), bf16, tile by tile into the epilogue,
+// on a grid of (row tiles, splits) with tiles_per_block column tiles per
+// split. A is row-major; B row-major (N-major, B_KM false) or stored
+// transposed, cols x K with row stride ldb (K-major, B_KM true).
+template <class Epi, bool B_KM = false>
 cudaError_t gemm_rows(const void* a, int64_t lda, const void* b, int64_t ldb, int rows, int cols,
                       int K, int splits, int tiles_per_block, Epi epi, cudaStream_t s) {
   CUtensorMap tm_a, tm_b;
   cudaError_t e = bf16_tensor_map(&tm_a, a, rows, K, lda, kBM, kBK);
-  if (e == cudaSuccess) e = bf16_tensor_map(&tm_b, b, K, cols, ldb, kBK, kBoxN);
+  if (e == cudaSuccess)
+    e = B_KM ? bf16_tensor_map(&tm_b, b, cols, K, ldb, kBN, kBK)
+             : bf16_tensor_map(&tm_b, b, K, cols, ldb, kBK, kBoxN);
   if (e != cudaSuccess) return e;
-  auto kernel = gemm_rows_kernel<Epi>;
+  auto kernel = gemm_rows_kernel<Epi, B_KM>;
   e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
   if (e != cudaSuccess) return e;
   const dim3 grid((rows + kBM - 1) / kBM, splits);

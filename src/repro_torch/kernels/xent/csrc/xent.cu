@@ -4,15 +4,19 @@
 //   xent_fwd    (`_fwd_kernel` line 149, `pallas_call` line 196)
 //   xent_bwd_dh (`_dh_kernel` line 218, `pallas_call` line 271)
 //   xent_bwd_dw (`_dw_kernel` line 291, `pallas_call` line 346)
-// for the untied head: h (N, D), w (D, V), labels (N,) int32. With
-// logits = h @ w in f32 and `ncols` = min(V, vocab_size):
+// for the untied head, h (N, D), w (D, V), labels (N,) int32, and for the
+// tied head (`transposed=True` there) with w the token embedding as
+// stored, (V, D), read in place: no copy, no transpose. With
+// logits = h @ w (h @ w^T when tied) in f32 and `ncols` = min(V, vocab_size):
 //   xent_fwd:    lse[n] = logsumexp of logits[n, c] over c < ncols, and
 //                ll[n] = logits[n, labels[n]] (0 when the label is -1 or
 //                >= ncols);
-//   xent_bwd_dh: dH = G @ w^T, and xent_bwd_dw: dW = h^T @ G, where
+//   xent_bwd_dh: dH = G @ w^T (G @ w when tied), and xent_bwd_dw: dW =
+//                h^T @ G (G^T @ h, (V, D), when tied), where
 //                G[n, c] = (exp(logits[n, c] - lse[n]) - [c == labels[n]])
-//                * gl[n] for c < ncols and n < N, else 0; columns of dW at
-//                or past ncols are 0.
+//                * gl[n] for c < ncols and n < N, else 0; the vocabulary
+//                entries of dW at or past ncols (columns, or rows when
+//                tied) are 0.
 // The FMA kernels and the tensor-core forward keep the logits on chip;
 // the tensor-core backward writes G for one chunk of the vocabulary at a
 // time to a workspace of at most 64 MiB (no (N, V) array).
@@ -28,6 +32,21 @@
 // tokens, D = 2048, V = 32000) the forward is 2*N*D*V = 0.537 TFLOP and each
 // backward kernel recomputes the logits and contracts once more, 1.074 TFLOP,
 // against 0.15 GB of h and w.
+//
+// The tied head. The TPU kernels take it by a static flag that swaps w's
+// block index map; here each route reads the (V, D) storage as it is:
+//   * the wgmma forward takes B K-major (hopper_gemm.cuh's B_KM: one TMA
+//     box of 256 vocabulary rows by 64 of D, the descriptor A uses, and
+//     wgmma's transposed-B flag off), the epilogue and combine unchanged;
+//   * the chunked backward runs the other layouts of its one GEMM
+//     template: the G kernel's B (w's rows of the chunk) K-major, dH's B
+//     (the same rows) N-major, and dW = G^T @ h with an M-major split A
+//     and an N-major B, written straight into dW's rows of the chunk, so a
+//     vocabulary chunk owns contiguous rows and the padded tail is one
+//     contiguous memset;
+//   * the FMA kernels take w by strides already (the wrapper passes the
+//     (D, V) view of the storage) and write dW through output strides.
+// Every sum keeps its fixed order, so two runs stay bitwise equal.
 //
 // Design. The TPU kernel's blocks are sized for VMEM and do not fit
 // Hopper's 227 KB of shared memory, and its sequential grid carries the
@@ -288,11 +307,12 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2
 // The backward: acc[f, d] = sum_s G[f, s] * S[d, s] over the streamed tiles.
 //   dh (TOK_F): f = token rows (F = h rows), s = vocab columns (S = w);
 //   dw:         f = vocab columns (F = w),   s = token rows (S = h rows).
+// out[f, d] is written at f * so_f + d * so_d (elements).
 template <typename T, typename O, bool TOK_F>
 __global__ void __launch_bounds__(kThreads, 1)
 xent_bwd_kernel(Operand h, Operand w, const int* __restrict__ labels,
                 const float* __restrict__ lse, const float* __restrict__ gl, O* __restrict__ out,
-                int N, int D, int V, int ncols) {
+                int64_t so_f, int64_t so_d, int N, int D, int V, int ncols) {
   constexpr int IT = Items<T>::n;
   extern __shared__ __align__(16) unsigned char smem[];
   T* F = reinterpret_cast<T*>(smem);
@@ -386,13 +406,8 @@ xent_bwd_kernel(Operand h, Operand w, const int* __restrict__ labels,
     const int d = d0 + t + k * kThreads;
     if (t + k * kThreads >= dn) continue;
 #pragma unroll
-    for (int i = 0; i < IT; ++i) {
-      if (TOK_F) {
-        if (f0 + i < N) store(out + (int64_t)(f0 + i) * D + d, acc[i][k]);
-      } else {
-        if (f0 + i < V) store(out + (int64_t)d * V + f0 + i, acc[i][k]);
-      }
-    }
+    for (int i = 0; i < IT; ++i)
+      if (f0 + i < (TOK_F ? N : V)) store(out + (int64_t)(f0 + i) * so_f + (int64_t)d * so_d, acc[i][k]);
   }
 }
 
@@ -934,28 +949,32 @@ cudaError_t launch_fwd(Operand h, Operand w, const int* labels, float* lse, floa
 
 template <typename T, typename O, bool TOK_F>
 cudaError_t launch_bwd(Operand h, Operand w, const int* labels, const float* lse,
-                       const float* gl, void* out, int N, int D, int V, int ncols,
-                       cudaStream_t stream) {
+                       const float* gl, void* out, int64_t so_f, int64_t so_d, int N, int D,
+                       int V, int ncols, cudaStream_t stream) {
   const size_t smem = smem_bytes<T>(D);
   cudaError_t e = prepare(xent_bwd_kernel<T, O, TOK_F>, smem);
   if (e != cudaSuccess) return e;
   const int IT = Items<T>::n;
   const dim3 blocks(TOK_F ? (N + IT - 1) / IT : (V + IT - 1) / IT, (D + kSlab - 1) / kSlab);
   xent_bwd_kernel<T, O, TOK_F><<<blocks, kThreads, smem, stream>>>(
-      h, w, labels, lse, gl, static_cast<O*>(out), N, D, V, ncols);
+      h, w, labels, lse, gl, static_cast<O*>(out), so_f, so_d, N, D, V, ncols);
   return cudaGetLastError();
 }
 
 template <bool TOK_F>
 cudaError_t bwd(int is_bf16, int out_bf16, Operand h, Operand w, const int* labels,
-                const float* lse, const float* gl, void* out, int N, int D, int V, int ncols,
-                cudaStream_t s) {
+                const float* lse, const float* gl, void* out, int64_t so_f, int64_t so_d, int N,
+                int D, int V, int ncols, cudaStream_t s) {
   using bf = __nv_bfloat16;
   if (is_bf16)
-    return out_bf16 ? launch_bwd<bf, bf, TOK_F>(h, w, labels, lse, gl, out, N, D, V, ncols, s)
-                    : launch_bwd<bf, float, TOK_F>(h, w, labels, lse, gl, out, N, D, V, ncols, s);
-  return out_bf16 ? launch_bwd<float, bf, TOK_F>(h, w, labels, lse, gl, out, N, D, V, ncols, s)
-                  : launch_bwd<float, float, TOK_F>(h, w, labels, lse, gl, out, N, D, V, ncols, s);
+    return out_bf16 ? launch_bwd<bf, bf, TOK_F>(h, w, labels, lse, gl, out, so_f, so_d, N, D, V,
+                                                ncols, s)
+                    : launch_bwd<bf, float, TOK_F>(h, w, labels, lse, gl, out, so_f, so_d, N, D,
+                                                   V, ncols, s);
+  return out_bf16 ? launch_bwd<float, bf, TOK_F>(h, w, labels, lse, gl, out, so_f, so_d, N, D, V,
+                                                 ncols, s)
+                  : launch_bwd<float, float, TOK_F>(h, w, labels, lse, gl, out, so_f, so_d, N, D,
+                                                    V, ncols, s);
 }
 
 template <bool A_KM, bool B_KM, bool SPLIT_A, bool SPLIT_B, class Epi>
@@ -979,14 +998,23 @@ struct Bwd {
   float* acc;   // the f32 sum when the output is bf16 and takes several chunks
   void* out;
   int out_bf16, N, D, V, ncols, rows, cols;
+  int transposed;  // w is the tied (V, D) storage, dW written (V, D)
   int64_t lo() const { return (int64_t)std::min(N, rows) * cols; }
+  // w's vocabulary entries [c0, c0 + width) as a GEMM operand: B K-major
+  // (k = D contiguous) for the logits, B N-major (k = vocab) for dH; the
+  // same Mat (stored rows x columns) serves both, for each storage
+  Mat w_chunk(int c0, int width) const {
+    return transposed ? Mat{w + (int64_t)c0 * sw, sw, width, D, 0} : Mat{w + c0, sw, D, width, 0};
+  }
 };
 
 // G of rows [r0, r0 + nr) and vocabulary columns [c0, c0 + width).
 cudaError_t g_chunk(const Bwd& b, int r0, int nr, int c0, int width, cudaStream_t s) {
   const GEpilogue epi{b.labels + r0, b.lse + r0, b.gl + r0, b.g, b.cols, b.lo(), nr, width, c0};
-  return gemm<true, false, false, false>({b.h + (int64_t)r0 * b.sh, b.sh, nr, b.D, 0},
-                                         {b.w + c0, b.sw, b.D, width, 0}, nr, width, b.D, epi, s);
+  const Mat h{b.h + (int64_t)r0 * b.sh, b.sh, nr, b.D, 0};
+  if (b.transposed)
+    return gemm<true, true, false, false>(h, b.w_chunk(c0, width), nr, width, b.D, epi, s);
+  return gemm<true, false, false, false>(h, b.w_chunk(c0, width), nr, width, b.D, epi, s);
 }
 
 cudaError_t bwd_dh_mma(const Bwd& b, cudaStream_t s) {
@@ -1002,8 +1030,10 @@ cudaError_t bwd_dh_mma(const Bwd& b, cudaStream_t s) {
       if (e != cudaSuccess) return e;
       const StoreEpilogue epi{c0 ? sum : nullptr, b.D, last ? out : static_cast<void*>(sum),
                               b.D, last && b.out_bf16, nr, b.D};
-      e = gemm<true, true, true, false>({b.g, b.cols, nr, width, b.lo()},
-                                        {b.w + c0, b.sw, b.D, width, 0}, nr, b.D, width, epi, s);
+      const Mat g{b.g, b.cols, nr, width, b.lo()};
+      e = b.transposed
+              ? gemm<true, false, true, false>(g, b.w_chunk(c0, width), nr, b.D, width, epi, s)
+              : gemm<true, true, true, false>(g, b.w_chunk(c0, width), nr, b.D, width, epi, s);
       if (e != cudaSuccess) return e;
     }
   }
@@ -1036,6 +1066,33 @@ cudaError_t bwd_dw_mma(const Bwd& b, cudaStream_t s) {
   return cudaSuccess;
 }
 
+// The tied dW (V, D) = G^T @ h: per vocabulary chunk, rows [c0, c0 +
+// width) of dW, G read M-major (its columns are dW's rows) and h N-major.
+cudaError_t bwd_dw_t_mma(const Bwd& b, cudaStream_t s) {
+  const size_t el = b.out_bf16 ? 2 : 4;
+  for (int c0 = 0; c0 < b.ncols; c0 += b.cols) {
+    const int width = std::min(b.cols, b.ncols - c0);
+    char* out = static_cast<char*>(b.out) + (int64_t)c0 * b.D * el;
+    float* sum = b.out_bf16 ? b.acc : reinterpret_cast<float*>(out);
+    for (int r0 = 0; r0 < b.N; r0 += b.rows) {
+      const int nr = std::min(b.rows, b.N - r0);
+      const bool last = r0 + b.rows >= b.N;
+      cudaError_t e = g_chunk(b, r0, nr, c0, width, s);
+      if (e != cudaSuccess) return e;
+      const StoreEpilogue epi{r0 ? sum : nullptr, b.D, last ? out : static_cast<void*>(sum),
+                              b.D, last && b.out_bf16, width, b.D};
+      e = gemm<false, false, true, false>({b.g, b.cols, nr, width, b.lo()},
+                                          {b.h + (int64_t)r0 * b.sh, b.sh, nr, b.D, 0}, width,
+                                          b.D, nr, epi, s);
+      if (e != cudaSuccess) return e;
+    }
+  }
+  if (b.ncols < b.V)  // no gradient for the padded vocabulary: its rows
+    return cudaMemsetAsync(static_cast<char*>(b.out) + (int64_t)b.ncols * b.D * el, 0,
+                           (size_t)(b.V - b.ncols) * b.D * el, s);
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1054,53 +1111,64 @@ int xent_fwd(const void* h, int64_t sh_n, int64_t sh_d, const void* w, int64_t s
 }
 
 // The tensor-core forward for bf16, on wgmma and TMA: h (N, D) and w (D,
-// V) with rows contiguous and 16-byte aligned (row strides sh, sw in
-// elements, multiples of 8; D a multiple of 16), part a (3, N, splits) f32
-// workspace, each split taking tiles_per_split vocab tiles of 256 columns.
+// V), or (V, D) when transposed, with rows contiguous and 16-byte aligned
+// (row strides sh, sw in elements, multiples of 8; D a multiple of 16),
+// part a (3, N, splits) f32 workspace, each split taking tiles_per_split
+// vocab tiles of 256 columns.
 int xent_fwd_wgmma(const void* h, int64_t sh, const void* w, int64_t sw, const int* labels,
                    float* part, float* lse, float* ll, int N, int D, int ncols, int splits,
-                   int tiles_per_split, void* stream) {
+                   int tiles_per_split, int transposed, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const FwdEpilogue epi{labels, part, N, ncols};
-  cudaError_t e = hopper::gemm_rows(h, sh, w, sw, N, ncols, D, splits, tiles_per_split, epi, s);
+  cudaError_t e =
+      transposed
+          ? hopper::gemm_rows<FwdEpilogue, true>(h, sh, w, sw, N, ncols, D, splits,
+                                                 tiles_per_split, epi, s)
+          : hopper::gemm_rows(h, sh, w, sw, N, ncols, D, splits, tiles_per_split, epi, s);
   if (e != cudaSuccess) return static_cast<int>(e);
   xent_fwd_combine_kernel<<<(N + 255) / 256, 256, 0, s>>>(part, lse, ll, N, splits);
   return static_cast<int>(cudaGetLastError());
 }
 
-// dH (N, D) contiguous, in f32 or bf16 (out_bf16).
+// dH (N, D), in f32 or bf16 (out_bf16), element (n, d) at n * so_n + d *
+// so_d.
 int xent_bwd_dh(const void* h, int64_t sh_n, int64_t sh_d, const void* w, int64_t sw_d,
                 int64_t sw_v, int is_bf16, const int* labels, const float* lse, const float* gl,
-                void* dh, int out_bf16, int N, int D, int V, int ncols, void* stream) {
+                void* dh, int out_bf16, int64_t so_n, int64_t so_d, int N, int D, int V,
+                int ncols, void* stream) {
   return static_cast<int>(bwd<true>(is_bf16, out_bf16, {h, sh_n, sh_d}, {w, sw_d, sw_v}, labels,
-                                    lse, gl, dh, N, D, V, ncols,
+                                    lse, gl, dh, so_n, so_d, N, D, V, ncols,
                                     static_cast<cudaStream_t>(stream)));
 }
 
-// dW (D, V) contiguous, in f32 or bf16 (out_bf16).
+// dW, in f32 or bf16 (out_bf16), element (d, v) at v * so_v + d * so_d:
+// (D, V) or, for the tied head, (V, D) in place.
 int xent_bwd_dw(const void* h, int64_t sh_n, int64_t sh_d, const void* w, int64_t sw_d,
                 int64_t sw_v, int is_bf16, const int* labels, const float* lse, const float* gl,
-                void* dw, int out_bf16, int N, int D, int V, int ncols, void* stream) {
+                void* dw, int out_bf16, int64_t so_v, int64_t so_d, int N, int D, int V,
+                int ncols, void* stream) {
   return static_cast<int>(bwd<false>(is_bf16, out_bf16, {h, sh_n, sh_d}, {w, sw_d, sw_v}, labels,
-                                     lse, gl, dw, N, D, V, ncols,
+                                     lse, gl, dw, so_v, so_d, N, D, V, ncols,
                                      static_cast<cudaStream_t>(stream)));
 }
 
-// The tensor-core dH (N, D) (dh = 1) or dW (D, V) (dh = 0), contiguous, in
-// f32 or bf16 (out_bf16), for the layouts of xent_fwd_wgmma (D a multiple
-// of 16). rows and cols are the chunk plan (cols a multiple of 128); g is a
-// (2, min(N, rows), cols) bf16 workspace; acc an f32 workspace, (min(N,
-// rows), D) for dH and (D, cols) for dW, needed only for a bf16 output
+// The tensor-core dH (N, D) (dh = 1) or dW (dh = 0), contiguous, in f32
+// or bf16 (out_bf16), for the layouts of xent_fwd_wgmma (D a multiple of
+// 16); w and dW are (D, V), or (V, D) when transposed. rows and cols are
+// the chunk plan (cols a multiple of 128); g is a (2, min(N, rows), cols)
+// bf16 workspace; acc an f32 workspace, (min(N, rows), D) for dH and (D,
+// cols) for dW ((cols, D) when transposed), needed only for a bf16 output
 // summed over several chunks (more than one vocabulary chunk for dH, more
 // than one token chunk for dW), else null.
 int xent_bwd_chunks(int dh, const void* h, int64_t sh, const void* w, int64_t sw,
                     const int* labels, const float* lse, const float* gl, void* g, float* acc,
                     void* out, int out_bf16, int N, int D, int V, int ncols, int rows,
-                    int cols, void* stream) {
+                    int cols, int transposed, void* stream) {
   const Bwd b{static_cast<const bf16*>(h), static_cast<const bf16*>(w), sh, sw, labels, lse, gl,
-              static_cast<bf16*>(g), acc, out, out_bf16, N, D, V, ncols, rows, cols};
+              static_cast<bf16*>(g), acc, out, out_bf16, N, D, V, ncols, rows, cols, transposed};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(dh ? bwd_dh_mma(b, s) : bwd_dw_mma(b, s));
+  if (dh) return static_cast<int>(bwd_dh_mma(b, s));
+  return static_cast<int>(transposed ? bwd_dw_t_mma(b, s) : bwd_dw_mma(b, s));
 }
 
 const char* cuda_error_string(int code) {

@@ -12,6 +12,9 @@ functions (padded columns at -1e9, differentiable by autograd). The three
 arguments: columns at or past ``vocab_size`` (or past w's width) are left
 out of the log-sum-exp, a label of -1 or one on a left-out column matches
 nothing, and the backward's ``(softmax - onehot)`` is weighted by ``gl``.
+With ``transposed=True`` w is the tied head as stored, (V, D): its rows
+are the vocabulary, and dW comes out (V, D) with the rows at or past
+``vocab_size`` 0.
 """
 from __future__ import annotations
 
@@ -51,8 +54,14 @@ def losses(h, w, labels, vocab_size: int):
     return torch.where(labels >= 0, lse - ll, 0.0)
 
 
+def use_layout(w, transposed: bool):
+    """w in the use layout (D, V): the tied (V, D) head as a view."""
+    return w.t() if transposed else w
+
+
 def _parts(h, w, labels, vocab_size: int):
-    """(f32 logits (N, V), valid column mask (V,), label one-hot (N, V))."""
+    """(f32 logits (N, V), valid column mask (V,), label one-hot (N, V));
+    w (D, V)."""
     logits = h.float() @ w.float()
     col = torch.arange(w.shape[1], device=h.device)
     valid = col < vocab_size
@@ -60,33 +69,44 @@ def _parts(h, w, labels, vocab_size: int):
     return logits, valid, onehot
 
 
-def xent_fwd_ref(h, w, labels, *, vocab_size: int):
-    """(lse, ll): h (N, D), w (D, V), labels (N,) -> two (N,) f32."""
-    logits, valid, onehot = _parts(h, w, labels, vocab_size)
+def xent_fwd_ref(h, w, labels, *, vocab_size: int, transposed=False):
+    """(lse, ll): h (N, D), w (D, V) or (V, D) when ``transposed``, labels
+    (N,) -> two (N,) f32."""
+    logits, valid, onehot = _parts(h, use_layout(w, transposed), labels,
+                                   vocab_size)
     lse = torch.logsumexp(torch.where(valid, logits, float("-inf")), dim=1)
     ll = torch.where(onehot, logits, 0.0).sum(dim=1)
     return lse, ll
 
 
-def dlogits_ref(h, w, labels, lse, gl, *, vocab_size: int):
+def dlogits_ref(h, w, labels, lse, gl, *, vocab_size: int,
+                transposed=False):
     """The gl-weighted (softmax - onehot), (N, V) f32, 0 on left-out
     columns; the operand both backward kernels contract."""
-    logits, valid, onehot = _parts(h, w, labels, vocab_size)
+    logits, valid, onehot = _parts(h, use_layout(w, transposed), labels,
+                                   vocab_size)
     p = torch.where(valid, torch.exp(logits - lse.float()[:, None]), 0.0)
     return (p - onehot.float()) * gl.float()[:, None]
 
 
 def xent_bwd_dh_ref(h, w, labels, lse, gl, *, vocab_size: int,
-                    out_dtype=torch.float32):
-    """dH (N, D) = dlogits @ w^T, w zeroed on left-out columns."""
-    dlog = dlogits_ref(h, w, labels, lse, gl, vocab_size=vocab_size)
-    col = torch.arange(w.shape[1], device=w.device)
-    w_eff = torch.where(col < vocab_size, w.float(), 0.0)
+                    out_dtype=torch.float32, transposed=False):
+    """dH (N, D) = dlogits @ w^T (w (D, V); dlogits @ w for the tied (V,
+    D)), w zeroed on left-out vocabulary entries."""
+    dlog = dlogits_ref(h, w, labels, lse, gl, vocab_size=vocab_size,
+                       transposed=transposed)
+    wu = use_layout(w, transposed)
+    col = torch.arange(wu.shape[1], device=w.device)
+    w_eff = torch.where(col < vocab_size, wu.float(), 0.0)
     return (dlog @ w_eff.T).to(out_dtype)
 
 
 def xent_bwd_dw_ref(h, w, labels, lse, gl, *, vocab_size: int,
-                    out_dtype=torch.float32):
-    """dW (D, V) = h^T @ dlogits (tokens contracted)."""
-    dlog = dlogits_ref(h, w, labels, lse, gl, vocab_size=vocab_size)
+                    out_dtype=torch.float32, transposed=False):
+    """dW = h^T @ dlogits (tokens contracted), (D, V); for the tied head
+    dlogits^T @ h, (V, D)."""
+    dlog = dlogits_ref(h, w, labels, lse, gl, vocab_size=vocab_size,
+                       transposed=transposed)
+    if transposed:
+        return (dlog.T @ h.float()).to(out_dtype)
     return (h.float().T @ dlog).to(out_dtype)

@@ -9,12 +9,17 @@ is by the tensors' device: CPU tensors go to the plain PyTorch versions in
 fallback: a build or launch failure raises. Each wrapper counts its kernel
 launches in ``.launches``.
 
-The kernels take h (N, D) and w (D, V) of any strides, both bfloat16 or
-both float32, with N, D and V below 2**31, labels (N,) int32 and, for the
-backward, lse and gl (N,) float32. Each function has two routes: bf16
-operands whose rows are contiguous and 16-byte aligned, with D a multiple
-of 16 (``mma_layout``), take the tensor cores, other layouts and float32
-the f32-FMA kernels (``fma``). The tensor-core forward (``wgmma``) runs on
+The kernels take h (N, D) and w (D, V), or with ``transposed=True`` the
+tied head's w as stored, (V, D) (the token embedding, read in place: no
+copy, no transpose), of any strides, both bfloat16 or both float32, with
+N, D and V below 2**31, labels (N,) int32 and, for the backward, lse and
+gl (N,) float32. Each function has two routes: bf16 operands whose rows
+are contiguous and 16-byte aligned, with D a multiple of 16
+(``mma_layout``), take the tensor cores, other layouts and float32 the
+f32-FMA kernels (``fma``); the tied head takes the same kernels on its
+layouts, counted under routes of their own (``wgmma_t``, ``mma_t``,
+``fma_t``), and its dW comes back (V, D). The tensor-core forward
+(``wgmma``) runs on
 wgmma and TMA: blocks of 128 token rows walk a split of the vocabulary
 (``split_plan``) in tiles of 256 columns, their K loop over D in tiles of
 64, and a second launch combines the splits' partials in order. The
@@ -29,9 +34,8 @@ recompute the logits for it. No route holds an on-chip accumulator that
 grows with D, and every sum runs in a fixed order, so two runs are bitwise equal.
 ``.launches`` counts one per wrapper call, however many launches it
 makes; each wrapper also counts by route in ``route_launches``. Not
-ported yet, and raising ``NotImplementedError``:
-``transposed=True`` (the tied (V, D) head, ROADMAP Queue 1 item 7) and a
-non-zero ``col_offset`` (vocab-sharded heads, item 12).
+ported yet, and raising ``NotImplementedError``: a non-zero
+``col_offset`` (vocab-sharded heads, ROADMAP Queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -40,7 +44,7 @@ import ctypes
 import torch
 
 from .. import _build
-from .ref import xent_bwd_dh_ref, xent_bwd_dw_ref, xent_fwd_ref
+from .ref import use_layout, xent_bwd_dh_ref, xent_bwd_dw_ref, xent_fwd_ref
 
 __all__ = ["xent_fwd", "xent_bwd_dh", "xent_bwd_dw", "chunk_plan"]
 
@@ -60,11 +64,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         head = [p, i64, i64, p, i64, i64, i]  # h, strides, w, strides, is_bf16
         lib.xent_fwd.argtypes = head + [p, p, p, i, i, i, p]
         for fn in (lib.xent_bwd_dh, lib.xent_bwd_dw):
-            fn.argtypes = head + [p, p, p, p, i, i, i, i, i, p]
+            fn.argtypes = head + [p, p, p, p, i, i64, i64, i, i, i, i, p]
         lib.xent_fwd_wgmma.argtypes = [p, i64, p, i64, p, p, p, p, i, i, i,
-                                       i, i, p]
+                                       i, i, i, p]
         lib.xent_bwd_chunks.argtypes = [i, p, i64, p, i64, p, p, p, p, p, p,
-                                        i, i, i, i, i, i, i, p]
+                                        i, i, i, i, i, i, i, i, p]
         for fn in (lib.xent_fwd, lib.xent_fwd_wgmma, lib.xent_bwd_dh,
                    lib.xent_bwd_dw, lib.xent_bwd_chunks):
             fn.restype = i
@@ -73,25 +77,24 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
-def _not_ported(op: str, col_offset, transposed: bool) -> None:
-    if transposed:
-        raise NotImplementedError(
-            f"{op}: transposed=True (the tied (V, D) head) is not ported yet; "
-            "ROADMAP.md Queue 1 item 7")
+def _not_ported(op: str, col_offset) -> None:
     if not (isinstance(col_offset, int) and col_offset == 0):
         raise NotImplementedError(
             f"{op}: a non-zero col_offset (vocab-sharded heads) is not ported "
             "yet; ROADMAP.md Queue 1 item 12")
 
 
-def _check(op: str, h, w, labels, vectors=()) -> torch.device:
+def _check(op: str, h, w, labels, vectors=(),
+           transposed=False) -> torch.device:
     """Shape and device checks on every route; dtype and size checks on the
     card. -> the operands' device."""
-    if h.ndim != 2 or w.ndim != 2 or h.shape[1] != w.shape[0]:
-        raise ValueError(f"{op}: need h (N, D) and w (D, V), got "
+    if h.ndim != 2 or w.ndim != 2 or h.shape[1] != w.shape[
+            1 if transposed else 0]:
+        raise ValueError(f"{op}: need h (N, D) and w "
+                         f"{'(V, D)' if transposed else '(D, V)'}, got "
                          f"{tuple(h.shape)} and {tuple(w.shape)}")
     N, D = h.shape
-    V = w.shape[1]
+    V = w.shape[0 if transposed else 1]
     for name, x in (("labels", labels), *vectors):
         if tuple(x.shape) != (N,):
             raise ValueError(f"{op}: {name} must be ({N},), got "
@@ -134,13 +137,16 @@ def _head_args(h, w):
             int(h.dtype == torch.bfloat16))
 
 
-def mma_layout(h, w) -> bool:
+def mma_layout(h, w, transposed: bool = False) -> bool:
     """True when the tensor-core kernels take (h, w): bf16, rows contiguous
-    along D and V and 16-byte aligned, D a multiple of 16 and V of 8."""
+    and 16-byte aligned (row strides multiples of 8 elements), D a multiple
+    of 16; w (D, V) with V a multiple of 8, or with ``transposed`` the tied
+    (V, D) storage, rows along D, V of any size."""
     return (h.dtype == w.dtype == torch.bfloat16
             and h.stride(1) == 1 and w.stride(1) == 1
             and h.stride(0) % 8 == 0 and w.stride(0) % 8 == 0
-            and h.shape[1] % 16 == 0 and w.shape[1] % 8 == 0
+            and h.shape[1] % 16 == 0
+            and (transposed or w.shape[1] % 8 == 0)
             and h.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
 
 
@@ -171,106 +177,119 @@ def chunk_plan(N: int, ncols: int) -> tuple:
     return rows, cols
 
 
-def _ncols(w, vocab_size: int) -> int:
+def _ncols(V: int, vocab_size: int) -> int:
     if vocab_size < 1:
         raise ValueError(f"vocab_size must be >= 1, got {vocab_size}")
-    return min(w.shape[1], vocab_size)
+    return min(V, vocab_size)
 
 
 def xent_fwd(h, w, labels, *, vocab_size: int, col_offset=0,
              transposed: bool = False):
-    """Per-token (lse, ll): h (N, D), w (D, V), labels (N,) int32.
+    """Per-token (lse, ll): h (N, D), w (D, V) — or the tied head's (V, D)
+    with ``transposed`` — labels (N,) int32.
 
     Returns two (N,) f32 tensors: the log-sum-exp over the valid columns
     (< V and < vocab_size) and the logit at the label (0 for a -1 label or
     one on an invalid column). ``loss = lse - ll`` for valid tokens.
     """
-    _not_ported("xent_fwd", col_offset, transposed)
-    dev = _check("xent_fwd", h, w, labels)
-    ncols = _ncols(w, vocab_size)
+    _not_ported("xent_fwd", col_offset)
+    dev = _check("xent_fwd", h, w, labels, transposed=transposed)
+    wu = use_layout(w, transposed)
+    ncols = _ncols(wu.shape[1], vocab_size)
     if dev.type == "cpu":
-        return xent_fwd_ref(h, w, labels, vocab_size=vocab_size)
+        return xent_fwd_ref(h, w, labels, vocab_size=vocab_size,
+                            transposed=transposed)
     N, D = h.shape
     lse = torch.empty(N, dtype=torch.float32, device=dev)
     ll = torch.empty(N, dtype=torch.float32, device=dev)
     labels = labels.contiguous()
-    if mma_layout(h, w):
+    if mma_layout(h, w, transposed):
         route = "wgmma"
         splits, per = split_plan(N, ncols)
         part = torch.empty((3, N, splits), dtype=torch.float32, device=dev)
         _launch("xent_fwd_wgmma", dev, h.data_ptr(), h.stride(0),
                 w.data_ptr(), w.stride(0), labels.data_ptr(), part.data_ptr(),
-                lse.data_ptr(), ll.data_ptr(), N, D, ncols, splits, per)
+                lse.data_ptr(), ll.data_ptr(), N, D, ncols, splits, per,
+                int(transposed))
     else:
         route = "fma"
-        _launch("xent_fwd", dev, *_head_args(h, w), labels.data_ptr(),
+        _launch("xent_fwd", dev, *_head_args(h, wu), labels.data_ptr(),
                 lse.data_ptr(), ll.data_ptr(), N, D, ncols)
     xent_fwd.launches += 1
-    xent_fwd.route_launches[route] += 1
+    xent_fwd.route_launches[route + "_t" * transposed] += 1
     return lse, ll
 
 
 def _bwd(fn, h, w, labels, lse, gl, vocab_size, col_offset, out_dtype,
          transposed, ref, out_shape):
     op = fn.__name__
-    _not_ported(op, col_offset, transposed)
-    dev = _check(op, h, w, labels, (("lse", lse), ("gl", gl)))
-    ncols = _ncols(w, vocab_size)
+    _not_ported(op, col_offset)
+    dev = _check(op, h, w, labels, (("lse", lse), ("gl", gl)), transposed)
+    wu = use_layout(w, transposed)
+    ncols = _ncols(wu.shape[1], vocab_size)
     if dev.type == "cpu":
         return ref(h, w, labels, lse, gl, vocab_size=vocab_size,
-                   out_dtype=out_dtype)
+                   out_dtype=out_dtype, transposed=transposed)
     if out_dtype not in _DTYPES:
         raise ValueError(f"{op}: out_dtype {out_dtype}; the kernel writes "
                          "float32 and bfloat16")
-    (N, D), V = h.shape, w.shape[1]
+    (N, D), V = h.shape, wu.shape[1]
+    dh = op == "xent_bwd_dh"
     out = torch.empty(out_shape, dtype=out_dtype, device=dev)
     labels, lse, gl = labels.contiguous(), lse.contiguous(), gl.contiguous()
     out_bf16 = int(out_dtype == torch.bfloat16)
-    if mma_layout(h, w):
-        route, dh = "mma", op == "xent_bwd_dh"
+    if mma_layout(h, w, transposed):
+        route = "mma"
         rows, cols = chunk_plan(N, ncols)
         g = torch.empty((2, min(N, rows), cols), dtype=torch.bfloat16,
                         device=dev)
-        # an f32 sum across chunks, unless the output is f32 and holds it
+        # an f32 sum across chunks, unless the output is f32 and holds it;
+        # dW's sum is laid out as dW is, (D, cols) or (cols, D) when tied
         summed = ncols > cols if dh else N > rows
-        acc = (torch.empty((min(N, rows), D) if dh else (D, cols),
-                           dtype=torch.float32, device=dev)
+        acc_shape = ((min(N, rows), D) if dh else (cols, D) if transposed
+                     else (D, cols))
+        acc = (torch.empty(acc_shape, dtype=torch.float32, device=dev)
                if out_bf16 and summed else None)
         _launch("xent_bwd_chunks", dev, int(dh), h.data_ptr(), h.stride(0),
                 w.data_ptr(), w.stride(0), labels.data_ptr(), lse.data_ptr(),
                 gl.data_ptr(), g.data_ptr(),
                 None if acc is None else acc.data_ptr(), out.data_ptr(),
-                out_bf16, N, D, V, ncols, rows, cols)
+                out_bf16, N, D, V, ncols, rows, cols, int(transposed))
     else:
         route = "fma"
-        _launch(op, dev, *_head_args(h, w), labels.data_ptr(),
-                lse.data_ptr(), gl.data_ptr(), out.data_ptr(), out_bf16, N, D,
-                V, ncols)
+        # the output's strides along (token or vocabulary entry, D)
+        ou = out if dh or transposed else out.t()
+        _launch(op, dev, *_head_args(h, wu), labels.data_ptr(),
+                lse.data_ptr(), gl.data_ptr(), out.data_ptr(), out_bf16,
+                *ou.stride(), N, D, V, ncols)
     fn.launches += 1
-    fn.route_launches[route] += 1
+    fn.route_launches[route + "_t" * transposed] += 1
     return out
 
 
 def xent_bwd_dh(h, w, labels, lse, gl, *, vocab_size: int, col_offset=0,
                 out_dtype=torch.float32, transposed: bool = False):
     """dH (N, D) in ``out_dtype``: the gl-weighted (softmax - onehot)
-    contracted with w. ``gl`` (N,) f32 is the per-token cotangent (0 for
-    masked labels), ``lse`` the forward's log-sum-exp."""
+    contracted with w (D, V), or the tied (V, D) with ``transposed``.
+    ``gl`` (N,) f32 is the per-token cotangent (0 for masked labels),
+    ``lse`` the forward's log-sum-exp."""
     return _bwd(xent_bwd_dh, h, w, labels, lse, gl, vocab_size, col_offset,
                 out_dtype, transposed, xent_bwd_dh_ref, tuple(h.shape))
 
 
 def xent_bwd_dw(h, w, labels, lse, gl, *, vocab_size: int, col_offset=0,
                 out_dtype=torch.float32, transposed: bool = False):
-    """dW (D, V) in ``out_dtype``: h^T contracted with the gl-weighted
-    (softmax - onehot); columns at or past ``vocab_size`` are 0."""
+    """dW in w's own layout, in ``out_dtype``: h^T contracted with the
+    gl-weighted (softmax - onehot), (D, V), or (V, D) with ``transposed``
+    (the tied head's gradient lands on the embedding's layout); the
+    vocabulary entries at or past ``vocab_size`` are 0."""
     return _bwd(xent_bwd_dw, h, w, labels, lse, gl, vocab_size, col_offset,
                 out_dtype, transposed, xent_bwd_dw_ref, tuple(w.shape))
 
 
 xent_fwd.launches = 0
-xent_fwd.route_launches = {"wgmma": 0, "fma": 0}
+xent_fwd.route_launches = {"wgmma": 0, "fma": 0, "wgmma_t": 0, "fma_t": 0}
 xent_bwd_dh.launches = 0
 xent_bwd_dw.launches = 0
-xent_bwd_dh.route_launches = {"mma": 0, "fma": 0}
-xent_bwd_dw.route_launches = {"mma": 0, "fma": 0}
+xent_bwd_dh.route_launches = {"mma": 0, "fma": 0, "mma_t": 0, "fma_t": 0}
+xent_bwd_dw.route_launches = {"mma": 0, "fma": 0, "mma_t": 0, "fma_t": 0}

@@ -28,11 +28,15 @@ every ``--log-every`` steps; with the guard on, the loop reads the step's
 ``rollback`` flag back every step (as the JAX launcher does), elsewhere
 only the loss lines read the device.
 
+``--tie-embeddings`` ties the LM head to the token embedding (no
+``lm_head``; the loss reads the (V, D) embedding in place through the
+transposed xent kernels), and an optimizer that takes label rules (SCALE)
+gets ``LabelRules.tied()``, so that its momentum moves to the tied matrix.
+
 Flags of modules not ported yet are absent:
 
-* ``--smoke`` (the reduced smoke configs), ``--tie-embeddings``
-  (ROADMAP.md Queue 1 item 7);
-* ``--pack-documents`` (item 6);
+* ``--smoke`` (the reduced smoke configs);
+* ``--pack-documents`` (ROADMAP.md Queue 1 item 6);
 * ``--log-dir``, ``--metrics-every``, ``--stats-every``,
   ``--profile-steps``, ``--profile-dir`` (telemetry, item 10).
 
@@ -47,6 +51,8 @@ Examples (llama-1b on the card, the paper's largest Table-1 model):
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama-1b \\
       --optimizer scale_fused --steps 20 --batch 16 --seq 256 \\
       --ckpt-dir /path/to/ckpt --ckpt-every 10 --resume auto
+  PYTHONPATH=src python -m repro_torch.launch.train --arch llama-1b \\
+      --tie-embeddings --optimizer scale_fused --steps 20
   REPRO_FAULTS="nan_grad@5" PYTHONPATH=src python -m \\
       repro_torch.launch.train --arch llama-1b --optimizer muon --steps 20
 """
@@ -60,7 +66,8 @@ import torch
 
 from repro_torch.checkpoint import restore_latest, save, save_async
 from repro_torch.configs import get_arch
-from repro_torch.core import linear_warmup_cosine, make_optimizer
+from repro_torch.core import (OPTIMIZER_REGISTRY, LabelRules,
+                              linear_warmup_cosine, make_optimizer)
 from repro_torch.data import make_dataset
 from repro_torch.device import resolve_device
 from repro_torch.models import init_params
@@ -69,14 +76,24 @@ from repro_torch.training import (GuardPolicy, init_guard_state, init_state,
 
 
 def build(args, lr_scale: float = 1.0):
-    """(cfg, tx) for the run: the JAX launcher's ``build`` on its untied
-    branch (the port's kernels choose their own tiles, so the attention
-    block and loss-chunk settings it adjusts have no counterpart).
-    ``lr_scale`` scales the peak LR (the rollback cut)."""
+    """(cfg, tx) for the run: the JAX launcher's ``build`` (the port's
+    kernels choose their own tiles, so the attention block and loss-chunk
+    settings it adjusts have no counterpart). ``lr_scale`` scales the peak
+    LR (the rollback cut). A tied model gives ``LabelRules.tied()`` to an
+    optimizer whose factory takes ``rules`` (SCALE would raise without
+    them: a tied tree has no lm_head to carry the momentum); the others
+    treat every matrix alike and get nothing, as in JAX."""
     cfg = get_arch(args.arch)
     if args.dtype:
         cfg.dtype = args.dtype
+    if args.tie_embeddings:
+        cfg.tie_embeddings = True
     sched = linear_warmup_cosine(args.lr * lr_scale, args.steps)
+    spec = OPTIMIZER_REGISTRY.get(args.optimizer.lower())
+    if (cfg.tie_embeddings and spec is not None
+            and "rules" in spec.valid_kwargs()):
+        return cfg, make_optimizer(args.optimizer, sched,
+                                   rules=LabelRules.tied())
     return cfg, make_optimizer(args.optimizer, sched)
 
 
@@ -91,6 +108,11 @@ def main(argv=None) -> float:
     ap.add_argument("--grad-accum", type=int, default=1)
     ap.add_argument("--clip-norm", type=float, default=1.0)
     ap.add_argument("--dtype", default="")
+    ap.add_argument("--tie-embeddings", dest="tie_embeddings",
+                    action="store_true",
+                    help="tie the LM head to the token embedding (no "
+                         "lm_head params; SCALE momentum moves to the "
+                         "tied matrix)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--ckpt-every", type=int, default=100)

@@ -210,18 +210,18 @@ def lm_loss(params, cfg: ModelConfig, hidden, labels, weights=None):
     ``weights`` (optional, (B, S) f32) scales each token's loss, and the
     mean divides by the summed effective weight of the tokens with label
     >= 0 (an all-masked batch gives loss 0). Returns (mean_loss,
-    total_weight). The tied head and the audio codebook heads raise until
-    they are ported (ROADMAP.md Queue 1 items 7 and 13).
+    total_weight). A tied head (``cfg.tie_embeddings``) is the (V, D)
+    ``tok_embed.w``, read in place by the transposed kernels, whose dW
+    lands in (V, D); autograd adds it to the lookup's gradient in w's
+    dtype, as JAX sums the two cotangents. The audio codebook heads raise
+    until they are ported (ROADMAP.md Queue 1 item 13).
     """
     if cfg.family == "audio":
         raise NotImplementedError("lm_loss: the audio codebook heads are not "
                                   "ported yet; ROADMAP.md Queue 1 item 13")
     w, tied = head_weight(params, cfg)
-    if tied:
-        raise NotImplementedError("lm_loss: the tied head in training is not "
-                                  "ported yet; ROADMAP.md Queue 1 item 7")
     losses = dispatch.xent_loss(hidden, w, labels, vocab_size=cfg.vocab_size,
-                                weights=weights)
+                                weights=weights, transposed=tied)
     valid = labels >= 0
     if weights is not None:
         ws = torch.where(valid, weights.float(), 0.0).sum()

@@ -9,7 +9,8 @@ imports no JAX, so it runs on a machine that has only PyTorch:
 cases are those of phase 2 of ``chip_smoke.py``; a test serves a small
 model on the card through the attention kernel, others take SCALE
 optimizer steps through the optimizer kernels, one trains a small
-llama through every kernel of the training step, and one skips a step
+llama through every kernel of the training step, one trains it with the
+LM head tied to the embedding through the tied head's routes, and one skips a step
 with an injected NaN under the anomaly guard (bitwise a dropped batch,
 sync-free) and checkpoints the guarded state. Attention tolerances,
 per element:
@@ -208,7 +209,12 @@ def test_serving_on_card_goes_through_the_kernel(cuda, dtype):
 OPT_SHAPES = {"ragged_3x77x129": (3, 77, 129),
               "odd_rows_1x5461x2048": (1, 5461, 2048),
               "wide_1x2048x32000": (1, 2048, 32000),
-              "w_gate_llama7b_32x4096x11008": (32, 4096, 11008)}
+              "w_gate_llama7b_32x4096x11008": (32, 4096, 11008),
+              # the tied heads of llama-1b and gemma-2b, stored (V, D): the
+              # momentum and update of the row kind (the (D, V) use
+              # layout's col norm)
+              "tied_head_1x32000x2048": (1, 32000, 2048),
+              "tied_head_gemma2b_1x256000x2048": (1, 256000, 2048)}
 # past this many elements the operands are drawn on the card (numpy would
 # take minutes) and the element-wise checks run one layer at a time (the
 # full-size temporaries of a check would not fit beside the operands)
@@ -584,6 +590,12 @@ def _route_delta(now, was):
     return {r: now[r] - was[r] for r in was}
 
 
+def _routes_are(now, was, want):
+    """The launches by route since ``was`` are ``want``, 0 on the routes
+    it leaves out (the tied head's ``*_t`` routes among them)."""
+    return _route_delta(now, was) == {r: want.get(r, 0) for r in was}
+
+
 def _xent_inputs(cuda, case, td, seed=5):
     N, D, V, vs, masked = XENT_CASES[case]
     rng = np.random.default_rng(seed)
@@ -667,11 +679,11 @@ def test_xent_kernels_match_plain_on_card(cuda, case, dtype):
     want = ({"mma": 2 * n_out, "fma": n_out} if tc
             else {"mma": 0, "fma": 2 * n_out})
     for now, was in zip(_bwd_routes(X), routes):
-        assert _route_delta(now, was) == want
+        assert _routes_are(now, was, want)
     # the forward: aligned bf16 on wgmma (the call and its bitwise rerun),
     # w read through its columns on the FMA kernel; else twice on the FMA
-    assert _route_delta(X.xent_fwd.route_launches, fwd_routes) == (
-        {"wgmma": 2, "fma": 1} if tc else {"wgmma": 0, "fma": 2})
+    assert _routes_are(X.xent_fwd.route_launches, fwd_routes,
+                       {"wgmma": 2, "fma": 1} if tc else {"fma": 2})
 
 
 @pytest.mark.gpu
@@ -710,6 +722,182 @@ def test_xent_loss_grads_on_card_match_plain_autograd(cuda, dtype):
     assert gh.dtype == td and gw.dtype == td
     _xent_close(gh, wh, td)
     _xent_close(gw, ww, td)
+
+
+# The tied head, w stored (V, D) and read in place (``transposed=True``):
+# (N, D, V, vocab_size, share of -1 labels, dtype, h's layout), the
+# chip_smoke.py phase-2 cases. Aligned bf16 takes the tensor cores
+# (``wgmma_t``, ``mma_t``), f32, a non-contiguous h and a D that is not a
+# multiple of 16 the FMA kernels (``fma_t``).
+TIED_XENT_CASES = {
+    "llama1b_tied": (4096, 2048, 32000, 32000, 0.0, "bf16", "rows"),
+    "gemma2b_tied": (4096, 2048, 256000, 256000, 0.05, "bf16", "rows"),
+    # V not a multiple of 8, and padded rows of dW
+    "v32003_padded": (4096, 2048, 32003, 32000, 0.1, "bf16", "rows"),
+    "f32": (1024, 2048, 32000, 31990, 0.1, "f32", "rows"),
+    "noncontig_h": (1024, 2048, 32000, 32000, 0.1, "bf16", "h_strided"),
+    # two token chunks: the bf16 dW summed across them in (cols, D) f32
+    "n140000_d16": (140000, 16, 128, 128, 0.1, "bf16", "rows"),
+    "n1_ragged": (1, 96, 264, 260, 0.0, "bf16", "rows"),
+    "d80": (300, 80, 1000, 1000, 0.2, "bf16", "rows"),
+}
+
+
+def _tied_inputs(cuda, case, seed=9):
+    N, D, V, vs, masked, dt, layout = TIED_XENT_CASES[case]
+    td = DTYPES[dt]
+    rng = np.random.default_rng(seed)
+    h = torch.from_numpy(rng.standard_normal((N, D), dtype=np.float32))
+    if layout == "h_strided":  # every other column of a (N, 2D) buffer
+        h = torch.stack([h, torch.zeros_like(h)], -1).reshape(N, 2 * D)
+        h = h.to(cuda, td)[:, ::2]
+    else:
+        h = h.to(cuda, td)
+    w = torch.from_numpy(rng.standard_normal((V, D), dtype=np.float32)
+                         / np.sqrt(D)).to(cuda, td)
+    labels = rng.integers(0, V, N).astype(np.int32)
+    labels[rng.random(N) < masked] = -1
+    gl = torch.from_numpy(rng.random(N).astype(np.float32)).to(cuda)
+    return h, w, torch.from_numpy(labels).to(cuda), gl, vs, td
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(TIED_XENT_CASES))
+def test_tied_xent_kernels_match_plain_on_card(cuda, case):
+    """The three kernels with ``transposed=True`` against their plain
+    versions (the tolerances of the untied cases), each run twice and
+    bitwise equal, dW (V, D) with zero padded rows, every launch on the
+    tied head's own routes."""
+    from repro_torch.kernels.xent import ref as XR
+    from repro_torch.kernels.xent import xent as X
+    h, w, labels, gl, vs, td = _tied_inputs(cuda, case)
+    tc = X.mma_layout(h, w, transposed=True)
+    assert tc == (td == torch.bfloat16 and h.stride(1) == 1
+                  and h.shape[1] % 16 == 0)
+    fwd_routes = dict(X.xent_fwd.route_launches)
+    routes = _bwd_routes(X)
+    lse, ll = X.xent_fwd(h, w, labels, vocab_size=vs, transposed=True)
+    want_lse, want_ll = XR.xent_fwd_ref(h, w, labels, vocab_size=vs,
+                                        transposed=True)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(ll, want_ll, atol=1e-4, rtol=1e-5)
+    assert (ll[(labels < 0) | (labels >= vs)] == 0).all()
+    lse2, ll2 = X.xent_fwd(h, w, labels, vocab_size=vs, transposed=True)
+    assert torch.equal(lse, lse2) and torch.equal(ll, ll2)
+    n_out = 0
+    for out_dtype in {td, torch.float32}:
+        for fn, ref in ((X.xent_bwd_dh, XR.xent_bwd_dh_ref),
+                        (X.xent_bwd_dw, XR.xent_bwd_dw_ref)):
+            kw = {"vocab_size": vs, "out_dtype": out_dtype,
+                  "transposed": True}
+            got = fn(h, w, labels, want_lse, gl, **kw)
+            want = ref(h, w, labels, want_lse, gl, **kw)
+            assert got.dtype == out_dtype and got.shape == want.shape
+            _xent_close(got, want, out_dtype)
+            assert torch.equal(got, fn(h, w, labels, want_lse, gl, **kw))
+            if fn is X.xent_bwd_dw:
+                assert tuple(got.shape) == tuple(w.shape)
+                assert (got[vs:] == 0).all()
+        n_out += 1
+    torch.cuda.synchronize()
+    fwd, bwd = ("wgmma_t", "mma_t") if tc else ("fma_t", "fma_t")
+    assert _routes_are(X.xent_fwd.route_launches, fwd_routes, {fwd: 2})
+    for now, was in zip(_bwd_routes(X), routes):
+        assert _routes_are(now, was, {bwd: 2 * n_out})
+
+
+@pytest.mark.gpu
+def test_tied_xent_makes_no_copy_of_the_embedding(cuda):
+    """At llama-1b's tied shape (N 4096, D 2048, V 32000, bf16) no
+    transposed call copies w (a copy adds V * D * 2 bytes): the forward's
+    rise of ``max_memory_allocated`` stays under half of that; dH's rise,
+    less its output and the workspaces the wrapper documents (G's two bf16
+    halves of a chunk, dH's f32 sum across chunks), does too; and each
+    transposed call rises less than half of it above the untied call on a
+    (D, V) copy made beforehand (the two allocate the same buffers, up to
+    the allocator's rounding)."""
+    from repro_torch.kernels.xent import xent as X
+    N, D, V = 4096, 2048, 32000
+    rng = np.random.default_rng(10)
+    h = torch.from_numpy(rng.standard_normal((N, D), dtype=np.float32)
+                         ).to(cuda, torch.bfloat16)
+    w = (torch.from_numpy(rng.standard_normal((V, D), dtype=np.float32))
+         / np.sqrt(D)).to(cuda, torch.bfloat16)
+    labels = torch.from_numpy(rng.integers(0, V, N).astype(np.int32)
+                              ).to(cuda)
+    gl = torch.full((N,), 1.0 / N, device=cuda)
+    w_dv = w.T.contiguous()
+    half = V * D * 2 // 2
+
+    def rise(call):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = call()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - base, out
+
+    r_fwd, (lse, _) = rise(lambda: X.xent_fwd(h, w, labels, vocab_size=V,
+                                              transposed=True))
+    r_fwd_u, _ = rise(lambda: X.xent_fwd(h, w_dv, labels, vocab_size=V))
+    assert r_fwd < half and r_fwd - r_fwd_u < half, (r_fwd, r_fwd_u)
+    rows, cols = X.chunk_plan(N, V)
+    work = 2 * min(N, rows) * cols * 2 + min(N, rows) * D * 4
+    for fn in (X.xent_bwd_dh, X.xent_bwd_dw):
+        r, out = rise(lambda: fn(h, w, labels, lse, gl, vocab_size=V,
+                                 out_dtype=torch.bfloat16, transposed=True))
+        r_u, _ = rise(lambda: fn(h, w_dv, labels, lse, gl, vocab_size=V,
+                                 out_dtype=torch.bfloat16))
+        assert r - r_u < half, (fn.__name__, r, r_u)
+        if fn is X.xent_bwd_dh:
+            assert r - out.numel() * 2 - work < half, (r, work)
+        del out
+
+
+@pytest.mark.gpu
+def test_tied_train_step_on_card_goes_through_the_transposed_kernels(cuda):
+    """make_train_step of scale_fused under LabelRules.tied() on a small
+    tied llama: per step one of each xent kernel on the tied head's routes
+    (``wgmma_t``, ``mma_t``; none on the untied ones), 7 norm_sumsq, 8
+    update_apply (the tied embedding takes the momentum branch), one
+    momentum_sumsq; the loss falls over four steps and the tied
+    embedding's momentum is non-zero."""
+    from repro_torch.core import LabelRules, linear_warmup_cosine
+    from repro_torch.core import make_optimizer
+    from repro_torch.data import make_dataset
+    from repro_torch.kernels.xent import xent as X
+    from repro_torch.models import ModelConfig, init_params
+    from repro_torch.training import init_state, make_train_step
+    cfg = ModelConfig(name="gpu", n_layers=2, d_model=256, n_heads=4,
+                      n_kv_heads=2, d_ff=512, vocab_size=1000,
+                      dtype="bfloat16", tie_embeddings=True)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         device=cuda)
+    assert "lm_head" not in params
+    tx = make_optimizer("scale_fused", linear_warmup_cosine(1e-2, 8),
+                        rules=LabelRules.tied())
+    step = make_train_step(cfg, tx, clip_norm=1.0)
+    state = init_state(params, tx)
+    batch = make_dataset(cfg, 128, 4, seed=1, device=cuda).global_batch_at(0)
+    want = {"xent_fwd": 1, "xent_bwd_dh": 1, "xent_bwd_dw": 1,
+            "norm_sumsq": 7, "update_apply": 8, "momentum_sumsq": 1,
+            "norm_apply": 0}
+    losses = []
+    for i in range(4):
+        before = _train_counts()
+        fwd_routes = dict(X.xent_fwd.route_launches)
+        routes = _bwd_routes(X)
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        after = _train_counts()
+        assert {k: after[k] - before[k] for k in want} == want, i
+        assert _routes_are(X.xent_fwd.route_launches, fwd_routes,
+                           {"wgmma_t": 1}), i
+        for now, was in zip(_bwd_routes(X), routes):
+            assert _routes_are(now, was, {"mma_t": 1}), i
+        losses.append(float(metrics["loss"]))
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    assert float(state.opt_state.mu["tok_embed/w"].float().abs().sum()) > 0
 
 
 # (B, S, T, H, K, hd, causal, kv_len): the chip_smoke.py phase-2 cases of
@@ -913,8 +1101,8 @@ def test_train_step_on_card_goes_through_the_kernels(cuda, monkeypatch):
         for f, was in zip((A.mha_bwd_dq, A.mha_bwd_dkv), routes):
             assert {r: f.route_launches[r] - was[r] for r in was} == \
                 {"mma": cfg.n_layers, "fma": 0}, (f.__name__, i)
-        assert _route_delta(X.xent_fwd.route_launches, fwd_routes) == {
-            "wgmma": 1, "fma": 0}, i
+        assert _routes_are(X.xent_fwd.route_launches, fwd_routes,
+                           {"wgmma": 1}), i
         assert _route_delta(C.update_apply.route_launches,
                             update_routes) == {"vec": 9, "strided": 0}, i
         losses.append(float(metrics["loss"]))
@@ -946,8 +1134,7 @@ def test_eval_step_and_head_grad_on_card(cuda, monkeypatch):
     torch.cuda.synchronize()
     assert (mha_fwd.launches - before[0], X.xent_fwd.launches - before[1]) \
         == (cfg.n_layers, 1)
-    assert _route_delta(X.xent_fwd.route_launches, fwd_routes) == {
-        "wgmma": 1, "fma": 0}
+    assert _routes_are(X.xent_fwd.route_launches, fwd_routes, {"wgmma": 1})
     with torch.no_grad():
         hidden, _, _ = forward(params, cfg, batch["tokens"])
     lab = batch["labels"]

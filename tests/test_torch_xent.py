@@ -256,7 +256,8 @@ def test_cpu_backward_leaves_the_launch_counters():
     for f in fns:
         f(h, w, labels, lse, gl, vocab_size=vs, out_dtype=torch.bfloat16)
     assert [(f.launches, dict(f.route_launches)) for f in fns] == before
-    assert all(set(f.route_launches) == {"mma", "fma"} for f in fns)
+    assert all(set(f.route_launches) == {"mma", "fma", "mma_t", "fma_t"}
+               for f in fns)
 
 
 def test_cpu_forward_leaves_the_launch_counters():
@@ -266,7 +267,8 @@ def test_cpu_forward_leaves_the_launch_counters():
     before = (TX.xent_fwd.launches, dict(TX.xent_fwd.route_launches))
     TX.xent_fwd(h, w, labels, vocab_size=vs)
     assert (TX.xent_fwd.launches, dict(TX.xent_fwd.route_launches)) == before
-    assert set(TX.xent_fwd.route_launches) == {"wgmma", "fma"}
+    assert set(TX.xent_fwd.route_launches) == {"wgmma", "fma", "wgmma_t",
+                                               "fma_t"}
 
 
 def test_xent_supported_matches_jax():
@@ -278,28 +280,25 @@ def test_xent_supported_matches_jax():
 
 
 def test_unported_clauses_raise():
+    """A non-zero col_offset (vocab-sharded heads) raises on every entry,
+    tied or not; the tied head itself is ported (tests/test_torch_tied.py),
+    and a w in the wrong layout for ``transposed`` is a shape error."""
     h, w = torch.zeros(4, 8), torch.zeros(8, 16)
     lab, v = torch.zeros(4, dtype=torch.int32), torch.zeros(4)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        TX.xent_fwd(h, w.T, lab, vocab_size=16, transposed=True)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        TX.xent_fwd(h, w, lab, vocab_size=16, col_offset=16)
-    for fn in (TX.xent_bwd_dh, TX.xent_bwd_dw):
+    for tr, ww in ((False, w), (True, w.T)):
         with pytest.raises(NotImplementedError, match="item 12"):
-            fn(h, w, lab, v, v, vocab_size=16, col_offset=3)
-        with pytest.raises(NotImplementedError, match="item 7"):
-            fn(h, w.T, lab, v, v, vocab_size=16, transposed=True)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        TK.xent_loss(h, w.T, lab, vocab_size=16, transposed=True)
+            TX.xent_fwd(h, ww, lab, vocab_size=16, col_offset=16,
+                        transposed=tr)
+        for fn in (TX.xent_bwd_dh, TX.xent_bwd_dw):
+            with pytest.raises(NotImplementedError, match="item 12"):
+                fn(h, ww, lab, v, v, vocab_size=16, col_offset=3,
+                   transposed=tr)
+    with pytest.raises(ValueError, match=r"w \(V, D\)"):
+        TX.xent_fwd(h, w, lab, vocab_size=16, transposed=True)
+    with pytest.raises(ValueError, match=r"w \(V, D\)"):
+        TK.xent_loss(h, w, lab, vocab_size=16, transposed=True)
     with pytest.raises(ValueError, match="need h"):
         TK.xent_loss(h[None, None], w, lab[None, None], vocab_size=16)
-    cfg = tconfig.ModelConfig(**dataclasses.asdict(tiny_cfg(
-        "tied", tie_embeddings=True)))
-    params = TM.init_params(cfg, torch.Generator().manual_seed(0),
-                            device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        TM.lm_loss(params, cfg, torch.zeros(1, 4, cfg.d_model),
-                   torch.zeros(1, 4, dtype=torch.int32))
 
 
 # --------------------------------------------------- the model's loss path
