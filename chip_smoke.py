@@ -5,7 +5,7 @@ NVIDIA H100.
     python3 chip_smoke.py [--seed N]
 
 Run from the root of a checkout. It builds the port's CUDA kernels with
-nvcc (one process per source, in parallel), then runs twelve phases and fails
+nvcc (one process per source, in parallel), then runs thirteen phases and fails
 (non-zero exit, no result line) if any of them fails:
 
 1. device: the card's name and power limit, the kernels' ptxas report;
@@ -37,7 +37,17 @@ nvcc (one process per source, in parallel), then runs twelve phases and fails
    of theta and g, for bf16, bf16 with an f32 g and f32, col and row, lr
    and gscale by value and by device pointer, bitwise equal to its
    ``strided`` route on the same values laid out transposed, with both
-   routes counted;
+   routes counted; the segment clause of the three attention kernels
+   (packed documents) against the plain versions under the dense mask, on
+   every route each takes (``mma``; ``fma`` for f32, gemma-2b's heads of
+   256 over one kv head and hd != hdv; ``decode`` at S <= 4), at a packed
+   llama-1b batch's ids at the train shape, llama-7b's hd 128, a GQA
+   shape and a ragged S of 250, non-causal S != T with q and kv ids of
+   their own and rows whose id no key has (0 out, lse -1e30, dQ 0, dK and
+   dV unmoved by their dO), unsorted ids, each case's largest error over
+   its tolerance printed, bitwise repeatable, counted by route and in
+   ``segment_launches``; all-equal ids bitwise the no-segment result on
+   every route;
 3. the serving path: greedy serving of llama-130m at full width and
    depth (bf16, seeded random weights; batch 8, a 512-token prompt, 64
    new tokens), checked against a full-sequence forward, with the kernel
@@ -62,7 +72,11 @@ nvcc (one process per source, in parallel), then runs twelve phases and fails
    (``h @ w.T`` + ``F.cross_entropy`` and its autograd); the optimizer kernels and their library calls also by device
    time, in turns; ``update_apply`` also at the head (bf16 theta, f32 m')
    and, in turns, beside its ``strided`` route on the same bytes and a
-   variant that only loads and stores them;
+   variant that only loads and stores them; the three attention kernels
+   at the packed train shape with segments, in turns with the same kernel
+   without them, beside the plain version, SDPA with the dense boolean
+   mask (and its backward), the bound of the pairs the batch's ids leave
+   and the share of tile pairs the skip removes;
 5. where the serving time goes: device busy time and the top kernels of
    one prefill and of decode steps, from torch.profiler;
 6. the optimizer path: SCALE steps of llama-1b at full width and depth
@@ -168,7 +182,22 @@ nvcc (one process per source, in parallel), then runs twelve phases and fails
    versions; one step under ``set_sync_debug_mode("error")``; step time,
    tokens/s, device busy time by kernel family, idle share and peak
    memory. The transposed kernels' rows of the kernels line are named
-   ``xent_fwd transposed`` etc., their launches those of this phase.
+   ``xent_fwd transposed`` etc., their launches those of this phase;
+13. packed-document training, llama-1b at full width and depth
+   (``--pack-documents``, 16 x 256 first-fit packed ``SyntheticLM``
+   batches): the launcher for two steps; one loss-and-grad against the
+   plain attention swapped into ``dispatch``, every leaf; eight
+   ``make_train_step`` steps, each step's launches checked by route and
+   with segments (48 ``mha_fwd``, 24 of each backward kernel, all ``mma``
+   and all with segments, and phase 8's xent and optimizer counts), the
+   loss curve held to the same steps through the plain attention; each
+   document's per-token losses against its offset-preserving unpacked
+   row; document 1 of a row perturbed, every other document's losses
+   bitwise unchanged; one step under ``set_sync_debug_mode("error")``;
+   step time, real tokens/s, device busy time by kernel family, idle share
+   and peak memory beside phase 8's. The segment rows of the kernels line
+   are named ``mha_fwd segments`` etc., their launches those of this
+   phase.
 
 The line before the last is a JSON ``{"kernels": [...]}`` summary, the
 last line ``{"ok": true, "device": {...}}``. It needs a CUDA card and
@@ -355,6 +384,8 @@ def attention_cases():
                                           None),
         "gqa H=14 K=2 S=T=100 hd=128": (4, 100, 100, 14, 2, 128, True, None),
         "kv_len=300 S=16": (8, 16, 576, 12, 12, 64, False, 300),
+        "kv_len=0 S=16": (8, 16, 576, 12, 12, 64, False, 0),
+        "non-causal S=100 T=300": (8, 100, 300, 12, 12, 64, False, None),
         # phase 9's training shapes: llama-7b (mma, hd 128) and gemma-2b
         # (fma, 8 heads of 256 over 1 kv head)
         "train llama-7b hd=128": (16, 256, 256, 32, 32, 128, True, None),
@@ -499,7 +530,8 @@ def bwd_fma(torch, name, args, kw):
     q, k, v = args[:3]
     outs = ((torch.empty_like(q),) if name == "mha_bwd_dq"
             else (torch.empty_like(k), torch.empty_like(v)))
-    _launch_bwd(name, "fma", outs, *args, kw["scale"], kw["causal"])
+    _launch_bwd(name, "fma", outs, *args, kw["scale"], kw["causal"],
+                kw.get("segments"))
     return outs[0] if name == "mha_bwd_dq" else outs
 
 
@@ -3879,6 +3911,662 @@ def phase_tied(torch, seed, power):
             for arch in TIED_MODELS}
 
 
+# ------------------------------------------------------ packed documents
+
+SEG_ROWS = {k: f"{k} segments" for k in ("mha_fwd", *BWD_KERNELS)}
+PACKED_STEPS = 8  # make_train_step steps of phase 13
+# Phase 13 (d): the per-token losses of a document, packed against its
+# offset-preserving unpacked row, run in chunks of the packed batch's shape.
+# Both layouts do each token's arithmetic on the same lanes (attention
+# masks the other documents to an exact 0 in both), and cuBLAS is handed
+# the same shapes; were it to pick other kernels, a bf16 rounding of a
+# hidden apart (2**-8 relative) would move a per-token loss by about that
+# times the spread of the logits (about 1 at this init), through 24 layers.
+PACKED_DOC_ATOL = 5e-2
+
+
+def seg_cases():
+    # name -> (B, S, T, H, K, hd, hdv, causal, ids): "packed" a real packed
+    # SyntheticLM batch's segment_ids (the same for q and kv), "random"
+    # unsorted ids in [0, 3], "separate" sorted q and kv ids of their own
+    # with q rows 10-12 given an id no key has, "equal" all 1
+    return {
+        "packed llama-1b train": (16, 256, 256, 32, 32, 64, 64, True,
+                                  "packed"),
+        "packed llama-7b hd=128": (16, 256, 256, 32, 32, 128, 128, True,
+                                   "packed"),
+        "packed gqa qwen2-500m H=14 K=2": (8, 512, 512, 14, 2, 64, 64, True,
+                                           "packed"),
+        "packed gemma-2b H=8 K=1 hd=256": (16, 256, 256, 8, 1, 256, 256,
+                                           True, "packed"),
+        "packed ragged S=T=250": (8, 250, 250, 12, 12, 64, 64, True,
+                                  "packed"),
+        "packed hd=64 hdv=128 H=8 K=4 S=T=200": (4, 200, 200, 8, 4, 64, 128,
+                                                 True, "packed"),
+        "separate S=100 T=300 non-causal": (4, 100, 300, 8, 8, 64, 64, False,
+                                            "separate"),
+        "separate S=100 T=300 hd=128 gqa": (4, 100, 300, 8, 2, 128, 128,
+                                            False, "separate"),
+        "separate decode S=3 T=300": (8, 3, 300, 12, 12, 64, 64, False,
+                                      "separate"),
+        "unsorted S=T=256": (4, 256, 256, 8, 8, 64, 64, True, "random"),
+        "unsorted S=T=200 hd=128": (2, 200, 200, 4, 4, 128, 128, True,
+                                    "random"),
+    }
+
+
+# all-equal ids against no segments, bitwise, one case per route:
+# name -> (B, S, T, H, K, hd, causal, dtype name)
+SEG_EQUAL_CASES = {
+    "mma hd=64": (16, 256, 256, 32, 32, 64, True, "bfloat16"),
+    "mma hd=128 ragged": (4, 200, 200, 8, 8, 128, True, "bfloat16"),
+    "fma f32": (4, 256, 256, 8, 4, 64, True, "float32"),
+    "fma hd=256 H=8 K=1": (4, 256, 256, 8, 1, 256, True, "bfloat16"),
+    "decode S=2 T=300": (8, 2, 300, 12, 12, 64, False, "bfloat16"),
+}
+
+
+def orphan_rows(S):
+    """The q rows of a "separate" case whose id no key has."""
+    return slice(10, 13) if S > 12 else slice(S - 1, S)
+
+
+def packed_ids(torch, seed, B, S):
+    """segment_ids (B, S) of a packed SyntheticLM batch of llama-1b's
+    vocab, on the card."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import make_dataset
+    ds = make_dataset(get_arch("llama-1b"), S, B, seed=seed,
+                      pack_documents=True, device="cuda")
+    return ds.global_batch_at(0)["segment_ids"]
+
+
+def seg_ids(torch, gen, kind, B, S, T, seed):
+    """The (q_seg, kv_seg) pair of a seg_cases kind, int32 on the card."""
+    if kind == "packed":
+        ids = packed_ids(torch, seed, B, S)
+        return ids, ids
+    if kind == "equal":
+        return (torch.ones((B, S), dtype=torch.int32, device="cuda"),
+                torch.ones((B, T), dtype=torch.int32, device="cuda"))
+    if kind == "random":
+        ids = torch.randint(0, 4, (B, S), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        return ids, ids
+    qs = torch.randint(1, 5, (B, S), generator=gen, device="cuda",
+                       dtype=torch.int32).sort(1).values
+    ks = torch.randint(1, 5, (B, T), generator=gen, device="cuda",
+                       dtype=torch.int32).sort(1).values
+    qs[:, orphan_rows(S)] = 7
+    return qs.contiguous(), ks
+
+
+def seg_counts():
+    """{wrapper: launches with segments} of the three attention wrappers."""
+    from repro_torch.kernels.attention import attention as A
+    return {k: getattr(A, k).segment_launches for k in SEG_ROWS}
+
+
+def zero_seg_counts():
+    from repro_torch.kernels.attention import attention as A
+    for k in SEG_ROWS:
+        getattr(A, k).segment_launches = 0
+
+
+def _seg_bwd_inputs(torch, gen, B, S, T, H, K, hd, hdv, causal, segs, dtype):
+    """(q, k, v, dout, lse, delta, None) with lse and delta from the plain
+    forward under the segment clause."""
+    from repro_torch.kernels.attention.ref import mha_fwd_ref
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    q, k, v, do = rnd(B, S, H, hd), rnd(B, T, K, hd), rnd(B, T, K, hdv), \
+        rnd(B, S, H, hdv)
+    out, lse = mha_fwd_ref(q, k, v, scale=hd ** -0.5, causal=causal,
+                           segments=segs)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    return q, k, v, do, lse, delta, None
+
+
+def phase_segment_kernels(torch, gen, seed):
+    """Phase 2, the segment clause: the three attention kernels with
+    segment ids against their plain versions under the dense mask, on the
+    route their wrappers pick (counted, and counted in
+    ``segment_launches``), bf16 and f32, each run twice (bitwise equal);
+    at the packed train shape in bf16 also the fma kernels, which the mma
+    route takes it from. A query whose id no key has gives 0 and an lse of
+    about -1e30, a dQ of 0, and adds nothing to dK and dV (its dO changed,
+    they are bitwise the same). All-equal ids give bitwise the
+    no-segment result on every route. -> {(kernel, case, dtype[, forced
+    route]): max abs error}."""
+    from repro_torch.kernels.attention.attention import (
+        _bwd_route, _fwd_route, _launch_fwd, mha_bwd_dkv, mha_bwd_dq,
+        mha_fwd)
+    from repro_torch.kernels.attention.ref import (mha_bwd_dkv_ref,
+                                                   mha_bwd_dq_ref,
+                                                   mha_fwd_ref)
+    errs = {}
+    cases = [(name, shape, dtype, None) for name, shape in seg_cases().items()
+             for dtype in (torch.bfloat16, torch.float32)]
+    cases.append(("packed llama-1b train", seg_cases()["packed llama-1b train"],
+                  torch.bfloat16, "fma"))
+    for name, (B, S, T, H, K, hd, hdv, causal, kind), dtype, forced in cases:
+        tag = str(dtype).replace("torch.", "")
+        key = f"{name} {tag}" + (f" (forced {forced})" if forced else "")
+        segs = seg_ids(torch, gen, kind, B, S, T, seed)
+        args = _seg_bwd_inputs(torch, gen, B, S, T, H, K, hd, hdv, causal,
+                               segs, dtype)
+        q, k, v = args[:3]
+        kw = dict(scale=hd ** -0.5, causal=causal, segments=segs)
+        froute = forced or _fwd_route(q, k, v)
+        broute = forced or _bwd_route(q, k, v)
+
+        def run():
+            if forced:
+                o, l = _launch_fwd(forced, q, k, v, None, kw["scale"], causal,
+                                   segs)
+                return (o, l, bwd_fma(torch, "mha_bwd_dq", args, kw),
+                        *bwd_fma(torch, "mha_bwd_dkv", args, kw))
+            o, l = mha_fwd(q, k, v, **kw)
+            return (o, l, mha_bwd_dq(*args, **kw), *mha_bwd_dkv(*args, **kw))
+        before, before_s = route_counts(), seg_counts()
+        out, lse, dq, dk, dv = run()
+        torch.cuda.synchronize()
+        after, after_s = route_counts(), seg_counts()
+        if not forced:
+            want = {k_: dict(c) for k_, c in before.items()}
+            want["mha_fwd"][froute] += 1
+            for k_ in BWD_KERNELS:
+                want[k_][broute] += 1
+            if after != want or after_s != {k_: n + 1 for k_, n in
+                                           before_s.items()}:
+                raise AssertionError(f"segments {key}: routes {before} -> "
+                                     f"{after}, segment launches {before_s} "
+                                     f"-> {after_s}")
+        ref, ref_lse = mha_fwd_ref(q, k, v, **kw)
+        atol, rtol = ((F32_OUT_ATOL, 0.0) if dtype == torch.float32
+                      else (BF16_OUT_ATOL, BF16_OUT_RTOL))
+        d = (out.float() - ref.float()).abs()
+        tol = atol + rtol * ref.float().abs()
+        rows = ref_lse > -1e29  # rows with at least one valid key
+        dl = (lse - ref_lse).abs()[rows]
+        ltol = LSE_ATOL + LSE_RTOL * ref_lse[rows].abs()
+        ok = (bool((d <= tol).all()) and bool((dl <= ltol).all())
+              and bool(torch.isfinite(out.float()).all())
+              and bool((lse[~rows] <= -1e29).all()))
+        if not ok:
+            raise AssertionError(f"mha_fwd with segments disagrees with the "
+                                 f"plain version: {key}")
+        e_out, r_out = d.max().item(), (d / tol).max().item()
+        r_lse = (dl / ltol).max().item() if dl.numel() else 0.0
+        e_q, r_q, _ = _bwd_check(torch, "mha_bwd_dq", dq,
+                                 mha_bwd_dq_ref(*args, **kw), tag, key)
+        want_k, want_v = mha_bwd_dkv_ref(*args, **kw)
+        e_k, r_k, _ = _bwd_check(torch, "mha_bwd_dkv dK", dk, want_k, tag, key)
+        e_v, r_v, _ = _bwd_check(torch, "mha_bwd_dkv dV", dv, want_v, tag, key)
+        del want_k, want_v, ref
+        again = run()
+        for nm, a, b in zip(("out", "lse", "dQ", "dK", "dV"),
+                            (out, lse, dq, dk, dv), again):
+            _bitwise_again(torch, f"segments {nm}", a, b, key)
+        orphan = ""
+        if kind == "separate":
+            orows = orphan_rows(S)
+            if not (bool((out[:, orows] == 0).all())
+                    and bool((lse[..., orows] <= -1e29).all())
+                    and bool((dq[:, orows] == 0).all())):
+                raise AssertionError(f"segments {key}: a row whose id no key "
+                                     "has is not 0 (out, lse or dQ)")
+            do2 = args[3].clone()
+            do2[:, orows] = 3 * do2[:, orows] + 1
+            args2 = (*args[:3], do2, *args[4:])
+            dk2, dv2 = (bwd_fma(torch, "mha_bwd_dkv", args2, kw) if forced
+                        else mha_bwd_dkv(*args2, **kw))
+            if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
+                raise AssertionError(f"segments {key}: the orphan rows' dO "
+                                     "moved dK or dV")
+            orphan = "; orphan rows: out 0, lse -1e30, dQ 0, dK/dV unmoved"
+        ek = (name, tag) if not forced else (name, tag, forced)
+        errs[("mha_fwd", *ek)] = e_out
+        errs[("mha_bwd_dq", *ek)] = e_q
+        errs[("mha_bwd_dkv", *ek)] = max(e_k, e_v)
+        print(f"  {key:44s} fwd {froute:6s} out err {e_out:.3e} (err/tol "
+              f"{r_out:.3f}, lse {r_lse:.3f}); bwd {broute} dQ {e_q:.3e}, dK "
+              f"{e_k:.3e}, dV {e_v:.3e} (err/tol {r_q:.3f}, {r_k:.3f}, "
+              f"{r_v:.3f}); bitwise repeatable{orphan}")
+        del args, q, k, v, out, lse, dq, dk, dv, again
+    # all-equal ids: bitwise the kernels' no-segment result
+    for name, (B, S, T, H, K, hd, causal, dt) in SEG_EQUAL_CASES.items():
+        dtype = getattr(torch, dt)
+        segs = seg_ids(torch, gen, "equal", B, S, T, seed)
+        args = _seg_bwd_inputs(torch, gen, B, S, T, H, K, hd, hd, causal,
+                               None, dtype)
+        q, k, v = args[:3]
+        outs = []
+        for sg in (None, segs):
+            kw = dict(scale=hd ** -0.5, causal=causal, segments=sg)
+            outs.append((*mha_fwd(q, k, v, **kw), mha_bwd_dq(*args, **kw),
+                         *mha_bwd_dkv(*args, **kw)))
+        torch.cuda.synchronize()
+        for nm, a, b in zip(("out", "lse", "dQ", "dK", "dV"), *outs):
+            if not torch.equal(a, b):
+                raise AssertionError(f"all-equal ids, {name}: {nm} differs "
+                                     "from the no-segment result")
+        print(f"  all-equal ids, {name} ({dt}; fwd {_fwd_route(q, k, v)}, bwd "
+              f"{_bwd_route(q, k, v)}): out, lse, dQ, dK, dV bitwise the "
+              "no-segment result")
+        del args, outs
+    print(f"  segment launches so far: {seg_counts()}")
+    return errs
+
+
+def seg_tile_share(torch, ids, causal=True, tile=64):
+    """(tile pairs the segment skip removes, tile pairs the causal clause
+    leaves) of the mma kernels' 64 x 64 tiling at ``ids`` (B, S), q and kv
+    ids the same: a pair runs only if its id ranges overlap."""
+    B, S = ids.shape
+    n = (S + tile - 1) // tile
+    pad = torch.nn.functional.pad(ids, (0, n * tile - S), value=0)
+    valid = torch.arange(n * tile, device=ids.device) < S
+    t = pad.view(B, n, tile)
+    v = valid.view(n, tile)
+    lo = torch.where(v, t, torch.iinfo(torch.int32).max).amin(-1)
+    hi = torch.where(v, t, torch.iinfo(torch.int32).min).amax(-1)
+    i = torch.arange(n, device=ids.device)
+    live = (i[:, None] >= i[None, :]) if causal else torch.ones(
+        n, n, dtype=torch.bool, device=ids.device)
+    overlap = (lo[:, :, None] <= hi[:, None, :]) & (lo[:, None, :]
+                                                    <= hi[:, :, None])
+    total = int(live.sum()) * B
+    return total - int((overlap & live).sum()), total
+
+
+def seg_bound_ms(kernel, B, S, H, K, hd, pairs, el_bytes):
+    """Least time of an attention kernel with segments over ``pairs``
+    valid (query, key) pairs of every head (what this batch's ids leave):
+    max(bytes once / HBM rate, FLOPs / bf16 peak). The forward reads q, k,
+    v and both ids and writes out and lse (two products a pair); dQ reads
+    q, k, v, dO, lse, delta and the ids and writes dQ (three); dK, dV the
+    same, writing dK and dV (four)."""
+    q_el, kv_el = B * S * H * hd, B * S * K * hd
+    ids = 4 * 2 * B * S
+    if kernel == "mha_fwd":
+        flops = 4 * hd * pairs * H
+        nbytes = el_bytes * (2 * q_el + 2 * kv_el) + 4 * B * H * S + ids
+    else:
+        flops = (3 if kernel == "mha_bwd_dq" else 4) * 2 * hd * pairs * H
+        nbytes = (el_bytes * (2 * q_el + 2 * kv_el) + 2 * 4 * B * H * S
+                  + ids + el_bytes * (q_el if kernel == "mha_bwd_dq"
+                                      else 2 * kv_el))
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+    return 1e3 * max(t_b, t_f), "bytes" if t_b >= t_f else "operations"
+
+
+def seg_timing(torch, gen, power, errs, seed):
+    """Phase 4, the segment clause at the packed train shape (llama-1b's
+    packed batch: B=16, S=T=256, 32 heads of 64, causal, bf16, the mma
+    route): each kernel with segments, in turns with the same kernel
+    without them and the plain version (with them), by CUDA events and
+    device time; the library call is F.scaled_dot_product_attention with
+    the dense (B, 1, S, T) boolean mask (causal and same id), for the
+    backward its autograd (dQ, dK, dV together). The bound counts the
+    valid pairs this batch's ids leave; the skip share is that of the
+    kernels' 64 x 64 tile pairs. -> one row per kernel ("... segments")."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.attention.attention import (mha_bwd_dkv,
+                                                         mha_bwd_dq, mha_fwd)
+    from repro_torch.kernels.attention.ref import (mha_bwd_dkv_ref,
+                                                   mha_bwd_dq_ref,
+                                                   mha_fwd_ref)
+    B, S, H, K, hd = 16, 256, 32, 32, 64
+    ids = packed_ids(torch, seed, B, S)
+    segs = (ids, ids)
+    args = _seg_bwd_inputs(torch, gen, B, S, S, H, K, hd, hd, True, segs,
+                           torch.bfloat16)
+    q, k, v, do = args[:4]
+    causal = torch.ones(S, S, dtype=torch.bool, device="cuda").tril()
+    mask = (causal & (ids[:, :, None] == ids[:, None, :]))[:, None]
+    pairs = int(mask.sum())
+    skipped, total = seg_tile_share(torch, ids)
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    scale = hd ** -0.5
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                              scale=scale)
+    with torch.no_grad():
+        lib_fwd = (time_ms(torch, sdpa, 20), device_ms(torch, sdpa, 10))
+    o = sdpa()
+
+    def sdpa_bwd():
+        return torch.autograd.grad(o, [qt, kt, vt], dot, retain_graph=True)
+    lib_bwd = (time_ms(torch, sdpa_bwd, 20), device_ms(torch, sdpa_bwd, 10))
+    kw = dict(scale=scale, causal=True)
+    calls = {
+        "mha_fwd": (lambda sg: mha_fwd(q, k, v, segments=sg, **kw),
+                    lambda: mha_fwd_ref(q, k, v, segments=segs, **kw),
+                    lib_fwd, "F.scaled_dot_product_attention, (B, 1, S, T) "
+                    "boolean mask"),
+        "mha_bwd_dq": (lambda sg: mha_bwd_dq(*args, segments=sg, **kw),
+                       lambda: mha_bwd_dq_ref(*args, segments=segs, **kw),
+                       lib_bwd, "backward of F.scaled_dot_product_attention "
+                       "with the mask (dQ, dK, dV together)"),
+        "mha_bwd_dkv": (lambda sg: mha_bwd_dkv(*args, segments=sg, **kw),
+                        lambda: mha_bwd_dkv_ref(*args, segments=segs, **kw),
+                        lib_bwd, "backward of "
+                        "F.scaled_dot_product_attention with the mask (dQ, "
+                        "dK, dV together)"),
+    }
+    rows = []
+    for name, (call, plain, (lib_ms, lib_dev), note) in calls.items():
+        # in turns: with, without, without, with
+        t = {"seg": [], "none": []}
+        d = {"seg": [], "none": []}
+        for which in ("seg", "none", "none", "seg"):
+            sg = segs if which == "seg" else None
+            t[which].append(time_ms(torch, lambda: call(sg), 20))
+            d[which].append(device_ms(torch, lambda: call(sg), 10, name))
+        plain_ms = time_ms(torch, plain, 5)
+        bound, by = seg_bound_ms(name, B, S, H, K, hd, pairs, 2)
+        ms, dev = min(t["seg"]), min(x for x in d["seg"] if x) if any(
+            d["seg"]) else None
+        ms0, dev0 = min(t["none"]), min(x for x in d["none"] if x) if any(
+            d["none"]) else None
+        print(f"  [{power}] {name} with segments, packed train B={B} S={S} "
+              f"H={H} hd={hd} causal bf16, mma route: {ms:.4f} ms (device "
+              f"time {fmt_ms(dev)}; runs {', '.join(f'{x:.4f}' for x in t['seg'])}"
+              f"); without segments {ms0:.4f} ms (device time {fmt_ms(dev0)};"
+              f" runs {', '.join(f'{x:.4f}' for x in t['none'])}); bound "
+              f"{bound:.4f} ms by {by} ({pairs} valid pairs a head, of "
+              f"{B * S * (S + 1) // 2} causal); plain {plain_ms:.4f} ms; "
+              f"{note} {lib_ms:.4f} ms, device time {fmt_ms(lib_dev)}; "
+              f"tile pairs the skip removes {skipped} of {total} "
+              f"({skipped / total:.3f})")
+        rows.append({
+            "name": SEG_ROWS[name], "route": "cuda", "kernel_route": "mma",
+            "shape": f"packed train: B={B} S={S} T={S} H={H} K={K} hd={hd} "
+                     "causal bf16, llama-1b's packed segment ids",
+            "source": SRC_MHA if name == "mha_fwd" else SRC_MHA_BWD,
+            "replaces": TPU_MHA if name == "mha_fwd" else TPU_KERNELS[name],
+            "launches": None,
+            "max_abs_err": errs[(name, "packed llama-1b train", "bfloat16")],
+            "ms": ms, "device_ms": dev, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
+            "library_device_ms": lib_dev, "library_note": note,
+            "no_segments_ms": ms0, "no_segments_device_ms": dev0,
+            "valid_pairs_per_head": pairs,
+            "tile_pairs_skipped": skipped, "tile_pairs_causal": total})
+    del args, q, k, v, do, qt, kt, vt, o, dot, mask
+    return rows
+
+
+
+def _per_token_losses(torch, params, cfg, batch):
+    """(B, S) per-token losses of ``batch`` (its loss weights applied),
+    through the kernels, with no autograd."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import forward
+    with torch.no_grad():
+        h = forward(params, cfg, batch["tokens"],
+                    positions=batch["positions"],
+                    segment_ids=batch["segment_ids"])[0]
+        return dispatch.xent_loss(h, params["lm_head"]["w"], batch["labels"],
+                                  vocab_size=cfg.vocab_size,
+                                  weights=batch["loss_weights"])
+
+
+def phase_packed(torch, seed, power, unpacked):
+    """Phase 13: packed-document training of llama-1b at full width and
+    depth (``--pack-documents``; 16 x 256 packed batches): (a) the launcher
+    for two steps; (b) one loss-and-grad against the same call with the
+    plain attention swapped into dispatch, every leaf; (c) make_train_step
+    for PACKED_STEPS steps, the main path (counts from 0 just before, read
+    just after, every step's launches by route and with segments checked);
+    (d) each document's per-token losses against its offset-preserving
+    unpacked row; (e) document 1 of a row perturbed: every other
+    document's per-token losses bitwise unchanged; (f) one step under
+    set_sync_debug_mode("error"); (g) step time, tokens/s in real tokens,
+    device busy time by kernel family, idle share, peak memory, beside
+    phase 8's unpacked step; then the same steps through the plain
+    attention from the same seeded weights, the loss curves held
+    together."""
+    import math
+    from unittest import mock
+    from repro_torch.configs import get_arch
+    from repro_torch.core import linear_warmup_cosine, make_optimizer
+    from repro_torch.data import make_dataset, unpack_to_rows
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.attention.ref import mha_fwd_ref
+    from repro_torch.launch import train as launcher
+    from repro_torch.models import init_params
+    from repro_torch.training import (init_state, make_train_step,
+                                      value_and_grad)
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks
+    t_phase = time.perf_counter()
+    cfg = get_arch("llama-1b")
+    B, S = 16, 256
+    L = cfg.n_layers
+    ds = make_dataset(cfg, S, B, seed=seed, pack_documents=True,
+                      device="cuda")
+    batches = [ds.global_batch_at(i) for i in range(PACKED_STEPS)]
+    real = [int(b["loss_weights"].sum()) for b in batches]
+    docs = [int((b["segment_ids"].amax(1)).sum()) for b in batches]
+    pad = [float((b["segment_ids"] == 0).float().mean()) for b in batches]
+    print(f"  llama-1b packed: {L} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads of {cfg.head_dim}, {cfg.dtype}, remat "
+          f"{cfg.remat!r}; {B} x {S} packed SyntheticLM batches (seed {seed}; "
+          f"documents uniform in [8, {S}], first-fit): per batch "
+          f"{docs} documents, pad share {' '.join(f'{x:.3f}' for x in pad)}, "
+          f"real tokens (the loss's weight) {real}; scale_fused, clip 1.0, "
+          f"linear_warmup_cosine(1e-3, steps)")
+    argv = ["--arch", "llama-1b", "--pack-documents", "--optimizer",
+            "scale_fused", "--batch", str(B), "--seq", str(S), "--steps", "2",
+            "--log-every", "1", "--seed", str(seed)]
+    print(f"  (a) python -m repro_torch.launch.train {' '.join(argv)}:")
+    t0 = time.perf_counter()
+    final = launcher.main(argv)
+    print(f"  launcher: 2 steps in {time.perf_counter() - t0:.1f} s (init "
+          f"and first-call costs included), final loss {final:.4f}")
+    if not math.isfinite(final):
+        raise AssertionError("packed: the launcher's loss is not finite")
+    torch.cuda.empty_cache()
+    plain_attn = mock.patch.object(dispatch, "mha_fwd", mha_fwd_ref)
+
+    def start():
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        tx = make_optimizer("scale_fused",
+                            linear_warmup_cosine(1e-3, PACKED_STEPS))
+        return (init_state(init_params(cfg, gen, device="cuda"), tx),
+                make_train_step(cfg, tx, clip_norm=1.0))
+
+    state, step = start()
+    batch = batches[0]
+    # (b) one loss-and-grad against the plain attention, every leaf
+    loss_k, _, g = value_and_grad(state.params, cfg, batch)
+    with plain_attn:
+        loss_p, _, r = value_and_grad(state.params, cfg, batch)
+    rel = {k: ((x.float() - r[k].float()).norm()
+               / r[k].float().norm().clamp_min(1e-30)).item()
+           for k, x in g.items()}
+    worst = max(rel, key=rel.get)
+    d_loss = abs(loss_k.item() - loss_p.item())
+    del g, r
+    print(f"  (b) loss-and-grad against the plain attention (mha_fwd_ref "
+          f"autograd): loss {loss_k.item():.6f} vs {loss_p.item():.6f} "
+          f"(|diff| {d_loss:.2e}, tol {EVAL_REF_ATOL:g}); bf16 at full "
+          f"depth, relative in norm, worst of {len(rel)} leaves "
+          f"{rel[worst]:.3e} ({worst}; tol {TRAIN_GRAD_BF16:g})")
+    if not (d_loss <= EVAL_REF_ATOL and rel[worst] <= TRAIN_GRAD_BF16):
+        raise AssertionError("packed: the gradient disagrees with the plain "
+                             "attention")
+    torch.cuda.empty_cache()
+
+    # (c) the main path: counts set to 0 just before it, read just after
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_train_counts()
+    zero_route_counts()
+    zero_seg_counts()
+    per_step, per_step_routes, per_step_seg, losses = [], [], [], []
+    for b in batches:
+        before, before_r, before_s = (train_counts(), route_counts(),
+                                      seg_counts())
+        state, metrics = step(state, b)
+        per_step.append({k: v - before[k] for k, v in train_counts().items()})
+        per_step_routes.append({k: {r_: n - before_r[k][r_]
+                                    for r_, n in c.items()}
+                                for k, c in route_counts().items()})
+        per_step_seg.append({k: n - before_s[k]
+                             for k, n in seg_counts().items()})
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches, seg_launches = train_counts(), seg_counts()
+    want = {"mha_fwd": 2 * L, "mha_bwd_dq": L, "mha_bwd_dkv": L,
+            "xent_fwd": 1, "xent_bwd_dh": 1, "xent_bwd_dw": 1,
+            "norm_sumsq": 8, "update_apply": 9, "momentum_sumsq": 1,
+            "norm_apply": 0}
+    want_s = {"mha_fwd": 2 * L, "mha_bwd_dq": L, "mha_bwd_dkv": L}
+    for i, (c, s) in enumerate(zip(per_step, per_step_seg)):
+        if c != want or s != want_s:
+            raise AssertionError(f"packed train step {i} launched {c}, with "
+                                 f"segments {s}; not {want}, {want_s}")
+    want_r = {"mha_fwd": {"mma": 2 * L},
+              **{k: {"mma": L} for k in BWD_KERNELS},
+              "xent_fwd": {"wgmma": 1}, "xent_bwd_dh": {"mma": 1},
+              "xent_bwd_dw": {"mma": 1}, "update_apply": {"vec": 9}}
+    for i, c in enumerate(per_step_routes):
+        check_routes(c, want_r, f"packed train step {i}", show=False)
+    print(f"  (c) make_train_step: every one of {PACKED_STEPS} steps "
+          f"launched {want}, by route {want_r}, with segments {want_s}")
+    losses = [float(x) for x in losses]
+
+    # (d) each document against its offset-preserving unpacked row, run in
+    # chunks of the packed batch's shape
+    params = state.params
+    per_p = _per_token_losses(torch, params, cfg, batch)
+    rows = unpack_to_rows(batch)
+    n = rows["tokens"].shape[0]
+    chunks = []
+    for c0 in range(0, n, B):
+        part = {k: x[c0:c0 + B] for k, x in rows.items()}
+        if part["tokens"].shape[0] < B:  # all-pad rows to the batch shape
+            fill = B - part["tokens"].shape[0]
+            part = {k: torch.cat([x, torch.full(
+                (fill, S), -1 if k == "labels" else 0, dtype=x.dtype,
+                device=x.device)]) for k, x in part.items()}
+        chunks.append(_per_token_losses(torch, params, cfg, part))
+    per_u = torch.cat(chunks)[:n]
+    segs = batch["segment_ids"]
+    i, worst_d, same = 0, 0.0, 0
+    for b in range(B):
+        for s in segs[b].unique().tolist():
+            if s == 0:
+                continue
+            m = segs[b] == s
+            d = (per_p[b][m] - per_u[i][m]).abs().max().item()
+            worst_d = max(worst_d, d)
+            same += bool(torch.equal(per_p[b][m], per_u[i][m]))
+            i += 1
+    print(f"  (d) per-token losses of each of {n} documents against its "
+          f"offset-preserving unpacked row: max |diff| {worst_d:.3e} (tol "
+          f"{PACKED_DOC_ATOL:g}); {same} of {n} documents bitwise equal")
+    if not worst_d <= PACKED_DOC_ATOL:
+        raise AssertionError("packed: a document's losses differ from its "
+                             "unpacked row's")
+    # (e) document 1 of a row perturbed: the other documents bitwise
+    # unchanged, and every other row
+    rb = next(b for b in range(B) if segs[b].max() >= 2)
+    m1 = segs[rb] == 1
+    mutant = dict(batch, tokens=batch["tokens"].clone())
+    mutant["tokens"][rb, m1] = (mutant["tokens"][rb, m1] + 7) % cfg.vocab_size
+    pert = _per_token_losses(torch, params, cfg, mutant)
+    other = segs[rb] >= 2
+    rest = [x for x in range(B) if x != rb]
+    if not (torch.equal(per_p[rb][other], pert[rb][other])
+            and torch.equal(per_p[rest], pert[rest])
+            and not torch.equal(per_p[rb][m1], pert[rb][m1])):
+        raise AssertionError("packed: perturbing document 1 moved another "
+                             "document's losses (or left its own)")
+    print(f"  (e) row {rb}: document 1 perturbed ({int(m1.sum())} tokens); "
+          f"the row's other {int(other.sum())} tokens' losses and the other "
+          f"{B - 1} rows' are bitwise unchanged; document 1's moved")
+    del per_p, per_u, pert, chunks, rows, mutant
+
+    # (f) one step with any host synchronisation an error
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, _ = step(state, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print("  (f) packed train step under set_sync_debug_mode('error'): no "
+          "host synchronisation")
+
+    # (g) times: host clock best of 3, the profile of one step
+    def one():
+        nonlocal state
+        state, _ = step(state, batch)
+
+    t_step = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one()
+        torch.cuda.synchronize()
+        t_step.append(time.perf_counter() - t0)
+    step_s = min(t_step)
+    tps = real[0] / step_s
+    print(f"  [{power}] (g) packed train step {step_s * 1e3:.3f} ms (best of "
+          f"3: {', '.join(f'{x * 1e3:.3f}' for x in t_step)}; {tps:.0f} real "
+          f"tokens/s, {B * S / step_s:.0f} slots/s) against phase 8's "
+          f"unpacked {unpacked['step_ms']:.3f} ms "
+          f"({B * S / unpacked['step_ms'] * 1e3:.0f} tokens/s); "
+          f"torch.cuda.max_memory_allocated over its {PACKED_STEPS} "
+          f"main-path steps {peak / 2**20:.1f} MiB")
+    busy, kernels = profile_step(torch, power, one, step_s * 1e3, n=1,
+                                 label="packed train step", top=8)
+    fams = by_family(kernels)
+    for fam, (ms, k_) in sorted(fams.items(), key=lambda x: -x[1][0]):
+        print(f"    {ms:9.3f} ms {100 * ms / busy:5.1f}% x{k_:<5d} {fam}")
+    del state, step
+    torch.cuda.empty_cache()
+
+    # the same steps through the plain attention, from the same weights
+    state, step = start()
+    with plain_attn:
+        ref_losses = []
+        for b in batches:
+            state, m = step(state, b)
+            ref_losses.append(float(m["loss"]))
+    del state, step
+    torch.cuda.empty_cache()
+    gap = max(abs(a - b) for a, b in zip(losses, ref_losses))
+    print(f"  packed loss over {PACKED_STEPS} steps: "
+          f"{' '.join(f'{x:.4f}' for x in losses)}")
+    print(f"  plain attention:              "
+          f"{' '.join(f'{x:.4f}' for x in ref_losses)} (max |diff| "
+          f"{gap:.2e}, tol {LOSS_CURVE_ATOL:g})")
+    if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]
+            and gap <= LOSS_CURVE_ATOL):
+        raise AssertionError("packed: the training loss does not fall, or "
+                             "leaves the plain attention's curve")
+    print(f"  phase 13 took {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "segment_launches": seg_launches,
+            "per_step": per_step[0], "routes": per_step_routes[0],
+            "per_step_segments": per_step_seg[0],
+            "step_ms": step_s * 1e3, "real_tokens_per_s": tps,
+            "busy_ms": busy,
+            "idle_share": None if busy is None else 1 - busy / (step_s * 1e3),
+            "peak_mib": peak / 2**20, "losses": losses,
+            "ref_losses": ref_losses, "loss_gap": gap, "grad_rel": rel[worst],
+            "doc_max_diff": worst_d, "docs_bitwise": same, "docs": n,
+            "device_ms_by_family": {f: ms for f, (ms, _) in fams.items()}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3920,12 +4608,14 @@ def main() -> int:
     opt_errs.update(phase_update_routes(torch, gen))
     xent_errs = phase_xent_kernels(torch, gen)
     tied_errs = phase_xent_tied_kernels(torch, gen)
+    seg_errs = phase_segment_kernels(torch, gen, args.seed)
     print("phase 3: greedy serving, llama-130m, full width and depth")
     serve = phase_serving(torch, args.seed, power)
     print("phase 4: kernel times (CUDA events; attention and xent also "
           "device time)")
     mha_rows = phase_timing(torch, gen, power, serve, errs)
     bwd_rows = bwd_timing(torch, gen, power, bwd_errs)
+    seg_rows = seg_timing(torch, gen, power, seg_errs, args.seed)
     opt_rows = optimizer_timing(torch, gen, power, opt_errs, variants)
     xent_rows = xent_timing(torch, gen, power, xent_errs)
     xent_variant_timing(torch, gen, power, variants, xent_rows)
@@ -3950,6 +4640,9 @@ def main() -> int:
     print("phase 12: tied-embedding training, llama-1b and gemma-2b, full "
           "width and depth")
     tied = phase_tied(torch, args.seed, power)
+    print("phase 13: packed-document training, llama-1b, full width and "
+          "depth")
+    packed = phase_packed(torch, args.seed, power, train)
     # one row per kernel; launches summed over the main paths that run it,
     # each counted from 0 just before its path and read just after
     by_path = {"serving": {"mha_fwd": serve["launches"]},
@@ -3965,7 +4658,12 @@ def main() -> int:
                       if k not in XENT_KERNELS},
                    **{TIED_ROWS[k]: r["routes_run"][k][route]
                       for k, route in TIED_ROUTES.items()}}
-                  for a, r in tied.items()}}
+                  for a, r in tied.items()},
+               # the packed run's attention launches with segments under
+               # the segment rows' names (every one: checked per step)
+               "train packed": {**packed["launches"],
+                                **{SEG_ROWS[k]: n for k, n in
+                                   packed["segment_launches"].items()}}}
     # mha_fwd's prefill numbers, with both serving shapes and the eval and
     # training steps' shape beside them
     mha = {k: v for k, v in mha_rows[0].items() if k != "shape"}
@@ -3986,7 +4684,7 @@ def main() -> int:
         for entry, arch in zip(row["shapes"], TIED_MODELS):
             entry["launches"] = tied[arch]["routes_run"][row["name"].split()[
                 0]][row["kernel_route"]]
-    rows = [mha] + bwd_rows + opt_rows + xent_rows + tied_rows
+    rows = [mha] + bwd_rows + opt_rows + xent_rows + tied_rows + seg_rows
     for row in rows:
         row["launches_by_path"] = {p: c[row["name"]]
                                    for p, c in by_path.items()
@@ -4000,6 +4698,12 @@ def main() -> int:
             a: {"launches": r["per_step"].get(row["name"]),
                 "by_route": r["routes"].get(row["name"])}
             for a, r in (("llama-1b", train), *paper.items())}
+        if row["name"] in SEG_ROWS.values():
+            base = row["name"].split()[0]
+            row["launches_per_train_step_by_model"] = {
+                "llama-1b packed": {
+                    "launches": packed["per_step_segments"][base],
+                    "by_route": packed["routes"][base]}}
         if row["name"] in TIED_ROWS.values():
             base = row["name"].split()[0]
             row["launches_per_train_step_by_model"] = {

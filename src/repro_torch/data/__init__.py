@@ -1,3 +1,3 @@
-from .pipeline import DataConfig, SyntheticLM, make_dataset
+from .pipeline import DataConfig, SyntheticLM, make_dataset, unpack_to_rows
 
-__all__ = ["DataConfig", "SyntheticLM", "make_dataset"]
+__all__ = ["DataConfig", "SyntheticLM", "make_dataset", "unpack_to_rows"]

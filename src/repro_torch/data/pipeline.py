@@ -14,8 +14,23 @@ the JAX pipeline's distribution but not its tokens. Draws are made on the
 CPU, so a batch is the same on every device, and land on
 ``resolve_device(device)``: the card unless the caller asks for the CPU.
 
-Not ported yet, and raising ``NotImplementedError``: packed documents
-(ROADMAP.md Queue 1 item 6), audio codebooks and image stubs (item 13).
+Packed batches (``pack_documents``): variable-length documents are
+first-fit binned into fixed-S rows, as the JAX package's ``_packed_batch``
+does. A packed batch carries three more (B, S) operands: ``segment_ids``
+(int32, the document's id within its row, 1..N in placement order, 0 on
+pad), ``positions`` (int32, the position within the document, 0 on pad)
+and ``loss_weights`` (f32, 1 where the label is a next token within the
+document, 0 at each document's end and on pad). Labels are -1 wherever
+the weight is 0. The document lengths come from the same
+``np.random.RandomState`` keyed on (seed, step) as in JAX, so the layout
+(``segment_ids``, ``positions``, ``loss_weights`` and the -1 labels) is
+JAX's bitwise; the candidate documents' tokens come from this module's
+generator (seeded from (seed, step, 17)) and are not JAX's.
+:func:`unpack_to_rows` is the offset-preserving inverse the parity tests
+use. Packing runs on the host in numpy, as a loader would.
+
+Not ported yet, and raising ``NotImplementedError``: audio codebooks and
+image stubs (ROADMAP.md Queue 1 item 13).
 """
 from __future__ import annotations
 
@@ -35,6 +50,8 @@ class DataConfig:
     seed: int = 0
     bigram_prob: float = 0.8     # P(next token follows the affine map)
     zipf_a: float = 1.2          # Zipf exponent for the noise marginal
+    pack_documents: bool = False  # first-fit packed multi-document rows
+    min_doc_len: int = 8         # packed: shortest sampled document
 
 
 def _zipf_cdf(vocab: int, a: float) -> np.ndarray:
@@ -55,9 +72,11 @@ class SyntheticLM:
         self._a = int(rng.randint(3, 97) * 2 + 1)  # odd -> bijective mod V
         self._b = int(rng.randint(0, cfg.vocab_size))
 
-    def _generator(self, step: int) -> torch.Generator:
-        """The CPU generator of ``step``'s draws, seeded from (seed, step)."""
-        state = np.random.SeedSequence([self.cfg.seed, step]).generate_state(1)
+    def _generator(self, step: int, *salt: int) -> torch.Generator:
+        """The CPU generator of ``step``'s draws, seeded from (seed, step)
+        and ``salt`` (the packed batch's documents: 17)."""
+        state = np.random.SeedSequence(
+            [self.cfg.seed, step, *salt]).generate_state(1)
         return torch.Generator().manual_seed(int(state[0]))
 
     def _sample_zipf(self, gen: torch.Generator, shape) -> torch.Tensor:
@@ -78,10 +97,52 @@ class SyntheticLM:
             toks[:, s] = prev
         return toks.to(torch.int32)
 
+    def _packed_batch(self, step: int) -> dict:
+        """First-fit packed (B, S) batch (see the module docstring): the
+        JAX package's ``_packed_batch``, on the host in numpy."""
+        cfg = self.cfg
+        B, S = cfg.global_batch, cfg.seq_len
+        lo = min(cfg.min_doc_len, S)
+        rng = np.random.RandomState(
+            (1000003 * cfg.seed + 7919 * step + 13) % (2 ** 31 - 1))
+        # enough candidates to fill B rows at the ~(lo+S)/2 mean length
+        n_cand = 4 * B + 8
+        lens = rng.randint(lo, S + 1, size=n_cand)
+        cand = self._gen_tokens(self._generator(step, 17), n_cand).numpy()
+        tokens = np.zeros((B, S), np.int32)
+        labels = np.full((B, S), -1, np.int32)
+        segment_ids = np.zeros((B, S), np.int32)
+        positions = np.zeros((B, S), np.int32)
+        weights = np.zeros((B, S), np.float32)
+        fill = np.zeros(B, np.int64)
+        nseg = np.zeros(B, np.int64)
+        for d in range(n_cand):
+            L = int(lens[d])
+            b = next((b for b in range(B) if S - fill[b] >= L), None)
+            if b is None:
+                if int((S - fill).max()) < lo:
+                    break  # no later candidate fits anywhere
+                continue
+            o = int(fill[b])
+            doc = cand[d, :L]
+            tokens[b, o:o + L] = doc
+            segment_ids[b, o:o + L] = nseg[b] + 1
+            positions[b, o:o + L] = np.arange(L)
+            labels[b, o:o + L - 1] = doc[1:]  # within the document only:
+            weights[b, o:o + L - 1] = 1.0     # its last token predicts
+            fill[b] += L                      # nothing across the boundary
+            nseg[b] += 1
+        out = {"tokens": tokens, "labels": labels, "segment_ids": segment_ids,
+               "positions": positions, "loss_weights": weights}
+        return {k: torch.from_numpy(v).to(self.device) for k, v in out.items()}
+
     def global_batch_at(self, step: int) -> dict:
         """The full batch for ``step``: tokens (B, S) int32 and the
-        next-token labels (B, S) int32, -1 last."""
+        next-token labels (B, S) int32, -1 last; packed, also
+        ``segment_ids``, ``positions`` and ``loss_weights``."""
         cfg = self.cfg
+        if cfg.pack_documents:
+            return self._packed_batch(step)
         toks = self._gen_tokens(self._generator(step), cfg.global_batch)
         labels = torch.cat([toks[:, 1:], torch.full(
             (cfg.global_batch, 1), -1, dtype=torch.int32)], dim=1)
@@ -99,22 +160,51 @@ class SyntheticLM:
                 for k, v in self.global_batch_at(step).items()}
 
 
+def unpack_to_rows(batch: dict) -> dict:
+    """Packed batch -> one row per document, offset-preserving: the JAX
+    package's ``unpack_to_rows``.
+
+    Each document keeps its packed row offset, and everything outside it
+    is pad (token 0, label -1, segment and position 0, weight 0), so every
+    per-document computation sees its tokens in the same lanes as in the
+    packed run. Rows in (row, id) order; tensors on the batch's device.
+    """
+    keys = ("tokens", "labels", "segment_ids", "positions", "loss_weights")
+    host = {k: torch.as_tensor(batch[k]).cpu().numpy() for k in keys}
+    fill = {"tokens": 0, "labels": -1, "segment_ids": 0, "positions": 0,
+            "loss_weights": 0.0}
+    rows = {k: [] for k in keys}
+    segs = host["segment_ids"]
+    for b in range(segs.shape[0]):
+        for s in np.unique(segs[b]):
+            if s == 0:
+                continue
+            m = segs[b] == s
+            for k in keys:
+                rows[k].append(np.where(m, host[k][b], fill[k])
+                               .astype(host[k].dtype))
+    device = torch.as_tensor(batch["tokens"]).device
+    return {k: torch.from_numpy(np.stack(v)).to(device)
+            for k, v in rows.items()}
+
+
 def make_dataset(model_cfg, seq_len: int, global_batch: int, seed: int = 0,
                  pack_documents: bool = False, device=None) -> SyntheticLM:
-    """Dataset matched to a ModelConfig: unpacked text batches. Packed
-    documents, audio codebooks and image stubs raise until ported."""
-    for on, what, item in (
-            (pack_documents, "packed documents", 6),
+    """Dataset matched to a ModelConfig: text batches, unpacked or packed
+    (``pack_documents``). Audio codebooks and image stubs raise until
+    ported."""
+    for on, what in (
             (model_cfg.family == "audio" and model_cfg.n_codebooks,
-             "audio codebooks", 13),
+             "audio codebooks"),
             (model_cfg.family == "vlm" and model_cfg.n_image_tokens,
-             "image stubs", 13)):
+             "image stubs")):
         if on:
             raise NotImplementedError(f"make_dataset: {what} are not ported "
-                                      f"yet; ROADMAP.md Queue 1 item {item}")
+                                      f"yet; ROADMAP.md Queue 1 item 13")
     return SyntheticLM(DataConfig(
         vocab_size=model_cfg.vocab_size,
         seq_len=seq_len,
         global_batch=global_batch,
         seed=seed,
+        pack_documents=pack_documents,
     ), device=device)

@@ -232,4 +232,55 @@ __device__ __forceinline__ void pack_a(unsigned* a, const float (*c)[4]) {
   a[3] = pack_bf16(c[1][2], c[1][3]);
 }
 
+// ------------------------------------------------------------- segment ids
+// The segment clause of packed batches: query i and key j are a valid pair
+// only if q_seg[b, i] == kv_seg[b, j] (the TPU kernel's `_masks`). The ids
+// are int32, (B, S) and (B, T), contiguous; pad positions carry 0.
+
+// The least and the largest id of ids[r0 .. min(r0 + n, end)), reduced by
+// each warp on its own, so that every thread of the block holds them with
+// no barrier (all 32 lanes must call it). Positions at or past `end` are
+// left out, as the TPU kernel pushes them out with _SEG_BIG: an empty range
+// is (INT_MAX, INT_MIN), which overlaps nothing.
+__device__ __forceinline__ int2 id_range(const int* ids, int r0, int n, int end) {
+  int lo = 0x7fffffff, hi = -0x7fffffff - 1;
+  for (int i = threadIdx.x & 31; i < n; i += 32) {
+    if (r0 + i < end) {
+      const int x = ids[r0 + i];
+      lo = min(lo, x);
+      hi = max(hi, x);
+    }
+  }
+  return make_int2(__reduce_min_sync(0xffffffffu, lo), __reduce_max_sync(0xffffffffu, hi));
+}
+// A tile pair whose id ranges do not overlap has no valid pair: it does no
+// work (the TPU kernel's `_run_pair`). The test is sound for any ids,
+// sorted or not.
+__device__ __forceinline__ bool ids_overlap(int2 a, int2 b) { return a.x <= b.y && b.x <= a.y; }
+// Every id of both ranges is one and the same value: the clause holds for
+// every pair of the tile, so it needs no mask of its own.
+__device__ __forceinline__ bool ids_one(int2 a, int2 b) {
+  return a.x == a.y && b.x == b.y && a.x == b.x;
+}
+// The id range of each 64-id tile of ids[0 .. end) (tile t: ids[64 t ..
+// 64 t + 63]), for n_tiles tiles, into tr[t]: the block's warps take the
+// tiles in turn. The ranges come from device memory, not from staged
+// tiles, so that a tile without work is never copied; the caller
+// synchronises before it reads tr.
+__device__ __forceinline__ void tile_ranges(int2* tr, const int* ids, int n_tiles, int end) {
+  for (int t = threadIdx.x >> 5; t < n_tiles; t += kMmaThreads / 32) {
+    const int2 r = id_range(ids, t * kMmaTile, kMmaTile, end);
+    if ((threadIdx.x & 31) == 0) tr[t] = r;
+  }
+}
+
+// Copy ids[r0 .. r0 + 63] into a 64-entry shared tile by cp.async beside
+// the tile's rows; entries at or past `end` are 0 and not read.
+__device__ __forceinline__ void copy_ids(int* dst, const int* ids, int r0, int end) {
+  for (int r = threadIdx.x; r < kMmaTile; r += kMmaThreads) {
+    const bool ok = r0 + r < end;
+    cp_async4(dst + r, ok ? ids + r0 + r : ids, ok ? 4 : 0);
+  }
+}
+
 }  // namespace

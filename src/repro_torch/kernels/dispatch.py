@@ -57,20 +57,26 @@ class FlashAttention(torch.autograd.Function):
     """Blockwise (flash) attention, kernels both ways: the counterpart of
     the JAX package's ``custom_vjp`` (``dispatch._attn_fused``).
 
-    forward(q, k, v, kv_len, scale, causal): ``mha_fwd`` gives (out, lse),
-    and (q, k, v, out, lse) are saved. backward: delta = rowsum(f32(dO) *
-    f32(out)) in the (B, H, S) layout, formed here outside the kernels as
-    JAX's ``_bwd_parts`` does, then ``mha_bwd_dq`` for dQ and
-    ``mha_bwd_dkv`` for dK and dV, each only when asked for. ``kv_len``,
-    ``scale`` and ``causal`` get no gradient. Each step takes its plain
-    version on CPU tensors and its kernel on CUDA tensors.
+    forward(q, k, v, kv_len, q_seg, kv_seg, scale, causal): ``mha_fwd``
+    gives (out, lse), and (q, k, v, out, lse) are saved. backward: delta =
+    rowsum(f32(dO) * f32(out)) in the (B, H, S) layout, formed here outside
+    the kernels as JAX's ``_bwd_parts`` does, then ``mha_bwd_dq`` for dQ
+    and ``mha_bwd_dkv`` for dK and dV, each only when asked for.
+    ``kv_len``, the segment ids (``q_seg``, ``kv_seg``: int32, or both
+    None), ``scale`` and ``causal`` get no gradient (JAX: float0
+    cotangents). Each step takes its plain version on CPU tensors and its
+    kernel on CUDA tensors.
     """
 
     @staticmethod
-    def forward(ctx, q, k, v, kv_len, scale: float, causal: bool):
-        out, lse = mha_fwd(q, k, v, kv_len, scale=scale, causal=causal)
+    def forward(ctx, q, k, v, kv_len, q_seg, kv_seg, scale: float,
+                causal: bool):
+        segments = None if q_seg is None else (q_seg, kv_seg)
+        out, lse = mha_fwd(q, k, v, kv_len, scale=scale, causal=causal,
+                           segments=segments)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.kv_len, ctx.scale, ctx.causal = kv_len, scale, causal
+        ctx.kv_len, ctx.segments = kv_len, segments
+        ctx.scale, ctx.causal = scale, causal
         return out
 
     @staticmethod
@@ -79,25 +85,27 @@ class FlashAttention(torch.autograd.Function):
         dout = dout.contiguous()  # autograd may hand an expanded gradient
         delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)
         args = (q, k, v, dout, lse, delta.contiguous(), ctx.kv_len)
-        kw = dict(scale=ctx.scale, causal=ctx.causal)
+        kw = dict(scale=ctx.scale, causal=ctx.causal, segments=ctx.segments)
         dq = dk = dv = None
         if ctx.needs_input_grad[0]:
             dq = mha_bwd_dq(*args, **kw)
         if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
             dk, dv = mha_bwd_dkv(*args, **kw)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention(q, k, v, *, scale: float, causal: bool = True,
-                    kv_len=None):
+                    kv_len=None, segments=None):
     """Blockwise (flash) attention through :class:`FlashAttention`.
 
     q (B, S, H, hd); k (B, T, K, hd), v (B, T, K, hdv) with H % K == 0 —
     the GQA repeat is never materialized, and dK, dV come back in kv's own
     (B, T, K, *) layout. ``kv_len`` bounds the key positions for decode
     over a partially filled cache and needs ``causal=False`` (the kernels
-    implement no causal-over-fill mask). Returns (B, S, H, hdv) in q's
-    dtype.
+    implement no causal-over-fill mask). ``segments``, a (q_seg (B, S),
+    kv_seg (B, T)) int32 pair, forbids attention across packed-document
+    boundaries (ids must match; pad id 0 is its own island) and excludes
+    ``kv_len``. Returns (B, S, H, hdv) in q's dtype.
 
     Where a caller has put another forward in this module's ``mha_fwd``
     (the tests and ``chip_smoke.py`` swap in ``mha_fwd_ref`` this way),
@@ -106,8 +114,11 @@ def flash_attention(q, k, v, *, scale: float, causal: bool = True,
     """
     _fault_gate("flash_attention")
     if mha_fwd is not _attn.mha_fwd:
-        return mha_fwd(q, k, v, kv_len, scale=scale, causal=causal)[0]
-    return FlashAttention.apply(q, k, v, kv_len, scale, causal)
+        return mha_fwd(q, k, v, kv_len, scale=scale, causal=causal,
+                       segments=segments)[0]
+    q_seg, kv_seg = (None, None) if segments is None else segments
+    return FlashAttention.apply(q, k, v, kv_len, q_seg, kv_seg, scale,
+                                causal)
 
 
 # --------------------------------------------------------- cross-entropy

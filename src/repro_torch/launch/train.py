@@ -33,10 +33,16 @@ only the loss lines read the device.
 transposed xent kernels), and an optimizer that takes label rules (SCALE)
 gets ``LabelRules.tied()``, so that its momentum moves to the tied matrix.
 
+``--pack-documents`` trains on first-fit packed multi-document rows
+(``SyntheticLM(pack_documents=True)``): the batches carry
+``segment_ids``, ``positions`` and ``loss_weights``, attention keeps to
+each document (the kernels' segment clause) and so does the loss. The
+console's tok/s then counts the loss's weight, the real tokens, and not
+batch x seq.
+
 Flags of modules not ported yet are absent:
 
 * ``--smoke`` (the reduced smoke configs);
-* ``--pack-documents`` (ROADMAP.md Queue 1 item 6);
 * ``--log-dir``, ``--metrics-every``, ``--stats-every``,
   ``--profile-steps``, ``--profile-dir`` (telemetry, item 10).
 
@@ -53,6 +59,8 @@ Examples (llama-1b on the card, the paper's largest Table-1 model):
       --ckpt-dir /path/to/ckpt --ckpt-every 10 --resume auto
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama-1b \\
       --tie-embeddings --optimizer scale_fused --steps 20
+  PYTHONPATH=src python -m repro_torch.launch.train --arch llama-1b \\
+      --pack-documents --optimizer scale_fused --steps 20
   REPRO_FAULTS="nan_grad@5" PYTHONPATH=src python -m \\
       repro_torch.launch.train --arch llama-1b --optimizer muon --steps 20
 """
@@ -105,6 +113,12 @@ def main(argv=None) -> float:
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--seq", type=int, default=256)
+    ap.add_argument("--pack-documents", dest="pack_documents",
+                    action="store_true",
+                    help="first-fit pack variable-length documents into "
+                         "each (batch, seq) row; batches gain segment_ids "
+                         "/ positions / loss_weights and attention + loss "
+                         "stay within document boundaries")
     ap.add_argument("--grad-accum", type=int, default=1)
     ap.add_argument("--clip-norm", type=float, default=1.0)
     ap.add_argument("--dtype", default="")
@@ -151,7 +165,9 @@ def main(argv=None) -> float:
         print(f"fault injection active: {faults}", flush=True)
     cfg, tx = build(args)
     print(f"arch={cfg.name} optimizer={args.optimizer} device={device} "
-          f"guard={'off' if guard is None else 'on'}", flush=True)
+          f"guard={'off' if guard is None else 'on'}"
+          + (" pack_documents=True" if args.pack_documents else ""),
+          flush=True)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = init_params(cfg, gen, device=device)
     state = init_state(params, tx, guard=guard is not None)
@@ -163,7 +179,8 @@ def main(argv=None) -> float:
             state, start_step = got
             print(f"resumed from step {start_step}", flush=True)
     ds = make_dataset(cfg, seq_len=args.seq, global_batch=args.batch,
-                      seed=args.seed, device=device)
+                      seed=args.seed, pack_documents=args.pack_documents,
+                      device=device)
 
     def make_step(tx):
         return make_train_step(cfg, tx, grad_accum=args.grad_accum,
@@ -187,7 +204,11 @@ def main(argv=None) -> float:
 
     t0 = time.time()
     pending = None
+    # packed rows carry fewer real tokens than batch*seq: tok/s counts the
+    # loss's weight there (its mean over the grad_accum microbatches, times
+    # grad_accum), summed on the device and read with the loss line
     tokens_per_step = args.batch * args.seq
+    real_tokens = torch.zeros((), dtype=torch.float64, device=device)
     step, done_steps = start_step, 0
     lr_scale, rollbacks = 1.0, 0
     metrics = {"loss": torch.tensor(float("nan"))}
@@ -230,9 +251,12 @@ def main(argv=None) -> float:
                 continue
             step += 1
             done_steps += 1
+            if args.pack_documents:
+                real_tokens += metrics["weight"] * args.grad_accum
             if step % args.log_every == 0 or done_steps == 1:
-                tput = (done_steps * tokens_per_step
-                        / max(time.time() - t0, 1e-9))
+                done = (float(real_tokens) if args.pack_documents
+                        else done_steps * tokens_per_step)
+                tput = done / max(time.time() - t0, 1e-9)
                 line = (f"step {step:6d} loss {float(metrics['loss']):.4f} "
                         f"|g| {float(metrics['grad_norm']):.3f} "
                         f"tok/s {tput:,.0f}")

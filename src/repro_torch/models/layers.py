@@ -35,7 +35,9 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 def rope_tables(positions: torch.Tensor, dim: int, theta: float):
-    """cos/sin tables for ``positions`` (any shape), last dim ``dim // 2``."""
+    """cos/sin tables for ``positions`` (any shape: (S,), or (B, S) for
+    packed rows, whose positions restart at each document), last dim
+    ``dim // 2``."""
     exps = torch.arange(0, dim, 2, dtype=torch.float32,
                         device=positions.device) / dim
     inv = 1.0 / (theta ** exps)
@@ -55,9 +57,13 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
 
 # ----------------------------------------------------------------- attention
 
-def causal_blockwise_attention(q, k, v, scale: float) -> torch.Tensor:
-    """Causal flash attention; kv may have fewer heads (GQA, never repeated)."""
-    return dispatch.flash_attention(q, k, v, scale=scale, causal=True)
+def causal_blockwise_attention(q, k, v, scale: float,
+                               segments=None) -> torch.Tensor:
+    """Causal flash attention; kv may have fewer heads (GQA, never
+    repeated). ``segments`` (a (q_seg, kv_seg) int32 pair) keeps packed
+    documents apart."""
+    return dispatch.flash_attention(q, k, v, scale=scale, causal=True,
+                                    segments=segments)
 
 
 def decode_attention(q, k, v, scale: float, kv_len=None) -> torch.Tensor:
@@ -82,14 +88,22 @@ def attn_spec(cfg: ModelConfig) -> dict:
 
 
 def apply_attention(p, cfg: ModelConfig, x, positions, mode: str = "train",
-                    cache: Optional[dict] = None, cache_index=None):
+                    cache: Optional[dict] = None, cache_index=None,
+                    segment_ids=None):
     """GQA self-attention. mode: train | prefill | decode. -> (y, new_cache).
 
     prefill returns this call's (B, S, K, hd) k/v as the cache. decode
     writes k/v into ``cache`` at ``cache_index`` (a 0-d int32 tensor) IN
     PLACE — the JAX package returns an updated copy — and attends
     non-causally over the cache with ``kv_len = cache_index + S``.
+    ``segment_ids`` (B, S) int32 keeps attention within the documents of
+    packed rows (train and prefill; decode serves one document a row and
+    raises, as the JAX ``mask_spec`` does for segments with ``kv_len``).
     """
+    if mode == "decode" and segment_ids is not None:
+        raise ValueError("apply_attention: segment_ids and decode's kv_len "
+                         "are mutually exclusive (decode serves one "
+                         "document per row)")
     B, S, D = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
@@ -118,7 +132,8 @@ def apply_attention(p, cfg: ModelConfig, x, positions, mode: str = "train",
     else:
         if mode == "prefill":
             new_cache = {"k": k, "v": v}
-        out = causal_blockwise_attention(q, k, v, scale)
+        seg = None if segment_ids is None else (segment_ids, segment_ids)
+        out = causal_blockwise_attention(q, k, v, scale, segments=seg)
 
     y = out.reshape(B, S, H * hd) @ p["wo"]
     return y, new_cache

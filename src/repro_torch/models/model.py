@@ -146,13 +146,20 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
 # ------------------------------------------------------------------ forward
 
 def forward(params, cfg: ModelConfig, tokens, *, mode: str = "train",
-            cache=None, cache_index=None, positions=None):
+            cache=None, cache_index=None, positions=None, segment_ids=None):
     """Run the backbone on tokens (B, S). Returns (hidden, new_cache, aux).
 
     ``mode`` is train | prefill | decode (see ``layers.apply_attention``);
-    decode positions are ``cache_index + arange(S)``. ``aux`` (the MoE
-    load-balance loss in the JAX package) is 0 for the dense family.
+    decode positions are ``cache_index + arange(S)``. ``positions`` and
+    ``segment_ids`` ((B, S) ints, optional) are the packed-document
+    operands: within-document positions (RoPE and learned positions
+    restart at each document) and the per-token document ids attention
+    keeps apart (pad id 0). The ids are cast to contiguous int32 here,
+    once for every layer. ``aux`` (the MoE load-balance loss in the JAX
+    package) is 0 for the dense family.
     """
+    if segment_ids is not None:
+        segment_ids = segment_ids.to(torch.int32).contiguous()
     x = params["tok_embed"]["w"][tokens]
     S = x.shape[1]
     if positions is None:
@@ -168,7 +175,7 @@ def forward(params, cfg: ModelConfig, tokens, *, mode: str = "train",
         seg_cache = cache[name] if cache is not None else None
         x, seg_cache = T.apply_segment(kind, n, cfg, params["segments"][name],
                                        x, positions, mode, seg_cache,
-                                       cache_index)
+                                       cache_index, segment_ids)
         if new_cache is not None:
             new_cache[name] = seg_cache
     x = L.rmsnorm(x, params["final_norm"]["s"], cfg.rms_eps)
@@ -231,19 +238,19 @@ def lm_loss(params, cfg: ModelConfig, hidden, labels, weights=None):
 
 
 def loss_fn(params, cfg: ModelConfig, batch: dict, aux_coef: float = 0.01):
-    """Full training loss. batch: tokens, labels, [positions,
-    loss_weights]. -> (total, {"loss", "aux", "weight"}).
+    """Full training loss. batch: tokens, labels, [positions, segment_ids,
+    loss_weights] (the last three: packed-document batches). -> (total,
+    {"loss", "aux", "weight"}).
 
-    Segment ids (packed documents) and image embeddings are not ported yet
-    and raise (ROADMAP.md Queue 1 items 6 and 13).
+    Image embeddings are not ported yet and raise (ROADMAP.md Queue 1
+    item 13).
     """
-    for key, item in (("segment_ids", 6), ("image_embeds", 13)):
-        if batch.get(key) is not None:
-            raise NotImplementedError(f"loss_fn: batch[{key!r}] is not "
-                                      f"ported yet; ROADMAP.md Queue 1 item "
-                                      f"{item}")
+    if batch.get("image_embeds") is not None:
+        raise NotImplementedError("loss_fn: batch['image_embeds'] is not "
+                                  "ported yet; ROADMAP.md Queue 1 item 13")
     hidden, _, aux = forward(params, cfg, batch["tokens"], mode="train",
-                             positions=batch.get("positions"))
+                             positions=batch.get("positions"),
+                             segment_ids=batch.get("segment_ids"))
     loss, weight = lm_loss(params, cfg, hidden, batch["labels"],
                            weights=batch.get("loss_weights"))
     total = loss + aux_coef * aux

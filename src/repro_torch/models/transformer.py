@@ -32,12 +32,12 @@ def _sub_spec(cfg: ModelConfig, sub: str) -> dict:
 
 
 def _apply_sub(sub: str, p, cfg: ModelConfig, x, positions, mode: str, cache,
-               cache_index):
+               cache_index, segment_ids=None):
     """Pre-norm residual sub-layer (attn or mlp). Returns (x, new_cache)."""
     h = L.rmsnorm(x, p["norm"], cfg.rms_eps)
     if sub == "attn":
         y, cache = L.apply_attention(p, cfg, h, positions, mode, cache,
-                                     cache_index)
+                                     cache_index, segment_ids)
     else:
         y = L.apply_mlp(p, cfg, h)
     return x + y.to(x.dtype), cache
@@ -107,25 +107,28 @@ def _remat(cfg: ModelConfig, fn):
 
 
 def apply_superblock(kind: str, cfg: ModelConfig, params, x, positions,
-                     mode: str, cache: Optional[dict], cache_index):
+                     mode: str, cache: Optional[dict], cache_index,
+                     segment_ids=None):
     new_cache = dict(cache) if cache is not None else None
     for name, sub in superblock_layout(cfg, kind):
         sub_cache = cache.get(name) if (cache is not None and sub == "attn") \
             else None
         x, sub_cache = _apply_sub(sub, params[name], cfg, x, positions, mode,
-                                  sub_cache, cache_index)
+                                  sub_cache, cache_index, segment_ids)
         if new_cache is not None and sub == "attn":
             new_cache[name] = sub_cache
     return x, new_cache
 
 
 def apply_segment(kind: str, n_blocks: int, cfg: ModelConfig, stacked, x,
-                  positions, mode: str, cache, cache_index):
+                  positions, mode: str, cache, cache_index, segment_ids=None):
     """Run ``n_blocks`` super-blocks over stacked params (and cache).
 
     -> (x, new_cache). prefill returns the S-length caches stacked to
     (L, B, S, K, hd); decode writes the stacked cache in place and returns
-    it; train returns None.
+    it; train returns None. ``segment_ids`` (packed rows) is a tensor
+    argument of each remat block, so a recomputed forward masks as the
+    first did.
     """
     layers = _unbind(stacked, n_blocks)
     if cache is None:
@@ -133,12 +136,13 @@ def apply_segment(kind: str, n_blocks: int, cfg: ModelConfig, stacked, x,
         if torch.is_grad_enabled():
             block = _remat(cfg, block)
         for p in layers:
-            x, _ = block(p, x, positions, mode, None, cache_index)
+            x, _ = block(p, x, positions, mode, None, cache_index,
+                         segment_ids)
         return x, None
     outs = []
     for l, p in enumerate(layers):
         x, c = apply_superblock(kind, cfg, p, x, positions, mode,
-                                _layer(cache, l), cache_index)
+                                _layer(cache, l), cache_index, segment_ids)
         outs.append(c)
     if mode == "decode":
         return x, cache

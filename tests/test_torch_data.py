@@ -31,11 +31,14 @@ def _cfg(**kw):
 
 
 def test_data_config_fields_match_jax():
-    # the port keeps JAX's leading fields (the unpacked text batch's), with
-    # their defaults; the fields of the unported formats come with them
+    # the port keeps JAX's fields, in JAX's order and with their defaults,
+    # but those of the formats it has not ported (audio codebooks and
+    # image stubs, ROADMAP.md Queue 1 item 13), which come with them
+    unported = ("n_codebooks", "n_image_tokens", "d_model")
     jf = [(f.name, f.default) for f in dataclasses.fields(JD.DataConfig)]
     tf = [(f.name, f.default) for f in dataclasses.fields(TD.DataConfig)]
-    assert len(tf) == 6 and tf == jf[:len(tf)]
+    assert tf == [f for f in jf if f[0] not in unported]
+    assert ("pack_documents", False) in tf and ("min_doc_len", 8) in tf
 
 
 @pytest.mark.parametrize("vocab,a", [(1000, 1.2), (32000, 1.2), (50, 0.7)])
@@ -104,6 +107,8 @@ def test_zipf_sampler_marginal_within_ks_bound():
 
 
 def test_make_dataset_matches_jax_and_unported_formats_raise():
+    """The config matches JAX's, packed documents (ported: the layout is
+    JAX's bitwise) included; audio codebooks and image stubs raise."""
     jcfg = tiny_cfg("data", vocab_size=500)
     tcfg = tconfig.ModelConfig(**dataclasses.asdict(jcfg))
     j = JD.make_dataset(jcfg, seq_len=16, global_batch=4, seed=9)
@@ -111,8 +116,13 @@ def test_make_dataset_matches_jax_and_unported_formats_raise():
     jd = dataclasses.asdict(j.cfg)
     assert dataclasses.asdict(t.cfg) == {k: jd[k] for k in
                                          dataclasses.asdict(t.cfg)}
-    with pytest.raises(NotImplementedError, match="item 6"):
-        TD.make_dataset(tcfg, 16, 4, pack_documents=True, device="cpu")
+    packed = TD.make_dataset(tcfg, 16, 4, pack_documents=True, device="cpu")
+    want = JD.make_dataset(jcfg, seq_len=16, global_batch=4, seed=0,
+                           pack_documents=True).global_batch_at(0)
+    got = packed.global_batch_at(0)
+    assert packed.cfg.pack_documents and set(got) == set(want)
+    for k in ("segment_ids", "positions", "loss_weights"):
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
     for family, kw in (("audio", {"n_codebooks": 2}),
                        ("vlm", {"n_image_tokens": 4})):
         other = dataclasses.replace(tcfg, family=family, **kw)

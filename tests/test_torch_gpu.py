@@ -130,6 +130,8 @@ GPU_CASES = {
     "rect_causal_64x576_hd128": (8, 64, 576, 12, 12, 128, True, None),
     "gqa14x2_ragged100_hd128": (4, 100, 100, 14, 2, 128, True, None),
     "kvlen300_s16": (8, 16, 576, 12, 12, 64, False, 300),
+    "kvlen0_s16": (8, 16, 576, 12, 12, 64, False, 0),
+    "noncausal_100x300": (8, 100, 300, 12, 12, 64, False, None),
 }
 
 
@@ -1227,3 +1229,236 @@ def test_guarded_skip_on_card_is_bitwise_and_does_not_synchronise(cuda):
         assert n == 4
         for (k, x), (_, y) in zip(named_leaves(faulted), named_leaves(back)):
             assert y.device == x.device and torch.equal(x, y), k
+
+
+# ------------------------------------------------------ the segment clause
+
+# (B, S, T, H, K, hd, hdv, causal, ids): chip_smoke.py phase 2's segment
+# cases. "packed": a packed SyntheticLM batch's segment_ids for q and kv;
+# "separate": sorted q and kv ids of their own, q rows 10-12 (the last row
+# below 13) given an id no key has; "random": unsorted ids in [0, 3]
+SEG_CASES = {
+    "packed_train_llama1b": (16, 256, 256, 32, 32, 64, 64, True, "packed"),
+    "packed_hd128": (4, 256, 256, 8, 8, 128, 128, True, "packed"),
+    "packed_gqa_ragged250": (4, 250, 250, 14, 2, 64, 64, True, "packed"),
+    "packed_hd256_k1": (4, 256, 256, 8, 1, 256, 256, True, "packed"),
+    "packed_hd64_hdv128": (4, 200, 200, 8, 4, 64, 128, True, "packed"),
+    "separate_noncausal_100x300": (4, 100, 300, 8, 8, 64, 64, False,
+                                   "separate"),
+    "separate_decode_3x300": (8, 3, 300, 12, 12, 64, 64, False, "separate"),
+    "unsorted": (4, 256, 256, 8, 8, 64, 64, True, "random"),
+    "unsorted_hd128_ragged": (2, 200, 200, 4, 4, 128, 128, True, "random"),
+}
+
+
+def _orphans(S):
+    return slice(10, 13) if S > 12 else slice(S - 1, S)
+
+
+def _seg_ids(cuda, kind, B, S, T, seed=3):
+    """The (q_seg, kv_seg) int32 pair of a SEG_CASES kind, on the card."""
+    rng = np.random.default_rng(seed)
+    if kind == "packed":
+        from repro_torch.data import make_dataset
+        from repro_torch.models import ModelConfig
+        cfg = ModelConfig(name="gpu", n_layers=1, d_model=64, n_heads=4,
+                          n_kv_heads=4, d_ff=128, vocab_size=1000)
+        ids = make_dataset(cfg, S, B, seed=seed, pack_documents=True,
+                           device=cuda).global_batch_at(0)["segment_ids"]
+        return ids, ids
+    if kind == "random":
+        ids = torch.from_numpy(rng.integers(0, 4, (B, S), dtype=np.int32))
+        return ids.to(cuda), ids.to(cuda)
+    q = np.sort(rng.integers(1, 5, (B, S), dtype=np.int32), 1)
+    kv = np.sort(rng.integers(1, 5, (B, T), dtype=np.int32), 1)
+    q[:, _orphans(S)] = 7
+    return torch.from_numpy(q).to(cuda), torch.from_numpy(kv).to(cuda)
+
+
+def _seg_inputs(cuda, B, S, T, H, K, hd, hdv, causal, segs, td, seed=4):
+    """(q, k, v, dout, lse, delta, None), lse and delta from the plain
+    forward under the segment clause."""
+    rng = np.random.default_rng(seed)
+
+    def rnd(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                                ).to(cuda, td)
+    q, k, v, do = rnd(B, S, H, hd), rnd(B, T, K, hd), rnd(B, T, K, hdv), \
+        rnd(B, S, H, hdv)
+    out, lse = mha_fwd_ref(q, k, v, scale=hd ** -0.5, causal=causal,
+                           segments=segs)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    return q, k, v, do, lse, delta, None
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", list(SEG_CASES))
+def test_segment_clause_matches_plain_on_card(cuda, case, dtype):
+    """The three kernels with segment ids against their plain versions
+    under the dense mask (the attention tolerances above), each on the
+    route its wrapper picks (mma for bf16 heads of 64 and 128 past S = 4,
+    decode at S <= 4, fma else), counted by route and in
+    ``segment_launches``, bitwise repeatable; a query whose id no key has
+    gives 0, an lse below -1e29 and a dQ of 0, and its dO moves no dK or
+    dV."""
+    from repro_torch.kernels.attention import attention as A
+    from repro_torch.kernels.attention.ref import (mha_bwd_dkv_ref,
+                                                   mha_bwd_dq_ref)
+    B, S, T, H, K, hd, hdv, causal, kind = SEG_CASES[case]
+    td = DTYPES[dtype]
+    segs = _seg_ids(cuda, kind, B, S, T)
+    args = _seg_inputs(cuda, B, S, T, H, K, hd, hdv, causal, segs, td)
+    q, k, v = args[:3]
+    kw = dict(scale=hd ** -0.5, causal=causal, segments=segs)
+    froute, broute = A._fwd_route(q, k, v), A._bwd_route(q, k, v)
+    assert froute == ("decode" if S <= 4 else "mma" if dtype == "bf16"
+                      and hd == hdv and hd in (64, 128) else "fma")
+    fns = (A.mha_fwd, A.mha_bwd_dq, A.mha_bwd_dkv)
+    before = [(f.segment_launches, dict(f.route_launches)) for f in fns]
+    out, lse = A.mha_fwd(q, k, v, **kw)
+    dq = A.mha_bwd_dq(*args, **kw)
+    dk, dv = A.mha_bwd_dkv(*args, **kw)
+    torch.cuda.synchronize()
+    for f, (n, routes), r in zip(fns, before, (froute, broute, broute)):
+        assert f.segment_launches == n + 1
+        assert f.route_launches == {**routes, r: routes[r] + 1}
+    ref, ref_lse = mha_fwd_ref(q, k, v, **kw)
+    atol, rtol = _tol(dtype)
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+    rows = ref_lse > -1e29
+    torch.testing.assert_close(lse[rows], ref_lse[rows], atol=1e-4, rtol=1e-5)
+    assert bool((lse[~rows] <= -1e29).all())
+    _bwd_close(dq, mha_bwd_dq_ref(*args, **kw), dtype)
+    want_dk, want_dv = mha_bwd_dkv_ref(*args, **kw)
+    _bwd_close(dk, want_dk, dtype)
+    _bwd_close(dv, want_dv, dtype)
+    again = (*A.mha_fwd(q, k, v, **kw), A.mha_bwd_dq(*args, **kw),
+             *A.mha_bwd_dkv(*args, **kw))
+    for a, b in zip((out, lse, dq, dk, dv), again):
+        assert torch.equal(a, b)
+    if kind == "separate":
+        o = _orphans(S)
+        assert bool((out[:, o] == 0).all()) and bool((dq[:, o] == 0).all())
+        assert bool((lse[..., o] <= -1e29).all())
+        do2 = args[3].clone()
+        do2[:, o] = 3 * do2[:, o] + 1
+        dk2, dv2 = A.mha_bwd_dkv(*args[:3], do2, *args[4:], **kw)
+        assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+
+
+# (B, S, T, H, K, hd, causal, dtype): one case a route
+SEG_EQUAL_CASES = {
+    "mma_hd64": (16, 256, 256, 32, 32, 64, True, "bf16"),
+    "mma_hd128_ragged": (4, 200, 200, 8, 8, 128, True, "bf16"),
+    "fma_f32": (4, 256, 256, 8, 4, 64, True, "f32"),
+    "fma_hd256_k1": (4, 256, 256, 8, 1, 256, True, "bf16"),
+    "decode_2x300": (8, 2, 300, 12, 12, 64, False, "bf16"),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(SEG_EQUAL_CASES))
+def test_all_equal_segment_ids_are_bitwise_no_segments(cuda, case):
+    """Ids that are one value everywhere give bitwise the kernels'
+    result without segments, forward and backward, on every route."""
+    from repro_torch.kernels.attention import attention as A
+    B, S, T, H, K, hd, causal, dtype = SEG_EQUAL_CASES[case]
+    args = _seg_inputs(cuda, B, S, T, H, K, hd, hd, causal, None,
+                       DTYPES[dtype])
+    q, k, v = args[:3]
+    ones = (torch.full((B, S), 5, dtype=torch.int32, device=cuda),
+            torch.full((B, T), 5, dtype=torch.int32, device=cuda))
+    got = []
+    for segs in (None, ones):
+        kw = dict(scale=hd ** -0.5, causal=causal, segments=segs)
+        got.append((*A.mha_fwd(q, k, v, **kw), A.mha_bwd_dq(*args, **kw),
+                    *A.mha_bwd_dkv(*args, **kw)))
+    torch.cuda.synchronize()
+    for a, b in zip(*got):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_segment_operands_the_kernels_do_not_take_raise_on_card(cuda):
+    """On CUDA tensors: int64 ids, ids with kv_len and non-contiguous ids
+    raise before any launch; nothing goes to the plain version."""
+    from repro_torch.kernels.attention import attention as A
+    B, S, H, hd = 2, 64, 4, 64
+    q = torch.zeros(B, S, H, hd, dtype=torch.bfloat16, device=cuda)
+    lse = torch.zeros(B, H, S, device=cuda)
+    ids = torch.ones(B, S, dtype=torch.int32, device=cuda)
+    wide = torch.ones(B, 2 * S, dtype=torch.int32, device=cuda)[:, ::2]
+    before = [(f.launches, f.segment_launches)
+              for f in (A.mha_fwd, A.mha_bwd_dq, A.mha_bwd_dkv)]
+    for match, kw in (("int32", dict(segments=(ids.long(), ids))),
+                      ("mutually exclusive", dict(segments=(ids, ids),
+                                                  kv_len=S, causal=False)),
+                      ("contiguous", dict(segments=(wide, ids)))):
+        kw = {"scale": 0.125, "causal": True, **kw}
+        with pytest.raises(ValueError, match=match):
+            A.mha_fwd(q, q, q, **kw)
+        with pytest.raises(ValueError, match=match):
+            A.mha_bwd_dq(q, q, q, q, lse, lse, **kw)
+        with pytest.raises(ValueError, match=match):
+            A.mha_bwd_dkv(q, q, q, q, lse, lse, **kw)
+    assert before == [(f.launches, f.segment_launches)
+                      for f in (A.mha_fwd, A.mha_bwd_dq, A.mha_bwd_dkv)]
+
+
+@pytest.mark.gpu
+def test_packed_llama130m_train_step_on_card(cuda, monkeypatch):
+    """make_train_step of scale_fused (clip 1.0, remat full) on llama-130m
+    at full width and depth with packed batches (4 x 128): per step 2L
+    mha_fwd, L of each backward kernel, all on mma and all with segments,
+    one of each xent kernel and 8/9/1 optimizer kernels; the loss falls
+    over three steps; one loss-and-grad against plain attention's
+    autograd, per leaf within 5e-2 relative in norm (chip_smoke.py's bf16
+    gradient tolerance: roundings of the attention outputs differ and
+    compound through the layers)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import linear_warmup_cosine, make_optimizer
+    from repro_torch.data import make_dataset
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.attention import attention as A
+    from repro_torch.models import init_params
+    from repro_torch.training import (init_state, make_train_step,
+                                      value_and_grad)
+    cfg = get_arch("llama-130m")
+    L = cfg.n_layers
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         device=cuda)
+    ds = make_dataset(cfg, 128, 4, seed=1, pack_documents=True, device=cuda)
+    batch = ds.global_batch_at(0)
+    assert int(batch["segment_ids"].max()) >= 2
+    _, _, grads = value_and_grad(params, cfg, batch)
+    with monkeypatch.context() as m:
+        m.setattr(dispatch, "mha_fwd", mha_fwd_ref)
+        _, _, ref = value_and_grad(params, cfg, batch)
+    for k, g in grads.items():
+        rel = ((g.float() - ref[k].float()).norm()
+               / ref[k].float().norm().clamp_min(1e-30)).item()
+        assert rel <= 5e-2, (k, rel)
+    tx = make_optimizer("scale_fused", linear_warmup_cosine(1e-2, 8))
+    step = make_train_step(cfg, tx, clip_norm=1.0)
+    state = init_state(params, tx)
+    want = {"mha_fwd": 2 * L, "mha_bwd_dq": L, "mha_bwd_dkv": L,
+            "xent_fwd": 1, "xent_bwd_dh": 1, "xent_bwd_dw": 1,
+            "norm_sumsq": 8, "update_apply": 9, "momentum_sumsq": 1,
+            "norm_apply": 0}
+    fns = (A.mha_fwd, A.mha_bwd_dq, A.mha_bwd_dkv)
+    losses = []
+    for i in range(3):
+        before = _train_counts()
+        segs = [f.segment_launches for f in fns]
+        routes = [dict(f.route_launches) for f in fns]
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        after = _train_counts()
+        assert {k: after[k] - before[k] for k in want} == want, i
+        assert [f.segment_launches - n for f, n in zip(fns, segs)] == [
+            2 * L, L, L], i
+        for f, was, n in zip(fns, routes, (2 * L, L, L)):
+            assert _routes_are(f.route_launches, was, {"mma": n}), i
+        losses.append(float(metrics["loss"]))
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses

@@ -452,9 +452,9 @@ def test_launcher_tie_embeddings_follows_the_jax_launcher(monkeypatch):
                         lambda c, gen, device: load_flat(_jflat(jp), c,
                                                          device=device))
     monkeypatch.setattr(t_launch, "make_dataset",
-                        lambda c, seq_len, global_batch, seed, device:
-                        _JaxBatches(_tiny_arch("tiny"), seq_len,
-                                    global_batch, seed))
+                        lambda c, seq_len, global_batch, seed, pack_documents,
+                        device: _JaxBatches(_tiny_arch("tiny"), seq_len,
+                                            global_batch, seed))
     for main, extra in ((j_launch.main, []),
                         (t_launch.main, ["--device", "cpu"])):
         buf = io.StringIO()

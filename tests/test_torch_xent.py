@@ -388,10 +388,20 @@ def test_loss_fn_matches_jax(dtype):
     _close(tm["loss"], jm["loss"], atol, rtol)
     assert float(tm["aux"]) == float(jm["aux"]) == 0.0
     assert float(tm["weight"]) == float(jm["weight"]) == labels.size - 2
-    with pytest.raises(NotImplementedError, match="item 6"):
-        TM.loss_fn(params, cfg, {"tokens": torch.from_numpy(toks),
-                                 "labels": torch.from_numpy(labels),
-                                 "segment_ids": torch.ones(2, 24)})
+    # one document a row (segment ids all 1, positions 0..S-1): the
+    # unpacked loss, bitwise on the CPU, as in JAX
+    one_doc = {"segment_ids": np.ones((2, 24), np.int32),
+               "positions": np.tile(np.arange(24, dtype=np.int32), (2, 1))}
+    jseg, _ = JM.loss_fn(jparams, jcfg, {
+        "tokens": jnp.asarray(toks), "labels": jnp.asarray(labels),
+        **{k: jnp.asarray(v) for k, v in one_doc.items()}})
+    with torch.no_grad():
+        tseg, _ = TM.loss_fn(params, cfg, {
+            "tokens": torch.from_numpy(toks),
+            "labels": torch.from_numpy(labels),
+            **{k: torch.from_numpy(v) for k, v in one_doc.items()}})
+    assert float(tseg) == float(ttot)
+    _close(tseg, jseg, atol, rtol)
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
