@@ -5,7 +5,7 @@ NVIDIA H100.
     python3 chip_smoke.py [--seed N]
 
 Run from the root of a checkout. It builds the port's CUDA kernels with
-nvcc (one process per source, in parallel), then runs thirteen phases and fails
+nvcc (one process per source, in parallel), then runs fourteen phases and fails
 (non-zero exit, no result line) if any of them fails:
 
 1. device: the card's name and power limit, the kernels' ptxas report;
@@ -197,7 +197,25 @@ nvcc (one process per source, in parallel), then runs thirteen phases and fails
    step time, real tokens/s, device busy time by kernel family, idle share
    and peak memory beside phase 8's. The segment rows of the kernels line
    are named ``mha_fwd segments`` etc., their launches those of this
-   phase.
+   phase;
+14. the telemetry plane, llama-1b at full width and depth (phase 8's
+   configuration, guard on): four ``make_train_step`` steps with
+   ``StatsPolicy(every_k=1)`` bitwise equal to four without (every
+   parameter, optimizer-state and guard leaf), each launching phase 8's
+   kernels and one more ``norm_sumsq`` a leaf of two or more dimensions
+   (the column norms); the Fig. 4/10 stats per layer group; one stats step
+   under ``set_sync_debug_mode("error")``; the groups' squared gradient
+   and update norms against the step's own, and the column-norm max,
+   median and dispersion against plain torch on ``value_and_grad``'s
+   gradients; the step time (host clock, best of 6 in turns) and peak
+   without stats, off the cadence (within 2% of without) and on every
+   step; the launcher for 6 steps with ``--log-dir``, ``--metrics-every
+   2``, ``--stats-every 2`` and ``--profile-steps 2:3``, its JSONL
+   validated (kinds, steps, stats on steps 2, 4 and 6 only, memory and
+   time keys, no metric a string) and its trace naming ``train_step``
+   and ``obs_stats``; ``greedy_generate(logger=...)`` at phase 3's
+   llama-130m shape, both ``serve`` records valid. The kernels line's
+   ``norm_sumsq`` row gains a ``train stats`` path.
 
 The line before the last is a JSON ``{"kernels": [...]}`` summary, the
 last line ``{"ok": true, "device": {...}}``. It needs a CUDA card and
@@ -4567,6 +4585,310 @@ def phase_packed(torch, seed, power, unpacked):
             "device_ms_by_family": {f: ms for f, (ms, _) in fams.items()}}
 
 
+# ------------------------------------------------------ the telemetry plane
+
+# Phase 14 (c): the groups' squared norms against the step's own
+# grad_norm and update_norm: the same per-leaf f32 norms (one
+# torch._foreach_norm for the gradients on each side; the update's per-leaf
+# differences are shared), summed as squares in other groupings: a few f32
+# roundings of a sum of 291 positive terms.
+STATS_SUM_RTOL = 1e-5
+# Phase 14 (c): the column-norm max, median and dispersion against plain
+# torch from value_and_grad's gradients on the same params and batch: the
+# kernel sums each column's squares in f32 in its own order, plain torch
+# in its own (1.5e-5 relative at most, phase 2); the backward kernels and
+# cuBLAS are deterministic, so the gradients are the step's.
+STATS_COL_RTOL = 1e-4
+TELEMETRY_STEPS = 4
+# the off-cadence step against the step without stats (gated): no
+# reduction, one zero tensor and a dict
+OFF_CADENCE_MAX = 0.02
+
+
+def _fig_stats(metrics, groups):
+    """The Fig. 4/10 stats of a step's metrics, one line a group."""
+    names = ("grad_norm", "colnorm_max", "colnorm_med", "colnorm_disp",
+             "update_norm", "param_norm", "update_ratio", "momentum_norm")
+    out = {}
+    for g in groups:
+        out[g] = {n: float(metrics[f"stats/{g}/{n}"]) for n in names}
+        print(f"    {g:9s} " + " ".join(f"{n} {v:.4g}"
+                                        for n, v in out[g].items()))
+    return out
+
+
+def _ref_colnorms(torch, grads, tied):
+    """{group: (max, median, max / median)} of the per-output-column
+    gradient norms, in plain torch: f32 squares summed along the input
+    axis (the storage rows for a tied (V, D) head), every stacked slice's
+    columns, the median by torch.quantile (linear: the midpoint of an even
+    count)."""
+    from repro_torch.core.labels import LAYER_GROUPS, layer_group
+    out = {}
+    for grp in LAYER_GROUPS:
+        cols = []
+        for k, g in grads.items():
+            if layer_group(k, tied=tied) != grp or g.ndim < 2:
+                continue
+            t = tied and "tok_embed" in k
+            cols.append(g.float().pow(2).sum(dim=-1 if t else -2)
+                        .sqrt().reshape(-1))
+        if cols:
+            cn = torch.cat(cols)
+            mx, md = cn.max().item(), torch.quantile(cn, 0.5).item()
+            out[grp] = (mx, md, mx / max(md, 1e-30))
+    return out
+
+
+def phase_telemetry(torch, seed, power):
+    """Phase 14: the telemetry plane at llama-1b, full width and depth."""
+    import math
+    import shutil as _shutil
+    import tempfile
+    from repro_torch.configs import get_arch
+    from repro_torch.core import linear_warmup_cosine, make_optimizer
+    from repro_torch.core.labels import LAYER_GROUPS
+    from repro_torch.data import make_dataset
+    from repro_torch.kernels.colnorm import colnorm as C
+    from repro_torch.launch import train as launcher
+    from repro_torch.models import init_params
+    from repro_torch.models.model import flatten
+    from repro_torch.obs import (MemorySink, MetricsLogger, StatsPolicy,
+                                 validate_jsonl, validate_record)
+    from repro_torch.training import (GuardPolicy, greedy_generate,
+                                      init_state, make_train_step,
+                                      value_and_grad)
+    t_phase = time.perf_counter()
+    cfg = get_arch("llama-1b")
+    B, S = 16, 256
+    L = cfg.n_layers
+    print(f"  {cfg.name}: {L} layers, {cfg.dtype}; batch {B} x {S} from "
+          f"SyntheticLM (seed {seed}); scale_fused, clip 1.0, "
+          f"linear_warmup_cosine(1e-3, 8), GuardPolicy()")
+    ds = make_dataset(cfg, S, B, seed=seed, device="cuda")
+    batches = [ds.global_batch_at(i) for i in range(TELEMETRY_STEPS)]
+
+    def build(stats):
+        tx = make_optimizer("scale_fused", linear_warmup_cosine(1e-3, 8))
+        params = init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(seed),
+            device="cuda")
+        return init_state(params, tx, guard=True), make_train_step(
+            cfg, tx, clip_norm=1.0, guard=GuardPolicy(), stats=stats)
+
+    # (a) bitwise inert; the stats run is the main path: counts set to 0
+    # just before it, read just after
+    state, step = build(None)
+    for b in batches:
+        state, _ = step(state, b)
+    base = {k: x.clone() for k, x in _state_leaves(state, (".step",)).items()}
+    del state, step
+    torch.cuda.empty_cache()
+    state, step = build(StatsPolicy(every_k=1))
+    n_mat = sum(1 for p in flatten(state.params).values() if p.ndim >= 2)
+    want = {"mha_fwd": 2 * L, "mha_bwd_dq": L, "mha_bwd_dkv": L,
+            "xent_fwd": 1, "xent_bwd_dh": 1, "xent_bwd_dw": 1,
+            "norm_sumsq": 8 + n_mat, "update_apply": 9,
+            "momentum_sumsq": 1, "norm_apply": 0}
+    torch.cuda.synchronize()
+    zero_train_counts()
+    per_step = []
+    for b in batches:
+        before = train_counts()
+        state, metrics = step(state, b)
+        per_step.append({k: v - before[k] for k, v in train_counts().items()})
+    torch.cuda.synchronize()
+    launches = train_counts()
+    for i, c in enumerate(per_step):
+        if c != want:
+            raise AssertionError(f"stats step {i} launched {c}, not {want}")
+    diff = _first_unequal(torch, base,
+                          _state_leaves(state, (".step",)))
+    print(f"  (a) {TELEMETRY_STEPS} steps with StatsPolicy(every_k=1) "
+          f"against {TELEMETRY_STEPS} without, same seed and batches, guard "
+          f"on: {len(base)} leaves (params, optimizer state, guard) "
+          + ("bitwise equal" if diff is None else f"differ at {diff}"))
+    if diff is not None:
+        raise AssertionError(f"the stats changed the training: {diff}")
+    del base
+    print(f"  every stats step launched {want}: norm_sumsq 8 for the "
+          f"optimizer + {n_mat} for the column norms (one a leaf of two or "
+          f"more dimensions)")
+    print("  Fig. 4/10 stats per layer group at the 4th step:")
+    fig = _fig_stats(metrics, LAYER_GROUPS)
+
+    # (b) one stats step with any host synchronisation an error
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, metrics = step(state, batches[0])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print("  (b) stats step under set_sync_debug_mode('error'): no host "
+          "synchronisation")
+
+    # (c) every stat against an independent computation
+    batch = batches[1]
+    _, _, grads = value_and_grad(state.params, cfg, batch)
+    ref = _ref_colnorms(torch, grads, False)
+    del grads
+    torch.cuda.empty_cache()
+    state, metrics = step(state, batch)
+    worst = 0.0
+    for name in ("grad_norm", "update_norm"):
+        parts = sum(float(metrics[f"stats/{g}/{name}"]) ** 2
+                    for g in LAYER_GROUPS)
+        whole = float(metrics[name]) ** 2
+        rel = abs(parts - whole) / whole
+        worst = max(worst, rel / STATS_SUM_RTOL)
+        print(f"  (c) sum over groups of {name}^2 {parts:.6e} against the "
+              f"step's {whole:.6e}: rel {rel:.2e} (tol {STATS_SUM_RTOL:g})")
+        if not rel <= STATS_SUM_RTOL:
+            raise AssertionError(f"the groups' {name} do not add up")
+    for grp, (mx, md, disp) in ref.items():
+        got = [float(metrics[f"stats/{grp}/colnorm_{n}"])
+               for n in ("max", "med", "disp")]
+        rels = [abs(g - w) / abs(w) for g, w in zip(got, (mx, md, disp))]
+        worst = max(worst, max(rels) / STATS_COL_RTOL)
+        print(f"      {grp}: colnorm max {got[0]:.6g} / {mx:.6g}, median "
+              f"{got[1]:.6g} / {md:.6g}, disp {got[2]:.6g} / {disp:.6g} "
+              f"(stats / plain torch; worst rel {max(rels):.2e}, tol "
+              f"{STATS_COL_RTOL:g})")
+        if not max(rels) <= STATS_COL_RTOL:
+            raise AssertionError(f"{grp} column-norm stats disagree with "
+                                 "plain torch")
+
+    # (d) cost: no stats, stats off the cadence, stats every step, in turns
+    # the three step functions train the same state in turn
+    def tx():
+        return make_optimizer("scale_fused", linear_warmup_cosine(1e-3, 8))
+    steps = {"none": make_train_step(cfg, tx(), clip_norm=1.0,
+                                     guard=GuardPolicy()),
+             "off-cadence": make_train_step(
+                 cfg, tx(), clip_norm=1.0, guard=GuardPolicy(),
+                 stats=StatsPolicy(every_k=10**9)),
+             "every step": step}
+    times = {k: [] for k in steps}
+    peaks = {k: 0 for k in steps}
+    for turn in ("none", "off-cadence", "every step", "every step",
+                 "off-cadence", "none"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for b in batches[:3]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = steps[turn](state, b)
+            torch.cuda.synchronize()
+            times[turn].append(time.perf_counter() - t0)
+        peaks[turn] = max(peaks[turn], torch.cuda.max_memory_allocated())
+    best = {k: min(v) * 1e3 for k, v in times.items()}
+    for k in steps:
+        print(f"  [{power}] (d) train step, stats {k}: {best[k]:.3f} ms "
+              f"(best of 6, in turns none, off, every, every, off, none; "
+              f"{best[k] - best['none']:+.3f} ms, "
+              f"{best[k] / best['none'] - 1:+.2%}); peak "
+              f"{peaks[k] / 2**20:.1f} MiB "
+              f"({(peaks[k] - peaks['none']) / 2**20:+.1f} MiB)")
+    print(f"  norm_sumsq launches per cadence step {want['norm_sumsq']} "
+          f"({n_mat} of them the stats'); per step without stats 8")
+    off_rel = best["off-cadence"] / best["none"] - 1
+    if not off_rel <= OFF_CADENCE_MAX:
+        raise AssertionError(f"the off-cadence step costs {off_rel:+.2%} "
+                             f"over the step without stats")
+    del state, step, steps
+    torch.cuda.empty_cache()
+
+    # (e) the launcher end to end, with its JSONL and trace window
+    root = tempfile.mkdtemp(prefix="repro_obs_")
+    try:
+        argv = ["--arch", "llama-1b", "--optimizer", "scale_fused",
+                "--batch", str(B), "--seq", str(S), "--steps", "6",
+                "--log-every", "2", "--seed", str(seed), "--log-dir", root,
+                "--metrics-every", "2", "--stats-every", "2",
+                "--profile-steps", "2:3"]
+        print(f"  (e) python -m repro_torch.launch.train "
+              f"{' '.join(argv)}:")
+        t0 = time.perf_counter()
+        final = launcher.main(argv)
+        t_e = time.perf_counter() - t0
+        path = Path(root) / "metrics.0.jsonl"
+        n = validate_jsonl(str(path))
+        recs = [json.loads(x) for x in path.read_text().splitlines()]
+        kinds = [r["kind"] for r in recs]
+        trs = [r for r in recs if r["kind"] == "train_step"]
+        with_stats = [r["step"] for r in trs if "stats/valid" in r
+                      or "stats/lm_head/grad_norm" in r]
+        trace = Path(root) / "profile" / "trace_steps_2_3.json"
+        text = trace.read_text() if trace.is_file() else ""
+        print(f"      {n} records validate: {kinds}; train_step at "
+              f"{[r['step'] for r in trs]}, stats at {with_stats}; "
+              f"{t_e:.1f} s, final loss {final:.4f}; trace "
+              f"{trace.name} {len(text) / 2**20:.1f} MiB")
+        last = trs[-1]
+        print(f"      step {last['step']}: "
+              + ", ".join(f"{k} {last[k]:.6g}" for k in sorted(last)
+                          if k.startswith(("mem/", "time/"))
+                          or k == "tokens_per_s"))
+        bad = [k for r in recs for k, v in r.items()
+               if isinstance(v, str) and k not in ("schema", "kind", "arch",
+                                                   "optimizer", "reason")]
+        checks = {
+            "kinds run from run_header to run_end":
+                kinds[0] == "run_header" and kinds[-1] == "run_end"
+                and set(kinds[1:-1]) == {"train_step"},
+            "train_step records at 1, 2, 4, 6":
+                [r["step"] for r in trs] == [1, 2, 4, 6],
+            "stats on steps 2, 4, 6 only": with_stats == [2, 4, 6],
+            "mem/dev0/* and time/* in every train_step record": all(
+                "mem/dev0/bytes_in_use" in r and "mem/dev0/peak_bytes" in r
+                and "time/step_s" in r and "time/data_s" in r for r in trs),
+            "no metric written as a string": not bad,
+            "the trace exists and names train_step and obs_stats":
+                '"train_step"' in text and '"obs_stats"' in text,
+            "a finite loss": math.isfinite(final),
+        }
+        for what, ok in checks.items():
+            if not ok:
+                raise AssertionError(f"launcher telemetry: {what} ({bad})")
+        print(f"      checked: {'; '.join(checks)}")
+    finally:
+        _shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # (f) serving with a logger, phase 3's llama-130m shape
+    scfg = get_arch("llama-130m")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    sp = init_params(scfg, gen, device="cuda")
+    prompt = torch.randint(0, scfg.vocab_size, (8, 512), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    sink = MemorySink()
+    with MetricsLogger([sink]) as lg:
+        out = greedy_generate(scfg, sp, prompt, 64, 576, logger=lg)
+    serve = {r["phase"]: r for r in sink.records if r["kind"] == "serve"}
+    for r in serve.values():
+        validate_record(r)
+    if set(serve) != {"prefill", "decode"} or out.shape != (8, 64):
+        raise AssertionError(f"serving records {sorted(serve)}")
+    p, d = serve["prefill"], serve["decode"]
+    print(f"  [{power}] (f) greedy_generate(logger=...) llama-130m batch 8, "
+          f"prompt 512, 64 new: prefill {p['latency_ms']:.3f} ms "
+          f"({p['tokens_per_s']:.0f} tokens/s); decode first step "
+          f"{d['compile_ms']:.3f} ms, then mean {d['mean_ms']:.3f}, p50 "
+          f"{d['p50_ms']:.3f}, p99 {d['p99_ms']:.3f} ms "
+          f"({d['tokens_per_s']:.1f} tokens/s); both records validate")
+    del sp
+    torch.cuda.empty_cache()
+    print(f"  phase 14 took {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "per_step": per_step[0], "fig": fig,
+            "step_ms": best, "peak_mib": {k: v / 2**20
+                                          for k, v in peaks.items()},
+            "stats_launches_per_step": n_mat,
+            "serve": {k: {kk: vv for kk, vv in v.items()
+                          if kk.endswith(("_ms", "_per_s"))}
+                      for k, v in serve.items()}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4643,6 +4965,8 @@ def main() -> int:
     print("phase 13: packed-document training, llama-1b, full width and "
           "depth")
     packed = phase_packed(torch, args.seed, power, train)
+    print("phase 14: the telemetry plane, llama-1b, full width and depth")
+    telemetry = phase_telemetry(torch, args.seed, power)
     # one row per kernel; launches summed over the main paths that run it,
     # each counted from 0 just before its path and read just after
     by_path = {"serving": {"mha_fwd": serve["launches"]},
@@ -4663,7 +4987,9 @@ def main() -> int:
                # the segment rows' names (every one: checked per step)
                "train packed": {**packed["launches"],
                                 **{SEG_ROWS[k]: n for k, n in
-                                   packed["segment_launches"].items()}}}
+                                   packed["segment_launches"].items()}},
+               # the stats steps: norm_sumsq also takes the column norms
+               "train stats": telemetry["launches"]}
     # mha_fwd's prefill numbers, with both serving shapes and the eval and
     # training steps' shape beside them
     mha = {k: v for k, v in mha_rows[0].items() if k != "shape"}

@@ -21,8 +21,9 @@ same tree (``.step``, ``.params/<path>``, ``.opt_state/.mu/<path>``,
 ``jax.tree_util`` flattens them, so a checkpoint of either package
 restores into the other bitwise, with the same shard and leaf crc32s.
 bf16 leaves are written as their raw 2-byte words under dtype
-``"bfloat16"`` (never widened); ``PipeState.host_count`` is no leaf (it
-mirrors ``count``, and restore sets it from the restored count).
+``"bfloat16"`` (never widened); ``PipeState.host_count`` and
+``TrainState.host_step`` are no leaves (they mirror ``count`` and
+``step``, and restore sets them from the restored counts).
 
 Resilience, as in the JAX package: per-leaf crc32s in the per-host
 manifest, verified on ``restore``; any corruption-class failure raises
@@ -163,7 +164,8 @@ def named_leaves(tree, prefix: str = ""):
 
 def _rebuild(tree, leaf_fn, prefix: str = ""):
     """``tree`` with each tensor leaf replaced by ``leaf_fn(key, leaf)``; a
-    ``HostCount`` is set from its NamedTuple's rebuilt ``count``."""
+    ``HostCount`` is set from its NamedTuple's rebuilt ``count`` (a
+    ``PipeState``) or ``step`` (a ``TrainState``)."""
     if tree is None or isinstance(tree, HostCount):
         return tree
     if torch.is_tensor(tree):
@@ -176,7 +178,8 @@ def _rebuild(tree, leaf_fn, prefix: str = ""):
                for f in tree._fields}
         for f, v in out.items():
             if isinstance(v, HostCount):
-                out[f] = HostCount(int(out["count"]))
+                out[f] = HostCount(int(out["count" if "count" in out
+                                           else "step"]))
         return type(tree)(**out)
     if hasattr(tree, "items"):
         return {k: _rebuild(v, leaf_fn, _join(prefix, str(k)))

@@ -8,8 +8,8 @@ mappings. Groups (paper Algorithm 1 + Appendix C):
   * ``vector`` — <=1-D params and per-layer scales/biases stacked to 2-D;
     Adam.
 Classification is by path against configurable patterns, with the
-dimensionality fallback. ``layer_group`` (observability) is not ported
-yet.
+dimensionality fallback. ``layer_group`` is the coarser bucketing of the
+telemetry plane (``repro_torch.obs.stats``).
 """
 from __future__ import annotations
 
@@ -67,6 +67,33 @@ class LabelRules:
         if ndim <= 1:
             return False
         return any(re.search(pat, path) for pat in self.tied_last)
+
+
+# Coarse layer groups for observability (paper Fig. 4 / Fig. 10 axes): the
+# output head, the token embedding, and everything in between. Coarser than
+# the optimizer labels above: the paper states its variance and column-norm
+# figures per layer group.
+LAYER_GROUPS = ("embedding", "hidden", "lm_head")
+
+
+def layer_group(path: str, tied: bool = False) -> str:
+    """Map a parameter path to its Fig. 4 layer group.
+
+    ``tied=True`` mirrors :meth:`LabelRules.tied`: with weight tying the
+    token embedding IS the logit-producing matrix, so it reports under
+    ``lm_head`` instead of ``embedding``.
+    """
+    for pat in LAST_LAYER_PATTERNS:
+        if re.search(pat, path):
+            return "lm_head"
+    if tied:
+        for pat in TIED_LAST_PATTERNS:
+            if re.search(pat, path):
+                return "lm_head"
+    for pat in FIRST_LAYER_PATTERNS:
+        if re.search(pat, path):
+            return "embedding"
+    return "hidden"
 
 
 def label_tree(params, rules: LabelRules | None = None,

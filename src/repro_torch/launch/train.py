@@ -40,11 +40,28 @@ each document (the kernels' segment clause) and so does the loss. The
 console's tok/s then counts the loss's weight, the real tokens, and not
 batch x seq.
 
-Flags of modules not ported yet are absent:
+Telemetry, as in the JAX launcher (:mod:`repro_torch.obs`): ``--log-dir``
+attaches a JSONL metrics sink (schema ``repro_metrics/v1``,
+``metrics.0.jsonl``: one process) behind the non-blocking background
+logger. It writes a ``run_header``, a ``train_step`` record on the first
+step and every ``--metrics-every`` steps (the step's metrics, the
+step-time breakdown since the last record: ``data`` wait, ``step``
+dispatch, ``sync`` for the guard's flag, ``ckpt`` IO; the card's live and
+peak bytes, tokens/s (real tokens when packed), ``lr_scale`` and
+``rollbacks``), an ``event`` on each rollback (then a flush), and a
+``run_end``; SIGTERM and the end of the run flush it. A record reads the
+device only on that cadence. ``--stats-every K`` adds the per-layer-group
+statistics of :mod:`repro_torch.obs.stats` (the paper's Fig. 4/10
+quantities) to the steps whose completed index is a multiple of K, and
+the records of those steps carry them. ``--profile-steps A:B`` wraps
+those steps in a ``torch.profiler`` window whose Chrome trace lands in
+``--profile-dir`` (default ``<log-dir>/profile``); a profiler failure
+warns and disables the window. The port has no kernel fallback
+(ROADMAP.md reference caveat 9): records carry no ``fallbacks`` deltas
+and ``run_end`` has ``fallbacks: null``.
 
-* ``--smoke`` (the reduced smoke configs);
-* ``--log-dir``, ``--metrics-every``, ``--stats-every``,
-  ``--profile-steps``, ``--profile-dir`` (telemetry, item 10).
+The reduced smoke configs (``--smoke``) are not ported (ROADMAP.md
+Queue 1 item 13).
 
 ``--optimizer`` takes any name of ``repro_torch.core.OPTIMIZER_NAMES``,
 the JAX registry's 20: SCALE (``scale``, ``scale_fused``, ``adapm``) and
@@ -63,10 +80,14 @@ Examples (llama-1b on the card, the paper's largest Table-1 model):
       --pack-documents --optimizer scale_fused --steps 20
   REPRO_FAULTS="nan_grad@5" PYTHONPATH=src python -m \\
       repro_torch.launch.train --arch llama-1b --optimizer muon --steps 20
+  PYTHONPATH=src python -m repro_torch.launch.train --arch llama-1b \\
+      --optimizer scale_fused --steps 200 --log-dir /path/to/run0 \\
+      --metrics-every 10 --stats-every 50 --profile-steps 20:21
 """
 from __future__ import annotations
 
 import argparse
+import os
 import signal
 import time
 
@@ -76,9 +97,13 @@ from repro_torch.checkpoint import restore_latest, save, save_async
 from repro_torch.configs import get_arch
 from repro_torch.core import (OPTIMIZER_REGISTRY, LabelRules,
                               linear_warmup_cosine, make_optimizer)
+from repro_torch.core.pipeline import HostCount
 from repro_torch.data import make_dataset
 from repro_torch.device import resolve_device
 from repro_torch.models import init_params
+from repro_torch.obs import (JSONLSink, MetricsLogger, ProfileWindow,
+                             StatsPolicy, StepTimer, device_memory,
+                             split_stats, trace_span)
 from repro_torch.training import (GuardPolicy, init_guard_state, init_state,
                                   make_train_step, resolve_plan)
 
@@ -132,6 +157,23 @@ def main(argv=None) -> float:
     ap.add_argument("--ckpt-every", type=int, default=100)
     ap.add_argument("--resume", default="none", choices=["none", "auto"])
     ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--log-dir", default="",
+                    help="write schema-versioned JSONL metrics records "
+                         "(metrics.0.jsonl) under this directory via the "
+                         "non-blocking background logger")
+    ap.add_argument("--metrics-every", type=int, default=10,
+                    help="JSONL record cadence in steps (needs --log-dir)")
+    ap.add_argument("--stats-every", type=int, default=0,
+                    help="cadence of the per-layer-group gradient "
+                         "statistics (Fig. 4/10 live: grad norms, column-"
+                         "norm dispersion, update/param ratios, momentum "
+                         "norms); 0 disables the collector entirely")
+    ap.add_argument("--profile-steps", default="",
+                    help="'A:B' (inclusive) or 'A': wrap those steps in a "
+                         "torch.profiler trace written to --profile-dir")
+    ap.add_argument("--profile-dir", default="",
+                    help="profiler trace directory (default "
+                         "<log-dir>/profile)")
     ap.add_argument("--no-guard", action="store_true",
                     help="disable the anomaly guard (finite checks "
                          "on loss/grad norm, step skipping, rollback)")
@@ -163,11 +205,34 @@ def main(argv=None) -> float:
     faults = resolve_plan()  # REPRO_FAULTS, read once
     if faults is not None:
         print(f"fault injection active: {faults}", flush=True)
+
+    # the telemetry plane: one process, so one JSONL file (host 0)
+    sinks = []
+    if args.log_dir:
+        os.makedirs(args.log_dir, exist_ok=True)
+        sinks.append(JSONLSink(os.path.join(args.log_dir, "metrics.0.jsonl")))
+    logger = MetricsLogger(sinks, host=0)
+    profile = ProfileWindow.parse(
+        args.profile_steps,
+        args.profile_dir or os.path.join(args.log_dir or ".", "profile"),
+        device)
+
     cfg, tx = build(args)
+    stats = StatsPolicy(every_k=args.stats_every,
+                        tied=cfg.tie_embeddings) \
+        if args.stats_every > 0 else None
     print(f"arch={cfg.name} optimizer={args.optimizer} device={device} "
           f"guard={'off' if guard is None else 'on'}"
-          + (" pack_documents=True" if args.pack_documents else ""),
+          + (" pack_documents=True" if args.pack_documents else "")
+          + (f" stats_every={args.stats_every}" if stats else ""),
           flush=True)
+    logger.log("run_header", 0, arch=cfg.name, optimizer=args.optimizer,
+               devices=1, guard=guard is not None,
+               stats_every=args.stats_every, steps=args.steps,
+               batch=args.batch, seq=args.seq, lr=args.lr,
+               grad_accum=args.grad_accum,
+               pack_documents=bool(args.pack_documents),
+               tie_embeddings=bool(cfg.tie_embeddings))
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = init_params(cfg, gen, device=device)
     state = init_state(params, tx, guard=guard is not None)
@@ -177,6 +242,7 @@ def main(argv=None) -> float:
         got = restore_latest(args.ckpt_dir, state)
         if got is not None:
             state, start_step = got
+            state = state._replace(host_step=HostCount(start_step))
             print(f"resumed from step {start_step}", flush=True)
     ds = make_dataset(cfg, seq_len=args.seq, global_batch=args.batch,
                       seed=args.seed, pack_documents=args.pack_documents,
@@ -185,7 +251,7 @@ def main(argv=None) -> float:
     def make_step(tx):
         return make_train_step(cfg, tx, grad_accum=args.grad_accum,
                                clip_norm=args.clip_norm, guard=guard,
-                               faults=faults)
+                               faults=faults, stats=stats)
 
     step_fn = make_step(tx)
 
@@ -212,21 +278,56 @@ def main(argv=None) -> float:
     step, done_steps = start_step, 0
     lr_scale, rollbacks = 1.0, 0
     metrics = {"loss": torch.tensor(float("nan"))}
+    timer = StepTimer()
+    last_emitted = -1
+
+    def throughput():
+        done = (float(real_tokens) if args.pack_documents
+                else done_steps * tokens_per_step)
+        return done / max(time.time() - t0, 1e-9)
+
+    def emit_record(step, tput):
+        """One train_step record: the step's metrics, on-cadence stats, the
+        step-time breakdown since the last record, memory."""
+        nonlocal last_emitted
+        last_emitted = step
+        plain, stat_vals = split_stats(metrics, stats)
+        rec = dict(plain)
+        rec.update(stat_vals)
+        rec.update(timer.snapshot())
+        rec.update(device_memory(device))
+        rec["tokens_per_s"] = tput
+        rec["lr_scale"] = lr_scale
+        rec["rollbacks"] = rollbacks
+        logger.log("train_step", step, rec)
+
     try:
         while step < args.steps and not stop["sigterm"]:
-            state, metrics = step_fn(state, ds.host_batch_at(step))
+            if profile is not None:
+                profile.maybe_start(step)
+            with timer.section("data"), trace_span("data_wait"):
+                batch = ds.host_batch_at(step)
+            with timer.section("step"), trace_span("train_step"):
+                state, metrics = step_fn(state, batch)
             rollback_flag = False
             if guard is not None:
-                rollback_flag = bool(metrics["rollback"])
-                host = getattr(state.opt_state, "host_count", None)
-                if host is not None:
-                    # the host's mirror of the count, which a skipped step
-                    # passed through on the device
-                    host.n = int(state.opt_state.count)
+                with timer.section("sync"):
+                    rollback_flag = bool(metrics["rollback"])
+                    host = getattr(state.opt_state, "host_count", None)
+                    if host is not None:
+                        # the host's mirror of the count, which a skipped
+                        # step passed through on the device
+                        host.n = int(state.opt_state.count)
+            if profile is not None:
+                profile.maybe_stop(step)
             if rollback_flag:
                 # a streak of bad steps: restore, cut the LR, rebuild
                 lr_scale *= args.rollback_lr_cut
                 rollbacks += 1
+                logger.log("event", step, event="rollback",
+                           rollbacks=rollbacks, lr_scale=lr_scale,
+                           skipped=metrics["skipped"])
+                logger.flush()     # the tail of a sick run must hit disk
                 if rollbacks > args.max_rollbacks:
                     raise RuntimeError(
                         f"giving up after {args.max_rollbacks} rollbacks: "
@@ -245,7 +346,8 @@ def main(argv=None) -> float:
                     print(f"rollback #{rollbacks}: no checkpoint in "
                           f"{args.ckpt_dir or '<none>'}; continuing with "
                           f"peak lr x{lr_scale:g}", flush=True)
-                state = state._replace(guard=init_guard_state(device))
+                state = state._replace(guard=init_guard_state(device),
+                                       host_step=HostCount(step))
                 _, tx = build(args, lr_scale)
                 step_fn = make_step(tx)
                 continue
@@ -254,31 +356,41 @@ def main(argv=None) -> float:
             if args.pack_documents:
                 real_tokens += metrics["weight"] * args.grad_accum
             if step % args.log_every == 0 or done_steps == 1:
-                done = (float(real_tokens) if args.pack_documents
-                        else done_steps * tokens_per_step)
-                tput = done / max(time.time() - t0, 1e-9)
                 line = (f"step {step:6d} loss {float(metrics['loss']):.4f} "
                         f"|g| {float(metrics['grad_norm']):.3f} "
-                        f"tok/s {tput:,.0f}")
+                        f"tok/s {throughput():,.0f}")
                 if guard is not None:
                     line += (f" skipped {int(metrics['skipped'])}"
                              f" rollbacks {rollbacks}")
                 print(line, flush=True)
+            if args.log_dir and (step % args.metrics_every == 0
+                                 or done_steps == 1):
+                emit_record(step, throughput())
             if args.ckpt_dir and step % args.ckpt_every == 0:
-                if pending is not None:
-                    pending.wait()   # one checkpoint in flight at a time
-                pending = save_async(args.ckpt_dir, step, state)
-        if pending is not None:
-            pending.wait()
-        if args.ckpt_dir:
-            save(args.ckpt_dir, step, state)
+                with timer.section("ckpt"), trace_span("checkpoint"):
+                    if pending is not None:
+                        pending.wait()   # one checkpoint in flight at a time
+                    pending = save_async(args.ckpt_dir, step, state)
+        with timer.section("ckpt"), trace_span("checkpoint"):
+            if pending is not None:
+                pending.wait()
+            if args.ckpt_dir:
+                save(args.ckpt_dir, step, state)
         if stop["sigterm"]:
             print(f"sigterm: checkpointed step {step}, exiting cleanly",
                   flush=True)
         else:
             print(f"done: final loss {float(metrics['loss']):.4f}",
                   flush=True)
+        if args.log_dir and done_steps and step != last_emitted:
+            emit_record(step, throughput())
+        logger.log("run_end", step,
+                   reason="sigterm" if stop["sigterm"] else "done",
+                   loss=metrics["loss"], rollbacks=rollbacks, fallbacks=None)
     finally:
+        if profile is not None:
+            profile.finalize()
+        logger.close()
         if prev_handler is not None:
             signal.signal(signal.SIGTERM, prev_handler)
     return float(metrics["loss"])

@@ -8,6 +8,7 @@ device, so a decode step never waits for the host.
 """
 from __future__ import annotations
 
+import time
 from typing import Any, NamedTuple
 
 import torch
@@ -65,12 +66,30 @@ def make_decode_step(cfg):
     return decode_step
 
 
+def _quantile(sorted_vals: list, q: float) -> float:
+    if not sorted_vals:
+        return 0.0
+    i = min(len(sorted_vals) - 1, max(0, round(q * (len(sorted_vals) - 1))))
+    return sorted_vals[i]
+
+
 def greedy_generate(cfg, params, prompt, n_steps: int, max_seq: int,
-                    device=None) -> torch.Tensor:
+                    device=None, logger=None) -> torch.Tensor:
     """Greedy generation: one prefill, then ``n_steps - 1`` decode steps.
 
     ``prompt`` (B, S) int tokens (tensor or array); ``params`` must live on
     ``device`` (default ``cuda``). Returns (B, n_steps) int32 tokens.
+
+    ``logger``: an optional :class:`repro_torch.obs.MetricsLogger`. Prefill
+    and decode latencies then go through the training metrics plane, as
+    in the JAX package: one ``kind="serve"`` record per phase — the
+    prefill's wall time and prompt tokens/s, and the decode latency
+    distribution (mean/p50/p99 per token, tokens/s) over the generated
+    steps. Only with a logger does the loop wait for the card
+    (``torch.cuda.synchronize``) after each phase and step, so the times
+    are real step latencies. The first decode step is reported apart as
+    ``compile_ms``: in the port it carries the decode kernels' lazy
+    loads (JAX's carries its compile).
     """
     device = resolve_device(device)
     prompt = torch.as_tensor(prompt, device=device)
@@ -82,13 +101,44 @@ def greedy_generate(cfg, params, prompt, n_steps: int, max_seq: int,
     w = params["tok_embed"]["w"]
     if w.device != prompt.device:
         raise ValueError(f"params on {w.device}, generation on {device}")
+
+    def wait():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
     prefill = make_prefill_step(cfg, max_seq)
     decode = make_decode_step(cfg)
+    B = int(prompt.shape[0])
+    if logger is not None:
+        wait()
+    t0 = time.perf_counter()
     state, logits = prefill(params, prompt)
+    if logger is not None:
+        wait()
+        dt = time.perf_counter() - t0
+        n_prompt = B * int(prompt.shape[-1])
+        logger.log("serve", 0, phase="prefill", batch=B,
+                   prompt_tokens=n_prompt, latency_ms=1e3 * dt,
+                   tokens_per_s=n_prompt / max(dt, 1e-9))
     tok = logits[:, -1].argmax(dim=-1).to(torch.int32)[:, None]
     out = [tok]
+    lat: list = []
     for _ in range(n_steps - 1):
+        t0 = time.perf_counter()
         state, logits = decode(params, state, tok)
         tok = logits[:, -1].argmax(dim=-1).to(torch.int32)[:, None]
+        if logger is not None:
+            wait()
+            lat.append(time.perf_counter() - t0)
         out.append(tok)
+    if logger is not None and lat:
+        # the first decode step pays the lazy kernel loads: report it apart
+        # from the steady distribution
+        steady = sorted(lat[1:]) if len(lat) > 1 else sorted(lat)
+        logger.log("serve", 0, phase="decode", batch=B,
+                   decode_steps=len(lat), compile_ms=1e3 * lat[0],
+                   mean_ms=1e3 * sum(steady) / len(steady),
+                   p50_ms=1e3 * _quantile(steady, 0.50),
+                   p99_ms=1e3 * _quantile(steady, 0.99),
+                   tokens_per_s=B * len(steady) / max(sum(steady), 1e-9))
     return torch.cat(out, dim=1)

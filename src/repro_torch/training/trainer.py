@@ -7,7 +7,8 @@ anomaly guard (:mod:`.resilience`). ``make_eval_step`` is the validation
 loss. Gradients are taken functionally with ``torch.autograd.grad``; no
 ``.grad`` state is left on the parameters, and no step synchronises with
 the host: the step counter, the guard's verdict and every metric stay 0-d
-tensors on the device.
+tensors on the device. The host keeps its own mirror of the step counter
+(``TrainState.host_step``), which the statistics cadence reads.
 """
 from __future__ import annotations
 
@@ -18,10 +19,14 @@ import torch
 
 from repro_torch.checkpoint.checkpointer import named_leaves
 from repro_torch.core import pipeline
+from repro_torch.core.pipeline import HostCount
 from repro_torch.core.types import (GradientTransformation, apply_updates,
                                     global_norm)
 from repro_torch.models import loss_fn
 from repro_torch.models.model import Params, flatten, unflatten
+from repro_torch.obs.profile import trace_span
+from repro_torch.obs.stats import (StatsPolicy, leaf_update_norms,
+                                   make_stats_fn)
 
 from .resilience import (GuardPolicy, guard_step, guard_verdict,
                          guarded_select, init_guard_state,
@@ -35,6 +40,10 @@ class TrainState(NamedTuple):
     # a GuardState with the guard on; None has no leaves, so a guard-less
     # state checkpoints with the 3-field keys
     guard: Any = None
+    # the host's mirror of ``step`` (a HostCount; no checkpoint leaf):
+    # init_state sets it, each step advances it, restore re-seats it, and
+    # the statistics cadence reads it instead of the device
+    host_step: Any = None
 
 
 def init_state(params, tx: GradientTransformation,
@@ -42,7 +51,7 @@ def init_state(params, tx: GradientTransformation,
     dev = next(iter(flatten(params).values())).device
     return TrainState(torch.zeros((), dtype=torch.int32, device=dev), params,
                       tx.init(params),
-                      init_guard_state(dev) if guard else None)
+                      init_guard_state(dev) if guard else None, HostCount(0))
 
 
 def value_and_grad(params, cfg, batch: dict, aux_coef: float = 0.01):
@@ -69,18 +78,11 @@ def _div(x: torch.Tensor, n: int) -> torch.Tensor:
     return x / torch.full((), float(n), device=x.device)
 
 
-def _update_norm(new: dict, old: dict) -> torch.Tensor:
-    """global_norm of new - old, differenced in f32 one leaf at a time."""
-    norms = [torch.linalg.vector_norm(new[k].float() - o.float())
-             for k, o in old.items()]
-    return torch.linalg.vector_norm(torch.stack(norms))
-
-
 def make_train_step(cfg, tx: GradientTransformation, grad_accum: int = 1,
                     clip_norm: float = 0.0, aux_coef: float = 0.01,
                     accum_dtype: str = "float32", norm_metrics: bool = True,
                     fused_apply=None, guard: Optional[GuardPolicy] = None,
-                    faults=None):
+                    faults=None, stats: Optional[StatsPolicy] = None):
     """Build ``train_step(state, batch) -> (state, metrics)``.
 
     The semantics of the JAX package's ``make_train_step``:
@@ -122,10 +124,27 @@ def make_train_step(cfg, tx: GradientTransformation, grad_accum: int = 1,
       when the state's device step is a fault step (bitwise inert on the
       others). ``None`` costs nothing.
 
+    * ``stats``: a :class:`~repro_torch.obs.stats.StatsPolicy`. The
+      metrics gain the per-layer-group statistics of
+      :mod:`repro_torch.obs.stats` (``stats/<group>/<name>`` and
+      ``stats/valid``) from the pre-clip gradients, the pre-step and
+      post-guard parameters and the post-step optimizer state. The cadence
+      is ``state.host_step + 1`` (the completed-step index, as JAX's
+      ``state.step + 1``) modulo ``every_k``, decided on the host: off it
+      no reduction runs and every stat is 0. On a cadence step the fused
+      write needs the pre-step parameters: the snapshot above, taken then
+      if neither ``norm_metrics`` nor the guard takes it; with
+      ``norm_metrics`` the per-leaf f32 differences are formed once for
+      ``update_norm`` and the groups alike. Params and optimizer state are
+      bitwise those of a step without stats.
+
+    Spans (``obs.trace_span``, JAX's named scopes): ``fwd`` (the loss and
+    its gradient), ``optimizer_update``, ``guard``, ``obs_stats``.
+
     Left out, with the modules they need: ``rules`` and ``mesh`` (sharding,
-    ROADMAP.md Queue 1 item 12), ``stats`` (item 10). ``donate`` has no
-    counterpart: ``update_params`` already writes the parameters and the
-    momentum in place.
+    ROADMAP.md Queue 1 item 12). ``donate`` has no counterpart:
+    ``update_params`` already writes the parameters and the momentum in
+    place.
     """
     acc_dt = torch.float32 if accum_dtype == "float32" else torch.bfloat16
     if fused_apply is None:
@@ -138,6 +157,7 @@ def make_train_step(cfg, tx: GradientTransformation, grad_accum: int = 1,
     # the projection stage decides its refresh from the host count
     reads_host_count = any(st.project is not None
                            for st in (tx.plans or {}).values())
+    stats_fn = make_stats_fn(stats) if stats is not None else None
 
     def reshape(x):
         if x.shape[0] % grad_accum:
@@ -175,9 +195,20 @@ def make_train_step(cfg, tx: GradientTransformation, grad_accum: int = 1,
             raise ValueError(
                 "make_train_step(guard=...) needs a guard-carrying state: "
                 "build it with init_state(params, tx, guard=True)")
-        loss, metrics, grads = compute_grads(state.params, batch)
+        host_step = state.host_step
+        if host_step is None and stats_fn is not None:
+            host_step = HostCount(int(state.step))  # built by hand: read once
+        on_cadence = (stats_fn is not None
+                      and stats_fn.hit(host_step.n + 1))
+        with trace_span("fwd"):
+            loss, metrics, grads = compute_grads(state.params, batch)
         grads = inject_grad_faults(faults, state.step, grads)
         out = {"loss": loss}
+        if on_cadence:
+            # the pre-clip gradients (JAX's raw_grads), read before the
+            # update so that they can be freed after it
+            with trace_span("obs_stats"):
+                part = stats_fn.of_grads(grads)
         kw = {}
         if clip_norm > 0 or norm_metrics or guard is not None:
             gnorm = global_norm(grads)
@@ -192,28 +223,32 @@ def make_train_step(cfg, tx: GradientTransformation, grad_accum: int = 1,
                          for k, g in grads.items()}
         gstate = state.guard
         if guard is not None:
-            ok = guard_verdict(guard, state.guard, loss, gnorm)
-            gstate, rollback = guard_step(guard, state.guard, ok, loss)
-            # the update writes the optimizer state in place: snapshot it
-            old_state = {k: x.clone()
-                         for k, x in dict(named_leaves(state.opt_state)).items()}
+            with trace_span("guard"):
+                ok = guard_verdict(guard, state.guard, loss, gnorm)
+                gstate, rollback = guard_step(guard, state.guard, ok, loss)
+                # the update writes the optimizer state in place: snapshot
+                old_state = {k: x.clone() for k, x in
+                             dict(named_leaves(state.opt_state)).items()}
             host = getattr(state.opt_state, "host_count", None)
             host_n = host.n if host is not None else None
-        if fused_apply:
-            old = ({k: p.clone() for k, p in flatten(state.params).items()}
-                   if norm_metrics or guard is not None else None)
-            _, opt_state = tx.update_params(grads, state.opt_state,
-                                            state.params, **kw)
-            params = state.params
-        else:
-            old = flatten(state.params)  # apply_updates leaves these as is
-            updates, opt_state = tx.update(grads, state.opt_state,
-                                           state.params)
-            params = Params(apply_updates(state.params, updates))
+        with trace_span("optimizer_update"):
+            if fused_apply:
+                old = ({k: p.clone() for k, p in flatten(state.params).items()}
+                       if norm_metrics or guard is not None or on_cadence
+                       else None)
+                _, opt_state = tx.update_params(grads, state.opt_state,
+                                                state.params, **kw)
+                params = state.params
+            else:
+                old = flatten(state.params)  # apply_updates leaves these
+                updates, opt_state = tx.update(grads, state.opt_state,
+                                               state.params)
+                params = Params(apply_updates(state.params, updates))
         del grads
         if guard is not None:
-            guarded_select(ok, flatten(params), old)
-            guarded_select(ok, dict(named_leaves(opt_state)), old_state)
+            with trace_span("guard"):
+                guarded_select(ok, flatten(params), old)
+                guarded_select(ok, dict(named_leaves(opt_state)), old_state)
             del old_state
             if host is not None:
                 # a skip passed the device count through; a projection
@@ -223,16 +258,28 @@ def make_train_step(cfg, tx: GradientTransformation, grad_accum: int = 1,
             out["skipped"] = gstate.skipped
             out["bad_step"] = (~ok).to(torch.int32)
             out["rollback"] = rollback
+        unorms = None
         if norm_metrics:
             if fused_apply:
-                out["update_norm"] = _update_norm(flatten(params), old)
+                unorms = leaf_update_norms(flatten(params), old)
+                out["update_norm"] = torch.linalg.vector_norm(
+                    torch.stack(list(unorms.values())))
             else:
                 unorm = global_norm(updates)
                 out["update_norm"] = (torch.where(ok, unorm, 0.0)
                                       if guard is not None else unorm)
+        if on_cadence:
+            with trace_span("obs_stats"):
+                out.update(stats_fn.finish(part, old, params, opt_state,
+                                           unorms))
+            del part
+        elif stats_fn is not None:
+            out.update(stats_fn.off(loss.device))
         del old
         out.update({k: v for k, v in metrics.items() if k != "loss"})
-        return TrainState(state.step + 1, params, opt_state, gstate), out
+        return TrainState(state.step + 1, params, opt_state, gstate,
+                          None if host_step is None
+                          else HostCount(host_step.n + 1)), out
 
     return train_step
 

@@ -1462,3 +1462,112 @@ def test_packed_llama130m_train_step_on_card(cuda, monkeypatch):
             assert _routes_are(f.route_launches, was, {"mma": n}), i
         losses.append(float(metrics["loss"]))
     assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+
+
+# ------------------------------------------------------ the telemetry plane
+
+def _stats_inputs(device, seed=0):
+    """A small bf16 llama's params, a step's worth of gradients of unit
+    scale (heavy-tailed across columns) and new params, on ``device``."""
+    from repro_torch.core import make_optimizer
+    from repro_torch.models import ModelConfig, init_params
+    from repro_torch.models.model import flatten
+    cfg = ModelConfig(name="gpu", n_layers=2, d_model=256, n_heads=4,
+                      n_kv_heads=2, d_ff=512, vocab_size=1000,
+                      dtype="bfloat16")
+    params = flatten(init_params(cfg, torch.Generator().manual_seed(seed),
+                                 device="cpu"))
+    rng = np.random.default_rng(seed)
+    grads = {k: torch.from_numpy(
+        rng.standard_normal(p.shape).astype(np.float32)
+        * np.exp(rng.standard_normal(p.shape[-1:])).astype(np.float32)
+    ).to(p.dtype) for k, p in params.items()}
+    new = {k: p + 1e-2 * torch.randn(p.shape, generator=torch.Generator(
+        ).manual_seed(1)).to(p.dtype) for k, p in params.items()}
+    tx = make_optimizer("scale_fused", 1e-2)
+    state = tx.init(params)
+    state = state._replace(mu={k: m.normal_(generator=torch.Generator(
+        ).manual_seed(2)) for k, m in state.mu.items()})
+
+    def to(tree):
+        return {k: v.to(device) for k, v in tree.items()}
+    return (to(grads), to(params), to(new),
+            state._replace(count=state.count.to(device), mu=to(state.mu),
+                           nu=to(state.nu)))
+
+
+@pytest.mark.gpu
+def test_stats_on_card_equal_the_plain_version(cuda):
+    """The statistics collector on the card (the column sums through the
+    norm_sumsq kernel, one launch a leaf of two or more dimensions) equals
+    the same collector on the CPU (norm_sumsq's plain version): 2e-5
+    relative, the sums of squares' tolerance."""
+    from repro_torch.kernels.colnorm import colnorm as C
+    from repro_torch.obs import StatsPolicy, make_stats_fn
+    fn = make_stats_fn(StatsPolicy(every_k=1))
+    cpu = fn(1, *_stats_inputs("cpu"))
+    args = _stats_inputs(cuda)
+    n0 = C.norm_sumsq.launches
+    got = fn(1, *args)
+    torch.cuda.synchronize()
+    assert C.norm_sumsq.launches - n0 == sum(
+        1 for g in args[0].values() if g.ndim >= 2)
+    assert set(got) == set(cpu)
+    for k, v in cpu.items():
+        assert got[k].device.type == "cuda", k
+        np.testing.assert_allclose(float(got[k]), float(v), rtol=2e-5,
+                                   err_msg=k)
+    assert float(got["stats/lm_head/colnorm_disp"]) > 1.0
+
+
+@pytest.mark.gpu
+def test_device_memory_reads_the_card(cuda):
+    from repro_torch.obs import device_memory
+    x = torch.empty(1 << 20, device=cuda)
+    m = device_memory("cuda")
+    i = torch.cuda.current_device()
+    assert set(m) == {f"mem/dev{i}/bytes_in_use", f"mem/dev{i}/peak_bytes",
+                      "mem/total_bytes_in_use", "mem/total_peak_bytes"}
+    assert m[f"mem/dev{i}/peak_bytes"] >= m[f"mem/dev{i}/bytes_in_use"] \
+        >= x.numel() * 4
+    assert device_memory(cuda) == device_memory("cuda")
+    del x
+
+
+@pytest.mark.gpu
+def test_stats_step_on_card_does_not_synchronise(cuda):
+    """A guarded train step with the collector on its cadence runs under
+    set_sync_debug_mode("error"), its stats finite; the run stays bitwise
+    the run without stats."""
+    from repro_torch.checkpoint.checkpointer import named_leaves
+    from repro_torch.core import make_optimizer
+    from repro_torch.data import make_dataset
+    from repro_torch.models import ModelConfig, init_params
+    from repro_torch.obs import StatsPolicy
+    from repro_torch.training import GuardPolicy, init_state, make_train_step
+    cfg = ModelConfig(name="gpu", n_layers=2, d_model=256, n_heads=4,
+                      n_kv_heads=2, d_ff=512, vocab_size=1000,
+                      dtype="bfloat16")
+    ds = make_dataset(cfg, 128, 4, seed=1, device=cuda)
+    batches = [ds.global_batch_at(i) for i in range(2)]
+    runs = []
+    for stats in (None, StatsPolicy(every_k=2)):
+        tx = make_optimizer("scale_fused", 1e-2)
+        state = init_state(init_params(
+            cfg, torch.Generator(device=cuda).manual_seed(0), device=cuda),
+            tx, guard=True)
+        step = make_train_step(cfg, tx, clip_norm=1.0, guard=GuardPolicy(),
+                               stats=stats)
+        state, m = step(state, batches[0])
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            state, m = step(state, batches[1])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        runs.append((dict(named_leaves(state)), m))
+    (a, _), (b, m) = runs
+    assert float(m["stats/valid"]) == 1.0
+    assert all(bool(torch.isfinite(v)) for k, v in m.items())
+    for k, x in a.items():
+        assert torch.equal(x, b[k]), k
