@@ -5,7 +5,7 @@ NVIDIA H100.
     python3 chip_smoke.py [--seed N]
 
 Run from the root of a checkout. It builds the port's CUDA kernels with
-nvcc (one process per source, in parallel), then runs fourteen phases and fails
+nvcc (one process per source, in parallel), then runs fifteen phases and fails
 (non-zero exit, no result line) if any of them fails:
 
 1. device: the card's name and power limit, the kernels' ptxas report;
@@ -215,7 +215,29 @@ nvcc (one process per source, in parallel), then runs fourteen phases and fails
    time keys, no metric a string) and its trace naming ``train_step``
    and ``obs_stats``; ``greedy_generate(logger=...)`` at phase 3's
    llama-130m shape, both ``serve`` records valid. The kernels line's
-   ``norm_sumsq`` row gains a ``train stats`` path.
+   ``norm_sumsq`` row gains a ``train stats`` path;
+15. sharded training: (i) the ``col_offset`` clause of the three xent
+   kernels at llama-1b's head (N 4096, D 2048, V 32000, bf16), untied
+   and tied, cut into 2 and 4 vocabulary shards (column or row slices of
+   the one head): each shard against its plain version with its
+   col_offset, on the route it takes; the shards' combined (lse, ll),
+   summed f32 dH and put-together f32 dW against the unsharded kernels on
+   the whole head; per shard the kernel's time (CUDA events and device
+   time), the plain version's, the bound and the library call for the
+   same shard; (ii) two ranks on the one card (``gloo``, both on cuda:0):
+   the sharded ``dispatch.xent_loss`` forward and backward at llama-1b's
+   head on a (1, 2) mesh, untied and tied (rank 1's shard at col_offset
+   16000), and the sharded SCALE entry points at llama-1b's full leaf
+   shapes (the head, the stacked wq) on (2, 1) and (1, 2), col and row,
+   each against the same call unsharded on the rank; (iii)
+   ``make_train_step(rules, mesh)`` on a (1, 1) NCCL mesh at llama-1b's
+   full width and depth for three steps (parameters DTensors placed per
+   the rules), each step's launches as phase 8's, the losses against
+   phase 8's from the same weights and batches, and the step time beside
+   phase 8's. The kernels line gains the rows ``xent_fwd col_offset``,
+   ``xent_bwd_dh col_offset`` and ``xent_bwd_dw col_offset`` (launches at
+   a non-zero col_offset on the ``sharded`` path, whose other launches
+   are (ii)'s and (iii)'s).
 
 The line before the last is a JSON ``{"kernels": [...]}`` summary, the
 last line ``{"ok": true, "device": {...}}``. It needs a CUDA card and
@@ -2125,7 +2147,7 @@ def _fwd_wgmma_call(torch, lib, h, w, labels, ncols):
         err = lib.xent_fwd_wgmma(
             h.data_ptr(), h.stride(0), w.data_ptr(), w.stride(0),
             labels.data_ptr(), part.data_ptr(), lse.data_ptr(), ll.data_ptr(),
-            N, D, ncols, splits, per, 0,
+            N, D, ncols, 0, splits, per, 0,
             torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"xent_fwd_wgmma: CUDA error {err}")
@@ -2186,7 +2208,7 @@ def xent_variant_timing(torch, gen, power, procs, rows):
                     int(dh), h.data_ptr(), h.stride(0), w.data_ptr(),
                     w.stride(0), labels.data_ptr(), lse.data_ptr(),
                     gl.data_ptr(), g.data_ptr(), acc.data_ptr(),
-                    out.data_ptr(), int(bf), N, D, V, V, rows_c, cols, 0,
+                    out.data_ptr(), int(bf), N, D, V, V, 0, rows_c, cols, 0,
                     torch.cuda.current_stream().cuda_stream)
                 if err:
                     raise RuntimeError(f"{name} ({variant}): CUDA error {err}")
@@ -2571,7 +2593,7 @@ def phase_train(torch, seed, power):
           f"{peak / 2**20:.1f} MiB")
     return {"launches": launches, "per_step": per_step[0],
             "routes": per_step_routes[0], "step_ms": step_s * 1e3,
-            "peak": peak}
+            "peak": peak, "losses": losses}
 
 
 # ------------------------------------------- the paper's two largest models
@@ -4889,6 +4911,513 @@ def phase_telemetry(torch, seed, power):
                       for k, v in serve.items()}}
 
 
+# ------------------------------------------- phase 15: sharded training
+
+SHARD_ROWS = {k: f"{k} col_offset" for k in XENT_KERNELS}
+SHARDED_STEPS = 3  # make_train_step steps on the (1, 1) NCCL mesh
+# Phase 15 (ii), two ranks against one: the sharded loss sums the
+# vocabulary shards' statistics and the f32 dH partials across ranks, and
+# the sharded optimizer the sums of squares, in another order than one
+# rank's kernels do; the values are f32 sums that agree to a few f32 ulps,
+# and what is written in bf16 (dH, dW, theta) then rounds apart by at
+# most one bf16 ulp of the element's scale.
+TWO_RANK_LOSS_ATOL = 1e-4
+
+
+def offset_counts():
+    from repro_torch.kernels.xent import xent as X
+    return {SHARD_ROWS[k]: getattr(X, k).offset_launches
+            for k in XENT_KERNELS}
+
+
+def zero_offset_counts():
+    from repro_torch.kernels.xent import xent as X
+    for k in XENT_KERNELS:
+        getattr(X, k).offset_launches = 0
+
+
+def _uncounted(call):
+    """call() with every kernel counter left as it was before it: the
+    launches of a comparison, not of the path."""
+    from repro_torch.kernels.attention import attention as A
+    from repro_torch.kernels.colnorm import colnorm as C
+    from repro_torch.kernels.scale_head import scale_head as H
+    from repro_torch.kernels.xent import xent as X
+    fns = (C.norm_sumsq, C.update_apply, C.norm_apply, H.momentum_sumsq,
+           A.mha_fwd, A.mha_bwd_dq, A.mha_bwd_dkv, X.xent_fwd,
+           X.xent_bwd_dh, X.xent_bwd_dw)
+    saved = [(f, {k: dict(v) if isinstance(v, dict) else v
+                  for k, v in vars(f).items() if k.endswith("launches")})
+             for f in fns]
+    try:
+        return call()
+    finally:
+        for f, was in saved:
+            for k, v in was.items():
+                setattr(f, k, v)
+
+
+def _route_of(fn, was):
+    """The one route ``fn`` counted since ``was`` (its route_launches)."""
+    got = [r for r, n in fn.route_launches.items() if n != was[r]]
+    if len(got) != 1:
+        raise AssertionError(f"{fn.__name__}: launches on routes {got}")
+    return got[0]
+
+
+def phase_sharded_kernels(torch, gen, power):
+    """Phase 15 (i): the col_offset clause of the three xent kernels at
+    llama-1b's head (N 4096, D 2048, V 32000, bf16), untied (shards are
+    w's column slices, views with row stride V) and tied (row slices of
+    the (V, D) embedding), cut into 2 and 4 vocabulary shards. Each shard
+    against its plain version with its col_offset; the shards' combined
+    (lse, ll), summed f32 dH and put-together f32 dW against the unsharded
+    kernels on the whole head; per shard the kernel's time by CUDA events
+    and by device time, the plain version's, the bound, and the library
+    call for the same shard (matmul and a masked logsumexp with the
+    label's logit; the backward from recomputed logits, dH and dW
+    together). -> (kernels-line rows, {(kernel, case): max abs err})."""
+    from repro_torch.kernels.xent import ref as XR
+    from repro_torch.kernels.xent import xent as X
+    N, D, V = 4096, 2048, 32000
+    bf, f32 = torch.bfloat16, torch.float32
+    h, w, labels, gl = xent_inputs(torch, gen, N, D, V, 0.1, bf)
+    wt = w.T.contiguous()
+    errs, rows = {}, {name: [] for name in XENT_KERNELS}
+    fns = {"xent_fwd": X.xent_fwd, "xent_bwd_dh": X.xent_bwd_dh,
+           "xent_bwd_dw": X.xent_bwd_dw}
+    refs = {"xent_fwd": XR.xent_fwd_ref, "xent_bwd_dh": XR.xent_bwd_dh_ref,
+            "xent_bwd_dw": XR.xent_bwd_dw_ref}
+    for tied in (False, True):
+        whole = wt if tied else w
+        kw0 = {"vocab_size": V, "transposed": tied}
+        lse_w, ll_w = X.xent_fwd(h, whole, labels, **kw0)
+        args_w = (h, whole, labels, lse_w, gl)
+        dh_w = X.xent_bwd_dh(*args_w, out_dtype=f32, **kw0)
+        dw_w = X.xent_bwd_dw(*args_w, out_dtype=f32, **kw0)
+        for k in (2, 4):
+            v = V // k
+            case = f"{'tied' if tied else 'untied'} {k} shards"
+            parts, dhs, dws, routes = [], [], [], {}
+            for i in range(k):
+                off = i * v
+                ws = whole[off:off + v] if tied else whole[:, off:off + v]
+                kw = {**kw0, "col_offset": off}
+                was = {n: dict(f.route_launches) for n, f in fns.items()}
+                lse, ll = X.xent_fwd(h, ws, labels, **kw)
+                want_lse, want_ll = XR.xent_fwd_ref(h, ws, labels, **kw)
+                for got, want in ((lse, want_lse), (ll, want_ll)):
+                    d = (got - want).abs()
+                    if not bool((d <= XENT_LSE_ATOL + XENT_LSE_RTOL
+                                 * want.abs()).all()):
+                        raise AssertionError(f"xent_fwd {case} shard {i}: "
+                                             f"max err {d.max().item():.3e}")
+                    key = ("xent_fwd", case)
+                    errs[key] = max(errs.get(key, 0.0), d.max().item())
+                parts.append((lse, ll))
+                a = (h, ws, labels, lse_w, gl)
+                for name in ("xent_bwd_dh", "xent_bwd_dw"):
+                    got = fns[name](*a, out_dtype=f32, **kw)
+                    want = refs[name](*a, out_dtype=f32, **kw)
+                    e, _ = _grad_check(torch, name, got, want, f32,
+                                       f"{case} shard {i}")
+                    key = (name, case)
+                    errs[key] = max(errs.get(key, 0.0), e)
+                    (dhs if name == "xent_bwd_dh" else dws).append(got)
+                    del want
+                for n, f in fns.items():
+                    routes.setdefault(n, set()).add(_route_of(f, was[n]))
+            # the shards together against the whole head
+            lse_k = torch.stack([p[0] for p in parts])
+            m = lse_k.max(0).values
+            lse = m + torch.log(torch.exp(lse_k - m).sum(0))
+            ll = torch.stack([p[1] for p in parts]).sum(0)
+            worst = max((lse - lse_w).abs().max().item(),
+                        (ll - ll_w).abs().max().item())
+            if not (bool((lse - lse_w).abs().le(XENT_LSE_ATOL + XENT_LSE_RTOL
+                                                 * lse_w.abs()).all())
+                    and bool((ll - ll_w).abs().le(XENT_LSE_ATOL
+                                                  + XENT_LSE_RTOL
+                                                  * ll_w.abs()).all())):
+                raise AssertionError(f"{case}: combined (lse, ll) off the "
+                                     f"whole head's by {worst:.3e}")
+            e_dh, _ = _grad_check(torch, "summed dH", sum(dhs), dh_w, f32,
+                                  case)
+            e_dw, _ = _grad_check(torch, "put-together dW",
+                                  torch.cat(dws, 0 if tied else 1), dw_w,
+                                  f32, case)
+            print(f"  {case}: every shard against its plain version, on "
+                  f"{ {n: sorted(r) for n, r in routes.items()} }; "
+                  f"combined lse/ll {worst:.3e}, summed dH {e_dh:.3e}, "
+                  f"dW {e_dw:.3e} off the whole head's kernels")
+            del dhs, dws, parts
+            # shard 1 (a non-zero col_offset): times beside bound, plain
+            # and library
+            off = v
+            ws = whole[off:off + v] if tied else whole[:, off:off + v]
+            wu = ws.T if tied else ws
+            kw = {**kw0, "col_offset": off}
+            local = (labels - off).long()
+            mine = (local >= 0) & (local < v)
+
+            def lib_fwd():
+                x = (h @ wu).float()
+                lab = torch.where(mine, x.gather(1, local.clamp(0, v - 1)[
+                    :, None])[:, 0], 0.0)
+                return torch.logsumexp(x, 1), lab
+
+            def lib_bwd():
+                g = torch.exp((h @ wu).float() - lse_w[:, None])
+                g[mine, local[mine]] -= 1.0
+                g = (g * gl[:, None]).to(bf)
+                return g @ wu.T, h.T @ g
+            lib = {"xent_fwd": lib_fwd, "xent_bwd_dh": lib_bwd,
+                   "xent_bwd_dw": lib_bwd}
+            lib_t = {id(f): (time_ms(torch, f, 5), device_ms(torch, f, 3))
+                     for f in (lib_fwd, lib_bwd)}
+            for name, fn in fns.items():
+                a = ((h, ws, labels) if name == "xent_fwd"
+                     else (h, ws, labels, lse_w, gl))
+                okw = {} if name == "xent_fwd" else {"out_dtype": f32}
+
+                def kern(fn=fn, a=a, okw=okw):
+                    return fn(*a, **kw, **okw)
+                ms = time_ms(torch, kern, 5)
+                dev_ms = device_ms(torch, kern, 3)
+                plain_ms = time_ms(torch, lambda: refs[name](
+                    *a, **kw, **okw), 2, warm=1)
+                bound, by = xent_bound_ms(N, D, v, 2, name)
+                lib_ms, lib_dev = lib_t[id(lib[name])]
+                route = sorted(routes[name])[0]
+                print(f"  [{power}] {name} {case}, shard 1 (col_offset "
+                      f"{off}, {v} columns), {route}: {ms:.4f} ms (device "
+                      f"time {fmt_ms(dev_ms)}; bound {bound:.4f} ms by {by}, "
+                      f"{bound / ms:.4f} of it; plain {plain_ms:.4f} ms; "
+                      f"library {lib_ms:.4f} ms, device time "
+                      f"{fmt_ms(lib_dev)})")
+                rows[name].append({
+                    "name": SHARD_ROWS[name],
+                    "shape": f"llama-1b {case}: N={N} D={D} V={v} of {V} "
+                             f"bf16" + (" tied" if tied else ""),
+                    "route": "cuda", "kernel_route": route,
+                    "source": SRC_XENT,
+                    "replaces": TPU_KERNELS[name], "launches": None,
+                    "max_abs_err": errs[(name, case)], "ms": ms,
+                    "device_ms": dev_ms, "plain_ms": plain_ms,
+                    "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
+                    "library_device_ms": lib_dev,
+                    "library_note": (
+                        "matmul + logsumexp and the label's logit"
+                        if name == "xent_fwd" else
+                        "matmul, softmax - onehot, and the two products "
+                        "(dH and dW together, logits recomputed)")})
+    out = []
+    for name in XENT_KERNELS:
+        row = {k: v for k, v in rows[name][0].items() if k != "shape"}
+        row["shapes"] = rows[name]
+        out.append(row)
+    return out, errs
+
+
+def _two_rank_worker(rank, port, seed, q):
+    """Phase 15 (ii), one of two ranks on cuda:0 under gloo."""
+    import datetime
+    import faulthandler
+    import traceback
+    # a rank that hangs prints where and exits
+    faulthandler.dump_traceback_later(300, exit=True)
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    print(f"  rank {rank}: started", flush=True)
+    try:
+        # a collective that cannot finish fails within two minutes
+        dist.init_process_group("gloo",
+                                init_method=f"tcp://localhost:{port}",
+                                rank=rank, world_size=2,
+                                timeout=datetime.timedelta(seconds=120))
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        print(f"  rank {rank}: process group up", flush=True)
+        q.put((rank, "ok", _two_rank_checks(torch, rank, seed)))
+    except BaseException:
+        q.put((rank, "error", traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _two_rank_checks(torch, rank, seed):
+    """Rank ``rank``'s part of phase 15 (ii). Every operand is placed in
+    its plan's layout, so the only collective is the entry points' own
+    eager ``all_reduce`` (DTensor's redistributions over gloo on CUDA
+    tensors hung on the H100 this was measured on; PERF.md §6), and each
+    rank holds its local results against its slice of one rank's
+    unsharded results."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.sharding import NamedSharding, P, Rules, place
+    bf = torch.bfloat16
+    rules = Rules()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    B, S, D, V = 16, 256, 2048, 32000
+    h = torch.randn((B, S, D), generator=gen, device="cuda").to(bf)
+    w = (torch.randn((D, V), generator=gen, device="cuda")
+         / D ** 0.5).to(bf)
+    labels = torch.randint(0, V, (B, S), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    cot = torch.rand((B, S), generator=gen, device="cuda")
+    out = {"loss": {}, "opt": {}}
+    m12 = make_host_mesh(1, 2, device_type="cuda")
+    m21 = make_host_mesh(2, 1, device_type="cuda")
+    print(f"  rank {rank}: meshes up", flush=True)
+    zero_train_counts()
+    zero_offset_counts()
+    for tied in (False, True):
+        ww = w.T.contiguous() if tied else w
+        # tokens over data (one rank), the vocabulary over model: the
+        # rules' layout with w's embed dim already whole (data is 1)
+        h_sh = NamedSharding(m12, P("data", None, None))
+        w_sh = NamedSharding(m12, P("model", None) if tied
+                             else P(None, "model"))
+        plan = dispatch.xent_route(h.shape, ww.shape, h_sh, w_sh, tied)[1]
+        hd = place(h, h_sh).detach().requires_grad_()
+        wd = place(ww, w_sh).detach().requires_grad_()
+        losses = dispatch.xent_loss(hd, wd, labels, vocab_size=V,
+                                    transposed=tied).to_local()
+        gh, gw = (x.to_local() for x in torch.autograd.grad(
+            (losses * cot).sum(), [hd, wd]))
+        h1, w1 = (x.detach().requires_grad_() for x in (h, ww))
+
+        def one_rank():
+            want = dispatch.xent_loss(h1, w1, labels, vocab_size=V,
+                                      transposed=tied)
+            return (want,) + torch.autograd.grad((want * cot).sum(),
+                                                 [h1, w1])
+        want, wh, www = _uncounted(one_rank)
+        www = place(www, w_sh).to_local()  # this rank's vocabulary slice
+        res = {"plan": (plan.tok_axes, plan.voc_axes),
+               "loss": (losses - want).abs().max().item()}
+        for n, got, ref in (("dh", gh, wh), ("dw", gw, www)):
+            res[n] = ((got.float() - ref.float()).abs()
+                      / ulp(torch, ref.float().abs().max(), bf)).max().item()
+        out["loss"]["tied" if tied else "untied"] = res
+    torch.cuda.synchronize()
+    print(f"  rank {rank}: the sharded loss done", flush=True)
+    out["loss_launches"] = {**xent_counts(), **offset_counts()}
+    # SCALE's entry points at llama-1b's full leaf shapes, col and row,
+    # on (2, 1) (a col norm's sums cross ranks) and (1, 2) (a row norm's)
+    leaves = {"lm_head/w": ((D, V), ("embed", "vocab")),
+              "attn/wq": ((24, D, D), (None, "embed", "heads"))}
+    for mname, mesh in (("2x1", m21), ("1x2", m12)):
+        for leaf, (shape, axes) in leaves.items():
+            sh = rules.sharding(axes, mesh, shape)
+            g = torch.randn(shape, generator=gen, device="cuda").to(bf)
+            th = (0.02 * torch.randn(shape, generator=gen,
+                                     device="cuda")).to(bf)
+            m = (0.01 * torch.randn(shape, generator=gen,
+                                    device="cuda")).to(bf)
+            for kind in ("col", "row"):
+                got = _scale_ops(dispatch, g, th, m, kind,
+                                 lambda x: place(x, sh, copy=True))
+                want = _uncounted(lambda: _scale_ops(
+                    dispatch, g, th, m, kind, lambda x: x.clone()))
+                errs = {}
+                for op, a, b in zip(("normalize", "norm_update",
+                                     "momentum_norm", "theta'", "m'"),
+                                    got, want):
+                    a, b = a.to_local(), place(b, sh).to_local()
+                    scale = b.float().abs().max()
+                    # bf16: one ulp of the leaf's scale; f32 (the
+                    # direction d): the sums' reordering, SS_RTOL of it
+                    tol = (ulp(torch, scale, bf) if a.dtype == bf
+                           else SS_RTOL * scale)
+                    errs[op] = ((a.float() - b.float()).abs()
+                                / tol).max().item()
+                out["opt"][f"{mname} {leaf} {kind}"] = {
+                    "spec": str(tuple(sh.spec)), "err_over_tol": errs}
+    torch.cuda.synchronize()
+    print(f"  rank {rank}: the sharded entry points done", flush=True)
+    out["launches"] = {**train_counts(), **offset_counts()}
+    return out
+
+
+def _scale_ops(dispatch, g, th, m, kind, lay):
+    """normalize, norm_update, momentum_norm and momentum_norm_update of
+    one leaf, each on copies of its operands laid out by ``lay``."""
+    kw = {"gscale": 0.5}
+    d = dispatch.normalize(lay(g), kind, **kw)
+    t = dispatch.norm_update(lay(th), lay(g), 0.01, kind, **kw)
+    _, dm = dispatch.momentum_norm(lay(m), lay(g), 0.9, kind, **kw)
+    t2, m2 = dispatch.momentum_norm_update(lay(th), lay(m), lay(g), 0.9,
+                                           0.01, kind, **kw)
+    return [d, t, dm, t2, m2]
+
+
+def phase_two_ranks(torch, seed, power):
+    """Phase 15 (ii): two ranks on the one card (gloo, both on cuda:0):
+    the sharded ``dispatch.xent_loss`` forward and backward at llama-1b's
+    head on a (1, 2) mesh (tokens over data, the vocabulary over model:
+    rank 1's shard at col_offset 16000), untied and tied, and the sharded
+    SCALE entry points at llama-1b's full leaf shapes on (2, 1) and
+    (1, 2), each rank's shards held against its slice of the same call
+    unsharded on the rank. -> the launches of both ranks on the sharded
+    calls, summed (the unsharded calls they are held against count
+    none)."""
+    import multiprocessing as mp
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=_two_rank_worker, args=(r, port, seed, q))
+             for r in range(2)]
+    atexit.register(_stop_procs, procs)
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    got = {}
+    for _ in procs:
+        rank, status, res = q.get(timeout=400)
+        if status != "ok":
+            raise AssertionError(f"phase 15 (ii) rank {rank}:\n{res}")
+        got[rank] = res
+    for p in procs:
+        p.join(timeout=60)
+    print(f"  two ranks (gloo, both on cuda:0) in "
+          f"{time.perf_counter() - t0:.1f} s, spawn and imports included")
+    for rank, res in sorted(got.items()):
+        for tag, r in res["loss"].items():
+            print(f"  rank {rank} xent_loss {tag} on (1, 2), plan tokens "
+                  f"{r['plan'][0]} x vocab {r['plan'][1]}: losses "
+                  f"{r['loss']:.3e} off one rank's, dH {r['dh']:.2f} and "
+                  f"dW {r['dw']:.2f} bf16 ulps of the leaf's scale")
+            if not (r["loss"] <= TWO_RANK_LOSS_ATOL and r["dh"] <= 1.0
+                    and r["dw"] <= 1.0):
+                raise AssertionError(f"rank {rank}: the sharded loss "
+                                     f"({tag}) disagrees with one rank's")
+        for case, r in res["opt"].items():
+            worst = max(r["err_over_tol"].values())
+            if rank == 0:
+                each = {k: round(x, 3) for k, x in r["err_over_tol"].items()}
+                print(f"  {case} laid out {r['spec']}: worst error over "
+                      f"tolerance {worst:.3f} against one rank ({each})")
+            if not worst <= 1.0:
+                raise AssertionError(f"rank {rank} {case}: the sharded "
+                                     f"entry points disagree with one rank")
+        print(f"  rank {rank} launches: loss {res['loss_launches']}; all "
+              f"{res['launches']}")
+    if got[0]["loss_launches"][SHARD_ROWS["xent_fwd"]] or not got[1][
+            "loss_launches"][SHARD_ROWS["xent_fwd"]]:
+        raise AssertionError("rank 1 alone holds a shard at a non-zero "
+                             "col_offset")
+    return {k: got[0]["launches"][k] + got[1]["launches"][k]
+            for k in got[0]["launches"]}
+
+
+def _stop_procs(procs):
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+
+
+def phase_sharded_train(torch, seed, power, train):
+    """Phase 15 (iii): ``make_train_step(rules, mesh)`` on a (1, 1) NCCL
+    mesh, llama-1b at full width and depth, phase 8's configuration and
+    batches, parameters placed per the rules (DTensors): each step's
+    launches as phase 8's, the losses against phase 8's unsharded steps
+    from the same weights, and the step time beside phase 8's (the
+    DTensor cost at one rank)."""
+    import math
+    import socket
+    import torch.distributed as dist
+    from repro_torch.configs import get_arch
+    from repro_torch.core import linear_warmup_cosine, make_optimizer
+    from repro_torch.data import make_dataset
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import init_params
+    from repro_torch.models.model import place_params
+    from repro_torch.models.sharding import Rules
+    from repro_torch.training import init_state, make_train_step
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh(1, 1, device_type="cuda")
+        cfg = get_arch("llama-1b")
+        B, S, L = 16, 256, cfg.n_layers
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        params = place_params(init_params(cfg, gen, device="cuda"), cfg,
+                              mesh)
+        ds = make_dataset(cfg, S, B, seed=seed, device="cuda")
+        batches = [ds.global_batch_at(i) for i in range(SHARDED_STEPS)]
+        tx = make_optimizer("scale_fused",
+                            linear_warmup_cosine(1e-3, TRAIN_STEPS))
+        step = make_train_step(cfg, tx, clip_norm=1.0, rules=Rules(),
+                               mesh=mesh)
+        state = init_state(params, tx)
+        del params
+        torch.cuda.synchronize()
+        zero_train_counts()
+        zero_offset_counts()
+        want = {"mha_fwd": 2 * L, "mha_bwd_dq": L, "mha_bwd_dkv": L,
+                "xent_fwd": 1, "xent_bwd_dh": 1, "xent_bwd_dw": 1,
+                "norm_sumsq": 8, "update_apply": 9, "momentum_sumsq": 1,
+                "norm_apply": 0}
+        losses, times = [], []
+        for i, b in enumerate(batches):
+            before = train_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, b)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            c = {k: v - before[k] for k, v in train_counts().items()}
+            if c != want:
+                raise AssertionError(f"sharded step {i} launched {c}, not "
+                                     f"{want}")
+            losses.append(float(metrics["loss"]))
+        launches = {**train_counts(), **offset_counts()}
+        ref = train["losses"][:SHARDED_STEPS]
+        gap = max(abs(a - b) for a, b in zip(losses, ref))
+        lay = str(tuple(state.params["lm_head"]["w"].placements))
+        print(f"  (1, 1) NCCL mesh, parameters DTensors (lm_head {lay}): "
+              f"every step launched {want}")
+        print(f"  losses {' '.join(f'{x:.6f}' for x in losses)}; phase 8 "
+              f"unsharded {' '.join(f'{x:.6f}' for x in ref)} (max |diff| "
+              f"{gap:.3e}{', bitwise' if losses == ref else ''}; tol "
+              f"{LOSS_CURVE_ATOL:g})")
+        if not (all(map(math.isfinite, losses)) and gap <= LOSS_CURVE_ATOL):
+            raise AssertionError("the sharded steps leave phase 8's curve")
+        best = min(times[1:]) * 1e3
+        print(f"  [{power}] sharded train step {best:.3f} ms (host clock, "
+              f"best of steps 2-{SHARDED_STEPS}) against phase 8's "
+              f"{train['step_ms']:.3f} ms unsharded: "
+              f"{best - train['step_ms']:+.3f} ms at one rank")
+        del state
+        return {"launches": launches, "losses": losses, "step_ms": best}
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_sharded(torch, gen, seed, power, train):
+    """Phase 15: (i) the col_offset clause at full width, (ii) two ranks
+    on the one card, (iii) the sharded train step on a (1, 1) mesh. The
+    sharded path's launches: (ii)'s and (iii)'s, each from counts set to
+    0 just before it."""
+    rows, errs = phase_sharded_kernels(torch, gen, power)
+    two = phase_two_ranks(torch, seed, power)
+    one = phase_sharded_train(torch, seed, power, train)
+    launches = {k: two.get(k, 0) + one["launches"].get(k, 0)
+                for k in {*two, *one["launches"]}}
+    return {"rows": rows, "launches": launches, "errs": errs,
+            "train": one}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4967,6 +5496,9 @@ def main() -> int:
     packed = phase_packed(torch, args.seed, power, train)
     print("phase 14: the telemetry plane, llama-1b, full width and depth")
     telemetry = phase_telemetry(torch, args.seed, power)
+    print("phase 15: sharded training: the col_offset clause at llama-1b's "
+          "head, two ranks on the card, the sharded train step")
+    sharded = phase_sharded(torch, gen, args.seed, power, train)
     # one row per kernel; launches summed over the main paths that run it,
     # each counted from 0 just before its path and read just after
     by_path = {"serving": {"mha_fwd": serve["launches"]},
@@ -4989,7 +5521,11 @@ def main() -> int:
                                 **{SEG_ROWS[k]: n for k, n in
                                    packed["segment_launches"].items()}},
                # the stats steps: norm_sumsq also takes the column norms
-               "train stats": telemetry["launches"]}
+               "train stats": telemetry["launches"],
+               # two ranks on the card and the (1, 1) mesh's train step;
+               # the col_offset rows count the launches at a non-zero
+               # col_offset (rank 1's shard)
+               "sharded": sharded["launches"]}
     # mha_fwd's prefill numbers, with both serving shapes and the eval and
     # training steps' shape beside them
     mha = {k: v for k, v in mha_rows[0].items() if k != "shape"}
@@ -5010,7 +5546,8 @@ def main() -> int:
         for entry, arch in zip(row["shapes"], TIED_MODELS):
             entry["launches"] = tied[arch]["routes_run"][row["name"].split()[
                 0]][row["kernel_route"]]
-    rows = [mha] + bwd_rows + opt_rows + xent_rows + tied_rows + seg_rows
+    rows = ([mha] + bwd_rows + opt_rows + xent_rows + tied_rows + seg_rows
+            + sharded["rows"])
     for row in rows:
         row["launches_by_path"] = {p: c[row["name"]]
                                    for p, c in by_path.items()

@@ -43,6 +43,14 @@ streamed to the file from the leaves' own buffers.
 training step may write the parameters and the momentum in place at once.
 ``restore`` builds new tensors on each ``like`` leaf's device, in its
 dtype.
+
+Sharded trees (DTensor leaves on a ``torch.distributed`` mesh, see
+:mod:`repro_torch.models.sharding`): ``save`` and ``save_async`` are
+collective — every rank gathers each leaf's full value (``full_tensor``)
+— and rank 0 alone writes, so a sharded run's checkpoint holds the same
+full tensors, bitwise, as an unsharded one; ``restore`` places each full
+leaf as the ``like`` leaf is laid out, every rank reading the committed
+files.
 """
 from __future__ import annotations
 
@@ -61,6 +69,7 @@ import torch
 
 from repro_torch.core.pipeline import HostCount
 from repro_torch.models.model import Params, flatten
+from repro_torch.models.sharding import is_dtensor
 
 from . import _msgpack
 
@@ -188,16 +197,21 @@ def _rebuild(tree, leaf_fn, prefix: str = ""):
                     f"{type(tree).__name__}, not a tensor")
 
 
-def _flatten(tree: PyTree, copy: bool = False) -> dict:
-    """{leaf key: contiguous CPU tensor}; ``copy`` forces a private copy
-    of CPU leaves too (a CUDA leaf is always copied to the host)."""
-    out = {}
+def _flatten(tree: PyTree, copy: bool = False) -> Tuple[dict, bool]:
+    """({leaf key: contiguous CPU tensor}, writes): ``copy`` forces a
+    private copy of CPU leaves too (a CUDA leaf is always copied to the
+    host); a DTensor leaf is gathered to its full value on every rank,
+    and ``writes`` is False on the ranks other than 0 of a sharded
+    tree."""
+    out, sharded = {}, False
     for k, x in named_leaves(tree):
         if x.dtype not in _NAMES:
             raise TypeError(f"checkpoint: leaf {k!r} has dtype {x.dtype}")
         x = x.detach()
+        if is_dtensor(x):
+            x, sharded = x.full_tensor(), True
         out[k] = (x.to("cpu", copy=True) if copy else x.cpu()).contiguous()
-    return out
+    return out, not sharded or torch.distributed.get_rank() == 0
 
 
 def _raw(t: torch.Tensor):
@@ -369,7 +383,10 @@ def save(directory: str, step: int, tree: PyTree, host_id: int = 0,
     (``io_retries`` attempts beyond the first, ``io_backoff`` seconds
     doubling per attempt).
     """
-    return _save_flat(directory, step, _flatten(tree), host_id, n_hosts,
+    flat, writes = _flatten(tree)
+    if not writes:
+        return os.path.join(directory, f"step_{step:010d}")
+    return _save_flat(directory, step, flat, host_id, n_hosts,
                       keep, compression, barrier_timeout, io_retries,
                       io_backoff)
 
@@ -587,8 +604,12 @@ def restore(directory: str, step: int, like: PyTree, host_id: int = 0) -> PyTree
                 f"model {tuple(leaf.shape)}")
 
     def leaf_fn(key, leaf):
-        return torch.empty(leaf.shape, dtype=leaf.dtype,
+        full = torch.empty(leaf.shape, dtype=leaf.dtype,
                            device=leaf.device).copy_(flat[key])
+        if is_dtensor(leaf):
+            from repro_torch.models.sharding import place, spec_of
+            return place(full, spec_of(leaf), copy=True)
+        return full
 
     return _rebuild(like, leaf_fn)
 
@@ -658,12 +679,16 @@ def save_async(directory: str, step: int, tree: PyTree, host_id: int = 0,
     reading live tensors could commit a torn state); serialization, the
     checksums and the atomic commit then run on a background thread.
     """
-    snapshot = _flatten(tree, copy=True)   # device->host copy happens here
+    # device->host copy (and a sharded tree's gather) happens here
+    snapshot, writes = _flatten(tree, copy=True)
     del tree
 
     handle: AsyncSave
 
     def work():
+        if not writes:
+            handle.path = os.path.join(directory, f"step_{step:010d}")
+            return
         try:
             handle.path = _save_flat(directory, step, snapshot, host_id,
                                      n_hosts, keep, compression,

@@ -53,7 +53,13 @@ host for the one decision that must be taken there, the projectors'
 refresh. The exceptions are ``torch.linalg.svd`` on a CUDA tensor, which
 checks its solver's status on the host: the ``svd`` norm kind every step
 (``sgd_svdnorm``) and GaLore/Fira's refresh steps synchronise.
-Sharding plans wait for ROADMAP Queue 1 item 12.
+
+On a mesh the parameters, gradients and the state made by ``init`` are
+DTensors laid out alike; ``update_params(shardings=...)`` (a flat
+``{path: NamedSharding}``, ``models.sharding.tree_shardings``) hands each
+leaf's sharding to the kernel entry points, which run on the local shards
+and all-reduce the sums of squares (``kernels.dispatch``), and the plain
+branches run on the DTensors.
 """
 from __future__ import annotations
 
@@ -80,7 +86,9 @@ def _empty(p):
 
 
 def _zeros(p, dtype=_f32):
-    return torch.zeros(p.shape, dtype=dtype, device=p.device)
+    # laid out as p (a DTensor's shards stay on their ranks)
+    return torch.zeros_like(p, dtype=dtype,
+                            memory_format=torch.contiguous_format)
 
 
 def _lr_at(lr, count):
@@ -407,7 +415,7 @@ def build_pipeline(
             extra=extra, host_count=HostCount(0))
 
     @torch.no_grad()
-    def _step(grads, state, params, write, grad_scale=None):
+    def _step(grads, state, params, write, grad_scale=None, shardings=None):
         """Shared per-leaf routing for both entry points (``write=False``:
         delta mode; ``write=True``: parameters written in place)."""
         grads = flatten(grads)
@@ -490,6 +498,7 @@ def build_pipeline(
 
         def leaf(k, lab, tr, g, m, v, p):
             st = plans[lab]
+            sh = {} if shardings is None else {"sharding": shardings[k]}
             # plain branches scale g as the trainer's clip tree-map does;
             # kernel branches pass grad_scale into the kernels, which
             # multiply g at read time, and need only the scaled dtype (JAX
@@ -546,10 +555,10 @@ def build_pipeline(
                 if _use_kernel(st, g.shape, kind):
                     if not write:
                         _, d = _kd.momentum_norm(m, g, st.momentum, kind,
-                                                 gscale=grad_scale)
+                                                 gscale=grad_scale, **sh)
                         return emit(-lr_eff * d, gdt, p)
                     _kd.momentum_norm_update(p, m, g, st.momentum, lr_eff,
-                                             kind, gscale=grad_scale)
+                                             kind, gscale=grad_scale, **sh)
                     return p
                 gf = gsc().to(_f32)
                 # cast-on-read/write: EMA and norm in f32, storage in m's
@@ -563,10 +572,10 @@ def build_pipeline(
                 if _use_kernel(st, g.shape, kind):
                     if not write:
                         return emit(-lr_eff * _kd.normalize(
-                            g, kind, gscale=grad_scale, out_dtype=_f32),
-                            gdt, p)
+                            g, kind, gscale=grad_scale, out_dtype=_f32,
+                            **sh), gdt, p)
                     return _kd.norm_update(p, g, lr_eff, kind,
-                                           gscale=grad_scale)
+                                           gscale=grad_scale, **sh)
                 d = gsc().to(_f32)
 
             if st.standardize:
@@ -591,14 +600,16 @@ def build_pipeline(
     def update(grads, state, params=None):
         return _step(grads, state, params, write=False)
 
-    def update_params(grads, state, params, grad_scale=None):
+    def update_params(grads, state, params, shardings=None, grad_scale=None):
         """Write theta in place (no update tree); returns (params, state).
 
-        ``grad_scale``: a scalar (0-d f32 tensor on the parameters' device,
-        or a Python number) folded into the gradient read — the trainer's
-        global-norm clip factor.
+        ``shardings``: ``{path: NamedSharding}`` of the parameters on a
+        mesh (see the module docstring). ``grad_scale``: a scalar (0-d f32
+        tensor on the parameters' device, or a Python number) folded into
+        the gradient read — the trainer's global-norm clip factor.
         """
-        return _step(grads, state, params, write=True, grad_scale=grad_scale)
+        return _step(grads, state, params, write=True, grad_scale=grad_scale,
+                     shardings=shardings)
 
     return GradientTransformation(init, update, update_params,
                                   plans=dict(plans))

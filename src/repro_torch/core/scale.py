@@ -17,7 +17,9 @@ Implementations (``impl``):
     tensors, as the JAX fused route runs its kernels in interpret mode
     off the TPU. Coverage: 2-D and stacked 3-D leaves, col/row/larger.
     ``update_params`` costs a stateless matrix 4 passes (g for the sums of
-    squares; theta, g and theta' in the apply) and the momentum matrix 6.
+    squares; theta, g and theta' in the apply) and the momentum matrix 6,
+    per shard on a mesh: it takes the ``shardings`` / ``grad_scale``
+    keywords the trainer hands it (see the pipeline module).
 
 ``momentum_dtype="bfloat16"`` stores the momentum in bf16
 (cast-on-read/write: the EMA and its sums of squares in f32). The impls

@@ -21,6 +21,7 @@ from typing import Any, Callable, NamedTuple, Optional
 import torch
 
 from repro_torch.models.model import flatten
+from repro_torch.models.sharding import full_value
 
 PyTree = Any
 Schedule = Callable[[torch.Tensor], torch.Tensor]  # step -> lr
@@ -47,10 +48,14 @@ def global_norm(tree) -> torch.Tensor:
 
     Each leaf's f32 norm comes from one fused reduction that reads the leaf
     once and materializes no f32 copy of it (``torch._foreach_norm``); the
-    result is the f32 norm of those norms.
+    result is the f32 norm of those norms. DTensor leaves (a mesh) give
+    the norm of their full values, a plain tensor on every rank.
     """
     leaves = list(flatten(tree).values())
     if not leaves:
         return torch.zeros(())
     norms = torch._foreach_norm(leaves, 2, dtype=torch.float32)
+    # a DTensor leaf's norm is a partial one: reduced to the global norm
+    # per leaf before the norms are stacked
+    norms = [full_value(n) for n in norms]
     return torch.linalg.vector_norm(torch.stack(norms))

@@ -2,11 +2,34 @@
 
 Routing is by the tensors' device alone: a wrapper runs the plain version
 on the CPU and the CUDA kernel on the card. Unlike
-``repro.kernels.dispatch`` there is no ``REPRO_FUSED`` switch, no guarded
-fallback and no sharding plan: a kernel that fails on the card raises
-instead of quietly becoming the reference, and so does an entry point
-that ``REPRO_FAULTS=dispatch_fail@<op>`` names (``FaultError``, before
-any launch; the op names are the entry points' own).
+``repro.kernels.dispatch`` there is no ``REPRO_FUSED`` switch and no
+guarded fallback: a kernel that fails on the card raises instead of
+quietly becoming the reference, and so does an entry point that
+``REPRO_FAULTS=dispatch_fail@<op>`` names (``FaultError``, before any
+launch; the op names are the entry points' own).
+
+Sharded dispatch (``torch.distributed`` meshes). Tensors on a mesh are
+DTensors laid out per ``models.sharding.Rules``; each entry point takes
+its operands' ``NamedSharding`` (``sharding``, ``h_sharding`` /
+``w_sharding``, ``q_sharding`` / ``kv_sharding``; by default read off the
+DTensors themselves) and plans as the JAX package's ``shard_map``s do:
+the operands are redistributed to the plan's layout, each rank runs the
+kernels on its local shard, and the reductions that cross shards are
+``all_reduce``d over exactly the mesh axes that shard the reduced dim —
+the optimizer's f32 sums of squares over the axes sharding a col norm's
+rows or a row norm's columns (``ShardPlan``); the loss's (lse, ll) over
+the vocabulary axes (max, then the sum of the exps), its f32 dH over the
+vocabulary axes and f32 dW over the token axes, each cast after the sum
+(``XentPlan``; every vocabulary shard passes its ``col_offset``, the
+global id of its first column, into the kernels, and w's embed dim is
+gathered at entry); attention needs none (``AttnPlan``: batch and heads
+are local). A layout the plans cannot express exactly (``"ref"``, as
+in JAX: a dim its axes do not divide, hidden states sharded past the
+batch dim, tokens and vocabulary on one mesh axis, q and kv sharded
+apart) takes the plain versions on the DTensors, whose ops DTensor
+partitions as GSPMD partitions the jnp code, on the CPU; on the card it
+raises and names the layout. A replicated layout runs the single-device
+path on each rank.
 
 Optimizer coverage (``supported``), as in the JAX package: 2-D and stacked
 3-D leaves, norm kinds col/row/larger (``larger`` resolved per shape by
@@ -28,9 +51,17 @@ is covered (``xent_supported``), and other shapes raise.
 """
 from __future__ import annotations
 
+import math
 import os
+from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
+
+from repro_torch.models.sharding import (NamedSharding, P, full_value,
+                                         is_dtensor, lay_out, mesh_axes,
+                                         placements, spec_mesh_axes, spec_of,
+                                         wrap)
 
 from .attention import attention as _attn
 from .attention.attention import mha_bwd_dkv, mha_bwd_dq, mha_fwd
@@ -42,6 +73,70 @@ from .xent.xent import xent_bwd_dh, xent_bwd_dw, xent_fwd
 
 FUSED_KINDS = ("col", "row", "larger")
 FUSED_NDIMS = (2, 3)
+
+
+# ---------------------------------------------------------- sharded layouts
+
+def _sharding_of(x, sharding):
+    """The given sharding, else the DTensor's own (None for a plain
+    tensor)."""
+    return sharding if sharding is not None else spec_of(x)
+
+
+def _axes_prod(mesh, axes):
+    sizes = mesh_axes(mesh)
+    if any(a not in sizes for a in axes):
+        return None
+    return math.prod(sizes[a] for a in axes)
+
+
+def _mesh_of(*shardings):
+    """The one mesh of ``shardings`` (None entries skipped) -> (mesh, ok):
+    ok is False for a sharding that is not a NamedSharding, or two
+    meshes."""
+    mesh = None
+    for sh in shardings:
+        if sh is None:
+            continue
+        if not isinstance(sh, NamedSharding):
+            return None, False
+        if mesh is not None and sh.mesh != mesh:
+            return None, False
+        mesh = sh.mesh
+    return mesh, True
+
+
+def _ref_on_card(op: str, layout, *xs) -> None:
+    """A layout the plans send to ``"ref"`` runs the plain version on the
+    CPU only; on the card it raises, naming the layout."""
+    if any(torch.is_tensor(x) and x.device.type == "cuda" for x in xs):
+        raise NotImplementedError(
+            f"{op}: the sharded layout {layout} has no kernel plan (the JAX "
+            "package's 'ref' route); the port runs no plain version on the "
+            "card")
+
+
+def _all_reduce(x, mesh, axes, op=None):
+    """``x`` all-reduced in place over the mesh ``axes`` (one axis after
+    another; axes of one rank skipped): JAX's psum/pmax."""
+    sizes = mesh_axes(mesh)
+    for a in axes:
+        if sizes[a] > 1:
+            dist.all_reduce(x, op=op or dist.ReduceOp.SUM,
+                            group=mesh.get_group(a))
+    return x
+
+
+def _shard_index(mesh, axes) -> int:
+    """This rank's index along ``axes`` major to minor (JAX's
+    ``axis_index`` folded in that order, and DTensor's split of a dim over
+    mesh dims)."""
+    sizes = mesh_axes(mesh)
+    coord = dict(zip(sizes, mesh.get_coordinate()))
+    idx = 0
+    for a in axes:
+        idx = idx * sizes[a] + coord[a]
+    return idx
 
 
 def _fault_gate(op: str) -> None:
@@ -94,8 +189,65 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None, None
 
 
+class AttnPlan(NamedTuple):
+    """The sharded attention's recipe: ``batch_axes`` shard the leading
+    (batch) dim of q and kv, ``head_axes`` q's H and kv's K (both divide,
+    so each shard keeps the GQA group ratio). No reduction crosses
+    shards."""
+    mesh: object
+    batch_axes: tuple
+    head_axes: tuple
+
+
+def _plan_attn(q_sharding, kv_sharding, q_shape, kv_shape):
+    """-> None (single-device) | "ref" | AttnPlan, as JAX's ``_plan_attn``:
+    "ref" for sequence- or head_dim-sharded operands, q and kv sharded
+    apart, or dims their axes do not divide."""
+    if q_sharding is None and kv_sharding is None:
+        return None
+    mesh, ok = _mesh_of(q_sharding, kv_sharding)
+    if not ok:
+        return "ref"
+    qper = spec_mesh_axes(q_sharding.spec, 4) if q_sharding is not None \
+        else ((),) * 4
+    kper = spec_mesh_axes(kv_sharding.spec, 4) if kv_sharding is not None \
+        else ((),) * 4
+    if any(qper[1]) or any(qper[3]) or any(kper[1]) or any(kper[3]):
+        return "ref"
+    if qper[0] != kper[0] or qper[2] != kper[2]:
+        return "ref"
+    batch_axes, head_axes = tuple(qper[0]), tuple(qper[2])
+    if not batch_axes and not head_axes:
+        return None
+    kb = _axes_prod(mesh, batch_axes)
+    kh = _axes_prod(mesh, head_axes)
+    if kb is None or kh is None:
+        return "ref"
+    if q_shape[0] % kb or q_shape[2] % kh or kv_shape[2] % kh:
+        return "ref"
+    return AttnPlan(mesh, batch_axes, head_axes)
+
+
+def attn_route(q_shape, kv_shape, q_sharding=None, kv_sharding=None):
+    """-> ("ref", None) | ("kernel", None | AttnPlan): JAX's ``attn_route``
+    for the shardings (every (q, kv) shape ``flash_attention`` takes is
+    covered; the others raise in the kernels' checks)."""
+    plan = _plan_attn(q_sharding, kv_sharding, q_shape, kv_shape)
+    return ("ref", None) if plan == "ref" else ("kernel", plan)
+
+
+def _attention(q, k, v, kv_len, segments, scale, causal):
+    if mha_fwd is not _attn.mha_fwd:
+        return mha_fwd(q, k, v, kv_len, scale=scale, causal=causal,
+                       segments=segments)[0]
+    q_seg, kv_seg = (None, None) if segments is None else segments
+    return FlashAttention.apply(q, k, v, kv_len, q_seg, kv_seg, scale,
+                                causal)
+
+
 def flash_attention(q, k, v, *, scale: float, causal: bool = True,
-                    kv_len=None, segments=None):
+                    kv_len=None, segments=None, q_sharding=None,
+                    kv_sharding=None):
     """Blockwise (flash) attention through :class:`FlashAttention`.
 
     q (B, S, H, hd); k (B, T, K, hd), v (B, T, K, hdv) with H % K == 0 —
@@ -111,14 +263,38 @@ def flash_attention(q, k, v, *, scale: float, causal: bool = True,
     (the tests and ``chip_smoke.py`` swap in ``mha_fwd_ref`` this way),
     that forward is differentiated by plain autograd instead: an
     independent reference for the kernels' gradients.
+
+    On a mesh (``q_sharding``, ``kv_sharding``, or DTensor operands) the
+    operands are laid out per ``attn_route``'s plan and every rank runs
+    the kernels on its (B/n, S, H/m, hd) x (B/n, T, K/m, hd) shard; the
+    segment ids follow the batch axes. Returns a DTensor laid out as q.
     """
     _fault_gate("flash_attention")
-    if mha_fwd is not _attn.mha_fwd:
-        return mha_fwd(q, k, v, kv_len, scale=scale, causal=causal,
-                       segments=segments)[0]
-    q_seg, kv_seg = (None, None) if segments is None else segments
-    return FlashAttention.apply(q, k, v, kv_len, q_seg, kv_seg, scale,
-                                causal)
+    q_sh = _sharding_of(q, q_sharding)
+    kv_sh = _sharding_of(k, kv_sharding)
+    if q_sh is None and kv_sh is None:
+        return _attention(q, k, v, kv_len, segments, scale, causal)
+    route, plan = attn_route(q.shape, k.shape, q_sh, kv_sh)
+    if route == "ref":
+        _ref_on_card("flash_attention", (q_sh, kv_sh), q, k, v)
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+        from .attention.ref import mha_fwd_ref
+        with implicit_replication():
+            return mha_fwd_ref(q, k, v, kv_len, scale=scale, causal=causal,
+                               segments=segments)[0]
+    mesh = (q_sh or kv_sh).mesh
+    bt = (plan.batch_axes or None) if plan else None
+    hx = (plan.head_axes or None) if plan else None
+    spec = P(bt, None, hx, None)
+    sh = NamedSharding(mesh, spec)
+    ql, kl, vl = (lay_out(x, sh).to_local() for x in (q, k, v))
+    if segments is not None:
+        segments = tuple(lay_out(x, NamedSharding(mesh, P(bt, None)))
+                         .to_local() for x in segments)
+    kv_len = full_value(kv_len)
+    out = _attention(ql, kl, vl, kv_len, segments, scale, causal)
+    return wrap(out, sh, tuple(q.shape[:3]) + (v.shape[3],))
 
 
 # --------------------------------------------------------- cross-entropy
@@ -135,46 +311,145 @@ def xent_supported(h_shape, w_shape, transposed: bool = False) -> bool:
     return all(d >= 1 for d in tuple(h_shape) + tuple(w_shape))
 
 
+class XentPlan(NamedTuple):
+    """The sharded loss's recipe: ``tok_axes`` shard the leading (batch)
+    dim of h and the labels, ``voc_axes`` w's vocabulary dim (dim 1; dim
+    0 of the tied (V, D) head). w's embed dim is gathered at entry."""
+    mesh: object
+    tok_axes: tuple
+    voc_axes: tuple
+
+
 class XentLoss(torch.autograd.Function):
     """Per-token cross-entropy of the LM head, kernels both ways.
 
     forward(h (..., D), w (D, V), labels int32 h.shape[:-1], vocab_size,
-    transposed): ``xent_fwd`` gives (lse, ll), and the losses are lse - ll
-    where the label is >= 0, else 0. It saves (h, w, labels, lse).
-    backward: with gl = g * (labels >= 0) in f32, dH from ``xent_bwd_dh``
-    in h's dtype and dW from ``xent_bwd_dw`` in w's dtype and layout, each
-    only when asked for; the labels get no gradient. ``transposed``: w is
-    the tied head as stored, (V, D), read in place by the kernels both
-    ways, and dW comes back (V, D). h is flattened to (N, D) as the JAX
-    package's ``_fwd_parts`` does.
+    transposed, plan, col_offset): ``xent_fwd`` gives (lse, ll), and the
+    losses are lse - ll where the label is >= 0, else 0. It saves (h, w,
+    labels, lse). backward: with gl = g * (labels >= 0) in f32, dH from
+    ``xent_bwd_dh`` in h's dtype and dW from ``xent_bwd_dw`` in w's dtype
+    and layout, each only when asked for; the labels get no gradient.
+    ``transposed``: w is the tied head as stored, (V, D), read in place by
+    the kernels both ways, and dW comes back (V, D). h is flattened to
+    (N, D) as the JAX package's ``_fwd_parts`` does.
+
+    Under an :class:`XentPlan` the operands are one rank's shards (w's
+    first column the global id ``col_offset``): the forward combines the
+    shards' (lse, ll) over the vocabulary axes (``all_reduce`` MAX of
+    lse, then lse = max + log of the summed exp(lse - max); ll summed),
+    and the backward writes dH and dW in f32 where they are summed — dH
+    over the vocabulary axes, dW over the token axes — and casts each to
+    its dtype after the sum.
     """
 
     @staticmethod
-    def forward(ctx, h, w, labels, vocab_size: int, transposed: bool):
+    def forward(ctx, h, w, labels, vocab_size: int, transposed: bool,
+                plan=None, col_offset: int = 0):
         lab = labels.reshape(-1)
         lse, ll = xent_fwd(h.reshape(-1, h.shape[-1]), w, lab,
-                           vocab_size=vocab_size, transposed=transposed)
+                           vocab_size=vocab_size, col_offset=col_offset,
+                           transposed=transposed)
+        if plan is not None and plan.voc_axes:
+            m = _all_reduce(lse.clone(), plan.mesh, plan.voc_axes,
+                            dist.ReduceOp.MAX)
+            lse = m + torch.log(_all_reduce(torch.exp(lse - m), plan.mesh,
+                                            plan.voc_axes))
+            ll = _all_reduce(ll, plan.mesh, plan.voc_axes)
         ctx.save_for_backward(h, w, labels, lse)
         ctx.vocab_size, ctx.transposed = vocab_size, transposed
+        ctx.plan, ctx.col_offset = plan, col_offset
         return torch.where(lab >= 0, lse - ll, 0.0).reshape(labels.shape)
 
     @staticmethod
     def backward(ctx, g):
         h, w, labels, lse = ctx.saved_tensors
+        plan = ctx.plan
+        voc = plan.voc_axes if plan is not None else ()
+        tok = plan.tok_axes if plan is not None else ()
         lab = labels.reshape(-1)
         gl = g.reshape(-1).float() * (lab >= 0)
         args = (h.reshape(-1, h.shape[-1]), w, lab, lse, gl)
-        kw = {"vocab_size": ctx.vocab_size, "transposed": ctx.transposed}
+        kw = {"vocab_size": ctx.vocab_size, "transposed": ctx.transposed,
+              "col_offset": ctx.col_offset}
         dh = dw = None
         if ctx.needs_input_grad[0]:
-            dh = xent_bwd_dh(*args, out_dtype=h.dtype, **kw).reshape(h.shape)
+            dh = xent_bwd_dh(*args, out_dtype=torch.float32 if voc
+                             else h.dtype, **kw)
+            if voc:
+                dh = _all_reduce(dh, plan.mesh, voc).to(h.dtype)
+            dh = dh.reshape(h.shape)
         if ctx.needs_input_grad[1]:
-            dw = xent_bwd_dw(*args, out_dtype=w.dtype, **kw)
-        return dh, dw, None, None, None
+            dw = xent_bwd_dw(*args, out_dtype=torch.float32 if tok
+                             else w.dtype, **kw)
+            if tok:
+                dw = _all_reduce(dw, plan.mesh, tok).to(w.dtype)
+        return dh, dw, None, None, None, None, None
+
+
+def _plan_xent(h_sharding, w_sharding, h_shape, w_shape,
+               transposed: bool = False):
+    """-> None (single-device) | "ref" | XentPlan, as JAX's
+    ``_plan_xent``: "ref" for hidden states sharded past their batch dim,
+    one mesh axis sharding both tokens and vocabulary (each rank would
+    combine statistics across token shards), or dims their axes do not
+    divide."""
+    if h_sharding is None and w_sharding is None:
+        return None
+    mesh, ok = _mesh_of(h_sharding, w_sharding)
+    if not ok:
+        return "ref"
+    voc_dim = 0 if transposed else 1
+    tok_axes = voc_axes = ()
+    if h_sharding is not None:
+        per = spec_mesh_axes(h_sharding.spec, len(h_shape))
+        if any(per[1:]):
+            return "ref"
+        tok_axes = per[0]
+    if w_sharding is not None:
+        voc_axes = spec_mesh_axes(w_sharding.spec, 2)[voc_dim]
+    if not tok_axes and not voc_axes:
+        return None
+    if set(tok_axes) & set(voc_axes):
+        return "ref"
+    kt = _axes_prod(mesh, tok_axes)
+    kv = _axes_prod(mesh, voc_axes)
+    if kt is None or kv is None or h_shape[0] % kt or w_shape[voc_dim] % kv:
+        return "ref"
+    return XentPlan(mesh, tuple(tok_axes), tuple(voc_axes))
+
+
+def xent_route(h_shape, w_shape, h_sharding=None, w_sharding=None,
+               transposed: bool = False):
+    """-> ("ref", None) | ("kernel", None | XentPlan): JAX's
+    ``xent_route`` (shapes ``xent_supported`` does not cover are "ref"
+    there and raise in ``xent_loss`` here)."""
+    if not xent_supported(h_shape, w_shape, transposed):
+        return "ref", None
+    plan = _plan_xent(h_sharding, w_sharding, h_shape, w_shape, transposed)
+    return ("ref", None) if plan == "ref" else ("kernel", plan)
+
+
+def _xent_sharded(h, w, labels, vocab_size, transposed, plan, mesh):
+    """The loss on each rank's shards per ``plan`` (None: the replicated
+    layout) -> a DTensor of the losses laid out as the token shards."""
+    tok = (plan.tok_axes or None) if plan else None
+    voc = (plan.voc_axes or None) if plan else None
+    rest = (None,) * (h.ndim - 1)
+    hl = lay_out(h, NamedSharding(mesh, P(tok, *rest))).to_local()
+    wl = lay_out(w, NamedSharding(mesh, P(voc, None) if transposed
+                                  else P(None, voc))).to_local()
+    lsh = NamedSharding(mesh, P(tok, *rest[1:]))
+    ll = lay_out(labels, lsh).to_local()
+    off = 0
+    if voc:
+        off = _shard_index(mesh, plan.voc_axes) * wl.shape[0 if transposed
+                                                            else 1]
+    losses = XentLoss.apply(hl, wl, ll, vocab_size, transposed, plan, off)
+    return wrap(losses, lsh, labels.shape)
 
 
 def xent_loss(h, w, labels, *, vocab_size: int, weights=None,
-              transposed: bool = False):
+              transposed: bool = False, h_sharding=None, w_sharding=None):
     """Per-token LM-head cross-entropy (see :class:`XentLoss`).
 
     h (..., D), w (D, V), or with ``transposed`` the tied head's (V, D)
@@ -185,6 +460,12 @@ def xent_loss(h, w, labels, *, vocab_size: int, weights=None,
     Function, as in JAX: zero-weight tokens are demoted to label -1 before
     the kernels. Columns at or past ``vocab_size`` never enter the
     log-sum-exp. Shapes ``xent_supported`` does not cover raise.
+
+    On a mesh (``h_sharding``, ``w_sharding``, or DTensor operands) the
+    loss follows ``xent_route``'s plan: tokens over the axes sharding h's
+    batch dim, the vocabulary over those sharding w's vocabulary dim, each
+    shard with its ``col_offset`` (see :class:`XentLoss`); the losses come
+    back as a DTensor laid out as the token shards.
     """
     _fault_gate("xent_loss")
     if not xent_supported(h.shape, w.shape, transposed):
@@ -193,11 +474,30 @@ def xent_loss(h, w, labels, *, vocab_size: int, weights=None,
                          f"w {'(V, D)' if transposed else '(D, V)'}")
     if weights is not None:
         labels = torch.where(weights > 0, labels, -1)
-    losses = XentLoss.apply(h, w, labels.to(torch.int32), vocab_size,
-                            transposed)
+    labels = labels.to(torch.int32)
+    h_sh, w_sh = _sharding_of(h, h_sharding), _sharding_of(w, w_sharding)
+    if h_sh is None and w_sh is None:
+        losses = XentLoss.apply(h, w, labels, vocab_size, transposed)
+    else:
+        route, plan = xent_route(h.shape, w.shape, h_sh, w_sh, transposed)
+        if route == "ref":
+            _ref_on_card("xent_loss", (h_sh, w_sh), h, w)
+            losses = _xent_ref(h, w, labels, vocab_size, transposed)
+        else:
+            losses = _xent_sharded(h, w, labels, vocab_size, transposed,
+                                   plan, (h_sh or w_sh).mesh)
     if weights is not None:
         losses = losses * weights.to(losses.dtype)
     return losses
+
+
+def _xent_ref(h, w, labels, vocab_size: int, transposed: bool):
+    """The full-logit plain loss, differentiable, on the layouts DTensor
+    partitions (JAX's ``_xent_ref``)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    from .xent.ref import losses
+    with implicit_replication():
+        return losses(h, w.T if transposed else w, labels, vocab_size)
 
 
 # -------------------------------------------------------------- optimizer
@@ -236,41 +536,148 @@ def _scaled_ref(g, gscale):
             * _cref.f32_scalar(gscale))
 
 
+class ShardPlan(NamedTuple):
+    """The sharded optimizer's recipe for one canonical (L, m, n) leaf:
+    ``spec3[d]`` is the tuple of mesh axes sharding canon3 dim ``d``."""
+    mesh: object
+    spec3: tuple
+
+
+def _plan_sharding(sharding, shape):
+    """-> None (single-device) | "ref" | ShardPlan, as JAX's
+    ``_plan_sharding``: "ref" for a sharding that is not a NamedSharding
+    or names axes the mesh lacks, and for dims their axes do not
+    divide."""
+    if sharding is None:
+        return None
+    if not isinstance(sharding, NamedSharding):
+        return "ref"
+    per_dim = spec_mesh_axes(sharding.spec, len(shape))
+    if len(shape) == 2:
+        per_dim = ((),) + per_dim
+    if all(not axs for axs in per_dim):
+        return None
+    shape3 = (1,) + tuple(shape) if len(shape) == 2 else tuple(shape)
+    for dim, axs in zip(shape3, per_dim):
+        k = _axes_prod(sharding.mesh, axs)
+        if k is None or dim % k:
+            return "ref"
+    return ShardPlan(sharding.mesh, per_dim)
+
+
+def _route(shape, kind, sharding):
+    """-> ("ref", None) | ("kernel", None | ShardPlan)."""
+    if not supported(shape, kind):
+        return "ref", None
+    plan = _plan_sharding(sharding, shape)
+    return ("ref", None) if plan == "ref" else ("kernel", plan)
+
+
+def _red_axes(plan: ShardPlan, axis: str) -> tuple:
+    """The mesh axes the per-slice sums of squares are summed over: those
+    sharding the rows for a col norm, the columns for a row norm."""
+    return plan.spec3[1 if axis == "col" else 2]
+
+
+def _psum_ss(ss, plan, axis):
+    return _all_reduce(ss, plan.mesh, _red_axes(plan, axis)) if plan else ss
+
+
+def _op_route(op: str, x, kind: str, sharding):
+    """-> (route, plan, sharding): the entry point's plan for leaf ``x``;
+    a sharded layout the plans cannot express raises on the card."""
+    sh = _sharding_of(x, sharding)
+    route, plan = _route(x.shape, kind, sh)
+    if route == "ref" and sh is not None and supported(x.shape, kind):
+        _ref_on_card(op, sh, x)
+    return route, plan, sh
+
+
+def _mapped(sh, *xs):
+    """canon3 of each operand's local shard, laid out per ``sh`` (the
+    operands themselves without a sharding): JAX's ``shard_map`` entry."""
+    if sh is None:
+        return tuple(canon3(x) for x in xs)
+    return tuple(canon3(lay_out(x, sh).to_local()) for x in xs)
+
+
+def _written(sh, x):
+    """canon3 of the local storage of ``x``, which the kernels write in
+    place: ``x`` must already be laid out per ``sh``."""
+    if sh is None:
+        return canon3(x)
+    want = placements(sh.spec, sh.mesh, x.ndim)
+    if not is_dtensor(x) or tuple(x.placements) != want:
+        raise ValueError(f"the in-place operand must be a DTensor laid out "
+                         f"as {sh.spec} on the mesh, got "
+                         f"{getattr(x, 'placements', 'a plain tensor')}")
+    return canon3(x.to_local())
+
+
+def _unmapped(sh, y, shape):
+    """A rank's local result as the leaf's global value."""
+    if sh is None:
+        return y.reshape(shape)
+    return wrap(y.reshape(_local_shape(y, shape)), sh, shape)
+
+
+def _local_shape(y, shape) -> tuple:
+    # canon3 put a unit layer axis in front of a 2-D leaf
+    return tuple(y.shape[1:]) if len(shape) == 2 else tuple(y.shape)
+
+
+def _scalar(x):
+    """A scalar operand (lr, beta, gscale) as the kernels take it: a
+    DTensor's global value."""
+    return full_value(x)
+
+
 def normalize(g, kind: str = "col", eps: float = 1e-8, *, gscale=None,
-              out_dtype=None):
+              out_dtype=None, sharding=None):
     """gscale * g / (||slice|| + eps): two kernels (``norm_sumsq``,
     ``norm_apply``) on covered leaves.
 
     Math is f32; the result has ``out_dtype`` (default: g's, or f32 where
     gscale promotes g on the plain path, as in JAX).
     ``normalize(g, out_dtype=torch.float32)`` is the JAX package's
-    ``normalize(g.astype(f32))`` without the f32 copy of g.
+    ``normalize(g.astype(f32))`` without the f32 copy of g. ``sharding``
+    (default: g's own, for a DTensor): the kernels run on the local shard
+    and the f32 sums of squares are all-reduced over the axes sharding
+    the reduced dim (``_red_axes``).
     """
     _fault_gate("normalize")
-    if not supported(g.shape, kind):
+    route, plan, sh = _op_route("normalize", g, kind, sharding)
+    if route == "ref":
         return _ref_norm(_scaled_ref(g, gscale), kind, eps, out_dtype)
     axis = resolve_kind(kind, g.shape)
-    g3 = canon3(g)
-    ss = norm_sumsq(g3, axis, gscale=gscale)
-    return norm_apply(g3, ss, axis, eps=eps, gscale=gscale,
-                      out_dtype=out_dtype).reshape(g.shape)
+    gscale = _scalar(gscale)
+    (g3,) = _mapped(sh, g)
+    ss = _psum_ss(norm_sumsq(g3, axis, gscale=gscale), plan, axis)
+    return _unmapped(sh, norm_apply(g3, ss, axis, eps=eps, gscale=gscale,
+                                    out_dtype=out_dtype), g.shape)
 
 
 def norm_update(theta, g, lr, kind: str = "col", eps: float = 1e-8, *,
-                gscale=None):
+                gscale=None, sharding=None):
     """theta - lr * normalize(gscale * g), written into theta (returned).
 
     Covered leaves take two kernels: ``norm_sumsq`` then the in-place
     ``update_apply`` (4 passes over a matrix: g; theta, g, theta').
+    ``sharding`` (default: theta's own): as ``normalize``; theta is a
+    DTensor in that layout, written shard by shard, and g is laid out as
+    it.
     """
     _fault_gate("norm_update")
-    if not supported(theta.shape, kind):
+    route, plan, sh = _op_route("norm_update", theta, kind, sharding)
+    if route == "ref":
         d = _ref_norm(_scaled_ref(g, gscale), kind, eps)
         return theta.copy_(theta.float() - _cref.f32_scalar(lr) * d.float())
     axis = resolve_kind(kind, theta.shape)
-    g3 = canon3(g)
-    ss = norm_sumsq(g3, axis, gscale=gscale)
-    update_apply(canon3(theta), g3, ss, lr, axis, eps=eps, gscale=gscale)
+    gscale, lr = _scalar(gscale), _scalar(lr)
+    t3 = _written(sh, theta)
+    (g3,) = _mapped(sh, g)
+    ss = _psum_ss(norm_sumsq(g3, axis, gscale=gscale), plan, axis)
+    update_apply(t3, g3, ss, lr, axis, eps=eps, gscale=gscale)
     return theta
 
 
@@ -282,36 +689,49 @@ def _momentum_ref(m, g, beta, gscale):
 
 
 def momentum_norm(m, g, beta, kind: str = "col", eps: float = 1e-8, *,
-                  gscale=None):
+                  gscale=None, sharding=None):
     """(m', d): m' = beta*m + (1-beta)*gscale*g written into m (returned),
     d = normalize(m') in f32.
 
     On covered leaves ``momentum_sumsq`` forms m' and its f32 sums of
     squares in one kernel and ``norm_apply`` reads the *stored* m' (bf16
     under bf16 momentum storage); the plain path normalizes the pre-cast
-    f32 m', as in JAX.
+    f32 m', as in JAX. ``sharding`` (default: m's own): as
+    ``norm_update``, m written shard by shard.
     """
     _fault_gate("momentum_norm")
-    if not supported(m.shape, kind):
+    route, plan, sh = _op_route("momentum_norm", m, kind, sharding)
+    if route == "ref":
         m_new = _momentum_ref(m, g, beta, gscale)
         return m, _ref_norm(m_new, kind, eps)
     axis = resolve_kind(kind, m.shape)
-    m3, ss = momentum_sumsq(canon3(m), canon3(g), beta, axis, gscale=gscale)
+    m3 = _written(sh, m)
+    (g3,) = _mapped(sh, g)
+    m3, ss = momentum_sumsq(m3, g3, _scalar(beta), axis,
+                            gscale=_scalar(gscale))
+    ss = _psum_ss(ss, plan, axis)
     d = norm_apply(m3, ss, axis, eps=eps, out_dtype=torch.float32)
-    return m, d.reshape(m.shape)
+    return m, _unmapped(sh, d, m.shape)
 
 
 def momentum_norm_update(theta, m, g, beta, lr, kind: str = "col",
-                         eps: float = 1e-8, *, gscale=None):
+                         eps: float = 1e-8, *, gscale=None, sharding=None):
     """(theta', m'), both written in place: ``momentum_sumsq`` then the
-    head's ``update_apply`` on covered leaves (two kernel calls)."""
+    head's ``update_apply`` on covered leaves (two kernel calls).
+    ``sharding`` (default: theta's own): as ``norm_update``."""
     _fault_gate("momentum_norm_update")
-    if not supported(theta.shape, kind):
+    route, plan, sh = _op_route("momentum_norm_update", theta, kind,
+                                sharding)
+    if route == "ref":
         m_new = _momentum_ref(m, g, beta, gscale)
         d = _ref_norm(m_new, kind, eps)
         theta.copy_(theta.float() - _cref.f32_scalar(lr) * d.float())
         return theta, m
     axis = resolve_kind(kind, theta.shape)
-    m3, ss = momentum_sumsq(canon3(m), canon3(g), beta, axis, gscale=gscale)
-    head_update_apply(canon3(theta), m3, ss, lr, axis, eps=eps)
+    t3, m3 = _written(sh, theta), _written(sh, m)
+    (g3,) = _mapped(sh, g)
+    m3, ss = momentum_sumsq(m3, g3, _scalar(beta), axis,
+                            gscale=_scalar(gscale))
+    ss = _psum_ss(ss, plan, axis)
+    head_update_apply(t3, m3, ss, _scalar(lr), axis, eps=eps)
     return theta, m

@@ -6,17 +6,22 @@
 //   xent_bwd_dw (`_dw_kernel` line 291, `pallas_call` line 346)
 // for the untied head, h (N, D), w (D, V), labels (N,) int32, and for the
 // tied head (`transposed=True` there) with w the token embedding as
-// stored, (V, D), read in place: no copy, no transpose. With
-// logits = h @ w (h @ w^T when tied) in f32 and `ncols` = min(V, vocab_size):
+// stored, (V, D), read in place: no copy, no transpose. w may be one
+// shard of a vocabulary-sharded head: its column c is the global
+// vocabulary id col_offset + c (`col_offset` there, shard index x V), and
+// the labels are global ids. With logits = h @ w (h @ w^T when tied) in
+// f32, `ncols` = clamp(vocab_size - col_offset, 0, V) the shard's valid
+// columns, and lab[n] = labels[n] - col_offset (-1 for a -1 label):
 //   xent_fwd:    lse[n] = logsumexp of logits[n, c] over c < ncols, and
-//                ll[n] = logits[n, labels[n]] (0 when the label is -1 or
-//                >= ncols);
+//                ll[n] = logits[n, lab[n]] (0 when lab[n] is outside
+//                [0, ncols): a -1 label, or one another shard owns);
 //   xent_bwd_dh: dH = G @ w^T (G @ w when tied), and xent_bwd_dw: dW =
 //                h^T @ G (G^T @ h, (V, D), when tied), where
-//                G[n, c] = (exp(logits[n, c] - lse[n]) - [c == labels[n]])
+//                G[n, c] = (exp(logits[n, c] - lse[n]) - [c == lab[n]])
 //                * gl[n] for c < ncols and n < N, else 0; the vocabulary
 //                entries of dW at or past ncols (columns, or rows when
-//                tied) are 0.
+//                tied) are 0. A shard with ncols = 0 never reaches these
+//                kernels (the wrappers' `empty` route).
 // The FMA kernels and the tensor-core forward keep the logits on chip;
 // the tensor-core backward writes G for one chunk of the vocabulary at a
 // time to a workspace of at most 64 MiB (no (N, V) array).
@@ -109,6 +114,13 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162flo
 template <typename T> __device__ __forceinline__ T zero();
 template <> __device__ __forceinline__ float zero<float>() { return 0.f; }
 template <> __device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() { return __float2bfloat16_rn(0.f); }
+
+// The label's column in this vocabulary shard: -1 stays -1, and a label
+// another shard owns falls outside [0, ncols), so it matches nothing, as
+// -1 and labels >= ncols never do.
+__device__ __forceinline__ int local_label(int label, int col_offset) {
+  return label >= 0 ? label - col_offset : -1;
+}
 
 template <typename T>
 struct Items {
@@ -257,7 +269,7 @@ __device__ __forceinline__ float logits(T* F, T* S, float* red, Operand h, Opera
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
 xent_fwd_kernel(Operand h, Operand w, const int* __restrict__ labels, float* __restrict__ lse,
-                float* __restrict__ ll, int N, int D, int ncols) {
+                float* __restrict__ ll, int N, int D, int ncols, int col_offset) {
   constexpr int IT = Items<T>::n;
   extern __shared__ __align__(16) unsigned char smem[];
   T* F = reinterpret_cast<T*>(smem);
@@ -269,7 +281,7 @@ xent_fwd_kernel(Operand h, Operand w, const int* __restrict__ labels, float* __r
   const int t = threadIdx.x, f = t / IT, s = t % IT;
   const int row = n0 + f;
   const bool owner = t < IT * IT;
-  const int label = owner && row < N ? labels[row] : -1;
+  const int label = owner && row < N ? local_label(labels[row], col_offset) : -1;
   float m = kNeg, sum = 0.f, lab = 0.f;  // sum and lab are this lane's share
 
   for (int v0 = 0; v0 < ncols; v0 += IT) {
@@ -312,7 +324,7 @@ template <typename T, typename O, bool TOK_F>
 __global__ void __launch_bounds__(kThreads, 1)
 xent_bwd_kernel(Operand h, Operand w, const int* __restrict__ labels,
                 const float* __restrict__ lse, const float* __restrict__ gl, O* __restrict__ out,
-                int64_t so_f, int64_t so_d, int N, int D, int V, int ncols) {
+                int64_t so_f, int64_t so_d, int N, int D, int V, int ncols, int col_offset) {
   constexpr int IT = Items<T>::n;
   extern __shared__ __align__(16) unsigned char smem[];
   T* F = reinterpret_cast<T*>(smem);
@@ -338,7 +350,7 @@ xent_bwd_kernel(Operand h, Operand w, const int* __restrict__ labels,
     if (D <= kSlab) load_rows<T>(F, h, f0, nf, 0, D);
     n_stream = ncols;
     if (owner && f0 + f < N) {
-      lab_f = labels[f0 + f];
+      lab_f = local_label(labels[f0 + f], col_offset);
       lse_f = lse[f0 + f];
       gl_f = gl[f0 + f];
     }
@@ -370,7 +382,7 @@ xent_bwd_kernel(Operand h, Operand w, const int* __restrict__ labels,
         if (!TOK_F) {
           l_t = lse[tok];
           g_t = gl[tok];
-          lab = labels[tok];
+          lab = local_label(labels[tok], col_offset);
         }
         g = (expf(x - l_t) - (col == lab ? 1.f : 0.f)) * g_t;
       }
@@ -421,13 +433,14 @@ xent_bwd_kernel(Operand h, Operand w, const int* __restrict__ labels,
 // The epilogue below folds each finished tile into every row's running
 // (max, sum, label logit). TMA zero-fills past the tensor maps' edges (w's
 // ends at ncols), and a zero is a logit, so columns >= ncols are masked
-// here; -1 labels and labels >= ncols match nothing. Each split writes its
+// here; -1 labels and labels outside this shard's [col_offset, col_offset
+// + ncols) match nothing. Each split writes its
 // partial per row to a (3, N, splits) workspace, and a second launch
 // combines the splits in order: no atomics, so two runs are bitwise equal.
 struct FwdEpilogue {
   const int* labels;
   float* part;  // (3, N, splits): max, sum, label logit
-  int N, ncols;
+  int N, ncols, col_offset;
   struct Rows {
     int row, label[2];
     float m[2], s[2], lab[2];
@@ -437,7 +450,7 @@ struct FwdEpilogue {
     r.row = row;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      r.label[i] = row + 8 * i < N ? labels[row + 8 * i] : -1;
+      r.label[i] = row + 8 * i < N ? local_label(labels[row + 8 * i], col_offset) : -1;
       r.m[i] = kNeg;
       r.s[i] = 0.f;
       r.lab[i] = 0.f;
@@ -825,7 +838,8 @@ struct GEpilogue {
   const float* gl;
   bf16* g;
   int64_t ld, lo;
-  int M, ncols, c0;  // c0: the chunk's first vocabulary column
+  int M, ncols, c0;  // c0: the chunk's first column of the shard
+  int col_offset;    // the shard's first global vocabulary id
   static constexpr int S = kGemmT + 8;  // the staged tile's row stride
   static constexpr size_t smem = sizeof(bf16) * 2 * kGemmT * S;
   __device__ __forceinline__ void init(Acc& acc, int, int, int) const { zero(acc); }
@@ -838,7 +852,8 @@ struct GEpilogue {
       for (int i = 0; i < 2; ++i) {
         const int r = wm + mi * 16 + g8 + 8 * i, row = m0 + r;
         const bool ok = row < M;
-        const int lab = ok ? labels[row] - c0 : -1;  // -1 and other chunks' labels match nothing
+        // -1 and the labels of other chunks and shards match nothing
+        const int lab = ok ? local_label(labels[row], col_offset) - c0 : -1;
         const float l = ok ? lse[row] : 0.f, s = ok ? gl[row] : 0.f;
 #pragma unroll
         for (int ni = 0; ni < 8; ++ni) {
@@ -937,44 +952,44 @@ cudaError_t prepare(K kernel, size_t smem) {
 
 template <typename T>
 cudaError_t launch_fwd(Operand h, Operand w, const int* labels, float* lse, float* ll, int N,
-                       int D, int ncols, cudaStream_t stream) {
+                       int D, int ncols, int col_offset, cudaStream_t stream) {
   const size_t smem = smem_bytes<T>(D);
   cudaError_t e = prepare(xent_fwd_kernel<T>, smem);
   if (e != cudaSuccess) return e;
   const int IT = Items<T>::n;
   xent_fwd_kernel<T><<<(N + IT - 1) / IT, kThreads, smem, stream>>>(h, w, labels, lse, ll, N, D,
-                                                                     ncols);
+                                                                     ncols, col_offset);
   return cudaGetLastError();
 }
 
 template <typename T, typename O, bool TOK_F>
 cudaError_t launch_bwd(Operand h, Operand w, const int* labels, const float* lse,
                        const float* gl, void* out, int64_t so_f, int64_t so_d, int N, int D,
-                       int V, int ncols, cudaStream_t stream) {
+                       int V, int ncols, int col_offset, cudaStream_t stream) {
   const size_t smem = smem_bytes<T>(D);
   cudaError_t e = prepare(xent_bwd_kernel<T, O, TOK_F>, smem);
   if (e != cudaSuccess) return e;
   const int IT = Items<T>::n;
   const dim3 blocks(TOK_F ? (N + IT - 1) / IT : (V + IT - 1) / IT, (D + kSlab - 1) / kSlab);
   xent_bwd_kernel<T, O, TOK_F><<<blocks, kThreads, smem, stream>>>(
-      h, w, labels, lse, gl, static_cast<O*>(out), so_f, so_d, N, D, V, ncols);
+      h, w, labels, lse, gl, static_cast<O*>(out), so_f, so_d, N, D, V, ncols, col_offset);
   return cudaGetLastError();
 }
 
 template <bool TOK_F>
 cudaError_t bwd(int is_bf16, int out_bf16, Operand h, Operand w, const int* labels,
                 const float* lse, const float* gl, void* out, int64_t so_f, int64_t so_d, int N,
-                int D, int V, int ncols, cudaStream_t s) {
+                int D, int V, int ncols, int col_offset, cudaStream_t s) {
   using bf = __nv_bfloat16;
   if (is_bf16)
     return out_bf16 ? launch_bwd<bf, bf, TOK_F>(h, w, labels, lse, gl, out, so_f, so_d, N, D, V,
-                                                ncols, s)
+                                                ncols, col_offset, s)
                     : launch_bwd<bf, float, TOK_F>(h, w, labels, lse, gl, out, so_f, so_d, N, D,
-                                                   V, ncols, s);
+                                                   V, ncols, col_offset, s);
   return out_bf16 ? launch_bwd<float, bf, TOK_F>(h, w, labels, lse, gl, out, so_f, so_d, N, D, V,
-                                                 ncols, s)
+                                                 ncols, col_offset, s)
                   : launch_bwd<float, float, TOK_F>(h, w, labels, lse, gl, out, so_f, so_d, N, D,
-                                                    V, ncols, s);
+                                                    V, ncols, col_offset, s);
 }
 
 template <bool A_KM, bool B_KM, bool SPLIT_A, bool SPLIT_B, class Epi>
@@ -999,6 +1014,7 @@ struct Bwd {
   void* out;
   int out_bf16, N, D, V, ncols, rows, cols;
   int transposed;  // w is the tied (V, D) storage, dW written (V, D)
+  int col_offset;  // w's first global vocabulary id (a vocabulary shard)
   int64_t lo() const { return (int64_t)std::min(N, rows) * cols; }
   // w's vocabulary entries [c0, c0 + width) as a GEMM operand: B K-major
   // (k = D contiguous) for the logits, B N-major (k = vocab) for dH; the
@@ -1010,7 +1026,8 @@ struct Bwd {
 
 // G of rows [r0, r0 + nr) and vocabulary columns [c0, c0 + width).
 cudaError_t g_chunk(const Bwd& b, int r0, int nr, int c0, int width, cudaStream_t s) {
-  const GEpilogue epi{b.labels + r0, b.lse + r0, b.gl + r0, b.g, b.cols, b.lo(), nr, width, c0};
+  const GEpilogue epi{b.labels + r0, b.lse + r0, b.gl + r0, b.g, b.cols, b.lo(), nr, width, c0,
+                      b.col_offset};
   const Mat h{b.h + (int64_t)r0 * b.sh, b.sh, nr, b.D, 0};
   if (b.transposed)
     return gemm<true, true, false, false>(h, b.w_chunk(c0, width), nr, width, b.D, epi, s);
@@ -1099,14 +1116,17 @@ extern "C" {
 
 // h (N, D) with element strides (sh_n, sh_d), w (D, V) with (sw_d, sw_v),
 // both bf16 (is_bf16) or f32; labels (N,) int32, lse/ll/gl (N,) f32, all
-// contiguous. ncols = min(V, vocab_size). Returns the launch's cudaError_t.
+// contiguous. col_offset is w's first global vocabulary id (0 for a
+// whole head), ncols = clamp(vocab_size - col_offset, 0, V), at least 1.
+// Returns the launch's cudaError_t.
 int xent_fwd(const void* h, int64_t sh_n, int64_t sh_d, const void* w, int64_t sw_d,
              int64_t sw_v, int is_bf16, const int* labels, float* lse, float* ll, int N, int D,
-             int ncols, void* stream) {
+             int ncols, int col_offset, void* stream) {
   const Operand oh{h, sh_n, sh_d}, ow{w, sw_d, sw_v};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = is_bf16 ? launch_fwd<__nv_bfloat16>(oh, ow, labels, lse, ll, N, D, ncols, s)
-                          : launch_fwd<float>(oh, ow, labels, lse, ll, N, D, ncols, s);
+  cudaError_t e =
+      is_bf16 ? launch_fwd<__nv_bfloat16>(oh, ow, labels, lse, ll, N, D, ncols, col_offset, s)
+              : launch_fwd<float>(oh, ow, labels, lse, ll, N, D, ncols, col_offset, s);
   return static_cast<int>(e);
 }
 
@@ -1116,10 +1136,10 @@ int xent_fwd(const void* h, int64_t sh_n, int64_t sh_d, const void* w, int64_t s
 // part a (3, N, splits) f32 workspace, each split taking tiles_per_split
 // vocab tiles of 256 columns.
 int xent_fwd_wgmma(const void* h, int64_t sh, const void* w, int64_t sw, const int* labels,
-                   float* part, float* lse, float* ll, int N, int D, int ncols, int splits,
-                   int tiles_per_split, int transposed, void* stream) {
+                   float* part, float* lse, float* ll, int N, int D, int ncols, int col_offset,
+                   int splits, int tiles_per_split, int transposed, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const FwdEpilogue epi{labels, part, N, ncols};
+  const FwdEpilogue epi{labels, part, N, ncols, col_offset};
   cudaError_t e =
       transposed
           ? hopper::gemm_rows<FwdEpilogue, true>(h, sh, w, sw, N, ncols, D, splits,
@@ -1135,9 +1155,9 @@ int xent_fwd_wgmma(const void* h, int64_t sh, const void* w, int64_t sw, const i
 int xent_bwd_dh(const void* h, int64_t sh_n, int64_t sh_d, const void* w, int64_t sw_d,
                 int64_t sw_v, int is_bf16, const int* labels, const float* lse, const float* gl,
                 void* dh, int out_bf16, int64_t so_n, int64_t so_d, int N, int D, int V,
-                int ncols, void* stream) {
+                int ncols, int col_offset, void* stream) {
   return static_cast<int>(bwd<true>(is_bf16, out_bf16, {h, sh_n, sh_d}, {w, sw_d, sw_v}, labels,
-                                    lse, gl, dh, so_n, so_d, N, D, V, ncols,
+                                    lse, gl, dh, so_n, so_d, N, D, V, ncols, col_offset,
                                     static_cast<cudaStream_t>(stream)));
 }
 
@@ -1146,9 +1166,9 @@ int xent_bwd_dh(const void* h, int64_t sh_n, int64_t sh_d, const void* w, int64_
 int xent_bwd_dw(const void* h, int64_t sh_n, int64_t sh_d, const void* w, int64_t sw_d,
                 int64_t sw_v, int is_bf16, const int* labels, const float* lse, const float* gl,
                 void* dw, int out_bf16, int64_t so_v, int64_t so_d, int N, int D, int V,
-                int ncols, void* stream) {
+                int ncols, int col_offset, void* stream) {
   return static_cast<int>(bwd<false>(is_bf16, out_bf16, {h, sh_n, sh_d}, {w, sw_d, sw_v}, labels,
-                                     lse, gl, dw, so_v, so_d, N, D, V, ncols,
+                                     lse, gl, dw, so_v, so_d, N, D, V, ncols, col_offset,
                                      static_cast<cudaStream_t>(stream)));
 }
 
@@ -1162,10 +1182,11 @@ int xent_bwd_dw(const void* h, int64_t sh_n, int64_t sh_d, const void* w, int64_
 // than one token chunk for dW), else null.
 int xent_bwd_chunks(int dh, const void* h, int64_t sh, const void* w, int64_t sw,
                     const int* labels, const float* lse, const float* gl, void* g, float* acc,
-                    void* out, int out_bf16, int N, int D, int V, int ncols, int rows,
-                    int cols, int transposed, void* stream) {
+                    void* out, int out_bf16, int N, int D, int V, int ncols, int col_offset,
+                    int rows, int cols, int transposed, void* stream) {
   const Bwd b{static_cast<const bf16*>(h), static_cast<const bf16*>(w), sh, sw, labels, lse, gl,
-              static_cast<bf16*>(g), acc, out, out_bf16, N, D, V, ncols, rows, cols, transposed};
+              static_cast<bf16*>(g), acc, out, out_bf16, N, D, V, ncols, rows, cols, transposed,
+              col_offset};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dh) return static_cast<int>(bwd_dh_mma(b, s));
   return static_cast<int>(transposed ? bwd_dw_t_mma(b, s) : bwd_dw_mma(b, s));

@@ -33,13 +33,25 @@ it; the backward's blocks each own one slab of the output's D and
 recompute the logits for it. No route holds an on-chip accumulator that
 grows with D, and every sum runs in a fixed order, so two runs are bitwise equal.
 ``.launches`` counts one per wrapper call, however many launches it
-makes; each wrapper also counts by route in ``route_launches``. Not
-ported yet, and raising ``NotImplementedError``: a non-zero
-``col_offset`` (vocab-sharded heads, ROADMAP Queue 1 item 12).
+makes; each wrapper also counts by route in ``route_launches``.
+
+``col_offset`` (a host ``int``, 0 for a whole head) makes w one shard of a
+vocabulary-sharded head, as the dispatch's sharded ``xent_loss`` passes
+it: w's column c is the global vocabulary id ``col_offset + c``. Every
+kernel reads its labels as global ids, ``labels[n] - col_offset`` in the
+shard (-1 stays -1), so a label another shard owns matches nothing, and
+the shard's valid columns are ``clamp(vocab_size - col_offset, 0, V)``
+(``_ncols``). A shard with none (only where the vocabulary is padded past
+its last id) reaches no kernel: on the card the wrapper writes what the
+kernels would, lse -inf, ll 0 and zero dH and dW, and counts it under the
+route ``empty`` alone (``.launches`` counts kernel launches). Each wrapper
+also counts its launches with a non-zero ``col_offset`` in
+``offset_launches``.
 """
 from __future__ import annotations
 
 import ctypes
+import operator
 
 import torch
 
@@ -62,26 +74,19 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     if lib.xent_fwd.argtypes is None:
         p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         head = [p, i64, i64, p, i64, i64, i]  # h, strides, w, strides, is_bf16
-        lib.xent_fwd.argtypes = head + [p, p, p, i, i, i, p]
+        lib.xent_fwd.argtypes = head + [p, p, p, i, i, i, i, p]
         for fn in (lib.xent_bwd_dh, lib.xent_bwd_dw):
-            fn.argtypes = head + [p, p, p, p, i, i64, i64, i, i, i, i, p]
+            fn.argtypes = head + [p, p, p, p, i, i64, i64, i, i, i, i, i, p]
         lib.xent_fwd_wgmma.argtypes = [p, i64, p, i64, p, p, p, p, i, i, i,
-                                       i, i, i, p]
+                                       i, i, i, i, p]
         lib.xent_bwd_chunks.argtypes = [i, p, i64, p, i64, p, p, p, p, p, p,
-                                        i, i, i, i, i, i, i, i, p]
+                                        i, i, i, i, i, i, i, i, i, p]
         for fn in (lib.xent_fwd, lib.xent_fwd_wgmma, lib.xent_bwd_dh,
                    lib.xent_bwd_dw, lib.xent_bwd_chunks):
             fn.restype = i
         lib.cuda_error_string.argtypes = [i]
         lib.cuda_error_string.restype = ctypes.c_char_p
     return lib
-
-
-def _not_ported(op: str, col_offset) -> None:
-    if not (isinstance(col_offset, int) and col_offset == 0):
-        raise NotImplementedError(
-            f"{op}: a non-zero col_offset (vocab-sharded heads) is not ported "
-            "yet; ROADMAP.md Queue 1 item 12")
 
 
 def _check(op: str, h, w, labels, vectors=(),
@@ -177,62 +182,86 @@ def chunk_plan(N: int, ncols: int) -> tuple:
     return rows, cols
 
 
-def _ncols(V: int, vocab_size: int) -> int:
+def _ncols(V: int, vocab_size: int, col_offset: int) -> int:
+    """The shard's valid columns: ids in [col_offset, vocab_size)."""
     if vocab_size < 1:
         raise ValueError(f"vocab_size must be >= 1, got {vocab_size}")
-    return min(V, vocab_size)
+    if col_offset < 0 or col_offset >= 2**31:
+        raise ValueError(f"col_offset must be in [0, 2**31), got "
+                         f"{col_offset}")
+    return max(0, min(V, vocab_size - col_offset))
 
 
-def xent_fwd(h, w, labels, *, vocab_size: int, col_offset=0,
+def _count(fn, route: str, transposed: bool, col_offset: int) -> None:
+    if route == "empty":  # no kernel ran: the route's own count only
+        fn.route_launches[route] += 1
+        return
+    fn.launches += 1
+    fn.offset_launches += col_offset != 0
+    fn.route_launches[route + "_t" * transposed] += 1
+
+
+def xent_fwd(h, w, labels, *, vocab_size: int, col_offset: int = 0,
              transposed: bool = False):
     """Per-token (lse, ll): h (N, D), w (D, V) — or the tied head's (V, D)
-    with ``transposed`` — labels (N,) int32.
+    with ``transposed`` — labels (N,) int32 global vocabulary ids, w's
+    first column the id ``col_offset``.
 
     Returns two (N,) f32 tensors: the log-sum-exp over the valid columns
-    (< V and < vocab_size) and the logit at the label (0 for a -1 label or
-    one on an invalid column). ``loss = lse - ll`` for valid tokens.
+    (ids < col_offset + V and < vocab_size; -inf for a shard with none)
+    and the logit at the label (0 for a -1 label or one on another
+    shard's or an invalid column). ``loss = lse - ll`` for valid tokens.
     """
-    _not_ported("xent_fwd", col_offset)
+    col_offset = operator.index(col_offset)
     dev = _check("xent_fwd", h, w, labels, transposed=transposed)
     wu = use_layout(w, transposed)
-    ncols = _ncols(wu.shape[1], vocab_size)
+    ncols = _ncols(wu.shape[1], vocab_size, col_offset)
     if dev.type == "cpu":
         return xent_fwd_ref(h, w, labels, vocab_size=vocab_size,
-                            transposed=transposed)
+                            col_offset=col_offset, transposed=transposed)
     N, D = h.shape
-    lse = torch.empty(N, dtype=torch.float32, device=dev)
-    ll = torch.empty(N, dtype=torch.float32, device=dev)
     labels = labels.contiguous()
-    if mma_layout(h, w, transposed):
+    if ncols == 0:
+        route = "empty"
+        lse = torch.full((N,), float("-inf"), device=dev)
+        ll = torch.zeros(N, dtype=torch.float32, device=dev)
+    elif mma_layout(h, w, transposed):
         route = "wgmma"
+        lse = torch.empty(N, dtype=torch.float32, device=dev)
+        ll = torch.empty(N, dtype=torch.float32, device=dev)
         splits, per = split_plan(N, ncols)
         part = torch.empty((3, N, splits), dtype=torch.float32, device=dev)
         _launch("xent_fwd_wgmma", dev, h.data_ptr(), h.stride(0),
                 w.data_ptr(), w.stride(0), labels.data_ptr(), part.data_ptr(),
-                lse.data_ptr(), ll.data_ptr(), N, D, ncols, splits, per,
-                int(transposed))
+                lse.data_ptr(), ll.data_ptr(), N, D, ncols, col_offset,
+                splits, per, int(transposed))
     else:
         route = "fma"
+        lse = torch.empty(N, dtype=torch.float32, device=dev)
+        ll = torch.empty(N, dtype=torch.float32, device=dev)
         _launch("xent_fwd", dev, *_head_args(h, wu), labels.data_ptr(),
-                lse.data_ptr(), ll.data_ptr(), N, D, ncols)
-    xent_fwd.launches += 1
-    xent_fwd.route_launches[route + "_t" * transposed] += 1
+                lse.data_ptr(), ll.data_ptr(), N, D, ncols, col_offset)
+    _count(xent_fwd, route, transposed, col_offset)
     return lse, ll
 
 
 def _bwd(fn, h, w, labels, lse, gl, vocab_size, col_offset, out_dtype,
          transposed, ref, out_shape):
     op = fn.__name__
-    _not_ported(op, col_offset)
+    col_offset = operator.index(col_offset)
     dev = _check(op, h, w, labels, (("lse", lse), ("gl", gl)), transposed)
     wu = use_layout(w, transposed)
-    ncols = _ncols(wu.shape[1], vocab_size)
+    ncols = _ncols(wu.shape[1], vocab_size, col_offset)
     if dev.type == "cpu":
         return ref(h, w, labels, lse, gl, vocab_size=vocab_size,
-                   out_dtype=out_dtype, transposed=transposed)
+                   col_offset=col_offset, out_dtype=out_dtype,
+                   transposed=transposed)
     if out_dtype not in _DTYPES:
         raise ValueError(f"{op}: out_dtype {out_dtype}; the kernel writes "
                          "float32 and bfloat16")
+    if ncols == 0:
+        _count(fn, "empty", transposed, col_offset)
+        return torch.zeros(out_shape, dtype=out_dtype, device=dev)
     (N, D), V = h.shape, wu.shape[1]
     dh = op == "xent_bwd_dh"
     out = torch.empty(out_shape, dtype=out_dtype, device=dev)
@@ -254,21 +283,22 @@ def _bwd(fn, h, w, labels, lse, gl, vocab_size, col_offset, out_dtype,
                 w.data_ptr(), w.stride(0), labels.data_ptr(), lse.data_ptr(),
                 gl.data_ptr(), g.data_ptr(),
                 None if acc is None else acc.data_ptr(), out.data_ptr(),
-                out_bf16, N, D, V, ncols, rows, cols, int(transposed))
+                out_bf16, N, D, V, ncols, col_offset, rows, cols,
+                int(transposed))
     else:
         route = "fma"
         # the output's strides along (token or vocabulary entry, D)
         ou = out if dh or transposed else out.t()
         _launch(op, dev, *_head_args(h, wu), labels.data_ptr(),
                 lse.data_ptr(), gl.data_ptr(), out.data_ptr(), out_bf16,
-                *ou.stride(), N, D, V, ncols)
-    fn.launches += 1
-    fn.route_launches[route + "_t" * transposed] += 1
+                *ou.stride(), N, D, V, ncols, col_offset)
+    _count(fn, route, transposed, col_offset)
     return out
 
 
-def xent_bwd_dh(h, w, labels, lse, gl, *, vocab_size: int, col_offset=0,
-                out_dtype=torch.float32, transposed: bool = False):
+def xent_bwd_dh(h, w, labels, lse, gl, *, vocab_size: int,
+                col_offset: int = 0, out_dtype=torch.float32,
+                transposed: bool = False):
     """dH (N, D) in ``out_dtype``: the gl-weighted (softmax - onehot)
     contracted with w (D, V), or the tied (V, D) with ``transposed``.
     ``gl`` (N,) f32 is the per-token cotangent (0 for masked labels),
@@ -277,8 +307,9 @@ def xent_bwd_dh(h, w, labels, lse, gl, *, vocab_size: int, col_offset=0,
                 out_dtype, transposed, xent_bwd_dh_ref, tuple(h.shape))
 
 
-def xent_bwd_dw(h, w, labels, lse, gl, *, vocab_size: int, col_offset=0,
-                out_dtype=torch.float32, transposed: bool = False):
+def xent_bwd_dw(h, w, labels, lse, gl, *, vocab_size: int,
+                col_offset: int = 0, out_dtype=torch.float32,
+                transposed: bool = False):
     """dW in w's own layout, in ``out_dtype``: h^T contracted with the
     gl-weighted (softmax - onehot), (D, V), or (V, D) with ``transposed``
     (the tied head's gradient lands on the embedding's layout); the
@@ -287,9 +318,12 @@ def xent_bwd_dw(h, w, labels, lse, gl, *, vocab_size: int, col_offset=0,
                 out_dtype, transposed, xent_bwd_dw_ref, tuple(w.shape))
 
 
-xent_fwd.launches = 0
-xent_fwd.route_launches = {"wgmma": 0, "fma": 0, "wgmma_t": 0, "fma_t": 0}
-xent_bwd_dh.launches = 0
-xent_bwd_dw.launches = 0
-xent_bwd_dh.route_launches = {"mma": 0, "fma": 0, "mma_t": 0, "fma_t": 0}
-xent_bwd_dw.route_launches = {"mma": 0, "fma": 0, "mma_t": 0, "fma_t": 0}
+xent_fwd.launches = xent_fwd.offset_launches = 0
+xent_fwd.route_launches = {"wgmma": 0, "fma": 0, "wgmma_t": 0, "fma_t": 0,
+                           "empty": 0}
+xent_bwd_dh.launches = xent_bwd_dh.offset_launches = 0
+xent_bwd_dw.launches = xent_bwd_dw.offset_launches = 0
+xent_bwd_dh.route_launches = {"mma": 0, "fma": 0, "mma_t": 0, "fma_t": 0,
+                              "empty": 0}
+xent_bwd_dw.route_launches = {"mma": 0, "fma": 0, "mma_t": 0, "fma_t": 0,
+                              "empty": 0}

@@ -1,10 +1,24 @@
 """Training driver CLI: the port of ``repro.launch.train``.
 
-Runs the training loop of the paper's main path on one device: seeded
-random params, ``SyntheticLM`` batches, ``make_train_step`` with global-norm
-clipping and the optimizer's fused in-place write. It runs on the card
-(``--device cuda``, the default) unless told ``--device cpu``, and raises
-without a card.
+Runs the training loop of the paper's main path: seeded random params,
+``SyntheticLM`` batches, ``make_train_step`` with global-norm clipping and
+the optimizer's fused in-place write. It runs on the card (``--device
+cuda``, the default) unless told ``--device cpu``, and raises without a
+card.
+
+Sharded training: under ``torchrun --nproc-per-node N -m
+repro_torch.launch.train ...`` (the world from its environment:
+``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``, ``MASTER_ADDR``/``MASTER_PORT``)
+the launcher starts the process group (NCCL on the card, gloo on the CPU;
+each rank on ``cuda:LOCAL_RANK``), builds ``make_host_mesh(data=world)``
+and places the parameters per the rules, as the JAX launcher places them
+on its devices. Every rank builds the global batch from the seed and the
+step takes its data shard. Rank 0 alone prints, writes the metrics
+records (one ``metrics.0.jsonl``, as JAX's one process writes) and writes
+the checkpoints, which hold the full tensors (bitwise those an unsharded
+run would write at the same values); every rank restores them into its
+layout. With one rank there is no mesh and the path is the single-device
+one.
 
 Resilience, as in the JAX launcher: the step runs under the anomaly guard
 (:mod:`repro_torch.training.resilience`, on unless ``--no-guard``): a
@@ -42,7 +56,7 @@ batch x seq.
 
 Telemetry, as in the JAX launcher (:mod:`repro_torch.obs`): ``--log-dir``
 attaches a JSONL metrics sink (schema ``repro_metrics/v1``,
-``metrics.0.jsonl``: one process) behind the non-blocking background
+``metrics.0.jsonl``, rank 0's) behind the non-blocking background
 logger. It writes a ``run_header``, a ``train_step`` record on the first
 step and every ``--metrics-every`` steps (the step's metrics, the
 step-time breakdown since the last record: ``data`` wait, ``step``
@@ -100,7 +114,10 @@ from repro_torch.core import (OPTIMIZER_REGISTRY, LabelRules,
 from repro_torch.core.pipeline import HostCount
 from repro_torch.data import make_dataset
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import init_params
+from repro_torch.models.model import place_params
+from repro_torch.models.sharding import Rules
 from repro_torch.obs import (JSONLSink, MetricsLogger, ProfileWindow,
                              StatsPolicy, StepTimer, device_memory,
                              split_stats, trace_span)
@@ -198,17 +215,51 @@ def main(argv=None) -> float:
                     help="cuda (default) or cpu; never falls back on its own")
     args = ap.parse_args(argv)
 
+    world, rank, started = _init_world(args.device)
+    try:
+        return _main(args, world, rank)
+    finally:
+        if started:
+            torch.distributed.destroy_process_group()
+
+
+def _init_world(device: str):
+    """(world, rank, started): the process group from ``torchrun``'s
+    environment (an existing group is used as it is); one rank without
+    one."""
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size(), dist.get_rank(), False
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world == 1:
+        return 1, 0, False
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+    dist.init_process_group("nccl" if cuda else "gloo")
+    return world, dist.get_rank(), True
+
+
+def _main(args, world: int, rank: int) -> float:
     device = resolve_device(args.device)
+    if device.type == "cuda" and world > 1:
+        device = torch.device("cuda", torch.cuda.current_device())
+    lead = rank == 0
+
+    def say(msg):
+        if lead:
+            print(msg, flush=True)
+
     guard = None if args.no_guard else GuardPolicy(
         spike_factor=args.spike_factor, spike_warmup=args.spike_warmup,
         max_bad_steps=args.max_bad_steps)
     faults = resolve_plan()  # REPRO_FAULTS, read once
     if faults is not None:
-        print(f"fault injection active: {faults}", flush=True)
+        say(f"fault injection active: {faults}")
 
-    # the telemetry plane: one process, so one JSONL file (host 0)
+    # the telemetry plane: rank 0 writes one JSONL file (host 0)
     sinks = []
-    if args.log_dir:
+    if args.log_dir and lead:
         os.makedirs(args.log_dir, exist_ok=True)
         sinks.append(JSONLSink(os.path.join(args.log_dir, "metrics.0.jsonl")))
     logger = MetricsLogger(sinks, host=0)
@@ -218,16 +269,19 @@ def main(argv=None) -> float:
         device)
 
     cfg, tx = build(args)
+    rules = Rules(cfg.rule_overrides)
+    mesh = (make_host_mesh(data=world, device_type=device.type)
+            if world > 1 else None)
     stats = StatsPolicy(every_k=args.stats_every,
                         tied=cfg.tie_embeddings) \
         if args.stats_every > 0 else None
-    print(f"arch={cfg.name} optimizer={args.optimizer} device={device} "
-          f"guard={'off' if guard is None else 'on'}"
-          + (" pack_documents=True" if args.pack_documents else "")
-          + (f" stats_every={args.stats_every}" if stats else ""),
-          flush=True)
+    say(f"arch={cfg.name} optimizer={args.optimizer} device={device} "
+        f"guard={'off' if guard is None else 'on'}"
+        + (" pack_documents=True" if args.pack_documents else "")
+        + (f" stats_every={args.stats_every}" if stats else "")
+        + (f" devices={world}" if world > 1 else ""))
     logger.log("run_header", 0, arch=cfg.name, optimizer=args.optimizer,
-               devices=1, guard=guard is not None,
+               devices=world, guard=guard is not None,
                stats_every=args.stats_every, steps=args.steps,
                batch=args.batch, seq=args.seq, lr=args.lr,
                grad_accum=args.grad_accum,
@@ -235,6 +289,8 @@ def main(argv=None) -> float:
                tie_embeddings=bool(cfg.tie_embeddings))
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = init_params(cfg, gen, device=device)
+    if mesh is not None:
+        params = place_params(params, cfg, mesh, rules)
     state = init_state(params, tx, guard=guard is not None)
     del params
     start_step = 0
@@ -243,7 +299,7 @@ def main(argv=None) -> float:
         if got is not None:
             state, start_step = got
             state = state._replace(host_step=HostCount(start_step))
-            print(f"resumed from step {start_step}", flush=True)
+            say(f"resumed from step {start_step}")
     ds = make_dataset(cfg, seq_len=args.seq, global_batch=args.batch,
                       seed=args.seed, pack_documents=args.pack_documents,
                       device=device)
@@ -251,7 +307,8 @@ def main(argv=None) -> float:
     def make_step(tx):
         return make_train_step(cfg, tx, grad_accum=args.grad_accum,
                                clip_norm=args.clip_norm, guard=guard,
-                               faults=faults, stats=stats)
+                               faults=faults, stats=stats, rules=rules,
+                               mesh=mesh)
 
     step_fn = make_step(tx)
 
@@ -337,15 +394,15 @@ def main(argv=None) -> float:
                     if args.ckpt_dir else None
                 if got is not None:
                     state, step = got
-                    print(f"rollback #{rollbacks}: restored step {step}, "
-                          f"peak lr x{lr_scale:g}", flush=True)
+                    say(f"rollback #{rollbacks}: restored step {step}, "
+                        f"peak lr x{lr_scale:g}")
                 else:
                     # nothing to roll back to: reset the streak and push on
                     # with the cut LR (the guard keeps skipping bad steps)
                     step += 1
-                    print(f"rollback #{rollbacks}: no checkpoint in "
-                          f"{args.ckpt_dir or '<none>'}; continuing with "
-                          f"peak lr x{lr_scale:g}", flush=True)
+                    say(f"rollback #{rollbacks}: no checkpoint in "
+                        f"{args.ckpt_dir or '<none>'}; continuing with "
+                        f"peak lr x{lr_scale:g}")
                 state = state._replace(guard=init_guard_state(device),
                                        host_step=HostCount(step))
                 _, tx = build(args, lr_scale)
@@ -362,7 +419,7 @@ def main(argv=None) -> float:
                 if guard is not None:
                     line += (f" skipped {int(metrics['skipped'])}"
                              f" rollbacks {rollbacks}")
-                print(line, flush=True)
+                say(line)
             if args.log_dir and (step % args.metrics_every == 0
                                  or done_steps == 1):
                 emit_record(step, throughput())
@@ -377,11 +434,9 @@ def main(argv=None) -> float:
             if args.ckpt_dir:
                 save(args.ckpt_dir, step, state)
         if stop["sigterm"]:
-            print(f"sigterm: checkpointed step {step}, exiting cleanly",
-                  flush=True)
+            say(f"sigterm: checkpointed step {step}, exiting cleanly")
         else:
-            print(f"done: final loss {float(metrics['loss']):.4f}",
-                  flush=True)
+            say(f"done: final loss {float(metrics['loss']):.4f}")
         if args.log_dir and done_steps and step != last_emitted:
             emit_record(step, throughput())
         logger.log("run_end", step,

@@ -17,10 +17,12 @@ import torch.nn.functional as F
 from repro_torch.kernels import dispatch
 
 from .config import ModelConfig
+from .sharding import Rules
 
 
 class Spec(NamedTuple):
     shape: tuple
+    axes: tuple           # logical axis names (len == ndim; models.sharding)
     init: str = "normal"  # normal | zeros | ones
 
 
@@ -57,13 +59,26 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
 
 # ----------------------------------------------------------------- attention
 
-def causal_blockwise_attention(q, k, v, scale: float,
-                               segments=None) -> torch.Tensor:
+def _attn_shardings(q, k, rules: Optional[Rules], mesh) -> dict:
+    """q/kv shardings from the logical rules on ``mesh`` (none without
+    one), as JAX's ``_route_attention`` derives them."""
+    if mesh is None or rules is None:
+        return {}
+    axes = ("act_batch", None, "act_heads", None)
+    return {"q_sharding": rules.sharding(axes, mesh, q.shape),
+            "kv_sharding": rules.sharding(axes, mesh, k.shape)}
+
+
+def causal_blockwise_attention(q, k, v, scale: float, segments=None, *,
+                               rules: Optional[Rules] = None,
+                               mesh=None) -> torch.Tensor:
     """Causal flash attention; kv may have fewer heads (GQA, never
     repeated). ``segments`` (a (q_seg, kv_seg) int32 pair) keeps packed
-    documents apart."""
+    documents apart. ``mesh``: the operands' shardings come from
+    ``rules``."""
     return dispatch.flash_attention(q, k, v, scale=scale, causal=True,
-                                    segments=segments)
+                                    segments=segments,
+                                    **_attn_shardings(q, k, rules, mesh))
 
 
 def decode_attention(q, k, v, scale: float, kv_len=None) -> torch.Tensor:
@@ -75,21 +90,22 @@ def decode_attention(q, k, v, scale: float, kv_len=None) -> torch.Tensor:
 def attn_spec(cfg: ModelConfig) -> dict:
     D, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     s = {
-        "wq": Spec((D, H * hd)),
-        "wk": Spec((D, K * hd)),
-        "wv": Spec((D, K * hd)),
-        "wo": Spec((H * hd, D)),
+        "wq": Spec((D, H * hd), ("embed", "heads")),
+        "wk": Spec((D, K * hd), ("embed", "kv")),
+        "wv": Spec((D, K * hd), ("embed", "kv")),
+        "wo": Spec((H * hd, D), ("heads", "embed")),
     }
     if cfg.qkv_bias:
-        s["bq"] = Spec((H * hd,), "zeros")
-        s["bk"] = Spec((K * hd,), "zeros")
-        s["bv"] = Spec((K * hd,), "zeros")
+        s["bq"] = Spec((H * hd,), ("heads",), "zeros")
+        s["bk"] = Spec((K * hd,), ("kv",), "zeros")
+        s["bv"] = Spec((K * hd,), ("kv",), "zeros")
     return s
 
 
 def apply_attention(p, cfg: ModelConfig, x, positions, mode: str = "train",
                     cache: Optional[dict] = None, cache_index=None,
-                    segment_ids=None):
+                    segment_ids=None, rules: Optional[Rules] = None,
+                    mesh=None):
     """GQA self-attention. mode: train | prefill | decode. -> (y, new_cache).
 
     prefill returns this call's (B, S, K, hd) k/v as the cache. decode
@@ -133,7 +149,8 @@ def apply_attention(p, cfg: ModelConfig, x, positions, mode: str = "train",
         if mode == "prefill":
             new_cache = {"k": k, "v": v}
         seg = None if segment_ids is None else (segment_ids, segment_ids)
-        out = causal_blockwise_attention(q, k, v, scale, segments=seg)
+        out = causal_blockwise_attention(q, k, v, scale, segments=seg,
+                                         rules=rules, mesh=mesh)
 
     y = out.reshape(B, S, H * hd) @ p["wo"]
     return y, new_cache
@@ -144,9 +161,11 @@ def apply_attention(p, cfg: ModelConfig, x, positions, mode: str = "train",
 def mlp_spec(cfg: ModelConfig) -> dict:
     D, Fd = cfg.d_model, cfg.d_ff
     if cfg.mlp_kind == "gelu":  # gpt2-style 2-matrix MLP
-        return {"w_up": Spec((D, Fd)), "w_down": Spec((Fd, D))}
-    return {"w_gate": Spec((D, Fd)), "w_up": Spec((D, Fd)),
-            "w_down": Spec((Fd, D))}
+        return {"w_up": Spec((D, Fd), ("embed", "mlp")),
+                "w_down": Spec((Fd, D), ("mlp", "embed"))}
+    return {"w_gate": Spec((D, Fd), ("embed", "mlp")),
+            "w_up": Spec((D, Fd), ("embed", "mlp")),
+            "w_down": Spec((Fd, D), ("mlp", "embed"))}
 
 
 def apply_mlp(p, cfg: ModelConfig, x):

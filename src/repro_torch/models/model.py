@@ -25,13 +25,15 @@ from repro_torch.kernels import dispatch
 from . import layers as L
 from . import transformer as T
 from .config import ModelConfig
+from .sharding import Rules, embed_lookup, mesh_context, shard
 
 
 # ----------------------------------------------------------------- spec tree
 
 def _stacked(spec_tree: dict, n: int) -> dict:
     return {k: _stacked(v, n) if isinstance(v, dict)
-            else L.Spec((n,) + tuple(v.shape), v.init)
+            else L.Spec((n,) + tuple(v.shape), (None,) + tuple(v.axes),
+                        v.init)
             for k, v in spec_tree.items()}
 
 
@@ -40,14 +42,15 @@ def model_spec(cfg: ModelConfig) -> dict:
     segs = {f"seg{i}_{kind}": _stacked(T.superblock_spec(cfg, kind), n)
             for i, (kind, n) in enumerate(cfg.segments)}
     out = {
-        "tok_embed": {"w": L.Spec((V, D))},
+        "tok_embed": {"w": L.Spec((V, D), ("vocab", "embed"))},
         "segments": segs,
-        "final_norm": {"s": L.Spec((D,), "ones")},
+        "final_norm": {"s": L.Spec((D,), ("norm",), "ones")},
     }
     if not cfg.tie_embeddings:
-        out["lm_head"] = {"w": L.Spec((D, V))}
+        out["lm_head"] = {"w": L.Spec((D, V), ("embed", "vocab"))}
     if cfg.pos_embed == "learned":
-        out["pos_embed"] = {"w": L.Spec((cfg.max_position, D))}
+        out["pos_embed"] = {"w": L.Spec((cfg.max_position, D),
+                                        (None, "embed"))}
     return out
 
 
@@ -66,6 +69,24 @@ def flatten(tree, prefix: str = "", sep: str = "/") -> dict:
 def param_shapes(cfg: ModelConfig) -> dict:
     """{path_str: shape} of every parameter."""
     return {k: tuple(s.shape) for k, s in flatten(model_spec(cfg)).items()}
+
+
+def param_logical_axes(cfg: ModelConfig) -> dict:
+    """{path_str: logical axes} of every parameter (``models.sharding``)."""
+    return {k: tuple(s.axes) for k, s in flatten(model_spec(cfg)).items()}
+
+
+def place_params(params, cfg: ModelConfig, mesh, rules: Rules = None):
+    """``params`` (the same full values on every rank) laid out on
+    ``mesh`` per the rules (default ``Rules(cfg.rule_overrides)``): a
+    :class:`Params` of DTensor leaves, each rank holding its shards (the
+    JAX launcher's ``device_put`` with ``tree_shardings``)."""
+    from .sharding import place, tree_shardings
+    rules = rules or Rules(cfg.rule_overrides)
+    shardings = tree_shardings(param_logical_axes(cfg), mesh, rules,
+                               param_shapes(cfg))
+    return Params({k: place(p.detach(), shardings[k], copy=True)
+                   for k, p in flatten(params).items()})
 
 
 def count_params(shapes: dict) -> int:
@@ -146,7 +167,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
 # ------------------------------------------------------------------ forward
 
 def forward(params, cfg: ModelConfig, tokens, *, mode: str = "train",
-            cache=None, cache_index=None, positions=None, segment_ids=None):
+            cache=None, cache_index=None, positions=None, segment_ids=None,
+            rules: Rules = None, mesh=None):
     """Run the backbone on tokens (B, S). Returns (hidden, new_cache, aux).
 
     ``mode`` is train | prefill | decode (see ``layers.apply_attention``);
@@ -157,10 +179,26 @@ def forward(params, cfg: ModelConfig, tokens, *, mode: str = "train",
     keeps apart (pad id 0). The ids are cast to contiguous int32 here,
     once for every layer. ``aux`` (the MoE load-balance loss in the JAX
     package) is 0 for the dense family.
+
+    ``mesh`` (a DeviceMesh; params and batch DTensors laid out per
+    ``rules``, default ``Rules(cfg.rule_overrides)``): the activations
+    are laid out per their logical axes (``sharding.shard``, as JAX's
+    annotations), attention takes the shardings of its operands, and
+    plain tensors (positions, masks) count as replicated.
     """
+    rules = rules or Rules(cfg.rule_overrides)
+    with mesh_context(mesh):
+        return _forward(params, cfg, tokens, mode, cache, cache_index,
+                        positions, segment_ids, rules, mesh)
+
+
+def _forward(params, cfg, tokens, mode, cache, cache_index, positions,
+             segment_ids, rules, mesh):
     if segment_ids is not None:
         segment_ids = segment_ids.to(torch.int32).contiguous()
-    x = params["tok_embed"]["w"][tokens]
+    ew = params["tok_embed"]["w"]
+    x = (embed_lookup(ew, tokens, rules, mesh) if mesh is not None
+         else ew[tokens])
     S = x.shape[1]
     if positions is None:
         positions = torch.arange(S, device=x.device)
@@ -175,7 +213,8 @@ def forward(params, cfg: ModelConfig, tokens, *, mode: str = "train",
         seg_cache = cache[name] if cache is not None else None
         x, seg_cache = T.apply_segment(kind, n, cfg, params["segments"][name],
                                        x, positions, mode, seg_cache,
-                                       cache_index, segment_ids)
+                                       cache_index, segment_ids, rules=rules,
+                                       mesh=mesh)
         if new_cache is not None:
             new_cache[name] = seg_cache
     x = L.rmsnorm(x, params["final_norm"]["s"], cfg.rms_eps)
@@ -189,11 +228,14 @@ def head_weight(params, cfg: ModelConfig):
     return params["lm_head"]["w"], False
 
 
-def logits_from_hidden(params, cfg: ModelConfig, hidden):
-    """Full-vocab logits (serving). hidden (B, S, D) -> (B, S, V_padded)."""
+def logits_from_hidden(params, cfg: ModelConfig, hidden,
+                       rules: Rules = None):
+    """Full-vocab logits (serving). hidden (B, S, D) -> (B, S, V_padded);
+    on a mesh laid out per ("act_batch", "act_seq", "act_vocab")."""
     w, tied = head_weight(params, cfg)
-    out = hidden @ (w.T if tied else w)
-    return _mask_pad_vocab(out, cfg)
+    out = _mask_pad_vocab(hidden @ (w.T if tied else w), cfg)
+    return shard(out, ("act_batch", "act_seq", "act_vocab"),
+                 rules or Rules(cfg.rule_overrides))
 
 
 def _mask_pad_vocab(logits, cfg: ModelConfig):
@@ -207,7 +249,8 @@ def _mask_pad_vocab(logits, cfg: ModelConfig):
 
 # --------------------------------------------------------------------- loss
 
-def lm_loss(params, cfg: ModelConfig, hidden, labels, weights=None):
+def lm_loss(params, cfg: ModelConfig, hidden, labels, weights=None,
+            rules: Rules = None, mesh=None):
     """Cross-entropy over the LM head without full-sequence logits.
 
     The route is ``kernels.dispatch.xent_loss``: the xent kernels behind a
@@ -222,25 +265,42 @@ def lm_loss(params, cfg: ModelConfig, hidden, labels, weights=None):
     lands in (V, D); autograd adds it to the lookup's gradient in w's
     dtype, as JAX sums the two cotangents. The audio codebook heads raise
     until they are ported (ROADMAP.md Queue 1 item 13).
+
+    ``mesh``: the loss takes the hidden states' ("act_batch", "act_seq",
+    "act_embed") and the head's ("embed", "vocab") shardings (tied:
+    ("vocab", "embed")) from ``rules``, as JAX does, so the vocabulary
+    shards of the head each run the kernels with their ``col_offset``.
     """
     if cfg.family == "audio":
         raise NotImplementedError("lm_loss: the audio codebook heads are not "
                                   "ported yet; ROADMAP.md Queue 1 item 13")
+    rules = rules or Rules(cfg.rule_overrides)
     w, tied = head_weight(params, cfg)
-    losses = dispatch.xent_loss(hidden, w, labels, vocab_size=cfg.vocab_size,
-                                weights=weights, transposed=tied)
-    valid = labels >= 0
-    if weights is not None:
-        ws = torch.where(valid, weights.float(), 0.0).sum()
-    else:
-        ws = valid.float().sum()
-    return losses.sum() / torch.where(ws > 0, ws, 1.0), ws
+    h_sh = w_sh = None
+    if mesh is not None:
+        h_sh = rules.sharding(("act_batch", "act_seq", "act_embed"), mesh,
+                              hidden.shape)
+        w_sh = rules.sharding(("vocab", "embed") if tied
+                              else ("embed", "vocab"), mesh, w.shape)
+    with mesh_context(mesh):
+        losses = dispatch.xent_loss(hidden, w, labels,
+                                    vocab_size=cfg.vocab_size,
+                                    weights=weights, transposed=tied,
+                                    h_sharding=h_sh, w_sharding=w_sh)
+        valid = labels >= 0
+        if weights is not None:
+            ws = torch.where(valid, weights.float(), 0.0).sum()
+        else:
+            ws = valid.float().sum()
+        return losses.sum() / torch.where(ws > 0, ws, 1.0), ws
 
 
-def loss_fn(params, cfg: ModelConfig, batch: dict, aux_coef: float = 0.01):
+def loss_fn(params, cfg: ModelConfig, batch: dict, aux_coef: float = 0.01,
+            rules: Rules = None, mesh=None):
     """Full training loss. batch: tokens, labels, [positions, segment_ids,
     loss_weights] (the last three: packed-document batches). -> (total,
-    {"loss", "aux", "weight"}).
+    {"loss", "aux", "weight"}). ``mesh``: see ``forward`` and
+    ``lm_loss``.
 
     Image embeddings are not ported yet and raise (ROADMAP.md Queue 1
     item 13).
@@ -250,8 +310,11 @@ def loss_fn(params, cfg: ModelConfig, batch: dict, aux_coef: float = 0.01):
                                   "ported yet; ROADMAP.md Queue 1 item 13")
     hidden, _, aux = forward(params, cfg, batch["tokens"], mode="train",
                              positions=batch.get("positions"),
-                             segment_ids=batch.get("segment_ids"))
+                             segment_ids=batch.get("segment_ids"),
+                             rules=rules, mesh=mesh)
     loss, weight = lm_loss(params, cfg, hidden, batch["labels"],
-                           weights=batch.get("loss_weights"))
-    total = loss + aux_coef * aux
+                           weights=batch.get("loss_weights"), rules=rules,
+                           mesh=mesh)
+    with mesh_context(mesh):
+        total = loss + aux_coef * aux
     return total, {"loss": loss, "aux": aux, "weight": weight}

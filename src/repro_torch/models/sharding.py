@@ -1,0 +1,342 @@
+"""Logical-axis sharding (MaxText-style rules table): the port of
+``repro.models.sharding``.
+
+Every parameter and annotated activation carries a tuple of logical axis
+names; the rules map each name to zero or more mesh axes. Mapping is
+mesh-aware: rules naming axes absent from the mesh are dropped, and a dim
+is sharded only if its size divides by the product of the mapped mesh axis
+sizes (else a prefix of those axes that divides, else it is replicated),
+so the same model places on (data, model), (pod, data, model) and one
+device without per-mesh configs.
+
+The mesh is a ``torch.distributed.device_mesh.DeviceMesh`` with named dims
+(``launch.mesh``); :func:`Rules.spec` reads only its dim names and sizes,
+so any object with ``mesh_dim_names`` and a ``shape`` tuple (or, as a JAX
+mesh, ``axis_names`` and a ``shape`` mapping) will do. A
+:class:`PartitionSpec` is the port's own tuple of per-dim entries (None, a
+mesh axis name, or a tuple of names, major to minor), and
+:class:`NamedSharding` pairs it with the mesh. :func:`placements` turns a
+spec into DTensor placements: a dim over two mesh axes gets ``Shard(d)``
+on both, which DTensor splits major to minor in mesh order, as JAX does.
+
+Tied LM heads: a ``tie_embeddings`` model stores the head as the
+embedding, logical axes ("vocab", "embed"), where the untied head is
+("embed", "vocab"). Under the default rules both map to the same physical
+pair, vocab -> "model" and embed -> "data", with the dims swapped, so the
+xent shard plan reads the vocab axes off dim 0 of the tied matrix (see
+``repro_torch.kernels.dispatch``).
+"""
+from __future__ import annotations
+
+import contextlib
+import math
+from typing import NamedTuple, Optional, Sequence, Tuple
+
+import torch
+
+# Default logical -> mesh-axis rules (JAX's). Weights: 2-D sharded (FSDP
+# over "data" x TP over "model"). Activations: batch over (pod, data),
+# model-parallel features over "model".
+DEFAULT_RULES: Tuple[Tuple[str, Tuple[str, ...]], ...] = (
+    # --- weight axes ---
+    ("embed", ("data",)),
+    ("mlp", ("model",)),
+    ("heads", ("model",)),
+    ("kv", ("model",)),
+    ("vocab", ("model",)),
+    ("experts", ("model",)),
+    ("expert_mlp", ()),
+    ("lora", ()),
+    ("conv", ()),
+    ("ssm_inner", ("model",)),
+    ("ssm_state", ()),
+    ("norm", ()),
+    # --- activation axes ---
+    ("act_batch", ("pod", "data")),
+    ("act_seq", ()),
+    ("act_embed", ()),
+    ("act_residual", ()),
+    ("act_mlp", ("model",)),
+    ("act_heads", ("model",)),
+    ("act_kv", ("model",)),
+    ("act_vocab", ("model",)),
+    ("act_experts", ("model",)),
+    ("act_expert_cap", ("data",)),
+    ("act_moe_group", ("pod", "data")),
+    ("act_ssm_inner", ("model",)),
+    ("act_ssm_heads", ("model",)),
+    ("act_ssm_state", ()),
+    # --- cache axes ---
+    ("cache_batch", ("data",)),
+    ("cache_seq", ("model",)),
+    ("cache_kv", ()),
+)
+
+
+class PartitionSpec(tuple):
+    """Per-dim mesh axes: None, an axis name, or a tuple of names."""
+
+    def __new__(cls, *parts):
+        return super().__new__(cls, parts)
+
+    def __repr__(self):
+        return f"PartitionSpec{tuple(self)!r}"
+
+
+P = PartitionSpec
+
+
+class NamedSharding(NamedTuple):
+    """A spec on a mesh: where each dim of one tensor lives."""
+    mesh: object
+    spec: PartitionSpec
+
+
+def mesh_axes(mesh) -> dict:
+    """{axis name: size} of ``mesh``, in mesh order."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is not None:
+        return dict(zip(names, tuple(mesh.shape)))
+    return {a: int(mesh.shape[a]) for a in mesh.axis_names}
+
+
+class Rules:
+    def __init__(self, overrides: Sequence[Tuple[str, Tuple[str, ...]]] = ()):
+        self._map = dict(DEFAULT_RULES)
+        for k, v in overrides:
+            self._map[k] = tuple(v) if v is not None else ()
+
+    def spec(self, logical_axes: Sequence[Optional[str]], mesh,
+             shape: Optional[Sequence[int]] = None) -> PartitionSpec:
+        """The PartitionSpec of ``logical_axes`` on ``mesh``.
+
+        Divisibility-guarded: a dim whose size does not divide by the
+        mapped mesh-axis product takes the longest prefix of those axes
+        that divides, or is replicated.
+        """
+        sizes = mesh_axes(mesh)
+        parts = []
+        used = set()
+        for i, ax in enumerate(logical_axes):
+            if ax is None:
+                parts.append(None)
+                continue
+            axes = tuple(a for a in self._map.get(ax, ())
+                         if a in sizes and a not in used)
+            if shape is not None:
+                while axes and shape[i] % math.prod(sizes[a] for a in axes):
+                    axes = axes[:-1]
+            if not axes:
+                parts.append(None)
+                continue
+            used.update(axes)
+            parts.append(axes if len(axes) > 1 else axes[0])
+        return PartitionSpec(*parts)
+
+    def sharding(self, logical_axes, mesh, shape=None) -> NamedSharding:
+        return NamedSharding(mesh, self.spec(logical_axes, mesh, shape))
+
+
+def spec_mesh_axes(spec, ndim: int) -> Tuple[Tuple[str, ...], ...]:
+    """A spec as per-dim tuples of mesh axis names (``None`` -> ``()``,
+    a name -> a 1-tuple), padded with replicated dims to ``ndim``: the
+    form the dispatch plans read."""
+    entries = tuple(spec) + (None,) * (ndim - len(tuple(spec)))
+    out = []
+    for e in entries[:ndim]:
+        if e is None:
+            out.append(())
+        elif isinstance(e, (tuple, list)):
+            out.append(tuple(e))
+        else:
+            out.append((e,))
+    return tuple(out)
+
+
+def placements(spec, mesh, ndim: int) -> tuple:
+    """DTensor placements of ``spec`` on ``mesh`` (one per mesh dim).
+
+    A dim over several mesh axes must list them in mesh order (major to
+    minor), the only order DTensor splits a dim in; another order raises.
+    """
+    from torch.distributed.tensor import Replicate, Shard
+    names = list(mesh_axes(mesh))
+    out = [Replicate()] * len(names)
+    for d, axes in enumerate(spec_mesh_axes(spec, ndim)):
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"placements: dim {d} over mesh axes {axes} "
+                             f"is not in mesh order {tuple(names)}")
+        for i in idx:
+            out[i] = Shard(d)
+    return tuple(out)
+
+
+def is_dtensor(x) -> bool:
+    if not torch.distributed.is_available():
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def spec_of(x) -> Optional[NamedSharding]:
+    """The NamedSharding of a DTensor (dims split over mesh dims in mesh
+    order), or None for a plain tensor."""
+    from torch.distributed.tensor import Replicate, Shard
+    if not is_dtensor(x):
+        return None
+    mesh = x.device_mesh
+    per = [[] for _ in range(x.ndim)]
+    for name, pl in zip(mesh.mesh_dim_names, x.placements):
+        if isinstance(pl, Shard):
+            per[pl.dim].append(name)
+        elif not isinstance(pl, Replicate):
+            raise ValueError(f"spec_of: placement {pl} has no PartitionSpec")
+    return NamedSharding(mesh, PartitionSpec(
+        *(None if not a else a[0] if len(a) == 1 else tuple(a)
+          for a in per)))
+
+
+def _is_sharded(mesh) -> bool:
+    return mesh is not None and math.prod(mesh_axes(mesh).values()) > 1
+
+
+def place(x: torch.Tensor, sharding: NamedSharding, copy: bool = False):
+    """``x`` (the same full value on every rank) as a DTensor laid out per
+    ``sharding``: each rank keeps its own shard, cut as DTensor cuts it
+    (``torch.chunk`` along each sharded dim, mesh dims in order), with no
+    communication and the autograd history of ``x`` kept. The shard is a
+    view of ``x`` unless ``copy`` (then it owns contiguous storage: a
+    parameter that is written in place)."""
+    from torch.distributed.tensor import DTensor, Shard
+    mesh = sharding.mesh
+    pls = placements(sharding.spec, mesh, x.ndim)
+    local = x
+    for pl, n, i in zip(pls, mesh.shape, mesh.get_coordinate()):
+        if isinstance(pl, Shard):
+            local = torch.chunk(local, n, pl.dim)[i]
+    if copy:
+        local = local.clone(memory_format=torch.contiguous_format)
+    return DTensor.from_local(local, mesh, pls, run_check=False,
+                              shape=x.shape, stride=x.stride())
+
+
+def lay_out(x, sharding: NamedSharding):
+    """``x`` as a DTensor laid out per ``sharding``: a DTensor is
+    redistributed (if it is not so already), a plain tensor (the same
+    full value on every rank) cut into this rank's shard."""
+    want = placements(sharding.spec, sharding.mesh, x.ndim)
+    if not is_dtensor(x):
+        return place(x, sharding)
+    if tuple(x.placements) == want:
+        return x
+    return x.redistribute(sharding.mesh, want)
+
+
+def wrap(local: torch.Tensor, sharding: NamedSharding, shape):
+    """This rank's local part of a value of global ``shape`` laid out per
+    ``sharding``, as that DTensor (contiguous, as its strides say)."""
+    from torch.distributed.tensor import DTensor
+    strides, acc = [], 1
+    for d in reversed(tuple(shape)):
+        strides.append(acc)
+        acc *= d
+    return DTensor.from_local(
+        local.contiguous(), sharding.mesh,
+        placements(sharding.spec, sharding.mesh, local.ndim),
+        run_check=False, shape=torch.Size(shape),
+        stride=tuple(reversed(strides)))
+
+
+def shard(x, logical_axes, rules: Rules, mesh=None):
+    """Lay an activation out per its logical axes: a redistribute of a
+    DTensor; a no-op on plain tensors and on a mesh of one device."""
+    if not is_dtensor(x):
+        return x
+    mesh = mesh if mesh is not None else x.device_mesh
+    if not _is_sharded(mesh):
+        return x
+    return lay_out(x, rules.sharding(logical_axes, mesh, x.shape))
+
+
+@contextlib.contextmanager
+def mesh_context(mesh):
+    """Under a mesh, plain tensors that meet DTensors (positions, rope
+    tables, masks: the same on every rank) count as replicated; a no-op
+    without one. Nests: an inner context leaves the outer one on (torch's
+    ``implicit_replication`` switches it off on every exit)."""
+    if mesh is None:
+        yield
+        return
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    if getattr(DTensor._op_dispatcher, "_allow_implicit_replication", False):
+        yield
+        return
+    with implicit_replication():
+        yield
+
+
+def full_value(x):
+    """A DTensor's full value (a plain tensor on every rank); anything
+    else as it is."""
+    return x.full_tensor() if is_dtensor(x) else x
+
+
+def laid_out_as(g, p):
+    """``g`` (a gradient) redistributed to the layout of ``p`` (its
+    parameter) where both are DTensors: autograd may hand back a partial
+    sum or another split."""
+    if (is_dtensor(g) and is_dtensor(p)
+            and tuple(g.placements) != tuple(p.placements)):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+def shard_batch(batch: dict, mesh, rules: Rules) -> dict:
+    """The global batch (the same plain tensors on every rank: ``tokens``,
+    ``labels``, ...) as DTensors laid out per ("act_batch", "act_seq"):
+    each rank keeps its data shard."""
+    out = {}
+    for k, v in batch.items():
+        if v is None or not torch.is_tensor(v):
+            out[k] = v
+            continue
+        axes = (("act_batch", "act_seq") + (None,) * v.ndim)[:v.ndim]
+        out[k] = lay_out(v, rules.sharding(axes, mesh, v.shape))
+    return out
+
+
+def embed_lookup(w, tokens, rules: Rules, mesh):
+    """``w[tokens]`` on a mesh, laid out per ("act_batch", "act_seq",
+    "act_embed"): the table gathered whole on every rank (the gather
+    GSPMD makes for the lookup of an FSDP table), the lookup on this
+    rank's tokens. The table's gradient is each rank's partial sum over
+    its tokens, summed over the axes that split the tokens on the way
+    back to the table's layout. (DTensor's own rules for the lookup fail
+    on a table split over two mesh axes.)"""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    tok = rules.sharding(("act_batch", "act_seq"), mesh, tokens.shape)
+    tokens = lay_out(tokens, tok)
+    whole = (Replicate(),) * len(tokens.placements)
+    table = w.redistribute(mesh, whole) if is_dtensor(w) else \
+        DTensor.from_local(w, mesh, whole, run_check=False)
+    local = table.to_local(grad_placements=tuple(
+        Partial() if p.is_shard() else Replicate()
+        for p in tokens.placements))
+    shape = tuple(tokens.shape) + (w.shape[-1],)
+    return wrap(local[tokens.to_local()],
+                NamedSharding(mesh, PartitionSpec(*tok.spec, None)), shape)
+
+
+def tree_shardings(logical_tree, mesh, rules: Rules, shape_tree=None):
+    """Map a tree of logical-axis tuples to NamedShardings (with
+    ``shape_tree``, divisibility-guarded per leaf). Trees are nested
+    dicts, or flat ``{path: axes}`` dicts."""
+    if isinstance(logical_tree, tuple):
+        shape = None if shape_tree is None else tuple(
+            shape_tree.shape if hasattr(shape_tree, "shape") else shape_tree)
+        return rules.sharding(logical_tree, mesh, shape)
+    return {k: tree_shardings(v, mesh, rules,
+                              None if shape_tree is None else shape_tree[k])
+            for k, v in logical_tree.items()}

@@ -24,20 +24,22 @@ from torch.utils import checkpoint as _ckpt
 
 from . import layers as L
 from .config import ModelConfig
+from .sharding import shard
 
 
 def _sub_spec(cfg: ModelConfig, sub: str) -> dict:
     spec = L.attn_spec(cfg) if sub == "attn" else L.mlp_spec(cfg)
-    return {"norm": L.Spec((cfg.d_model,), "ones"), **spec}
+    return {"norm": L.Spec((cfg.d_model,), ("norm",), "ones"), **spec}
 
 
 def _apply_sub(sub: str, p, cfg: ModelConfig, x, positions, mode: str, cache,
-               cache_index, segment_ids=None):
+               cache_index, segment_ids=None, rules=None, mesh=None):
     """Pre-norm residual sub-layer (attn or mlp). Returns (x, new_cache)."""
     h = L.rmsnorm(x, p["norm"], cfg.rms_eps)
     if sub == "attn":
         y, cache = L.apply_attention(p, cfg, h, positions, mode, cache,
-                                     cache_index, segment_ids)
+                                     cache_index, segment_ids, rules=rules,
+                                     mesh=mesh)
     else:
         y = L.apply_mlp(p, cfg, h)
     return x + y.to(x.dtype), cache
@@ -108,31 +110,37 @@ def _remat(cfg: ModelConfig, fn):
 
 def apply_superblock(kind: str, cfg: ModelConfig, params, x, positions,
                      mode: str, cache: Optional[dict], cache_index,
-                     segment_ids=None):
+                     segment_ids=None, rules=None, mesh=None):
     new_cache = dict(cache) if cache is not None else None
     for name, sub in superblock_layout(cfg, kind):
         sub_cache = cache.get(name) if (cache is not None and sub == "attn") \
             else None
         x, sub_cache = _apply_sub(sub, params[name], cfg, x, positions, mode,
-                                  sub_cache, cache_index, segment_ids)
+                                  sub_cache, cache_index, segment_ids,
+                                  rules=rules, mesh=mesh)
         if new_cache is not None and sub == "attn":
             new_cache[name] = sub_cache
+    if rules is not None:
+        # the residual carried between layers (JAX's scan carry)
+        x = shard(x, ("act_batch", "act_seq", "act_residual"), rules, mesh)
     return x, new_cache
 
 
 def apply_segment(kind: str, n_blocks: int, cfg: ModelConfig, stacked, x,
-                  positions, mode: str, cache, cache_index, segment_ids=None):
+                  positions, mode: str, cache, cache_index, segment_ids=None,
+                  rules=None, mesh=None):
     """Run ``n_blocks`` super-blocks over stacked params (and cache).
 
     -> (x, new_cache). prefill returns the S-length caches stacked to
     (L, B, S, K, hd); decode writes the stacked cache in place and returns
     it; train returns None. ``segment_ids`` (packed rows) is a tensor
     argument of each remat block, so a recomputed forward masks as the
-    first did.
+    first did. ``rules`` and ``mesh``: see ``model.forward``.
     """
     layers = _unbind(stacked, n_blocks)
     if cache is None:
-        block = functools.partial(apply_superblock, kind, cfg)
+        block = functools.partial(apply_superblock, kind, cfg, rules=rules,
+                                  mesh=mesh)
         if torch.is_grad_enabled():
             block = _remat(cfg, block)
         for p in layers:
@@ -142,7 +150,8 @@ def apply_segment(kind: str, n_blocks: int, cfg: ModelConfig, stacked, x,
     outs = []
     for l, p in enumerate(layers):
         x, c = apply_superblock(kind, cfg, p, x, positions, mode,
-                                _layer(cache, l), cache_index, segment_ids)
+                                _layer(cache, l), cache_index, segment_ids,
+                                rules=rules, mesh=mesh)
         outs.append(c)
     if mode == "decode":
         return x, cache

@@ -9,6 +9,14 @@ loss. Gradients are taken functionally with ``torch.autograd.grad``; no
 the host: the step counter, the guard's verdict and every metric stay 0-d
 tensors on the device. The host keeps its own mirror of the step counter
 (``TrainState.host_step``), which the statistics cadence reads.
+
+Both steps take a ``torch.distributed`` mesh (``rules`` and ``mesh``, as
+the JAX package's): the parameters are then DTensors laid out per the
+rules (``models.model.place_params``), each step lays the global batch it
+is given out per ("act_batch", "act_seq"), the loss runs on the mesh, each
+gradient comes back in its parameter's layout, and the optimizer's
+kernels run on the local shards (``update_params(shardings=...)``).
+Every metric is a plain 0-d tensor, the same on every rank.
 """
 from __future__ import annotations
 
@@ -23,7 +31,11 @@ from repro_torch.core.pipeline import HostCount
 from repro_torch.core.types import (GradientTransformation, apply_updates,
                                     global_norm)
 from repro_torch.models import loss_fn
-from repro_torch.models.model import Params, flatten, unflatten
+from repro_torch.models.model import (Params, flatten, param_logical_axes,
+                                      param_shapes, unflatten)
+from repro_torch.models.sharding import (Rules, full_value, laid_out_as,
+                                         mesh_context, shard_batch,
+                                         tree_shardings)
 from repro_torch.obs.profile import trace_span
 from repro_torch.obs.stats import (StatsPolicy, leaf_update_norms,
                                    make_stats_fn)
@@ -54,22 +66,25 @@ def init_state(params, tx: GradientTransformation,
                       init_guard_state(dev) if guard else None, HostCount(0))
 
 
-def value_and_grad(params, cfg, batch: dict, aux_coef: float = 0.01):
+def value_and_grad(params, cfg, batch: dict, aux_coef: float = 0.01,
+                   rules: Rules = None, mesh=None):
     """(total loss, metrics, grads) of ``models.loss_fn`` at ``params``.
 
     The gradient is taken with respect to detached aliases of the leaves
     (the parameters' own ``requires_grad`` is left as it is), and comes
-    back as a flat ``{path: tensor}`` dict in the leaves' dtypes; the loss
-    and the metrics come back detached.
+    back as a flat ``{path: tensor}`` dict in the leaves' dtypes (on a
+    mesh, DTensors in the leaves' layouts); the loss and the metrics come
+    back detached, as plain tensors.
     """
     leaves = {k: p.detach().requires_grad_() for k, p in
               flatten(params).items()}
-    with torch.enable_grad():
+    with torch.enable_grad(), mesh_context(mesh):
         total, metrics = loss_fn(unflatten(leaves), cfg, batch,
-                                 aux_coef=aux_coef)
+                                 aux_coef=aux_coef, rules=rules, mesh=mesh)
         grads = torch.autograd.grad(total, list(leaves.values()))
-    return (total.detach(), {k: v.detach() for k, v in metrics.items()},
-            dict(zip(leaves, grads)))
+    return (full_value(total.detach()),
+            {k: full_value(v.detach()) for k, v in metrics.items()},
+            {k: laid_out_as(g, leaves[k]) for k, g in zip(leaves, grads)})
 
 
 def _div(x: torch.Tensor, n: int) -> torch.Tensor:
@@ -82,7 +97,8 @@ def make_train_step(cfg, tx: GradientTransformation, grad_accum: int = 1,
                     clip_norm: float = 0.0, aux_coef: float = 0.01,
                     accum_dtype: str = "float32", norm_metrics: bool = True,
                     fused_apply=None, guard: Optional[GuardPolicy] = None,
-                    faults=None, stats: Optional[StatsPolicy] = None):
+                    faults=None, stats: Optional[StatsPolicy] = None,
+                    rules: Optional[Rules] = None, mesh=None):
     """Build ``train_step(state, batch) -> (state, metrics)``.
 
     The semantics of the JAX package's ``make_train_step``:
@@ -141,19 +157,30 @@ def make_train_step(cfg, tx: GradientTransformation, grad_accum: int = 1,
     Spans (``obs.trace_span``, JAX's named scopes): ``fwd`` (the loss and
     its gradient), ``optimizer_update``, ``guard``, ``obs_stats``.
 
-    Left out, with the modules they need: ``rules`` and ``mesh`` (sharding,
-    ROADMAP.md Queue 1 item 12). ``donate`` has no counterpart:
-    ``update_params`` already writes the parameters and the momentum in
-    place.
+    * ``rules`` and ``mesh``: sharded training, as JAX's (see the module
+      docstring): the parameters (``state.params``) are DTensors laid out
+      per ``rules`` (default ``Rules(cfg.rule_overrides)``), the step
+      takes the global batch, and ``update_params`` gets every
+      parameter's sharding (``tree_shardings``). The global norm is the
+      norm over the full gradients.
+
+    ``donate`` has no counterpart: ``update_params`` already writes the
+    parameters and the momentum in place.
     """
+    rules = rules or Rules(cfg.rule_overrides)
     acc_dt = torch.float32 if accum_dtype == "float32" else torch.bfloat16
     if fused_apply is None:
         fused_apply = tx.update_params is not None
     elif fused_apply and tx.update_params is None:
         raise ValueError("fused_apply=True but the optimizer has no "
                          "update_params (fused parameter write)")
-    fuse_clip = (fused_apply and clip_norm > 0 and "grad_scale"
-                 in inspect.signature(tx.update_params).parameters)
+    accepted = (inspect.signature(tx.update_params).parameters
+                if fused_apply else {})
+    fuse_clip = fused_apply and clip_norm > 0 and "grad_scale" in accepted
+    up_kwargs = {}
+    if mesh is not None and "shardings" in accepted:
+        up_kwargs["shardings"] = tree_shardings(
+            param_logical_axes(cfg), mesh, rules, param_shapes(cfg))
     # the projection stage decides its refresh from the host count
     reads_host_count = any(st.project is not None
                            for st in (tx.plans or {}).values())
@@ -169,14 +196,19 @@ def make_train_step(cfg, tx: GradientTransformation, grad_accum: int = 1,
         return x.reshape((grad_accum, x.shape[0] // grad_accum)
                          + tuple(x.shape[1:]))
 
+    def lay_out(batch):
+        return shard_batch(batch, mesh, rules) if mesh is not None else batch
+
     def compute_grads(params, batch):
         if grad_accum == 1:
-            return value_and_grad(params, cfg, batch, aux_coef)
-        micro = {k: reshape(v) for k, v in batch.items()}
+            return value_and_grad(params, cfg, lay_out(batch), aux_coef,
+                                  rules, mesh)
+        micro = {k: reshape(full_value(v)) for k, v in batch.items()}
         gsum, loss_sum, stack = {}, None, []
         for i in range(grad_accum):
             loss, metrics, grads = value_and_grad(
-                params, cfg, {k: v[i] for k, v in micro.items()}, aux_coef)
+                params, cfg, lay_out({k: v[i] for k, v in micro.items()}),
+                aux_coef, rules, mesh)
             for k, g in grads.items():
                 if k in gsum:
                     gsum[k].add_(g)
@@ -191,6 +223,10 @@ def make_train_step(cfg, tx: GradientTransformation, grad_accum: int = 1,
 
     @torch.no_grad()
     def train_step(state: TrainState, batch: dict):
+        with mesh_context(mesh):
+            return _train_step(state, batch)
+
+    def _train_step(state: TrainState, batch: dict):
         if guard is not None and state.guard is None:
             raise ValueError(
                 "make_train_step(guard=...) needs a guard-carrying state: "
@@ -211,7 +247,7 @@ def make_train_step(cfg, tx: GradientTransformation, grad_accum: int = 1,
                 part = stats_fn.of_grads(grads)
         kw = {}
         if clip_norm > 0 or norm_metrics or guard is not None:
-            gnorm = global_norm(grads)
+            gnorm = full_value(global_norm(grads))
             out["grad_norm"] = gnorm
         if clip_norm > 0:
             scale = torch.clamp(torch.div(torch.full_like(gnorm, clip_norm),
@@ -237,7 +273,8 @@ def make_train_step(cfg, tx: GradientTransformation, grad_accum: int = 1,
                        if norm_metrics or guard is not None or on_cadence
                        else None)
                 _, opt_state = tx.update_params(grads, state.opt_state,
-                                                state.params, **kw)
+                                                state.params, **up_kwargs,
+                                                **kw)
                 params = state.params
             else:
                 old = flatten(state.params)  # apply_updates leaves these
@@ -262,10 +299,10 @@ def make_train_step(cfg, tx: GradientTransformation, grad_accum: int = 1,
         if norm_metrics:
             if fused_apply:
                 unorms = leaf_update_norms(flatten(params), old)
-                out["update_norm"] = torch.linalg.vector_norm(
-                    torch.stack(list(unorms.values())))
+                out["update_norm"] = full_value(torch.linalg.vector_norm(
+                    torch.stack(list(unorms.values()))))
             else:
-                unorm = global_norm(updates)
+                unorm = full_value(global_norm(updates))
                 out["update_norm"] = (torch.where(ok, unorm, 0.0)
                                       if guard is not None else unorm)
         if on_cadence:
@@ -284,14 +321,18 @@ def make_train_step(cfg, tx: GradientTransformation, grad_accum: int = 1,
     return train_step
 
 
-def make_eval_step(cfg):
+def make_eval_step(cfg, rules: Optional[Rules] = None, mesh=None):
     """eval_step(params, batch) -> {"loss", "perplexity"} (0-d f32 tensors
-    on the batch's device), run under ``torch.no_grad()``."""
+    on the batch's device), run under ``torch.no_grad()``. ``mesh``: as
+    ``make_train_step``'s (the global batch laid out per the rules)."""
+    rules = rules or Rules(cfg.rule_overrides)
 
     @torch.no_grad()
     def eval_step(params, batch):
-        _, metrics = loss_fn(params, cfg, batch)
-        return {"loss": metrics["loss"],
-                "perplexity": torch.exp(metrics["loss"])}
+        if mesh is not None:
+            batch = shard_batch(batch, mesh, rules)
+        _, metrics = loss_fn(params, cfg, batch, rules=rules, mesh=mesh)
+        loss = full_value(metrics["loss"])
+        return {"loss": loss, "perplexity": torch.exp(loss)}
 
     return eval_step

@@ -58,7 +58,16 @@ against their plain versions, with lse from the plain forward:
     llama-7b's D = 4096 (the FMA kernels walk D in two slabs of 2048), a
     D of 4100 that ends a slab mid-way, and gemma-2b's V = 256000;
   * ``dispatch.xent_loss`` gradients against the plain losses' autograd:
-    the same bounds in the inputs' dtype.
+    the same bounds in the inputs' dtype;
+  * the ``col_offset`` clause, at vocabulary shards of llama-1b's head
+    (untied column slices and tied row slices, 2 and 4 shards, bf16 and
+    f32, and a padded vocabulary's shard past vocab_size on the
+    wrappers' ``empty`` route): each shard against the plain version with
+    its col_offset, with the bounds above, bitwise on rerun, counted by
+    route and in ``offset_launches``; the shards combined against the
+    whole head's kernels (f32 bounds); the sharded ``xent_loss`` on a
+    (1, 1) mesh bitwise the unsharded call, and a layout the plans send
+    to "ref" raising on the card.
 Attention backward (``mha_bwd_dq``, ``mha_bwd_dkv``) against the plain
 versions, with lse and delta from the plain forward:
   * f32: 1e-5*max|ref| + 1e-5*|ref| (sums of up to a few thousand terms in
@@ -1571,3 +1580,183 @@ def test_stats_step_on_card_does_not_synchronise(cuda):
     assert all(bool(torch.isfinite(v)) for k, v in m.items())
     for k, x in a.items():
         assert torch.equal(x, b[k]), k
+
+
+# Vocabulary shards (``col_offset``) of llama-1b's head (N 4096, D 2048, V
+# 32000, bf16), untied (w's column slices: views with row stride V) and
+# tied (row slices), cut into 2 and 4 shards; f32 on the FMA kernels; a
+# padded vocabulary (vocab_size 24000) whose last of 4 shards holds no
+# valid column (the wrappers' ``empty`` route). Labels are global ids, a
+# tenth -1. (N, D, V, vocab_size, shards, tied, dtype)
+SHARD_CASES = {
+    "llama1b_2": (4096, 2048, 32000, 32000, 2, False, "bf16"),
+    "llama1b_4": (4096, 2048, 32000, 32000, 4, False, "bf16"),
+    "llama1b_tied_2": (4096, 2048, 32000, 32000, 2, True, "bf16"),
+    "llama1b_tied_4": (4096, 2048, 32000, 32000, 4, True, "bf16"),
+    "f32_4": (300, 2048, 32000, 32000, 4, False, "f32"),
+    "f32_tied_4": (300, 2048, 32000, 32000, 4, True, "f32"),
+    "padded_empty_4": (1000, 2048, 32000, 24000, 4, False, "bf16"),
+}
+
+
+def _shards(cuda, case, seed=9):
+    N, D, V, vs, k, tied, dt = SHARD_CASES[case]
+    td = DTYPES[dt]
+    rng = np.random.default_rng(seed)
+    h = torch.from_numpy(rng.standard_normal((N, D), dtype=np.float32))
+    w = torch.from_numpy(rng.standard_normal((D, V), dtype=np.float32)
+                         / np.sqrt(D))
+    w = w.T.contiguous() if tied else w
+    labels = rng.integers(0, vs, N).astype(np.int32)
+    labels[rng.random(N) < 0.1] = -1
+    gl = torch.from_numpy(rng.random(N).astype(np.float32))
+    h, w = h.to(cuda, td), w.to(cuda, td)
+    v = V // k
+    cut = [w[i * v:(i + 1) * v] if tied else w[:, i * v:(i + 1) * v]
+           for i in range(k)]
+    return (h, w, torch.from_numpy(labels).to(cuda), gl.to(cuda), vs, tied,
+            [(i * v, s) for i, s in enumerate(cut)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(SHARD_CASES))
+def test_xent_col_offset_kernels_match_plain_on_card(cuda, case):
+    """Each shard's three kernels with its col_offset against the plain
+    versions (phase 2's tolerances), each twice and bitwise equal, on the
+    route ``mma_layout`` picks (a shard of the padded vocabulary past
+    vocab_size on ``empty``: lse -inf, ll 0, zero dH and dW, no kernel),
+    every launch counted in ``offset_launches`` but shard 0's."""
+    from repro_torch.kernels.xent import ref as XR
+    from repro_torch.kernels.xent import xent as X
+    h, _, labels, gl, vs, tied, shards = _shards(cuda, case)
+    fns = (X.xent_fwd, X.xent_bwd_dh, X.xent_bwd_dw)
+    offs = [f.offset_launches for f in fns]
+    fwd_routes, routes = dict(X.xent_fwd.route_launches), _bwd_routes(X)
+    n_launch, n_empty = 0, 0
+    for off, w in shards:
+        kw = {"vocab_size": vs, "col_offset": off, "transposed": tied}
+        lse, ll = X.xent_fwd(h, w, labels, **kw)
+        want_lse, want_ll = XR.xent_fwd_ref(h, w, labels, **kw)
+        torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+        torch.testing.assert_close(ll, want_ll, atol=1e-4, rtol=1e-5)
+        v = w.shape[0 if tied else 1]
+        mine = (labels >= off) & (labels < min(off + v, vs))
+        assert (ll[~mine] == 0).all()
+        lse2, ll2 = X.xent_fwd(h, w, labels, **kw)
+        assert torch.equal(lse, lse2) and torch.equal(ll, ll2)
+        empty = off >= vs
+        if empty:
+            assert torch.isneginf(lse).all() and (ll == 0).all()
+        for out_dtype in {h.dtype, torch.float32}:
+            for fn, ref in ((X.xent_bwd_dh, XR.xent_bwd_dh_ref),
+                            (X.xent_bwd_dw, XR.xent_bwd_dw_ref)):
+                got = fn(h, w, labels, want_lse, gl, out_dtype=out_dtype,
+                         **kw)
+                want = ref(h, w, labels, want_lse, gl, out_dtype=out_dtype,
+                           **kw)
+                assert got.dtype == out_dtype and got.shape == want.shape
+                _xent_close(got, want, out_dtype)
+                assert torch.equal(got, fn(h, w, labels, want_lse, gl,
+                                           out_dtype=out_dtype, **kw))
+                if empty:
+                    assert (got == 0).all()
+        n_outs = len({h.dtype, torch.float32})
+        n_empty += empty
+        n_launch += 0 if empty else 1
+    torch.cuda.synchronize()
+    tc = X.mma_layout(h, shards[0][1], tied)
+    assert tc == (h.dtype == torch.bfloat16)
+    fwd = ("wgmma" if tc else "fma") + "_t" * tied
+    bwd = ("mma" if tc else "fma") + "_t" * tied
+    assert _routes_are(X.xent_fwd.route_launches, fwd_routes,
+                       {fwd: 2 * n_launch, "empty": 2 * n_empty})
+    for now, was in zip(_bwd_routes(X), routes):
+        assert _routes_are(now, was, {bwd: 2 * n_outs * n_launch,
+                                      "empty": 2 * n_outs * n_empty})
+    # shard 0 (col_offset 0) and the empty shard count no offset launch
+    n_off = n_launch - 1
+    assert [f.offset_launches - o for f, o in zip(fns, offs)] == [
+        2 * n_off, 2 * n_outs * n_off, 2 * n_outs * n_off]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["llama1b_4", "llama1b_tied_2",
+                                  "padded_empty_4"])
+def test_xent_col_offset_shards_combine_to_the_whole_head_on_card(cuda,
+                                                                   case):
+    """The shards' (lse, ll) combined (max, then the log of the summed
+    exps; ll summed), their f32 dH summed and their dW put together equal
+    the unsharded kernels on the whole head (f32 sums in another order:
+    phase 2's f32 tolerances)."""
+    from repro_torch.kernels.xent import xent as X
+    h, w, labels, gl, vs, tied, shards = _shards(cuda, case, seed=10)
+    parts = [X.xent_fwd(h, s, labels, vocab_size=vs, col_offset=off,
+                        transposed=tied) for off, s in shards]
+    lse_k = torch.stack([p[0] for p in parts])
+    m = lse_k.max(0).values
+    lse = m + torch.log(torch.exp(lse_k - m).sum(0))
+    ll = torch.stack([p[1] for p in parts]).sum(0)
+    want_lse, want_ll = X.xent_fwd(h, w, labels, vocab_size=vs,
+                                   transposed=tied)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(ll, want_ll, atol=1e-4, rtol=1e-5)
+    kw = dict(vocab_size=vs, transposed=tied, out_dtype=torch.float32)
+    dh = sum(X.xent_bwd_dh(h, s, labels, want_lse, gl, col_offset=off, **kw)
+             for off, s in shards)
+    dw = torch.cat([X.xent_bwd_dw(h, s, labels, want_lse, gl,
+                                  col_offset=off, **kw)
+                    for off, s in shards], 0 if tied else 1)
+    _xent_close(dh, X.xent_bwd_dh(h, w, labels, want_lse, gl, **kw),
+                torch.float32)
+    _xent_close(dw, X.xent_bwd_dw(h, w, labels, want_lse, gl, **kw),
+                torch.float32)
+
+
+@pytest.fixture
+def world1(cuda):
+    """A process group of one rank (gloo) and a (1, 1) mesh on the card."""
+    import socket
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        yield make_host_mesh(1, 1, device_type="cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_sharded_xent_loss_on_card(cuda, world1):
+    """On a (1, 1) mesh the sharded ``xent_loss`` (tokens over data, the
+    vocabulary over model, as the rules lay llama's head out) runs the
+    same kernels as the unsharded call, bitwise; a layout the plans send
+    to "ref" (tokens and vocabulary on one axis) raises on the card and
+    names it, running no plain version."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.sharding import P, Rules, full_value, place
+    h, w, labels, _, vs, _, _ = _shards(cuda, "llama1b_2", seed=11)
+    h = h.reshape(16, 256, -1)
+    labels = labels.reshape(16, 256)
+    rules = Rules()
+    h_sh = rules.sharding(("act_batch", "act_seq", "act_embed"), world1,
+                          h.shape)
+    w_sh = rules.sharding(("embed", "vocab"), world1, w.shape)
+    assert dispatch.xent_route(h.shape, w.shape, h_sh, w_sh)[1] == \
+        dispatch.XentPlan(world1, ("data",), ("model",))
+    hd = place(h, h_sh).detach().requires_grad_()
+    wd = place(w, w_sh).detach().requires_grad_()
+    got = dispatch.xent_loss(hd, wd, labels, vocab_size=vs)
+    gh, gw = torch.autograd.grad(got.sum(), [hd, wd])
+    h0, w0 = (x.detach().requires_grad_() for x in (h, w))
+    want = dispatch.xent_loss(h0, w0, labels, vocab_size=vs)
+    wh, ww = torch.autograd.grad(want.sum(), [h0, w0])
+    assert torch.equal(full_value(got), want)
+    assert torch.equal(full_value(gh), wh) and torch.equal(full_value(gw),
+                                                           ww)
+    with pytest.raises(NotImplementedError, match="no kernel plan"):
+        dispatch.xent_loss(hd, wd, labels, vocab_size=vs,
+                           h_sharding=h_sh._replace(spec=P("model")))

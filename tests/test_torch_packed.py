@@ -2,8 +2,8 @@
 first-fit packed ``SyntheticLM`` batches, the segment clause of the three
 attention kernels' plain versions, ``segment_ids`` and ``positions``
 through the model, the loss, the trainer and ``--pack-documents``.
-Mirrors ``tests/test_packed.py`` less its sharded case (ROADMAP.md Queue
-1 item 12).
+Mirrors ``tests/test_packed.py`` less its sharded case (the sharded path
+is held against JAX in ``tests/test_torch_sharded.py``).
 
   * the packed layout (``segment_ids``, ``positions``, ``loss_weights``
     and where the labels are -1) is JAX's bitwise for the same (seed,

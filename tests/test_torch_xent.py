@@ -256,8 +256,8 @@ def test_cpu_backward_leaves_the_launch_counters():
     for f in fns:
         f(h, w, labels, lse, gl, vocab_size=vs, out_dtype=torch.bfloat16)
     assert [(f.launches, dict(f.route_launches)) for f in fns] == before
-    assert all(set(f.route_launches) == {"mma", "fma", "mma_t", "fma_t"}
-               for f in fns)
+    assert all(set(f.route_launches) == {"mma", "fma", "mma_t", "fma_t",
+                                         "empty"} for f in fns)
 
 
 def test_cpu_forward_leaves_the_launch_counters():
@@ -268,7 +268,117 @@ def test_cpu_forward_leaves_the_launch_counters():
     TX.xent_fwd(h, w, labels, vocab_size=vs)
     assert (TX.xent_fwd.launches, dict(TX.xent_fwd.route_launches)) == before
     assert set(TX.xent_fwd.route_launches) == {"wgmma", "fma", "wgmma_t",
-                                               "fma_t"}
+                                               "fma_t", "empty"}
+
+
+# ------------------------------------- vocabulary shards (``col_offset``)
+
+# (N, D, shards, V of one shard, vocab_size): the padded vocabulary of 4
+# shards of 128 ends at 300, so shard 2 is cut at id 300 and shard 3 lies
+# past it and has no valid column
+SHARD_CASE = (53, 32, 4, 128, 300)
+
+
+def _shard_inputs(dtype, tied, seed=5):
+    """(jax, torch) pairs of h, the whole head w ((D, V) or tied (V, D)),
+    labels, lse, gl, and the shards of w with their col_offsets. Labels are
+    global ids across every shard, ids past vocab_size and -1."""
+    N, D, k, v, vs = SHARD_CASE
+    rng = np.random.default_rng(seed)
+    h = rng.standard_normal((N, D), dtype=np.float32)
+    w = rng.standard_normal((D, k * v), dtype=np.float32) / np.sqrt(D)
+    w = np.ascontiguousarray(w.T) if tied else w
+    labels = rng.integers(0, k * v, N).astype(np.int32)
+    labels[rng.random(N) < 0.2] = -1
+    lse = (rng.standard_normal(N) + np.log(vs)).astype(np.float32)
+    gl = np.where(labels >= 0, rng.random(N), 0).astype(np.float32)
+    jd, td = DTYPES[dtype]
+    j = (jnp.asarray(h).astype(jd), jnp.asarray(w).astype(jd),
+         jnp.asarray(labels), jnp.asarray(lse), jnp.asarray(gl))
+    t = (torch.from_numpy(h).to(td), torch.from_numpy(w).to(td),
+         torch.from_numpy(labels), torch.from_numpy(lse),
+         torch.from_numpy(gl))
+    cut = (lambda x, i: x[i * v:(i + 1) * v]) if tied else (
+        lambda x, i: x[:, i * v:(i + 1) * v])
+    shards = [(i * v, cut(j[1], i), cut(t[1], i)) for i in range(k)]
+    return j, t, shards, vs
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("tied", [False, True], ids=["untied", "tied"])
+def test_xent_fwd_col_offset_matches_jax_kernel(tied, dtype):
+    """Each shard's (lse, ll) with its col_offset against JAX's Pallas
+    kernel (interpret mode): a label another shard owns gives ll 0, and
+    the shard past vocab_size gives lse -inf and ll 0 on both sides."""
+    (hj, _, lj, _, _), (ht, _, lt, _, _), shards, vs = _shard_inputs(
+        dtype, tied)
+    for off, wj, wt in shards:
+        want_lse, want_ll = JX.xent_fwd(hj, wj, lj, vocab_size=vs,
+                                        col_offset=off, interpret=True,
+                                        transposed=tied)
+        lse, ll = TX.xent_fwd(ht, wt, lt, vocab_size=vs, col_offset=off,
+                              transposed=tied)
+        _close(lse, want_lse)
+        _close(ll, want_ll)
+        v = wt.shape[0 if tied else 1]
+        mine = (lt >= off) & (lt < min(off + v, vs))
+        assert (ll[~mine] == 0).all() and (ll[mine] != 0).all()
+        if off >= vs:
+            assert torch.isneginf(lse).all()
+
+
+@pytest.mark.parametrize("out", ["f32", "bf16"])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("tied", [False, True], ids=["untied", "tied"])
+def test_xent_bwd_col_offset_matches_jax_kernels(tied, dtype, out):
+    """Each shard's dH and dW with its col_offset against JAX's kernels;
+    the columns (rows, tied) of the shard past vocab_size get no
+    gradient, and that shard adds nothing to dH."""
+    (hj, _, lj, sj, gj), (ht, _, lt, st, gt), shards, vs = _shard_inputs(
+        dtype, tied, 6)
+    jo, to = DTYPES[out]
+    tol = (F32_ATOL, F32_RTOL) if out == "f32" else (BF16_OUT_ATOL,
+                                                      BF16_OUT_RTOL)
+    for off, wj, wt in shards:
+        for jfn, tfn in ((JX.xent_bwd_dh, TX.xent_bwd_dh),
+                         (JX.xent_bwd_dw, TX.xent_bwd_dw)):
+            want = jfn(hj, wj, lj, sj, gj, vocab_size=vs, col_offset=off,
+                       interpret=True, out_dtype=jo, transposed=tied)
+            got = tfn(ht, wt, lt, st, gt, vocab_size=vs, col_offset=off,
+                      out_dtype=to, transposed=tied)
+            assert got.dtype == to
+            _close(got, want, *tol)
+            if off >= vs:
+                assert (got == 0).all()
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("tied", [False, True], ids=["untied", "tied"])
+def test_xent_col_offset_shards_combine_to_the_whole_head(tied, dtype):
+    """The shards' (lse, ll) combined as the sharded dispatch does (max,
+    then the log of the summed exps; ll summed) equal the whole head's;
+    with that global lse the shards' dH sum to the whole head's and their
+    dW put together are its dW (f32 sums in another order: the stated
+    f32 tolerance)."""
+    _, (ht, wt, lt, _, gt), shards, vs = _shard_inputs(dtype, tied, 7)
+    parts = [TX.xent_fwd(ht, w, lt, vocab_size=vs, col_offset=off,
+                         transposed=tied) for off, _, w in shards]
+    lse_k = torch.stack([p[0] for p in parts])
+    m = lse_k.max(0).values
+    lse = m + torch.log(torch.exp(lse_k - m).sum(0))
+    ll = torch.stack([p[1] for p in parts]).sum(0)
+    want_lse, want_ll = TX.xent_fwd(ht, wt, lt, vocab_size=vs,
+                                    transposed=tied)
+    _close(lse, want_lse)
+    _close(ll, want_ll)
+    kw = dict(vocab_size=vs, transposed=tied)
+    dh = sum(TX.xent_bwd_dh(ht, w, lt, want_lse, gt, col_offset=off, **kw)
+             for off, _, w in shards)
+    dw = torch.cat([TX.xent_bwd_dw(ht, w, lt, want_lse, gt, col_offset=off,
+                                   **kw) for off, _, w in shards],
+                   0 if tied else 1)
+    _close(dh, TX.xent_bwd_dh(ht, wt, lt, want_lse, gt, **kw))
+    _close(dw, TX.xent_bwd_dw(ht, wt, lt, want_lse, gt, **kw))
 
 
 def test_xent_supported_matches_jax():
@@ -280,18 +390,22 @@ def test_xent_supported_matches_jax():
 
 
 def test_unported_clauses_raise():
-    """A non-zero col_offset (vocab-sharded heads) raises on every entry,
-    tied or not; the tied head itself is ported (tests/test_torch_tied.py),
-    and a w in the wrong layout for ``transposed`` is a shape error."""
+    """Every clause of the three kernels is ported (``col_offset`` is held
+    against JAX below); what is left to raise are malformed arguments: a
+    negative or non-integer col_offset on every entry, tied or not, and a
+    w in the wrong layout for ``transposed`` (a shape error)."""
     h, w = torch.zeros(4, 8), torch.zeros(8, 16)
     lab, v = torch.zeros(4, dtype=torch.int32), torch.zeros(4)
     for tr, ww in ((False, w), (True, w.T)):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            TX.xent_fwd(h, ww, lab, vocab_size=16, col_offset=16,
+        with pytest.raises(ValueError, match="col_offset"):
+            TX.xent_fwd(h, ww, lab, vocab_size=16, col_offset=-16,
                         transposed=tr)
         for fn in (TX.xent_bwd_dh, TX.xent_bwd_dw):
-            with pytest.raises(NotImplementedError, match="item 12"):
-                fn(h, ww, lab, v, v, vocab_size=16, col_offset=3,
+            with pytest.raises(ValueError, match="col_offset"):
+                fn(h, ww, lab, v, v, vocab_size=16, col_offset=-3,
+                   transposed=tr)
+            with pytest.raises(TypeError):
+                fn(h, ww, lab, v, v, vocab_size=16, col_offset=3.0,
                    transposed=tr)
     with pytest.raises(ValueError, match=r"w \(V, D\)"):
         TX.xent_fwd(h, w, lab, vocab_size=16, transposed=True)
