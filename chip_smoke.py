@@ -5,7 +5,7 @@ NVIDIA H100.
     python3 chip_smoke.py [--seed N]
 
 Run from the root of a checkout. It builds the port's CUDA kernels with
-nvcc (one process per source, in parallel), then runs fifteen phases and fails
+nvcc (one process per source, in parallel), then runs sixteen phases and fails
 (non-zero exit, no result line) if any of them fails:
 
 1. device: the card's name and power limit, the kernels' ptxas report;
@@ -237,7 +237,36 @@ nvcc (one process per source, in parallel), then runs fifteen phases and fails
    phase 8's. The kernels line gains the rows ``xent_fwd col_offset``,
    ``xent_bwd_dh col_offset`` and ``xent_bwd_dw col_offset`` (launches at
    a non-zero col_offset on the ``sharded`` path, whose other launches
-   are (ii)'s and (iii)'s).
+   are (ii)'s and (iii)'s);
+16. the MoE family and the ``ARCH_IDS`` configs: (i) the launcher with
+   ``--arch dbrx-132b --smoke`` for two steps; dbrx-132b at full width
+   (d_model 6144, 48 heads over 8 of 128, 16 experts top-4, moe_d_ff
+   10752, vocab 100352) and 2 of its 40 layers (bf16, 16 x 256
+   ``SyntheticLM`` batches: 2 groups of 2048 tokens, capacity 640;
+   ``scale_fused``, clip 1.0, full remat): three ``make_train_step``
+   steps, each step's launches checked by route (4 ``mha_fwd``, 2 of each
+   attention backward kernel, all ``mma``; one of each xent kernel,
+   ``wgmma`` and ``mma``; 6 ``norm_sumsq``, 7 ``update_apply`` on ``vec``,
+   one ``momentum_sumsq``: the 4-D expert leaves take the optimizer's
+   plain stage route, as in JAX), the loss and aux held to the same steps
+   with attention and xent through their plain versions, the step time
+   (best of steps 2-3), tokens/s, peak memory, and one step's device time
+   by family (the MoE layer's spans: expert products, dispatch, combine,
+   the router; the stage route on the 4-D leaves, the hand-written
+   kernels, the step's own norms and copies); (ii) dbrx serving from the
+   same seeded weights, batch 4, a 256-token prompt, 32 new tokens: at
+   cf = E/k (no pair dropped) the last decode logits against a full
+   forward (f32 within the serving tolerance; bf16 within twice the
+   lower of its floors, the same check with plain attention and on a
+   dense twin of dbrx's widths), prefill and decode ms, launches by
+   route; at the config's cf 1.25 the decode ms and the share of (token,
+   choice) pairs the decode steps drop; (iii) qwen2-7b, granite-3-8b
+   (vocab 49155 padded to 49280), deepseek-67b and mistral-large-123b
+   (d_model 12288) at full width and 2 layers: two ``make_train_step``
+   steps with their launches checked by route and their losses against
+   the same steps with plain attention and xent, step time and peak. The
+   kernels line gains the paths ``train moe``, ``serve moe`` and ``train
+   arch``.
 
 The line before the last is a JSON ``{"kernels": [...]}`` summary, the
 last line ``{"ok": true, "device": {...}}``. It needs a CUDA card and
@@ -278,6 +307,20 @@ LSE_ATOL, LSE_RTOL = 1e-4, 1e-5
 # places (one row against 575), about 2^-8 relative each, compounding
 # through 12 residual layers.
 SERVE_ATOL, SERVE_RTOL = 5e-2, 5e-2
+# Phase 16 (ii), dbrx's last bf16 decode logits against a full forward at
+# cf = E/k: prefill and decode round each bf16 product at other places
+# than one forward over all the tokens does (cuBLAS picks other kernels
+# for other row counts); each rounding moves a value by up to 2**-8
+# relative, the 6144-wide head sums such moves of the final hidden into
+# every logit, and the largest error over 4 x 100352 logits lies several
+# standard deviations out, past SERVE_ATOL/RTOL, which llama-130m's
+# smaller logits set. The comparison's floors are measured in the same
+# run: attention through its plain version (no kernel on the path), and
+# dbrx's dense twin (the same widths with a dense SwiGLU of moe_d_ff: no
+# MoE). The kernel route may reach this multiple of the lower floor; a
+# fault in a kernel or in the MoE decode moves logits by O(1), many times
+# the floors.
+SERVE_BF16_FLOOR_X = 2.0
 
 SRC_MHA = "src/repro_torch/kernels/attention/csrc/mha_fwd.cu"
 TPU_MHA = "src/repro/kernels/attention/attention.py:223"
@@ -430,6 +473,27 @@ def attention_cases():
         # (fma, 8 heads of 256 over 1 kv head)
         "train llama-7b hd=128": (16, 256, 256, 32, 32, 128, True, None),
         "train gemma-2b H=8 K=1 hd=256": (16, 256, 256, 8, 1, 256, True, None),
+        # phase 16's GQA layouts at hd 128: dbrx-132b (48 heads over 8) and
+        # mistral-large-123b (96 over 8)
+        "train dbrx-132b H=48 K=8 hd=128": (16, 256, 256, 48, 8, 128, True,
+                                            None),
+        "train mistral-large H=96 K=8 hd=128": (16, 256, 256, 96, 8, 128,
+                                                True, None),
+        # and of qwen2-7b (28 over 4) and deepseek-67b (64 over 8)
+        "train qwen2-7b H=28 K=4 hd=128": (16, 256, 256, 28, 4, 128, True,
+                                           None),
+        "train deepseek-67b H=64 K=8 hd=128": (16, 256, 256, 64, 8, 128,
+                                               True, None),
+        # phase 16's decode steps (batch 4, a cache of 256 + 32): the
+        # first and the last step's kv_len, dbrx-132b's heads and 96 over 8
+        "decode dbrx-132b H=48 K=8 kv_len=256": (4, 1, 288, 48, 8, 128,
+                                                 False, 256),
+        "decode dbrx-132b H=48 K=8 kv_len=287": (4, 1, 288, 48, 8, 128,
+                                                 False, 287),
+        "decode H=96 K=8 hd=128 kv_len=256": (4, 1, 288, 96, 8, 128, False,
+                                              256),
+        "decode H=96 K=8 hd=128 kv_len=287": (4, 1, 288, 96, 8, 128, False,
+                                              287),
     }
 
 
@@ -559,6 +623,16 @@ def bwd_cases():
         "train gemma-2b H=8 K=1 hd=256": (16, 256, 256, 8, 1, 256, True, None),
         "hd=256 kv_len=300 H=8 K=1": (2, 16, 576, 8, 1, 256, False, 300),
         "hd=256 rect causal S=64 T=576": (2, 64, 576, 8, 1, 256, True, None),
+        # phase 16's GQA layouts at hd 128 (dbrx-132b, mistral-large-123b,
+        # qwen2-7b, deepseek-67b)
+        "train dbrx-132b H=48 K=8 hd=128": (16, 256, 256, 48, 8, 128, True,
+                                            None),
+        "train mistral-large H=96 K=8 hd=128": (16, 256, 256, 96, 8, 128,
+                                                True, None),
+        "train qwen2-7b H=28 K=4 hd=128": (16, 256, 256, 28, 4, 128, True,
+                                           None),
+        "train deepseek-67b H=64 K=8 hd=128": (16, 256, 256, 64, 8, 128,
+                                               True, None),
     }
 
 
@@ -1743,7 +1817,27 @@ def xent_cases():
         # gemma-2b's loss: V = 256000, 4 splits of the forward, 63 chunks
         # of the backward
         "gemma-2b N=4096 V=256000": (4096, 2048, 256000, 256000, 0.05),
+        # phase 16's heads: dbrx-132b (D 6144, V 100352) and granite-3-8b's
+        # padded vocabulary (49155 of 49280 columns)
+        "dbrx-132b N=4096 D=6144 V=100352": (4096, 6144, 100352, 100352, 0.0),
+        "granite N=4096 D=4096 V=49280/49155": (4096, 4096, 49280, 49155,
+                                                0.05),
+        # and the heads of qwen2-7b, deepseek-67b and mistral-large-123b
+        "qwen2-7b N=4096 D=3584 V=152064": (4096, 3584, 152064, 152064, 0.0),
+        "deepseek-67b N=4096 D=8192 V=102400": (4096, 8192, 102400, 102400,
+                                                0.0),
+        "mistral-large N=4096 D=12288 V=32768": (4096, 12288, 32768, 32768,
+                                                 0.0),
     }
+
+
+# phase 16's widest heads in bf16 alone, their main path's dtype: the f32
+# FMA kernels at these D and V take seconds a call, and the gpu tests hold
+# them at these shapes
+XENT_BF16_ONLY = ("dbrx-132b N=4096 D=6144 V=100352",
+                  "qwen2-7b N=4096 D=3584 V=152064",
+                  "deepseek-67b N=4096 D=8192 V=102400",
+                  "mistral-large N=4096 D=12288 V=32768")
 
 
 def xent_inputs(torch, gen, N, D, V, masked, dtype):
@@ -1783,7 +1877,8 @@ def phase_xent_kernels(torch, gen):
     from repro_torch.kernels.xent import xent as X
     errs = {}
     for cname, (N, D, V, vs, masked) in xent_cases().items():
-        for dtype in (torch.bfloat16, torch.float32):
+        for dtype in (torch.bfloat16, torch.float32)[
+                :1 if cname in XENT_BF16_ONLY else 2]:
             tag = str(dtype).replace("torch.", "")
             key = f"{cname} {tag}"
             h, w, labels, gl = xent_inputs(torch, gen, N, D, V, masked, dtype)
@@ -2614,6 +2709,12 @@ KERNEL_FAMILIES = (
     ("sumsq", "norm_sumsq and momentum_sumsq"),
     ("momentum", "norm_sumsq and momentum_sumsq"),
     ("finish_kernel", "norm_sumsq and momentum_sumsq"),
+    # phase 16: the MoE layer's spans (``models.layers.apply_moe``), which
+    # moe_profile puts before a kernel's name as "span|kernel"
+    ("moe_router|", "MoE router (product, softmax, top-k, slots, aux)"),
+    ("moe_dispatch|", "MoE dispatch (one-hot masks and einsum)"),
+    ("moe_experts|", "MoE expert products (SwiGLU, capacity-padded)"),
+    ("moe_combine|", "MoE combine einsum"),
     ("gemm", "cuBLAS GEMMs (projections, MLP, head)"),
     ("nvjet", "cuBLAS GEMMs (projections, MLP, head)"),
     ("", "other (copies, element-wise, reductions)"),
@@ -2621,7 +2722,8 @@ KERNEL_FAMILIES = (
 
 
 def by_family(kernels):
-    """{family: (device ms, launches)} of profile_step's kernel list."""
+    """{family: (device ms, launches)} of profile_step's (or moe_profile's)
+    kernel list."""
     out = {}
     for key, n, ms in kernels:
         fam = next(f for sub, f in KERNEL_FAMILIES if sub in key)
@@ -5418,6 +5520,624 @@ def phase_sharded(torch, gen, seed, power, train):
             "train": one}
 
 
+# ------------------------------ phase 16: the MoE family and ARCH_IDS
+
+MOE_ARCH = "dbrx-132b"
+MOE_LAYERS = 2   # of dbrx-132b's 40: every width at full size
+MOE_STEPS = 3
+ARCH_DENSE = ("qwen2-7b", "granite-3-8b", "deepseek-67b",
+              "mistral-large-123b")
+ARCH_LAYERS = 2
+ARCH_STEPS = 2
+SERVE_MOE = (4, 256, 32)  # batch, prompt, new tokens
+# Phase 16 holds dbrx's 3-step loss and aux, and each dense config's
+# 2-step loss, against the same steps with attention and xent through
+# their plain versions (LOSS_CURVE_ATOL, phase 8's reasons, at 2 layers);
+# the aux is f32 E * sum_e f_e P_e from the same bf16 router logits on
+# both routes, so it moves only where a rounding apart flips a top-k
+# choice (each flip moves f_e by 1/T of one expert, 2.4e-4 at T 4096).
+
+
+def moe_routing(torch, cfg, p, h):
+    """(sorted top-k experts of each token (B, S, k), kept pairs, pairs)
+    of ``apply_moe``'s routing of ``h``, the layer's own ``moe_route``;
+    for the record only (phase 16 wraps ``layers.apply_moe`` with it)."""
+    from repro_torch.models import layers as L
+    B, S = h.shape[:2]
+    G, Tg, _ = L.moe_groups(cfg, B * S)
+    _, _, top_i, _, keep = L.moe_route(p, cfg, h.reshape(G, Tg, -1))
+    return (top_i.reshape(B, S, -1).sort(-1).values, int(keep.sum()),
+            keep.numel())
+
+
+def moe_tap(torch, taps):
+    """A patch of ``layers.apply_moe`` that appends each call's
+    ``moe_routing`` to ``taps`` and then runs the layer."""
+    from unittest import mock
+    from repro_torch.models import layers as L
+    real = L.apply_moe
+
+    def tapped(p, cfg, h):
+        taps.append(moe_routing(torch, cfg, p, h))
+        return real(p, cfg, h)
+    return mock.patch.object(L, "apply_moe", tapped)
+
+
+MOE_SPANS = ("moe_router", "moe_dispatch", "moe_experts", "moe_combine")
+OUTSIDE_MODEL = "outside the model: the optimizer and the step's own work " \
+    "(timed apart)"
+
+
+def _in_model(ev, serving):
+    """Whether op ``ev`` runs the model: the trainer's ``fwd`` span or an
+    autograd node holds it, or, ``serving``, no optimizer span does."""
+    chain = []
+    while ev is not None:
+        chain.append(ev.name)
+        ev = ev.cpu_parent
+    if "fwd" in chain or any(n.startswith("autograd::engine")
+                             for n in chain):
+        return True
+    return serving and "optimizer_update" not in chain
+
+
+def _moe_span(ev, fwd_span):
+    """The innermost MOE_SPANS span op ``ev`` ran under: an enclosing
+    span, or for an op of the backward the span of the forward op whose
+    autograd node it runs ((thread, sequence_nr) -> span: ``fwd_span``)."""
+    while ev is not None:
+        if ev.name in MOE_SPANS:
+            return ev.name
+        if ev.name.startswith("autograd::engine::evaluate_function"):
+            return fwd_span.get((ev.fwd_thread, ev.sequence_nr))
+        ev = ev.cpu_parent
+    return None
+
+
+def moe_profile(torch, power, step, untraced_ms, label, serving=False):
+    """Device time by ``by_family`` of one call of ``step`` (torch.profiler),
+    each model kernel keyed "span|kernel" under the MoE span it ran in:
+    -> (busy ms, {family: (ms, launches)}). ``serving``: every op outside
+    an optimizer span runs the model."""
+    from torch.profiler import ProfilerActivity, profile
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    events = prof.events()
+    # a span's own device range comes back as a device event and a
+    # "kernel" of its name, and an op's own CUDA time as a "kernel" named
+    # after the op: neither is a kernel
+    spans = {ev.name for ev in events
+             if getattr(ev, "is_user_annotation", False)} | {
+                 "fwd", "optimizer_update", "guard", "obs_stats", *MOE_SPANS}
+    device = [ev for ev in events
+              if ev.device_type.name == "CUDA" and ev.name not in spans]
+    busy = sum((ev.time_range.end - ev.time_range.start) / 1e3
+               for ev in device)
+    fwd_span = {}
+    for ev in events:
+        if ev.device_type.name == "CPU" and ev.sequence_nr >= 0:
+            span = _moe_span(ev, {})
+            if span:
+                fwd_span[(ev.thread, ev.sequence_nr)] = span
+    # the model's kernels (the forward, its recompute and the backward),
+    # each at the innermost op that lists it; the main thread's kernels
+    # outside the model (the optimizer, the step's own norms and copies)
+    # are listed under more ops than launched them, so they are one line
+    # here, the device time left, and train_moe times their parts apart
+    kernels = []
+    for ev in events:
+        if (ev.device_type.name != "CPU" or not ev.kernels
+                or not _in_model(ev, serving)):
+            continue
+        inner = {}
+        for c in ev.cpu_children:
+            for k in c.kernels:
+                inner[k] = inner.get(k, 0) + 1
+        span = _moe_span(ev, fwd_span)
+        for k in ev.kernels:
+            if inner.get(k):
+                inner[k] -= 1
+            elif k.name != ev.name and k.name not in spans:
+                kernels.append((f"{span}|{k.name}" if span else k.name, 1,
+                                k.duration / 1e3))
+    fams = by_family(kernels)
+    model = sum(t for t, _ in fams.values())
+    if busy - model > 0.005 * busy:
+        fams[OUTSIDE_MODEL] = (busy - model, len(device) - len(kernels))
+    if busy == 0:
+        print(f"  {label}: the profiler recorded no device time (busy share "
+              "not measured)")
+        return None, {}
+    print(f"  [{power}] {label}: device busy {busy:.3f} ms of "
+          f"{untraced_ms:.3f} ms untraced (idle share "
+          f"{1 - busy / untraced_ms:.3f}); {len(device)} kernel launches")
+    for fam, (ms, n) in sorted(fams.items(), key=lambda x: -x[1][0]):
+        print(f"    {ms:9.3f} ms {100 * ms / busy:5.1f}% x{n:<5d} {fam}")
+    return busy, fams
+
+
+def moe_outside_parts(torch, tx, state, cfg, batch):
+    """CUDA-event ms of a train step's work outside the model, on one
+    batch's gradients: the optimizer's update (whole, and on the 4-D
+    expert leaves alone: the plain stage route), the clip's global norm,
+    and update_norm's snapshot and f32 differences. Writes the params."""
+    from repro_torch.core.types import global_norm
+    from repro_torch.models.model import flatten
+    from repro_torch.obs.stats import leaf_update_norms
+    from repro_torch.training import value_and_grad
+
+    def timed(fn):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b)
+
+    _, _, grads = value_and_grad(state.params, cfg, batch)
+    params = flatten(state.params)
+    four = {k: p for k, p in params.items() if p.ndim == 4}
+    one = torch.ones((), device="cuda")
+    out = {"clip norm": timed(lambda: global_norm(grads))}
+    sub_state = tx.init(four)
+    out["stage4d"] = timed(lambda: tx.update_params(
+        {k: grads[k] for k in four}, sub_state, four, grad_scale=one))
+    out["optimizer"] = timed(lambda: tx.update_params(
+        grads, state.opt_state, state.params, grad_scale=one))
+    del grads, sub_state
+
+    def book():
+        old = {k: p.clone() for k, p in params.items()}
+        norms = leaf_update_norms(params, old)
+        torch.linalg.vector_norm(torch.stack(list(norms.values())))
+    out["update_norm"] = timed(book)
+    return out
+
+
+def _step_counts(torch, step, state, batches):
+    """The main path: counts set to 0 just before it, read just after;
+    each step timed on the host clock between synchronisations. -> (state,
+    per-step launches, per-step routes, step seconds, metrics, peak)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_train_counts()
+    zero_route_counts()
+    per_step, per_route, secs, mets = [], [], [], []
+    for b in batches:
+        before, before_r = train_counts(), route_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        per_step.append({k: v - before[k] for k, v in train_counts().items()})
+        per_route.append({k: {r: n - before_r[k][r] for r, n in c.items()}
+                          for k, c in route_counts().items()})
+        mets.append({k: float(v) for k, v in m.items()})
+    return (state, per_step, per_route, secs, mets,
+            torch.cuda.max_memory_allocated())
+
+
+def _check_steps(per_step, per_route, want, want_r, what):
+    for i, (c, r) in enumerate(zip(per_step, per_route)):
+        if c != want:
+            raise AssertionError(f"{what} step {i} launched {c}, not {want}")
+        check_routes(r, want_r, f"{what} step {i}", show=False)
+    print(f"  {what}: every one of {len(per_step)} steps launched {want}, by "
+          f"route {want_r}")
+
+
+def train_moe(torch, seed, power):
+    """Phase 16 (i): dbrx-132b at full width, MOE_LAYERS layers."""
+    import dataclasses
+    import math
+    from unittest import mock
+    from repro_torch.configs import get_arch
+    from repro_torch.core import linear_warmup_cosine, make_optimizer
+    from repro_torch.data import make_dataset
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.attention.ref import mha_fwd_ref
+    from repro_torch.kernels.xent import ref as XR
+    from repro_torch.launch import train as launcher
+    from repro_torch.models import init_params
+    from repro_torch.models.layers import moe_groups
+    from repro_torch.models.model import count_params, param_shapes
+    from repro_torch.training import init_state, make_train_step
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks
+
+    # the launcher with --smoke, as a user tries the config first
+    argv = ["--arch", MOE_ARCH, "--smoke", "--optimizer", "scale_fused",
+            "--batch", "4", "--seq", "32", "--steps", "2", "--log-every", "1",
+            "--seed", str(seed)]
+    print(f"  python -m repro_torch.launch.train {' '.join(argv)}:")
+    final = launcher.main(argv)
+    if not math.isfinite(final):
+        raise AssertionError("the --smoke launcher's loss is not finite")
+
+    full = get_arch(MOE_ARCH)
+    cfg = dataclasses.replace(full, n_layers=MOE_LAYERS)
+    B, S = 16, 256
+    G, Tg, C = moe_groups(cfg, B * S)
+    shapes = param_shapes(cfg)
+    n_params = count_params(shapes)
+    n_4d = sum(math.prod(s) for s in shapes.values() if len(s) == 4)
+    print(f"  {MOE_ARCH}: {MOE_LAYERS} of {full.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} kv heads "
+          f"of {cfg.head_dim}, {cfg.n_experts} experts top-{cfg.top_k}, "
+          f"moe_d_ff {cfg.moe_d_ff}, vocab {cfg.vocab_size}; "
+          f"{n_params / 1e9:.3f} G params ({n_4d / 1e9:.3f} G in the 4-D "
+          f"expert leaves), {cfg.dtype}, remat {cfg.remat!r}; batch {B} x "
+          f"{S} from SyntheticLM (seed {seed}): {G} groups of {Tg} tokens, "
+          f"capacity {C} (cf {cfg.capacity_factor}); scale_fused, clip 1.0, "
+          f"linear_warmup_cosine(1e-3, {MOE_STEPS})")
+    if G < 2:
+        raise AssertionError("the dbrx batch must dispatch over groups")
+    ds = make_dataset(cfg, S, B, seed=seed, device="cuda")
+    batches = [ds.global_batch_at(i) for i in range(MOE_STEPS)]
+
+    def start():
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        tx = make_optimizer("scale_fused",
+                            linear_warmup_cosine(1e-3, MOE_STEPS))
+        return (init_state(init_params(cfg, gen, device="cuda"), tx),
+                make_train_step(cfg, tx, clip_norm=1.0), tx)
+
+    state, step, tx = start()
+    state, per_step, per_route, secs, mets, peak = _step_counts(
+        torch, step, state, batches)
+    launches = train_counts()
+    L = cfg.n_layers
+    # 6 matrices of two or three dims (tok_embed, wq, wk, wv, wo, router)
+    # and the head; the 4-D expert leaves take the plain stage route
+    want = {"mha_fwd": 2 * L, "mha_bwd_dq": L, "mha_bwd_dkv": L,
+            "xent_fwd": 1, "xent_bwd_dh": 1, "xent_bwd_dw": 1,
+            "norm_sumsq": 6, "update_apply": 7, "momentum_sumsq": 1,
+            "norm_apply": 0}
+    want_r = {"mha_fwd": {"mma": 2 * L},
+              **{k: {"mma": L} for k in BWD_KERNELS},
+              "xent_fwd": {"wgmma": 1}, "xent_bwd_dh": {"mma": 1},
+              "xent_bwd_dw": {"mma": 1}, "update_apply": {"vec": 7}}
+    _check_steps(per_step, per_route, want, want_r, f"{MOE_ARCH} train")
+    losses = [m["loss"] for m in mets]
+    auxs = [m["aux"] for m in mets]
+    step_s = min(secs[1:])
+    print(f"  [{power}] {MOE_ARCH} train step {step_s * 1e3:.3f} ms (best of "
+          f"steps 2-{MOE_STEPS}; {B * S / step_s:.0f} tokens/s; each "
+          f"{' '.join(f'{s * 1e3:.1f}' for s in secs)} ms); "
+          f"torch.cuda.max_memory_allocated over the {MOE_STEPS} steps "
+          f"{peak / 2**20:.1f} MiB of "
+          f"{torch.cuda.get_device_properties(0).total_memory / 2**20:.1f}")
+
+    def one():
+        nonlocal state
+        state, _ = step(state, batches[0])
+
+    busy, fams = moe_profile(torch, power, one, step_s * 1e3,
+                             f"{MOE_ARCH} train step")
+    parts = moe_outside_parts(torch, tx, state, cfg, batches[0])
+    print(f"  [{power}] {MOE_ARCH} outside the model, timed apart (CUDA "
+          f"events): the optimizer's update {parts['optimizer']:.3f} ms, of "
+          f"it the plain stage route on the 4-D expert leaves "
+          f"{parts['stage4d']:.3f} ms; the clip's global norm "
+          f"{parts['clip norm']:.3f} ms; update_norm's snapshot and f32 "
+          f"differences {parts['update_norm']:.3f} ms")
+    del state, step, tx
+    torch.cuda.empty_cache()
+
+    # the same steps with attention and xent through their plain versions,
+    # from the same seeded weights
+    state, step, _ = start()
+    with mock.patch.multiple(dispatch, mha_fwd=mha_fwd_ref,
+                             xent_fwd=XR.xent_fwd_ref,
+                             xent_bwd_dh=XR.xent_bwd_dh_ref,
+                             xent_bwd_dw=XR.xent_bwd_dw_ref):
+        ref = []
+        for b in batches:
+            state, m = step(state, b)
+            ref.append((float(m["loss"]), float(m["aux"])))
+    del state, step
+    torch.cuda.empty_cache()
+    gap = max(max(abs(a - r[0]), abs(x - r[1]))
+              for a, x, r in zip(losses, auxs, ref))
+    print(f"  {MOE_ARCH} loss (with 0.01 aux) over {MOE_STEPS} steps: "
+          f"{' '.join(f'{x:.5f}' for x in losses)}; aux "
+          f"{' '.join(f'{x:.5f}' for x in auxs)}")
+    print(f"  plain attention and xent: loss "
+          f"{' '.join(f'{r[0]:.5f}' for r in ref)}; aux "
+          f"{' '.join(f'{r[1]:.5f}' for r in ref)} (max |diff| {gap:.2e}, "
+          f"tol {LOSS_CURVE_ATOL:g})")
+    if not (all(map(math.isfinite, losses + auxs)) and gap <= LOSS_CURVE_ATOL):
+        raise AssertionError(f"{MOE_ARCH}: the loss or aux is not finite, or "
+                             "leaves the plain versions' curve")
+    return {"cfg": cfg, "launches": launches, "per_step": per_step[0],
+            "routes": per_route[0], "step_ms": step_s * 1e3,
+            "tokens_per_s": B * S / step_s, "busy_ms": busy,
+            "idle_share": None if busy is None else 1 - busy / (step_s * 1e3),
+            "peak_mib": peak / 2**20, "losses": losses, "aux": auxs,
+            "ref": ref, "loss_gap": gap,
+            "device_ms_by_family": {f: ms for f, (ms, _) in fams.items()},
+            "outside_ms": parts}
+
+
+def serve_moe(torch, seed, power, cfg):
+    """Phase 16 (ii): dbrx serving at full width, from the training
+    phase's seeded weights: batch, prompt and new tokens of SERVE_MOE.
+
+    At cf = E/k no (token, choice) pair is dropped, so decode computes
+    what a full forward does. f32 (the same seeded weights, the bf16 run's
+    tokens): the last decode logits against a full forward over the same
+    tokens within SERVE_ATOL/RTOL. bf16: the same comparison held to
+    SERVE_BF16_FLOOR_X times its floors, the same comparison with
+    attention through its plain version and on the dense twin (reasons at
+    the constant), with the tokens each path routes apart (MoE routing is
+    discrete: a rounding apart near a tie moves a token to another expert,
+    and through attention every later token feels it). Prefill and decode
+    ms, launches by route and one decode step's device time at both
+    capacity factors; at the config's cf 1.25 the share of the decode
+    steps' pairs dropped."""
+    import dataclasses
+    from unittest import mock
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.attention.attention import mha_fwd
+    from repro_torch.kernels.attention.ref import mha_fwd_ref
+    from repro_torch.models import forward, init_params, logits_from_hidden
+    from repro_torch.training import make_decode_step, make_prefill_step
+    B, P, N = SERVE_MOE
+    L = cfg.n_layers
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = init_params(cfg, gen, device="cuda")
+    prompt = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    no_drop = dataclasses.replace(cfg,
+                                  capacity_factor=cfg.n_experts / cfg.top_k)
+
+    def run(c, p, tokens=None):
+        """prefill + N - 1 decode steps (greedy, or fed ``tokens``) ->
+        (tokens fed, last logits, routing taps)."""
+        prefill, decode = make_prefill_step(c, max_seq=P + N), \
+            make_decode_step(c)
+        taps = []
+        with moe_tap(torch, taps):
+            state, logits = prefill(p, prompt)
+            toks = []
+            for i in range(N - 1):
+                toks.append(logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+                            if tokens is None else tokens[:, i:i + 1])
+                state, logits = decode(p, state, toks[-1])
+        return torch.cat(toks, dim=1), logits[:, -1].float(), taps
+
+    def against_full(c, p, toks, last, taps):
+        """(max err, within SERVE tolerances, argmax agreement, tokens
+        routed apart per layer, max |ref|) of the last decode logits
+        against a full forward over the prompt and ``toks``."""
+        seq = torch.cat([prompt, toks], dim=1)
+        full = []
+        with torch.no_grad(), moe_tap(torch, full):
+            h, _, _ = forward(p, c, seq)
+        ref = logits_from_hidden(p, c, h[:, -1:])[:, -1].float()
+        got, ref = last[:, :c.vocab_size], ref[:, :c.vocab_size]
+        err = (got - ref).abs()
+        ok = bool((err <= SERVE_ATOL + SERVE_RTOL * ref.abs()).all()) and \
+            bool(torch.isfinite(got).all())
+        inc = [torch.cat([t[0] for t in taps[l::L]], dim=1)
+               for l in range(len(full))]
+        apart = [int((a != f[0]).any(-1).sum()) for a, f in zip(inc, full)]
+        agree = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
+        return err.max().item(), ok, agree, apart, ref.abs().max().item()
+
+    out = {}
+    for c in (no_drop, cfg):
+        tag = f"cf {c.capacity_factor:g}"
+        prefill, decode = make_prefill_step(c, max_seq=P + N), \
+            make_decode_step(c)
+        prefill(params, prompt)  # warm-up, not counted
+        torch.cuda.synchronize()
+        # the main path: counts set to 0 just before it, read just after
+        zero_route_counts()
+        mha_fwd.launches = 0
+        t0 = time.perf_counter()
+        state, logits = prefill(params, prompt)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(N - 1):
+            tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+            state, logits = decode(params, state, tok)
+        end.record()
+        torch.cuda.synchronize()
+        decode_ms = start.elapsed_time(end) / (N - 1)
+        routes = route_counts()["mha_fwd"]
+        launches = mha_fwd.launches
+        check_routes({"mha_fwd": routes}, {"mha_fwd": {
+            "mma": L, "decode": (N - 1) * L}}, f"{MOE_ARCH} serving {tag}")
+        # the same run with its routing recorded: drops, and the tokens
+        # the decode path and a full forward route apart
+        toks, last, taps = run(c, params)
+        if not torch.equal(last, logits[:, -1].float()):
+            raise AssertionError(f"{MOE_ARCH} serving {tag}: a rerun of the "
+                                 "decode steps differs")
+        dec = taps[L:]
+        kept, pairs = sum(t[1] for t in dec), sum(t[2] for t in dec)
+        err, ok, agree, apart, top = against_full(c, params, toks, last,
+                                                  taps)
+        print(f"  [{power}] {MOE_ARCH} serving {tag}, batch {B}, prompt {P}, "
+              f"{N} new tokens: prefill {prefill_s * 1e3:.3f} ms "
+              f"({B * P / prefill_s:.0f} prompt tokens/s), decode "
+              f"{decode_ms:.3f} ms/step ({B * 1e3 / decode_ms:.1f} tokens/s);"
+              f" mha_fwd {launches} launches {routes}; dropped "
+              f"{pairs - kept} of {pairs} decode (token, choice) pairs "
+              f"({(pairs - kept) / pairs:.3f}); bf16 last decode logits vs "
+              f"full forward over {P + N - 1} tokens: max err {err:.3e}, "
+              f"|ref| max {top:.3f}, argmax agreement {agree:.3f}, "
+              f"tokens routed apart per layer {apart} of {B * (P + N - 1)}")
+        if c is no_drop and kept != pairs:
+            raise AssertionError(f"{MOE_ARCH} serving {tag}: a pair was "
+                                 "dropped at cf = E/k")
+        state, _ = prefill(params, prompt)
+        busy, _ = moe_profile(
+            torch, power, lambda: decode(params, state, toks[:, :1]),
+            decode_ms, f"{MOE_ARCH} decode step {tag}", serving=True)
+        out[tag] = {"launches": launches, "routes": routes,
+                    "prefill_ms": prefill_s * 1e3, "decode_ms": decode_ms,
+                    "decode_busy_ms": busy,
+                    "dropped_share": (pairs - kept) / pairs,
+                    "bf16_max_err": err, "bf16_argmax_agreement": agree,
+                    "bf16_routed_apart": apart}
+        if c is no_drop:
+            no_drop_toks, bf16_err, bf16_ok = toks, err, ok
+        del state
+
+    # bf16 at cf = E/k: the kernel route's error against its floors
+    floors = {}
+    with mock.patch.object(dispatch, "mha_fwd", mha_fwd_ref):
+        floors["plain attention"] = against_full(
+            no_drop, params, *run(no_drop, params, no_drop_toks))[0]
+    del params
+    torch.cuda.empty_cache()
+    twin = dataclasses.replace(no_drop, family="dense",
+                               d_ff=no_drop.moe_d_ff)
+    p_twin = init_params(twin, torch.Generator(device="cuda").manual_seed(
+        seed), device="cuda")
+    floors["dense twin"] = against_full(twin, p_twin,
+                                        *run(twin, p_twin, no_drop_toks))[0]
+    del p_twin
+    torch.cuda.empty_cache()
+    bound = SERVE_BF16_FLOOR_X * min(floors.values())
+    print(f"  {MOE_ARCH} serving cf {no_drop.capacity_factor:g}, bf16: last "
+          f"decode logits vs full forward max err {bf16_err:.3e}; floors: "
+          f"attention through its plain version {floors['plain attention']:.3e}"
+          f", the dense twin (d_ff {twin.d_ff}, kernels) "
+          f"{floors['dense twin']:.3e}; bound {SERVE_BF16_FLOOR_X:g} x "
+          f"{min(floors.values()):.3e} = {bound:.3e}; within SERVE_ATOL/RTOL "
+          f"(set on llama-130m): {bf16_ok}")
+    if not bf16_err <= bound:
+        raise AssertionError(f"{MOE_ARCH} serving: bf16 decode leaves the "
+                             "full forward by more than its floors allow")
+    out["bf16_floors"] = floors
+    out["bf16_bound"] = bound
+    # f32: decode against the full forward, on the bf16 run's tokens
+    c32 = dataclasses.replace(no_drop, dtype="float32")
+    p32 = init_params(c32, torch.Generator(device="cuda").manual_seed(seed),
+                      device="cuda")
+    toks, last, taps = run(c32, p32, no_drop_toks)
+    err, ok, agree, apart, top = against_full(c32, p32, toks, last, taps)
+    print(f"  {MOE_ARCH} serving cf {c32.capacity_factor:g}, f32: last decode "
+          f"logits vs full forward max err {err:.3e} (tol {SERVE_ATOL:g} + "
+          f"{SERVE_RTOL:g}|ref|), |ref| max {top:.3f}, argmax agreement "
+          f"{agree:.3f}, tokens "
+          f"routed apart per layer {apart}")
+    if not ok:
+        raise AssertionError(f"{MOE_ARCH} serving: f32 decode disagrees with "
+                             "the full forward")
+    out["f32_max_err"] = err
+    out["f32_routed_apart"] = apart
+    del p32
+    torch.cuda.empty_cache()
+    out["launches"] = sum(out[k]["launches"] for k in out
+                          if k.startswith("cf "))
+    return out
+
+
+def train_arch(torch, seed, power, arch):
+    """Phase 16 (iii): one dense ARCH_IDS config at full width and
+    ARCH_LAYERS layers: ARCH_STEPS steps of the main path, their losses
+    against the same steps with attention and xent through their plain
+    versions, from the same seeded weights."""
+    import dataclasses
+    import math
+    from unittest import mock
+    from repro_torch.configs import get_arch
+    from repro_torch.core import linear_warmup_cosine, make_optimizer
+    from repro_torch.data import make_dataset
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.attention.ref import mha_fwd_ref
+    from repro_torch.kernels.xent import ref as XR
+    from repro_torch.models import init_params
+    from repro_torch.models.model import count_params, param_shapes
+    from repro_torch.training import init_state, make_train_step
+    full = get_arch(arch)
+    cfg = dataclasses.replace(full, n_layers=ARCH_LAYERS)
+    B, S = 16, 256
+    ds = make_dataset(cfg, S, B, seed=seed, device="cuda")
+    batches = [ds.global_batch_at(i) for i in range(ARCH_STEPS)]
+
+    def start():
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        tx = make_optimizer("scale_fused",
+                            linear_warmup_cosine(1e-3, ARCH_STEPS))
+        return (init_state(init_params(cfg, gen, device="cuda"), tx),
+                make_train_step(cfg, tx, clip_norm=1.0))
+
+    state, step = start()
+    state, per_step, per_route, secs, mets, peak = _step_counts(
+        torch, step, state, batches)
+    launches = train_counts()
+    del state, step
+    torch.cuda.empty_cache()
+    state, step = start()
+    with mock.patch.multiple(dispatch, mha_fwd=mha_fwd_ref,
+                             xent_fwd=XR.xent_fwd_ref,
+                             xent_bwd_dh=XR.xent_bwd_dh_ref,
+                             xent_bwd_dw=XR.xent_bwd_dw_ref):
+        ref = []
+        for b in batches:
+            state, m = step(state, b)
+            ref.append(float(m["loss"]))
+    del state, step
+    torch.cuda.empty_cache()
+    L = cfg.n_layers
+    want_c = {"mha_fwd": 2 * L, "mha_bwd_dq": L, "mha_bwd_dkv": L,
+              "xent_fwd": 1, "xent_bwd_dh": 1, "xent_bwd_dw": 1,
+              "norm_sumsq": 8, "update_apply": 9, "momentum_sumsq": 1,
+              "norm_apply": 0}
+    want_r = {"mha_fwd": {"mma": 2 * L},
+              **{k: {"mma": L} for k in BWD_KERNELS},
+              "xent_fwd": {"wgmma": 1}, "xent_bwd_dh": {"mma": 1},
+              "xent_bwd_dw": {"mma": 1}, "update_apply": {"vec": 9}}
+    losses = [m["loss"] for m in mets]
+    gap = max(abs(a - r) for a, r in zip(losses, ref))
+    print(f"  [{power}] {arch}: {L} of {full.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} of "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size} (padded "
+          f"{cfg.padded_vocab}), qkv_bias {cfg.qkv_bias}, rope_theta "
+          f"{cfg.rope_theta:g}; {count_params(param_shapes(cfg)) / 1e9:.3f} G "
+          f"params: train step {secs[-1] * 1e3:.3f} ms (step {ARCH_STEPS} of "
+          f"{ARCH_STEPS}; {B * S / secs[-1]:.0f} tokens/s), losses "
+          f"{' '.join(f'{x:.5f}' for x in losses)}, plain attention and xent "
+          f"{' '.join(f'{x:.5f}' for x in ref)} (max |diff| {gap:.2e}, tol "
+          f"{LOSS_CURVE_ATOL:g}), peak {peak / 2**20:.1f} MiB")
+    _check_steps(per_step, per_route, want_c, want_r, f"{arch} train")
+    if not (all(map(math.isfinite, losses)) and gap <= LOSS_CURVE_ATOL):
+        raise AssertionError(f"{arch}: the loss is not finite or leaves the "
+                             "plain versions' curve")
+    return {"launches": launches, "per_step": per_step[0],
+            "routes": per_route[0], "step_ms": secs[-1] * 1e3,
+            "tokens_per_s": B * S / secs[-1], "peak_mib": peak / 2**20,
+            "losses": losses, "plain_losses": ref, "loss_gap": gap}
+
+
+def phase_moe(torch, seed, power):
+    """Phase 16: dbrx-132b training and serving at full width, and the
+    four dense ARCH_IDS configs at full width and ARCH_LAYERS layers."""
+    t0 = time.perf_counter()
+    train = train_moe(torch, seed, power)
+    serve = serve_moe(torch, seed, power, train.pop("cfg"))
+    arch = {a: train_arch(torch, seed, power, a) for a in ARCH_DENSE}
+    launches = {}
+    for r in arch.values():
+        for k, n in r["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    print(f"  phase 16 took {time.perf_counter() - t0:.1f} s")
+    return {"train": train, "serve": serve, "arch": arch,
+            "arch_launches": launches}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5499,6 +6219,10 @@ def main() -> int:
     print("phase 15: sharded training: the col_offset clause at llama-1b's "
           "head, two ranks on the card, the sharded train step")
     sharded = phase_sharded(torch, gen, args.seed, power, train)
+    print("phase 16: the MoE family and the ARCH_IDS configs: dbrx-132b "
+          "training and serving at full width, the four dense configs at "
+          "full width")
+    moe = phase_moe(torch, args.seed, power)
     # one row per kernel; launches summed over the main paths that run it,
     # each counted from 0 just before its path and read just after
     by_path = {"serving": {"mha_fwd": serve["launches"]},
@@ -5525,7 +6249,12 @@ def main() -> int:
                # two ranks on the card and the (1, 1) mesh's train step;
                # the col_offset rows count the launches at a non-zero
                # col_offset (rank 1's shard)
-               "sharded": sharded["launches"]}
+               "sharded": sharded["launches"],
+               # dbrx-132b's training, its serving (both capacity factors)
+               # and the four dense ARCH_IDS configs' training
+               "train moe": moe["train"]["launches"],
+               "serve moe": {"mha_fwd": moe["serve"]["launches"]},
+               "train arch": moe["arch_launches"]}
     # mha_fwd's prefill numbers, with both serving shapes and the eval and
     # training steps' shape beside them
     mha = {k: v for k, v in mha_rows[0].items() if k != "shape"}
@@ -5560,7 +6289,10 @@ def main() -> int:
         row["launches_per_train_step_by_model"] = {
             a: {"launches": r["per_step"].get(row["name"]),
                 "by_route": r["routes"].get(row["name"])}
-            for a, r in (("llama-1b", train), *paper.items())}
+            for a, r in (("llama-1b", train), *paper.items(),
+                         (f"{MOE_ARCH} {MOE_LAYERS} layers", moe["train"]),
+                         *((f"{a} {ARCH_LAYERS} layers", r)
+                           for a, r in moe["arch"].items()))}
         if row["name"] in SEG_ROWS.values():
             base = row["name"].split()[0]
             row["launches_per_train_step_by_model"] = {

@@ -1,10 +1,16 @@
-"""Architecture registry: the paper's LLaMA sizes and its Appendix F extras.
+"""Architecture registry: ``--arch <id>`` selection, the paper's LLaMA
+sizes and its Appendix F extras (the port of ``repro.configs.registry``).
 
-A copy of the dense part of ``repro.configs.registry``. The architectures
-of ``ARCH_IDS`` (MoE, MLA, SSM, VLM, audio and the large dense
-configurations) are not ported yet and raise a ``KeyError`` saying so.
+The ported ``ARCH_IDS`` configurations live one module each beside this
+one, with their reduced ``SMOKE`` twins, field by field the JAX
+package's: the four large dense models and the MoE dbrx-132b. The other
+five (SSM, VLM, MLA, hybrid and audio) are not ported yet and raise a
+``KeyError`` saying so (ROADMAP.md Queue 1 item 13).
 """
 from __future__ import annotations
+
+import dataclasses
+import importlib
 
 from repro_torch.models.config import ModelConfig
 
@@ -20,6 +26,15 @@ ARCH_IDS = (
     "jamba-1.5-large-398b",
     "musicgen-medium",
 )
+
+# the ported ARCH_IDS: id -> module of this package holding CONFIG and SMOKE
+_MODULES = {
+    "deepseek-67b": "deepseek_67b",
+    "qwen2-7b": "qwen2_7b",
+    "granite-3-8b": "granite_3_8b",
+    "mistral-large-123b": "mistral_large_123b",
+    "dbrx-132b": "dbrx_132b",
+}
 
 # Appendix F extra architectures (paper Table 9/10): GPT2-Medium (learned
 # positions + GELU MLP), Qwen2-500M (GQA + QKV bias), Gemma-2B (wide-ff GQA).
@@ -45,7 +60,14 @@ LLAMA_PAPER = {
 }
 
 
-def get_arch(arch_id: str) -> ModelConfig:
+def get_arch(arch_id: str, smoke: bool = False) -> ModelConfig:
+    """A fresh copy of ``arch_id``'s config; ``smoke`` takes the reduced
+    twin of an ``ARCH_IDS`` config (the LLaMA and Appendix F sizes have
+    none, and ignore it, as in JAX)."""
+    if arch_id in _MODULES:
+        mod = importlib.import_module(
+            f"repro_torch.configs.{_MODULES[arch_id]}")
+        return dataclasses.replace(mod.SMOKE if smoke else mod.CONFIG)
     if arch_id in LLAMA_PAPER:
         kw = LLAMA_PAPER[arch_id]
         return ModelConfig(name=arch_id, family="dense", vocab_size=32000,
@@ -53,7 +75,8 @@ def get_arch(arch_id: str) -> ModelConfig:
     if arch_id in PAPER_EXTRA:
         return ModelConfig(name=arch_id, family="dense", **PAPER_EXTRA[arch_id])
     if arch_id in ARCH_IDS:
-        raise KeyError(f"arch {arch_id!r} is not yet ported to repro_torch; "
-                       f"ported: {tuple(LLAMA_PAPER) + tuple(PAPER_EXTRA)}")
+        ported = tuple(_MODULES) + tuple(LLAMA_PAPER) + tuple(PAPER_EXTRA)
+        raise KeyError(f"arch {arch_id!r} is not yet ported to repro_torch "
+                       f"(ROADMAP.md Queue 1 item 13); ported: {ported}")
     raise KeyError(f"unknown arch {arch_id!r}; options: "
                    f"{ARCH_IDS + tuple(LLAMA_PAPER) + tuple(PAPER_EXTRA)}")

@@ -74,8 +74,11 @@ warns and disables the window. The port has no kernel fallback
 (ROADMAP.md reference caveat 9): records carry no ``fallbacks`` deltas
 and ``run_end`` has ``fallbacks: null``.
 
-The reduced smoke configs (``--smoke``) are not ported (ROADMAP.md
-Queue 1 item 13).
+``--arch`` takes the paper's LLaMA sizes, its Appendix F extras and the
+ported ``ARCH_IDS`` configurations (qwen2-7b, granite-3-8b, deepseek-67b,
+mistral-large-123b and the MoE dbrx-132b); ``--smoke`` takes an
+``ARCH_IDS`` configuration's reduced twin (2 layers, narrow, f32), which
+runs on the CPU too.
 
 ``--optimizer`` takes any name of ``repro_torch.core.OPTIMIZER_NAMES``,
 the JAX registry's 20: SCALE (``scale``, ``scale_fused``, ``adapm``) and
@@ -97,6 +100,8 @@ Examples (llama-1b on the card, the paper's largest Table-1 model):
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama-1b \\
       --optimizer scale_fused --steps 200 --log-dir /path/to/run0 \\
       --metrics-every 10 --stats-every 50 --profile-steps 20:21
+  PYTHONPATH=src python -m repro_torch.launch.train --arch dbrx-132b \\
+      --smoke --device cpu --steps 8 --batch 4 --seq 32 --log-every 1
 """
 from __future__ import annotations
 
@@ -133,7 +138,7 @@ def build(args, lr_scale: float = 1.0):
     optimizer whose factory takes ``rules`` (SCALE would raise without
     them: a tied tree has no lm_head to carry the momentum); the others
     treat every matrix alike and get nothing, as in JAX."""
-    cfg = get_arch(args.arch)
+    cfg = get_arch(args.arch, smoke=args.smoke)
     if args.dtype:
         cfg.dtype = args.dtype
     if args.tie_embeddings:
@@ -150,6 +155,8 @@ def build(args, lr_scale: float = 1.0):
 def main(argv=None) -> float:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama-130m")
+    ap.add_argument("--smoke", action="store_true",
+                    help="use the reduced smoke config for --arch")
     ap.add_argument("--optimizer", default="scale")
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--steps", type=int, default=100)

@@ -2,7 +2,7 @@
 
 Every field and default is the JAX package's, so a configuration moves
 between the two packages field by field. ``torch_dtype`` takes the place of
-``jdtype``. Only the dense family runs in the port so far; the other
+``jdtype``. The dense and MoE families run in the port so far; the other
 families' fields are kept so that the registry and the derived properties
 mean the same in both packages.
 """
@@ -136,3 +136,10 @@ class ModelConfig:
         """Analytic parameter count."""
         from . import model  # lazy, avoids a cycle
         return model.count_params(model.param_shapes(self))
+
+    def active_params(self) -> int:
+        """Parameters a token passes through: each expert leaf counts
+        ``top_k / n_experts`` of its size."""
+        from . import model
+        return model.count_params(model.param_shapes(self), cfg=self,
+                                  active_only=True)

@@ -1,10 +1,12 @@
-"""Model building blocks (dense subset of ``repro.models.layers``).
+"""Model building blocks (the dense and MoE subset of
+``repro.models.layers``).
 
 Every module exposes ``<mod>_spec(cfg) -> {name: Spec}`` (shapes and
 initializers) and ``apply_<mod>(p, cfg, ...)`` (forward). Parameters keep
 the JAX package's names and layouts, so ``x @ p["wq"]`` multiplies by a
 (D, H*hd) matrix here as there. Attention goes through
-``kernels.dispatch.flash_attention``.
+``kernels.dispatch.flash_attention``; the MoE layer's products are the
+JAX package's einsums, which it computes outside any Pallas kernel too.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from repro_torch.kernels import dispatch
 
@@ -23,7 +26,7 @@ from .sharding import Rules
 class Spec(NamedTuple):
     shape: tuple
     axes: tuple           # logical axis names (len == ndim; models.sharding)
-    init: str = "normal"  # normal | zeros | ones
+    init: str = "normal"  # normal | zeros | ones | small (the router)
 
 
 # ---------------------------------------------------------------- norms/rope
@@ -174,3 +177,116 @@ def apply_mlp(p, cfg: ModelConfig, x):
     else:
         h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
     return h @ p["w_down"]
+
+
+# ---------------------------------------------------------------------- MoE
+
+def moe_spec(cfg: ModelConfig) -> dict:
+    D, Fd, E = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
+    s = {
+        "router": Spec((D, E), ("embed", None), "small"),
+        "w_gate": Spec((E, D, Fd), ("experts", "embed", "expert_mlp")),
+        "w_up": Spec((E, D, Fd), ("experts", "embed", "expert_mlp")),
+        "w_down": Spec((E, Fd, D), ("experts", "expert_mlp", "embed")),
+    }
+    if cfg.n_shared_experts:
+        Fs = Fd * cfg.n_shared_experts
+        s["shared_gate"] = Spec((D, Fs), ("embed", "mlp"))
+        s["shared_up"] = Spec((D, Fs), ("embed", "mlp"))
+        s["shared_down"] = Spec((Fs, D), ("mlp", "embed"))
+    return s
+
+
+def moe_groups(cfg: ModelConfig, T: int) -> tuple:
+    """(G, Tg, C) of ``T`` tokens: G groups of Tg (the largest G <= T //
+    moe_group_size that divides T, at least 1) and each expert's capacity
+    C per group, in JAX's Python arithmetic."""
+    G = max(1, T // cfg.moe_group_size)
+    while T % G:
+        G -= 1
+    Tg = T // G
+    C = max(1, int(cfg.capacity_factor * Tg * cfg.top_k / cfg.n_experts))
+    return G, Tg, min(C, Tg)
+
+
+def top_k(x: torch.Tensor, k: int):
+    """``jax.lax.top_k`` over the last dim: the k largest, ties to the lower
+    index (a stable descending sort; ``torch.topk`` promises no order among
+    ties, and bf16 router logits tie often at init)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_route(p, cfg: ModelConfig, xg):
+    """The routing of ``xg`` (G, Tg, D) -> (probs, top_w, top_i, pos, keep):
+    the f32 router softmax (G, Tg, E), the normalised top-k weights and
+    experts (G, Tg, k), each (token, choice) pair's slot in its expert's
+    capacity and whether that slot is below C. The router logits are cast
+    to f32 after their product, and the slots count token-major and
+    choice-minor, as in JAX."""
+    E, k = cfg.n_experts, cfg.top_k
+    G, Tg, _ = xg.shape
+    C = moe_groups(cfg, G * Tg)[2]
+    probs = torch.softmax((xg @ p["router"]).float(), -1)
+    top_w, top_i = top_k(probs, k)                            # (G, Tg, k)
+    top_w = top_w / top_w.sum(-1, keepdim=True)
+    oh = F.one_hot(top_i, E).reshape(G, Tg * k, E)
+    pos = ((oh.cumsum(1) - 1) * oh).sum(-1).reshape(G, Tg, k)
+    return probs, top_w, top_i, pos, pos < C
+
+
+def apply_moe(p, cfg: ModelConfig, x):
+    """Capacity-based token-dropping MoE with group-local dispatch
+    (GShard-style), JAX's ``apply_moe``. -> (y, aux).
+
+    The T tokens split into G groups (``moe_groups``); in each group every
+    (token, choice) pair takes the next slot of its expert's C, token-major
+    and choice-minor, and pairs past C are dropped (``moe_route``). One-hot
+    dispatch and combine einsums move the tokens to and from the (G, E, C,
+    D) expert buffers; the experts are SwiGLU; ``n_shared_experts`` adds a
+    dense SwiGLU every token takes. ``aux`` is the Switch load-balance loss
+    E * sum_e f_e * P_e (f32; f from the first choice only). The einsums
+    run in x's dtype, as in JAX. The profiler sees the parts as the spans
+    ``moe_router``, ``moe_dispatch``, ``moe_experts`` and ``moe_combine``.
+    """
+    B, S, D = x.shape
+    E = cfg.n_experts
+    T = B * S
+    G, Tg, C = moe_groups(cfg, T)
+    xg = x.reshape(G, Tg, D)
+
+    with record_function("moe_router"):
+        probs, top_w, top_i, pos, keep = moe_route(p, cfg, xg)
+        # load-balancing aux loss (Switch): E * sum_e f_e * P_e
+        me = F.one_hot(top_i[..., 0], E).float().mean((0, 1))
+        aux = E * (me * probs.mean((0, 1))).sum()
+
+    with record_function("moe_dispatch"):
+        # a dropped pair's slot C is one past the last class: an all-zero
+        # row, as jax.nn.one_hot gives it
+        keep_f = keep.to(x.dtype)
+        oh_c = F.one_hot(torch.where(keep, pos, C), C + 1)[..., :C].to(
+            x.dtype)
+        oh_e = F.one_hot(top_i, E).to(x.dtype)                # (G, t, k, E)
+        # the weighted combine mask, and the 0/1 dispatch mask
+        mask_c = torch.einsum("gtke,gtkc->gtec",
+                              oh_e * (top_w.to(x.dtype) * keep_f)[..., None],
+                              oh_c)
+        mask_d = torch.einsum("gtke,gtkc->gtec", oh_e * keep_f[..., None],
+                              oh_c)
+        xe = torch.einsum("gtec,gtd->gecd", mask_d, xg)       # (G, E, C, D)
+
+    with record_function("moe_experts"):
+        h = (F.silu(torch.einsum("gecd,edf->gecf", xe, p["w_gate"]))
+             * torch.einsum("gecd,edf->gecf", xe, p["w_up"]))
+        ye = torch.einsum("gecf,efd->gecd", h, p["w_down"])
+
+    with record_function("moe_combine"):
+        y = torch.einsum("gtec,gecd->gtd", mask_c, ye).reshape(T, D)
+
+    if cfg.n_shared_experts:
+        with record_function("moe_experts"):
+            xf = x.reshape(T, D)
+            hs = F.silu(xf @ p["shared_gate"]) * (xf @ p["shared_up"])
+            y = y + hs @ p["shared_down"]
+    return y.reshape(B, S, D), aux

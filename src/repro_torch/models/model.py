@@ -1,4 +1,5 @@
-"""Top-level model API: spec, init, caches, forward, logits, loss (dense).
+"""Top-level model API: spec, init, caches, forward, logits, loss (the
+dense and MoE families).
 
 Parameter tree layout, as in ``repro.models.model``::
 
@@ -89,8 +90,30 @@ def place_params(params, cfg: ModelConfig, mesh, rules: Rules = None):
                    for k, p in flatten(params).items()})
 
 
-def count_params(shapes: dict) -> int:
-    return int(sum(math.prod(s) for s in shapes.values()))
+def count_params(shapes: dict, cfg: ModelConfig = None,
+                 active_only: bool = False) -> int:
+    """Total parameters of a ``{path: shape}`` mapping; ``active_only``
+    (with an MoE ``cfg``): each expert leaf counts ``top_k / n_experts``
+    of its size, in JAX's integer arithmetic."""
+    if not active_only or cfg is None or not cfg.n_experts:
+        return int(sum(math.prod(s) for s in shapes.values()))
+    total = 0
+    for s in flatten(model_spec(cfg)).values():
+        n = math.prod(s.shape)
+        if "experts" in s.axes:
+            n = n * cfg.top_k // cfg.n_experts
+        total += n
+    return total
+
+
+def check_mesh(cfg: ModelConfig, mesh, what: str) -> None:
+    """Raise before any work where ``cfg`` has no sharded route on a mesh:
+    an MoE segment (expert parallelism over "model" is not ported; a
+    DTensor einsum would silently replicate the experts)."""
+    if mesh is not None and any(k == "moe" for k, _ in cfg.segments):
+        raise NotImplementedError(
+            f"{what}: sharded MoE (expert parallelism over 'model') is not "
+            "ported yet; ROADMAP.md Queue 1 item 12 (its leftovers)")
 
 
 class Params(nn.ModuleDict):
@@ -128,7 +151,8 @@ def _modules(tree: dict) -> dict:
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device=None) -> Params:
-    """Random params: normal(0, 0.02) matrices, ones for norms, zero biases.
+    """Random params: normal(0, 0.02) matrices (0.006 for the MoE router),
+    ones for norms, zero biases.
 
     The init rules are the JAX package's; the draws come from ``generator``
     (in path order, on the generator's device) and differ from
@@ -142,8 +166,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         elif spec.init == "zeros":
             x = torch.zeros(spec.shape)
         else:
-            x = 0.02 * torch.randn(spec.shape, generator=generator,
-                                   device=generator.device)
+            scale = 0.006 if spec.init == "small" else 0.02
+            x = scale * torch.randn(spec.shape, generator=generator,
+                                    device=generator.device)
         flat[path] = x.to(device=device, dtype=cfg.torch_dtype)
     return Params(flat)
 
@@ -184,8 +209,10 @@ def forward(params, cfg: ModelConfig, tokens, *, mode: str = "train",
     ``rules``, default ``Rules(cfg.rule_overrides)``): the activations
     are laid out per their logical axes (``sharding.shard``, as JAX's
     annotations), attention takes the shardings of its operands, and
-    plain tensors (positions, masks) count as replicated.
+    plain tensors (positions, masks) count as replicated. An MoE model
+    raises on a mesh (``check_mesh``).
     """
+    check_mesh(cfg, mesh, "forward")
     rules = rules or Rules(cfg.rule_overrides)
     with mesh_context(mesh):
         return _forward(params, cfg, tokens, mode, cache, cache_index,
@@ -208,17 +235,19 @@ def _forward(params, cfg, tokens, mode, cache, cache_index, positions,
         x = x + params["pos_embed"]["w"][positions]
 
     new_cache = {} if cache is not None else None
+    aux = torch.zeros((), device=x.device)
     for i, (kind, n) in enumerate(cfg.segments):
         name = f"seg{i}_{kind}"
         seg_cache = cache[name] if cache is not None else None
-        x, seg_cache = T.apply_segment(kind, n, cfg, params["segments"][name],
-                                       x, positions, mode, seg_cache,
-                                       cache_index, segment_ids, rules=rules,
-                                       mesh=mesh)
+        x, seg_cache, seg_aux = T.apply_segment(
+            kind, n, cfg, params["segments"][name], x, positions, mode,
+            seg_cache, cache_index, segment_ids, rules=rules, mesh=mesh)
         if new_cache is not None:
             new_cache[name] = seg_cache
+        if seg_aux is not None:
+            aux = aux + seg_aux
     x = L.rmsnorm(x, params["final_norm"]["s"], cfg.rms_eps)
-    return x, new_cache, torch.zeros((), device=x.device)
+    return x, new_cache, aux
 
 
 def head_weight(params, cfg: ModelConfig):

@@ -1,4 +1,5 @@
-"""Dense super-blocks and the loop over stacked layer params.
+"""Super-blocks (dense: self-attn + SwiGLU; moe: self-attn + MoE) and the
+loop over stacked layer params.
 
 The JAX package scans each segment of homogeneous super-blocks over params
 stacked on a leading (L, ...) axis; the port keeps that layout and loops in
@@ -13,6 +14,11 @@ does there: ``"full"`` saves nothing inside a super-block and recomputes
 its forward in the backward (``nothing_saveable``); ``"dots"`` saves the
 outputs of the 2-D matrix products and recomputes the rest
 (``dots_with_no_batch_dims_saveable``); ``"none"`` saves everything.
+
+The MoE load-balance loss (``aux``) is an output of each super-block, and
+so of each remat block: the recomputed forward routes the tokens as the
+first did. The segment sums its layers' ``aux``; a segment without an MoE
+sub-layer returns None for it.
 """
 from __future__ import annotations
 
@@ -27,30 +33,39 @@ from .config import ModelConfig
 from .sharding import shard
 
 
+_SPECS = {"attn": L.attn_spec, "mlp": L.mlp_spec, "moe": L.moe_spec}
+
+
 def _sub_spec(cfg: ModelConfig, sub: str) -> dict:
-    spec = L.attn_spec(cfg) if sub == "attn" else L.mlp_spec(cfg)
-    return {"norm": L.Spec((cfg.d_model,), ("norm",), "ones"), **spec}
+    return {"norm": L.Spec((cfg.d_model,), ("norm",), "ones"),
+            **_SPECS[sub](cfg)}
 
 
 def _apply_sub(sub: str, p, cfg: ModelConfig, x, positions, mode: str, cache,
                cache_index, segment_ids=None, rules=None, mesh=None):
-    """Pre-norm residual sub-layer (attn or mlp). Returns (x, new_cache)."""
+    """Pre-norm residual sub-layer (attn, mlp or moe). Returns (x,
+    new_cache, aux); aux is None but for moe."""
     h = L.rmsnorm(x, p["norm"], cfg.rms_eps)
+    aux = None
     if sub == "attn":
         y, cache = L.apply_attention(p, cfg, h, positions, mode, cache,
                                      cache_index, segment_ids, rules=rules,
                                      mesh=mesh)
+    elif sub == "moe":
+        y, aux = L.apply_moe(p, cfg, h)
     else:
         y = L.apply_mlp(p, cfg, h)
-    return x + y.to(x.dtype), cache
+    return x + y.to(x.dtype), cache, aux
 
 
 def superblock_layout(cfg: ModelConfig, kind: str) -> tuple:
     """Ordered (name, sub_kind) pairs of one super-block."""
     if kind == "dense":
         return (("attn", "attn"), ("ffn", "mlp"))
+    if kind == "moe":
+        return (("attn", "attn"), ("ffn", "moe"))
     raise NotImplementedError(f"super-block kind {kind!r} is not yet ported "
-                              "to repro_torch")
+                              "to repro_torch (ROADMAP.md Queue 1 item 13)")
 
 
 def superblock_spec(cfg: ModelConfig, kind: str) -> dict:
@@ -111,19 +126,24 @@ def _remat(cfg: ModelConfig, fn):
 def apply_superblock(kind: str, cfg: ModelConfig, params, x, positions,
                      mode: str, cache: Optional[dict], cache_index,
                      segment_ids=None, rules=None, mesh=None):
+    """-> (x, new_cache, aux): aux sums the MoE sub-layers' (None without
+    one)."""
     new_cache = dict(cache) if cache is not None else None
+    aux = None
     for name, sub in superblock_layout(cfg, kind):
         sub_cache = cache.get(name) if (cache is not None and sub == "attn") \
             else None
-        x, sub_cache = _apply_sub(sub, params[name], cfg, x, positions, mode,
-                                  sub_cache, cache_index, segment_ids,
-                                  rules=rules, mesh=mesh)
+        x, sub_cache, a = _apply_sub(sub, params[name], cfg, x, positions,
+                                     mode, sub_cache, cache_index,
+                                     segment_ids, rules=rules, mesh=mesh)
         if new_cache is not None and sub == "attn":
             new_cache[name] = sub_cache
+        if a is not None:
+            aux = a if aux is None else aux + a
     if rules is not None:
         # the residual carried between layers (JAX's scan carry)
         x = shard(x, ("act_batch", "act_seq", "act_residual"), rules, mesh)
-    return x, new_cache
+    return x, new_cache, aux
 
 
 def apply_segment(kind: str, n_blocks: int, cfg: ModelConfig, stacked, x,
@@ -131,31 +151,43 @@ def apply_segment(kind: str, n_blocks: int, cfg: ModelConfig, stacked, x,
                   rules=None, mesh=None):
     """Run ``n_blocks`` super-blocks over stacked params (and cache).
 
-    -> (x, new_cache). prefill returns the S-length caches stacked to
+    -> (x, new_cache, aux), aux the sum of the layers' (None for a segment
+    without MoE). prefill returns the S-length caches stacked to
     (L, B, S, K, hd); decode writes the stacked cache in place and returns
     it; train returns None. ``segment_ids`` (packed rows) is a tensor
     argument of each remat block, so a recomputed forward masks as the
     first did. ``rules`` and ``mesh``: see ``model.forward``.
     """
     layers = _unbind(stacked, n_blocks)
+    auxs = []
     if cache is None:
         block = functools.partial(apply_superblock, kind, cfg, rules=rules,
                                   mesh=mesh)
         if torch.is_grad_enabled():
             block = _remat(cfg, block)
         for p in layers:
-            x, _ = block(p, x, positions, mode, None, cache_index,
-                         segment_ids)
-        return x, None
+            x, _, aux = block(p, x, positions, mode, None, cache_index,
+                              segment_ids)
+            auxs.append(aux)
+        return x, None, _sum_aux(auxs)
     outs = []
     for l, p in enumerate(layers):
-        x, c = apply_superblock(kind, cfg, p, x, positions, mode,
-                                _layer(cache, l), cache_index, segment_ids,
-                                rules=rules, mesh=mesh)
+        x, c, aux = apply_superblock(kind, cfg, p, x, positions, mode,
+                                     _layer(cache, l), cache_index,
+                                     segment_ids, rules=rules, mesh=mesh)
         outs.append(c)
+        auxs.append(aux)
     if mode == "decode":
-        return x, cache
-    return x, _stack(outs)
+        return x, cache, _sum_aux(auxs)
+    return x, _stack(outs), _sum_aux(auxs)
+
+
+def _sum_aux(auxs: list):
+    """The layers' aux summed as JAX's ``jnp.sum`` over the scan's stack;
+    None when no layer has one."""
+    if auxs[0] is None:
+        return None
+    return torch.stack(auxs).sum()
 
 
 def _stack(trees: list):

@@ -10,8 +10,11 @@ named spans the trace groups work under (the port of
 :func:`trace_span` (``torch.profiler.record_function``), the names of the
 JAX package's ``jax.named_scope``s and ``TraceAnnotation``s: in the
 trainer ``fwd``, ``optimizer_update``, ``guard`` and ``obs_stats``; in the
-launcher ``data_wait``, ``train_step`` and ``checkpoint``. A span costs a
-few microseconds of host time when no window is open.
+launcher ``data_wait``, ``train_step`` and ``checkpoint``. The MoE layer
+(``models.layers.apply_moe``) names its parts ``moe_router``,
+``moe_dispatch``, ``moe_experts`` and ``moe_combine`` with
+``record_function`` itself (the models package loads before this one). A
+span costs a few microseconds of host time when no window is open.
 """
 from __future__ import annotations
 

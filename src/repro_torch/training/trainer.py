@@ -31,8 +31,9 @@ from repro_torch.core.pipeline import HostCount
 from repro_torch.core.types import (GradientTransformation, apply_updates,
                                     global_norm)
 from repro_torch.models import loss_fn
-from repro_torch.models.model import (Params, flatten, param_logical_axes,
-                                      param_shapes, unflatten)
+from repro_torch.models.model import (Params, check_mesh, flatten,
+                                      param_logical_axes, param_shapes,
+                                      unflatten)
 from repro_torch.models.sharding import (Rules, full_value, laid_out_as,
                                          mesh_context, shard_batch,
                                          tree_shardings)
@@ -162,11 +163,13 @@ def make_train_step(cfg, tx: GradientTransformation, grad_accum: int = 1,
       per ``rules`` (default ``Rules(cfg.rule_overrides)``), the step
       takes the global batch, and ``update_params`` gets every
       parameter's sharding (``tree_shardings``). The global norm is the
-      norm over the full gradients.
+      norm over the full gradients. An MoE model raises here, before any
+      work (``models.model.check_mesh``).
 
     ``donate`` has no counterpart: ``update_params`` already writes the
     parameters and the momentum in place.
     """
+    check_mesh(cfg, mesh, "make_train_step")
     rules = rules or Rules(cfg.rule_overrides)
     acc_dt = torch.float32 if accum_dtype == "float32" else torch.bfloat16
     if fused_apply is None:
@@ -325,6 +328,7 @@ def make_eval_step(cfg, rules: Optional[Rules] = None, mesh=None):
     """eval_step(params, batch) -> {"loss", "perplexity"} (0-d f32 tensors
     on the batch's device), run under ``torch.no_grad()``. ``mesh``: as
     ``make_train_step``'s (the global batch laid out per the rules)."""
+    check_mesh(cfg, mesh, "make_eval_step")
     rules = rules or Rules(cfg.rule_overrides)
 
     @torch.no_grad()

@@ -141,6 +141,20 @@ GPU_CASES = {
     "kvlen300_s16": (8, 16, 576, 12, 12, 64, False, 300),
     "kvlen0_s16": (8, 16, 576, 12, 12, 64, False, 0),
     "noncausal_100x300": (8, 100, 300, 12, 12, 64, False, None),
+    # the GQA layouts of dbrx-132b (48 heads over 8) and mistral-large-123b
+    # (96 over 8) at hd 128, their training shape (phase 16)
+    "train_dbrx_gqa48x8_hd128": (16, 256, 256, 48, 8, 128, True, None),
+    "train_mistral_gqa96x8_hd128": (16, 256, 256, 96, 8, 128, True, None),
+    # and of qwen2-7b (28 over 4) and deepseek-67b (64 over 8)
+    "train_qwen2_gqa28x4_hd128": (16, 256, 256, 28, 4, 128, True, None),
+    "train_deepseek67b_gqa64x8_hd128": (16, 256, 256, 64, 8, 128, True,
+                                        None),
+    # phase 16's decode steps (batch 4, a cache of 256 + 32): the first and
+    # the last step's kv_len, at 48 and 96 heads over 8 of 128
+    "decode_dbrx_gqa48x8_kl256": (4, 1, 288, 48, 8, 128, False, 256),
+    "decode_dbrx_gqa48x8_kl287": (4, 1, 288, 48, 8, 128, False, 287),
+    "decode_gqa96x8_hd128_kl256": (4, 1, 288, 96, 8, 128, False, 256),
+    "decode_gqa96x8_hd128_kl287": (4, 1, 288, 96, 8, 128, False, 287),
 }
 
 
@@ -590,6 +604,14 @@ XENT_CASES = {
     "llama7b_d4096": (4096, 4096, 32000, 32000, 0.0),
     "d4100_ragged_slab": (300, 4100, 1000, 1000, 0.2),
     "gemma2b_v256000": (4096, 2048, 256000, 256000, 0.05),
+    # dbrx-132b's head (D 6144, V 100352) and granite-3-8b's padded
+    # vocabulary (49155 of 49280 columns), at phase 16's 16 x 256 tokens
+    "dbrx_head": (4096, 6144, 100352, 100352, 0.0),
+    "granite_padvocab": (4096, 4096, 49280, 49155, 0.05),
+    # and the heads of qwen2-7b, deepseek-67b and mistral-large-123b
+    "qwen2_head": (4096, 3584, 152064, 152064, 0.0),
+    "deepseek67b_head": (4096, 8192, 102400, 102400, 0.0),
+    "mistral_large_head": (4096, 12288, 32768, 32768, 0.0),
 }
 
 
@@ -932,6 +954,13 @@ BWD_CASES = {
     "hd256": (2, 512, 512, 8, 1, 256, True, None),
     "hd256_kvlen300": (2, 16, 576, 8, 1, 256, False, 300),
     "hd256_rect_causal_64x576": (2, 64, 576, 8, 1, 256, True, None),
+    # dbrx-132b's, mistral-large-123b's, qwen2-7b's and deepseek-67b's GQA
+    # at hd 128 (phase 16)
+    "train_dbrx_gqa48x8_hd128": (16, 256, 256, 48, 8, 128, True, None),
+    "train_mistral_gqa96x8_hd128": (16, 256, 256, 96, 8, 128, True, None),
+    "train_qwen2_gqa28x4_hd128": (16, 256, 256, 28, 4, 128, True, None),
+    "train_deepseek67b_gqa64x8_hd128": (16, 256, 256, 64, 8, 128, True,
+                                        None),
 }
 
 
@@ -1760,3 +1789,52 @@ def test_sharded_xent_loss_on_card(cuda, world1):
     with pytest.raises(NotImplementedError, match="no kernel plan"):
         dispatch.xent_loss(hd, wd, labels, vocab_size=vs,
                            h_sharding=h_sh._replace(spec=P("model")))
+
+
+# apply_moe on the card, f32, against the same call on CPU tensors: the
+# router's inputs are dyadic (small integers over powers of two), so its
+# logits are exact on both devices and both route every (token, choice)
+# alike; the rest are f32 products summed in other orders (cuBLAS against
+# the CPU's BLAS, TF32 off): 1e-5 absolute + 1e-5 relative on unit-scale
+# outputs, and 1e-5 of each gradient's largest |value|.
+MOE_CASES = {
+    # (B, S, D, E, k, F, capacity_factor, moe_group_size, n_shared)
+    "dbrx_like_two_groups": (4, 64, 64, 16, 4, 96, 1.25, 128, 0),
+    "drop_cf1_shared": (2, 48, 32, 4, 2, 48, 1.0, 2048, 1),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(MOE_CASES))
+def test_apply_moe_on_card_matches_cpu(cuda, case):
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.models.layers import apply_moe, moe_spec
+    B, S, D, E, k, Fd, cf, gs, ns = MOE_CASES[case]
+    cfg = ModelConfig(family="moe", d_model=D, n_experts=E, top_k=k,
+                      moe_d_ff=Fd, capacity_factor=cf, moe_group_size=gs,
+                      n_shared_experts=ns, dtype="float32")
+    rng = np.random.default_rng(12)
+    p = {}
+    for name, spec in moe_spec(cfg).items():
+        if name == "router":
+            p[name] = np.round(rng.standard_normal(spec.shape) * 8) / 64
+        else:
+            p[name] = rng.standard_normal(spec.shape) / np.sqrt(
+                spec.shape[-2])
+    x = np.round(rng.standard_normal((B, S, D)) * 4) / 4
+    r = torch.from_numpy(rng.standard_normal((B, S, D)).astype(np.float32))
+    out = {}
+    for key, dev in (("cpu", "cpu"), ("card", cuda)):
+        leaves = {n: torch.tensor(v, dtype=torch.float32, device=dev)
+                  .requires_grad_() for n, v in p.items()}
+        xt = torch.tensor(x, dtype=torch.float32, device=dev).requires_grad_()
+        y, aux = apply_moe(leaves, cfg, xt)
+        g = torch.autograd.grad((y * r.to(dev)).sum() + aux,
+                                [xt, *leaves.values()])
+        out[key] = [t.detach().cpu() for t in (y, aux, *g)]
+    (y, aux, *g), (wy, waux, *wg) = out["card"], out["cpu"]
+    torch.testing.assert_close(y, wy, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(aux, waux, atol=0, rtol=1e-5)
+    for got, want in zip(g, wg):
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-5 * want.abs().max().item())

@@ -222,7 +222,7 @@ def _tiny_arch(arch, smoke=False):
     return tiny_cfg(arch, vocab_size=256)
 
 
-def _tiny_arch_t(arch):
+def _tiny_arch_t(arch, smoke=False):
     """The port's get_arch, patched to the same llama."""
     return tconfig.ModelConfig(**dataclasses.asdict(_tiny_arch(arch)))
 
@@ -334,7 +334,7 @@ _SIGTERM_MAIN = """
 import sys
 from repro_torch.launch import train
 from repro_torch.models import ModelConfig
-train.get_arch = lambda arch: ModelConfig(
+train.get_arch = lambda arch, smoke=False: ModelConfig(
     name=arch, n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
     vocab_size=256, dtype="float32")
 train.main(sys.argv[1:])

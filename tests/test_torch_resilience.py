@@ -418,7 +418,7 @@ def test_dispatch_fail_reaches_the_train_step(monkeypatch, tmp_path):
 
 # ------------------------------------------------- the launcher, on the CPU
 
-def _tiny_arch(arch):
+def _tiny_arch(arch, smoke=False):
     return ModelConfig(name=arch, n_layers=2, d_model=64, n_heads=4,
                        n_kv_heads=2, d_ff=128, vocab_size=256,
                        dtype="float32")
@@ -497,7 +497,7 @@ _SIGTERM_MAIN = """
 import sys
 from repro_torch.launch import train
 from repro_torch.models import ModelConfig
-train.get_arch = lambda arch: ModelConfig(
+train.get_arch = lambda arch, smoke=False: ModelConfig(
     name=arch, n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
     vocab_size=256, dtype="float32")
 train.main(sys.argv[1:])

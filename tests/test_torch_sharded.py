@@ -397,7 +397,7 @@ def _leaves(state):
 def _launcher_check(ref, tmp, rank) -> dict:
     from repro_torch.launch import train as launch_train
     cfg = _tiny(ref)
-    launch_train.get_arch = lambda name: cfg
+    launch_train.get_arch = lambda name, smoke=False: cfg
     d = os.path.join(tmp, "launch")
     loss = launch_train.main(["--device", "cpu", "--arch", "tiny",
                               "--steps", "2", "--batch", "4", "--seq", "32",

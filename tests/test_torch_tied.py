@@ -379,7 +379,7 @@ def _tiny_arch(arch, smoke=False):
     return tiny_cfg(arch, vocab_size=256)
 
 
-def _tiny_arch_t(arch):
+def _tiny_arch_t(arch, smoke=False):
     """The port's get_arch, patched to the same llama."""
     return tconfig.ModelConfig(**dataclasses.asdict(_tiny_arch(arch)))
 
