@@ -5,7 +5,7 @@ NVIDIA H100.
     python3 chip_smoke.py [--seed N]
 
 Run from the root of a checkout. It builds the port's CUDA kernels with
-nvcc (one process per source, in parallel), then runs sixteen phases and fails
+nvcc (one process per source, in parallel), then runs seventeen phases and fails
 (non-zero exit, no result line) if any of them fails:
 
 1. device: the card's name and power limit, the kernels' ptxas report;
@@ -47,7 +47,11 @@ nvcc (one process per source, in parallel), then runs sixteen phases and fails
    dV unmoved by their dO), unsorted ids, each case's largest error over
    its tolerance printed, bitwise repeatable, counted by route and in
    ``segment_launches``; all-equal ids bitwise the no-segment result on
-   every route;
+   every route; the three attention kernels at MLA's widths (queries and
+   keys 192 wide, values 128, 128 heads over 128 kv heads, causal; B 2
+   and phase 17's train batch of 16 x 256), bf16 and f32, on the ``fma``
+   route, and the xent kernels at deepseek-v3's head (D 7168, V 129280,
+   bf16);
 3. the serving path: greedy serving of llama-130m at full width and
    depth (bf16, seeded random weights; batch 8, a 512-token prompt, 64
    new tokens), checked against a full-sequence forward, with the kernel
@@ -76,7 +80,10 @@ nvcc (one process per source, in parallel), then runs sixteen phases and fails
    at the packed train shape with segments, in turns with the same kernel
    without them, beside the plain version, SDPA with the dense boolean
    mask (and its backward), the bound of the pairs the batch's ids leave
-   and the share of tile pairs the skip removes;
+   and the share of tile pairs the skip removes; the three attention
+   kernels at deepseek-v3's train shape (``fma``, hd 192 / hdv 128) beside
+   SDPA on the backend that takes hdv != hd (named), and the xent kernels
+   at its head;
 5. where the serving time goes: device busy time and the top kernels of
    one prefill and of decode steps, from torch.profiler;
 6. the optimizer path: SCALE steps of llama-1b at full width and depth
@@ -249,7 +256,7 @@ nvcc (one process per source, in parallel), then runs sixteen phases and fails
    ``wgmma`` and ``mma``; 6 ``norm_sumsq``, 7 ``update_apply`` on ``vec``,
    one ``momentum_sumsq``: the 4-D expert leaves take the optimizer's
    plain stage route, as in JAX), the loss and aux held to the same steps
-   with attention and xent through their plain versions, the step time
+   with every kernel through its plain version, the step time
    (best of steps 2-3), tokens/s, peak memory, and one step's device time
    by family (the MoE layer's spans: expert products, dispatch, combine,
    the router; the stage route on the 4-D leaves, the hand-written
@@ -264,9 +271,36 @@ nvcc (one process per source, in parallel), then runs sixteen phases and fails
    (vocab 49155 padded to 49280), deepseek-67b and mistral-large-123b
    (d_model 12288) at full width and 2 layers: two ``make_train_step``
    steps with their launches checked by route and their losses against
-   the same steps with plain attention and xent, step time and peak. The
+   the same steps with every kernel plain, step time and peak. The
    kernels line gains the paths ``train moe``, ``serve moe`` and ``train
-   arch``.
+   arch``;
+17. MLA and deepseek-v3-671b: (i) the launcher with ``--arch
+   deepseek-v3-671b --smoke`` for two steps; deepseek-v3 at full width
+   (d_model 7168, 128 MLA heads with q_lora 1536, kv_lora 512, qk 128 +
+   64, v 128; d_ff 18432; top-8 experts of moe_d_ff 2048 and a shared
+   one; vocab 129280), its 3 dense layers and 1 MoE layer, with 64 of its
+   256 experts (printed as the ``reduced`` list), bf16, 16 x 256
+   ``SyntheticLM`` batches, ``scale_fused``, clip 1.0, full remat: three
+   ``make_train_step`` steps, each step's launches checked by route (8
+   ``mha_fwd``, 4 of each attention backward kernel, all ``fma`` at hd
+   192 / hdv 128; one of each xent kernel, ``wgmma`` and ``mma``; 18
+   ``norm_sumsq``, 19 ``update_apply`` on ``vec``, one
+   ``momentum_sumsq``), the loss and aux held to the same steps with
+   every kernel through its plain version, step time, tokens/s,
+   peak, and one step's device time by family (the MLA projections and the
+   MoE layer by their spans; attention, xent, the optimizer's parts timed
+   apart); (ii) serving with all 256 experts at the same 4 layers (bf16,
+   batch 4, a 256-token prompt, 32 new tokens): prefill and decode ms at
+   cf E/k and 1.25, the prefill's 4 ``mha_fwd`` on ``fma`` (the absorbed
+   decode launches no kernel), one decode step's device time and idle
+   share; at cf E/k the last decode logits against a full forward in
+   bf16 within twice the floor of the same check with plain attention;
+   a witness that runs no decode on its reference side, at the training
+   cut (64 experts) and at the 3 dense layers alone: the bf16 decode
+   against the same steps in f32 from the same bf16 weights, within
+   twice the bf16 full forward's distance from the f32 one, and the f32
+   decode against the f32 full forward within the serving tolerance.
+   The kernels line gains the paths ``train mla`` and ``serve mla``.
 
 The line before the last is a JSON ``{"kernels": [...]}`` summary, the
 last line ``{"ok": true, "device": {...}}``. It needs a CUDA card and
@@ -277,6 +311,7 @@ from __future__ import annotations
 import argparse
 import atexit
 import json
+import math
 import re
 import shutil
 import subprocess
@@ -531,10 +566,11 @@ def check_routes(got, want, what, show=True):
         raise AssertionError(f"{what}: routes {got}, not {want}")
 
 
-def make_qkv(torch, gen, B, S, T, H, K, hd, dtype):
+def make_qkv(torch, gen, B, S, T, H, K, hd, dtype, hdv=None):
+    """q (B, S, H, hd), k (B, T, K, hd), v (B, T, K, hdv: default hd)."""
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
-    return rnd(B, S, H, hd), rnd(B, T, K, hd), rnd(B, T, K, hd)
+    return rnd(B, S, H, hd), rnd(B, T, K, hd), rnd(B, T, K, hdv or hd)
 
 
 def phase_kernels(torch, gen):
@@ -756,11 +792,18 @@ def ulp(torch, x, dtype):
     return torch.exp2(torch.floor(torch.log2(x)) - mant)
 
 
+# leaves of more elements are held in bf16 alone, the dtype the train
+# paths give them: their f32 copies and checks side by side take 40 GB
+# and more
+OPT_F32_MAX = 2**29
+
+
 def optimizer_shapes():
-    # name -> canonical (L, m, n): ragged, odd rows, llama-1b's leaves, and
-    # the largest leaves of phase 9's models (llama-7b's stacked MLP leaf,
-    # 1.44e9 elements, in bf16 alone: its f32 copies and checks would not
-    # fit the card beside each other; gemma-2b's head)
+    # name -> canonical (L, m, n): ragged, odd rows, llama-1b's leaves, the
+    # largest leaves of phase 9's models (llama-7b's stacked MLP leaf,
+    # gemma-2b's head), and deepseek-v3's (phase 17: its head, embedding,
+    # dense MLP, the MLA projections of the dense segment, the MoE
+    # segment's router and its one-layer leaves)
     return {
         "ragged (3,77,129)": (3, 77, 129),
         "(1,5461,2048)": (1, 5461, 2048),
@@ -773,6 +816,15 @@ def optimizer_shapes():
         # the tied heads (phase 12) are the embeddings' shapes: llama-1b's
         # is tok_embed's above, gemma-2b's this one (row kind)
         "gemma-2b tied tok_embed (1,256000,2048)": (1, 256000, 2048),
+        "deepseek-v3 lm_head (1,7168,129280)": (1, 7168, 129280),
+        "deepseek-v3 tok_embed (1,129280,7168)": (1, 129280, 7168),
+        "deepseek-v3 w_gate/w_up (3,7168,18432)": (3, 7168, 18432),
+        "deepseek-v3 wo (3,16384,7168)": (3, 16384, 7168),
+        "deepseek-v3 wq_b (3,1536,24576)": (3, 1536, 24576),
+        "deepseek-v3 wkv_b (3,512,32768)": (3, 512, 32768),
+        "deepseek-v3 wkv_a (3,7168,576)": (3, 7168, 576),
+        "deepseek-v3 MoE wq_a (1,7168,1536)": (1, 7168, 1536),
+        "deepseek-v3 router (1,7168,64)": (1, 7168, 64),
     }
 
 
@@ -816,7 +868,7 @@ def phase_optimizer_kernels(torch, gen):
     errs = {}
     lr = torch.tensor(0.01, device="cuda")
     for sname, shape in optimizer_shapes().items():
-        big = shape[0] * shape[1] * shape[2] > 2**30
+        big = shape[0] * shape[1] * shape[2] > OPT_F32_MAX
         for dtype in (torch.bfloat16, torch.float32)[:1 if big else 2]:
             g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
             theta = torch.randn(shape, generator=gen, device="cuda").to(dtype)
@@ -1148,14 +1200,17 @@ def fmt_ms(x):
     return "not measured" if x is None else f"{x:.4f} ms"
 
 
-def attention_bound_ms(B, S, T, H, K, hd, causal, kv_len, el_bytes):
-    """Least time: max(bytes once / HBM rate, FLOPs / bf16 peak)."""
+def attention_bound_ms(B, S, T, H, K, hd, causal, kv_len, el_bytes,
+                       hdv=None):
+    """Least time: max(bytes once / HBM rate, FLOPs / bf16 peak). Reads q,
+    k (hd wide) and v (hdv, default hd), writes out (hdv) and lse."""
+    hdv = hdv or hd
     keys = kv_len if kv_len is not None else T
     # valid (query, key) pairs; rectangular causal: query i sees keys
     # <= T - S + i
     pairs = S * (T - S) + S * (S + 1) // 2 if causal else S * keys
-    flops = 4 * hd * pairs * B * H  # q.k and p.v, 2 FLOPs per MAC
-    nbytes = (el_bytes * (B * S * H * hd * 2 + 2 * B * keys * K * hd)
+    flops = 2 * (hd + hdv) * pairs * B * H  # q.k and p.v, 2 FLOPs a MAC
+    nbytes = (el_bytes * (B * S * H * (hd + hdv) + B * keys * K * (hd + hdv))
               + 4 * B * H * S)
     return 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S), \
         ("bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS_PER_S
@@ -1236,17 +1291,23 @@ def phase_timing(torch, gen, power, serve, errs):
     return rows
 
 
-def bwd_bound_ms(B, S, T, H, K, hd, causal, kv_len, el_bytes, kernel):
+def bwd_bound_ms(B, S, T, H, K, hd, causal, kv_len, el_bytes, kernel,
+                 hdv=None):
     """Least time of an attention backward kernel: max(bytes once / HBM
-    rate, FLOPs / bf16 peak). dQ: s, dp and ds.k, three products per valid
-    (query, key) pair; dK, dV: four. Both read q, k, v, dout, lse and delta;
-    dQ writes dQ, the other dK and dV."""
+    rate, FLOPs / bf16 peak). Per valid (query, key) pair dQ takes s and
+    ds.k (hd wide each) and dp (hdv); dK, dV take s, ds^T q (hd), dp and
+    p^T dO (hdv; default hd). Both read q, k (hd), v, dout (hdv), lse and
+    delta; dQ writes dQ, the other dK and dV."""
+    hdv = hdv or hd
     keys = kv_len if kv_len is not None else T
     pairs = S * (T - S) + S * (S + 1) // 2 if causal else S * keys
-    flops = (3 if kernel == "mha_bwd_dq" else 4) * 2 * hd * pairs * B * H
-    q_el, kv_el = B * S * H * hd, B * T * K * hd
-    nbytes = el_bytes * (2 * q_el + 2 * B * keys * K * hd) + 2 * 4 * B * H * S
-    nbytes += el_bytes * (q_el if kernel == "mha_bwd_dq" else 2 * kv_el)
+    mac = 2 * hd + hdv if kernel == "mha_bwd_dq" else 2 * (hd + hdv)
+    flops = 2 * mac * pairs * B * H
+    q_el, kv_el = B * S * H, B * T * K
+    nbytes = (el_bytes * (q_el + B * keys * K) * (hd + hdv)
+              + 2 * 4 * B * H * S)
+    nbytes += el_bytes * (q_el * hd if kernel == "mha_bwd_dq"
+                          else kv_el * (hd + hdv))
     t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
     return 1e3 * max(t_b, t_f), "bytes" if t_b >= t_f else "operations"
 
@@ -1828,16 +1889,19 @@ def xent_cases():
                                                 0.0),
         "mistral-large N=4096 D=12288 V=32768": (4096, 12288, 32768, 32768,
                                                  0.0),
+        # phase 17's head: deepseek-v3-671b (D 7168, V 129280)
+        MLA_HEAD: (4096, 7168, 129280, 129280, 0.0),
     }
 
 
-# phase 16's widest heads in bf16 alone, their main path's dtype: the f32
+# phase 16's and 17's widest heads in bf16 alone, their main path's dtype: the f32
 # FMA kernels at these D and V take seconds a call, and the gpu tests hold
 # them at these shapes
 XENT_BF16_ONLY = ("dbrx-132b N=4096 D=6144 V=100352",
                   "qwen2-7b N=4096 D=3584 V=152064",
                   "deepseek-67b N=4096 D=8192 V=102400",
-                  "mistral-large N=4096 D=12288 V=32768")
+                  "mistral-large N=4096 D=12288 V=32768",
+                  "deepseek-v3 N=4096 D=7168 V=129280")
 
 
 def xent_inputs(torch, gen, N, D, V, masked, dtype):
@@ -2007,7 +2071,8 @@ def xent_bound_ms(N, D, ncols, el_bytes, kernel):
 
 def xent_timing(torch, gen, power, errs):
     """Phase 4, the xent kernels (bf16) at the loss shapes of llama-1b,
-    llama-7b (D = 4096) and gemma-2b (V = 256000): kernel by CUDA events
+    llama-7b (D = 4096), gemma-2b (V = 256000) and deepseek-v3 (D = 7168,
+    V = 129280): kernel by CUDA events
     and by device time (torch.profiler, every kernel of the call), plain
     version, bound, and two library routes: torch.matmul +
     F.cross_entropy for the forward; for the backward, the autograd
@@ -2022,7 +2087,9 @@ def xent_timing(torch, gen, power, errs):
     from repro_torch.kernels.xent import xent as X
     shapes = {"llama-1b": ((4096, 2048, 32000), "llama-1b N=4096"),
               "llama-7b": ((4096, 4096, 32000), "llama-7b N=4096 D=4096"),
-              "gemma-2b": ((4096, 2048, 256000), "gemma-2b N=4096 V=256000")}
+              "gemma-2b": ((4096, 2048, 256000), "gemma-2b N=4096 V=256000"),
+              # phase 17's head (its launches are filled in after it)
+              "deepseek-v3": ((4096, 7168, 129280), MLA_HEAD)}
     note_bwd = ("autograd of matmul + cross_entropy (dh and dw together, "
                 "from saved logits)")
     note_full = ("matmul + cross_entropy and its autograd backward (dh and "
@@ -2036,7 +2103,8 @@ def xent_timing(torch, gen, power, errs):
         lse, _ = X.xent_fwd(h, w, labels, vocab_size=V)
         gl = torch.full((N,), 1.0 / N, device="cuda")
         args = (h, w, labels, lse, gl)
-        w_cols = w.T.contiguous().T if model != "gemma-2b" else None
+        w_cols = (w.T.contiguous().T if model in ("llama-1b", "llama-7b")
+                  else None)
         hl, wl = h.detach().requires_grad_(), w.detach().requires_grad_()
         lib_loss = F.cross_entropy((hl @ wl).float(), labels.long(),
                                    reduction="mean")
@@ -2715,6 +2783,10 @@ KERNEL_FAMILIES = (
     ("moe_dispatch|", "MoE dispatch (one-hot masks and einsum)"),
     ("moe_experts|", "MoE expert products (SwiGLU, capacity-padded)"),
     ("moe_combine|", "MoE combine einsum"),
+    # phase 17: the MLA layer's spans (``models.layers.apply_mla_attention``)
+    ("mla_proj|", "MLA projections (latents, up-projections, norms, rope, "
+     "wo)"),
+    ("mla_decode|", "MLA absorbed decode (latent-cache products, softmax)"),
     ("gemm", "cuBLAS GEMMs (projections, MLP, head)"),
     ("nvjet", "cuBLAS GEMMs (projections, MLP, head)"),
     ("", "other (copies, element-wise, reductions)"),
@@ -5529,10 +5601,10 @@ ARCH_DENSE = ("qwen2-7b", "granite-3-8b", "deepseek-67b",
               "mistral-large-123b")
 ARCH_LAYERS = 2
 ARCH_STEPS = 2
-SERVE_MOE = (4, 256, 32)  # batch, prompt, new tokens
+SERVE_MOE = (4, 256, 32)  # batch, prompt, new tokens (phases 16 and 17)
 # Phase 16 holds dbrx's 3-step loss and aux, and each dense config's
-# 2-step loss, against the same steps with attention and xent through
-# their plain versions (LOSS_CURVE_ATOL, phase 8's reasons, at 2 layers);
+# 2-step loss, against the same steps with every kernel through its
+# plain version (LOSS_CURVE_ATOL, phase 8's reasons, at 2 layers);
 # the aux is f32 E * sum_e f_e P_e from the same bf16 router logits on
 # both routes, so it moves only where a rounding apart flips a top-k
 # choice (each flip moves f_e by 1/T of one expert, 2.4e-4 at T 4096).
@@ -5582,11 +5654,12 @@ def _in_model(ev, serving):
 
 
 def _moe_span(ev, fwd_span):
-    """The innermost MOE_SPANS span op ``ev`` ran under: an enclosing
+    """The innermost MOE_SPANS or MLA_SPANS span op ``ev`` ran under: an
+    enclosing
     span, or for an op of the backward the span of the forward op whose
     autograd node it runs ((thread, sequence_nr) -> span: ``fwd_span``)."""
     while ev is not None:
-        if ev.name in MOE_SPANS:
+        if ev.name in MOE_SPANS + MLA_SPANS:
             return ev.name
         if ev.name.startswith("autograd::engine::evaluate_function"):
             return fwd_span.get((ev.fwd_thread, ev.sequence_nr))
@@ -5612,7 +5685,8 @@ def moe_profile(torch, power, step, untraced_ms, label, serving=False):
     # after the op: neither is a kernel
     spans = {ev.name for ev in events
              if getattr(ev, "is_user_annotation", False)} | {
-                 "fwd", "optimizer_update", "guard", "obs_stats", *MOE_SPANS}
+                 "fwd", "optimizer_update", "guard", "obs_stats", *MOE_SPANS,
+                 *MLA_SPANS}
     device = [ev for ev in events
               if ev.device_type.name == "CUDA" and ev.name not in spans]
     busy = sum((ev.time_range.end - ev.time_range.start) / 1e3
@@ -5627,7 +5701,7 @@ def moe_profile(torch, power, step, untraced_ms, label, serving=False):
     # each at the innermost op that lists it; the main thread's kernels
     # outside the model (the optimizer, the step's own norms and copies)
     # are listed under more ops than launched them, so they are one line
-    # here, the device time left, and train_moe times their parts apart
+    # here, the device time left, and train_family times their parts apart
     kernels = []
     for ev in events:
         if (ev.device_type.name != "CPU" or not ev.kernels
@@ -5723,6 +5797,22 @@ def _step_counts(torch, step, state, batches):
             torch.cuda.max_memory_allocated())
 
 
+def train_want(L, route, n_mat):
+    """(launches, routes) of one train step of a model with ``L`` attention
+    layers on ``route`` and ``n_mat`` matrices of two or three dims besides
+    the head: a norm_sumsq and an update_apply each, the head's
+    momentum_sumsq and update_apply, one of each xent kernel."""
+    want = {"mha_fwd": 2 * L, "mha_bwd_dq": L, "mha_bwd_dkv": L,
+            "xent_fwd": 1, "xent_bwd_dh": 1, "xent_bwd_dw": 1,
+            "norm_sumsq": n_mat, "update_apply": n_mat + 1,
+            "momentum_sumsq": 1, "norm_apply": 0}
+    want_r = {"mha_fwd": {route: 2 * L},
+              **{k: {route: L} for k in BWD_KERNELS},
+              "xent_fwd": {"wgmma": 1}, "xent_bwd_dh": {"mma": 1},
+              "xent_bwd_dw": {"mma": 1}, "update_apply": {"vec": n_mat + 1}}
+    return want, want_r
+
+
 def _check_steps(per_step, per_route, want, want_r, what):
     for i, (c, r) in enumerate(zip(per_step, per_route)):
         if c != want:
@@ -5732,17 +5822,41 @@ def _check_steps(per_step, per_route, want, want_r, what):
           f"route {want_r}")
 
 
-def train_moe(torch, seed, power):
-    """Phase 16 (i): dbrx-132b at full width, MOE_LAYERS layers."""
-    import dataclasses
-    import math
+def plain_kernels():
+    """A patch of ``dispatch`` that sends every kernel of the train and
+    serving paths to its plain version: attention, the three xent kernels
+    and the optimizer's four (the head's update through update_apply's);
+    the plain-route twin of phases 16 and 17."""
     from unittest import mock
-    from repro_torch.configs import get_arch
-    from repro_torch.core import linear_warmup_cosine, make_optimizer
-    from repro_torch.data import make_dataset
     from repro_torch.kernels import dispatch
     from repro_torch.kernels.attention.ref import mha_fwd_ref
+    from repro_torch.kernels.colnorm import ref as CR
+    from repro_torch.kernels.scale_head.ref import momentum_sumsq_ref
     from repro_torch.kernels.xent import ref as XR
+
+    def head_update_apply_ref(theta, m_new, ss, lr, axis="col", eps=CR.EPS):
+        return CR.update_apply_ref(theta, m_new, ss, lr, axis, eps=eps)
+    return mock.patch.multiple(
+        dispatch, mha_fwd=mha_fwd_ref, xent_fwd=XR.xent_fwd_ref,
+        xent_bwd_dh=XR.xent_bwd_dh_ref, xent_bwd_dw=XR.xent_bwd_dw_ref,
+        norm_sumsq=CR.norm_sumsq_ref, norm_apply=CR.norm_apply_ref,
+        update_apply=CR.update_apply_ref, momentum_sumsq=momentum_sumsq_ref,
+        head_update_apply=head_update_apply_ref)
+
+
+def train_family(torch, seed, power, arch, cfg, reduced, steps, want, want_r,
+                 widths):
+    """Phase 16 (i), 17 (i): ``arch`` at full width, cut to ``cfg`` (each
+    cut listed in ``reduced``; ``widths`` names the config's widths): the
+    launcher's --smoke run, then ``steps`` steps of the main path (bf16,
+    16 x 256 from SyntheticLM, scale_fused, clip 1.0), each launching
+    ``want`` by route ``want_r``; one step's device time by family, the
+    work outside the model timed apart, and the loss and aux against the
+    same steps with every kernel through its plain version, from the same
+    seeded weights."""
+    import math
+    from repro_torch.core import linear_warmup_cosine, make_optimizer
+    from repro_torch.data import make_dataset
     from repro_torch.launch import train as launcher
     from repro_torch.models import init_params
     from repro_torch.models.layers import moe_groups
@@ -5751,7 +5865,7 @@ def train_moe(torch, seed, power):
     torch.cuda.empty_cache()  # the earlier phases' cached blocks
 
     # the launcher with --smoke, as a user tries the config first
-    argv = ["--arch", MOE_ARCH, "--smoke", "--optimizer", "scale_fused",
+    argv = ["--arch", arch, "--smoke", "--optimizer", "scale_fused",
             "--batch", "4", "--seq", "32", "--steps", "2", "--log-every", "1",
             "--seed", str(seed)]
     print(f"  python -m repro_torch.launch.train {' '.join(argv)}:")
@@ -5759,31 +5873,25 @@ def train_moe(torch, seed, power):
     if not math.isfinite(final):
         raise AssertionError("the --smoke launcher's loss is not finite")
 
-    full = get_arch(MOE_ARCH)
-    cfg = dataclasses.replace(full, n_layers=MOE_LAYERS)
     B, S = 16, 256
     G, Tg, C = moe_groups(cfg, B * S)
     shapes = param_shapes(cfg)
     n_params = count_params(shapes)
     n_4d = sum(math.prod(s) for s in shapes.values() if len(s) == 4)
-    print(f"  {MOE_ARCH}: {MOE_LAYERS} of {full.n_layers} layers, d_model "
-          f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} kv heads "
-          f"of {cfg.head_dim}, {cfg.n_experts} experts top-{cfg.top_k}, "
-          f"moe_d_ff {cfg.moe_d_ff}, vocab {cfg.vocab_size}; "
-          f"{n_params / 1e9:.3f} G params ({n_4d / 1e9:.3f} G in the 4-D "
-          f"expert leaves), {cfg.dtype}, remat {cfg.remat!r}; batch {B} x "
-          f"{S} from SyntheticLM (seed {seed}): {G} groups of {Tg} tokens, "
-          f"capacity {C} (cf {cfg.capacity_factor}); scale_fused, clip 1.0, "
-          f"linear_warmup_cosine(1e-3, {MOE_STEPS})")
+    print(f"  {arch}: reduced {reduced}; {widths}; {n_params / 1e9:.3f} G "
+          f"params ({n_4d / 1e9:.3f} G in the 4-D expert leaves), "
+          f"{cfg.dtype}, remat {cfg.remat!r}; batch {B} x {S} from "
+          f"SyntheticLM (seed {seed}): {G} groups of {Tg} tokens, capacity "
+          f"{C} (cf {cfg.capacity_factor}); scale_fused, clip 1.0, "
+          f"linear_warmup_cosine(1e-3, {steps})")
     if G < 2:
-        raise AssertionError("the dbrx batch must dispatch over groups")
+        raise AssertionError(f"the {arch} batch must dispatch over groups")
     ds = make_dataset(cfg, S, B, seed=seed, device="cuda")
-    batches = [ds.global_batch_at(i) for i in range(MOE_STEPS)]
+    batches = [ds.global_batch_at(i) for i in range(steps)]
 
     def start():
         gen = torch.Generator(device="cuda").manual_seed(seed)
-        tx = make_optimizer("scale_fused",
-                            linear_warmup_cosine(1e-3, MOE_STEPS))
+        tx = make_optimizer("scale_fused", linear_warmup_cosine(1e-3, steps))
         return (init_state(init_params(cfg, gen, device="cuda"), tx),
                 make_train_step(cfg, tx, clip_norm=1.0), tx)
 
@@ -5791,25 +5899,14 @@ def train_moe(torch, seed, power):
     state, per_step, per_route, secs, mets, peak = _step_counts(
         torch, step, state, batches)
     launches = train_counts()
-    L = cfg.n_layers
-    # 6 matrices of two or three dims (tok_embed, wq, wk, wv, wo, router)
-    # and the head; the 4-D expert leaves take the plain stage route
-    want = {"mha_fwd": 2 * L, "mha_bwd_dq": L, "mha_bwd_dkv": L,
-            "xent_fwd": 1, "xent_bwd_dh": 1, "xent_bwd_dw": 1,
-            "norm_sumsq": 6, "update_apply": 7, "momentum_sumsq": 1,
-            "norm_apply": 0}
-    want_r = {"mha_fwd": {"mma": 2 * L},
-              **{k: {"mma": L} for k in BWD_KERNELS},
-              "xent_fwd": {"wgmma": 1}, "xent_bwd_dh": {"mma": 1},
-              "xent_bwd_dw": {"mma": 1}, "update_apply": {"vec": 7}}
-    _check_steps(per_step, per_route, want, want_r, f"{MOE_ARCH} train")
+    _check_steps(per_step, per_route, want, want_r, f"{arch} train")
     losses = [m["loss"] for m in mets]
     auxs = [m["aux"] for m in mets]
     step_s = min(secs[1:])
-    print(f"  [{power}] {MOE_ARCH} train step {step_s * 1e3:.3f} ms (best of "
-          f"steps 2-{MOE_STEPS}; {B * S / step_s:.0f} tokens/s; each "
+    print(f"  [{power}] {arch} train step {step_s * 1e3:.3f} ms (best of "
+          f"steps 2-{steps}; {B * S / step_s:.0f} tokens/s; each "
           f"{' '.join(f'{s * 1e3:.1f}' for s in secs)} ms); "
-          f"torch.cuda.max_memory_allocated over the {MOE_STEPS} steps "
+          f"torch.cuda.max_memory_allocated over the {steps} steps "
           f"{peak / 2**20:.1f} MiB of "
           f"{torch.cuda.get_device_properties(0).total_memory / 2**20:.1f}")
 
@@ -5818,9 +5915,9 @@ def train_moe(torch, seed, power):
         state, _ = step(state, batches[0])
 
     busy, fams = moe_profile(torch, power, one, step_s * 1e3,
-                             f"{MOE_ARCH} train step")
+                             f"{arch} train step")
     parts = moe_outside_parts(torch, tx, state, cfg, batches[0])
-    print(f"  [{power}] {MOE_ARCH} outside the model, timed apart (CUDA "
+    print(f"  [{power}] {arch} outside the model, timed apart (CUDA "
           f"events): the optimizer's update {parts['optimizer']:.3f} ms, of "
           f"it the plain stage route on the 4-D expert leaves "
           f"{parts['stage4d']:.3f} ms; the clip's global norm "
@@ -5829,34 +5926,35 @@ def train_moe(torch, seed, power):
     del state, step, tx
     torch.cuda.empty_cache()
 
-    # the same steps with attention and xent through their plain versions,
-    # from the same seeded weights
+    # the same steps with every kernel through its plain version, from the
+    # same seeded weights
     state, step, _ = start()
-    with mock.patch.multiple(dispatch, mha_fwd=mha_fwd_ref,
-                             xent_fwd=XR.xent_fwd_ref,
-                             xent_bwd_dh=XR.xent_bwd_dh_ref,
-                             xent_bwd_dw=XR.xent_bwd_dw_ref):
+    before = train_counts()
+    with plain_kernels():
         ref = []
         for b in batches:
             state, m = step(state, b)
             ref.append((float(m["loss"]), float(m["aux"])))
+    if train_counts() != before:
+        raise AssertionError(f"{arch}: a kernel ran on the plain route")
     del state, step
     torch.cuda.empty_cache()
     gap = max(max(abs(a - r[0]), abs(x - r[1]))
               for a, x, r in zip(losses, auxs, ref))
-    print(f"  {MOE_ARCH} loss (with 0.01 aux) over {MOE_STEPS} steps: "
+    print(f"  {arch} loss (with 0.01 aux) over {steps} steps: "
           f"{' '.join(f'{x:.5f}' for x in losses)}; aux "
           f"{' '.join(f'{x:.5f}' for x in auxs)}")
-    print(f"  plain attention and xent: loss "
+    print(f"  every kernel through its plain version: loss "
           f"{' '.join(f'{r[0]:.5f}' for r in ref)}; aux "
           f"{' '.join(f'{r[1]:.5f}' for r in ref)} (max |diff| {gap:.2e}, "
           f"tol {LOSS_CURVE_ATOL:g})")
     if not (all(map(math.isfinite, losses + auxs)) and gap <= LOSS_CURVE_ATOL):
-        raise AssertionError(f"{MOE_ARCH}: the loss or aux is not finite, or "
+        raise AssertionError(f"{arch}: the loss or aux is not finite, or "
                              "leaves the plain versions' curve")
-    return {"cfg": cfg, "launches": launches, "per_step": per_step[0],
-            "routes": per_route[0], "step_ms": step_s * 1e3,
-            "tokens_per_s": B * S / step_s, "busy_ms": busy,
+    return {"reduced": reduced, "launches": launches,
+            "per_step": per_step[0], "routes": per_route[0],
+            "step_ms": step_s * 1e3, "tokens_per_s": B * S / step_s,
+            "busy_ms": busy,
             "idle_share": None if busy is None else 1 - busy / (step_s * 1e3),
             "peak_mib": peak / 2**20, "losses": losses, "aux": auxs,
             "ref": ref, "loss_gap": gap,
@@ -5864,74 +5962,86 @@ def train_moe(torch, seed, power):
             "outside_ms": parts}
 
 
-def serve_moe(torch, seed, power, cfg):
-    """Phase 16 (ii): dbrx serving at full width, from the training
-    phase's seeded weights: batch, prompt and new tokens of SERVE_MOE.
-
-    At cf = E/k no (token, choice) pair is dropped, so decode computes
-    what a full forward does. f32 (the same seeded weights, the bf16 run's
-    tokens): the last decode logits against a full forward over the same
-    tokens within SERVE_ATOL/RTOL. bf16: the same comparison held to
-    SERVE_BF16_FLOOR_X times its floors, the same comparison with
-    attention through its plain version and on the dense twin (reasons at
-    the constant), with the tokens each path routes apart (MoE routing is
-    discrete: a rounding apart near a tie moves a token to another expert,
-    and through attention every later token feels it). Prefill and decode
-    ms, launches by route and one decode step's device time at both
-    capacity factors; at the config's cf 1.25 the share of the decode
-    steps' pairs dropped."""
+def no_drop(cfg):
+    """``cfg`` at capacity factor E/k: no (token, choice) pair is dropped,
+    so decode computes what a full forward does."""
     import dataclasses
+    return dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+
+
+def serve_run(torch, c, p, prompt, tokens=None):
+    """prefill + N - 1 decode steps of SERVE_MOE (greedy, or fed
+    ``tokens``) -> (tokens fed, last logits, each MoE layer call's
+    ``moe_routing``)."""
+    from repro_torch.training import make_decode_step, make_prefill_step
+    P, N = SERVE_MOE[1:]
+    prefill, decode = make_prefill_step(c, max_seq=P + N), \
+        make_decode_step(c)
+    taps = []
+    with moe_tap(torch, taps):
+        state, logits = prefill(p, prompt)
+        toks = []
+        for i in range(N - 1):
+            toks.append(logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+                        if tokens is None else tokens[:, i:i + 1])
+            state, logits = decode(p, state, toks[-1])
+    return torch.cat(toks, dim=1), logits[:, -1].float(), taps
+
+
+def full_logits(torch, c, p, prompt, toks, taps):
+    """The last position's logits (B, vocab) of a full forward over the
+    prompt and ``toks``; each MoE layer call's routing appended to
+    ``taps``."""
+    from repro_torch.models import forward, logits_from_hidden
+    with torch.no_grad(), moe_tap(torch, taps):
+        h, _, _ = forward(p, c, torch.cat([prompt, toks], dim=1))
+    return logits_from_hidden(p, c, h[:, -1:])[:, -1, :c.vocab_size].float()
+
+
+def serve_against_full(torch, c, p, prompt, toks, last, taps):
+    """(max err, within SERVE tolerances, argmax agreement, tokens routed
+    apart per MoE layer, max |ref|, ref) of the last decode logits ``last``
+    against a full forward over the prompt and ``toks``; ``taps``: the
+    decode run's routing."""
+    full = []
+    ref = full_logits(torch, c, p, prompt, toks, full)
+    got = last[:, :c.vocab_size]
+    err = (got - ref).abs()
+    ok = bool((err <= SERVE_ATOL + SERVE_RTOL * ref.abs()).all()) and \
+        bool(torch.isfinite(got).all())
+    inc = [torch.cat([t[0] for t in taps[l::len(full)]], dim=1)
+           for l in range(len(full))]
+    apart = [int((a != f[0]).any(-1).sum()) for a, f in zip(inc, full)]
+    agree = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    return err.max().item(), ok, agree, apart, ref.abs().max().item(), ref
+
+
+def serve_family(torch, seed, power, arch, cfg, want_routes):
+    """Phase 16 (ii), 17 (ii): ``arch`` serving at ``cfg`` (bf16) from
+    seeded weights, batch, prompt and new tokens of SERVE_MOE, at cf = E/k
+    (``no_drop``) and at the config's cf: prefill and decode ms, the
+    mha_fwd launches by route (``want_routes``), one decode step's device
+    time, the share of the decode steps' pairs dropped, and the last
+    decode logits against a full forward over the same tokens, with the
+    tokens the two route apart (MoE routing is discrete: a rounding apart
+    near a tie moves a token to another expert, and through attention
+    every later token feels it). At cf E/k also the floor of that check
+    with attention through its plain version. -> (results, prompt, the cf
+    E/k run's tokens)."""
     from unittest import mock
     from repro_torch.kernels import dispatch
     from repro_torch.kernels.attention.attention import mha_fwd
     from repro_torch.kernels.attention.ref import mha_fwd_ref
-    from repro_torch.models import forward, init_params, logits_from_hidden
+    from repro_torch.models import init_params
     from repro_torch.training import make_decode_step, make_prefill_step
     B, P, N = SERVE_MOE
-    L = cfg.n_layers
+    n_moe = sum(n for kind, n in cfg.segments if kind == "moe")
     gen = torch.Generator(device="cuda").manual_seed(seed)
     params = init_params(cfg, gen, device="cuda")
     prompt = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
                            device="cuda", dtype=torch.int32)
-    no_drop = dataclasses.replace(cfg,
-                                  capacity_factor=cfg.n_experts / cfg.top_k)
-
-    def run(c, p, tokens=None):
-        """prefill + N - 1 decode steps (greedy, or fed ``tokens``) ->
-        (tokens fed, last logits, routing taps)."""
-        prefill, decode = make_prefill_step(c, max_seq=P + N), \
-            make_decode_step(c)
-        taps = []
-        with moe_tap(torch, taps):
-            state, logits = prefill(p, prompt)
-            toks = []
-            for i in range(N - 1):
-                toks.append(logits[:, -1].argmax(-1).to(torch.int32)[:, None]
-                            if tokens is None else tokens[:, i:i + 1])
-                state, logits = decode(p, state, toks[-1])
-        return torch.cat(toks, dim=1), logits[:, -1].float(), taps
-
-    def against_full(c, p, toks, last, taps):
-        """(max err, within SERVE tolerances, argmax agreement, tokens
-        routed apart per layer, max |ref|) of the last decode logits
-        against a full forward over the prompt and ``toks``."""
-        seq = torch.cat([prompt, toks], dim=1)
-        full = []
-        with torch.no_grad(), moe_tap(torch, full):
-            h, _, _ = forward(p, c, seq)
-        ref = logits_from_hidden(p, c, h[:, -1:])[:, -1].float()
-        got, ref = last[:, :c.vocab_size], ref[:, :c.vocab_size]
-        err = (got - ref).abs()
-        ok = bool((err <= SERVE_ATOL + SERVE_RTOL * ref.abs()).all()) and \
-            bool(torch.isfinite(got).all())
-        inc = [torch.cat([t[0] for t in taps[l::L]], dim=1)
-               for l in range(len(full))]
-        apart = [int((a != f[0]).any(-1).sum()) for a, f in zip(inc, full)]
-        agree = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
-        return err.max().item(), ok, agree, apart, ref.abs().max().item()
-
-    out = {}
-    for c in (no_drop, cfg):
+    out, cfs = {}, (no_drop(cfg), cfg)
+    for c in cfs:
         tag = f"cf {c.capacity_factor:g}"
         prefill, decode = make_prefill_step(c, max_seq=P + N), \
             make_decode_step(c)
@@ -5954,19 +6064,22 @@ def serve_moe(torch, seed, power, cfg):
         decode_ms = start.elapsed_time(end) / (N - 1)
         routes = route_counts()["mha_fwd"]
         launches = mha_fwd.launches
-        check_routes({"mha_fwd": routes}, {"mha_fwd": {
-            "mma": L, "decode": (N - 1) * L}}, f"{MOE_ARCH} serving {tag}")
+        check_routes({"mha_fwd": routes}, {"mha_fwd": want_routes},
+                     f"{arch} serving {tag}")
+        if launches != sum(want_routes.values()):
+            raise AssertionError(f"{arch} serving {tag}: {launches} mha_fwd "
+                                 "launches")
         # the same run with its routing recorded: drops, and the tokens
         # the decode path and a full forward route apart
-        toks, last, taps = run(c, params)
+        toks, last, taps = serve_run(torch, c, params, prompt)
         if not torch.equal(last, logits[:, -1].float()):
-            raise AssertionError(f"{MOE_ARCH} serving {tag}: a rerun of the "
+            raise AssertionError(f"{arch} serving {tag}: a rerun of the "
                                  "decode steps differs")
-        dec = taps[L:]
+        dec = taps[n_moe:]
         kept, pairs = sum(t[1] for t in dec), sum(t[2] for t in dec)
-        err, ok, agree, apart, top = against_full(c, params, toks, last,
-                                                  taps)
-        print(f"  [{power}] {MOE_ARCH} serving {tag}, batch {B}, prompt {P}, "
+        err, ok, agree, apart, top, _ = serve_against_full(
+            torch, c, params, prompt, toks, last, taps)
+        print(f"  [{power}] {arch} serving {tag}, batch {B}, prompt {P}, "
               f"{N} new tokens: prefill {prefill_s * 1e3:.3f} ms "
               f"({B * P / prefill_s:.0f} prompt tokens/s), decode "
               f"{decode_ms:.3f} ms/step ({B * 1e3 / decode_ms:.1f} tokens/s);"
@@ -5975,89 +6088,113 @@ def serve_moe(torch, seed, power, cfg):
               f"({(pairs - kept) / pairs:.3f}); bf16 last decode logits vs "
               f"full forward over {P + N - 1} tokens: max err {err:.3e}, "
               f"|ref| max {top:.3f}, argmax agreement {agree:.3f}, "
-              f"tokens routed apart per layer {apart} of {B * (P + N - 1)}")
-        if c is no_drop and kept != pairs:
-            raise AssertionError(f"{MOE_ARCH} serving {tag}: a pair was "
-                                 "dropped at cf = E/k")
+              f"tokens routed apart per MoE layer {apart} of "
+              f"{B * (P + N - 1)}")
+        if c is cfs[0] and kept != pairs:
+            raise AssertionError(f"{arch} serving {tag}: a pair was dropped "
+                                 "at cf = E/k")
         state, _ = prefill(params, prompt)
-        busy, _ = moe_profile(
+        busy, fams = moe_profile(
             torch, power, lambda: decode(params, state, toks[:, :1]),
-            decode_ms, f"{MOE_ARCH} decode step {tag}", serving=True)
+            decode_ms, f"{arch} decode step {tag}", serving=True)
         out[tag] = {"launches": launches, "routes": routes,
                     "prefill_ms": prefill_s * 1e3, "decode_ms": decode_ms,
                     "decode_busy_ms": busy,
+                    "decode_idle_share": None if busy is None
+                    else 1 - busy / decode_ms,
+                    "decode_device_ms_by_family": {
+                        f: ms for f, (ms, _) in fams.items()},
                     "dropped_share": (pairs - kept) / pairs,
-                    "bf16_max_err": err, "bf16_argmax_agreement": agree,
+                    "bf16_max_err": err, "bf16_within_serve_tol": ok,
+                    "bf16_argmax_agreement": agree, "bf16_ref_max": top,
                     "bf16_routed_apart": apart}
-        if c is no_drop:
-            no_drop_toks, bf16_err, bf16_ok = toks, err, ok
+        if c is cfs[0]:
+            no_drop_toks = toks
         del state
-
-    # bf16 at cf = E/k: the kernel route's error against its floors
-    floors = {}
+    out["launches"] = sum(out[k]["launches"] for k in out)
+    # the floor: the same check at cf = E/k with attention through its
+    # plain version
     with mock.patch.object(dispatch, "mha_fwd", mha_fwd_ref):
-        floors["plain attention"] = against_full(
-            no_drop, params, *run(no_drop, params, no_drop_toks))[0]
+        out["bf16_floors"] = {"plain attention": serve_against_full(
+            torch, cfs[0], params, prompt, *serve_run(
+                torch, cfs[0], params, prompt, no_drop_toks))[0]}
     del params
     torch.cuda.empty_cache()
-    twin = dataclasses.replace(no_drop, family="dense",
-                               d_ff=no_drop.moe_d_ff)
+    return out, prompt, no_drop_toks
+
+
+def held_to_floors(arch, out, cfg):
+    """The bf16 decode at cf = E/k held to SERVE_BF16_FLOOR_X times the
+    lowest of ``out["bf16_floors"]``."""
+    tag = f"cf {no_drop(cfg).capacity_factor:g}"
+    floors, got = out["bf16_floors"], out[tag]
+    out["bf16_bound"] = SERVE_BF16_FLOOR_X * min(floors.values())
+    print(f"  {arch} serving {tag}, bf16: last "
+          f"decode logits vs full forward max err {got['bf16_max_err']:.3e}; "
+          f"floors {', '.join(f'{k} {v:.3e}' for k, v in floors.items())}; "
+          f"bound {SERVE_BF16_FLOOR_X:g} x {min(floors.values()):.3e} = "
+          f"{out['bf16_bound']:.3e}; within SERVE_ATOL/RTOL (set on "
+          f"llama-130m): {got['bf16_within_serve_tol']}")
+    if not got["bf16_max_err"] <= out["bf16_bound"]:
+        raise AssertionError(f"{arch} serving: bf16 decode leaves the full "
+                             "forward by more than its floors allow")
+
+
+def serve_f32(torch, arch, c32, p32, prompt, toks):
+    """f32 decode, fed ``toks``, against a full forward within
+    SERVE_ATOL/RTOL. -> (max err, last decode logits, full forward's)."""
+    toks, last, taps = serve_run(torch, c32, p32, prompt, toks)
+    err, ok, agree, apart, top, ref = serve_against_full(
+        torch, c32, p32, prompt, toks, last, taps)
+    print(f"  {arch} serving f32, {c32.n_layers} layers, {c32.n_experts} "
+          f"experts, cf {c32.capacity_factor:g}: last decode logits vs full "
+          f"forward max err {err:.3e} (tol {SERVE_ATOL:g} + {SERVE_RTOL:g}"
+          f"|ref|), |ref| max {top:.3f}, argmax agreement {agree:.3f}, "
+          f"tokens routed apart per MoE layer {apart}")
+    if not ok:
+        raise AssertionError(f"{arch} serving: f32 decode disagrees with the "
+                             "full forward")
+    return err, last[:, :c32.vocab_size], ref
+
+
+def serve_moe(torch, seed, power, cfg):
+    """Phase 16 (ii): dbrx serving at full width (``serve_family``), its
+    bf16 decode held to its floors (plain attention; dbrx's dense twin, the
+    same widths with a dense SwiGLU of moe_d_ff: no MoE), and in f32 (the
+    same seed, the bf16 run's tokens) within SERVE_ATOL/RTOL."""
+    import dataclasses
+    from repro_torch.models import init_params
+    out, prompt, toks = serve_family(torch, seed, power, MOE_ARCH, cfg, {
+        "mma": cfg.n_layers, "decode": (SERVE_MOE[2] - 1) * cfg.n_layers})
+    twin = dataclasses.replace(no_drop(cfg), family="dense",
+                               d_ff=cfg.moe_d_ff)
     p_twin = init_params(twin, torch.Generator(device="cuda").manual_seed(
         seed), device="cuda")
-    floors["dense twin"] = against_full(twin, p_twin,
-                                        *run(twin, p_twin, no_drop_toks))[0]
+    out["bf16_floors"]["dense twin"] = serve_against_full(
+        torch, twin, p_twin, prompt, *serve_run(torch, twin, p_twin, prompt,
+                                                toks))[0]
     del p_twin
     torch.cuda.empty_cache()
-    bound = SERVE_BF16_FLOOR_X * min(floors.values())
-    print(f"  {MOE_ARCH} serving cf {no_drop.capacity_factor:g}, bf16: last "
-          f"decode logits vs full forward max err {bf16_err:.3e}; floors: "
-          f"attention through its plain version {floors['plain attention']:.3e}"
-          f", the dense twin (d_ff {twin.d_ff}, kernels) "
-          f"{floors['dense twin']:.3e}; bound {SERVE_BF16_FLOOR_X:g} x "
-          f"{min(floors.values()):.3e} = {bound:.3e}; within SERVE_ATOL/RTOL "
-          f"(set on llama-130m): {bf16_ok}")
-    if not bf16_err <= bound:
-        raise AssertionError(f"{MOE_ARCH} serving: bf16 decode leaves the "
-                             "full forward by more than its floors allow")
-    out["bf16_floors"] = floors
-    out["bf16_bound"] = bound
-    # f32: decode against the full forward, on the bf16 run's tokens
-    c32 = dataclasses.replace(no_drop, dtype="float32")
+    held_to_floors(MOE_ARCH, out, cfg)
+    c32 = dataclasses.replace(no_drop(cfg), dtype="float32")
     p32 = init_params(c32, torch.Generator(device="cuda").manual_seed(seed),
                       device="cuda")
-    toks, last, taps = run(c32, p32, no_drop_toks)
-    err, ok, agree, apart, top = against_full(c32, p32, toks, last, taps)
-    print(f"  {MOE_ARCH} serving cf {c32.capacity_factor:g}, f32: last decode "
-          f"logits vs full forward max err {err:.3e} (tol {SERVE_ATOL:g} + "
-          f"{SERVE_RTOL:g}|ref|), |ref| max {top:.3f}, argmax agreement "
-          f"{agree:.3f}, tokens "
-          f"routed apart per layer {apart}")
-    if not ok:
-        raise AssertionError(f"{MOE_ARCH} serving: f32 decode disagrees with "
-                             "the full forward")
-    out["f32_max_err"] = err
-    out["f32_routed_apart"] = apart
+    out["f32_max_err"] = serve_f32(torch, MOE_ARCH, c32, p32, prompt,
+                                   toks)[0]
     del p32
     torch.cuda.empty_cache()
-    out["launches"] = sum(out[k]["launches"] for k in out
-                          if k.startswith("cf "))
     return out
 
 
 def train_arch(torch, seed, power, arch):
     """Phase 16 (iii): one dense ARCH_IDS config at full width and
     ARCH_LAYERS layers: ARCH_STEPS steps of the main path, their losses
-    against the same steps with attention and xent through their plain
-    versions, from the same seeded weights."""
+    against the same steps with every kernel through its plain version,
+    from the same seeded weights."""
     import dataclasses
-    import math
-    from unittest import mock
     from repro_torch.configs import get_arch
     from repro_torch.core import linear_warmup_cosine, make_optimizer
     from repro_torch.data import make_dataset
-    from repro_torch.kernels import dispatch
-    from repro_torch.kernels.attention.ref import mha_fwd_ref
-    from repro_torch.kernels.xent import ref as XR
     from repro_torch.models import init_params
     from repro_torch.models.model import count_params, param_shapes
     from repro_torch.training import init_state, make_train_step
@@ -6081,25 +6218,18 @@ def train_arch(torch, seed, power, arch):
     del state, step
     torch.cuda.empty_cache()
     state, step = start()
-    with mock.patch.multiple(dispatch, mha_fwd=mha_fwd_ref,
-                             xent_fwd=XR.xent_fwd_ref,
-                             xent_bwd_dh=XR.xent_bwd_dh_ref,
-                             xent_bwd_dw=XR.xent_bwd_dw_ref):
+    before = train_counts()
+    with plain_kernels():
         ref = []
         for b in batches:
             state, m = step(state, b)
             ref.append(float(m["loss"]))
+    if train_counts() != before:
+        raise AssertionError(f"{arch}: a kernel ran on the plain route")
     del state, step
     torch.cuda.empty_cache()
     L = cfg.n_layers
-    want_c = {"mha_fwd": 2 * L, "mha_bwd_dq": L, "mha_bwd_dkv": L,
-              "xent_fwd": 1, "xent_bwd_dh": 1, "xent_bwd_dw": 1,
-              "norm_sumsq": 8, "update_apply": 9, "momentum_sumsq": 1,
-              "norm_apply": 0}
-    want_r = {"mha_fwd": {"mma": 2 * L},
-              **{k: {"mma": L} for k in BWD_KERNELS},
-              "xent_fwd": {"wgmma": 1}, "xent_bwd_dh": {"mma": 1},
-              "xent_bwd_dw": {"mma": 1}, "update_apply": {"vec": 9}}
+    want_c, want_r = train_want(L, "mma", 8)
     losses = [m["loss"] for m in mets]
     gap = max(abs(a - r) for a, r in zip(losses, ref))
     print(f"  [{power}] {arch}: {L} of {full.n_layers} layers, d_model "
@@ -6109,7 +6239,7 @@ def train_arch(torch, seed, power, arch):
           f"{cfg.rope_theta:g}; {count_params(param_shapes(cfg)) / 1e9:.3f} G "
           f"params: train step {secs[-1] * 1e3:.3f} ms (step {ARCH_STEPS} of "
           f"{ARCH_STEPS}; {B * S / secs[-1]:.0f} tokens/s), losses "
-          f"{' '.join(f'{x:.5f}' for x in losses)}, plain attention and xent "
+          f"{' '.join(f'{x:.5f}' for x in losses)}, every kernel plain "
           f"{' '.join(f'{x:.5f}' for x in ref)} (max |diff| {gap:.2e}, tol "
           f"{LOSS_CURVE_ATOL:g}), peak {peak / 2**20:.1f} MiB")
     _check_steps(per_step, per_route, want_c, want_r, f"{arch} train")
@@ -6125,9 +6255,22 @@ def train_arch(torch, seed, power, arch):
 def phase_moe(torch, seed, power):
     """Phase 16: dbrx-132b training and serving at full width, and the
     four dense ARCH_IDS configs at full width and ARCH_LAYERS layers."""
+    import dataclasses
+    from repro_torch.configs import get_arch
     t0 = time.perf_counter()
-    train = train_moe(torch, seed, power)
-    serve = serve_moe(torch, seed, power, train.pop("cfg"))
+    full = get_arch(MOE_ARCH)
+    cfg = dataclasses.replace(full, n_layers=MOE_LAYERS)
+    widths = (f"d_model {cfg.d_model}, {cfg.n_heads} heads over "
+              f"{cfg.n_kv_heads} kv heads of {cfg.head_dim}, {cfg.n_experts} "
+              f"experts top-{cfg.top_k}, moe_d_ff {cfg.moe_d_ff}, vocab "
+              f"{cfg.vocab_size}")
+    # 6 matrices of two or three dims (tok_embed, wq, wk, wv, wo, router)
+    # and the head; the 4-D expert leaves take the plain stage route
+    train = train_family(torch, seed, power, MOE_ARCH, cfg,
+                         [f"n_layers {full.n_layers} -> {MOE_LAYERS}"],
+                         MOE_STEPS, *train_want(cfg.n_layers, "mma", 6),
+                         widths)
+    serve = serve_moe(torch, seed, power, cfg)
     arch = {a: train_arch(torch, seed, power, a) for a in ARCH_DENSE}
     launches = {}
     for r in arch.values():
@@ -6136,6 +6279,311 @@ def phase_moe(torch, seed, power):
     print(f"  phase 16 took {time.perf_counter() - t0:.1f} s")
     return {"train": train, "serve": serve, "arch": arch,
             "arch_launches": launches}
+
+
+# --------------------------------- MLA and deepseek-v3-671b (phases 2, 4, 17)
+
+MLA_ARCH = "deepseek-v3-671b"
+# Phase 17 trains the 3 first_dense_layers and 1 MoE layer of its 61, so
+# both segments run at every width, with 64 of its 256 routed experts
+# (top-8, the shared expert and cf 1.25 as configured): at 256 one MoE
+# layer is 11.27 G parameters, and its bf16 params, grads and update_norm
+# snapshot with the plain stage route's f32 temporaries pass the card's
+# 80 GB. Serving needs no gradients and keeps all 256.
+MLA_LAYERS = 4
+MLA_TRAIN_EXPERTS = 64
+MLA_STEPS = 3
+# MLA's attention (queries and keys 128 + 64 wide, values 128, 128 heads
+# over 128 kv heads): (B, S, T, H, K, hd, hdv), causal; phase 2 holds the
+# three kernels at both batches, phase 4 times them at the train step's
+MLA_ATTN = {"mla B=2 H=K=128 hd=192 hdv=128": (2, 256, 256, 128, 128, 192,
+                                               128),
+            "train deepseek-v3 H=K=128 hd=192 hdv=128": (16, 256, 256, 128,
+                                                         128, 192, 128)}
+MLA_TRAIN_ATTN = "train deepseek-v3 H=K=128 hd=192 hdv=128"
+MLA_HEAD = "deepseek-v3 N=4096 D=7168 V=129280"
+# the MLA layer's spans (``models.layers.apply_mla_attention``)
+MLA_SPANS = ("mla_proj", "mla_decode")
+
+
+def phase_mla_kernels(torch, gen):
+    """Phase 2: mha_fwd, mha_bwd_dq and mha_bwd_dkv at MLA's widths (hd
+    192 != hdv 128, H == K == 128, causal) against their plain versions,
+    bf16 and f32, each on the ``fma`` route (counted), the backward pair
+    with lse and delta from the plain forward, each kernel run twice
+    (bitwise equal). -> {(kernel, case, dtype): max abs error}."""
+    from repro_torch.kernels.attention.attention import (
+        _bwd_route, _fwd_route, mha_bwd_dkv, mha_bwd_dq, mha_fwd)
+    from repro_torch.kernels.attention.ref import (mha_bwd_dkv_ref,
+                                                   mha_bwd_dq_ref,
+                                                   mha_fwd_ref)
+    errs = {}
+    for name, (B, S, T, H, K, hd, hdv) in MLA_ATTN.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            tag = str(dtype).replace("torch.", "")
+            key = f"{name} {tag}"
+            q, k, v = make_qkv(torch, gen, B, S, T, H, K, hd, dtype, hdv)
+            kw = dict(scale=hd ** -0.5, causal=True)
+            if (_fwd_route(q, k, v), _bwd_route(q, k, v)) != ("fma", "fma"):
+                raise AssertionError(f"MLA attention {key}: not on fma")
+            before = route_counts()
+            out, lse = mha_fwd(q, k, v, None, **kw)
+            torch.cuda.synchronize()
+            ref, ref_lse = mha_fwd_ref(q, k, v, None, **kw)
+            atol, rtol = ((F32_OUT_ATOL, 0.0) if dtype == torch.float32
+                          else (BF16_OUT_ATOL, BF16_OUT_RTOL))
+            d = (out.float() - ref.float()).abs()
+            dl = (lse - ref_lse).abs()
+            if not (out.shape == (B, S, H, hdv)
+                    and bool(torch.isfinite(out.float()).all())
+                    and bool((d <= atol + rtol * ref.float().abs()).all())
+                    and bool((dl <= LSE_ATOL + LSE_RTOL
+                              * ref_lse.abs()).all())):
+                raise AssertionError(f"mha_fwd disagrees with the plain "
+                                     f"version: {key}")
+            again = mha_fwd(q, k, v, None, **kw)
+            _bitwise_again(torch, "mha_fwd", torch.cat(
+                [out.float().flatten(), lse.flatten()]), torch.cat(
+                [again[0].float().flatten(), again[1].flatten()]), key)
+            do = torch.randn(out.shape, generator=gen,
+                             device="cuda").to(dtype)
+            delta = (do.float() * ref.float()).sum(-1).transpose(
+                1, 2).contiguous()
+            args = (q, k, v, do, ref_lse, delta, None)
+            del out, again, ref
+            dq = mha_bwd_dq(*args, **kw)
+            dk, dv = mha_bwd_dkv(*args, **kw)
+            torch.cuda.synchronize()
+            after = route_counts()
+            if after != {n: {**c, "fma": c["fma"] + (2 if n == "mha_fwd"
+                                                     else 1)}
+                         if n in ("mha_fwd", *BWD_KERNELS) else c
+                         for n, c in before.items()}:
+                raise AssertionError(f"MLA attention {key}: routes {before} "
+                                     f"-> {after}, expected fma")
+            e_q, r_q, _ = _bwd_check(torch, "mha_bwd_dq", dq,
+                                     mha_bwd_dq_ref(*args, **kw), tag, key)
+            want_k, want_v = mha_bwd_dkv_ref(*args, **kw)
+            e_k, r_k, _ = _bwd_check(torch, "mha_bwd_dkv dK", dk, want_k,
+                                     tag, key)
+            e_v, r_v, _ = _bwd_check(torch, "mha_bwd_dkv dV", dv, want_v,
+                                     tag, key)
+            del want_k, want_v
+            _bitwise_again(torch, "mha_bwd_dq", dq, mha_bwd_dq(*args, **kw),
+                           key)
+            dk2, dv2 = mha_bwd_dkv(*args, **kw)
+            _bitwise_again(torch, "mha_bwd_dkv", torch.cat(
+                [dk.flatten(), dv.flatten()]), torch.cat(
+                [dk2.flatten(), dv2.flatten()]), key)
+            e_f = d.max().item()
+            errs[("mha_fwd", name, tag)] = e_f
+            errs[("mha_bwd_dq", name, tag)] = e_q
+            errs[("mha_bwd_dkv", name, tag)] = max(e_k, e_v)
+            print(f"  {key:48s} fma out err {e_f:.3e} (tol {atol:g} + "
+                  f"{rtol:g}|ref|), lse err {dl.max().item():.3e}; dQ err "
+                  f"{e_q:.3e}, dK {e_k:.3e}, dV {e_v:.3e} (tol "
+                  f"{BWD_SCALE_ATOL[tag]:g}max|ref| + {BWD_RTOL[tag]:g}|ref|;"
+                  f" err/tol at most {r_q:.3f}, {r_k:.3f}, {r_v:.3f}); "
+                  f"bitwise repeatable")
+            del q, k, v, do, delta, args, dq, dk, dv, dk2, dv2
+    return errs
+
+
+def _sdpa_backend(torch, qt, kt, vt):
+    """The SDPA backend that takes hdv != hd here, the memory-efficient one
+    where it does, else the math one: (name, context manager factory)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    for backend in (SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel(backend):
+                F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        except RuntimeError:
+            continue
+        return backend.name, lambda b=backend: sdpa_kernel(b)
+    raise AssertionError("no SDPA backend takes hdv != hd")
+
+
+def mla_timing(torch, gen, power, errs):
+    """Phase 4, the three attention kernels (``fma``) at the deepseek-v3
+    train step's attention (B 16, S = T 256, 128 heads, hd 192, hdv 128,
+    causal, bf16): CUDA-event and device ms, the plain version, the bound,
+    and F.scaled_dot_product_attention (forward; its backward for the
+    pair: dQ, dK, dV together) on the backend that takes hdv != hd, named.
+    -> {kernel: a "shapes" entry of the kernels line's row}."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.attention.attention import (mha_bwd_dkv,
+                                                         mha_bwd_dq, mha_fwd)
+    from repro_torch.kernels.attention.ref import (mha_bwd_dkv_ref,
+                                                   mha_bwd_dq_ref,
+                                                   mha_fwd_ref)
+    B, S, T, H, K, hd, hdv = MLA_ATTN[MLA_TRAIN_ATTN]
+    bf = torch.bfloat16
+    q, k, v = make_qkv(torch, gen, B, S, T, H, K, hd, bf, hdv)
+    kw = dict(scale=hd ** -0.5, causal=True)
+    out, lse = mha_fwd(q, k, v, None, **kw)
+    do = torch.randn(out.shape, generator=gen, device="cuda").to(bf)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, lse, delta, None)
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    backend, ctx = _sdpa_backend(torch, qt, kt, vt)
+    with ctx():
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                           scale=kw["scale"])
+
+        def sdpa_fwd():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, scale=kw["scale"])
+
+        def sdpa_bwd():
+            return torch.autograd.grad(o, [qt, kt, vt],
+                                       do.transpose(1, 2), retain_graph=True)
+        lib = {"mha_fwd": (time_ms(torch, sdpa_fwd, 10),
+                           device_ms(torch, sdpa_fwd, 5))}
+        lib["bwd"] = (time_ms(torch, sdpa_bwd, 10),
+                      device_ms(torch, sdpa_bwd, 5))
+    shape = (f"deepseek-v3 train: B={B} S={S} T={T} H={H} K={K} hd={hd} "
+             f"hdv={hdv} causal bf16")
+    out_rows = {}
+    for name, kern, plain in (
+            ("mha_fwd", lambda: mha_fwd(q, k, v, None, **kw),
+             lambda: mha_fwd_ref(q, k, v, None, **kw)),
+            ("mha_bwd_dq", lambda: mha_bwd_dq(*args, **kw),
+             lambda: mha_bwd_dq_ref(*args, **kw)),
+            ("mha_bwd_dkv", lambda: mha_bwd_dkv(*args, **kw),
+             lambda: mha_bwd_dkv_ref(*args, **kw))):
+        ms = time_ms(torch, kern, 5, warm=2)
+        dev_ms = device_ms(torch, kern, 3, name)
+        plain_ms = time_ms(torch, plain, 3, warm=1)
+        bound, by = (attention_bound_ms(B, S, T, H, K, hd, True, None, 2, hdv)
+                     if name == "mha_fwd" else bwd_bound_ms(
+                         B, S, T, H, K, hd, True, None, 2, name, hdv))
+        lib_ms, lib_dev = lib["mha_fwd" if name == "mha_fwd" else "bwd"]
+        note = (f"F.scaled_dot_product_attention, {backend} backend"
+                + ("" if name == "mha_fwd" else ", backward (dQ, dK, dV "
+                   "together)"))
+        print(f"  [{power}] {name} {shape}, fma route: {ms:.4f} ms (device "
+              f"time {fmt_ms(dev_ms)}; bound {bound:.4f} ms by {by}, "
+              f"{bound / ms:.4f} of it; plain {plain_ms:.4f} ms; {note} "
+              f"{lib_ms:.4f} ms, device time {fmt_ms(lib_dev)})")
+        out_rows[name] = {
+            "name": name, "shape": shape, "route": "cuda",
+            "kernel_route": "fma",
+            "source": SRC_MHA if name == "mha_fwd" else SRC_MHA_BWD,
+            "replaces": TPU_MHA if name == "mha_fwd" else TPU_KERNELS[name],
+            "launches": None,
+            "max_abs_err": errs[(name, MLA_TRAIN_ATTN, "bfloat16")],
+            "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
+            "library_device_ms": lib_dev, "library_note": note}
+    del q, k, v, out, lse, do, delta, args, qt, kt, vt, o
+    torch.cuda.empty_cache()
+    return out_rows
+
+
+def f32_witness(torch, seed, arch, c16, prompt, toks):
+    """A witness for the bf16 decode of ``c16`` (at cf E/k) that runs no
+    decode on its reference side: the same steps, fed ``toks``, computed
+    in f32 from the same bf16 weights; the bf16 decode's distance from
+    them held to SERVE_BF16_FLOOR_X times the bf16 full forward's distance
+    from the f32 full forward (the bf16 roundings of a path without the
+    absorbed decode). The f32 decode against the f32 full forward within
+    SERVE_ATOL/RTOL (``serve_f32``). -> its record."""
+    import dataclasses
+    from repro_torch.models import init_params
+    from repro_torch.models.model import Params, flatten
+    V = c16.vocab_size
+    p16 = init_params(c16, torch.Generator(device="cuda").manual_seed(seed),
+                      device="cuda")
+    c32 = dataclasses.replace(c16, dtype="float32")
+    p32 = Params({k: v.float() for k, v in flatten(p16).items()})
+    last16 = serve_run(torch, c16, p16, prompt, toks)[1][:, :V]
+    full16 = full_logits(torch, c16, p16, prompt, toks, [])
+    del p16
+    torch.cuda.empty_cache()
+    f32_err, last32, full32 = serve_f32(torch, arch, c32, p32, prompt, toks)
+    del p32
+    torch.cuda.empty_cache()
+    dec = (last16 - last32).abs().max().item()
+    full = (full16 - full32).abs().max().item()
+    rec = {"f32_max_err": f32_err, "bf16_decode_vs_f32_decode": dec,
+           "bf16_full_vs_f32_full": full,
+           "bound": SERVE_BF16_FLOOR_X * full,
+           "argmax_agreement_decode": (last16.argmax(-1) == last32.argmax(
+               -1)).float().mean().item(),
+           "argmax_agreement_full": (full16.argmax(-1) == full32.argmax(
+               -1)).float().mean().item(),
+           "ref_max": full32.abs().max().item()}
+    print(f"  {arch} witness, {c16.n_layers} layers, segments "
+          f"{c16.segments}, cf {c16.capacity_factor:g}: bf16 decode vs the "
+          f"same steps in f32 from the same bf16 weights max err {dec:.3e} "
+          f"(argmax agreement {rec['argmax_agreement_decode']:.3f}); bf16 "
+          f"full forward vs f32 full forward {full:.3e} (argmax agreement "
+          f"{rec['argmax_agreement_full']:.3f}); f32 |ref| max "
+          f"{rec['ref_max']:.3f}; bound {SERVE_BF16_FLOOR_X:g} x {full:.3e} "
+          f"= {rec['bound']:.3e}")
+    if not (math.isfinite(dec) and dec <= rec["bound"]):
+        raise AssertionError(f"{arch}: the bf16 decode leaves its f32 "
+                             "witness by more than the bf16 full forward")
+    return rec
+
+
+def serve_mla(torch, seed, power, train_cfg):
+    """Phase 17 (ii): deepseek-v3 serving at full width, MLA_LAYERS layers
+    and all its routed experts (``serve_family``: the prefill through the
+    attention kernels on ``fma``, then decode steps of the absorbed form
+    against the latent cache, which launch no kernel); its bf16 decode held
+    to its floor (attention through its plain version, the same decode);
+    then ``f32_witness`` at the training cut (``train_cfg``: 64 experts)
+    and at its dense layers alone (no MoE routing)."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    full = get_arch(MLA_ARCH)
+    cfg = dataclasses.replace(train_cfg, n_experts=full.n_experts)
+    out, prompt, toks = serve_family(torch, seed, power, MLA_ARCH, cfg,
+                                     {"fma": cfg.n_layers})
+    out["reduced"] = [f"n_layers {full.n_layers} -> {cfg.n_layers}: the "
+                      f"training cut's; all {cfg.n_experts} experts"]
+    held_to_floors(MLA_ARCH, out, cfg)
+    dense = dataclasses.replace(train_cfg, family="dense",
+                                n_layers=train_cfg.first_dense_layers)
+    out["witness"] = {f"{c.n_layers} layers, {c.segments}": f32_witness(
+        torch, seed, MLA_ARCH, no_drop(c), prompt, toks)
+        for c in (train_cfg, dense)}
+    return out
+
+
+def phase_mla(torch, seed, power):
+    """Phase 17: deepseek-v3-671b training (MLA_LAYERS layers, both
+    segments, MLA_TRAIN_EXPERTS experts) and serving at full width."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    t0 = time.perf_counter()
+    full = get_arch(MLA_ARCH)
+    cfg = dataclasses.replace(full, n_layers=MLA_LAYERS,
+                              n_experts=MLA_TRAIN_EXPERTS)
+    if cfg.segments != (("dense", 3), ("moe", 1)):
+        raise AssertionError(f"{MLA_ARCH}: segments {cfg.segments}")
+    reduced = [f"n_layers {full.n_layers} -> {MLA_LAYERS} (the "
+               f"{full.first_dense_layers} first_dense_layers and 1 MoE "
+               "layer)", f"n_experts {full.n_experts} -> {MLA_TRAIN_EXPERTS}"]
+    widths = (f"d_model {cfg.d_model}, {cfg.n_heads} heads, MLA q_lora "
+              f"{cfg.q_lora_rank} kv_lora {cfg.kv_lora_rank}, qk "
+              f"{cfg.qk_nope_dim} + {cfg.qk_rope_dim} (rope), v "
+              f"{cfg.v_head_dim}; d_ff {cfg.d_ff}, top-{cfg.top_k} of "
+              f"{cfg.n_experts} experts, moe_d_ff {cfg.moe_d_ff}, "
+              f"{cfg.n_shared_experts} shared; vocab {cfg.vocab_size}")
+    # 18 matrices of two or three dims (tok_embed; wq_a, wq_b, wkv_a,
+    # wkv_b, wo of each segment; the dense w_gate, w_up, w_down; the
+    # router and the shared expert's three) and the head; the 4-D expert
+    # leaves take the plain stage route
+    train = train_family(torch, seed, power, MLA_ARCH, cfg, reduced,
+                         MLA_STEPS, *train_want(cfg.n_layers, "fma", 18),
+                         widths)
+    serve = serve_mla(torch, seed, power, cfg)
+    print(f"  phase 17 took {time.perf_counter() - t0:.1f} s")
+    return {"train": train, "serve": serve}
 
 
 def main() -> int:
@@ -6180,12 +6628,14 @@ def main() -> int:
     xent_errs = phase_xent_kernels(torch, gen)
     tied_errs = phase_xent_tied_kernels(torch, gen)
     seg_errs = phase_segment_kernels(torch, gen, args.seed)
+    mla_errs = phase_mla_kernels(torch, gen)
     print("phase 3: greedy serving, llama-130m, full width and depth")
     serve = phase_serving(torch, args.seed, power)
     print("phase 4: kernel times (CUDA events; attention and xent also "
           "device time)")
     mha_rows = phase_timing(torch, gen, power, serve, errs)
     bwd_rows = bwd_timing(torch, gen, power, bwd_errs)
+    mla_rows = mla_timing(torch, gen, power, mla_errs)
     seg_rows = seg_timing(torch, gen, power, seg_errs, args.seed)
     opt_rows = optimizer_timing(torch, gen, power, opt_errs, variants)
     xent_rows = xent_timing(torch, gen, power, xent_errs)
@@ -6223,6 +6673,9 @@ def main() -> int:
           "training and serving at full width, the four dense configs at "
           "full width")
     moe = phase_moe(torch, args.seed, power)
+    print("phase 17: MLA and deepseek-v3-671b: training (4 layers, 64 "
+          "experts) and serving (4 layers, 256 experts) at full width")
+    mla = phase_mla(torch, args.seed, power)
     # one row per kernel; launches summed over the main paths that run it,
     # each counted from 0 just before its path and read just after
     by_path = {"serving": {"mha_fwd": serve["launches"]},
@@ -6254,7 +6707,11 @@ def main() -> int:
                # and the four dense ARCH_IDS configs' training
                "train moe": moe["train"]["launches"],
                "serve moe": {"mha_fwd": moe["serve"]["launches"]},
-               "train arch": moe["arch_launches"]}
+               "train arch": moe["arch_launches"],
+               # deepseek-v3-671b's training and its serving (the prefill's
+               # attention; the absorbed decode launches no kernel)
+               "train mla": mla["train"]["launches"],
+               "serve mla": {"mha_fwd": mla["serve"]["launches"]}}
     # mha_fwd's prefill numbers, with both serving shapes and the eval and
     # training steps' shape beside them
     mha = {k: v for k, v in mha_rows[0].items() if k != "shape"}
@@ -6263,13 +6720,20 @@ def main() -> int:
         entry["launches"] = paper[arch]["launches"]["mha_fwd"]
     mha_rows.append({**mha_rows[2], "shape": "train",
                      "launches": train["launches"]["mha_fwd"]})
+    # MLA's attention (fma, hd 192 / hdv 128) and head at phase 17's
+    # training step
+    for name, entry in mla_rows.items():
+        entry["launches"] = mla["train"]["launches"][name]
+    mha_rows.append(mla_rows["mha_fwd"])
     mha["shapes"] = mha_rows
     for row in bwd_rows:
         row["shapes"][0]["launches"] = train["launches"][row["name"]]
         for entry, arch in zip(row["shapes"][2:], PAPER_MODELS):
             entry["launches"] = paper[arch]["launches"][row["name"]]
+        row["shapes"].append(mla_rows[row["name"]])
     for row in xent_rows:
-        for entry, path in zip(row["shapes"], (train, *paper.values())):
+        for entry, path in zip(row["shapes"], (train, *paper.values(),
+                                               mla["train"])):
             entry["launches"] = path["launches"][row["name"]]
     for row in tied_rows:
         for entry, arch in zip(row["shapes"], TIED_MODELS):
@@ -6291,6 +6755,8 @@ def main() -> int:
                 "by_route": r["routes"].get(row["name"])}
             for a, r in (("llama-1b", train), *paper.items(),
                          (f"{MOE_ARCH} {MOE_LAYERS} layers", moe["train"]),
+                         (f"{MLA_ARCH} {MLA_LAYERS} layers, "
+                          f"{MLA_TRAIN_EXPERTS} experts", mla["train"]),
                          *((f"{a} {ARCH_LAYERS} layers", r)
                            for a, r in moe["arch"].items()))}
         if row["name"] in SEG_ROWS.values():

@@ -2,8 +2,9 @@
 
 Every field and default is the JAX package's, so a configuration moves
 between the two packages field by field. ``torch_dtype`` takes the place of
-``jdtype``. The dense and MoE families run in the port so far; the other
-families' fields are kept so that the registry and the derived properties
+``jdtype``. The dense and MoE families, with GQA or MLA attention
+(``attention_kind``), run in the port so far; the other families' fields
+are kept so that the registry and the derived properties
 mean the same in both packages.
 """
 from __future__ import annotations

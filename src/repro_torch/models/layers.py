@@ -1,12 +1,13 @@
-"""Model building blocks (the dense and MoE subset of
-``repro.models.layers``).
+"""Model building blocks (the GQA and MLA attention, dense and MoE subset
+of ``repro.models.layers``).
 
 Every module exposes ``<mod>_spec(cfg) -> {name: Spec}`` (shapes and
 initializers) and ``apply_<mod>(p, cfg, ...)`` (forward). Parameters keep
 the JAX package's names and layouts, so ``x @ p["wq"]`` multiplies by a
 (D, H*hd) matrix here as there. Attention goes through
-``kernels.dispatch.flash_attention``; the MoE layer's products are the
-JAX package's einsums, which it computes outside any Pallas kernel too.
+``kernels.dispatch.flash_attention`` (MLA's absorbed decode excepted:
+plain products, as in JAX); the MoE layer's products are the JAX
+package's einsums, which it computes outside any Pallas kernel too.
 """
 from __future__ import annotations
 
@@ -105,6 +106,14 @@ def attn_spec(cfg: ModelConfig) -> dict:
     return s
 
 
+def attn_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype,
+               device) -> dict:
+    """Zero GQA cache: k and v (B, max_seq, K, hd)."""
+    kshape = (batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(kshape, dtype=dtype, device=device),
+            "v": torch.zeros(kshape, dtype=dtype, device=device)}
+
+
 def apply_attention(p, cfg: ModelConfig, x, positions, mode: str = "train",
                     cache: Optional[dict] = None, cache_index=None,
                     segment_ids=None, rules: Optional[Rules] = None,
@@ -157,6 +166,126 @@ def apply_attention(p, cfg: ModelConfig, x, positions, mode: str = "train",
 
     y = out.reshape(B, S, H * hd) @ p["wo"]
     return y, new_cache
+
+
+# ------------------------------------------------------------- MLA attention
+
+def mla_spec(cfg: ModelConfig) -> dict:
+    D, H = cfg.d_model, cfg.n_heads
+    qn, qr, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    qlr, kvlr = cfg.q_lora_rank, cfg.kv_lora_rank
+    return {
+        "wq_a": Spec((D, qlr), ("embed", "lora")),
+        "q_norm": Spec((qlr,), ("norm",), "ones"),
+        "wq_b": Spec((qlr, H * (qn + qr)), ("lora", "heads")),
+        "wkv_a": Spec((D, kvlr + qr), ("embed", "lora")),
+        "kv_norm": Spec((kvlr,), ("norm",), "ones"),
+        "wkv_b": Spec((kvlr, H * (qn + vd)), ("lora", "heads")),
+        "wo": Spec((H * vd, D), ("heads", "embed")),
+    }
+
+
+def mla_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype,
+              device) -> dict:
+    """Zero MLA cache: the latent ckv (B, max_seq, kv_lora_rank) and the
+    shared rope key krope (B, max_seq, 1, qk_rope_dim)."""
+    return {"ckv": torch.zeros((batch, max_seq, cfg.kv_lora_rank),
+                               dtype=dtype, device=device),
+            "krope": torch.zeros((batch, max_seq, 1, cfg.qk_rope_dim),
+                                 dtype=dtype, device=device)}
+
+
+def apply_mla_attention(p, cfg: ModelConfig, x, positions, mode: str = "train",
+                        cache: Optional[dict] = None, cache_index=None,
+                        segment_ids=None, rules: Optional[Rules] = None,
+                        mesh=None):
+    """Multi-head Latent Attention (DeepSeek-V2/V3), JAX's
+    ``apply_mla_attention``. mode: train | prefill | decode. -> (y,
+    new_cache).
+
+    The cache holds only the normalized kv latent ``ckv`` (B, T,
+    kv_lora_rank) and the one rope key head every query head shares,
+    ``krope`` (B, T, 1, qk_rope_dim). train and prefill expand the latent
+    into per-head keys (qk_nope_dim + qk_rope_dim wide) and values
+    (v_head_dim wide) and run causal flash attention with H == K: the
+    only attention in the model whose key width differs from its value
+    width. prefill returns this call's S-length latents as the cache.
+    decode writes them into ``cache`` at ``cache_index`` IN PLACE (as
+    ``apply_attention`` does) and runs the absorbed form
+    (``_mla_absorbed``). ``segment_ids``: as ``apply_attention`` (train
+    and prefill; decode raises). The profiler sees the projections as the
+    span ``mla_proj`` and the absorbed decode as ``mla_decode``.
+    """
+    if mode == "decode" and segment_ids is not None:
+        raise ValueError("apply_mla_attention: segment_ids are not taken in "
+                         "decode (decode serves one document per row)")
+    B, S, D = x.shape
+    H = cfg.n_heads
+    qn, qr, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    kvlr = cfg.kv_lora_rank
+
+    with record_function("mla_proj"):
+        cq = rmsnorm(x @ p["wq_a"], p["q_norm"], cfg.rms_eps)
+        q = (cq @ p["wq_b"]).reshape(B, S, H, qn + qr)
+        q_nope, q_rope = q[..., :qn], q[..., qn:]
+
+        kv_a = x @ p["wkv_a"]
+        c_kv, k_rope = kv_a[..., :kvlr], kv_a[..., kvlr:]
+        c_kv = rmsnorm(c_kv, p["kv_norm"], cfg.rms_eps)
+
+        cos, sin = rope_tables(positions, qr, cfg.rope_theta)
+        q_rope = apply_rope(q_rope, cos, sin)
+        k_rope = apply_rope(k_rope[..., None, :], cos, sin)  # one shared head
+
+    scale = 1.0 / math.sqrt(qn + qr)
+    new_cache = cache
+    if mode == "decode":
+        with record_function("mla_decode"):
+            idx = cache_index + torch.arange(S, device=x.device)
+            ckv, krope = cache["ckv"], cache["krope"]
+            ckv.index_copy_(1, idx, c_kv.to(ckv.dtype))
+            krope.index_copy_(1, idx, k_rope.to(krope.dtype))
+            out = _mla_absorbed(p, cfg, q_nope, q_rope, ckv, krope,
+                                cache_index + S, scale)
+    else:
+        if mode == "prefill":
+            new_cache = {"ckv": c_kv, "krope": k_rope}
+        with record_function("mla_proj"):
+            # the latents expanded to per-head keys and values
+            kv = (c_kv @ p["wkv_b"]).reshape(B, S, H, qn + vd)
+            k_nope, vv = kv[..., :qn], kv[..., qn:]
+            k_full = torch.cat([k_nope, k_rope.expand(B, S, H, qr)], -1)
+            q_full = torch.cat([q_nope, q_rope], -1)
+        seg = None if segment_ids is None else (segment_ids, segment_ids)
+        out = causal_blockwise_attention(q_full, k_full, vv, scale,
+                                         segments=seg, rules=rules, mesh=mesh)
+    with record_function("mla_proj"):
+        y = out.reshape(B, S, H * vd) @ p["wo"]
+    return y, new_cache
+
+
+def _mla_absorbed(p, cfg: ModelConfig, q_nope, q_rope, ckv, krope, kv_len,
+                  scale: float):
+    """MLA decode against the latent cache (DeepSeek's absorbed form, JAX's
+    decode branch): ``wkv_b`` folded into the query (``q_lat``) and the
+    output (``out_lat @ wv``), so no T-length key or value is expanded.
+    Plain products, as in JAX (no Pallas kernel there), in the model
+    dtype; the scores turn f32 after ``s_lat + s_rope``, keys at or past
+    ``kv_len`` are masked and the softmax is f32. -> (B, S, H, v_head_dim).
+    """
+    H, qn, vd = cfg.n_heads, cfg.qk_nope_dim, cfg.v_head_dim
+    T = ckv.shape[1]
+    wkv = p["wkv_b"].reshape(cfg.kv_lora_rank, H, qn + vd)
+    wk, wv = wkv[..., :qn], wkv[..., qn:]
+    q_lat = torch.einsum("bqhn,khn->bqhk", q_nope, wk)         # (B,S,H,kvlr)
+    s_lat = torch.einsum("bqhk,btk->bhqt", q_lat, ckv)
+    s_rope = torch.einsum("bqhr,btr->bhqt", q_rope, krope[:, :, 0])
+    s = (s_lat + s_rope).float() * scale
+    s = s.masked_fill(torch.arange(T, device=s.device) >= kv_len,
+                      float("-inf"))
+    pattn = torch.softmax(s, dim=-1)
+    out_lat = torch.einsum("bhqt,btk->bqhk", pattn.to(q_nope.dtype), ckv)
+    return torch.einsum("bqhk,khv->bqhv", out_lat, wv)
 
 
 # --------------------------------------------------------------------- MLPs

@@ -1,5 +1,5 @@
 """Top-level model API: spec, init, caches, forward, logits, loss (the
-dense and MoE families).
+dense and MoE families, GQA or MLA attention).
 
 Parameter tree layout, as in ``repro.models.model``::
 
@@ -109,11 +109,18 @@ def count_params(shapes: dict, cfg: ModelConfig = None,
 def check_mesh(cfg: ModelConfig, mesh, what: str) -> None:
     """Raise before any work where ``cfg`` has no sharded route on a mesh:
     an MoE segment (expert parallelism over "model" is not ported; a
-    DTensor einsum would silently replicate the experts)."""
-    if mesh is not None and any(k == "moe" for k, _ in cfg.segments):
+    DTensor einsum would silently replicate the experts) or MLA attention
+    (its latents and absorbed decode have no sharded layout yet)."""
+    if mesh is None:
+        return
+    if any(k == "moe" for k, _ in cfg.segments):
         raise NotImplementedError(
             f"{what}: sharded MoE (expert parallelism over 'model') is not "
             "ported yet; ROADMAP.md Queue 1 item 12 (its leftovers)")
+    if cfg.attention_kind == "mla":
+        raise NotImplementedError(
+            f"{what}: MLA attention on a mesh is not ported yet; ROADMAP.md "
+            "Queue 1 item 12 (its leftovers)")
 
 
 class Params(nn.ModuleDict):
@@ -177,7 +184,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
                device=None) -> dict:
-    """Zero KV cache, per segment (L, B, max_seq, K, hd) like the JAX one."""
+    """Zero cache, per segment and attention sub-layer, like the JAX one:
+    GQA's k and v (L, B, max_seq, K, hd); MLA's latent ckv (L, B, max_seq,
+    kv_lora_rank) and shared rope key krope (L, B, max_seq, 1,
+    qk_rope_dim)."""
     dtype = dtype or cfg.torch_dtype
     device = resolve_device(device)
     out = {}

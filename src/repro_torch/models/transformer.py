@@ -1,5 +1,6 @@
 """Super-blocks (dense: self-attn + SwiGLU; moe: self-attn + MoE) and the
-loop over stacked layer params.
+loop over stacked layer params. The self-attention sub-layer is GQA or MLA
+by ``cfg.attention_kind``, as in JAX.
 
 The JAX package scans each segment of homogeneous super-blocks over params
 stacked on a leading (L, ...) axis; the port keeps that layout and loops in
@@ -33,12 +34,24 @@ from .config import ModelConfig
 from .sharding import shard
 
 
-_SPECS = {"attn": L.attn_spec, "mlp": L.mlp_spec, "moe": L.moe_spec}
+_SPECS = {"mlp": L.mlp_spec, "moe": L.moe_spec}
+# attention_kind -> (spec, apply, cache) of the self-attention sub-layer
+_ATTENTION = {"gqa": (L.attn_spec, L.apply_attention, L.attn_cache),
+              "mla": (L.mla_spec, L.apply_mla_attention, L.mla_cache)}
+
+
+def _attention(cfg: ModelConfig) -> tuple:
+    """(spec, apply, cache) of ``cfg.attention_kind``; any other kind
+    raises."""
+    if cfg.attention_kind not in _ATTENTION:
+        raise ValueError(f"attention_kind must be one of {tuple(_ATTENTION)}, "
+                         f"got {cfg.attention_kind!r}")
+    return _ATTENTION[cfg.attention_kind]
 
 
 def _sub_spec(cfg: ModelConfig, sub: str) -> dict:
-    return {"norm": L.Spec((cfg.d_model,), ("norm",), "ones"),
-            **_SPECS[sub](cfg)}
+    spec = _attention(cfg)[0] if sub == "attn" else _SPECS[sub]
+    return {"norm": L.Spec((cfg.d_model,), ("norm",), "ones"), **spec(cfg)}
 
 
 def _apply_sub(sub: str, p, cfg: ModelConfig, x, positions, mode: str, cache,
@@ -48,9 +61,9 @@ def _apply_sub(sub: str, p, cfg: ModelConfig, x, positions, mode: str, cache,
     h = L.rmsnorm(x, p["norm"], cfg.rms_eps)
     aux = None
     if sub == "attn":
-        y, cache = L.apply_attention(p, cfg, h, positions, mode, cache,
-                                     cache_index, segment_ids, rules=rules,
-                                     mesh=mesh)
+        y, cache = _attention(cfg)[1](p, cfg, h, positions, mode, cache,
+                                      cache_index, segment_ids, rules=rules,
+                                      mesh=mesh)
     elif sub == "moe":
         y, aux = L.apply_moe(p, cfg, h)
     else:
@@ -75,14 +88,11 @@ def superblock_spec(cfg: ModelConfig, kind: str) -> dict:
 
 def superblock_cache(cfg: ModelConfig, kind: str, batch: int, max_seq: int,
                      dtype, device) -> dict:
-    """Zero KV cache for one super-block."""
-    out = {}
-    for name, sub in superblock_layout(cfg, kind):
-        if sub == "attn":
-            kshape = (batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
-            out[name] = {"k": torch.zeros(kshape, dtype=dtype, device=device),
-                         "v": torch.zeros(kshape, dtype=dtype, device=device)}
-    return out
+    """Zero cache for one super-block's attention, in the layout of
+    ``cfg.attention_kind`` (``layers.attn_cache``, ``layers.mla_cache``)."""
+    cache = _attention(cfg)[2]
+    return {name: cache(cfg, batch, max_seq, dtype, device)
+            for name, sub in superblock_layout(cfg, kind) if sub == "attn"}
 
 
 def _layer(tree, l: int):
@@ -153,7 +163,8 @@ def apply_segment(kind: str, n_blocks: int, cfg: ModelConfig, stacked, x,
 
     -> (x, new_cache, aux), aux the sum of the layers' (None for a segment
     without MoE). prefill returns the S-length caches stacked to
-    (L, B, S, K, hd); decode writes the stacked cache in place and returns
+    (L, B, S, K, hd) (MLA: (L, B, S, kv_lora_rank) and (L, B, S, 1,
+    qk_rope_dim)); decode writes the stacked cache in place and returns
     it; train returns None. ``segment_ids`` (packed rows) is a tensor
     argument of each remat block, so a recomputed forward masks as the
     first did. ``rules`` and ``mesh``: see ``model.forward``.

@@ -1,7 +1,7 @@
 """The ``ARCH_IDS`` configurations in the port against the JAX package's:
 the registry, shapes and counts of the full-size configurations (from the
-specs alone, nothing allocated), the paper's memory accounting on
-dbrx-132b, a forward and a training step of the four dense ``SMOKE``
+specs alone, nothing allocated; deepseek-v3-671b's against JAX's nameplate
+bounds too), the paper's memory accounting on dbrx-132b, a forward and a training step of the four dense ``SMOKE``
 twins, and the launcher's ``--smoke``.
 
 Inputs come from JAX's ``init_params`` and data pipeline, crossed over as
@@ -46,10 +46,10 @@ from repro_torch.models.weights import load_flat  # noqa: E402
 from repro_torch.training import init_state, make_train_step  # noqa: E402
 
 PORTED = ("qwen2-7b", "granite-3-8b", "deepseek-67b", "mistral-large-123b",
-          "dbrx-132b")
+          "dbrx-132b", "deepseek-v3-671b")
 DENSE = PORTED[:4]
-UNPORTED = ("mamba2-370m", "llama-3.2-vision-11b", "deepseek-v3-671b",
-            "jamba-1.5-large-398b", "musicgen-medium")
+UNPORTED = ("mamba2-370m", "llama-3.2-vision-11b", "jamba-1.5-large-398b",
+            "musicgen-medium")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -115,6 +115,14 @@ def test_param_shapes_and_counts_match_jax(arch):
         # 16 experts, top 4: a quarter of the expert leaves is active
         assert shapes["segments/seg0_moe/ffn/w_gate"] == (40, 16, 6144, 10752)
         assert t.active_params() < t.num_params() / 3
+    elif arch == "deepseek-v3-671b":
+        # JAX's nameplate bounds (tests/test_models_smoke.py): 671 B total,
+        # 37 B activated; 3 dense MLA layers, then 58 MLA + MoE layers
+        assert 660e9 <= t.num_params() <= 685e9
+        assert 34e9 <= t.active_params() <= 40e9
+        assert shapes["segments/seg1_moe/ffn/w_gate"] == (58, 256, 7168, 2048)
+        assert shapes["segments/seg0_dense/attn/wkv_b"] == (3, 512, 128 * 256)
+        assert shapes["segments/seg1_moe/attn/wq_b"] == (58, 1536, 128 * 192)
     else:
         assert t.active_params() == t.num_params()
 

@@ -82,6 +82,10 @@ versions, with lse and delta from the plain forward:
     ``mha_fwd_ref``: the forward's tolerances, scaled by max|ref| (2e-5 in
     f32, 1e-2 in bf16). A direct CUDA ``mha_fwd`` call under grad raises
     (its output has no autograd history).
+MLA's attention (queries and keys 192 wide, values 128, H == K, causal)
+holds the three kernels on the fma route at the tolerances above, and
+deepseek-v3's SMOKE twin takes a train step through every kernel of its
+path against the same step with every kernel through its plain version.
 The eval step's loss is held
 to 1e-4 against the plain full-logit loss of the same hidden (f32 means
 summed in other orders), and to 2e-3 against the loss of a forward whose
@@ -612,6 +616,8 @@ XENT_CASES = {
     "qwen2_head": (4096, 3584, 152064, 152064, 0.0),
     "deepseek67b_head": (4096, 8192, 102400, 102400, 0.0),
     "mistral_large_head": (4096, 12288, 32768, 32768, 0.0),
+    # deepseek-v3-671b's head (D 7168, V 129280), phase 17
+    "deepseek_v3_head": (4096, 7168, 129280, 129280, 0.0),
 }
 
 
@@ -1838,3 +1844,145 @@ def test_apply_moe_on_card_matches_cpu(cuda, case):
     for got, want in zip(g, wg):
         torch.testing.assert_close(got, want, rtol=0,
                                    atol=1e-5 * want.abs().max().item())
+
+
+# MLA (deepseek-v3): queries and keys 128 + 64 wide, values 128, as many kv
+# heads as query heads: (B, S, T, H, K, hd, hdv), causal, every kernel on
+# the fma route. The forward at the tolerances above; the backward pair
+# with lse and delta from the plain forward at _bwd_close's.
+MLA_CASES = {
+    "mla_b2_h128": (2, 256, 256, 128, 128, 192, 128),
+    "mla_ragged200_h16": (2, 200, 200, 16, 16, 192, 128),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", list(MLA_CASES))
+def test_mla_attention_kernels_match_plain_on_card(cuda, case, dtype):
+    from repro_torch.kernels.attention.attention import (_bwd_route,
+                                                         mha_bwd_dkv,
+                                                         mha_bwd_dq)
+    from repro_torch.kernels.attention.ref import (mha_bwd_dkv_ref,
+                                                   mha_bwd_dq_ref)
+    B, S, T, H, K, hd, hdv = MLA_CASES[case]
+    td = DTYPES[dtype]
+    rng = np.random.default_rng(11)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                                    ).to(cuda, td)
+                   for shape in ((B, S, H, hd), (B, T, K, hd), (B, T, K, hdv),
+                                 (B, S, H, hdv)))
+    kw = dict(scale=hd ** -0.5, causal=True)
+    assert (_fwd_route(q, k, v), _bwd_route(q, k, v)) == ("fma", "fma")
+    fns = (mha_fwd, mha_bwd_dq, mha_bwd_dkv)
+    before = [dict(f.route_launches) for f in fns]
+    out, lse = mha_fwd(q, k, v, None, **kw)
+    ref, ref_lse = mha_fwd_ref(q, k, v, None, **kw)
+    assert out.shape == (B, S, H, hdv)
+    atol, rtol = _tol(dtype)
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-5)
+    delta = (do.float() * ref.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, ref_lse, delta, None)
+    dq = mha_bwd_dq(*args, **kw)
+    dk, dv = mha_bwd_dkv(*args, **kw)
+    torch.cuda.synchronize()
+    for f, was in zip(fns, before):
+        assert f.route_launches == {**was, "fma": was["fma"] + 1}, f.__name__
+    assert (dq.shape, dk.shape, dv.shape) == (q.shape, k.shape, v.shape)
+    _bwd_close(dq, mha_bwd_dq_ref(*args, **kw), dtype)
+    want_dk, want_dv = mha_bwd_dkv_ref(*args, **kw)
+    _bwd_close(dk, want_dk, dtype)
+    _bwd_close(dv, want_dv, dtype)
+    assert torch.equal(dq, mha_bwd_dq(*args, **kw))
+
+
+@pytest.mark.gpu
+def test_v3_smoke_train_step_on_card_matches_plain_route(cuda, monkeypatch):
+    """deepseek-v3's SMOKE twin (f32: MLA with hd 48 != hdv 32 on fma, a
+    dense then two MoE layers): one loss-and-grad against the same call
+    with attention and xent through their plain versions (per leaf, 1e-4
+    of its largest |gradient|: f32 sums in other orders), then one
+    ``scale_fused`` step from the same params on each route, the plain one
+    with the optimizer's kernels through their plain versions too: per step 2L
+    mha_fwd, L of each backward kernel (all fma), one of each xent kernel
+    (fma), 18 norm_sumsq, 19 update_apply, one momentum_sumsq (the 4-D
+    expert leaves take the plain stage route); the metrics within 1e-4
+    relative and every leaf within 1e-3 of its largest step."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import make_optimizer
+    from repro_torch.data import make_dataset
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.attention import attention as A
+    from repro_torch.kernels.colnorm import ref as CR
+    from repro_torch.kernels.scale_head.ref import momentum_sumsq_ref
+    from repro_torch.kernels.xent import ref as XR
+    from repro_torch.models import init_params
+    from repro_torch.models.model import flatten
+    from repro_torch.training import (init_state, make_train_step,
+                                      value_and_grad)
+    cfg = get_arch("deepseek-v3-671b", smoke=True)
+    L = cfg.n_layers
+    batch = make_dataset(cfg, 64, 4, seed=1, device=cuda).global_batch_at(0)
+
+    def fresh():
+        return init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                           device=cuda)
+
+    def plain(m):
+        m.setattr(dispatch, "mha_fwd", mha_fwd_ref)
+        m.setattr(dispatch, "xent_fwd", XR.xent_fwd_ref)
+        m.setattr(dispatch, "xent_bwd_dh", XR.xent_bwd_dh_ref)
+        m.setattr(dispatch, "xent_bwd_dw", XR.xent_bwd_dw_ref)
+
+    def plain_optimizer(m):
+        m.setattr(dispatch, "norm_sumsq", CR.norm_sumsq_ref)
+        m.setattr(dispatch, "norm_apply", CR.norm_apply_ref)
+        m.setattr(dispatch, "update_apply", CR.update_apply_ref)
+        m.setattr(dispatch, "momentum_sumsq", momentum_sumsq_ref)
+        m.setattr(dispatch, "head_update_apply",
+                  lambda theta, m_new, ss, lr, axis="col", eps=CR.EPS:
+                  CR.update_apply_ref(theta, m_new, ss, lr, axis, eps=eps))
+
+    _, _, grads = value_and_grad(fresh(), cfg, batch)
+    with monkeypatch.context() as m:
+        plain(m)
+        _, _, ref = value_and_grad(fresh(), cfg, batch)
+    for k, g in grads.items():
+        scale = ref[k].abs().max().item()
+        assert (g - ref[k]).abs().max().item() <= 1e-4 * scale, k
+
+    def one_step():
+        tx = make_optimizer("scale_fused", 1e-2)
+        params = fresh()
+        old = {k: p.clone() for k, p in flatten(params).items()}
+        state, metrics = make_train_step(cfg, tx, clip_norm=1.0)(
+            init_state(params, tx), batch)
+        return old, state, metrics
+
+    before = _train_counts()
+    routes = [dict(f.route_launches) for f in (A.mha_fwd, A.mha_bwd_dq,
+                                               A.mha_bwd_dkv)]
+    old, state, metrics = one_step()
+    torch.cuda.synchronize()
+    after = _train_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        "mha_fwd": 2 * L, "mha_bwd_dq": L, "mha_bwd_dkv": L, "xent_fwd": 1,
+        "xent_bwd_dh": 1, "xent_bwd_dw": 1, "norm_sumsq": 18,
+        "update_apply": 19, "momentum_sumsq": 1, "norm_apply": 0}
+    for f, was, n in zip((A.mha_fwd, A.mha_bwd_dq, A.mha_bwd_dkv), routes,
+                         (2 * L, L, L)):
+        assert f.route_launches == {**was, "fma": was["fma"] + n}
+    with monkeypatch.context() as m:
+        plain(m)
+        plain_optimizer(m)
+        before = _train_counts()
+        _, ref_state, ref_metrics = one_step()
+        assert _train_counts() == before  # no kernel on the plain route
+    for k in ("loss", "aux", "grad_norm", "update_norm"):
+        torch.testing.assert_close(metrics[k], ref_metrics[k], rtol=1e-4,
+                                   atol=0)
+    got, want = flatten(state.params), flatten(ref_state.params)
+    for k, w in want.items():
+        step = (w - old[k]).abs().max().item()
+        assert (got[k] - w).abs().max().item() <= 1e-3 * step + 1e-7, k
