@@ -5,7 +5,7 @@ NVIDIA H100.
     python3 chip_smoke.py [--seed N]
 
 Run from the root of a checkout. It builds the port's CUDA kernels with
-nvcc (one process per source, in parallel), then runs seventeen phases and fails
+nvcc (one process per source, in parallel), then runs eighteen phases and fails
 (non-zero exit, no result line) if any of them fails:
 
 1. device: the card's name and power limit, the kernels' ptxas report;
@@ -301,6 +301,25 @@ nvcc (one process per source, in parallel), then runs seventeen phases and fails
    twice the bf16 full forward's distance from the f32 one, and the f32
    decode against the f32 full forward within the serving tolerance.
    The kernels line gains the paths ``train mla`` and ``serve mla``.
+18. Mamba2 and mamba2-370m: (i) the launcher with ``--arch mamba2-370m
+   --smoke`` for two steps; mamba2-370m at full width and all 48 layers
+   (d_model 1024, 32 heads of 64 over a state of 128, chunk 256; vocab
+   50280), bf16, 4 x 1024 ``SyntheticLM`` batches (4 chunks a row),
+   ``scale_fused``, clip 1.0, full remat: three ``make_train_step``
+   steps, each step's launches checked by route (no attention kernel;
+   one of each xent kernel, ``wgmma`` and ``mma``; 3 ``norm_sumsq``, 4
+   ``update_apply`` on ``vec``, one ``momentum_sumsq``) and its grad norm
+   finite, the losses held to the same steps with every kernel through
+   its plain version, step time, tokens/s, peak, and one step's device
+   time by family (the Mamba2 layer by its spans); (ii) serving (bf16,
+   batch 8, a 512-token prompt, 64 new tokens): prefill and decode ms,
+   no hand-written kernel launched, one decode step's device time and
+   idle share, and the witness of phase 17: the f32 decode against the
+   f32 full forward within the serving tolerance, the bf16 decode
+   against the same steps in f32 from the same bf16 weights. Phase 2
+   holds the xent kernels at its head (D 1024, V 50304 of 50280) and the
+   optimizer kernels at its ``in_proj``, ``out_proj``, embedding and
+   head. The kernels line gains the path ``train mamba2``.
 
 The line before the last is a JSON ``{"kernels": [...]}`` summary, the
 last line ``{"ok": true, "device": {...}}``. It needs a CUDA card and
@@ -825,6 +844,12 @@ def optimizer_shapes():
         "deepseek-v3 wkv_a (3,7168,576)": (3, 7168, 576),
         "deepseek-v3 MoE wq_a (1,7168,1536)": (1, 7168, 1536),
         "deepseek-v3 router (1,7168,64)": (1, 7168, 64),
+        # mamba2-370m's (phase 18): its two stacked projections, embedding
+        # and head (the padded vocabulary of 50304)
+        "mamba2-370m in_proj (48,1024,4384)": (48, 1024, 4384),
+        "mamba2-370m out_proj (48,2048,1024)": (48, 2048, 1024),
+        "mamba2-370m tok_embed (1,50304,1024)": (1, 50304, 1024),
+        "mamba2-370m lm_head (1,1024,50304)": (1, 1024, 50304),
     }
 
 
@@ -1891,6 +1916,8 @@ def xent_cases():
                                                  0.0),
         # phase 17's head: deepseek-v3-671b (D 7168, V 129280)
         MLA_HEAD: (4096, 7168, 129280, 129280, 0.0),
+        # phase 18's head: mamba2-370m (D 1024, vocab 50280 padded to 50304)
+        MAMBA_HEAD: (4096, 1024, 50304, 50280, 0.0),
     }
 
 
@@ -2787,6 +2814,12 @@ KERNEL_FAMILIES = (
     ("mla_proj|", "MLA projections (latents, up-projections, norms, rope, "
      "wo)"),
     ("mla_decode|", "MLA absorbed decode (latent-cache products, softmax)"),
+    # phase 18: the Mamba2 layer's spans (``models.layers.apply_mamba``)
+    ("mamba_proj|", "Mamba2 projections, conv and gate (in_proj, conv1d, "
+     "softplus, gated rmsnorm, out_proj)"),
+    ("mamba_ssd|", "Mamba2 chunked SSD (intra-chunk blocks, chunk states, "
+     "recurrence)"),
+    ("mamba_decode|", "Mamba2 decode recurrence (f32 state update)"),
     ("gemm", "cuBLAS GEMMs (projections, MLP, head)"),
     ("nvjet", "cuBLAS GEMMs (projections, MLP, head)"),
     ("", "other (copies, element-wise, reductions)"),
@@ -5659,7 +5692,7 @@ def _moe_span(ev, fwd_span):
     span, or for an op of the backward the span of the forward op whose
     autograd node it runs ((thread, sequence_nr) -> span: ``fwd_span``)."""
     while ev is not None:
-        if ev.name in MOE_SPANS + MLA_SPANS:
+        if ev.name in MOE_SPANS + MLA_SPANS + MAMBA_SPANS:
             return ev.name
         if ev.name.startswith("autograd::engine::evaluate_function"):
             return fwd_span.get((ev.fwd_thread, ev.sequence_nr))
@@ -5686,7 +5719,7 @@ def moe_profile(torch, power, step, untraced_ms, label, serving=False):
     spans = {ev.name for ev in events
              if getattr(ev, "is_user_annotation", False)} | {
                  "fwd", "optimizer_update", "guard", "obs_stats", *MOE_SPANS,
-                 *MLA_SPANS}
+                 *MLA_SPANS, *MAMBA_SPANS}
     device = [ev for ev in events
               if ev.device_type.name == "CUDA" and ev.name not in spans]
     busy = sum((ev.time_range.end - ev.time_range.start) / 1e3
@@ -5758,12 +5791,14 @@ def moe_outside_parts(torch, tx, state, cfg, batch):
     four = {k: p for k, p in params.items() if p.ndim == 4}
     one = torch.ones((), device="cuda")
     out = {"clip norm": timed(lambda: global_norm(grads))}
-    sub_state = tx.init(four)
-    out["stage4d"] = timed(lambda: tx.update_params(
-        {k: grads[k] for k in four}, sub_state, four, grad_scale=one))
+    if four:
+        sub_state = tx.init(four)
+        out["stage4d"] = timed(lambda: tx.update_params(
+            {k: grads[k] for k in four}, sub_state, four, grad_scale=one))
+        del sub_state
     out["optimizer"] = timed(lambda: tx.update_params(
         grads, state.opt_state, state.params, grad_scale=one))
-    del grads, sub_state
+    del grads
 
     def book():
         old = {k: p.clone() for k, p in params.items()}
@@ -5845,15 +5880,16 @@ def plain_kernels():
 
 
 def train_family(torch, seed, power, arch, cfg, reduced, steps, want, want_r,
-                 widths):
-    """Phase 16 (i), 17 (i): ``arch`` at full width, cut to ``cfg`` (each
-    cut listed in ``reduced``; ``widths`` names the config's widths): the
-    launcher's --smoke run, then ``steps`` steps of the main path (bf16,
-    16 x 256 from SyntheticLM, scale_fused, clip 1.0), each launching
-    ``want`` by route ``want_r``; one step's device time by family, the
-    work outside the model timed apart, and the loss and aux against the
-    same steps with every kernel through its plain version, from the same
-    seeded weights."""
+                 widths, shape=(16, 256)):
+    """Phase 16 (i), 17 (i), 18 (i): ``arch`` at full width, cut to ``cfg``
+    (each cut listed in ``reduced``; ``widths`` names the config's
+    widths): the launcher's --smoke run, then ``steps`` steps of the main
+    path (bf16, batch ``shape`` from SyntheticLM, scale_fused, clip 1.0),
+    each launching ``want`` by route ``want_r`` with a finite loss, aux and
+    grad norm; one step's device time by family, the work outside the
+    model timed apart, and the loss and aux against the same steps with
+    every kernel through its plain version, from the same seeded
+    weights."""
     import math
     from repro_torch.core import linear_warmup_cosine, make_optimizer
     from repro_torch.data import make_dataset
@@ -5873,19 +5909,23 @@ def train_family(torch, seed, power, arch, cfg, reduced, steps, want, want_r,
     if not math.isfinite(final):
         raise AssertionError("the --smoke launcher's loss is not finite")
 
-    B, S = 16, 256
-    G, Tg, C = moe_groups(cfg, B * S)
+    B, S = shape
     shapes = param_shapes(cfg)
     n_params = count_params(shapes)
     n_4d = sum(math.prod(s) for s in shapes.values() if len(s) == 4)
+    groups = ""
+    if cfg.n_experts:
+        G, Tg, C = moe_groups(cfg, B * S)
+        groups = (f": {G} groups of {Tg} tokens, capacity {C} (cf "
+                  f"{cfg.capacity_factor})")
+        if G < 2:
+            raise AssertionError(f"the {arch} batch must dispatch over "
+                                 "groups")
     print(f"  {arch}: reduced {reduced}; {widths}; {n_params / 1e9:.3f} G "
           f"params ({n_4d / 1e9:.3f} G in the 4-D expert leaves), "
           f"{cfg.dtype}, remat {cfg.remat!r}; batch {B} x {S} from "
-          f"SyntheticLM (seed {seed}): {G} groups of {Tg} tokens, capacity "
-          f"{C} (cf {cfg.capacity_factor}); scale_fused, clip 1.0, "
+          f"SyntheticLM (seed {seed}){groups}; scale_fused, clip 1.0, "
           f"linear_warmup_cosine(1e-3, {steps})")
-    if G < 2:
-        raise AssertionError(f"the {arch} batch must dispatch over groups")
     ds = make_dataset(cfg, S, B, seed=seed, device="cuda")
     batches = [ds.global_batch_at(i) for i in range(steps)]
 
@@ -5902,6 +5942,11 @@ def train_family(torch, seed, power, arch, cfg, reduced, steps, want, want_r,
     _check_steps(per_step, per_route, want, want_r, f"{arch} train")
     losses = [m["loss"] for m in mets]
     auxs = [m["aux"] for m in mets]
+    gnorms = [m["grad_norm"] for m in mets]
+    print(f"  {arch} grad norm over {steps} steps (before the clip): "
+          f"{' '.join(f'{x:.5f}' for x in gnorms)}")
+    if not all(map(math.isfinite, gnorms)):
+        raise AssertionError(f"{arch}: a grad norm is not finite")
     step_s = min(secs[1:])
     print(f"  [{power}] {arch} train step {step_s * 1e3:.3f} ms (best of "
           f"steps 2-{steps}; {B * S / step_s:.0f} tokens/s; each "
@@ -5917,12 +5962,13 @@ def train_family(torch, seed, power, arch, cfg, reduced, steps, want, want_r,
     busy, fams = moe_profile(torch, power, one, step_s * 1e3,
                              f"{arch} train step")
     parts = moe_outside_parts(torch, tx, state, cfg, batches[0])
+    stage = (f", of it the plain stage route on the 4-D expert leaves "
+             f"{parts['stage4d']:.3f} ms" if "stage4d" in parts else "")
     print(f"  [{power}] {arch} outside the model, timed apart (CUDA "
-          f"events): the optimizer's update {parts['optimizer']:.3f} ms, of "
-          f"it the plain stage route on the 4-D expert leaves "
-          f"{parts['stage4d']:.3f} ms; the clip's global norm "
-          f"{parts['clip norm']:.3f} ms; update_norm's snapshot and f32 "
-          f"differences {parts['update_norm']:.3f} ms")
+          f"events): the optimizer's update {parts['optimizer']:.3f} ms"
+          f"{stage}; the clip's global norm {parts['clip norm']:.3f} ms; "
+          f"update_norm's snapshot and f32 differences "
+          f"{parts['update_norm']:.3f} ms")
     del state, step, tx
     torch.cuda.empty_cache()
 
@@ -5957,7 +6003,7 @@ def train_family(torch, seed, power, arch, cfg, reduced, steps, want, want_r,
             "busy_ms": busy,
             "idle_share": None if busy is None else 1 - busy / (step_s * 1e3),
             "peak_mib": peak / 2**20, "losses": losses, "aux": auxs,
-            "ref": ref, "loss_gap": gap,
+            "grad_norms": gnorms, "ref": ref, "loss_gap": gap,
             "device_ms_by_family": {f: ms for f, (ms, _) in fams.items()},
             "outside_ms": parts}
 
@@ -5969,12 +6015,13 @@ def no_drop(cfg):
     return dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
 
 
-def serve_run(torch, c, p, prompt, tokens=None):
-    """prefill + N - 1 decode steps of SERVE_MOE (greedy, or fed
-    ``tokens``) -> (tokens fed, last logits, each MoE layer call's
-    ``moe_routing``)."""
+def serve_run(torch, c, p, prompt, tokens=None, n_new=SERVE_MOE[2]):
+    """prefill of ``prompt`` + N - 1 decode steps (greedy, N = ``n_new``,
+    or fed ``tokens``, N - 1 of them) -> (tokens fed, last logits, each
+    MoE layer call's ``moe_routing``)."""
     from repro_torch.training import make_decode_step, make_prefill_step
-    P, N = SERVE_MOE[1:]
+    P = prompt.shape[1]
+    N = n_new if tokens is None else tokens.shape[1] + 1
     prefill, decode = make_prefill_step(c, max_seq=P + N), \
         make_decode_step(c)
     taps = []
@@ -6146,11 +6193,13 @@ def serve_f32(torch, arch, c32, p32, prompt, toks):
     toks, last, taps = serve_run(torch, c32, p32, prompt, toks)
     err, ok, agree, apart, top, ref = serve_against_full(
         torch, c32, p32, prompt, toks, last, taps)
-    print(f"  {arch} serving f32, {c32.n_layers} layers, {c32.n_experts} "
-          f"experts, cf {c32.capacity_factor:g}: last decode logits vs full "
-          f"forward max err {err:.3e} (tol {SERVE_ATOL:g} + {SERVE_RTOL:g}"
-          f"|ref|), |ref| max {top:.3f}, argmax agreement {agree:.3f}, "
-          f"tokens routed apart per MoE layer {apart}")
+    moe = (f", {c32.n_experts} experts, cf {c32.capacity_factor:g}"
+           if c32.n_experts else "")
+    print(f"  {arch} serving f32, {c32.n_layers} layers{moe}: last decode "
+          f"logits vs full forward max err {err:.3e} (tol {SERVE_ATOL:g} + "
+          f"{SERVE_RTOL:g}|ref|), |ref| max {top:.3f}, argmax agreement "
+          f"{agree:.3f}" + (f", tokens routed apart per MoE layer {apart}"
+                            if c32.n_experts else ""))
     if not ok:
         raise AssertionError(f"{arch} serving: f32 decode disagrees with the "
                              "full forward")
@@ -6483,12 +6532,13 @@ def mla_timing(torch, gen, power, errs):
 
 
 def f32_witness(torch, seed, arch, c16, prompt, toks):
-    """A witness for the bf16 decode of ``c16`` (at cf E/k) that runs no
-    decode on its reference side: the same steps, fed ``toks``, computed
-    in f32 from the same bf16 weights; the bf16 decode's distance from
-    them held to SERVE_BF16_FLOOR_X times the bf16 full forward's distance
-    from the f32 full forward (the bf16 roundings of a path without the
-    absorbed decode). The f32 decode against the f32 full forward within
+    """A witness for the bf16 decode of ``c16`` (an MoE config at cf E/k)
+    that runs no decode on its reference side: the same steps, fed
+    ``toks``, computed in f32 from the same bf16 weights; the bf16
+    decode's distance from them held to SERVE_BF16_FLOOR_X times the bf16
+    full forward's distance from the f32 full forward (the bf16 roundings
+    of a path without the decode: MLA's absorbed form, Mamba2's
+    recurrence). The f32 decode against the f32 full forward within
     SERVE_ATOL/RTOL (``serve_f32``). -> its record."""
     import dataclasses
     from repro_torch.models import init_params
@@ -6515,8 +6565,9 @@ def f32_witness(torch, seed, arch, c16, prompt, toks):
            "argmax_agreement_full": (full16.argmax(-1) == full32.argmax(
                -1)).float().mean().item(),
            "ref_max": full32.abs().max().item()}
+    cf = f", cf {c16.capacity_factor:g}" if c16.n_experts else ""
     print(f"  {arch} witness, {c16.n_layers} layers, segments "
-          f"{c16.segments}, cf {c16.capacity_factor:g}: bf16 decode vs the "
+          f"{c16.segments}{cf}: bf16 decode vs the "
           f"same steps in f32 from the same bf16 weights max err {dec:.3e} "
           f"(argmax agreement {rec['argmax_agreement_decode']:.3f}); bf16 "
           f"full forward vs f32 full forward {full:.3e} (argmax agreement "
@@ -6583,6 +6634,107 @@ def phase_mla(torch, seed, power):
                          widths)
     serve = serve_mla(torch, seed, power, cfg)
     print(f"  phase 17 took {time.perf_counter() - t0:.1f} s")
+    return {"train": train, "serve": serve}
+
+
+# ---------------------------------------- Mamba2 and mamba2-370m (phase 18)
+
+MAMBA_ARCH = "mamba2-370m"
+MAMBA_STEPS = 3
+# 4 rows of 1024: phase 8's 4096 tokens a step, and 4 chunks of 256 a row,
+# so the SSD's recurrence over chunks runs
+MAMBA_BATCH = (4, 1024)
+SERVE_MAMBA = (8, 512, 64)  # batch, prompt (2 chunks), new tokens
+MAMBA_HEAD = "mamba2-370m N=4096 D=1024 V=50304/50280"
+# the Mamba2 layer's spans (``models.layers.apply_mamba``)
+MAMBA_SPANS = ("mamba_proj", "mamba_ssd", "mamba_decode")
+
+
+def serve_mamba(torch, seed, power, cfg):
+    """Phase 18 (ii): mamba2-370m serving at full width and depth (bf16)
+    from seeded weights, batch, prompt and new tokens of SERVE_MAMBA:
+    prefill ms, decode ms a step, one decode step's device time and idle
+    share. Serving launches none of the hand-written kernels (the SSD, the
+    conv and the decode recurrence are plain products, as JAX's; the head
+    of serving is a plain product too): checked. Then ``f32_witness``:
+    the f32 decode against an f32 full forward within SERVE_ATOL/RTOL, the
+    bf16 decode against the same steps in f32 from the same bf16
+    weights."""
+    from repro_torch.models import init_params
+    from repro_torch.training import make_decode_step, make_prefill_step
+    B, P, N = SERVE_MAMBA
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = init_params(cfg, gen, device="cuda")
+    prompt = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    prefill, decode = make_prefill_step(cfg, max_seq=P + N), \
+        make_decode_step(cfg)
+    prefill(params, prompt)  # warm-up, not counted
+    torch.cuda.synchronize()
+    # the main path: counts read just before it and just after
+    before = train_counts()
+    t0 = time.perf_counter()
+    state, logits = prefill(params, prompt)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    toks = []
+    start.record()
+    for _ in range(N - 1):
+        toks.append(logits[:, -1].argmax(-1).to(torch.int32)[:, None])
+        state, logits = decode(params, state, toks[-1])
+    end.record()
+    torch.cuda.synchronize()
+    decode_ms = start.elapsed_time(end) / (N - 1)
+    after = train_counts()
+    launched = {k: n - before[k] for k, n in after.items() if n != before[k]}
+    toks = torch.cat(toks, dim=1)
+    if launched or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{MAMBA_ARCH} serving: launched {launched} "
+                             "hand-written kernels, or its logits are not "
+                             "finite")
+    print(f"  [{power}] {MAMBA_ARCH} serving, batch {B}, prompt {P}, {N} "
+          f"new tokens: prefill {prefill_s * 1e3:.3f} ms "
+          f"({B * P / prefill_s:.0f} prompt tokens/s), decode {decode_ms:.3f} ms/step "
+          f"({B * 1e3 / decode_ms:.1f} tokens/s); no hand-written kernel "
+          "launched (the SSD, conv and decode recurrence are plain torch "
+          "products, as JAX's)")
+    state, _ = prefill(params, prompt)
+    busy, fams = moe_profile(
+        torch, power, lambda: decode(params, state, toks[:, :1]), decode_ms,
+        f"{MAMBA_ARCH} decode step", serving=True)
+    del params, state
+    torch.cuda.empty_cache()
+    witness = f32_witness(torch, seed, MAMBA_ARCH, cfg, prompt, toks)
+    return {"prefill_ms": prefill_s * 1e3, "decode_ms": decode_ms,
+            "decode_busy_ms": busy,
+            "decode_idle_share": None if busy is None
+            else 1 - busy / decode_ms,
+            "decode_device_ms_by_family": {f: ms for f, (ms, _) in
+                                           fams.items()},
+            "witness": witness}
+
+
+def phase_mamba(torch, seed, power):
+    """Phase 18: mamba2-370m training and serving at full width and all
+    48 layers."""
+    from repro_torch.configs import get_arch
+    t0 = time.perf_counter()
+    cfg = get_arch(MAMBA_ARCH)
+    if cfg.segments != (("ssm", 48),):
+        raise AssertionError(f"{MAMBA_ARCH}: segments {cfg.segments}")
+    widths = (f"{cfg.n_layers} layers, d_model {cfg.d_model}, d_inner "
+              f"{cfg.d_inner}, {cfg.ssm_nheads} heads of {cfg.ssm_headdim} "
+              f"over a state of {cfg.ssm_state}, {cfg.ssm_ngroups} group, "
+              f"conv {cfg.ssm_dconv}, chunk {cfg.ssm_chunk}; vocab "
+              f"{cfg.vocab_size} (padded {cfg.padded_vocab})")
+    # 3 matrices of two or three dims (tok_embed, in_proj, out_proj) and
+    # the head; conv_w, conv_b, A_log, D, dt_bias and the norms take Adam
+    train = train_family(torch, seed, power, MAMBA_ARCH, cfg, [],
+                         MAMBA_STEPS, *train_want(0, "mma", 3), widths,
+                         shape=MAMBA_BATCH)
+    serve = serve_mamba(torch, seed, power, cfg)
+    print(f"  phase 18 took {time.perf_counter() - t0:.1f} s")
     return {"train": train, "serve": serve}
 
 
@@ -6676,6 +6828,9 @@ def main() -> int:
     print("phase 17: MLA and deepseek-v3-671b: training (4 layers, 64 "
           "experts) and serving (4 layers, 256 experts) at full width")
     mla = phase_mla(torch, args.seed, power)
+    print("phase 18: Mamba2 and mamba2-370m: training and serving at full "
+          "width and all 48 layers")
+    mamba = phase_mamba(torch, args.seed, power)
     # one row per kernel; launches summed over the main paths that run it,
     # each counted from 0 just before its path and read just after
     by_path = {"serving": {"mha_fwd": serve["launches"]},
@@ -6711,7 +6866,12 @@ def main() -> int:
                # deepseek-v3-671b's training and its serving (the prefill's
                # attention; the absorbed decode launches no kernel)
                "train mla": mla["train"]["launches"],
-               "serve mla": {"mha_fwd": mla["serve"]["launches"]}}
+               "serve mla": {"mha_fwd": mla["serve"]["launches"]},
+               # mamba2-370m's training (attention-free: no attention
+               # kernel; its serving launches no hand-written kernel)
+               "train mamba2": {k: n for k, n in
+                                mamba["train"]["launches"].items()
+                                if k not in ("mha_fwd", *BWD_KERNELS)}}
     # mha_fwd's prefill numbers, with both serving shapes and the eval and
     # training steps' shape beside them
     mha = {k: v for k, v in mha_rows[0].items() if k != "shape"}
@@ -6757,6 +6917,7 @@ def main() -> int:
                          (f"{MOE_ARCH} {MOE_LAYERS} layers", moe["train"]),
                          (f"{MLA_ARCH} {MLA_LAYERS} layers, "
                           f"{MLA_TRAIN_EXPERTS} experts", mla["train"]),
+                         (MAMBA_ARCH, mamba["train"]),
                          *((f"{a} {ARCH_LAYERS} layers", r)
                            for a, r in moe["arch"].items()))}
         if row["name"] in SEG_ROWS.values():

@@ -3,10 +3,10 @@ sizes and its Appendix F extras (the port of ``repro.configs.registry``).
 
 The ported ``ARCH_IDS`` configurations live one module each beside this
 one, with their reduced ``SMOKE`` twins, field by field the JAX
-package's: the four large dense models, the MoE dbrx-132b and the MLA +
-MoE deepseek-v3-671b. The other four (SSM, VLM, hybrid and audio) are not
-ported yet and raise a ``KeyError`` saying so (ROADMAP.md Queue 1 item
-13).
+package's: the four large dense models, the MoE dbrx-132b, the MLA +
+MoE deepseek-v3-671b and the attention-free Mamba2 mamba2-370m. The other
+three (VLM, hybrid and audio) are not ported yet and raise a ``KeyError``
+saying so (ROADMAP.md Queue 1 item 13).
 """
 from __future__ import annotations
 
@@ -34,6 +34,7 @@ _MODULES = {
     "qwen2-7b": "qwen2_7b",
     "granite-3-8b": "granite_3_8b",
     "mistral-large-123b": "mistral_large_123b",
+    "mamba2-370m": "mamba2_370m",
     "dbrx-132b": "dbrx_132b",
     "deepseek-v3-671b": "deepseek_v3_671b",
 }

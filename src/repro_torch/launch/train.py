@@ -76,9 +76,10 @@ and ``run_end`` has ``fallbacks: null``.
 
 ``--arch`` takes the paper's LLaMA sizes, its Appendix F extras and the
 ported ``ARCH_IDS`` configurations (qwen2-7b, granite-3-8b, deepseek-67b,
-mistral-large-123b and the MoE dbrx-132b); ``--smoke`` takes an
-``ARCH_IDS`` configuration's reduced twin (2 layers, narrow, f32), which
-runs on the CPU too.
+mistral-large-123b, the MoE dbrx-132b, the MLA + MoE deepseek-v3-671b and
+the Mamba2 mamba2-370m); ``--smoke`` takes an ``ARCH_IDS``
+configuration's reduced twin (2 or 3 layers, narrow, f32), which runs on
+the CPU too.
 
 ``--optimizer`` takes any name of ``repro_torch.core.OPTIMIZER_NAMES``,
 the JAX registry's 20: SCALE (``scale``, ``scale_fused``, ``adapm``) and
@@ -101,6 +102,8 @@ Examples (llama-1b on the card, the paper's largest Table-1 model):
       --optimizer scale_fused --steps 200 --log-dir /path/to/run0 \\
       --metrics-every 10 --stats-every 50 --profile-steps 20:21
   PYTHONPATH=src python -m repro_torch.launch.train --arch dbrx-132b \\
+      --smoke --device cpu --steps 8 --batch 4 --seq 32 --log-every 1
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-370m \\
       --smoke --device cpu --steps 8 --batch 4 --seq 32 --log-every 1
 """
 from __future__ import annotations

@@ -1,17 +1,19 @@
-"""Model building blocks (the GQA and MLA attention, dense and MoE subset
-of ``repro.models.layers``).
+"""Model building blocks (the GQA and MLA attention, dense, MoE and Mamba2
+subset of ``repro.models.layers``).
 
 Every module exposes ``<mod>_spec(cfg) -> {name: Spec}`` (shapes and
 initializers) and ``apply_<mod>(p, cfg, ...)`` (forward). Parameters keep
 the JAX package's names and layouts, so ``x @ p["wq"]`` multiplies by a
 (D, H*hd) matrix here as there. Attention goes through
 ``kernels.dispatch.flash_attention`` (MLA's absorbed decode excepted:
-plain products, as in JAX); the MoE layer's products are the JAX
-package's einsums, which it computes outside any Pallas kernel too.
+plain products, as in JAX); the MoE layer's products and Mamba2's chunked
+SSD are the JAX package's einsums, which it computes outside any Pallas
+kernel too.
 """
 from __future__ import annotations
 
 import math
+import warnings
 from typing import NamedTuple, Optional
 
 import torch
@@ -27,7 +29,9 @@ from .sharding import Rules
 class Spec(NamedTuple):
     shape: tuple
     axes: tuple           # logical axis names (len == ndim; models.sharding)
-    init: str = "normal"  # normal | zeros | ones | small (the router)
+    # normal | zeros | ones | small (the router) | alog | dtbias (Mamba2's
+    # A_log and dt_bias; models.model.init_params)
+    init: str = "normal"
 
 
 # ---------------------------------------------------------------- norms/rope
@@ -419,3 +423,234 @@ def apply_moe(p, cfg: ModelConfig, x):
             hs = F.silu(xf @ p["shared_gate"]) * (xf @ p["shared_up"])
             y = y + hs @ p["shared_down"]
     return y.reshape(B, S, D), aux
+
+
+# ------------------------------------------------------------------- Mamba2
+
+def largest_divisor(n: int, target: int) -> int:
+    """Largest divisor of ``n`` that is <= ``target`` (>= 1), JAX's: over
+    the divisor pairs, so a prime ``n`` gives 1 at once."""
+    target = min(target, n)
+    best, d = 1, 1
+    while d * d <= n:
+        if n % d == 0:
+            for c in (d, n // d):
+                if best < c <= target:
+                    best = c
+        d += 1
+    return best
+
+
+def _pick_block(S: int, T: int, block: int) -> int:
+    """Largest common divisor block of (S, T) that is <= ``block``, JAX's:
+    it warns whenever the block falls below half the requested size (a
+    prime or awkward length turns the chunk loop into many short ones)."""
+    target = max(min(block, S, T), 1)
+    best = largest_divisor(math.gcd(S, T), target)
+    if best * 2 < target:
+        warnings.warn(
+            f"blockwise attention: (S={S}, T={T}) share no divisor in "
+            f"({target // 2}, {target}]; the tile shrinks to {best} "
+            f"({(S // best) * (T // best)} candidate tile pairs). Pick "
+            f"lengths with a common divisor near block={target} to keep "
+            f"the scan short.", stacklevel=3)
+    return best
+
+
+def mamba_spec(cfg: ModelConfig) -> dict:
+    D = cfg.d_model
+    din, nh = cfg.d_inner, cfg.ssm_nheads
+    gn = cfg.ssm_ngroups * cfg.ssm_state
+    d_in_proj = 2 * din + 2 * gn + nh
+    return {
+        "in_proj": Spec((D, d_in_proj), ("embed", "ssm_inner")),
+        "conv_w": Spec((cfg.ssm_dconv, cfg.conv_dim), ("conv", "ssm_inner")),
+        "conv_b": Spec((cfg.conv_dim,), ("ssm_inner",), "zeros"),
+        "A_log": Spec((nh,), (None,), "alog"),
+        "D": Spec((nh,), (None,), "ones"),
+        "dt_bias": Spec((nh,), (None,), "dtbias"),
+        "gate_norm": Spec((din,), ("ssm_inner",), "ones"),
+        "out_proj": Spec((din, D), ("ssm_inner", "embed")),
+    }
+
+
+def mamba_cache(cfg: ModelConfig, batch: int, dtype, device) -> dict:
+    """Zero Mamba2 cache: the conv window's last dconv-1 inputs ``conv``
+    (B, dconv-1, conv_dim) in ``dtype`` and the SSM state ``ssm`` (B, nh,
+    N, hd), always f32. Neither has a sequence axis."""
+    return {"conv": torch.zeros((batch, cfg.ssm_dconv - 1, cfg.conv_dim),
+                                dtype=dtype, device=device),
+            "ssm": torch.zeros((batch, cfg.ssm_nheads, cfg.ssm_state,
+                                cfg.ssm_headdim), dtype=torch.float32,
+                               device=device)}
+
+
+def _causal_conv(x, w, b, state=None):
+    """Depthwise causal conv1d of window dconv, JAX's. x (B, S, C), w
+    (dconv, C). ``state`` (B, dconv-1, C) is prepended (decode), zeros
+    otherwise. The taps sum in JAX's order (Python's ``sum`` from 0, then
+    ``+ b``) in x's dtype; -> (silu(y), the last dconv-1 pre-activation
+    inputs: the next call's state)."""
+    dconv = w.shape[0]
+    if state is None:
+        pad = x.new_zeros((x.shape[0], dconv - 1, x.shape[2]))
+    else:
+        pad = state.to(x.dtype)
+    xp = torch.cat([pad, x], 1)
+    y = sum(xp[:, i:i + x.shape[1]] * w[i] for i in range(dconv)) + b
+    new_state = xp[:, -(dconv - 1):] if dconv > 1 else pad
+    return F.silu(y), new_state
+
+
+def _ssd_chunked(xh, dt, A, Bm, Cm, chunk: int):
+    """Chunked SSD (Mamba2's state-space duality, matmul form), JAX's.
+
+    xh (B, S, nh, hd) in the model dtype; dt (B, S, nh) f32, after the
+    softplus; A (nh,) f32, negative; Bm, Cm (B, S, G, N). -> y (B, S, nh,
+    hd) in xh's dtype. The groups repeat to the heads as
+    ``jnp.repeat(..., axis=3)`` does (each group's heads adjacent:
+    ``repeat_interleave``). Each step keeps JAX's dtype: the C.B scores
+    and the chunk states are products in the model dtype, the decays and
+    weights f32 (cast to the model dtype for the products), the recurrence
+    over chunks f32, emitting the state *before* each chunk, and
+    y_intra + y_inter is added in the model dtype. The intra-chunk blocks
+    are laid out (B, nc, nh, i, j), so each product is one batched matmul;
+    JAX's (B, nc, i, j, nh) holds the same values.
+
+    The one departure: the intra-chunk decay is exp(where(mask, li - lj,
+    -inf)), where JAX forms exp(li - lj) over the whole block and masks
+    after. Above the diagonal li - lj sums |dt * A| over up to chunk - 1
+    steps; at the alog/dtbias inits (A in [-16, -1), dt up to 0.1) and a
+    chunk of 256 it passes 88.7, where f32 exp overflows, and JAX's
+    backward then forms 0 * inf = NaN. The forward is JAX's bitwise
+    (masked entries are exactly 0 either way); every gradient JAX gives
+    finite is unchanged, and this one stays finite where JAX's overflows
+    (ROADMAP.md Queue 3, reference caveat 12).
+    """
+    B_, S, nh, hd = xh.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    chunk = _pick_block(S, S, chunk)
+    nc = S // chunk
+    rep = nh // G
+    dtype = xh.dtype
+
+    # heads ahead of the chunk positions: (B, nc, nh, c, ...)
+    xc = xh.reshape(B_, nc, chunk, nh, hd).transpose(2, 3)
+    dtc = dt.reshape(B_, nc, chunk, nh).transpose(2, 3)
+    Bc = Bm.reshape(B_, nc, chunk, G, N).repeat_interleave(rep, 3) \
+        .transpose(2, 3)
+    Cc = Cm.reshape(B_, nc, chunk, G, N).repeat_interleave(rep, 3) \
+        .transpose(2, 3)
+
+    dA = dtc * A[:, None]                       # (B, nc, nh, c), negative
+    cum = torch.cumsum(dA, dim=-1)
+
+    # intra-chunk: y_i += sum_{j<=i} C_i.B_j exp(cum_i - cum_j) dt_j x_j
+    mask = torch.ones(chunk, chunk, dtype=torch.bool,
+                      device=xh.device).tril()
+    diff = cum[..., :, None] - cum[..., None, :]            # (.., i, j)
+    decay = torch.exp(torch.where(mask, diff, float("-inf")))
+    cb = (Cc @ Bc.transpose(-1, -2)).float()
+    w = cb * decay * dtc[..., None, :]
+    y_intra = w.to(dtype) @ xc                  # (B, nc, nh, c, hd)
+
+    # chunk states: S_c = sum_j exp(cum_end - cum_j) dt_j B_j x_j^T
+    dec_end = torch.exp(cum[..., -1:] - cum)   # (B, nc, nh, c)
+    sb = (dec_end * dtc)[..., None] * Bc       # (B, nc, nh, c, N) f32
+    states = sb.to(dtype).transpose(-1, -2) @ xc   # (B, nc, nh, N, hd)
+
+    # inter-chunk recurrence over nc (few): h_c = h_{c-1} e^{sum dA_c} + S_c
+    chunk_decay = torch.exp(dA.sum(-1))         # (B, nc, nh)
+    states = states.float()
+    h = xh.new_zeros((B_, nh, N, hd), dtype=torch.float32)
+    h_prev = []
+    for c in range(nc):
+        h_prev.append(h)
+        h = h * chunk_decay[:, c, :, None, None] + states[:, c]
+    h_prev = torch.stack(h_prev, 1)             # (B, nc, nh, N, hd)
+
+    dec_in = torch.exp(cum)
+    y_inter = (Cc * dec_in[..., None]).to(dtype) @ h_prev.to(dtype)
+    y = (y_intra + y_inter).transpose(2, 3)     # (B, nc, c, nh, hd)
+    return y.reshape(B_, S, nh, hd)
+
+
+def _final_ssm_state(xh, dt, A, Bm, Cm):
+    """The state after the last position, h_S = sum_j exp(cum_S - cum_j)
+    dt_j B_j x_j^T (B, nh, N, hd), f32, JAX's (the prefill's)."""
+    nh, G = xh.shape[2], Bm.shape[2]
+    Bf = Bm.repeat_interleave(nh // G, 2)
+    cum = torch.cumsum(dt * A, dim=1)
+    dec = torch.exp(cum[:, -1:, :] - cum)       # (B, S, nh)
+    sb = (dec * dt)[..., None] * Bf             # (B, S, nh, N)
+    return torch.einsum("bjhn,bjhp->bhnp", sb.float(), xh.float())
+
+
+def apply_mamba(p, cfg: ModelConfig, x, mode: str = "train",
+                cache: Optional[dict] = None):
+    """Mamba2 block, JAX's ``apply_mamba``. mode: train | prefill | decode.
+    -> (y, new_cache); cache = {"conv": (B, dconv-1, conv_dim), "ssm": (B,
+    nh, N, hd) f32} (``mamba_cache``).
+
+    train and prefill run the chunked SSD over the sequence; prefill
+    returns the conv window's last inputs and the final SSM state as the
+    cache. decode (S = 1) runs the single-step recurrence in f32 and
+    writes the new conv and SSM states into ``cache``'s tensors IN PLACE
+    (JAX returns new ones): the serving loop keeps the cache it was given
+    (``transformer.apply_segment``). The gate is rmsnorm(y * silu(z)) in
+    y's dtype. Packed rows need nothing: the sequence mixing has no
+    segment mask, as in JAX. The profiler sees the projections, the conv
+    and the gate as the span ``mamba_proj``, the SSD as ``mamba_ssd`` and
+    decode's recurrence as ``mamba_decode``.
+    """
+    B, S, D = x.shape
+    din, nh, hd = cfg.d_inner, cfg.ssm_nheads, cfg.ssm_headdim
+    G, N = cfg.ssm_ngroups, cfg.ssm_state
+
+    with record_function("mamba_proj"):
+        zxbcdt = x @ p["in_proj"]
+        z = zxbcdt[..., :din]
+        xbc = zxbcdt[..., din:din + cfg.conv_dim]
+        dt_raw = zxbcdt[..., din + cfg.conv_dim:]
+        dt = F.softplus(dt_raw.float() + p["dt_bias"].float())
+        A = -torch.exp(p["A_log"].float())
+        xbc, conv_state = _causal_conv(
+            xbc, p["conv_w"], p["conv_b"],
+            cache["conv"] if mode == "decode" else None)
+        # conv_state holds the last dconv-1 pre-activation inputs: what
+        # decode needs after a prefill
+        xs = xbc[..., :din].reshape(B, S, nh, hd)
+        Bm = xbc[..., din:din + G * N].reshape(B, S, G, N)
+        Cm = xbc[..., din + G * N:].reshape(B, S, G, N)
+
+    new_cache = cache
+    if mode == "decode":
+        with record_function("mamba_decode"):
+            # h = h * exp(dt A) + dt * x B^T ; y = C.h + D x
+            h = cache["ssm"].float()                        # (B, nh, N, hd)
+            dt1 = dt[:, 0]                                  # (B, nh)
+            dA = torch.exp(dt1 * A)
+            Bm1 = Bm[:, 0].repeat_interleave(nh // G, 1)    # (B, nh, N)
+            Cm1 = Cm[:, 0].repeat_interleave(nh // G, 1)
+            x1 = xs[:, 0].float()                           # (B, nh, hd)
+            h = h * dA[..., None, None] + (dt1[..., None, None]
+                                           * Bm1[..., :, None]
+                                           * x1[..., None, :])
+            y = torch.einsum("bhn,bhnp->bhp", Cm1.float(), h)
+            y = y + p["D"].float()[None, :, None] * x1
+            y = y[:, None].to(x.dtype)                      # (B, 1, nh, hd)
+            cache["conv"].copy_(conv_state)
+            cache["ssm"].copy_(h)
+    else:
+        with record_function("mamba_ssd"):
+            y = _ssd_chunked(xs, dt, A, Bm, Cm, cfg.ssm_chunk)
+            y = y + p["D"].to(x.dtype)[None, None, :, None] * xs
+            if mode == "prefill":
+                new_cache = {"conv": conv_state,
+                             "ssm": _final_ssm_state(xs, dt, A, Bm, Cm)}
+
+    with record_function("mamba_proj"):
+        y = y.reshape(B, S, din)
+        y = rmsnorm(y * F.silu(z.float()).to(y.dtype), p["gate_norm"],
+                    cfg.rms_eps)
+        return y @ p["out_proj"], new_cache

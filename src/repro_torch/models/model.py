@@ -1,5 +1,5 @@
 """Top-level model API: spec, init, caches, forward, logits, loss (the
-dense and MoE families, GQA or MLA attention).
+dense, MoE and Mamba2 (ssm) families, GQA or MLA attention).
 
 Parameter tree layout, as in ``repro.models.model``::
 
@@ -109,10 +109,15 @@ def count_params(shapes: dict, cfg: ModelConfig = None,
 def check_mesh(cfg: ModelConfig, mesh, what: str) -> None:
     """Raise before any work where ``cfg`` has no sharded route on a mesh:
     an MoE segment (expert parallelism over "model" is not ported; a
-    DTensor einsum would silently replicate the experts) or MLA attention
-    (its latents and absorbed decode have no sharded layout yet)."""
+    DTensor einsum would silently replicate the experts), MLA attention
+    (its latents and absorbed decode have no sharded layout yet) or an
+    ssm segment (Mamba2's head-sharded SSD is not ported)."""
     if mesh is None:
         return
+    if any(k == "ssm" for k, _ in cfg.segments):
+        raise NotImplementedError(
+            f"{what}: Mamba2 (an ssm segment) on a mesh is not ported yet; "
+            "ROADMAP.md Queue 1 item 12 (its leftovers)")
     if any(k == "moe" for k, _ in cfg.segments):
         raise NotImplementedError(
             f"{what}: sharded MoE (expert parallelism over 'model') is not "
@@ -159,35 +164,57 @@ def _modules(tree: dict) -> dict:
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device=None) -> Params:
     """Random params: normal(0, 0.02) matrices (0.006 for the MoE router),
-    ones for norms, zero biases.
+    ones for norms, zero biases; Mamba2's ``A_log`` as log U[1, 16)
+    ("alog") and ``dt_bias`` as the inverse softplus of dt = exp(U[ln 1e-3,
+    ln 1e-1]) ("dtbias"). An init name it does not know raises
+    ``ValueError``.
 
     The init rules are the JAX package's; the draws come from ``generator``
-    (in path order, on the generator's device) and differ from
-    ``jax.random``'s. ``device`` defaults to ``cuda``.
+    (in path order, on the generator's device, in f32, then cast to the
+    model dtype) and differ from ``jax.random``'s. ``device`` defaults to
+    ``cuda``.
     """
     device = resolve_device(device)
     flat = {}
     for path, spec in flatten(model_spec(cfg)).items():
-        if spec.init == "ones":
-            x = torch.ones(spec.shape)
-        elif spec.init == "zeros":
-            x = torch.zeros(spec.shape)
-        else:
-            scale = 0.006 if spec.init == "small" else 0.02
-            x = scale * torch.randn(spec.shape, generator=generator,
-                                    device=generator.device)
+        x = _init_leaf(spec, generator)
         flat[path] = x.to(device=device, dtype=cfg.torch_dtype)
     return Params(flat)
+
+
+def _init_leaf(spec: L.Spec, generator: torch.Generator) -> torch.Tensor:
+    """One f32 leaf by ``spec.init`` (see ``init_params``)."""
+    def uniform(lo, hi):
+        return torch.empty(spec.shape, device=generator.device).uniform_(
+            lo, hi, generator=generator)
+
+    if spec.init == "ones":
+        return torch.ones(spec.shape)
+    if spec.init == "zeros":
+        return torch.zeros(spec.shape)
+    if spec.init == "alog":       # Mamba2's A = -exp(A_log) in [-16, -1)
+        return torch.log(uniform(1.0, 16.0))
+    if spec.init == "dtbias":     # softplus(dt_bias) = dt in [1e-3, 1e-1]
+        dt = torch.exp(uniform(math.log(1e-3), math.log(1e-1)))
+        return dt + torch.log(-torch.expm1(-dt))
+    if spec.init in ("normal", "small"):
+        scale = 0.006 if spec.init == "small" else 0.02
+        return scale * torch.randn(spec.shape, generator=generator,
+                                   device=generator.device)
+    raise ValueError(f"unknown init {spec.init!r} (normal, small, zeros, "
+                     "ones, alog, dtbias)")
 
 
 # -------------------------------------------------------------------- cache
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
                device=None) -> dict:
-    """Zero cache, per segment and attention sub-layer, like the JAX one:
-    GQA's k and v (L, B, max_seq, K, hd); MLA's latent ckv (L, B, max_seq,
-    kv_lora_rank) and shared rope key krope (L, B, max_seq, 1,
-    qk_rope_dim)."""
+    """Zero cache, per segment and sub-layer that keeps one, like the JAX
+    one: GQA's k and v (L, B, max_seq, K, hd); MLA's latent ckv (L, B,
+    max_seq, kv_lora_rank) and shared rope key krope (L, B, max_seq, 1,
+    qk_rope_dim); Mamba2's conv (L, B, dconv-1, conv_dim) and ssm (L, B,
+    nh, N, hd). Each leaf keeps its own dtype: ``dtype`` (default the
+    model's), but Mamba2's ssm state always f32."""
     dtype = dtype or cfg.torch_dtype
     device = resolve_device(device)
     out = {}
@@ -213,14 +240,14 @@ def forward(params, cfg: ModelConfig, tokens, *, mode: str = "train",
     restart at each document) and the per-token document ids attention
     keeps apart (pad id 0). The ids are cast to contiguous int32 here,
     once for every layer. ``aux`` (the MoE load-balance loss in the JAX
-    package) is 0 for the dense family.
+    package) is 0 for the dense and ssm families.
 
     ``mesh`` (a DeviceMesh; params and batch DTensors laid out per
     ``rules``, default ``Rules(cfg.rule_overrides)``): the activations
     are laid out per their logical axes (``sharding.shard``, as JAX's
     annotations), attention takes the shardings of its operands, and
-    plain tensors (positions, masks) count as replicated. An MoE model
-    raises on a mesh (``check_mesh``).
+    plain tensors (positions, masks) count as replicated. An MoE, MLA or
+    Mamba2 model raises on a mesh (``check_mesh``).
     """
     check_mesh(cfg, mesh, "forward")
     rules = rules or Rules(cfg.rule_overrides)

@@ -1,6 +1,8 @@
-"""Super-blocks (dense: self-attn + SwiGLU; moe: self-attn + MoE) and the
-loop over stacked layer params. The self-attention sub-layer is GQA or MLA
-by ``cfg.attention_kind``, as in JAX.
+"""Super-blocks (dense: self-attn + SwiGLU; moe: self-attn + MoE; ssm: one
+Mamba2 layer, attention-free and without an FFN) and the loop over stacked
+layer params. The self-attention sub-layer is GQA or MLA by
+``cfg.attention_kind``, as in JAX. The attention and Mamba2 sub-layers
+keep a cache (``_CACHED``, JAX's ``_needs_cache``).
 
 The JAX package scans each segment of homogeneous super-blocks over params
 stacked on a leading (L, ...) axis; the port keeps that layout and loops in
@@ -14,7 +16,9 @@ Rematerialization follows ``cfg.remat`` when a gradient is being taken
 does there: ``"full"`` saves nothing inside a super-block and recomputes
 its forward in the backward (``nothing_saveable``); ``"dots"`` saves the
 outputs of the 2-D matrix products and recomputes the rest
-(``dots_with_no_batch_dims_saveable``); ``"none"`` saves everything.
+(``dots_with_no_batch_dims_saveable``: the projections reach ``aten.mm``
+and are saved, Mamba2's SSD products and the MoE einsums reach
+``aten.bmm`` and are recomputed); ``"none"`` saves everything.
 
 The MoE load-balance loss (``aux``) is an output of each super-block, and
 so of each remat block: the recomputed forward routes the tokens as the
@@ -34,7 +38,9 @@ from .config import ModelConfig
 from .sharding import shard
 
 
-_SPECS = {"mlp": L.mlp_spec, "moe": L.moe_spec}
+_SPECS = {"mlp": L.mlp_spec, "moe": L.moe_spec, "mamba": L.mamba_spec}
+# the sub-layers that keep a cache (JAX's _needs_cache)
+_CACHED = ("attn", "mamba")
 # attention_kind -> (spec, apply, cache) of the self-attention sub-layer
 _ATTENTION = {"gqa": (L.attn_spec, L.apply_attention, L.attn_cache),
               "mla": (L.mla_spec, L.apply_mla_attention, L.mla_cache)}
@@ -56,8 +62,10 @@ def _sub_spec(cfg: ModelConfig, sub: str) -> dict:
 
 def _apply_sub(sub: str, p, cfg: ModelConfig, x, positions, mode: str, cache,
                cache_index, segment_ids=None, rules=None, mesh=None):
-    """Pre-norm residual sub-layer (attn, mlp or moe). Returns (x,
-    new_cache, aux); aux is None but for moe."""
+    """Pre-norm residual sub-layer (attn, mlp, moe or mamba). Returns (x,
+    new_cache, aux); aux is None but for moe. mamba takes no
+    ``segment_ids``: its sequence mixing has no segment mask, as in
+    JAX."""
     h = L.rmsnorm(x, p["norm"], cfg.rms_eps)
     aux = None
     if sub == "attn":
@@ -66,6 +74,8 @@ def _apply_sub(sub: str, p, cfg: ModelConfig, x, positions, mode: str, cache,
                                       mesh=mesh)
     elif sub == "moe":
         y, aux = L.apply_moe(p, cfg, h)
+    elif sub == "mamba":
+        y, cache = L.apply_mamba(p, cfg, h, mode, cache)
     else:
         y = L.apply_mlp(p, cfg, h)
     return x + y.to(x.dtype), cache, aux
@@ -77,6 +87,8 @@ def superblock_layout(cfg: ModelConfig, kind: str) -> tuple:
         return (("attn", "attn"), ("ffn", "mlp"))
     if kind == "moe":
         return (("attn", "attn"), ("ffn", "moe"))
+    if kind == "ssm":
+        return (("mamba", "mamba"),)
     raise NotImplementedError(f"super-block kind {kind!r} is not yet ported "
                               "to repro_torch (ROADMAP.md Queue 1 item 13)")
 
@@ -88,11 +100,17 @@ def superblock_spec(cfg: ModelConfig, kind: str) -> dict:
 
 def superblock_cache(cfg: ModelConfig, kind: str, batch: int, max_seq: int,
                      dtype, device) -> dict:
-    """Zero cache for one super-block's attention, in the layout of
-    ``cfg.attention_kind`` (``layers.attn_cache``, ``layers.mla_cache``)."""
-    cache = _attention(cfg)[2]
-    return {name: cache(cfg, batch, max_seq, dtype, device)
-            for name, sub in superblock_layout(cfg, kind) if sub == "attn"}
+    """Zero cache for each sub-layer of one super-block that keeps one:
+    attention in the layout of ``cfg.attention_kind``
+    (``layers.attn_cache``, ``layers.mla_cache``), Mamba2's fixed-size
+    conv and SSM states (``layers.mamba_cache``)."""
+    out = {}
+    for name, sub in superblock_layout(cfg, kind):
+        if sub == "attn":
+            out[name] = _attention(cfg)[2](cfg, batch, max_seq, dtype, device)
+        elif sub == "mamba":
+            out[name] = L.mamba_cache(cfg, batch, dtype, device)
+    return out
 
 
 def _layer(tree, l: int):
@@ -141,12 +159,12 @@ def apply_superblock(kind: str, cfg: ModelConfig, params, x, positions,
     new_cache = dict(cache) if cache is not None else None
     aux = None
     for name, sub in superblock_layout(cfg, kind):
-        sub_cache = cache.get(name) if (cache is not None and sub == "attn") \
-            else None
+        sub_cache = cache.get(name) if (cache is not None
+                                        and sub in _CACHED) else None
         x, sub_cache, a = _apply_sub(sub, params[name], cfg, x, positions,
                                      mode, sub_cache, cache_index,
                                      segment_ids, rules=rules, mesh=mesh)
-        if new_cache is not None and sub == "attn":
+        if new_cache is not None and sub in _CACHED:
             new_cache[name] = sub_cache
         if a is not None:
             aux = a if aux is None else aux + a
@@ -164,10 +182,12 @@ def apply_segment(kind: str, n_blocks: int, cfg: ModelConfig, stacked, x,
     -> (x, new_cache, aux), aux the sum of the layers' (None for a segment
     without MoE). prefill returns the S-length caches stacked to
     (L, B, S, K, hd) (MLA: (L, B, S, kv_lora_rank) and (L, B, S, 1,
-    qk_rope_dim)); decode writes the stacked cache in place and returns
-    it; train returns None. ``segment_ids`` (packed rows) is a tensor
-    argument of each remat block, so a recomputed forward masks as the
-    first did. ``rules`` and ``mesh``: see ``model.forward``.
+    qk_rope_dim); Mamba2: its fixed-size states, (L, B, dconv-1,
+    conv_dim) and (L, B, nh, N, hd)); decode writes the stacked cache in
+    place and returns it; train returns None. ``segment_ids`` (packed
+    rows) is a tensor argument of each remat block, so a recomputed
+    forward masks as the first did. ``rules`` and ``mesh``: see
+    ``model.forward``.
     """
     layers = _unbind(stacked, n_blocks)
     auxs = []

@@ -2,7 +2,7 @@
 the registry, shapes and counts of the full-size configurations (from the
 specs alone, nothing allocated; deepseek-v3-671b's against JAX's nameplate
 bounds too), the paper's memory accounting on dbrx-132b, a forward and a training step of the four dense ``SMOKE``
-twins, and the launcher's ``--smoke``.
+twins, and the launcher's ``--smoke`` (dbrx-132b and mamba2-370m).
 
 Inputs come from JAX's ``init_params`` and data pipeline, crossed over as
 numpy through ``load_flat``; torch runs on one intra-op thread. Tolerances
@@ -46,9 +46,9 @@ from repro_torch.models.weights import load_flat  # noqa: E402
 from repro_torch.training import init_state, make_train_step  # noqa: E402
 
 PORTED = ("qwen2-7b", "granite-3-8b", "deepseek-67b", "mistral-large-123b",
-          "dbrx-132b", "deepseek-v3-671b")
+          "dbrx-132b", "deepseek-v3-671b", "mamba2-370m")
 DENSE = PORTED[:4]
-UNPORTED = ("mamba2-370m", "llama-3.2-vision-11b", "jamba-1.5-large-398b",
+UNPORTED = ("llama-3.2-vision-11b", "jamba-1.5-large-398b",
             "musicgen-medium")
 
 
@@ -123,6 +123,13 @@ def test_param_shapes_and_counts_match_jax(arch):
         assert shapes["segments/seg1_moe/ffn/w_gate"] == (58, 256, 7168, 2048)
         assert shapes["segments/seg0_dense/attn/wkv_b"] == (3, 512, 128 * 256)
         assert shapes["segments/seg1_moe/attn/wq_b"] == (58, 1536, 128 * 192)
+    elif arch == "mamba2-370m":
+        # 48 attention-free layers; in_proj packs z, x, B, C and dt
+        assert 0.41e9 <= t.num_params() <= 0.43e9
+        assert shapes["segments/seg0_ssm/mamba/in_proj"] == (48, 1024, 4384)
+        assert shapes["segments/seg0_ssm/mamba/conv_w"] == (48, 4, 2304)
+        assert shapes["segments/seg0_ssm/mamba/A_log"] == (48, 32)
+        assert t.active_params() == t.num_params()
     else:
         assert t.active_params() == t.num_params()
 
@@ -189,6 +196,25 @@ def test_launcher_smoke_dbrx_loss_falls():
              "--optimizer", "scale_fused", "--lr", "1e-2"])
     out = buf.getvalue()
     assert "arch=dbrx-132b-smoke" in out
+    losses = [float(line.split()[3]) for line in out.splitlines()
+              if line.startswith("step ")]
+    assert len(losses) == 8 and abs(losses[-1] - final) <= 5e-5
+    assert np.isfinite(losses).all()
+    assert np.mean(losses[-3:]) < losses[0] - 0.2, losses
+
+
+def test_launcher_smoke_mamba2_loss_falls():
+    """``python -m repro_torch.launch.train --arch mamba2-370m --smoke
+    --device cpu``: 8 steps of the Mamba2 twin (2 chunks of 16 a row)
+    whose loss falls."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        final = launch_train.main(
+            ["--arch", "mamba2-370m", "--smoke", "--device", "cpu",
+             "--steps", "8", "--batch", "4", "--seq", "32", "--log-every",
+             "1", "--optimizer", "scale_fused", "--lr", "1e-2"])
+    out = buf.getvalue()
+    assert "arch=mamba2-370m-smoke" in out
     losses = [float(line.split()[3]) for line in out.splitlines()
               if line.startswith("step ")]
     assert len(losses) == 8 and abs(losses[-1] - final) <= 5e-5

@@ -10,9 +10,10 @@ cases are those of phase 2 of ``chip_smoke.py``; a test serves a small
 model on the card through the attention kernel, others take SCALE
 optimizer steps through the optimizer kernels, one trains a small
 llama through every kernel of the training step, one trains it with the
-LM head tied to the embedding through the tied head's routes, and one skips a step
-with an injected NaN under the anomaly guard (bitwise a dropped batch,
-sync-free) and checkpoints the guarded state. Attention tolerances,
+LM head tied to the embedding through the tied head's routes, one trains
+mamba2-370m's SMOKE twin two steps against the same steps plain, and one
+skips a step with an injected NaN under the anomaly guard (bitwise a
+dropped batch, sync-free) and checkpoints the guarded state. Attention tolerances,
 per element:
   * f32 out: 2e-5 absolute (unit-scale values summed in other orders);
   * bf16 out: 2e-2 + 2e-2*|ref| — the kernel rounds the running,
@@ -1985,4 +1986,88 @@ def test_v3_smoke_train_step_on_card_matches_plain_route(cuda, monkeypatch):
     got, want = flatten(state.params), flatten(ref_state.params)
     for k, w in want.items():
         step = (w - old[k]).abs().max().item()
+        assert (got[k] - w).abs().max().item() <= 1e-3 * step + 1e-7, k
+
+
+@pytest.mark.gpu
+def test_mamba2_smoke_train_steps_on_card_match_plain_route(cuda,
+                                                            monkeypatch):
+    """mamba2-370m's SMOKE twin (f32, 2 Mamba2 layers, 2 chunks of 16 a
+    row): two ``scale_fused`` steps through the kernels against the same
+    steps with the xent and optimizer kernels through their plain
+    versions, from the same params. Per step no attention kernel, one of
+    each xent kernel (fma: f32), 3 norm_sumsq (in_proj, out_proj,
+    tok_embed), 4 update_apply (those and the head), one momentum_sumsq;
+    the plain route launches none. Each step's metrics within 1e-4
+    relative (f32 sums in other orders), every leaf within 1e-3 of its
+    largest change plus 1e-7, and the first step's loss within 1e-5
+    relative of the same step on the CPU (the SSD's torch products on the
+    card against the CPU's)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import make_optimizer
+    from repro_torch.data import make_dataset
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.colnorm import ref as CR
+    from repro_torch.kernels.scale_head.ref import momentum_sumsq_ref
+    from repro_torch.kernels.xent import ref as XR
+    from repro_torch.kernels.xent import xent as X
+    from repro_torch.models import init_params
+    from repro_torch.models.model import Params, flatten
+    from repro_torch.training import init_state, make_train_step
+    cfg = get_arch("mamba2-370m", smoke=True)
+    ds = make_dataset(cfg, 32, 4, seed=1, device=cuda)
+    batches = [ds.global_batch_at(i) for i in range(2)]
+    p0 = flatten(init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                             device=cuda))
+
+    def run(device=cuda):
+        tx = make_optimizer("scale_fused", 1e-2)
+        state = init_state(Params({k: p.to(device, copy=True)
+                                   for k, p in p0.items()}), tx)
+        step = make_train_step(cfg, tx, clip_norm=1.0)
+        mets = []
+        for b in batches:
+            state, m = step(state, {k: v.to(device) for k, v in b.items()})
+            mets.append(m)
+        return state, mets
+
+    def plain(m):
+        m.setattr(dispatch, "xent_fwd", XR.xent_fwd_ref)
+        m.setattr(dispatch, "xent_bwd_dh", XR.xent_bwd_dh_ref)
+        m.setattr(dispatch, "xent_bwd_dw", XR.xent_bwd_dw_ref)
+        m.setattr(dispatch, "norm_sumsq", CR.norm_sumsq_ref)
+        m.setattr(dispatch, "norm_apply", CR.norm_apply_ref)
+        m.setattr(dispatch, "update_apply", CR.update_apply_ref)
+        m.setattr(dispatch, "momentum_sumsq", momentum_sumsq_ref)
+        m.setattr(dispatch, "head_update_apply",
+                  lambda theta, m_new, ss, lr, axis="col", eps=CR.EPS:
+                  CR.update_apply_ref(theta, m_new, ss, lr, axis, eps=eps))
+
+    before = _train_counts()
+    xroutes = [dict(f.route_launches) for f in (X.xent_fwd, X.xent_bwd_dh,
+                                                X.xent_bwd_dw)]
+    state, mets = run()
+    torch.cuda.synchronize()
+    after = _train_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        "mha_fwd": 0, "mha_bwd_dq": 0, "mha_bwd_dkv": 0, "xent_fwd": 2,
+        "xent_bwd_dh": 2, "xent_bwd_dw": 2, "norm_sumsq": 6,
+        "update_apply": 8, "momentum_sumsq": 2, "norm_apply": 0}
+    for f, was in zip((X.xent_fwd, X.xent_bwd_dh, X.xent_bwd_dw), xroutes):
+        assert f.route_launches == {**was, "fma": was.get("fma", 0) + 2}
+    with monkeypatch.context() as m:
+        plain(m)
+        before = _train_counts()
+        ref_state, ref_mets = run()
+        assert _train_counts() == before  # no kernel on the plain route
+        _, cpu_mets = run("cpu")
+    for got, want in zip(mets, ref_mets):
+        for k in ("loss", "grad_norm", "update_norm"):
+            assert torch.isfinite(got[k])
+            torch.testing.assert_close(got[k], want[k], rtol=1e-4, atol=0)
+    torch.testing.assert_close(mets[0]["loss"].cpu(), cpu_mets[0]["loss"],
+                               rtol=1e-5, atol=0)
+    got, want = flatten(state.params), flatten(ref_state.params)
+    for k, w in want.items():
+        step = (w - p0[k]).abs().max().item()
         assert (got[k] - w).abs().max().item() <= 1e-3 * step + 1e-7, k
