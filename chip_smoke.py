@@ -5,7 +5,7 @@ NVIDIA H100.
     python3 chip_smoke.py [--seed N]
 
 Run from the root of a checkout. It builds the port's CUDA kernels with
-nvcc (one process per source, in parallel), then runs eighteen phases and fails
+nvcc (one process per source, in parallel), then runs nineteen phases and fails
 (non-zero exit, no result line) if any of them fails:
 
 1. device: the card's name and power limit, the kernels' ptxas report;
@@ -23,7 +23,8 @@ nvcc (one process per source, in parallel), then runs eighteen phases and fails
    with each backward output's largest error over its tolerance, at
    llama-1b's, llama-7b's (D = 4096) and gemma-2b's (V = 256000) loss
    shapes among others (and a D of 4100 that ends the FMA kernels' last
-   slab of D mid-way); the same three kernels with ``transposed=True``
+   slab of D mid-way; the widest heads, of phases 16-19, in bf16 on the
+   tensor-core routes alone); the same three kernels with ``transposed=True``
    (the tied head, w stored (V, D) and read in place) on the tied head's
    own routes (``wgmma_t``, ``mma_t``; ``fma_t`` for f32, a non-contiguous
    h and other layouts), counted, at llama-1b's and gemma-2b's tied loss
@@ -320,6 +321,32 @@ nvcc (one process per source, in parallel), then runs eighteen phases and fails
    holds the xent kernels at its head (D 1024, V 50304 of 50280) and the
    optimizer kernels at its ``in_proj``, ``out_proj``, embedding and
    head. The kernels line gains the path ``train mamba2``.
+19. the hybrid jamba-1.5-large-398b: (i) the launcher with ``--arch
+   jamba-1.5-large-398b --smoke`` for two steps; (ii) one super-block of
+   period 2 at full width (attention + MLP, then Mamba2 + MoE: d_model
+   8192, 64 heads over 8 of 128, d_ff 24576, top-2 of moe_d_ff 24576,
+   Mamba2 of 256 heads of 64 over a state of 128, chunk 256; vocab
+   65536) with 4 of its 16 experts (the ``reduced`` list), bf16, 4 x 1024
+   ``SyntheticLM`` batches, ``scale_fused``, clip 1.0, full remat: three
+   ``make_train_step`` steps, each step's launches checked by route (2
+   ``mha_fwd``, 1 of each attention backward kernel, all ``mma``; one of
+   each xent kernel, ``wgmma`` and ``mma``; 11 ``norm_sumsq``, 12
+   ``update_apply`` on ``vec``, one ``momentum_sumsq``) and its grad norm
+   finite, the loss and aux held to the same steps with every kernel
+   through its plain version, step time, tokens/s, peak, idle share and
+   one step's device time by family (attention, the Mamba2 and MoE
+   layers by their spans, the head, the work outside the model timed
+   apart); (iii) serving the same super-block with all 16 experts (bf16,
+   batch 4, a 512-token prompt, 32 new tokens) at cf E/k and 1.25:
+   prefill and decode ms, the prefill's ``mha_fwd`` on ``mma`` and each
+   decode step's on ``decode``, one decode step's device time and idle
+   share, the bf16 decode against a full forward within twice the floor
+   of the same check with plain attention, and the witness of phases
+   17-18 at the training cut's 4 experts. Phase 2 holds the attention
+   kernels at its train batch, prefill and decode, the xent kernels at its
+   head (D 8192, V 65536) and the optimizer kernels at its ``in_proj``,
+   ``out_proj``, router and head. The kernels line gains the paths
+   ``train jamba`` and ``serve jamba``.
 
 The line before the last is a JSON ``{"kernels": [...]}`` summary, the
 last line ``{"ok": true, "device": {...}}``. It needs a CUDA card and
@@ -548,6 +575,16 @@ def attention_cases():
                                               256),
         "decode H=96 K=8 hd=128 kv_len=287": (4, 1, 288, 96, 8, 128, False,
                                               287),
+        # phase 19's: jamba-1.5-large-398b (64 heads over 8 of 128) at its
+        # train batch of 4 x 1024, its serving prefill of 4 x 512 and the
+        # first and last decode step's kv_len (a cache of 512 + 32)
+        JAMBA_ATTN: (4, 1024, 1024, 64, 8, 128, True, None),
+        "prefill jamba H=64 K=8 hd=128": (4, 512, 512, 64, 8, 128, True,
+                                          None),
+        "decode jamba H=64 K=8 kv_len=512": (4, 1, 544, 64, 8, 128, False,
+                                             512),
+        "decode jamba H=64 K=8 kv_len=543": (4, 1, 544, 64, 8, 128, False,
+                                             543),
     }
 
 
@@ -688,6 +725,8 @@ def bwd_cases():
                                            None),
         "train deepseek-67b H=64 K=8 hd=128": (16, 256, 256, 64, 8, 128,
                                                True, None),
+        # phase 19's: jamba-1.5-large-398b at its train batch of 4 x 1024
+        JAMBA_ATTN: (4, 1024, 1024, 64, 8, 128, True, None),
     }
 
 
@@ -850,6 +889,12 @@ def optimizer_shapes():
         "mamba2-370m out_proj (48,2048,1024)": (48, 2048, 1024),
         "mamba2-370m tok_embed (1,50304,1024)": (1, 50304, 1024),
         "mamba2-370m lm_head (1,1024,50304)": (1, 1024, 50304),
+        # jamba-1.5-large-398b's training cut (phase 19): Mamba2's in_proj
+        # and out_proj, the MoE router of 4 experts and the head
+        "jamba in_proj (1,8192,33280)": (1, 8192, 33280),
+        "jamba out_proj (1,16384,8192)": (1, 16384, 8192),
+        "jamba router (1,8192,4)": (1, 8192, 4),
+        "jamba lm_head (1,8192,65536)": (1, 8192, 65536),
     }
 
 
@@ -1918,17 +1963,22 @@ def xent_cases():
         MLA_HEAD: (4096, 7168, 129280, 129280, 0.0),
         # phase 18's head: mamba2-370m (D 1024, vocab 50280 padded to 50304)
         MAMBA_HEAD: (4096, 1024, 50304, 50280, 0.0),
+        # phase 19's head: jamba-1.5-large-398b (D 8192, V 65536)
+        JAMBA_HEAD: (4096, 8192, 65536, 65536, 0.0),
     }
 
 
-# phase 16's and 17's widest heads in bf16 alone, their main path's dtype: the f32
-# FMA kernels at these D and V take seconds a call, and the gpu tests hold
-# them at these shapes
+# phase 16's, 17's and 19's widest heads in bf16 alone, their main path's
+# dtype, on its routes alone (wgmma, mma): the FMA kernels at these D and
+# V, in f32 or with w read through its columns, take seconds a call (with
+# the latter, these six heads' cases took 200 s on an H100 at 700 W), and
+# the gpu tests hold them at these shapes in both dtypes
 XENT_BF16_ONLY = ("dbrx-132b N=4096 D=6144 V=100352",
                   "qwen2-7b N=4096 D=3584 V=152064",
                   "deepseek-67b N=4096 D=8192 V=102400",
                   "mistral-large N=4096 D=12288 V=32768",
-                  "deepseek-v3 N=4096 D=7168 V=129280")
+                  "deepseek-v3 N=4096 D=7168 V=129280",
+                  "jamba N=4096 D=8192 V=65536")
 
 
 def xent_inputs(torch, gen, N, D, V, masked, dtype):
@@ -1961,7 +2011,8 @@ def phase_xent_kernels(torch, gen):
     """Phase 2: the three xent kernels against their plain versions, each
     run twice (bitwise equal), on the route its wrapper picks (counted:
     ``wgmma`` for the forward and ``mma`` for the backward on aligned bf16,
-    ``fma`` for f32 and for w read through its columns). Prints each
+    ``fma`` for f32 and for w read through its columns; the widest heads,
+    XENT_BF16_ONLY, on the bf16 routes alone). Prints each
     backward output's largest error over its element's tolerance.
     -> {(kernel, case, dtype): max abs error}."""
     from repro_torch.kernels.xent import ref as XR
@@ -2007,8 +2058,9 @@ def phase_xent_kernels(torch, gen):
             if X.mma_layout(h, w) != tc:
                 raise AssertionError(f"xent_fwd: unexpected kernel for {key}")
             # the FMA kernels, which other bf16 layouts take
-            w_cols = w.T.contiguous().T if tc else None
-            if tc:
+            w_cols = (w.T.contiguous().T
+                      if tc and cname not in XENT_BF16_ONLY else None)
+            if w_cols is not None:
                 e_fma = 0.0
                 was = dict(X.xent_fwd.route_launches)
                 got_cols = X.xent_fwd(h, w_cols, labels, vocab_size=vs)
@@ -5881,15 +5933,15 @@ def plain_kernels():
 
 def train_family(torch, seed, power, arch, cfg, reduced, steps, want, want_r,
                  widths, shape=(16, 256)):
-    """Phase 16 (i), 17 (i), 18 (i): ``arch`` at full width, cut to ``cfg``
-    (each cut listed in ``reduced``; ``widths`` names the config's
-    widths): the launcher's --smoke run, then ``steps`` steps of the main
-    path (bf16, batch ``shape`` from SyntheticLM, scale_fused, clip 1.0),
-    each launching ``want`` by route ``want_r`` with a finite loss, aux and
-    grad norm; one step's device time by family, the work outside the
-    model timed apart, and the loss and aux against the same steps with
-    every kernel through its plain version, from the same seeded
-    weights."""
+    """Phase 16 (i), 17 (i), 18 (i), 19 (i-ii): ``arch`` at full width,
+    cut to ``cfg`` (each cut listed in ``reduced``; ``widths`` names the
+    config's widths): the launcher's --smoke run, then ``steps`` steps of
+    the main path (bf16, batch ``shape`` from SyntheticLM, scale_fused,
+    clip 1.0), each launching ``want`` by route ``want_r`` with a finite
+    loss, aux and grad norm; one step's device time by family, the work
+    outside the model timed apart, and the loss and aux against the same
+    steps with every kernel through its plain version, from the same
+    seeded weights."""
     import math
     from repro_torch.core import linear_warmup_cosine, make_optimizer
     from repro_torch.data import make_dataset
@@ -6063,10 +6115,21 @@ def serve_against_full(torch, c, p, prompt, toks, last, taps):
     return err.max().item(), ok, agree, apart, ref.abs().max().item(), ref
 
 
-def serve_family(torch, seed, power, arch, cfg, want_routes):
-    """Phase 16 (ii), 17 (ii): ``arch`` serving at ``cfg`` (bf16) from
-    seeded weights, batch, prompt and new tokens of SERVE_MOE, at cf = E/k
-    (``no_drop``) and at the config's cf: prefill and decode ms, the
+def sub_calls(cfg, kind):
+    """The sub-layers of ``kind`` (attn, moe, ...) one forward runs: each
+    segment's super-blocks times those of its layout (a hybrid super-block
+    has one attention and an MoE at each odd position)."""
+    from repro_torch.models.transformer import superblock_layout
+    return sum(n * sum(sub == kind for _, sub in superblock_layout(cfg, k))
+               for k, n in cfg.segments)
+
+
+def serve_family(torch, seed, power, arch, cfg, want_routes,
+                 shape=SERVE_MOE):
+    """Phase 16 (ii), 17 (ii), 19 (iii): ``arch`` serving at ``cfg`` (bf16)
+    from seeded weights, batch, prompt and new tokens of ``shape``
+    (SERVE_MOE unless given), at cf = E/k (``no_drop``) and at the
+    config's cf: prefill and decode ms, the
     mha_fwd launches by route (``want_routes``), one decode step's device
     time, the share of the decode steps' pairs dropped, and the last
     decode logits against a full forward over the same tokens, with the
@@ -6081,8 +6144,8 @@ def serve_family(torch, seed, power, arch, cfg, want_routes):
     from repro_torch.kernels.attention.ref import mha_fwd_ref
     from repro_torch.models import init_params
     from repro_torch.training import make_decode_step, make_prefill_step
-    B, P, N = SERVE_MOE
-    n_moe = sum(n for kind, n in cfg.segments if kind == "moe")
+    B, P, N = shape
+    n_moe = sub_calls(cfg, "moe")
     gen = torch.Generator(device="cuda").manual_seed(seed)
     params = init_params(cfg, gen, device="cuda")
     prompt = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
@@ -6118,7 +6181,7 @@ def serve_family(torch, seed, power, arch, cfg, want_routes):
                                  "launches")
         # the same run with its routing recorded: drops, and the tokens
         # the decode path and a full forward route apart
-        toks, last, taps = serve_run(torch, c, params, prompt)
+        toks, last, taps = serve_run(torch, c, params, prompt, n_new=N)
         if not torch.equal(last, logits[:, -1].float()):
             raise AssertionError(f"{arch} serving {tag}: a rerun of the "
                                  "decode steps differs")
@@ -6738,6 +6801,100 @@ def phase_mamba(torch, seed, power):
     return {"train": train, "serve": serve}
 
 
+# ------------------------------ the hybrid jamba-1.5-large-398b (phase 19)
+
+JAMBA_ARCH = "jamba-1.5-large-398b"
+JAMBA_STEPS = 3
+# Phase 19 trains one super-block of period 2 at full width (attention +
+# MLP, then Mamba2 + MoE: every sub-layer kind once) with 4 of its 16
+# experts: a period-8 super-block is 45.1 G parameters with 16 experts
+# and 11.3 G with 2, and at dbrx's 8,635 MiB of peak per G parameters (PR
+# 28) none trains on one card. Top-2 of 4 keeps the routing real. Serving
+# needs no gradients and keeps all 16 experts; the f32 witness runs at the
+# training cut, whose f32 copy beside its bf16 weights fits.
+JAMBA_LAYERS = 2
+JAMBA_TRAIN_EXPERTS = 4
+SERVE_JAMBA = (4, 512, 32)  # batch, prompt (2 chunks), new tokens
+# the attention (64 heads over 8 of 128, causal) at the train batch, and
+# the head; phase 2 holds the kernels at both
+JAMBA_ATTN = "train jamba H=64 K=8 hd=128"
+JAMBA_HEAD = "jamba N=4096 D=8192 V=65536"
+
+
+def serve_jamba(torch, seed, power, train_cfg):
+    """Phase 19 (iii): jamba serving at full width, the training cut's one
+    super-block with all its experts (``serve_family``: the prefill's
+    attention on ``mma``, each decode step's on ``decode``; Mamba2's conv
+    and SSM states written in place beside the attention's k/v); its bf16
+    decode held to its floor (attention through its plain version, the
+    same decode); then ``f32_witness`` at the training cut (4 experts)."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    full = get_arch(JAMBA_ARCH)
+    cfg = dataclasses.replace(train_cfg, n_experts=full.n_experts)
+    N = SERVE_JAMBA[2]
+    out, prompt, toks = serve_family(
+        torch, seed, power, JAMBA_ARCH, cfg,
+        {"mma": sub_calls(cfg, "attn"),
+         "decode": (N - 1) * sub_calls(cfg, "attn")},
+        shape=SERVE_JAMBA)
+    out["reduced"] = [f"n_layers {full.n_layers} -> {cfg.n_layers} and "
+                      f"hybrid_period {full.hybrid_period} -> "
+                      f"{cfg.hybrid_period}: the training cut's; all "
+                      f"{cfg.n_experts} experts",
+                      f"the f32 witness at the training cut's "
+                      f"{train_cfg.n_experts} experts (an f32 copy of the "
+                      f"{cfg.n_experts}-expert weights beside the bf16 ones "
+                      "passes 70 GB)"]
+    held_to_floors(JAMBA_ARCH, out, cfg)
+    out["witness"] = f32_witness(torch, seed, JAMBA_ARCH, no_drop(train_cfg),
+                                 prompt, toks)
+    return out
+
+
+def phase_jamba(torch, seed, power):
+    """Phase 19: jamba-1.5-large-398b training (one super-block of period
+    2, JAMBA_TRAIN_EXPERTS experts) and serving (all 16) at full
+    width."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import superblock_layout
+    t0 = time.perf_counter()
+    full = get_arch(JAMBA_ARCH)
+    cfg = dataclasses.replace(full, n_layers=JAMBA_LAYERS,
+                              hybrid_period=JAMBA_LAYERS,
+                              n_experts=JAMBA_TRAIN_EXPERTS)
+    layout = superblock_layout(cfg, "hybrid")
+    if cfg.segments != (("hybrid", 1),) or layout != (
+            ("attn", "attn"), ("ffn0", "mlp"), ("mamba1", "mamba"),
+            ("ffn1", "moe")):
+        raise AssertionError(f"{JAMBA_ARCH}: segments {cfg.segments}, "
+                             f"layout {layout}")
+    reduced = [f"n_layers {full.n_layers} -> {JAMBA_LAYERS} and "
+               f"hybrid_period {full.hybrid_period} -> {JAMBA_LAYERS} (one "
+               "super-block: attention + MLP, then Mamba2 + MoE)",
+               f"n_experts {full.n_experts} -> {JAMBA_TRAIN_EXPERTS}"]
+    widths = (f"d_model {cfg.d_model}, {cfg.n_heads} heads over "
+              f"{cfg.n_kv_heads} kv heads of {cfg.head_dim}, d_ff "
+              f"{cfg.d_ff}; top-{cfg.top_k} of {cfg.n_experts} experts, "
+              f"moe_d_ff {cfg.moe_d_ff}; Mamba2 d_inner {cfg.d_inner}, "
+              f"{cfg.ssm_nheads} heads of {cfg.ssm_headdim} over a state of "
+              f"{cfg.ssm_state}, conv {cfg.ssm_dconv}, chunk "
+              f"{cfg.ssm_chunk}; vocab {cfg.vocab_size}; layout {layout}")
+    # 11 matrices of two or three dims (tok_embed; attn's wq, wk, wv, wo;
+    # ffn0's w_gate, w_up, w_down; ffn1's router; mamba1's in_proj and
+    # out_proj) and the head; the 4-D expert leaves take the plain stage
+    # route, the norms and Mamba2's conv_w, conv_b, A_log, D, dt_bias Adam
+    # phase 18's batch: 4 chunks of 256 a row, so the SSD's recurrence
+    # over chunks runs
+    train = train_family(torch, seed, power, JAMBA_ARCH, cfg, reduced,
+                         JAMBA_STEPS, *train_want(1, "mma", 11), widths,
+                         shape=MAMBA_BATCH)
+    serve = serve_jamba(torch, seed, power, cfg)
+    print(f"  phase 19 took {time.perf_counter() - t0:.1f} s")
+    return {"train": train, "serve": serve}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6755,10 +6912,16 @@ def main() -> int:
         return 2
 
     from repro_torch.kernels import _build
+    t_start = time.perf_counter()
+
+    def say(header):
+        """A phase's header, with the seconds the run has taken so far."""
+        print(f"{header} [{time.perf_counter() - t_start:.1f} s into the "
+              "run]", flush=True)
     power = card()
     kind = torch.cuda.get_device_name(0)
-    print(f"phase 1: device {kind} (nvidia-smi: {power}); torch "
-          f"{torch.__version__}, CUDA {torch.version.cuda}")
+    say(f"phase 1: device {kind} (nvidia-smi: {power}); torch "
+        f"{torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
     variants = {**start_variants(XENT_VARIANTS, (SRC_XENT, SRC_HOPPER)),
                 **start_variants(COLNORM_VARIANTS, (SRC_COLNORM,))}
@@ -6772,7 +6935,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
 
-    print("phase 2: kernels against their plain versions on the card")
+    say("phase 2: kernels against their plain versions on the card")
     errs = phase_kernels(torch, gen)
     bwd_errs = phase_bwd_kernels(torch, gen)
     opt_errs = phase_optimizer_kernels(torch, gen)
@@ -6781,10 +6944,10 @@ def main() -> int:
     tied_errs = phase_xent_tied_kernels(torch, gen)
     seg_errs = phase_segment_kernels(torch, gen, args.seed)
     mla_errs = phase_mla_kernels(torch, gen)
-    print("phase 3: greedy serving, llama-130m, full width and depth")
+    say("phase 3: greedy serving, llama-130m, full width and depth")
     serve = phase_serving(torch, args.seed, power)
-    print("phase 4: kernel times (CUDA events; attention and xent also "
-          "device time)")
+    say("phase 4: kernel times (CUDA events; attention and xent also "
+        "device time)")
     mha_rows = phase_timing(torch, gen, power, serve, errs)
     bwd_rows = bwd_timing(torch, gen, power, bwd_errs)
     mla_rows = mla_timing(torch, gen, power, mla_errs)
@@ -6793,44 +6956,48 @@ def main() -> int:
     xent_rows = xent_timing(torch, gen, power, xent_errs)
     xent_variant_timing(torch, gen, power, variants, xent_rows)
     tied_rows = xent_tied_timing(torch, gen, power, tied_errs)
-    print("phase 5: where the serving time goes (torch.profiler)")
+    say("phase 5: where the serving time goes (torch.profiler)")
     phase_profile(torch, args.seed, power, serve)
-    print("phase 6: SCALE optimizer steps, llama-1b, full width and depth")
+    say("phase 6: SCALE optimizer steps, llama-1b, full width and depth")
     opt = phase_optimizer(torch, args.seed, power)
-    print("phase 7: the loss path, llama-1b, full width and depth")
+    say("phase 7: the loss path, llama-1b, full width and depth")
     loss = phase_loss(torch, args.seed, power)
-    print("phase 8: the training step, llama-1b, full width and depth")
+    say("phase 8: the training step, llama-1b, full width and depth")
     train = phase_train(torch, args.seed, power)
-    print("phase 9: the training step, llama-7b and gemma-2b, full width and "
-          "depth")
+    say("phase 9: the training step, llama-7b and gemma-2b, full width and "
+        "depth")
     paper = phase_paper_models(torch, args.seed, power)
-    print("phase 10: the optimizer zoo, llama-1b at full width; the memory "
-          "axis at full depth")
+    say("phase 10: the optimizer zoo, llama-1b at full width; the memory "
+        "axis at full depth")
     zoo = phase_zoo(torch, args.seed, power)
-    print("phase 11: fault-tolerant training, llama-1b at full width and "
-          "depth: the guard, the checkpoint, resume and SIGTERM")
+    say("phase 11: fault-tolerant training, llama-1b at full width and "
+        "depth: the guard, the checkpoint, resume and SIGTERM")
     res = phase_resilience(torch, args.seed, power)
-    print("phase 12: tied-embedding training, llama-1b and gemma-2b, full "
-          "width and depth")
+    say("phase 12: tied-embedding training, llama-1b and gemma-2b, full "
+        "width and depth")
     tied = phase_tied(torch, args.seed, power)
-    print("phase 13: packed-document training, llama-1b, full width and "
-          "depth")
+    say("phase 13: packed-document training, llama-1b, full width and "
+        "depth")
     packed = phase_packed(torch, args.seed, power, train)
-    print("phase 14: the telemetry plane, llama-1b, full width and depth")
+    say("phase 14: the telemetry plane, llama-1b, full width and depth")
     telemetry = phase_telemetry(torch, args.seed, power)
-    print("phase 15: sharded training: the col_offset clause at llama-1b's "
-          "head, two ranks on the card, the sharded train step")
+    say("phase 15: sharded training: the col_offset clause at llama-1b's "
+        "head, two ranks on the card, the sharded train step")
     sharded = phase_sharded(torch, gen, args.seed, power, train)
-    print("phase 16: the MoE family and the ARCH_IDS configs: dbrx-132b "
-          "training and serving at full width, the four dense configs at "
-          "full width")
+    say("phase 16: the MoE family and the ARCH_IDS configs: dbrx-132b "
+        "training and serving at full width, the four dense configs at "
+        "full width")
     moe = phase_moe(torch, args.seed, power)
-    print("phase 17: MLA and deepseek-v3-671b: training (4 layers, 64 "
-          "experts) and serving (4 layers, 256 experts) at full width")
+    say("phase 17: MLA and deepseek-v3-671b: training (4 layers, 64 "
+        "experts) and serving (4 layers, 256 experts) at full width")
     mla = phase_mla(torch, args.seed, power)
-    print("phase 18: Mamba2 and mamba2-370m: training and serving at full "
-          "width and all 48 layers")
+    say("phase 18: Mamba2 and mamba2-370m: training and serving at full "
+        "width and all 48 layers")
     mamba = phase_mamba(torch, args.seed, power)
+    say("phase 19: the hybrid jamba-1.5-large-398b: training (one "
+        "super-block of period 2, 4 experts) and serving (16 experts) at "
+        "full width")
+    jamba = phase_jamba(torch, args.seed, power)
     # one row per kernel; launches summed over the main paths that run it,
     # each counted from 0 just before its path and read just after
     by_path = {"serving": {"mha_fwd": serve["launches"]},
@@ -6871,7 +7038,12 @@ def main() -> int:
                # kernel; its serving launches no hand-written kernel)
                "train mamba2": {k: n for k, n in
                                 mamba["train"]["launches"].items()
-                                if k not in ("mha_fwd", *BWD_KERNELS)}}
+                                if k not in ("mha_fwd", *BWD_KERNELS)},
+               # jamba-1.5-large-398b's training and its serving (both
+               # capacity factors: the prefill on mma, each decode step on
+               # decode)
+               "train jamba": jamba["train"]["launches"],
+               "serve jamba": {"mha_fwd": jamba["serve"]["launches"]}}
     # mha_fwd's prefill numbers, with both serving shapes and the eval and
     # training steps' shape beside them
     mha = {k: v for k, v in mha_rows[0].items() if k != "shape"}
@@ -6918,6 +7090,8 @@ def main() -> int:
                          (f"{MLA_ARCH} {MLA_LAYERS} layers, "
                           f"{MLA_TRAIN_EXPERTS} experts", mla["train"]),
                          (MAMBA_ARCH, mamba["train"]),
+                         (f"{JAMBA_ARCH} {JAMBA_LAYERS} layers, "
+                          f"{JAMBA_TRAIN_EXPERTS} experts", jamba["train"]),
                          *((f"{a} {ARCH_LAYERS} layers", r)
                            for a, r in moe["arch"].items()))}
         if row["name"] in SEG_ROWS.values():
@@ -6939,6 +7113,7 @@ def main() -> int:
                               and name == "norm_apply"):
                 raise AssertionError(f"{name} was not launched on the "
                                      f"{path} path")
+    say("all nineteen phases passed")
     print(power)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -4,9 +4,10 @@ sizes and its Appendix F extras (the port of ``repro.configs.registry``).
 The ported ``ARCH_IDS`` configurations live one module each beside this
 one, with their reduced ``SMOKE`` twins, field by field the JAX
 package's: the four large dense models, the MoE dbrx-132b, the MLA +
-MoE deepseek-v3-671b and the attention-free Mamba2 mamba2-370m. The other
-three (VLM, hybrid and audio) are not ported yet and raise a ``KeyError``
-saying so (ROADMAP.md Queue 1 item 13).
+MoE deepseek-v3-671b, the attention-free Mamba2 mamba2-370m and the
+hybrid (attention, Mamba2, MoE) jamba-1.5-large-398b. The other two (VLM
+and audio) are not ported yet and raise a ``KeyError`` saying so
+(ROADMAP.md Queue 1 items 13e and 13f).
 """
 from __future__ import annotations
 
@@ -37,6 +38,7 @@ _MODULES = {
     "mamba2-370m": "mamba2_370m",
     "dbrx-132b": "dbrx_132b",
     "deepseek-v3-671b": "deepseek_v3_671b",
+    "jamba-1.5-large-398b": "jamba_15_large_398b",
 }
 
 # Appendix F extra architectures (paper Table 9/10): GPT2-Medium (learned
@@ -80,6 +82,7 @@ def get_arch(arch_id: str, smoke: bool = False) -> ModelConfig:
     if arch_id in ARCH_IDS:
         ported = tuple(_MODULES) + tuple(LLAMA_PAPER) + tuple(PAPER_EXTRA)
         raise KeyError(f"arch {arch_id!r} is not yet ported to repro_torch "
-                       f"(ROADMAP.md Queue 1 item 13); ported: {ported}")
+                       f"(ROADMAP.md Queue 1 items 13e-13f); ported: "
+                       f"{ported}")
     raise KeyError(f"unknown arch {arch_id!r}; options: "
                    f"{ARCH_IDS + tuple(LLAMA_PAPER) + tuple(PAPER_EXTRA)}")

@@ -76,10 +76,10 @@ and ``run_end`` has ``fallbacks: null``.
 
 ``--arch`` takes the paper's LLaMA sizes, its Appendix F extras and the
 ported ``ARCH_IDS`` configurations (qwen2-7b, granite-3-8b, deepseek-67b,
-mistral-large-123b, the MoE dbrx-132b, the MLA + MoE deepseek-v3-671b and
-the Mamba2 mamba2-370m); ``--smoke`` takes an ``ARCH_IDS``
-configuration's reduced twin (2 or 3 layers, narrow, f32), which runs on
-the CPU too.
+mistral-large-123b, the MoE dbrx-132b, the MLA + MoE deepseek-v3-671b,
+the Mamba2 mamba2-370m and the hybrid jamba-1.5-large-398b); ``--smoke``
+takes an ``ARCH_IDS`` configuration's reduced twin (2 to 8 layers,
+narrow, f32), which runs on the CPU too.
 
 ``--optimizer`` takes any name of ``repro_torch.core.OPTIMIZER_NAMES``,
 the JAX registry's 20: SCALE (``scale``, ``scale_fused``, ``adapm``) and
@@ -105,6 +105,9 @@ Examples (llama-1b on the card, the paper's largest Table-1 model):
       --smoke --device cpu --steps 8 --batch 4 --seq 32 --log-every 1
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-370m \\
       --smoke --device cpu --steps 8 --batch 4 --seq 32 --log-every 1
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch jamba-1.5-large-398b --smoke --device cpu --steps 8 \\
+      --batch 4 --seq 32 --log-every 1
 """
 from __future__ import annotations
 

@@ -1,5 +1,6 @@
 """Top-level model API: spec, init, caches, forward, logits, loss (the
-dense, MoE and Mamba2 (ssm) families, GQA or MLA attention).
+dense, MoE, Mamba2 (ssm) and hybrid (attention, Mamba2, MoE and MLP in
+one super-block) families, GQA or MLA attention).
 
 Parameter tree layout, as in ``repro.models.model``::
 
@@ -110,10 +111,16 @@ def check_mesh(cfg: ModelConfig, mesh, what: str) -> None:
     """Raise before any work where ``cfg`` has no sharded route on a mesh:
     an MoE segment (expert parallelism over "model" is not ported; a
     DTensor einsum would silently replicate the experts), MLA attention
-    (its latents and absorbed decode have no sharded layout yet) or an
-    ssm segment (Mamba2's head-sharded SSD is not ported)."""
+    (its latents and absorbed decode have no sharded layout yet), an
+    ssm segment (Mamba2's head-sharded SSD is not ported) or a hybrid
+    segment (it holds both MoE and Mamba2)."""
     if mesh is None:
         return
+    if any(k == "hybrid" for k, _ in cfg.segments):
+        raise NotImplementedError(
+            f"{what}: a hybrid segment on a mesh needs sharded MoE (expert "
+            "parallelism over 'model') and sharded Mamba2, neither ported "
+            "yet; ROADMAP.md Queue 1 item 12 (its leftovers)")
     if any(k == "ssm" for k, _ in cfg.segments):
         raise NotImplementedError(
             f"{what}: Mamba2 (an ssm segment) on a mesh is not ported yet; "
@@ -240,14 +247,15 @@ def forward(params, cfg: ModelConfig, tokens, *, mode: str = "train",
     restart at each document) and the per-token document ids attention
     keeps apart (pad id 0). The ids are cast to contiguous int32 here,
     once for every layer. ``aux`` (the MoE load-balance loss in the JAX
-    package) is 0 for the dense and ssm families.
+    package) is 0 for the dense and ssm families; a hybrid model's sums
+    its MoE sub-layers' (``ffn1``, ``ffn3``, ...).
 
     ``mesh`` (a DeviceMesh; params and batch DTensors laid out per
     ``rules``, default ``Rules(cfg.rule_overrides)``): the activations
     are laid out per their logical axes (``sharding.shard``, as JAX's
     annotations), attention takes the shardings of its operands, and
-    plain tensors (positions, masks) count as replicated. An MoE, MLA or
-    Mamba2 model raises on a mesh (``check_mesh``).
+    plain tensors (positions, masks) count as replicated. An MoE, MLA,
+    Mamba2 or hybrid model raises on a mesh (``check_mesh``).
     """
     check_mesh(cfg, mesh, "forward")
     rules = rules or Rules(cfg.rule_overrides)

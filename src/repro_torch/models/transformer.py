@@ -1,8 +1,11 @@
 """Super-blocks (dense: self-attn + SwiGLU; moe: self-attn + MoE; ssm: one
-Mamba2 layer, attention-free and without an FFN) and the loop over stacked
+Mamba2 layer, attention-free and without an FFN; hybrid: self-attn + MLP,
+then ``hybrid_period - 1`` Mamba2 layers, each followed by an FFN that is
+MoE at odd positions and MLP at even ones) and the loop over stacked
 layer params. The self-attention sub-layer is GQA or MLA by
 ``cfg.attention_kind``, as in JAX. The attention and Mamba2 sub-layers
-keep a cache (``_CACHED``, JAX's ``_needs_cache``).
+keep a cache (``_CACHED``, JAX's ``_needs_cache``), so a hybrid
+super-block's cache holds both kinds.
 
 The JAX package scans each segment of homogeneous super-blocks over params
 stacked on a leading (L, ...) axis; the port keeps that layout and loops in
@@ -65,7 +68,8 @@ def _apply_sub(sub: str, p, cfg: ModelConfig, x, positions, mode: str, cache,
     """Pre-norm residual sub-layer (attn, mlp, moe or mamba). Returns (x,
     new_cache, aux); aux is None but for moe. mamba takes no
     ``segment_ids``: its sequence mixing has no segment mask, as in
-    JAX."""
+    JAX. Any other sub-layer kind raises ``ValueError``, as JAX's does
+    (the VLM's ``cross`` is not ported yet)."""
     h = L.rmsnorm(x, p["norm"], cfg.rms_eps)
     aux = None
     if sub == "attn":
@@ -76,8 +80,10 @@ def _apply_sub(sub: str, p, cfg: ModelConfig, x, positions, mode: str, cache,
         y, aux = L.apply_moe(p, cfg, h)
     elif sub == "mamba":
         y, cache = L.apply_mamba(p, cfg, h, mode, cache)
-    else:
+    elif sub == "mlp":
         y = L.apply_mlp(p, cfg, h)
+    else:
+        raise ValueError(sub)
     return x + y.to(x.dtype), cache, aux
 
 
@@ -89,8 +95,14 @@ def superblock_layout(cfg: ModelConfig, kind: str) -> tuple:
         return (("attn", "attn"), ("ffn", "moe"))
     if kind == "ssm":
         return (("mamba", "mamba"),)
+    if kind == "hybrid":
+        out = [("attn", "attn"), ("ffn0", "mlp")]
+        for i in range(1, cfg.hybrid_period):
+            out.append((f"mamba{i}", "mamba"))
+            out.append((f"ffn{i}", "moe" if i % 2 == 1 else "mlp"))
+        return tuple(out)
     raise NotImplementedError(f"super-block kind {kind!r} is not yet ported "
-                              "to repro_torch (ROADMAP.md Queue 1 item 13)")
+                              "to repro_torch (ROADMAP.md Queue 1 item 13e)")
 
 
 def superblock_spec(cfg: ModelConfig, kind: str) -> dict:

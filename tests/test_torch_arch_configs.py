@@ -2,7 +2,8 @@
 the registry, shapes and counts of the full-size configurations (from the
 specs alone, nothing allocated; deepseek-v3-671b's against JAX's nameplate
 bounds too), the paper's memory accounting on dbrx-132b, a forward and a training step of the four dense ``SMOKE``
-twins, and the launcher's ``--smoke`` (dbrx-132b and mamba2-370m).
+twins, and the launcher's ``--smoke`` (dbrx-132b, mamba2-370m and
+jamba-1.5-large-398b).
 
 Inputs come from JAX's ``init_params`` and data pipeline, crossed over as
 numpy through ``load_flat``; torch runs on one intra-op thread. Tolerances
@@ -46,10 +47,10 @@ from repro_torch.models.weights import load_flat  # noqa: E402
 from repro_torch.training import init_state, make_train_step  # noqa: E402
 
 PORTED = ("qwen2-7b", "granite-3-8b", "deepseek-67b", "mistral-large-123b",
-          "dbrx-132b", "deepseek-v3-671b", "mamba2-370m")
+          "dbrx-132b", "deepseek-v3-671b", "mamba2-370m",
+          "jamba-1.5-large-398b")
 DENSE = PORTED[:4]
-UNPORTED = ("llama-3.2-vision-11b", "jamba-1.5-large-398b",
-            "musicgen-medium")
+UNPORTED = ("llama-3.2-vision-11b", "musicgen-medium")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -130,6 +131,18 @@ def test_param_shapes_and_counts_match_jax(arch):
         assert shapes["segments/seg0_ssm/mamba/conv_w"] == (48, 4, 2304)
         assert shapes["segments/seg0_ssm/mamba/A_log"] == (48, 32)
         assert t.active_params() == t.num_params()
+    elif arch == "jamba-1.5-large-398b":
+        # 9 hybrid super-blocks of 8: attention + MLP, then 7 Mamba2
+        # sub-layers with MoE at the odd positions (16 experts, top 2)
+        assert 390e9 <= t.num_params() <= 400e9
+        assert 90e9 <= t.active_params() <= 96e9
+        assert shapes["segments/seg0_hybrid/attn/wq"] == (9, 8192, 64 * 128)
+        assert shapes["segments/seg0_hybrid/ffn1/w_gate"] == (9, 16, 8192,
+                                                              24576)
+        assert shapes["segments/seg0_hybrid/ffn2/w_gate"] == (9, 8192, 24576)
+        assert shapes["segments/seg0_hybrid/mamba7/in_proj"] == (9, 8192,
+                                                                 33280)
+        assert "segments/seg0_hybrid/ffn7/router" in shapes
     else:
         assert t.active_params() == t.num_params()
 
@@ -196,6 +209,25 @@ def test_launcher_smoke_dbrx_loss_falls():
              "--optimizer", "scale_fused", "--lr", "1e-2"])
     out = buf.getvalue()
     assert "arch=dbrx-132b-smoke" in out
+    losses = [float(line.split()[3]) for line in out.splitlines()
+              if line.startswith("step ")]
+    assert len(losses) == 8 and abs(losses[-1] - final) <= 5e-5
+    assert np.isfinite(losses).all()
+    assert np.mean(losses[-3:]) < losses[0] - 0.2, losses
+
+
+def test_launcher_smoke_jamba_loss_falls():
+    """``python -m repro_torch.launch.train --arch jamba-1.5-large-398b
+    --smoke --device cpu``: 8 steps of the hybrid twin (two super-blocks
+    of attention, Mamba2, MoE and MLP) whose loss falls."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        final = launch_train.main(
+            ["--arch", "jamba-1.5-large-398b", "--smoke", "--device", "cpu",
+             "--steps", "8", "--batch", "4", "--seq", "32", "--log-every",
+             "1", "--optimizer", "scale_fused", "--lr", "1e-2"])
+    out = buf.getvalue()
+    assert "arch=jamba-1.5-large-398b-smoke" in out
     losses = [float(line.split()[3]) for line in out.splitlines()
               if line.startswith("step ")]
     assert len(losses) == 8 and abs(losses[-1] - final) <= 5e-5

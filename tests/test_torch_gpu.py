@@ -11,8 +11,9 @@ model on the card through the attention kernel, others take SCALE
 optimizer steps through the optimizer kernels, one trains a small
 llama through every kernel of the training step, one trains it with the
 LM head tied to the embedding through the tied head's routes, one trains
-mamba2-370m's SMOKE twin two steps against the same steps plain, and one
-skips a step with an injected NaN under the anomaly guard (bitwise a
+mamba2-370m's and jamba-1.5-large-398b's SMOKE twins two steps against
+the same steps plain (and serves the latter through its mixed cache), and
+one skips a step with an injected NaN under the anomaly guard (bitwise a
 dropped batch, sync-free) and checkpoints the guarded state. Attention tolerances,
 per element:
   * f32 out: 2e-5 absolute (unit-scale values summed in other orders);
@@ -160,6 +161,13 @@ GPU_CASES = {
     "decode_dbrx_gqa48x8_kl287": (4, 1, 288, 48, 8, 128, False, 287),
     "decode_gqa96x8_hd128_kl256": (4, 1, 288, 96, 8, 128, False, 256),
     "decode_gqa96x8_hd128_kl287": (4, 1, 288, 96, 8, 128, False, 287),
+    # jamba-1.5-large-398b's attention (64 heads over 8 of 128, phase 19):
+    # its train batch of 4 x 1024, its serving prefill of 4 x 512, and the
+    # first and the last decode step's kv_len (a cache of 512 + 32)
+    "train_jamba_gqa64x8_hd128": (4, 1024, 1024, 64, 8, 128, True, None),
+    "prefill_jamba_gqa64x8_hd128": (4, 512, 512, 64, 8, 128, True, None),
+    "decode_jamba_gqa64x8_kl512": (4, 1, 544, 64, 8, 128, False, 512),
+    "decode_jamba_gqa64x8_kl543": (4, 1, 544, 64, 8, 128, False, 543),
 }
 
 
@@ -244,7 +252,13 @@ OPT_SHAPES = {"ragged_3x77x129": (3, 77, 129),
               # momentum and update of the row kind (the (D, V) use
               # layout's col norm)
               "tied_head_1x32000x2048": (1, 32000, 2048),
-              "tied_head_gemma2b_1x256000x2048": (1, 256000, 2048)}
+              "tied_head_gemma2b_1x256000x2048": (1, 256000, 2048),
+              # jamba-1.5-large-398b's training cut (phase 19): Mamba2's
+              # in_proj and out_proj, the MoE router of 4 experts, the head
+              "jamba_in_proj_1x8192x33280": (1, 8192, 33280),
+              "jamba_out_proj_1x16384x8192": (1, 16384, 8192),
+              "jamba_router_1x8192x4": (1, 8192, 4),
+              "jamba_head_1x8192x65536": (1, 8192, 65536)}
 # past this many elements the operands are drawn on the card (numpy would
 # take minutes) and the element-wise checks run one layer at a time (the
 # full-size temporaries of a check would not fit beside the operands)
@@ -619,6 +633,8 @@ XENT_CASES = {
     "mistral_large_head": (4096, 12288, 32768, 32768, 0.0),
     # deepseek-v3-671b's head (D 7168, V 129280), phase 17
     "deepseek_v3_head": (4096, 7168, 129280, 129280, 0.0),
+    # jamba-1.5-large-398b's head (D 8192, V 65536), phase 19
+    "jamba_head": (4096, 8192, 65536, 65536, 0.0),
 }
 
 
@@ -968,6 +984,8 @@ BWD_CASES = {
     "train_qwen2_gqa28x4_hd128": (16, 256, 256, 28, 4, 128, True, None),
     "train_deepseek67b_gqa64x8_hd128": (16, 256, 256, 64, 8, 128, True,
                                         None),
+    # jamba-1.5-large-398b's at its train batch of 4 x 1024 (phase 19)
+    "train_jamba_gqa64x8_hd128": (4, 1024, 1024, 64, 8, 128, True, None),
 }
 
 
@@ -2071,3 +2089,138 @@ def test_mamba2_smoke_train_steps_on_card_match_plain_route(cuda,
     for k, w in want.items():
         step = (w - p0[k]).abs().max().item()
         assert (got[k] - w).abs().max().item() <= 1e-3 * step + 1e-7, k
+
+
+def _jamba_plain(m):
+    """Every kernel of the jamba twin's train step through its plain
+    version."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.colnorm import ref as CR
+    from repro_torch.kernels.scale_head.ref import momentum_sumsq_ref
+    from repro_torch.kernels.xent import ref as XR
+    m.setattr(dispatch, "mha_fwd", mha_fwd_ref)
+    m.setattr(dispatch, "xent_fwd", XR.xent_fwd_ref)
+    m.setattr(dispatch, "xent_bwd_dh", XR.xent_bwd_dh_ref)
+    m.setattr(dispatch, "xent_bwd_dw", XR.xent_bwd_dw_ref)
+    m.setattr(dispatch, "norm_sumsq", CR.norm_sumsq_ref)
+    m.setattr(dispatch, "norm_apply", CR.norm_apply_ref)
+    m.setattr(dispatch, "update_apply", CR.update_apply_ref)
+    m.setattr(dispatch, "momentum_sumsq", momentum_sumsq_ref)
+    m.setattr(dispatch, "head_update_apply",
+              lambda theta, m_new, ss, lr, axis="col", eps=CR.EPS:
+              CR.update_apply_ref(theta, m_new, ss, lr, axis, eps=eps))
+
+
+@pytest.mark.gpu
+def test_jamba_smoke_train_steps_on_card_match_plain_route(cuda,
+                                                           monkeypatch):
+    """jamba-1.5-large-398b's SMOKE twin (f32; two hybrid super-blocks of
+    period 4: attention + MLP, then Mamba2 with MoE and MLP in turn; 2
+    chunks of 16 a row): two ``scale_fused`` steps through the kernels
+    against the same steps with every kernel through its plain version,
+    from the same params. Per step 4 mha_fwd and 2 of each backward kernel
+    (fma: f32; full remat runs the forward twice), one of each xent kernel
+    (fma), 19 norm_sumsq (tok_embed and the 18 stacked matrices of 3 dims),
+    20 update_apply (those and the head), one momentum_sumsq; the 4-D
+    expert leaves take the plain stage route; the plain route launches
+    none. Each step's metrics within 1e-4 relative (f32 sums in other
+    orders) and finite; every leaf within 1e-3 of its largest change plus
+    1e-7, but the leaves SCALE gives to Adam (norms, conv, A_log, D,
+    dt_bias) within 1e-2: Adam's step g / (|g| + eps) carries a larger
+    share of the two routes' rounding of g where |g| is a few eps
+    (``tests/test_torch_jamba_smoke.py``); the first step's loss within
+    1e-5 relative of the same step on the CPU."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import make_optimizer
+    from repro_torch.core.labels import LabelRules
+    from repro_torch.data import make_dataset
+    from repro_torch.kernels.attention import attention as A
+    from repro_torch.kernels.xent import xent as X
+    from repro_torch.models import init_params
+    from repro_torch.models.model import Params, flatten
+    from repro_torch.training import init_state, make_train_step
+    cfg = get_arch("jamba-1.5-large-398b", smoke=True)
+    assert cfg.segments == (("hybrid", 2),) and cfg.remat == "full"
+    ds = make_dataset(cfg, 32, 4, seed=1, device=cuda)
+    batches = [ds.global_batch_at(i) for i in range(2)]
+    p0 = flatten(init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                             device=cuda))
+
+    def run(device=cuda):
+        tx = make_optimizer("scale_fused", 1e-2)
+        state = init_state(Params({k: p.to(device, copy=True)
+                                   for k, p in p0.items()}), tx)
+        step = make_train_step(cfg, tx, clip_norm=1.0)
+        mets = []
+        for b in batches:
+            state, m = step(state, {k: v.to(device) for k, v in b.items()})
+            mets.append(m)
+        return state, mets
+
+    fns = (A.mha_fwd, A.mha_bwd_dq, A.mha_bwd_dkv, X.xent_fwd, X.xent_bwd_dh,
+           X.xent_bwd_dw)
+    before = _train_counts()
+    routes = [dict(f.route_launches) for f in fns]
+    state, mets = run()
+    torch.cuda.synchronize()
+    after = _train_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        "mha_fwd": 8, "mha_bwd_dq": 4, "mha_bwd_dkv": 4, "xent_fwd": 2,
+        "xent_bwd_dh": 2, "xent_bwd_dw": 2, "norm_sumsq": 38,
+        "update_apply": 40, "momentum_sumsq": 2, "norm_apply": 0}
+    for f, was, n in zip(fns, routes, (8, 4, 4, 2, 2, 2)):
+        assert f.route_launches == {**was, "fma": was.get("fma", 0) + n}
+    with monkeypatch.context() as m:
+        _jamba_plain(m)
+        before = _train_counts()
+        ref_state, ref_mets = run()
+        assert _train_counts() == before  # no kernel on the plain route
+        _, cpu_mets = run("cpu")
+    for got, want in zip(mets, ref_mets):
+        for k in ("loss", "aux", "grad_norm", "update_norm"):
+            assert torch.isfinite(got[k])
+            torch.testing.assert_close(got[k], want[k], rtol=1e-4, atol=0)
+    torch.testing.assert_close(mets[0]["loss"].cpu(), cpu_mets[0]["loss"],
+                               rtol=1e-5, atol=0)
+    got, want = flatten(state.params), flatten(ref_state.params)
+    for k, w in want.items():
+        step = (w - p0[k]).abs().max().item()
+        adam = LabelRules().classify(k, w.ndim) == "vector"
+        assert (got[k] - w).abs().max().item() <= (
+            (1e-2 if adam else 1e-3) * step + 1e-7), k
+
+
+@pytest.mark.gpu
+def test_jamba_smoke_serving_on_card_matches_full_forward(cuda):
+    """The jamba twin (f32, cf 2.0 = E/k: nothing dropped) served on the
+    card: prefill 24 tokens, then 8 decode steps through the stacked mixed
+    cache (the attention's k/v written by ``index_copy_``, each Mamba2
+    sub-layer's conv and ssm by ``copy_``, in place: the cache tensors are
+    those prefill built); the last logits against a full forward within
+    2e-4 (f32 layers summed in other orders); each step's attention on the
+    kernel (2 layers: fma for the f32 prefill, decode for each step)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import forward, init_params, logits_from_hidden
+    from repro_torch.models.model import flatten
+    from repro_torch.training import make_decode_step, make_prefill_step
+    cfg = get_arch("jamba-1.5-large-398b", smoke=True)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         device=cuda)
+    B, S, P = 2, 32, 24
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (B, S), dtype=np.int32)).to(cuda)
+    was = dict(mha_fwd.route_launches)
+    state, logits = make_prefill_step(cfg, max_seq=S)(params, toks[:, :P])
+    held = flatten(state.cache)
+    assert state.cache["seg0_hybrid"]["mamba2"]["ssm"].dtype == torch.float32
+    decode = make_decode_step(cfg)
+    for i in range(P, S):
+        state, logits = decode(params, state, toks[:, i:i + 1])
+    torch.cuda.synchronize()
+    assert all(v is held[k] for k, v in flatten(state.cache).items())
+    assert mha_fwd.route_launches == {
+        **was, "fma": was["fma"] + 2, "decode": was["decode"] + 2 * (S - P)}
+    with torch.no_grad():
+        h, _, _ = forward(params, cfg, toks)
+        ref = logits_from_hidden(params, cfg, h)[:, -1]
+    torch.testing.assert_close(logits[:, -1], ref, atol=2e-4, rtol=0)

@@ -93,7 +93,7 @@ def test_get_arch_matches_jax_field_by_field(arch):
 
 def test_get_arch_unported_families_raise():
     unported = [a for a in jreg.ARCH_IDS if a not in treg._MODULES]
-    assert len(unported) == 3  # VLM, hybrid and audio
+    assert len(unported) == 2  # VLM and audio
     for arch in unported:
         with pytest.raises(KeyError, match="not yet ported"):
             treg.get_arch(arch)
