@@ -5,7 +5,7 @@ NVIDIA H100.
     python3 chip_smoke.py [--seed N]
 
 Run from the root of a checkout. It builds the port's CUDA kernels with
-nvcc (one process per source, in parallel), then runs nineteen phases and fails
+nvcc (one process per source, in parallel), then runs twenty-one phases and fails
 (non-zero exit, no result line) if any of them fails:
 
 1. device: the card's name and power limit, the kernels' ptxas report;
@@ -347,6 +347,51 @@ nvcc (one process per source, in parallel), then runs nineteen phases and fails
    head (D 8192, V 65536) and the optimizer kernels at its ``in_proj``,
    ``out_proj``, router and head. The kernels line gains the paths
    ``train jamba`` and ``serve jamba``.
+20. the VLM llama-3.2-vision-11b: (i) the launcher with ``--arch
+   llama-3.2-vision-11b --smoke`` for two steps; all 8 super-blocks at
+   full width (cross-attention + MLP, then 4 x (self-attention + MLP):
+   d_model 4096, 32 heads over 8 of 128, d_ff 14336, vocab 128256; 4096
+   image tokens a row), bf16 with the data pipeline's f32 images, 4 x
+   1024 ``SyntheticLM`` batches, ``scale_fused``, clip 1.0, full remat:
+   three ``make_train_step`` steps, each step's launches checked by route
+   (the self-attention on ``mma``, the cross-attention on ``fma``: its q
+   promoted to the images' f32, as JAX's arithmetic is; one of each xent
+   kernel; 36 ``norm_sumsq``, 37 ``update_apply``, one
+   ``momentum_sumsq``), the losses held to the same steps with every
+   kernel through its plain version, step time, peak and one step's
+   device time by family (the cross sub-layer by its spans
+   ``cross_kv`` and ``cross_attn``); (ii) one step with bf16 images,
+   every attention launch on ``mma``, its loss against the f32 images'
+   first step's; (iii) serving with images (batch 4, a 512-token prompt,
+   32 new tokens): the prefill's cross-attention on ``fma`` and
+   self-attention on ``mma``, each decode step's on ``decode`` (the
+   cross with no ``kv_len`` over the 4096 image keys, its keys and
+   values recomputed from the images each step, as JAX's are), one
+   decode step's device time, and the witness of phases 17-19 with the
+   images. Phase 2 holds the attention kernels at its cross-attention
+   (1024 queries over 4096 keys, non-causal), its decode step over the
+   image keys and its self-attention, in f32 and bf16, and the xent
+   kernels at its head (D 4096, V 128256, bf16); phase 4 times the
+   cross-attention's three kernels in f32 against the plain versions and
+   SDPA. The kernels line gains the paths ``train vlm``, ``train vlm bf16
+   images`` and ``serve vlm``.
+21. the audio musicgen-medium: (i) the launcher with ``--arch
+   musicgen-medium --smoke`` for two steps; the full model (48 layers,
+   d_model 1536, 24 heads of 64, d_ff 6144; 4 codebooks of 2048: a (4,
+   2048, 1536) embedding summed over the codebooks and 4 heads) in bf16,
+   4 x 4 x 1024 ``SyntheticLM`` batches, ``scale_fused``, clip 1.0, full
+   remat: three steps, each step's launches checked by route (attention
+   on ``mma``; each xent kernel 4 times, once a head; 8 ``norm_sumsq``, 9
+   ``update_apply``, one ``momentum_sumsq`` on the (4, 1536, 2048) head),
+   the losses against every kernel plain, step time, peak, device time by
+   family; (ii) serving (batch 4 of 4 codebooks, a 512-frame prompt, 32
+   new frames, each codebook's own argmax): prefill and decode ms, the
+   prefill's attention on ``mma`` and each decode step's on ``decode``,
+   the witness, and ``greedy_generate``'s JAX-faithful (B, n, 1) output.
+   Phase 2 holds the attention kernels at its shape, the xent kernels at
+   one head (D 1536, V 2048) and the optimizer kernels at its 3-D head
+   and embedding. The kernels line gains the paths ``train musicgen``
+   and ``serve musicgen``.
 
 The line before the last is a JSON ``{"kernels": [...]}`` summary, the
 last line ``{"ok": true, "device": {...}}``. It needs a CUDA card and
@@ -371,6 +416,7 @@ ROOT = Path(__file__).resolve().parent
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
+F32_FLOPS_PER_S = 67e12  # float32 outside the tensor cores
 
 # Kernel against plain version, per element (reasons in the comments):
 # f32 out: both sides sum unit-scale products in f32 in other orders.
@@ -585,6 +631,30 @@ def attention_cases():
                                              512),
         "decode jamba H=64 K=8 kv_len=543": (4, 1, 544, 64, 8, 128, False,
                                              543),
+        # phase 20's: llama-3.2-vision-11b's cross-attention, 4 x 1024 text
+        # queries over 4096 image keys (non-causal, 32 heads over 8 of
+        # 128; f32 with the data pipeline's f32 images), a decode step's
+        # one query over them (no kv_len), and its causal self-attention;
+        # its serving: the prefill's cross- and self-attention at 4 x 512
+        # and the self-attention's first and last decode step (a cache of
+        # 512 + 32)
+        VLM_CROSS: (4, 1024, 4096, 32, 8, 128, False, None),
+        VLM_CROSS_DECODE: (4, 1, 4096, 32, 8, 128, False, None),
+        VLM_ATTN: (4, 1024, 1024, 32, 8, 128, True, None),
+        "prefill cross vlm S=512 T=4096": (4, 512, 4096, 32, 8, 128, False,
+                                           None),
+        "prefill vlm H=32 K=8 hd=128": (4, 512, 512, 32, 8, 128, True, None),
+        "decode vlm H=32 K=8 kv_len=512": (4, 1, 544, 32, 8, 128, False, 512),
+        "decode vlm H=32 K=8 kv_len=543": (4, 1, 544, 32, 8, 128, False, 543),
+        # phase 21's: musicgen-medium's (24 heads of 64, causal) at its
+        # train batch, its serving prefill and first and last decode step
+        MUSICGEN_ATTN: (4, 1024, 1024, 24, 24, 64, True, None),
+        "prefill musicgen H=K=24 hd=64": (4, 512, 512, 24, 24, 64, True,
+                                          None),
+        "decode musicgen H=K=24 kv_len=512": (4, 1, 544, 24, 24, 64, False,
+                                              512),
+        "decode musicgen H=K=24 kv_len=543": (4, 1, 544, 24, 24, 64, False,
+                                              543),
     }
 
 
@@ -727,6 +797,11 @@ def bwd_cases():
                                                True, None),
         # phase 19's: jamba-1.5-large-398b at its train batch of 4 x 1024
         JAMBA_ATTN: (4, 1024, 1024, 64, 8, 128, True, None),
+        # phase 20's cross-attention (non-causal, 1024 queries over 4096
+        # image keys) and self-attention; phase 21's
+        VLM_CROSS: (4, 1024, 4096, 32, 8, 128, False, None),
+        VLM_ATTN: (4, 1024, 1024, 32, 8, 128, True, None),
+        MUSICGEN_ATTN: (4, 1024, 1024, 24, 24, 64, True, None),
     }
 
 
@@ -895,6 +970,19 @@ def optimizer_shapes():
         "jamba out_proj (1,16384,8192)": (1, 16384, 8192),
         "jamba router (1,8192,4)": (1, 8192, 4),
         "jamba lm_head (1,8192,65536)": (1, 8192, 65536),
+        # llama-3.2-vision-11b's (phase 20): its head and embedding, and
+        # the leaves stacked over its 8 super-blocks: the MLPs', the wq/wo
+        # and wk/wv of the self- and the cross-attention (one shape each)
+        "llama-3.2-vision lm_head (1,4096,128256)": (1, 4096, 128256),
+        "llama-3.2-vision tok_embed (1,128256,4096)": (1, 128256, 4096),
+        "llama-3.2-vision w_gate/w_up (8,4096,14336)": (8, 4096, 14336),
+        "llama-3.2-vision w_down (8,14336,4096)": (8, 14336, 4096),
+        "llama-3.2-vision wq/wo (8,4096,4096)": (8, 4096, 4096),
+        "llama-3.2-vision wk/wv (8,4096,1024)": (8, 4096, 1024),
+        # musicgen-medium's (phase 21): the 4 codebook heads, one 3-D leaf
+        # in SCALE's momentum group, and the 4 codebook embeddings
+        "musicgen lm_head (4,1536,2048)": (4, 1536, 2048),
+        "musicgen tok_embed (4,2048,1536)": (4, 2048, 1536),
     }
 
 
@@ -1271,9 +1359,10 @@ def fmt_ms(x):
 
 
 def attention_bound_ms(B, S, T, H, K, hd, causal, kv_len, el_bytes,
-                       hdv=None):
-    """Least time: max(bytes once / HBM rate, FLOPs / bf16 peak). Reads q,
-    k (hd wide) and v (hdv, default hd), writes out (hdv) and lse."""
+                       hdv=None, peak=BF16_FLOPS_PER_S):
+    """Least time: max(bytes once / HBM rate, FLOPs / ``peak``: bf16's
+    unless given). Reads q, k (hd wide) and v (hdv, default hd), writes
+    out (hdv) and lse."""
     hdv = hdv or hd
     keys = kv_len if kv_len is not None else T
     # valid (query, key) pairs; rectangular causal: query i sees keys
@@ -1282,8 +1371,8 @@ def attention_bound_ms(B, S, T, H, K, hd, causal, kv_len, el_bytes,
     flops = 2 * (hd + hdv) * pairs * B * H  # q.k and p.v, 2 FLOPs a MAC
     nbytes = (el_bytes * (B * S * H * (hd + hdv) + B * keys * K * (hd + hdv))
               + 4 * B * H * S)
-    return 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S), \
-        ("bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS_PER_S
+    return 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / peak), \
+        ("bytes" if nbytes / HBM_BYTES_PER_S >= flops / peak
          else "operations")
 
 
@@ -1362,9 +1451,9 @@ def phase_timing(torch, gen, power, serve, errs):
 
 
 def bwd_bound_ms(B, S, T, H, K, hd, causal, kv_len, el_bytes, kernel,
-                 hdv=None):
+                 hdv=None, peak=BF16_FLOPS_PER_S):
     """Least time of an attention backward kernel: max(bytes once / HBM
-    rate, FLOPs / bf16 peak). Per valid (query, key) pair dQ takes s and
+    rate, FLOPs / ``peak``: bf16's unless given). Per valid (query, key) pair dQ takes s and
     ds.k (hd wide each) and dp (hdv); dK, dV take s, ds^T q (hd), dp and
     p^T dO (hdv; default hd). Both read q, k (hd), v, dout (hdv), lse and
     delta; dQ writes dQ, the other dK and dV."""
@@ -1378,7 +1467,7 @@ def bwd_bound_ms(B, S, T, H, K, hd, causal, kv_len, el_bytes, kernel,
               + 2 * 4 * B * H * S)
     nbytes += el_bytes * (q_el * hd if kernel == "mha_bwd_dq"
                           else kv_el * (hd + hdv))
-    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / peak
     return 1e3 * max(t_b, t_f), "bytes" if t_b >= t_f else "operations"
 
 
@@ -1965,20 +2054,25 @@ def xent_cases():
         MAMBA_HEAD: (4096, 1024, 50304, 50280, 0.0),
         # phase 19's head: jamba-1.5-large-398b (D 8192, V 65536)
         JAMBA_HEAD: (4096, 8192, 65536, 65536, 0.0),
+        # phase 20's: llama-3.2-vision-11b (D 4096, V 128256); phase 21's:
+        # one of musicgen-medium's 4 codebook heads (D 1536, V 2048)
+        VLM_HEAD: (4096, 4096, 128256, 128256, 0.0),
+        MUSICGEN_HEAD: (4096, 1536, 2048, 2048, 0.0),
     }
 
 
-# phase 16's, 17's and 19's widest heads in bf16 alone, their main path's
-# dtype, on its routes alone (wgmma, mma): the FMA kernels at these D and
-# V, in f32 or with w read through its columns, take seconds a call (with
-# the latter, these six heads' cases took 200 s on an H100 at 700 W), and
-# the gpu tests hold them at these shapes in both dtypes
+# phase 16's, 17's, 19's and 20's widest heads in bf16 alone, their main
+# path's dtype, on its routes alone (wgmma, mma): the FMA kernels at these
+# D and V, in f32 or with w read through its columns, take seconds a call
+# (with the latter, the first six heads' cases took 200 s on an H100 at
+# 700 W), and the gpu tests hold them at these shapes in both dtypes
 XENT_BF16_ONLY = ("dbrx-132b N=4096 D=6144 V=100352",
                   "qwen2-7b N=4096 D=3584 V=152064",
                   "deepseek-67b N=4096 D=8192 V=102400",
                   "mistral-large N=4096 D=12288 V=32768",
                   "deepseek-v3 N=4096 D=7168 V=129280",
-                  "jamba N=4096 D=8192 V=65536")
+                  "jamba N=4096 D=8192 V=65536",
+                  "llama-3.2-vision N=4096 D=4096 V=128256")
 
 
 def xent_inputs(torch, gen, N, D, V, masked, dtype):
@@ -2845,6 +2939,13 @@ PAPER_STEPS = 4  # make_train_step steps of each model in phase 9
 # a train step's device time by kernel family (phase 9): the first family
 # whose substring is in a kernel's name takes it
 KERNEL_FAMILIES = (
+    # phase 20: the VLM's cross sub-layer spans (``models.layers.
+    # apply_attention`` with image embeddings), ahead of the attention
+    # kernels they hold
+    ("cross_kv|", "VLM cross k/v projections of the images (f32 with f32 "
+     "images)"),
+    ("cross_attn|", "VLM cross-attention over the image keys (mha_fwd, "
+     "mha_bwd_dq, mha_bwd_dkv)"),
     ("mha_fwd", "attention forward (mha_fwd)"),
     ("mha_bwd_dq", "attention backward dQ (mha_bwd_dq)"),
     ("mha_bwd_dkv", "attention backward dK, dV (mha_bwd_dkv)"),
@@ -5744,7 +5845,7 @@ def _moe_span(ev, fwd_span):
     span, or for an op of the backward the span of the forward op whose
     autograd node it runs ((thread, sequence_nr) -> span: ``fwd_span``)."""
     while ev is not None:
-        if ev.name in MOE_SPANS + MLA_SPANS + MAMBA_SPANS:
+        if ev.name in MOE_SPANS + MLA_SPANS + MAMBA_SPANS + VLM_SPANS:
             return ev.name
         if ev.name.startswith("autograd::engine::evaluate_function"):
             return fwd_span.get((ev.fwd_thread, ev.sequence_nr))
@@ -5771,7 +5872,7 @@ def moe_profile(torch, power, step, untraced_ms, label, serving=False):
     spans = {ev.name for ev in events
              if getattr(ev, "is_user_annotation", False)} | {
                  "fwd", "optimizer_update", "guard", "obs_stats", *MOE_SPANS,
-                 *MLA_SPANS, *MAMBA_SPANS}
+                 *MLA_SPANS, *MAMBA_SPANS, *VLM_SPANS}
     device = [ev for ev in events
               if ev.device_type.name == "CUDA" and ev.name not in spans]
     busy = sum((ev.time_range.end - ev.time_range.start) / 1e3
@@ -6067,44 +6168,54 @@ def no_drop(cfg):
     return dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
 
 
-def serve_run(torch, c, p, prompt, tokens=None, n_new=SERVE_MOE[2]):
+def next_tokens(torch, logits):
+    """The greedy next tokens of decode ``logits``: (B, 1) of (B, 1, V);
+    an audio model's (B, C, 1) of (B, C, 1, V), each codebook's own."""
+    return logits[..., -1, :].argmax(-1).to(torch.int32)[..., None]
+
+
+def serve_run(torch, c, p, prompt, tokens=None, n_new=SERVE_MOE[2],
+              images=None):
     """prefill of ``prompt`` + N - 1 decode steps (greedy, N = ``n_new``,
-    or fed ``tokens``, N - 1 of them) -> (tokens fed, last logits, each
-    MoE layer call's ``moe_routing``)."""
+    or fed ``tokens``, N - 1 of them), the VLM's with ``images`` -> (tokens
+    fed, last logits (B, V); audio (B, C, V), each MoE layer call's
+    ``moe_routing``)."""
     from repro_torch.training import make_decode_step, make_prefill_step
-    P = prompt.shape[1]
-    N = n_new if tokens is None else tokens.shape[1] + 1
+    P = prompt.shape[-1]
+    N = n_new if tokens is None else tokens.shape[-1] + 1
     prefill, decode = make_prefill_step(c, max_seq=P + N), \
         make_decode_step(c)
     taps = []
     with moe_tap(torch, taps):
-        state, logits = prefill(p, prompt)
+        state, logits = prefill(p, prompt, images)
         toks = []
         for i in range(N - 1):
-            toks.append(logits[:, -1].argmax(-1).to(torch.int32)[:, None]
-                        if tokens is None else tokens[:, i:i + 1])
-            state, logits = decode(p, state, toks[-1])
-    return torch.cat(toks, dim=1), logits[:, -1].float(), taps
+            toks.append(next_tokens(torch, logits) if tokens is None
+                        else tokens[..., i:i + 1])
+            state, logits = decode(p, state, toks[-1], images)
+    return torch.cat(toks, dim=-1), logits[..., -1, :].float(), taps
 
 
-def full_logits(torch, c, p, prompt, toks, taps):
-    """The last position's logits (B, vocab) of a full forward over the
-    prompt and ``toks``; each MoE layer call's routing appended to
-    ``taps``."""
+def full_logits(torch, c, p, prompt, toks, taps, images=None):
+    """The last position's logits (B, vocab; audio (B, C, vocab)) of a
+    full forward over the prompt and ``toks``; each MoE layer call's
+    routing appended to ``taps``."""
     from repro_torch.models import forward, logits_from_hidden
     with torch.no_grad(), moe_tap(torch, taps):
-        h, _, _ = forward(p, c, torch.cat([prompt, toks], dim=1))
-    return logits_from_hidden(p, c, h[:, -1:])[:, -1, :c.vocab_size].float()
+        h, _, _ = forward(p, c, torch.cat([prompt, toks], dim=-1),
+                          image_embeds=images)
+    return logits_from_hidden(p, c, h[:, -1:])[..., -1, :c.vocab_size] \
+        .float()
 
 
-def serve_against_full(torch, c, p, prompt, toks, last, taps):
+def serve_against_full(torch, c, p, prompt, toks, last, taps, images=None):
     """(max err, within SERVE tolerances, argmax agreement, tokens routed
     apart per MoE layer, max |ref|, ref) of the last decode logits ``last``
     against a full forward over the prompt and ``toks``; ``taps``: the
     decode run's routing."""
     full = []
-    ref = full_logits(torch, c, p, prompt, toks, full)
-    got = last[:, :c.vocab_size]
+    ref = full_logits(torch, c, p, prompt, toks, full, images)
+    got = last[..., :c.vocab_size]
     err = (got - ref).abs()
     ok = bool((err <= SERVE_ATOL + SERVE_RTOL * ref.abs()).all()) and \
         bool(torch.isfinite(got).all())
@@ -6250,12 +6361,13 @@ def held_to_floors(arch, out, cfg):
                              "forward by more than its floors allow")
 
 
-def serve_f32(torch, arch, c32, p32, prompt, toks):
+def serve_f32(torch, arch, c32, p32, prompt, toks, images=None):
     """f32 decode, fed ``toks``, against a full forward within
     SERVE_ATOL/RTOL. -> (max err, last decode logits, full forward's)."""
-    toks, last, taps = serve_run(torch, c32, p32, prompt, toks)
+    toks, last, taps = serve_run(torch, c32, p32, prompt, toks,
+                                 images=images)
     err, ok, agree, apart, top, ref = serve_against_full(
-        torch, c32, p32, prompt, toks, last, taps)
+        torch, c32, p32, prompt, toks, last, taps, images)
     moe = (f", {c32.n_experts} experts, cf {c32.capacity_factor:g}"
            if c32.n_experts else "")
     print(f"  {arch} serving f32, {c32.n_layers} layers{moe}: last decode "
@@ -6266,7 +6378,7 @@ def serve_f32(torch, arch, c32, p32, prompt, toks):
     if not ok:
         raise AssertionError(f"{arch} serving: f32 decode disagrees with the "
                              "full forward")
-    return err, last[:, :c32.vocab_size], ref
+    return err, last[..., :c32.vocab_size], ref
 
 
 def serve_moe(torch, seed, power, cfg):
@@ -6516,37 +6628,46 @@ def _sdpa_backend(torch, qt, kt, vt):
     raise AssertionError("no SDPA backend takes hdv != hd")
 
 
-def mla_timing(torch, gen, power, errs):
-    """Phase 4, the three attention kernels (``fma``) at the deepseek-v3
-    train step's attention (B 16, S = T 256, 128 heads, hd 192, hdv 128,
-    causal, bf16): CUDA-event and device ms, the plain version, the bound,
-    and F.scaled_dot_product_attention (forward; its backward for the
-    pair: dQ, dK, dV together) on the backend that takes hdv != hd, named.
-    -> {kernel: a "shapes" entry of the kernels line's row}."""
+def attention_row_timing(torch, gen, power, errs, label, key, dtype, causal,
+                         hdv=None):
+    """Phase 4, the three attention kernels at a training step's attention
+    ``attention_cases()[key]`` (MLA_ATTN's where ``hdv`` is given) in
+    ``dtype``, on the route the step gives them: CUDA-event and device ms,
+    the plain version, the bound (f32 operations at the f32 peak outside
+    the tensor cores) and F.scaled_dot_product_attention on the same inputs
+    (kv repeated to the query heads; forward, and its backward for the
+    pair) on the backend ``_sdpa_backend`` names; in f32 also the forward
+    in bf16 (the route bf16 inputs take) beside it. ``errs``: phase 2's,
+    keyed (kernel, ``key``, dtype). -> {kernel: a "shapes" entry of the
+    kernels line's row}."""
     import torch.nn.functional as F
-    from repro_torch.kernels.attention.attention import (mha_bwd_dkv,
-                                                         mha_bwd_dq, mha_fwd)
+    from repro_torch.kernels.attention.attention import (
+        _fwd_route, mha_bwd_dkv, mha_bwd_dq, mha_fwd)
     from repro_torch.kernels.attention.ref import (mha_bwd_dkv_ref,
                                                    mha_bwd_dq_ref,
                                                    mha_fwd_ref)
-    B, S, T, H, K, hd, hdv = MLA_ATTN[MLA_TRAIN_ATTN]
-    bf = torch.bfloat16
-    q, k, v = make_qkv(torch, gen, B, S, T, H, K, hd, bf, hdv)
-    kw = dict(scale=hd ** -0.5, causal=True)
+    if hdv:
+        B, S, T, H, K, hd, _ = MLA_ATTN[key]
+    else:
+        B, S, T, H, K, hd = attention_cases()[key][:6]
+    q, k, v = make_qkv(torch, gen, B, S, T, H, K, hd, dtype, hdv)
+    kw = dict(scale=hd ** -0.5, causal=causal)
+    route = _fwd_route(q, k, v)
     out, lse = mha_fwd(q, k, v, None, **kw)
-    do = torch.randn(out.shape, generator=gen, device="cuda").to(bf)
+    do = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
     delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     args = (q, k, v, do, lse, delta, None)
-    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
-                  for x in (q, k, v))
+    qt = q.transpose(1, 2).contiguous().requires_grad_()
+    kt, vt = (x.transpose(1, 2).repeat_interleave(H // K, 1).contiguous()
+              .requires_grad_() for x in (k, v))
     backend, ctx = _sdpa_backend(torch, qt, kt, vt)
     with ctx():
-        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                            scale=kw["scale"])
 
         def sdpa_fwd():
             return F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, scale=kw["scale"])
+                qt, kt, vt, is_causal=causal, scale=kw["scale"])
 
         def sdpa_bwd():
             return torch.autograd.grad(o, [qt, kt, vt],
@@ -6555,8 +6676,12 @@ def mla_timing(torch, gen, power, errs):
                            device_ms(torch, sdpa_fwd, 5))}
         lib["bwd"] = (time_ms(torch, sdpa_bwd, 10),
                       device_ms(torch, sdpa_bwd, 5))
-    shape = (f"deepseek-v3 train: B={B} S={S} T={T} H={H} K={K} hd={hd} "
-             f"hdv={hdv} causal bf16")
+    tag = str(dtype).replace("torch.", "")
+    el, f32 = (4, True) if dtype == torch.float32 else (2, False)
+    peak = F32_FLOPS_PER_S if f32 else BF16_FLOPS_PER_S
+    shape = (f"{label}: B={B} S={S} T={T} H={H} K={K} hd={hd}"
+             + (f" hdv={hdv}" if hdv else "")
+             + f" {'causal' if causal else 'non-causal'} {tag}")
     out_rows = {}
     for name, kern, plain in (
             ("mha_fwd", lambda: mha_fwd(q, k, v, None, **kw),
@@ -6568,33 +6693,49 @@ def mla_timing(torch, gen, power, errs):
         ms = time_ms(torch, kern, 5, warm=2)
         dev_ms = device_ms(torch, kern, 3, name)
         plain_ms = time_ms(torch, plain, 3, warm=1)
-        bound, by = (attention_bound_ms(B, S, T, H, K, hd, True, None, 2, hdv)
+        bound, by = (attention_bound_ms(B, S, T, H, K, hd, causal, None, el,
+                                        hdv, peak=peak)
                      if name == "mha_fwd" else bwd_bound_ms(
-                         B, S, T, H, K, hd, True, None, 2, name, hdv))
+                         B, S, T, H, K, hd, causal, None, el, name, hdv,
+                         peak=peak))
         lib_ms, lib_dev = lib["mha_fwd" if name == "mha_fwd" else "bwd"]
         note = (f"F.scaled_dot_product_attention, {backend} backend"
+                + (f", kv repeated to {H} heads" if K < H else "")
                 + ("" if name == "mha_fwd" else ", backward (dQ, dK, dV "
                    "together)"))
-        print(f"  [{power}] {name} {shape}, fma route: {ms:.4f} ms (device "
-              f"time {fmt_ms(dev_ms)}; bound {bound:.4f} ms by {by}, "
-              f"{bound / ms:.4f} of it; plain {plain_ms:.4f} ms; {note} "
-              f"{lib_ms:.4f} ms, device time {fmt_ms(lib_dev)})")
+        print(f"  [{power}] {name} {shape}, {route} route: {ms:.4f} ms "
+              f"(device time {fmt_ms(dev_ms)}; bound {bound:.4f} ms by {by}"
+              f"{' at the f32 peak' if f32 else ''}, {bound / ms:.4f} of it; "
+              f"plain {plain_ms:.4f} ms; {note} {lib_ms:.4f} ms, device time "
+              f"{fmt_ms(lib_dev)})")
         out_rows[name] = {
             "name": name, "shape": shape, "route": "cuda",
-            "kernel_route": "fma",
+            "kernel_route": route,
             "source": SRC_MHA if name == "mha_fwd" else SRC_MHA_BWD,
             "replaces": TPU_MHA if name == "mha_fwd" else TPU_KERNELS[name],
             "launches": None,
-            "max_abs_err": errs[(name, MLA_TRAIN_ATTN, "bfloat16")],
+            "max_abs_err": errs[(name, key, tag)],
             "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
             "library_device_ms": lib_dev, "library_note": note}
     del q, k, v, out, lse, do, delta, args, qt, kt, vt, o
+    if f32:
+        qb, kb, vb = make_qkv(torch, gen, B, S, T, H, K, hd, torch.bfloat16,
+                              hdv)
+        mma_ms = time_ms(torch, lambda: mha_fwd(qb, kb, vb, None, **kw), 5,
+                         warm=2)
+        bound, by = attention_bound_ms(B, S, T, H, K, hd, causal, None, 2,
+                                       hdv)
+        print(f"  [{power}] mha_fwd at the same shape in bf16, "
+              f"{_fwd_route(qb, kb, vb)} route: {mma_ms:.4f} ms (bound "
+              f"{bound:.4f} ms by {by}, {bound / mma_ms:.4f} of it)")
+        out_rows["mha_fwd"]["bf16_ms"] = mma_ms
+        del qb, kb, vb
     torch.cuda.empty_cache()
     return out_rows
 
 
-def f32_witness(torch, seed, arch, c16, prompt, toks):
+def f32_witness(torch, seed, arch, c16, prompt, toks, images=None):
     """A witness for the bf16 decode of ``c16`` (an MoE config at cf E/k)
     that runs no decode on its reference side: the same steps, fed
     ``toks``, computed in f32 from the same bf16 weights; the bf16
@@ -6602,7 +6743,8 @@ def f32_witness(torch, seed, arch, c16, prompt, toks):
     full forward's distance from the f32 full forward (the bf16 roundings
     of a path without the decode: MLA's absorbed form, Mamba2's
     recurrence). The f32 decode against the f32 full forward within
-    SERVE_ATOL/RTOL (``serve_f32``). -> its record."""
+    SERVE_ATOL/RTOL (``serve_f32``). The VLM's steps take ``images``.
+    -> its record."""
     import dataclasses
     from repro_torch.models import init_params
     from repro_torch.models.model import Params, flatten
@@ -6611,11 +6753,13 @@ def f32_witness(torch, seed, arch, c16, prompt, toks):
                       device="cuda")
     c32 = dataclasses.replace(c16, dtype="float32")
     p32 = Params({k: v.float() for k, v in flatten(p16).items()})
-    last16 = serve_run(torch, c16, p16, prompt, toks)[1][:, :V]
-    full16 = full_logits(torch, c16, p16, prompt, toks, [])
+    last16 = serve_run(torch, c16, p16, prompt, toks,
+                       images=images)[1][..., :V]
+    full16 = full_logits(torch, c16, p16, prompt, toks, [], images)
     del p16
     torch.cuda.empty_cache()
-    f32_err, last32, full32 = serve_f32(torch, arch, c32, p32, prompt, toks)
+    f32_err, last32, full32 = serve_f32(torch, arch, c32, p32, prompt, toks,
+                                        images)
     del p32
     torch.cuda.empty_cache()
     dec = (last16 - last32).abs().max().item()
@@ -6895,6 +7039,273 @@ def phase_jamba(torch, seed, power):
     return {"train": train, "serve": serve}
 
 
+# ------------------- the VLM llama-3.2-vision-11b (phases 2, 4 and 20)
+
+VLM_ARCH = "llama-3.2-vision-11b"
+VLM_STEPS = 3
+# Phase 20 trains all 8 super-blocks of 5 (each cross-attention + MLP, then
+# 4 x (self-attention + MLP): 2.141 G parameters, 9.775 G in all); no cut.
+VLM_BLOCKS = 8
+# 4 rows of 1024 text tokens (phase 8's 4096 a step), each row with the
+# config's 4096 image tokens (f32, as the data pipeline gives them)
+VLM_BATCH = (4, 1024)
+SERVE_VLM = (4, 512, 32)  # batch, prompt, new tokens
+# the attention of phase 20 (phase 2 holds the kernels at each, phase 4
+# times the cross-attention's)
+VLM_CROSS = "cross vlm S=1024 T=4096 H=32 K=8 hd=128"
+VLM_CROSS_DECODE = "cross decode vlm S=1 T=4096 H=32 K=8 hd=128"
+VLM_ATTN = "train vlm H=32 K=8 hd=128"
+VLM_HEAD = "llama-3.2-vision N=4096 D=4096 V=128256"
+# the cross sub-layer's spans (``models.layers.apply_attention``)
+VLM_SPANS = ("cross_kv", "cross_attn")
+# matrices of two or three dims besides the head: tok_embed; the cross
+# sub-layer's wq, wk, wv, wo and cross_ffn's w_gate, w_up, w_down; the
+# four self-attention sub-layers' 4 and their MLPs' 3 each
+VLM_MATRICES = 36
+
+
+def vlm_want(cfg, cross_route):
+    """(launches, routes) of one VLM train step: ``train_want``'s, with
+    the self-attention on mma and the cross-attention on ``cross_route``
+    (fma with f32 images: its q promoted to their dtype; mma with images
+    in the model's bf16)."""
+    n_self, n_cross = sub_calls(cfg, "attn"), sub_calls(cfg, "cross")
+    want, want_r = train_want(n_self + n_cross, "mma", VLM_MATRICES)
+
+    def split(n):
+        out = {"mma": n * n_self}
+        out[cross_route] = out.get(cross_route, 0) + n * n_cross
+        return out
+    return want, {**want_r, "mha_fwd": split(2),
+                  **{k: split(1) for k in BWD_KERNELS}}
+
+
+def vlm_bf16_images_step(torch, seed, cfg, f32_loss):
+    """Phase 20 (ii): one train step with the images in the model's bf16
+    (as JAX's dry run feeds them): every attention launch on mma, the
+    cross-attention's too; its loss against the f32 images' first step's
+    from the same weights and tokens."""
+    from repro_torch.core import make_optimizer
+    from repro_torch.data import make_dataset
+    from repro_torch.models import init_params
+    from repro_torch.training import init_state, make_train_step
+    torch.cuda.empty_cache()
+    B, S = VLM_BATCH
+    b = make_dataset(cfg, S, B, seed=seed, device="cuda").global_batch_at(0)
+    b["image_embeds"] = b["image_embeds"].to(torch.bfloat16)
+    tx = make_optimizer("scale_fused", 1e-3)
+    state = init_state(init_params(cfg, torch.Generator(
+        device="cuda").manual_seed(seed), device="cuda"), tx)
+    step = make_train_step(cfg, tx, clip_norm=1.0)
+    state, per_step, per_route, secs, mets, peak = _step_counts(
+        torch, step, state, [b])
+    launches = train_counts()
+    _check_steps(per_step, per_route, *vlm_want(cfg, "mma"),
+                 f"{VLM_ARCH} train, bf16 images")
+    gap = abs(mets[0]["loss"] - f32_loss)
+    print(f"  {VLM_ARCH} one step with bf16 images: loss "
+          f"{mets[0]['loss']:.5f} (f32 images {f32_loss:.5f}, |diff| "
+          f"{gap:.2e}, tol {LOSS_CURVE_ATOL:g}), {secs[0] * 1e3:.3f} ms "
+          f"(first step)")
+    if not (math.isfinite(mets[0]["loss"]) and gap <= LOSS_CURVE_ATOL):
+        raise AssertionError(f"{VLM_ARCH}: the bf16-image step's loss")
+    del state, step
+    torch.cuda.empty_cache()
+    return {"launches": launches, "per_step": per_step[0],
+            "routes": per_route[0], "loss": mets[0]["loss"],
+            "loss_gap": gap}
+
+
+def serve_dense(torch, seed, power, arch, cfg, want_routes, shape,
+                check=None):
+    """Phases 20 (iii) and 21 (ii): ``arch`` serving at full width (bf16)
+    from seeded weights, batch, prompt and new tokens of ``shape`` (an
+    audio model's prompt (B, C, P) frames; the VLM's with f32 images, as
+    the data pipeline gives them): prefill ms, decode ms a step (the next
+    tokens by ``next_tokens``), the mha_fwd launches by route against
+    ``want_routes``, the logits' and tokens' shapes, one decode step's
+    device time by family; ``check(params, prompt)`` if given; then
+    ``f32_witness`` from the same seed. -> its record."""
+    from repro_torch.kernels.attention.attention import mha_fwd
+    from repro_torch.models import init_params
+    from repro_torch.training import make_decode_step, make_prefill_step
+    B, P, N = shape
+    lead = (B, cfg.n_codebooks) if cfg.n_codebooks else (B,)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = init_params(cfg, gen, device="cuda")
+    prompt = torch.randint(0, cfg.vocab_size, (*lead, P), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    images = None if not cfg.n_image_tokens else 0.02 * torch.randn(
+        (B, cfg.n_image_tokens, cfg.d_model), generator=gen, device="cuda")
+    prefill, decode = make_prefill_step(cfg, max_seq=P + N), \
+        make_decode_step(cfg)
+    prefill(params, prompt, images)  # warm-up, not counted
+    torch.cuda.synchronize()
+    # the main path: counts set to 0 just before it, read just after
+    zero_route_counts()
+    mha_fwd.launches = 0
+    t0 = time.perf_counter()
+    state, logits = prefill(params, prompt, images)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    toks = []
+    start.record()
+    for _ in range(N - 1):
+        toks.append(next_tokens(torch, logits))
+        state, logits = decode(params, state, toks[-1], images)
+    end.record()
+    torch.cuda.synchronize()
+    decode_ms = start.elapsed_time(end) / (N - 1)
+    routes, launches = route_counts()["mha_fwd"], mha_fwd.launches
+    check_routes({"mha_fwd": routes}, {"mha_fwd": want_routes},
+                 f"{arch} serving")
+    toks = torch.cat(toks, dim=-1)
+    if (tuple(logits.shape) != (*lead, 1, cfg.padded_vocab)
+            or tuple(toks.shape) != (*lead, N - 1)
+            or launches != sum(want_routes.values())
+            or not bool(torch.isfinite(logits).all())):
+        raise AssertionError(f"{arch} serving: logits {tuple(logits.shape)}, "
+                             f"tokens {tuple(toks.shape)}, {launches} mha_fwd "
+                             "launches, or the logits are not finite")
+    unit = "frames" if cfg.n_codebooks else "tokens"
+    print(f"  [{power}] {arch} serving, prompt {tuple(prompt.shape)}"
+          + (f" with {cfg.n_image_tokens} f32 image tokens a row"
+             if images is not None else "")
+          + f", {N} new {unit}: prefill {prefill_s * 1e3:.3f} ms "
+          f"({B * P / prefill_s:.0f} prompt {unit}/s), decode "
+          f"{decode_ms:.3f} ms/step ({B * 1e3 / decode_ms:.1f} {unit}/s); "
+          f"mha_fwd {launches} launches {routes}; logits "
+          f"{tuple(logits.shape)}")
+    state, _ = prefill(params, prompt, images)
+    busy, fams = moe_profile(
+        torch, power, lambda: decode(params, state, toks[..., :1], images),
+        decode_ms, f"{arch} decode step", serving=True)
+    if check is not None:
+        check(params, prompt)
+    del params, state
+    torch.cuda.empty_cache()
+    witness = f32_witness(torch, seed, arch, cfg, prompt, toks, images)
+    return {"launches": launches, "routes": routes,
+            "prefill_ms": prefill_s * 1e3, "decode_ms": decode_ms,
+            "decode_busy_ms": busy,
+            "decode_idle_share": None if busy is None
+            else 1 - busy / decode_ms,
+            "decode_device_ms_by_family": {f: ms for f, (ms, _) in
+                                           fams.items()},
+            "witness": witness}
+
+
+def phase_vlm(torch, seed, power):
+    """Phase 20: llama-3.2-vision-11b training (f32 images; one step with
+    bf16 images) and serving with images, at full width and VLM_BLOCKS of
+    its 8 super-blocks."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import superblock_layout
+    t0 = time.perf_counter()
+    full = get_arch(VLM_ARCH)
+    cfg = dataclasses.replace(
+        full, n_layers=VLM_BLOCKS * full.cross_attn_every)
+    layout = superblock_layout(cfg, "vlm")
+    if cfg.segments != (("vlm", VLM_BLOCKS),) or layout[:4] != (
+            ("cross", "cross"), ("cross_ffn", "mlp"), ("attn1", "attn"),
+            ("ffn1", "mlp")) or len(layout) != 10:
+        raise AssertionError(f"{VLM_ARCH}: segments {cfg.segments}, layout "
+                             f"{layout}")
+    reduced = ([] if cfg.n_layers == full.n_layers else
+               [f"n_layers {full.n_layers} -> {cfg.n_layers} ({VLM_BLOCKS} "
+                f"of {full.n_layers // full.cross_attn_every} super-blocks)"])
+    widths = (f"d_model {cfg.d_model}, {cfg.n_heads} heads over "
+              f"{cfg.n_kv_heads} kv heads of {cfg.head_dim}, d_ff "
+              f"{cfg.d_ff}, vocab {cfg.vocab_size}, rope_theta "
+              f"{cfg.rope_theta:g}; cross-attention every "
+              f"{cfg.cross_attn_every} layers over {cfg.n_image_tokens} "
+              f"image tokens (f32); layout {tuple(n for n, _ in layout)}")
+    train = train_family(torch, seed, power, VLM_ARCH, cfg, reduced,
+                         VLM_STEPS, *vlm_want(cfg, "fma"), widths,
+                         shape=VLM_BATCH)
+    bf16 = vlm_bf16_images_step(torch, seed, cfg, train["losses"][0])
+    # serving with images: the prefill's cross-attention on fma (its q
+    # promoted to the f32 images' dtype) and self-attention on mma; each
+    # decode step's cross sub-layers recompute their keys and values from
+    # the images, as JAX's do, and attend on the decode route with no
+    # kv_len, the self-attention over the cache
+    N = SERVE_VLM[2]
+    n_self, n_cross = sub_calls(cfg, "attn"), sub_calls(cfg, "cross")
+    serve = serve_dense(torch, seed, power, VLM_ARCH, cfg, {
+        "fma": n_cross, "mma": n_self, "decode": (N - 1) * (n_self + n_cross)},
+        SERVE_VLM)
+    print(f"  phase 20 took {time.perf_counter() - t0:.1f} s")
+    return {"train": train, "bf16_images": bf16, "serve": serve}
+
+
+# --------------------------- the audio musicgen-medium (phases 2 and 21)
+
+MUSICGEN_ARCH = "musicgen-medium"
+MUSICGEN_STEPS = 3
+MUSICGEN_BATCH = (4, 1024)  # 4 rows of 1024 frames, each of 4 codebooks
+SERVE_MUSICGEN = (4, 512, 32)  # batch, prompt frames, new frames
+MUSICGEN_ATTN = "train musicgen H=K=24 hd=64"
+MUSICGEN_HEAD = "musicgen N=4096 D=1536 V=2048"
+# matrices of two or three dims besides the heads: the (4, 2048, 1536)
+# codebook embedding, wq, wk, wv, wo, w_gate, w_up, w_down
+MUSICGEN_MATRICES = 8
+
+
+def musicgen_want(cfg):
+    """(launches, routes) of one musicgen train step: ``train_want``'s,
+    with each xent kernel once a codebook head; the (4, 1536, 2048) heads
+    are one 3-D leaf, so one momentum_sumsq."""
+    C = cfg.n_codebooks
+    want, want_r = train_want(cfg.n_layers, "mma", MUSICGEN_MATRICES)
+    want.update({k: C for k in XENT_KERNELS})
+    want_r.update({"xent_fwd": {"wgmma": C}, "xent_bwd_dh": {"mma": C},
+                   "xent_bwd_dw": {"mma": C}})
+    return want, want_r
+
+
+def musicgen_greedy(cfg, params, prompt):
+    """Phase 21 (iii): ``greedy_generate`` on a (B, 4, 16) prompt keeps
+    JAX's shape (B, n, 1): the last codebook's argmax fed back to every
+    codebook (ROADMAP.md caveat 15)."""
+    from repro_torch.training import greedy_generate
+    out = greedy_generate(cfg, params, prompt[..., :16], 4, 32)
+    if tuple(out.shape) != (prompt.shape[0], 4, 1):
+        raise AssertionError(f"{MUSICGEN_ARCH} greedy_generate: "
+                             f"{tuple(out.shape)}")
+    print(f"  {MUSICGEN_ARCH} greedy_generate on a (B, 4, 16) prompt, 4 "
+          f"steps: {tuple(out.shape)} (the last codebook's argmax fed back "
+          "to every codebook, as JAX's)")
+
+
+def phase_musicgen(torch, seed, power):
+    """Phase 21: musicgen-medium training and serving at full width and
+    all 48 layers."""
+    from repro_torch.configs import get_arch
+    t0 = time.perf_counter()
+    cfg = get_arch(MUSICGEN_ARCH)
+    if cfg.segments != (("dense", 48),) or cfg.n_codebooks != 4:
+        raise AssertionError(f"{MUSICGEN_ARCH}: segments {cfg.segments}")
+    widths = (f"{cfg.n_layers} layers, d_model {cfg.d_model}, "
+              f"{cfg.n_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, "
+              f"{cfg.n_codebooks} codebooks of {cfg.vocab_size}: a (4, "
+              f"{cfg.padded_vocab}, {cfg.d_model}) embedding summed over "
+              "the codebooks and 4 heads")
+    train = train_family(torch, seed, power, MUSICGEN_ARCH, cfg, [],
+                         MUSICGEN_STEPS, *musicgen_want(cfg), widths,
+                         shape=MUSICGEN_BATCH)
+    # (B, 4, 1) tokens in, each codebook's argmax of its (B, 4, 1, V)
+    # logits out
+    L, N = cfg.n_layers, SERVE_MUSICGEN[2]
+    serve = serve_dense(torch, seed, power, MUSICGEN_ARCH, cfg,
+                        {"mma": L, "decode": (N - 1) * L}, SERVE_MUSICGEN,
+                        check=lambda p, prompt: musicgen_greedy(cfg, p,
+                                                                prompt))
+    print(f"  phase 21 took {time.perf_counter() - t0:.1f} s")
+    return {"train": train, "serve": serve}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6950,7 +7361,16 @@ def main() -> int:
         "device time)")
     mha_rows = phase_timing(torch, gen, power, serve, errs)
     bwd_rows = bwd_timing(torch, gen, power, bwd_errs)
-    mla_rows = mla_timing(torch, gen, power, mla_errs)
+    # deepseek-v3's training attention (hd 192, hdv 128: fma) and the VLM's
+    # f32 cross-attention (fma)
+    mla_rows = attention_row_timing(torch, gen, power, mla_errs,
+                                    "deepseek-v3 train", MLA_TRAIN_ATTN,
+                                    torch.bfloat16, True,
+                                    hdv=MLA_ATTN[MLA_TRAIN_ATTN][-1])
+    cross_rows = attention_row_timing(torch, gen, power, {
+        ("mha_fwd", VLM_CROSS, "float32"): errs[(VLM_CROSS, "float32")],
+        **bwd_errs}, "llama-3.2-vision cross", VLM_CROSS, torch.float32,
+        False)
     seg_rows = seg_timing(torch, gen, power, seg_errs, args.seed)
     opt_rows = optimizer_timing(torch, gen, power, opt_errs, variants)
     xent_rows = xent_timing(torch, gen, power, xent_errs)
@@ -6998,6 +7418,13 @@ def main() -> int:
         "super-block of period 2, 4 experts) and serving (16 experts) at "
         "full width")
     jamba = phase_jamba(torch, args.seed, power)
+    say("phase 20: the VLM llama-3.2-vision-11b: training (f32 images; one "
+        "step with bf16 images) and serving with images at full width and "
+        "depth")
+    vlm = phase_vlm(torch, args.seed, power)
+    say("phase 21: the audio musicgen-medium: training and serving at full "
+        "width and all 48 layers")
+    musicgen = phase_musicgen(torch, args.seed, power)
     # one row per kernel; launches summed over the main paths that run it,
     # each counted from 0 just before its path and read just after
     by_path = {"serving": {"mha_fwd": serve["launches"]},
@@ -7043,7 +7470,18 @@ def main() -> int:
                # capacity factors: the prefill on mma, each decode step on
                # decode)
                "train jamba": jamba["train"]["launches"],
-               "serve jamba": {"mha_fwd": jamba["serve"]["launches"]}}
+               "serve jamba": {"mha_fwd": jamba["serve"]["launches"]},
+               # llama-3.2-vision-11b's training (f32 images: the
+               # cross-attention on fma), its one step with bf16 images
+               # (all mma) and its serving with images (the prefill's
+               # cross on fma, self on mma; each decode step's on decode)
+               "train vlm": vlm["train"]["launches"],
+               "train vlm bf16 images": vlm["bf16_images"]["launches"],
+               "serve vlm": {"mha_fwd": vlm["serve"]["launches"]},
+               # musicgen-medium's training (4 codebook heads: each xent
+               # kernel 4 times a step) and serving
+               "train musicgen": musicgen["train"]["launches"],
+               "serve musicgen": {"mha_fwd": musicgen["serve"]["launches"]}}
     # mha_fwd's prefill numbers, with both serving shapes and the eval and
     # training steps' shape beside them
     mha = {k: v for k, v in mha_rows[0].items() if k != "shape"}
@@ -7057,12 +7495,18 @@ def main() -> int:
     for name, entry in mla_rows.items():
         entry["launches"] = mla["train"]["launches"][name]
     mha_rows.append(mla_rows["mha_fwd"])
+    # the VLM's cross-attention (fma, f32) at phase 20's training step:
+    # its launches there on that route
+    for name, entry in cross_rows.items():
+        entry["launches"] = vlm["train"]["routes"][name]["fma"] * VLM_STEPS
+    mha_rows.append(cross_rows["mha_fwd"])
     mha["shapes"] = mha_rows
     for row in bwd_rows:
         row["shapes"][0]["launches"] = train["launches"][row["name"]]
         for entry, arch in zip(row["shapes"][2:], PAPER_MODELS):
             entry["launches"] = paper[arch]["launches"][row["name"]]
         row["shapes"].append(mla_rows[row["name"]])
+        row["shapes"].append(cross_rows[row["name"]])
     for row in xent_rows:
         for entry, path in zip(row["shapes"], (train, *paper.values(),
                                                mla["train"])):
@@ -7092,6 +7536,11 @@ def main() -> int:
                          (MAMBA_ARCH, mamba["train"]),
                          (f"{JAMBA_ARCH} {JAMBA_LAYERS} layers, "
                           f"{JAMBA_TRAIN_EXPERTS} experts", jamba["train"]),
+                         (f"{VLM_ARCH} {VLM_BLOCKS * 5} layers, f32 images",
+                          vlm["train"]),
+                         (f"{VLM_ARCH} {VLM_BLOCKS * 5} layers, bf16 images",
+                          vlm["bf16_images"]),
+                         (MUSICGEN_ARCH, musicgen["train"]),
                          *((f"{a} {ARCH_LAYERS} layers", r)
                            for a, r in moe["arch"].items()))}
         if row["name"] in SEG_ROWS.values():
@@ -7113,7 +7562,7 @@ def main() -> int:
                               and name == "norm_apply"):
                 raise AssertionError(f"{name} was not launched on the "
                                      f"{path} path")
-    say("all nineteen phases passed")
+    say("all twenty-one phases passed")
     print(power)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

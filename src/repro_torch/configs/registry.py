@@ -1,13 +1,12 @@
 """Architecture registry: ``--arch <id>`` selection, the paper's LLaMA
 sizes and its Appendix F extras (the port of ``repro.configs.registry``).
 
-The ported ``ARCH_IDS`` configurations live one module each beside this
-one, with their reduced ``SMOKE`` twins, field by field the JAX
+Every ``ARCH_IDS`` configuration lives in a module of its own beside
+this one, with its reduced ``SMOKE`` twin, field by field the JAX
 package's: the four large dense models, the MoE dbrx-132b, the MLA +
-MoE deepseek-v3-671b, the attention-free Mamba2 mamba2-370m and the
-hybrid (attention, Mamba2, MoE) jamba-1.5-large-398b. The other two (VLM
-and audio) are not ported yet and raise a ``KeyError`` saying so
-(ROADMAP.md Queue 1 items 13e and 13f).
+MoE deepseek-v3-671b, the attention-free Mamba2 mamba2-370m, the hybrid
+(attention, Mamba2, MoE) jamba-1.5-large-398b, the VLM
+llama-3.2-vision-11b and the audio musicgen-medium.
 """
 from __future__ import annotations
 
@@ -29,7 +28,7 @@ ARCH_IDS = (
     "musicgen-medium",
 )
 
-# the ported ARCH_IDS: id -> module of this package holding CONFIG and SMOKE
+# ARCH_IDS: id -> module of this package holding CONFIG and SMOKE
 _MODULES = {
     "deepseek-67b": "deepseek_67b",
     "qwen2-7b": "qwen2_7b",
@@ -39,6 +38,8 @@ _MODULES = {
     "dbrx-132b": "dbrx_132b",
     "deepseek-v3-671b": "deepseek_v3_671b",
     "jamba-1.5-large-398b": "jamba_15_large_398b",
+    "llama-3.2-vision-11b": "llama32_vision_11b",
+    "musicgen-medium": "musicgen_medium",
 }
 
 # Appendix F extra architectures (paper Table 9/10): GPT2-Medium (learned
@@ -79,10 +80,5 @@ def get_arch(arch_id: str, smoke: bool = False) -> ModelConfig:
                            n_kv_heads=kw["n_heads"], **kw)
     if arch_id in PAPER_EXTRA:
         return ModelConfig(name=arch_id, family="dense", **PAPER_EXTRA[arch_id])
-    if arch_id in ARCH_IDS:
-        ported = tuple(_MODULES) + tuple(LLAMA_PAPER) + tuple(PAPER_EXTRA)
-        raise KeyError(f"arch {arch_id!r} is not yet ported to repro_torch "
-                       f"(ROADMAP.md Queue 1 items 13e-13f); ported: "
-                       f"{ported}")
     raise KeyError(f"unknown arch {arch_id!r}; options: "
                    f"{ARCH_IDS + tuple(LLAMA_PAPER) + tuple(PAPER_EXTRA)}")

@@ -29,8 +29,14 @@ generator (seeded from (seed, step, 17)) and are not JAX's.
 :func:`unpack_to_rows` is the offset-preserving inverse the parity tests
 use. Packing runs on the host in numpy, as a loader would.
 
-Not ported yet, and raising ``NotImplementedError``: audio codebooks and
-image stubs (ROADMAP.md Queue 1 item 13).
+Audio (``n_codebooks``): tokens and labels (B, C, S), each codebook's
+row drawn as a text row is, labels -1 at each codebook's last position.
+VLM (``n_image_tokens``): the batch also carries ``image_embeds`` (B,
+n_image_tokens, d_model), f32 whatever the model's dtype, 0.02 * N(0, 1)
+as JAX's; they come from a generator seeded from (seed, step, 7), so
+they have JAX's distribution but not its values, as the tokens do. Both
+are stubs of a frontend (EnCodec, the vision tower). Packing is a
+plain-text format and raises with either, as in JAX.
 """
 from __future__ import annotations
 
@@ -50,6 +56,9 @@ class DataConfig:
     seed: int = 0
     bigram_prob: float = 0.8     # P(next token follows the affine map)
     zipf_a: float = 1.2          # Zipf exponent for the noise marginal
+    n_codebooks: int = 0         # audio: tokens (B, n_codebooks, S)
+    n_image_tokens: int = 0      # vlm: synthetic patch embeddings
+    d_model: int = 0             # vlm: embedding width
     pack_documents: bool = False  # first-fit packed multi-document rows
     min_doc_len: int = 8         # packed: shortest sampled document
 
@@ -74,7 +83,8 @@ class SyntheticLM:
 
     def _generator(self, step: int, *salt: int) -> torch.Generator:
         """The CPU generator of ``step``'s draws, seeded from (seed, step)
-        and ``salt`` (the packed batch's documents: 17)."""
+        and ``salt`` (the packed batch's documents: 17; the image
+        embeddings: 7)."""
         state = np.random.SeedSequence(
             [self.cfg.seed, step, *salt]).generate_state(1)
         return torch.Generator().manual_seed(int(state[0]))
@@ -139,15 +149,29 @@ class SyntheticLM:
     def global_batch_at(self, step: int) -> dict:
         """The full batch for ``step``: tokens (B, S) int32 and the
         next-token labels (B, S) int32, -1 last; packed, also
-        ``segment_ids``, ``positions`` and ``loss_weights``."""
+        ``segment_ids``, ``positions`` and ``loss_weights``; audio, tokens
+        and labels (B, C, S); VLM, also ``image_embeds`` (B, T, D) f32."""
         cfg = self.cfg
         if cfg.pack_documents:
+            if cfg.n_codebooks or cfg.n_image_tokens:
+                raise ValueError("pack_documents: packing is a plain-text "
+                                 "format (no audio codebooks / image rows)")
             return self._packed_batch(step)
-        toks = self._gen_tokens(self._generator(step), cfg.global_batch)
-        labels = torch.cat([toks[:, 1:], torch.full(
-            (cfg.global_batch, 1), -1, dtype=torch.int32)], dim=1)
-        return {"tokens": toks.to(self.device),
-                "labels": labels.to(self.device)}
+        gen = self._generator(step)
+        if cfg.n_codebooks:
+            toks = torch.stack([self._gen_tokens(gen, cfg.global_batch)
+                                for _ in range(cfg.n_codebooks)], dim=1)
+        else:
+            toks = self._gen_tokens(gen, cfg.global_batch)
+        labels = torch.cat([toks[..., 1:], torch.full(
+            toks.shape[:-1] + (1,), -1, dtype=torch.int32)], dim=-1)
+        batch = {"tokens": toks.to(self.device),
+                 "labels": labels.to(self.device)}
+        if cfg.n_image_tokens:
+            shape = (cfg.global_batch, cfg.n_image_tokens, cfg.d_model)
+            batch["image_embeds"] = (0.02 * torch.randn(
+                shape, generator=self._generator(step, 7))).to(self.device)
+        return batch
 
     def host_batch_at(self, step: int, host_id: int = 0,
                       n_hosts: int = 1) -> dict:
@@ -191,20 +215,17 @@ def unpack_to_rows(batch: dict) -> dict:
 def make_dataset(model_cfg, seq_len: int, global_batch: int, seed: int = 0,
                  pack_documents: bool = False, device=None) -> SyntheticLM:
     """Dataset matched to a ModelConfig: text batches, unpacked or packed
-    (``pack_documents``). Audio codebooks and image stubs raise until
-    ported."""
-    for on, what in (
-            (model_cfg.family == "audio" and model_cfg.n_codebooks,
-             "audio codebooks"),
-            (model_cfg.family == "vlm" and model_cfg.n_image_tokens,
-             "image stubs")):
-        if on:
-            raise NotImplementedError(f"make_dataset: {what} are not ported "
-                                      f"yet; ROADMAP.md Queue 1 item 13")
+    (``pack_documents``), with the audio codebooks and the VLM's image
+    stubs wired up as JAX's ``make_dataset`` does."""
     return SyntheticLM(DataConfig(
         vocab_size=model_cfg.vocab_size,
         seq_len=seq_len,
         global_batch=global_batch,
         seed=seed,
+        n_codebooks=model_cfg.n_codebooks if model_cfg.family == "audio"
+        else 0,
+        n_image_tokens=model_cfg.n_image_tokens if model_cfg.family == "vlm"
+        else 0,
+        d_model=model_cfg.d_model,
         pack_documents=pack_documents,
     ), device=device)

@@ -75,11 +75,13 @@ warns and disables the window. The port has no kernel fallback
 and ``run_end`` has ``fallbacks: null``.
 
 ``--arch`` takes the paper's LLaMA sizes, its Appendix F extras and the
-ported ``ARCH_IDS`` configurations (qwen2-7b, granite-3-8b, deepseek-67b,
+``ARCH_IDS`` configurations (qwen2-7b, granite-3-8b, deepseek-67b,
 mistral-large-123b, the MoE dbrx-132b, the MLA + MoE deepseek-v3-671b,
-the Mamba2 mamba2-370m and the hybrid jamba-1.5-large-398b); ``--smoke``
-takes an ``ARCH_IDS`` configuration's reduced twin (2 to 8 layers,
-narrow, f32), which runs on the CPU too.
+the Mamba2 mamba2-370m, the hybrid jamba-1.5-large-398b, the VLM
+llama-3.2-vision-11b, whose batches carry f32 image embeddings, and the
+audio musicgen-medium, whose tokens are 4 codebooks); ``--smoke`` takes
+an ``ARCH_IDS`` configuration's reduced twin (2 to 8 layers, narrow,
+f32), which runs on the CPU too.
 
 ``--optimizer`` takes any name of ``repro_torch.core.OPTIMIZER_NAMES``,
 the JAX registry's 20: SCALE (``scale``, ``scale_fused``, ``adapm``) and
@@ -108,6 +110,14 @@ Examples (llama-1b on the card, the paper's largest Table-1 model):
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch jamba-1.5-large-398b --smoke --device cpu --steps 8 \\
       --batch 4 --seq 32 --log-every 1
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch llama-3.2-vision-11b --smoke --device cpu --steps 8 \\
+      --batch 4 --seq 32 --log-every 1
+  PYTHONPATH=src python -m repro_torch.launch.train --arch musicgen-medium \\
+      --smoke --device cpu --steps 8 --batch 4 --seq 32 --log-every 1
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch llama-3.2-vision-11b --optimizer scale_fused --batch 4 \\
+      --seq 1024 --steps 3
 """
 from __future__ import annotations
 

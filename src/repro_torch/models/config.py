@@ -2,10 +2,8 @@
 
 Every field and default is the JAX package's, so a configuration moves
 between the two packages field by field. ``torch_dtype`` takes the place of
-``jdtype``. The dense and MoE families, with GQA or MLA attention
-(``attention_kind``), run in the port so far; the other families' fields
-are kept so that the registry and the derived properties
-mean the same in both packages.
+``jdtype``. Every family runs in the port: dense, moe (GQA or MLA
+attention by ``attention_kind``), ssm, hybrid, vlm and audio.
 """
 from __future__ import annotations
 
@@ -81,8 +79,7 @@ class ModelConfig:
     attn_kv_block: int = 1024
     loss_chunk: int = 2048     # vocab-logit chunking along tokens
 
-    # sharding rule overrides (read by the JAX package; sharding is not
-    # ported yet)
+    # sharding rule overrides (``models.sharding.Rules``)
     rule_overrides: Tuple = ()
 
     def __post_init__(self):

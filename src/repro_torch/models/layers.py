@@ -1,5 +1,5 @@
-"""Model building blocks (the GQA and MLA attention, dense, MoE and Mamba2
-subset of ``repro.models.layers``).
+"""Model building blocks (the GQA self- and cross-attention, MLA, dense,
+MoE and Mamba2 subset of ``repro.models.layers``).
 
 Every module exposes ``<mod>_spec(cfg) -> {name: Spec}`` (shapes and
 initializers) and ``apply_<mod>(p, cfg, ...)`` (forward). Parameters keep
@@ -95,7 +95,9 @@ def decode_attention(q, k, v, scale: float, kv_len=None) -> torch.Tensor:
                                     kv_len=kv_len)
 
 
-def attn_spec(cfg: ModelConfig) -> dict:
+def attn_spec(cfg: ModelConfig, cross: bool = False) -> dict:
+    """q/k/v/o projections; the q/k/v biases under ``qkv_bias``, but never
+    for a cross sub-layer (``cross``), as in JAX."""
     D, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     s = {
         "wq": Spec((D, H * hd), ("embed", "heads")),
@@ -103,7 +105,7 @@ def attn_spec(cfg: ModelConfig) -> dict:
         "wv": Spec((D, K * hd), ("embed", "kv")),
         "wo": Spec((H * hd, D), ("heads", "embed")),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         s["bq"] = Spec((H * hd,), ("heads",), "zeros")
         s["bk"] = Spec((K * hd,), ("kv",), "zeros")
         s["bv"] = Spec((K * hd,), ("kv",), "zeros")
@@ -121,8 +123,9 @@ def attn_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype,
 def apply_attention(p, cfg: ModelConfig, x, positions, mode: str = "train",
                     cache: Optional[dict] = None, cache_index=None,
                     segment_ids=None, rules: Optional[Rules] = None,
-                    mesh=None):
-    """GQA self-attention. mode: train | prefill | decode. -> (y, new_cache).
+                    mesh=None, kv_source: Optional[torch.Tensor] = None):
+    """GQA self-attention, or cross-attention when ``kv_source`` (B, T, D)
+    is given. mode: train | prefill | decode. -> (y, new_cache).
 
     prefill returns this call's (B, S, K, hd) k/v as the cache. decode
     writes k/v into ``cache`` at ``cache_index`` (a 0-d int32 tensor) IN
@@ -131,6 +134,16 @@ def apply_attention(p, cfg: ModelConfig, x, positions, mode: str = "train",
     ``segment_ids`` (B, S) int32 keeps attention within the documents of
     packed rows (train and prefill; decode serves one document a row and
     raises, as the JAX ``mask_spec`` does for segments with ``kv_len``).
+
+    Cross-attention (the VLM's ``cross`` sub-layer, which runs in mode
+    "train" whatever the model's, as in JAX): keys and values are
+    ``kv_source``'s, neither q nor k is rotated, nothing is cached, and
+    the attention over the T keys is non-causal with no ``kv_len`` (a
+    single query on the decode kernel). The keys and values are recomputed
+    from ``kv_source`` at every call, as JAX does (it keeps no cross
+    cache either). The profiler sees the image keys' and values'
+    projections as the span ``cross_kv`` and the attention over them as
+    ``cross_attn``.
     """
     if mode == "decode" and segment_ids is not None:
         raise ValueError("apply_attention: segment_ids and decode's kv_len "
@@ -138,24 +151,30 @@ def apply_attention(p, cfg: ModelConfig, x, positions, mode: str = "train",
                          "document per row)")
     B, S, D = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    T = S if kv_source is None else kv_source.shape[1]
 
     q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    if kv_source is None:
+        k, v = x @ p["wk"], x @ p["wv"]
+    else:
+        with record_function("cross_kv"):
+            k, v = _cross_kv(p, kv_source)
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = q.reshape(B, S, H, hd)
-    k = k.reshape(B, S, K, hd)
-    v = v.reshape(B, S, K, hd)
+    k = k.reshape(B, T, K, hd)
+    v = v.reshape(B, T, K, hd)
 
-    if cfg.pos_embed == "rope":
+    if kv_source is None and cfg.pos_embed == "rope":
         cos, sin = rope_tables(positions, hd, cfg.rope_theta)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
 
     scale = 1.0 / math.sqrt(hd)
     new_cache = cache
-    if mode == "decode":
+    if kv_source is not None:
+        out = _cross_attention(q, k, v, scale)
+    elif mode == "decode":
         idx = cache_index + torch.arange(S, device=x.device)
         ck, cv = cache["k"], cache["v"]
         ck.index_copy_(1, idx, k.to(ck.dtype))
@@ -170,6 +189,39 @@ def apply_attention(p, cfg: ModelConfig, x, positions, mode: str = "train",
 
     y = out.reshape(B, S, H * hd) @ p["wo"]
     return y, new_cache
+
+
+def _cross_kv(p, images):
+    """The image keys and values (B, T, K*hd), before any bias (a cross
+    sub-layer has none).
+
+    JAX's cross-attention mixes dtypes (ROADMAP.md reference caveat 13):
+    f32 images against a bf16 model's wk and wv promote k and v to f32
+    there. Torch's ``@`` refuses mixed dtypes, so the promotion is spelled
+    out; the weights' gradients come back through the cast in their own
+    dtype, as JAX's do."""
+    dt = torch.promote_types(images.dtype, p["wk"].dtype)
+    x = images.to(dt)
+    return x @ p["wk"].to(dt), x @ p["wv"].to(dt)
+
+
+def _cross_attention(q, k, v, scale: float) -> torch.Tensor:
+    """Non-causal attention of the text queries over the image keys, with
+    no ``kv_len`` (JAX's ``cross_blockwise_attention``, and its
+    ``decode_attention`` for one query: the attention wrappers route S <=
+    4 to their decode kernel themselves). -> q's dtype.
+
+    Where k and v came out f32 beside a bf16 q (f32 images in a bf16
+    model; caveat 13), JAX's kernel forms q.k in f32, casts p to v's f32 and returns
+    q's dtype, its dQ in q's dtype and dK, dV in f32. The port's kernels
+    take one dtype, so q is promoted here and the f32 kernels (the fma
+    route) compute that arithmetic; the cast back gives dQ in q's dtype.
+    Images in the model's dtype keep everything bf16, on the tensor-core
+    route."""
+    qa = q.to(torch.promote_types(q.dtype, k.dtype))
+    with record_function("cross_attn"):
+        out = dispatch.flash_attention(qa, k, v, scale=scale, causal=False)
+    return out.to(q.dtype)
 
 
 # ------------------------------------------------------------- MLA attention

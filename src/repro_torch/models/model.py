@@ -1,13 +1,16 @@
-"""Top-level model API: spec, init, caches, forward, logits, loss (the
-dense, MoE, Mamba2 (ssm) and hybrid (attention, Mamba2, MoE and MLP in
-one super-block) families, GQA or MLA attention).
+"""Top-level model API: spec, init, caches, forward, logits, loss (every
+family of ``repro.models.model``: dense, MoE, Mamba2 (ssm), hybrid
+(attention, Mamba2, MoE and MLP in one super-block), the VLM (cross-
+attention over image embeddings) and audio (codebooks); GQA or MLA
+attention).
 
 Parameter tree layout, as in ``repro.models.model``::
 
-    {"tok_embed": {"w"},
+    {"tok_embed": {"w"},        # (V, D); audio (C, V, D)
      "segments": {"seg<i>_<kind>": {...stacked super-block params...}},
      "final_norm": {"s"},
-     "lm_head": {"w"}}          # absent with cfg.tie_embeddings
+     "lm_head": {"w"}}          # (D, V); audio (C, D, V); absent with
+                                # cfg.tie_embeddings
 
 The tree is held in :class:`Params`, an ``nn.Module`` whose
 ``state_dict()`` keys are the JAX package's ``core.labels.path_str`` keys
@@ -39,17 +42,35 @@ def _stacked(spec_tree: dict, n: int) -> dict:
             for k, v in spec_tree.items()}
 
 
-def model_spec(cfg: ModelConfig) -> dict:
+def _embed_spec(cfg: ModelConfig) -> dict:
     V, D = cfg.padded_vocab, cfg.d_model
+    if cfg.family == "audio":
+        return {"w": L.Spec((cfg.n_codebooks, V, D),
+                            (None, "vocab", "embed"))}
+    return {"w": L.Spec((V, D), ("vocab", "embed"))}
+
+
+def _head_spec(cfg: ModelConfig) -> dict:
+    V, D = cfg.padded_vocab, cfg.d_model
+    if cfg.family == "audio":
+        # the C heads are one 3-D leaf in SCALE's momentum group, which the
+        # optimizer kernels take as a stacked leaf (dispatch.FUSED_NDIMS)
+        return {"w": L.Spec((cfg.n_codebooks, D, V),
+                            (None, "embed", "vocab"))}
+    return {"w": L.Spec((D, V), ("embed", "vocab"))}
+
+
+def model_spec(cfg: ModelConfig) -> dict:
+    D = cfg.d_model
     segs = {f"seg{i}_{kind}": _stacked(T.superblock_spec(cfg, kind), n)
             for i, (kind, n) in enumerate(cfg.segments)}
     out = {
-        "tok_embed": {"w": L.Spec((V, D), ("vocab", "embed"))},
+        "tok_embed": _embed_spec(cfg),
         "segments": segs,
         "final_norm": {"s": L.Spec((D,), ("norm",), "ones")},
     }
     if not cfg.tie_embeddings:
-        out["lm_head"] = {"w": L.Spec((D, V), ("embed", "vocab"))}
+        out["lm_head"] = _head_spec(cfg)
     if cfg.pos_embed == "learned":
         out["pos_embed"] = {"w": L.Spec((cfg.max_position, D),
                                         (None, "embed"))}
@@ -112,10 +133,22 @@ def check_mesh(cfg: ModelConfig, mesh, what: str) -> None:
     an MoE segment (expert parallelism over "model" is not ported; a
     DTensor einsum would silently replicate the experts), MLA attention
     (its latents and absorbed decode have no sharded layout yet), an
-    ssm segment (Mamba2's head-sharded SSD is not ported) or a hybrid
-    segment (it holds both MoE and Mamba2)."""
+    ssm segment (Mamba2's head-sharded SSD is not ported), a hybrid
+    segment (it holds both MoE and Mamba2), a vlm segment (the image
+    embeddings and the cross-attention have no sharded layout yet) or
+    the audio family (its (C, V, D) embedding and (C, D, V) heads have
+    none either)."""
     if mesh is None:
         return
+    if any(k == "vlm" for k, _ in cfg.segments):
+        raise NotImplementedError(
+            f"{what}: a vlm segment (cross-attention over image "
+            "embeddings) on a mesh is not ported yet; ROADMAP.md Queue 1 "
+            "item 12 (its leftovers)")
+    if cfg.family == "audio":
+        raise NotImplementedError(
+            f"{what}: the audio codebook embedding and heads on a mesh are "
+            "not ported yet; ROADMAP.md Queue 1 item 12 (its leftovers)")
     if any(k == "hybrid" for k, _ in cfg.segments):
         raise NotImplementedError(
             f"{what}: a hybrid segment on a mesh needs sharded MoE (expert "
@@ -235,10 +268,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
 
 # ------------------------------------------------------------------ forward
 
-def forward(params, cfg: ModelConfig, tokens, *, mode: str = "train",
-            cache=None, cache_index=None, positions=None, segment_ids=None,
-            rules: Rules = None, mesh=None):
-    """Run the backbone on tokens (B, S). Returns (hidden, new_cache, aux).
+def forward(params, cfg: ModelConfig, tokens, *, image_embeds=None,
+            mode: str = "train", cache=None, cache_index=None,
+            positions=None, segment_ids=None, rules: Rules = None,
+            mesh=None):
+    """Run the backbone on tokens (B, S); audio (B, n_codebooks, S), whose
+    codebook embeddings are summed. Returns (hidden (B, S, D), new_cache,
+    aux).
 
     ``mode`` is train | prefill | decode (see ``layers.apply_attention``);
     decode positions are ``cache_index + arange(S)``. ``positions`` and
@@ -248,29 +284,47 @@ def forward(params, cfg: ModelConfig, tokens, *, mode: str = "train",
     keeps apart (pad id 0). The ids are cast to contiguous int32 here,
     once for every layer. ``aux`` (the MoE load-balance loss in the JAX
     package) is 0 for the dense and ssm families; a hybrid model's sums
-    its MoE sub-layers' (``ffn1``, ``ffn3``, ...).
+    its MoE sub-layers' (``ffn1``, ``ffn3``, ...). ``image_embeds`` (B,
+    n_image_tokens, D; the data pipeline's are f32 whatever the model's
+    dtype, as JAX's are) are the keys and values of the VLM's cross
+    sub-layers (``layers.apply_attention``); without them those run
+    JAX's causal self-attention over the text.
 
     ``mesh`` (a DeviceMesh; params and batch DTensors laid out per
     ``rules``, default ``Rules(cfg.rule_overrides)``): the activations
     are laid out per their logical axes (``sharding.shard``, as JAX's
     annotations), attention takes the shardings of its operands, and
     plain tensors (positions, masks) count as replicated. An MoE, MLA,
-    Mamba2 or hybrid model raises on a mesh (``check_mesh``).
+    Mamba2, hybrid, vlm or audio model raises on a mesh (``check_mesh``).
     """
     check_mesh(cfg, mesh, "forward")
     rules = rules or Rules(cfg.rule_overrides)
     with mesh_context(mesh):
         return _forward(params, cfg, tokens, mode, cache, cache_index,
-                        positions, segment_ids, rules, mesh)
+                        positions, segment_ids, image_embeds, rules, mesh)
+
+
+def _embed(ew, cfg: ModelConfig, tokens, rules, mesh):
+    """The token embedding: audio sums its codebooks' lookups.
+
+    JAX indexes ``tokens[:, c]`` for every codebook, and clamps an index
+    past the codebook axis: its greedy generation feeds (B, 1, 1) tokens
+    back to an audio model, so every codebook embeds that one row
+    (ROADMAP.md reference caveat 15). Torch raises there, so the index is
+    clamped here, explicitly."""
+    if cfg.family == "audio":
+        last = tokens.shape[1] - 1
+        return sum(ew[c][tokens[:, min(c, last)]]
+                   for c in range(cfg.n_codebooks))
+    return (embed_lookup(ew, tokens, rules, mesh) if mesh is not None
+            else ew[tokens])
 
 
 def _forward(params, cfg, tokens, mode, cache, cache_index, positions,
-             segment_ids, rules, mesh):
+             segment_ids, image_embeds, rules, mesh):
     if segment_ids is not None:
         segment_ids = segment_ids.to(torch.int32).contiguous()
-    ew = params["tok_embed"]["w"]
-    x = (embed_lookup(ew, tokens, rules, mesh) if mesh is not None
-         else ew[tokens])
+    x = _embed(params["tok_embed"]["w"], cfg, tokens, rules, mesh)
     S = x.shape[1]
     if positions is None:
         positions = torch.arange(S, device=x.device)
@@ -286,7 +340,8 @@ def _forward(params, cfg, tokens, mode, cache, cache_index, positions,
         seg_cache = cache[name] if cache is not None else None
         x, seg_cache, seg_aux = T.apply_segment(
             kind, n, cfg, params["segments"][name], x, positions, mode,
-            seg_cache, cache_index, segment_ids, rules=rules, mesh=mesh)
+            seg_cache, cache_index, segment_ids, image_embeds, rules=rules,
+            mesh=mesh)
         if new_cache is not None:
             new_cache[name] = seg_cache
         if seg_aux is not None:
@@ -296,7 +351,8 @@ def _forward(params, cfg, tokens, mode, cache, cache_index, positions,
 
 
 def head_weight(params, cfg: ModelConfig):
-    """(w, transposed): lm_head.w (D, V), or the tied tok_embed.w (V, D)."""
+    """(w, transposed): lm_head.w (D, V), or the tied tok_embed.w (V, D);
+    audio (C, D, V) and (C, V, D)."""
     if cfg.tie_embeddings:
         return params["tok_embed"]["w"], True
     return params["lm_head"]["w"], False
@@ -304,9 +360,13 @@ def head_weight(params, cfg: ModelConfig):
 
 def logits_from_hidden(params, cfg: ModelConfig, hidden,
                        rules: Rules = None):
-    """Full-vocab logits (serving). hidden (B, S, D) -> (B, S, V_padded);
-    on a mesh laid out per ("act_batch", "act_seq", "act_vocab")."""
+    """Full-vocab logits (serving). hidden (B, S, D) -> (B, S, V_padded),
+    audio (B, C, S, V_padded), one row per codebook head; on a mesh laid
+    out per ("act_batch", "act_seq", "act_vocab")."""
     w, tied = head_weight(params, cfg)
+    if cfg.family == "audio":
+        return _mask_pad_vocab(torch.einsum(
+            "bsd,cvd->bcsv" if tied else "bsd,cdv->bcsv", hidden, w), cfg)
     out = _mask_pad_vocab(hidden @ (w.T if tied else w), cfg)
     return shard(out, ("act_batch", "act_seq", "act_vocab"),
                  rules or Rules(cfg.rule_overrides))
@@ -337,19 +397,32 @@ def lm_loss(params, cfg: ModelConfig, hidden, labels, weights=None,
     total_weight). A tied head (``cfg.tie_embeddings``) is the (V, D)
     ``tok_embed.w``, read in place by the transposed kernels, whose dW
     lands in (V, D); autograd adds it to the lookup's gradient in w's
-    dtype, as JAX sums the two cotangents. The audio codebook heads raise
-    until they are ported (ROADMAP.md Queue 1 item 13).
+    dtype, as JAX sums the two cotangents. Audio: labels (B, C, S); each
+    codebook's head (``w[c]``, (D, V), or (V, D) tied) runs its own
+    ``xent_loss`` over the same hidden states, and the mean divides the
+    summed losses by the summed weights of all heads; per-token
+    ``weights`` raise ``ValueError`` there, as in JAX.
 
     ``mesh``: the loss takes the hidden states' ("act_batch", "act_seq",
     "act_embed") and the head's ("embed", "vocab") shardings (tied:
     ("vocab", "embed")) from ``rules``, as JAX does, so the vocabulary
     shards of the head each run the kernels with their ``col_offset``.
     """
-    if cfg.family == "audio":
-        raise NotImplementedError("lm_loss: the audio codebook heads are not "
-                                  "ported yet; ROADMAP.md Queue 1 item 13")
+    if weights is not None and cfg.family == "audio":
+        raise ValueError("lm_loss: per-token weights are not supported for "
+                         "the audio multi-codebook head")
     rules = rules or Rules(cfg.rule_overrides)
     w, tied = head_weight(params, cfg)
+    if cfg.family == "audio":
+        tot_l = tot_w = 0.0
+        for c in range(cfg.n_codebooks):
+            labs = labels[:, c]
+            losses = dispatch.xent_loss(hidden, w[c], labs,
+                                        vocab_size=cfg.vocab_size,
+                                        transposed=tied)
+            tot_l = tot_l + losses.sum()
+            tot_w = tot_w + (labs >= 0).float().sum()
+        return tot_l / torch.where(tot_w > 0, tot_w, 1.0), tot_w
     h_sh = w_sh = None
     if mesh is not None:
         h_sh = rules.sharding(("act_batch", "act_seq", "act_embed"), mesh,
@@ -371,18 +444,14 @@ def lm_loss(params, cfg: ModelConfig, hidden, labels, weights=None,
 
 def loss_fn(params, cfg: ModelConfig, batch: dict, aux_coef: float = 0.01,
             rules: Rules = None, mesh=None):
-    """Full training loss. batch: tokens, labels, [positions, segment_ids,
-    loss_weights] (the last three: packed-document batches). -> (total,
-    {"loss", "aux", "weight"}). ``mesh``: see ``forward`` and
-    ``lm_loss``.
-
-    Image embeddings are not ported yet and raise (ROADMAP.md Queue 1
-    item 13).
+    """Full training loss. batch: tokens, labels, [image_embeds],
+    [positions, segment_ids, loss_weights] (the last three:
+    packed-document batches). -> (total, {"loss", "aux", "weight"}).
+    ``mesh``: see ``forward`` and ``lm_loss``.
     """
-    if batch.get("image_embeds") is not None:
-        raise NotImplementedError("loss_fn: batch['image_embeds'] is not "
-                                  "ported yet; ROADMAP.md Queue 1 item 13")
-    hidden, _, aux = forward(params, cfg, batch["tokens"], mode="train",
+    hidden, _, aux = forward(params, cfg, batch["tokens"],
+                             image_embeds=batch.get("image_embeds"),
+                             mode="train",
                              positions=batch.get("positions"),
                              segment_ids=batch.get("segment_ids"),
                              rules=rules, mesh=mesh)

@@ -1,11 +1,14 @@
 """Super-blocks (dense: self-attn + SwiGLU; moe: self-attn + MoE; ssm: one
-Mamba2 layer, attention-free and without an FFN; hybrid: self-attn + MLP,
-then ``hybrid_period - 1`` Mamba2 layers, each followed by an FFN that is
-MoE at odd positions and MLP at even ones) and the loop over stacked
-layer params. The self-attention sub-layer is GQA or MLA by
+Mamba2 layer, attention-free and without an FFN; vlm: cross-attn + MLP,
+then ``cross_attn_every - 1`` x [self-attn + MLP]; hybrid: self-attn +
+MLP, then ``hybrid_period - 1`` Mamba2 layers, each followed by an FFN
+that is MoE at odd positions and MLP at even ones) and the loop over
+stacked layer params. The self-attention sub-layer is GQA or MLA by
 ``cfg.attention_kind``, as in JAX. The attention and Mamba2 sub-layers
 keep a cache (``_CACHED``, JAX's ``_needs_cache``), so a hybrid
-super-block's cache holds both kinds.
+super-block's cache holds both kinds; the VLM's cross sub-layer keeps
+none (its keys and values are recomputed from the image embeddings at
+every call, as JAX does).
 
 The JAX package scans each segment of homogeneous super-blocks over params
 stacked on a leading (L, ...) axis; the port keeps that layout and loops in
@@ -59,23 +62,39 @@ def _attention(cfg: ModelConfig) -> tuple:
 
 
 def _sub_spec(cfg: ModelConfig, sub: str) -> dict:
-    spec = _attention(cfg)[0] if sub == "attn" else _SPECS[sub]
-    return {"norm": L.Spec((cfg.d_model,), ("norm",), "ones"), **spec(cfg)}
+    if sub == "attn":
+        spec = _attention(cfg)[0](cfg)
+    elif sub == "cross":
+        spec = L.attn_spec(cfg, cross=True)
+    else:
+        spec = _SPECS[sub](cfg)
+    return {"norm": L.Spec((cfg.d_model,), ("norm",), "ones"), **spec}
 
 
 def _apply_sub(sub: str, p, cfg: ModelConfig, x, positions, mode: str, cache,
-               cache_index, segment_ids=None, rules=None, mesh=None):
-    """Pre-norm residual sub-layer (attn, mlp, moe or mamba). Returns (x,
-    new_cache, aux); aux is None but for moe. mamba takes no
-    ``segment_ids``: its sequence mixing has no segment mask, as in
-    JAX. Any other sub-layer kind raises ``ValueError``, as JAX's does
-    (the VLM's ``cross`` is not ported yet)."""
+               cache_index, segment_ids=None, rules=None, mesh=None,
+               image_embeds=None):
+    """Pre-norm residual sub-layer (attn, cross, mlp, moe or mamba).
+    Returns (x, new_cache, aux); aux is None but for moe. mamba takes no
+    ``segment_ids``: its sequence mixing has no segment mask, as in JAX;
+    nor does cross (image keys are not packed). Any other sub-layer kind
+    raises ``ValueError``, as JAX's does.
+
+    cross runs in mode "train" whatever ``mode`` is, without a cache, as
+    JAX's does. Without ``image_embeds`` JAX's ``apply_attention`` gets
+    no ``kv_source`` and so runs causal self-attention with RoPE over the
+    text with the cross weights (and during decode over the current token
+    alone, having no cache); the port does the same (ROADMAP.md reference
+    caveat 14)."""
     h = L.rmsnorm(x, p["norm"], cfg.rms_eps)
     aux = None
     if sub == "attn":
         y, cache = _attention(cfg)[1](p, cfg, h, positions, mode, cache,
                                       cache_index, segment_ids, rules=rules,
                                       mesh=mesh)
+    elif sub == "cross":
+        y, _ = L.apply_attention(p, cfg, h, positions, "train", rules=rules,
+                                 mesh=mesh, kv_source=image_embeds)
     elif sub == "moe":
         y, aux = L.apply_moe(p, cfg, h)
     elif sub == "mamba":
@@ -95,14 +114,18 @@ def superblock_layout(cfg: ModelConfig, kind: str) -> tuple:
         return (("attn", "attn"), ("ffn", "moe"))
     if kind == "ssm":
         return (("mamba", "mamba"),)
+    if kind == "vlm":
+        out = [("cross", "cross"), ("cross_ffn", "mlp")]
+        for i in range(1, cfg.cross_attn_every):
+            out += [(f"attn{i}", "attn"), (f"ffn{i}", "mlp")]
+        return tuple(out)
     if kind == "hybrid":
         out = [("attn", "attn"), ("ffn0", "mlp")]
         for i in range(1, cfg.hybrid_period):
             out.append((f"mamba{i}", "mamba"))
             out.append((f"ffn{i}", "moe" if i % 2 == 1 else "mlp"))
         return tuple(out)
-    raise NotImplementedError(f"super-block kind {kind!r} is not yet ported "
-                              "to repro_torch (ROADMAP.md Queue 1 item 13e)")
+    raise ValueError(kind)
 
 
 def superblock_spec(cfg: ModelConfig, kind: str) -> dict:
@@ -165,9 +188,10 @@ def _remat(cfg: ModelConfig, fn):
 
 def apply_superblock(kind: str, cfg: ModelConfig, params, x, positions,
                      mode: str, cache: Optional[dict], cache_index,
-                     segment_ids=None, rules=None, mesh=None):
+                     segment_ids=None, image_embeds=None, rules=None,
+                     mesh=None):
     """-> (x, new_cache, aux): aux sums the MoE sub-layers' (None without
-    one)."""
+    one). ``image_embeds`` (B, T, D) reach the cross sub-layers."""
     new_cache = dict(cache) if cache is not None else None
     aux = None
     for name, sub in superblock_layout(cfg, kind):
@@ -175,7 +199,8 @@ def apply_superblock(kind: str, cfg: ModelConfig, params, x, positions,
                                         and sub in _CACHED) else None
         x, sub_cache, a = _apply_sub(sub, params[name], cfg, x, positions,
                                      mode, sub_cache, cache_index,
-                                     segment_ids, rules=rules, mesh=mesh)
+                                     segment_ids, rules=rules, mesh=mesh,
+                                     image_embeds=image_embeds)
         if new_cache is not None and sub in _CACHED:
             new_cache[name] = sub_cache
         if a is not None:
@@ -188,7 +213,7 @@ def apply_superblock(kind: str, cfg: ModelConfig, params, x, positions,
 
 def apply_segment(kind: str, n_blocks: int, cfg: ModelConfig, stacked, x,
                   positions, mode: str, cache, cache_index, segment_ids=None,
-                  rules=None, mesh=None):
+                  image_embeds=None, rules=None, mesh=None):
     """Run ``n_blocks`` super-blocks over stacked params (and cache).
 
     -> (x, new_cache, aux), aux the sum of the layers' (None for a segment
@@ -197,9 +222,9 @@ def apply_segment(kind: str, n_blocks: int, cfg: ModelConfig, stacked, x,
     qk_rope_dim); Mamba2: its fixed-size states, (L, B, dconv-1,
     conv_dim) and (L, B, nh, N, hd)); decode writes the stacked cache in
     place and returns it; train returns None. ``segment_ids`` (packed
-    rows) is a tensor argument of each remat block, so a recomputed
-    forward masks as the first did. ``rules`` and ``mesh``: see
-    ``model.forward``.
+    rows) and ``image_embeds`` (the VLM's) are tensor arguments of each
+    remat block, so a recomputed forward masks and attends as the first
+    did. ``rules`` and ``mesh``: see ``model.forward``.
     """
     layers = _unbind(stacked, n_blocks)
     auxs = []
@@ -210,14 +235,15 @@ def apply_segment(kind: str, n_blocks: int, cfg: ModelConfig, stacked, x,
             block = _remat(cfg, block)
         for p in layers:
             x, _, aux = block(p, x, positions, mode, None, cache_index,
-                              segment_ids)
+                              segment_ids, image_embeds)
             auxs.append(aux)
         return x, None, _sum_aux(auxs)
     outs = []
     for l, p in enumerate(layers):
         x, c, aux = apply_superblock(kind, cfg, p, x, positions, mode,
                                      _layer(cache, l), cache_index,
-                                     segment_ids, rules=rules, mesh=mesh)
+                                     segment_ids, image_embeds, rules=rules,
+                                     mesh=mesh)
         outs.append(c)
         auxs.append(aux)
     if mode == "decode":

@@ -5,6 +5,11 @@ The cache keeps the JAX layout, (L, B, max_seq, K, hd) per segment, and
 the decode step writes it IN PLACE: the returned ``ServeState`` holds the
 same cache tensors it was given. ``index`` is a 0-d int32 tensor on the
 device, so a decode step never waits for the host.
+
+The VLM's prefill and decode take ``image_embeds`` (B, T, D); its cross
+sub-layers keep no cache and recompute their keys and values from them
+at every step, as JAX does. An audio model's prompts are (B, C, S), its
+decode tokens (B, C, 1) and its logits (B, C, 1, V).
 """
 from __future__ import annotations
 
@@ -32,18 +37,20 @@ def _merge(full: dict, pre: dict) -> None:
 
 
 def make_prefill_step(cfg, max_seq: int):
-    """prefill(params, tokens) -> (ServeState, last_logits (B, 1, V)).
+    """prefill(params, tokens[, image_embeds]) -> (ServeState, last_logits
+    (B, 1, V); audio (B, C, 1, V)).
 
     The cache is sized ``max_seq`` so decode can continue in place. Runs
     on the device of ``tokens``.
     """
 
     @torch.no_grad()
-    def prefill_step(params, tokens):
-        B, S = tokens.shape
+    def prefill_step(params, tokens, image_embeds=None):
+        B, S = tokens.shape[0], tokens.shape[-1]
         cache = init_cache(cfg, B, max_seq, device=tokens.device)
-        hidden, pre_cache, _ = forward(params, cfg, tokens, mode="prefill",
-                                       cache=cache)
+        hidden, pre_cache, _ = forward(params, cfg, tokens,
+                                       image_embeds=image_embeds,
+                                       mode="prefill", cache=cache)
         _merge(cache, pre_cache)
         logits = logits_from_hidden(params, cfg, hidden[:, -1:])
         index = torch.tensor(S, dtype=torch.int32, device=tokens.device)
@@ -53,11 +60,13 @@ def make_prefill_step(cfg, max_seq: int):
 
 
 def make_decode_step(cfg):
-    """decode(params, state, tokens) -> (state, logits). tokens (B, 1)."""
+    """decode(params, state, tokens[, image_embeds]) -> (state, logits).
+    tokens (B, 1); audio (B, C, 1)."""
 
     @torch.no_grad()
-    def decode_step(params, state: ServeState, tokens):
-        hidden, cache, _ = forward(params, cfg, tokens, mode="decode",
+    def decode_step(params, state: ServeState, tokens, image_embeds=None):
+        hidden, cache, _ = forward(params, cfg, tokens,
+                                   image_embeds=image_embeds, mode="decode",
                                    cache=state.cache,
                                    cache_index=state.index)
         logits = logits_from_hidden(params, cfg, hidden)
@@ -79,6 +88,13 @@ def greedy_generate(cfg, params, prompt, n_steps: int, max_seq: int,
 
     ``prompt`` (B, S) int tokens (tensor or array); ``params`` must live on
     ``device`` (default ``cuda``). Returns (B, n_steps) int32 tokens.
+
+    As JAX's, it passes no image embeddings (a VLM's cross sub-layers then
+    run causal self-attention over the text). For an audio prompt (B, C,
+    S) it takes ``logits[:, -1]``, the last codebook's (B, 1, V), as JAX's
+    does: each next token is (B, 1, 1), every codebook of the next step
+    embeds it (``models.model._embed``), and the result is (B, n_steps,
+    1).
 
     ``logger``: an optional :class:`repro_torch.obs.MetricsLogger`. Prefill
     and decode latencies then go through the training metrics plane, as

@@ -2,8 +2,8 @@
 the registry, shapes and counts of the full-size configurations (from the
 specs alone, nothing allocated; deepseek-v3-671b's against JAX's nameplate
 bounds too), the paper's memory accounting on dbrx-132b, a forward and a training step of the four dense ``SMOKE``
-twins, and the launcher's ``--smoke`` (dbrx-132b, mamba2-370m and
-jamba-1.5-large-398b).
+twins, and the launcher's ``--smoke`` (dbrx-132b, mamba2-370m,
+jamba-1.5-large-398b, llama-3.2-vision-11b and musicgen-medium).
 
 Inputs come from JAX's ``init_params`` and data pipeline, crossed over as
 numpy through ``load_flat``; torch runs on one intra-op thread. Tolerances
@@ -48,9 +48,11 @@ from repro_torch.training import init_state, make_train_step  # noqa: E402
 
 PORTED = ("qwen2-7b", "granite-3-8b", "deepseek-67b", "mistral-large-123b",
           "dbrx-132b", "deepseek-v3-671b", "mamba2-370m",
-          "jamba-1.5-large-398b")
+          "jamba-1.5-large-398b", "llama-3.2-vision-11b", "musicgen-medium")
 DENSE = PORTED[:4]
-UNPORTED = ("llama-3.2-vision-11b", "musicgen-medium")
+# the last two families ported (the VLM and audio), which raised "not yet
+# ported" before them
+LAST_PORTED = ("llama-3.2-vision-11b", "musicgen-medium")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -75,8 +77,9 @@ def _ulp(x):
 # ------------------------------------------------------------ registry
 
 def test_ported_and_unported_ids_partition_arch_ids():
+    """Every ``ARCH_IDS`` entry is ported: none is left unported."""
     assert treg.ARCH_IDS == jreg.ARCH_IDS
-    assert set(PORTED) | set(UNPORTED) == set(jreg.ARCH_IDS)
+    assert set(PORTED) == set(jreg.ARCH_IDS)
     assert set(treg._MODULES) == set(PORTED)
 
 
@@ -92,11 +95,17 @@ def test_get_arch_matches_jax_field_by_field(arch, smoke):
     assert treg.get_arch(arch, smoke=smoke).n_layers == j.n_layers
 
 
-@pytest.mark.parametrize("arch", UNPORTED)
+@pytest.mark.parametrize("arch", LAST_PORTED)
 def test_unported_ids_raise(arch):
+    """The two ids that raised "not yet ported" until the VLM and audio
+    families were ported now give JAX's config, with and without
+    ``smoke``; only an id outside the registry raises."""
     for smoke in (False, True):
-        with pytest.raises(KeyError, match="not yet ported"):
-            treg.get_arch(arch, smoke=smoke)
+        got = treg.get_arch(arch, smoke=smoke)
+        assert dataclasses.asdict(got) == dataclasses.asdict(
+            jreg.get_arch(arch, smoke=smoke))
+    with pytest.raises(KeyError, match="unknown arch"):
+        treg.get_arch(arch + "-x")
 
 
 @pytest.mark.parametrize("arch", PORTED)
@@ -143,6 +152,20 @@ def test_param_shapes_and_counts_match_jax(arch):
         assert shapes["segments/seg0_hybrid/mamba7/in_proj"] == (9, 8192,
                                                                  33280)
         assert "segments/seg0_hybrid/ffn7/router" in shapes
+    elif arch == "llama-3.2-vision-11b":
+        # 8 vlm super-blocks of 5: cross-attention + MLP, then 4 x
+        # (self-attention + MLP); the cross sub-layer has no bias
+        assert t.num_params() == 9_775_157_248
+        assert shapes["segments/seg0_vlm/cross/wk"] == (8, 4096, 8 * 128)
+        assert shapes["segments/seg0_vlm/attn4/wq"] == (8, 4096, 32 * 128)
+        assert "segments/seg0_vlm/ffn4/w_down" in shapes
+        assert t.active_params() == t.num_params()
+    elif arch == "musicgen-medium":
+        # 4 codebooks: a (C, V, D) embedding and (C, D, V) heads
+        assert t.num_params() == 1_837_254_144
+        assert shapes["tok_embed/w"] == (4, 2048, 1536)
+        assert shapes["lm_head/w"] == (4, 1536, 2048)
+        assert t.active_params() == t.num_params()
     else:
         assert t.active_params() == t.num_params()
 
@@ -228,6 +251,27 @@ def test_launcher_smoke_jamba_loss_falls():
              "1", "--optimizer", "scale_fused", "--lr", "1e-2"])
     out = buf.getvalue()
     assert "arch=jamba-1.5-large-398b-smoke" in out
+    losses = [float(line.split()[3]) for line in out.splitlines()
+              if line.startswith("step ")]
+    assert len(losses) == 8 and abs(losses[-1] - final) <= 5e-5
+    assert np.isfinite(losses).all()
+    assert np.mean(losses[-3:]) < losses[0] - 0.2, losses
+
+
+@pytest.mark.parametrize("arch", LAST_PORTED)
+def test_launcher_smoke_vlm_and_audio_loss_falls(arch):
+    """``python -m repro_torch.launch.train --arch <id> --smoke --device
+    cpu``: 8 steps of the VLM twin (with the data pipeline's image
+    embeddings) and of the audio twin (4 codebook heads) whose loss
+    falls."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        final = launch_train.main(
+            ["--arch", arch, "--smoke", "--device", "cpu", "--steps", "8",
+             "--batch", "4", "--seq", "32", "--log-every", "1",
+             "--optimizer", "scale_fused", "--lr", "1e-2"])
+    out = buf.getvalue()
+    assert f"arch={arch}-smoke" in out
     losses = [float(line.split()[3]) for line in out.splitlines()
               if line.startswith("step ")]
     assert len(losses) == 8 and abs(losses[-1] - final) <= 5e-5

@@ -32,12 +32,11 @@ def _cfg(**kw):
 
 def test_data_config_fields_match_jax():
     # the port keeps JAX's fields, in JAX's order and with their defaults,
-    # but those of the formats it has not ported (audio codebooks and
-    # image stubs, ROADMAP.md Queue 1 item 13), which come with them
-    unported = ("n_codebooks", "n_image_tokens", "d_model")
+    # the audio codebooks' and the image stubs' included
     jf = [(f.name, f.default) for f in dataclasses.fields(JD.DataConfig)]
     tf = [(f.name, f.default) for f in dataclasses.fields(TD.DataConfig)]
-    assert tf == [f for f in jf if f[0] not in unported]
+    assert tf == jf
+    assert ("n_codebooks", 0) in tf and ("n_image_tokens", 0) in tf
     assert ("pack_documents", False) in tf and ("min_doc_len", 8) in tf
 
 
@@ -108,7 +107,10 @@ def test_zipf_sampler_marginal_within_ks_bound():
 
 def test_make_dataset_matches_jax_and_unported_formats_raise():
     """The config matches JAX's, packed documents (ported: the layout is
-    JAX's bitwise) included; audio codebooks and image stubs raise."""
+    JAX's bitwise), audio codebooks and image stubs included; packing
+    with codebooks or image rows raises, as in JAX
+    (``tests/test_torch_vlm.py`` and ``tests/test_torch_musicgen.py``
+    hold the two formats' batches)."""
     jcfg = tiny_cfg("data", vocab_size=500)
     tcfg = tconfig.ModelConfig(**dataclasses.asdict(jcfg))
     j = JD.make_dataset(jcfg, seq_len=16, global_batch=4, seed=9)
@@ -126,5 +128,10 @@ def test_make_dataset_matches_jax_and_unported_formats_raise():
     for family, kw in (("audio", {"n_codebooks": 2}),
                        ("vlm", {"n_image_tokens": 4})):
         other = dataclasses.replace(tcfg, family=family, **kw)
-        with pytest.raises(NotImplementedError, match="item 13"):
-            TD.make_dataset(other, 16, 4, device="cpu")
+        jother = dataclasses.replace(jcfg, family=family, **kw)
+        got = TD.make_dataset(other, 16, 4, device="cpu")
+        jd = dataclasses.asdict(JD.make_dataset(jother, 16, 4).cfg)
+        assert dataclasses.asdict(got.cfg) == jd
+        with pytest.raises(ValueError, match="plain-text"):
+            TD.make_dataset(other, 16, 4, pack_documents=True,
+                            device="cpu").global_batch_at(0)

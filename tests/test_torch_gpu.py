@@ -168,6 +168,25 @@ GPU_CASES = {
     "prefill_jamba_gqa64x8_hd128": (4, 512, 512, 64, 8, 128, True, None),
     "decode_jamba_gqa64x8_kl512": (4, 1, 544, 64, 8, 128, False, 512),
     "decode_jamba_gqa64x8_kl543": (4, 1, 544, 64, 8, 128, False, 543),
+    # llama-3.2-vision-11b's cross-attention (phase 20): 4 x 1024 text
+    # queries over 4096 image keys, non-causal, 32 heads over 8 of 128; a
+    # decode step's one query over them with no kv_len; and its causal
+    # self-attention at the train batch
+    "cross_vlm_gqa32x8_1024x4096": (4, 1024, 4096, 32, 8, 128, False, None),
+    "cross_decode_vlm_t4096": (4, 1, 4096, 32, 8, 128, False, None),
+    "train_vlm_gqa32x8_hd128": (4, 1024, 1024, 32, 8, 128, True, None),
+    # its serving: the prefill's cross- and self-attention at 4 x 512 and
+    # the self-attention's first and last decode step (a cache of 512 + 32)
+    "prefill_cross_vlm_512x4096": (4, 512, 4096, 32, 8, 128, False, None),
+    "prefill_vlm_gqa32x8_hd128": (4, 512, 512, 32, 8, 128, True, None),
+    "decode_vlm_gqa32x8_kl512": (4, 1, 544, 32, 8, 128, False, 512),
+    "decode_vlm_gqa32x8_kl543": (4, 1, 544, 32, 8, 128, False, 543),
+    # musicgen-medium's (phase 21): 24 heads of 64, causal, at its train
+    # batch, its serving prefill and first and last decode step
+    "train_musicgen_h24_hd64": (4, 1024, 1024, 24, 24, 64, True, None),
+    "prefill_musicgen_h24_hd64": (4, 512, 512, 24, 24, 64, True, None),
+    "decode_musicgen_h24_kl512": (4, 1, 544, 24, 24, 64, False, 512),
+    "decode_musicgen_h24_kl543": (4, 1, 544, 24, 24, 64, False, 543),
 }
 
 
@@ -258,7 +277,20 @@ OPT_SHAPES = {"ragged_3x77x129": (3, 77, 129),
               "jamba_in_proj_1x8192x33280": (1, 8192, 33280),
               "jamba_out_proj_1x16384x8192": (1, 16384, 8192),
               "jamba_router_1x8192x4": (1, 8192, 4),
-              "jamba_head_1x8192x65536": (1, 8192, 65536)}
+              "jamba_head_1x8192x65536": (1, 8192, 65536),
+              # llama-3.2-vision-11b's (phase 20): the head, the
+              # embedding, and the leaves stacked over its 8 super-blocks
+              # (the MLPs', the self- and cross-attention's wq/wo, wk/wv)
+              "vlm_head_1x4096x128256": (1, 4096, 128256),
+              "vlm_embed_1x128256x4096": (1, 128256, 4096),
+              "vlm_w_gate_8x4096x14336": (8, 4096, 14336),
+              "vlm_w_down_8x14336x4096": (8, 14336, 4096),
+              "vlm_wq_8x4096x4096": (8, 4096, 4096),
+              "vlm_wk_8x4096x1024": (8, 4096, 1024),
+              # musicgen-medium's 4 codebook heads (one 3-D leaf in
+              # SCALE's momentum group) and 4 codebook embeddings
+              "musicgen_head_4x1536x2048": (4, 1536, 2048),
+              "musicgen_embed_4x2048x1536": (4, 2048, 1536)}
 # past this many elements the operands are drawn on the card (numpy would
 # take minutes) and the element-wise checks run one layer at a time (the
 # full-size temporaries of a check would not fit beside the operands)
@@ -635,6 +667,10 @@ XENT_CASES = {
     "deepseek_v3_head": (4096, 7168, 129280, 129280, 0.0),
     # jamba-1.5-large-398b's head (D 8192, V 65536), phase 19
     "jamba_head": (4096, 8192, 65536, 65536, 0.0),
+    # llama-3.2-vision-11b's head (D 4096, V 128256), phase 20, and one of
+    # musicgen-medium's 4 codebook heads (D 1536, V 2048), phase 21
+    "vlm_head": (4096, 4096, 128256, 128256, 0.0),
+    "musicgen_head": (4096, 1536, 2048, 2048, 0.0),
 }
 
 
@@ -986,6 +1022,11 @@ BWD_CASES = {
                                         None),
     # jamba-1.5-large-398b's at its train batch of 4 x 1024 (phase 19)
     "train_jamba_gqa64x8_hd128": (4, 1024, 1024, 64, 8, 128, True, None),
+    # llama-3.2-vision-11b's cross-attention (non-causal, 1024 queries over
+    # 4096 image keys) and self-attention, musicgen-medium's (phases 20-21)
+    "cross_vlm_gqa32x8_1024x4096": (4, 1024, 4096, 32, 8, 128, False, None),
+    "train_vlm_gqa32x8_hd128": (4, 1024, 1024, 32, 8, 128, True, None),
+    "train_musicgen_h24_hd64": (4, 1024, 1024, 24, 24, 64, True, None),
 }
 
 
@@ -2224,3 +2265,196 @@ def test_jamba_smoke_serving_on_card_matches_full_forward(cuda):
         h, _, _ = forward(params, cfg, toks)
         ref = logits_from_hidden(params, cfg, h)[:, -1]
     torch.testing.assert_close(logits[:, -1], ref, atol=2e-4, rtol=0)
+
+
+@pytest.mark.gpu
+def test_cross_attention_layer_on_card_routes_by_image_dtype(cuda):
+    """The VLM's cross sub-layer (bf16 weights, 2 heads over 1 of 128) on
+    the card against the same layer on the CPU: with f32 images its keys
+    and values are f32 and its q is promoted (ROADMAP.md caveat 13), so
+    the attention's forward and both backward kernels take the f32 fma
+    route; with bf16 images all three take mma. Output and gradients
+    within 2e-2 of their largest |ref| plus 2e-2 relative (bf16 products
+    and sums rounded at other places on each side)."""
+    from repro_torch.kernels.attention import attention as A
+    from repro_torch.models import layers as L
+    from repro_torch.models.config import ModelConfig
+    cfg = ModelConfig(family="vlm", n_layers=1, d_model=256, n_heads=2,
+                      n_kv_heads=1, head_dim=128, cross_attn_every=1,
+                      n_image_tokens=64)
+    rng = np.random.default_rng(3)
+    p = {k: torch.from_numpy(0.05 * rng.standard_normal(s.shape,
+                                                        dtype=np.float32))
+         .to(torch.bfloat16) for k, s in L.attn_spec(cfg, cross=True).items()}
+    x = torch.from_numpy(rng.standard_normal((2, 32, 256), dtype=np.float32)
+                         ).to(torch.bfloat16)
+    img = torch.from_numpy(0.5 * rng.standard_normal((2, 64, 256),
+                                                     dtype=np.float32))
+    fns = (A.mha_fwd, A.mha_bwd_dq, A.mha_bwd_dkv)
+
+    def run(device, images):
+        leaves = {k: v.to(device).requires_grad_() for k, v in p.items()}
+        xx = x.to(device).requires_grad_()
+        y, _ = L.apply_attention(leaves, cfg, xx,
+                                 torch.arange(32, device=device), "train",
+                                 kv_source=images.to(device))
+        grads = torch.autograd.grad(y.float().square().sum(),
+                                    [xx, *leaves.values()])
+        return y, grads
+
+    for images, route in ((img, "fma"), (img.to(torch.bfloat16), "mma")):
+        was = [dict(f.route_launches) for f in fns]
+        y, grads = run(cuda, images)
+        torch.cuda.synchronize()
+        for f, w in zip(fns, was):
+            assert f.route_launches == {**w, route: w[route] + 1}, f
+        y_cpu, grads_cpu = run("cpu", images)
+        assert y.dtype == torch.bfloat16
+        for got, want in zip((y, *grads), (y_cpu, *grads_cpu)):
+            assert got.dtype == want.dtype
+            got, want = got.float().cpu(), want.float()
+            tol = 2e-2 * want.abs().max() + 2e-2 * want.abs()
+            assert bool(((got - want).abs() <= tol).all())
+
+
+def _smoke_steps_on_card(cfg, monkeypatch, cuda, want):
+    """Two ``scale_fused`` steps (clip 1.0) of ``cfg`` through the kernels
+    (their launches ``want``, all on fma: the twins are f32) against the
+    same steps with every kernel through its plain version, from the same
+    params: each step's metrics within 1e-4 relative and finite, every
+    leaf within 1e-3 of its largest change plus 1e-7 (the Adam leaves
+    1e-2, ``test_jamba_smoke_train_steps_on_card_match_plain_route``'s
+    reason); the first step's loss within 1e-5 relative of the same step
+    on the CPU."""
+    from repro_torch.core import make_optimizer
+    from repro_torch.core.labels import LabelRules
+    from repro_torch.data import make_dataset
+    from repro_torch.kernels.attention import attention as A
+    from repro_torch.kernels.xent import xent as X
+    from repro_torch.models import init_params
+    from repro_torch.models.model import Params, flatten
+    from repro_torch.training import init_state, make_train_step
+    ds = make_dataset(cfg, 32, 4, seed=1, device=cuda)
+    batches = [ds.global_batch_at(i) for i in range(2)]
+    p0 = flatten(init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                             device=cuda))
+
+    def run(device=cuda):
+        tx = make_optimizer("scale_fused", 1e-2)
+        state = init_state(Params({k: p.to(device, copy=True)
+                                   for k, p in p0.items()}), tx)
+        step = make_train_step(cfg, tx, clip_norm=1.0)
+        mets = []
+        for b in batches:
+            state, m = step(state, {k: v.to(device) for k, v in b.items()})
+            mets.append(m)
+        return state, mets
+
+    fns = (A.mha_fwd, A.mha_bwd_dq, A.mha_bwd_dkv, X.xent_fwd, X.xent_bwd_dh,
+           X.xent_bwd_dw)
+    before = _train_counts()
+    routes = [dict(f.route_launches) for f in fns]
+    state, mets = run()
+    torch.cuda.synchronize()
+    after = _train_counts()
+    assert {k: after[k] - before[k] for k in after} == want
+    for f, was in zip(fns, routes):
+        n = want[f.__name__]
+        assert f.route_launches == {**was, "fma": was.get("fma", 0) + n}
+    with monkeypatch.context() as m:
+        _jamba_plain(m)
+        before = _train_counts()
+        ref_state, ref_mets = run()
+        assert _train_counts() == before  # no kernel on the plain route
+        _, cpu_mets = run("cpu")
+    for got, want_m in zip(mets, ref_mets):
+        for k in ("loss", "grad_norm", "update_norm"):
+            assert torch.isfinite(got[k])
+            torch.testing.assert_close(got[k], want_m[k], rtol=1e-4, atol=0)
+    torch.testing.assert_close(mets[0]["loss"].cpu(), cpu_mets[0]["loss"],
+                               rtol=1e-5, atol=0)
+    got, ref = flatten(state.params), flatten(ref_state.params)
+    for k, w in ref.items():
+        step = (w - p0[k]).abs().max().item()
+        adam = LabelRules().classify(k, w.ndim) == "vector"
+        assert (got[k] - w).abs().max().item() <= (
+            (1e-2 if adam else 1e-3) * step + 1e-7), k
+
+
+@pytest.mark.gpu
+def test_vlm_smoke_train_steps_on_card_match_plain_route(cuda, monkeypatch):
+    """llama-3.2-vision-11b's SMOKE twin (f32, two vlm super-blocks:
+    cross-attention over the data pipeline's 16 f32 image tokens + MLP,
+    then self-attention + MLP) through ``_smoke_steps_on_card``: per step
+    8 mha_fwd and 4 of each backward kernel (4 attention sub-layers, full
+    remat), one of each xent kernel, 15 norm_sumsq (tok_embed and the 14
+    stacked matrices), 16 update_apply, one momentum_sumsq."""
+    from repro_torch.configs import get_arch
+    cfg = get_arch("llama-3.2-vision-11b", smoke=True)
+    assert cfg.segments == (("vlm", 2),) and cfg.remat == "full"
+    _smoke_steps_on_card(cfg, monkeypatch, cuda, {
+        "mha_fwd": 16, "mha_bwd_dq": 8, "mha_bwd_dkv": 8, "xent_fwd": 2,
+        "xent_bwd_dh": 2, "xent_bwd_dw": 2, "norm_sumsq": 30,
+        "update_apply": 32, "momentum_sumsq": 2, "norm_apply": 0})
+
+
+@pytest.mark.gpu
+def test_musicgen_smoke_train_steps_on_card_match_plain_route(cuda,
+                                                              monkeypatch):
+    """musicgen-medium's SMOKE twin (f32, 2 layers, 4 codebooks) through
+    ``_smoke_steps_on_card``: per step 4 mha_fwd and 2 of each backward
+    kernel, each xent kernel 4 times (once a codebook head), 8 norm_sumsq
+    (the (4, 128, 128) embedding and the 7 stacked matrices), 9
+    update_apply, one momentum_sumsq on the (4, 128, 128) heads."""
+    from repro_torch.configs import get_arch
+    cfg = get_arch("musicgen-medium", smoke=True)
+    _smoke_steps_on_card(cfg, monkeypatch, cuda, {
+        "mha_fwd": 8, "mha_bwd_dq": 4, "mha_bwd_dkv": 4, "xent_fwd": 8,
+        "xent_bwd_dh": 8, "xent_bwd_dw": 8, "norm_sumsq": 16,
+        "update_apply": 18, "momentum_sumsq": 2, "norm_apply": 0})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "musicgen-medium"])
+def test_vlm_and_audio_smoke_serving_on_card_matches_full_forward(cuda,
+                                                                  arch):
+    """The VLM twin with 16 f32 image tokens a row, and the audio twin with
+    (B, 4, S) prompts and (B, 4, 1) decode tokens, served on the card:
+    prefill 24 positions, then 8 decode steps; the last logits against a
+    full forward within 2e-4 (f32 layers summed in other orders); every
+    attention call on a kernel (the prefill's on fma: f32; each decode
+    step's on decode, the VLM's cross-attention over the image keys with
+    no kv_len among them)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import forward, init_params, logits_from_hidden
+    from repro_torch.models.transformer import superblock_layout
+    from repro_torch.training import make_decode_step, make_prefill_step
+    cfg = get_arch(arch, smoke=True)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         device=cuda)
+    B, S, P = 2, 32, 24
+    C = (cfg.n_codebooks,) if cfg.family == "audio" else ()
+    rng = np.random.default_rng(2)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, *C, S),
+                                         dtype=np.int32)).to(cuda)
+    images = None
+    if cfg.family == "vlm":
+        images = torch.from_numpy(0.02 * rng.standard_normal(
+            (B, cfg.n_image_tokens, cfg.d_model), dtype=np.float32)).to(cuda)
+    n_attn = sum(n * sum(sub in ("attn", "cross") for _, sub in
+                         superblock_layout(cfg, kind))
+                 for kind, n in cfg.segments)
+    was = dict(mha_fwd.route_launches)
+    state, logits = make_prefill_step(cfg, max_seq=S)(params, toks[..., :P],
+                                                      images)
+    decode = make_decode_step(cfg)
+    for i in range(P, S):
+        state, logits = decode(params, state, toks[..., i:i + 1], images)
+    torch.cuda.synchronize()
+    assert mha_fwd.route_launches == {
+        **was, "fma": was["fma"] + n_attn,
+        "decode": was["decode"] + n_attn * (S - P)}
+    with torch.no_grad():
+        h, _, _ = forward(params, cfg, toks, image_embeds=images)
+        ref = logits_from_hidden(params, cfg, h)[..., -1, :]
+    torch.testing.assert_close(logits[..., -1, :], ref, atol=2e-4, rtol=0)

@@ -188,12 +188,11 @@ def test_superblock_train_forward_matches_jax(dtype):
 
 def test_apply_sub_raises_on_an_unknown_sub_layer():
     """JAX's ``_apply_sub`` raises ``ValueError(sub)`` for a kind it does
-    not know; the port's did run the MLP. The VLM's ``cross`` is not
-    ported yet."""
+    not know; the port's did run the MLP."""
     tcfg = _tcfg(_hybrid_cfg())
     x = torch.ones(1, 4, tcfg.d_model)
     p = {"norm": torch.ones(tcfg.d_model)}
-    for sub in ("cross", "ffn"):
+    for sub in ("crossattn", "ffn"):
         with pytest.raises(ValueError, match=sub):
             TT._apply_sub(sub, p, tcfg, x, torch.arange(4), "train", None,
                           None)
