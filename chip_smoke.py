@@ -5,7 +5,7 @@ NVIDIA H100.
     python3 chip_smoke.py [--seed N]
 
 Run from the root of a checkout. It builds the port's CUDA kernels with
-nvcc (one process per source, in parallel), then runs twenty-one phases and fails
+nvcc (one process per source, in parallel), then runs twenty-two phases and fails
 (non-zero exit, no result line) if any of them fails:
 
 1. device: the card's name and power limit, the kernels' ptxas report;
@@ -392,6 +392,27 @@ nvcc (one process per source, in parallel), then runs twenty-one phases and fail
    one head (D 1536, V 2048) and the optimizer kernels at its 3-D head
    and embedding. The kernels line gains the paths ``train musicgen``
    and ``serve musicgen``.
+22. MoE and MLA on a ("data", "model") mesh: (i) two ``gloo`` ranks on
+   cuda:0 (spawned, as phase 15 (ii)) on a (1, 2) mesh: dbrx-132b's MoE
+   layer at full width (d_model 6144, 16 experts top-4, moe_d_ff 10752;
+   16 x 256 tokens, 2 groups of 2048, capacity 640) and deepseek-v3's
+   (d_model 7168, 64 of its 256 experts top-8, moe_d_ff 2048, the shared
+   expert), 8 and 32 experts a rank through ``layers.moe_local`` with the
+   eager all-reduce, forward and backward: each rank's y, aux, d(x),
+   d(router), its experts' and the shared expert's gradients against its
+   slice of one rank's unsharded ``apply_moe``, in f32 within a stated
+   tolerance and in bf16 within twice its floor; the per-rank time of
+   the expert products and of the combine's all-reduce; MLA's attention
+   at the train shape (16 x 256, 128 heads, hd 192 / hdv 128) with its
+   heads over "model", each rank's 64 through the sharded
+   ``flash_attention`` on ``fma`` against its slice of the unsharded
+   call, and the three kernels' per-rank times beside their bounds and
+   SDPA on the same 64 heads; (ii) ``make_train_step(rules, mesh)`` on a
+   (1, 1) NCCL mesh at phase 16's dbrx cut and phase 17's deepseek-v3
+   cut, 3 steps each from the same weights and batches: each step's
+   launches by route as theirs, the losses and aux against theirs, step
+   time, idle share and peak beside theirs. The kernels line gains the
+   path ``train sharded moe`` and the two cuts' per-step launches.
 
 The line before the last is a JSON ``{"kernels": [...]}`` summary, the
 last line ``{"ok": true, "device": {...}}``. It needs a CUDA card and
@@ -5282,6 +5303,9 @@ SHARDED_STEPS = 3  # make_train_step steps on the (1, 1) NCCL mesh
 # and what is written in bf16 (dH, dW, theta) then rounds apart by at
 # most one bf16 ulp of the element's scale.
 TWO_RANK_LOSS_ATOL = 1e-4
+# seconds after which a rank of a two-rank job prints where it is and
+# exits (phase 15 (ii), phase 22 (i))
+TWO_RANK_LIMIT_S = {"sharded": 300, "moe": 420}
 
 
 def offset_counts():
@@ -5479,13 +5503,14 @@ def phase_sharded_kernels(torch, gen, power):
     return out, errs
 
 
-def _two_rank_worker(rank, port, seed, q):
-    """Phase 15 (ii), one of two ranks on cuda:0 under gloo."""
+def _two_rank_worker(rank, port, seed, q, task="sharded"):
+    """Phase 15 (ii) (``task`` "sharded") or 22 (i) ("moe"), one of two
+    ranks on cuda:0 under gloo."""
     import datetime
     import faulthandler
     import traceback
     # a rank that hangs prints where and exits
-    faulthandler.dump_traceback_later(300, exit=True)
+    faulthandler.dump_traceback_later(TWO_RANK_LIMIT_S[task], exit=True)
     sys.path.insert(0, str(ROOT / "src"))
     import torch
     import torch.distributed as dist
@@ -5499,7 +5524,9 @@ def _two_rank_worker(rank, port, seed, q):
         torch.cuda.set_device(0)
         torch.backends.cuda.matmul.allow_tf32 = False
         print(f"  rank {rank}: process group up", flush=True)
-        q.put((rank, "ok", _two_rank_checks(torch, rank, seed)))
+        checks = {"sharded": _two_rank_checks,
+                  "moe": _two_rank_moe_checks}[task]
+        q.put((rank, "ok", checks(torch, rank, seed)))
     except BaseException:
         q.put((rank, "error", traceback.format_exc()))
     finally:
@@ -5614,6 +5641,35 @@ def _scale_ops(dispatch, g, th, m, kind, lay):
     return [d, t, dm, t2, m2]
 
 
+def spawn_two_ranks(seed, task, wait_s):
+    """Two ranks of ``_two_rank_worker(..., task)`` on the one card, both
+    on cuda:0 under gloo. -> {rank: its result}, after both exited."""
+    import multiprocessing as mp
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=_two_rank_worker,
+                         args=(r, port, seed, q, task)) for r in range(2)]
+    atexit.register(_stop_procs, procs)
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    got = {}
+    for _ in procs:
+        rank, status, res = q.get(timeout=wait_s)
+        if status != "ok":
+            raise AssertionError(f"two ranks ({task}), rank {rank}:\n{res}")
+        got[rank] = res
+    for p in procs:
+        p.join(timeout=60)
+    print(f"  two ranks (gloo, both on cuda:0) in "
+          f"{time.perf_counter() - t0:.1f} s, spawn and imports included")
+    return got
+
+
 def phase_two_ranks(torch, seed, power):
     """Phase 15 (ii): two ranks on the one card (gloo, both on cuda:0):
     the sharded ``dispatch.xent_loss`` forward and backward at llama-1b's
@@ -5624,29 +5680,7 @@ def phase_two_ranks(torch, seed, power):
     unsharded on the rank. -> the launches of both ranks on the sharded
     calls, summed (the unsharded calls they are held against count
     none)."""
-    import multiprocessing as mp
-    import socket
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
-    ctx = mp.get_context("spawn")
-    q = ctx.Queue()
-    procs = [ctx.Process(target=_two_rank_worker, args=(r, port, seed, q))
-             for r in range(2)]
-    atexit.register(_stop_procs, procs)
-    t0 = time.perf_counter()
-    for p in procs:
-        p.start()
-    got = {}
-    for _ in procs:
-        rank, status, res = q.get(timeout=400)
-        if status != "ok":
-            raise AssertionError(f"phase 15 (ii) rank {rank}:\n{res}")
-        got[rank] = res
-    for p in procs:
-        p.join(timeout=60)
-    print(f"  two ranks (gloo, both on cuda:0) in "
-          f"{time.perf_counter() - t0:.1f} s, spawn and imports included")
+    got = spawn_two_ranks(seed, "sharded", 400)
     for rank, res in sorted(got.items()):
         for tag, r in res["loss"].items():
             print(f"  rank {rank} xent_loss {tag} on (1, 2), plan tokens "
@@ -5815,9 +5849,9 @@ def moe_tap(torch, taps):
     from repro_torch.models import layers as L
     real = L.apply_moe
 
-    def tapped(p, cfg, h):
+    def tapped(p, cfg, h, **kw):
         taps.append(moe_routing(torch, cfg, p, h))
-        return real(p, cfg, h)
+        return real(p, cfg, h, **kw)
     return mock.patch.object(L, "apply_moe", tapped)
 
 
@@ -7306,6 +7340,457 @@ def phase_musicgen(torch, seed, power):
     return {"train": train, "serve": serve}
 
 
+# ----------------------------------- phase 22: MoE and MLA on a mesh
+
+MESH_TOKENS = (16, 256)  # the two-rank layers' batch: phases 16-17's
+# Phase 22 (i) holds each rank's MoE layer (``layers.moe_local`` over its
+# half of the experts, the combine's partial outputs and the dispatch's
+# and combine's partial gradients summed by the eager all-reduce) against
+# its slice of one rank's unsharded ``apply_moe`` on the same tensors. Both
+# route alike (the same router product of the same tokens), so f32 differs
+# only where a sum is split: the combine's two partials, the two partial
+# d(x) and d(top_w), and the expert products batched over half the experts,
+# which cuBLAS may sum in another order: MESH_F32_TOL of each tensor's
+# largest |ref| + MESH_F32_TOL relative (tests/test_torch_moe.py's f32
+# bound). In bf16 each tensor's distance from one rank's bf16 layer is
+# held within SERVE_BF16_FLOOR_X times its floor, phase 16's rule: the
+# distance of that layer from its f32 twin (the same bf16-rounded weights
+# and tokens in f32).
+MESH_F32_TOL = 1e-5
+MESH_AUX_W = 1.0  # the aux's weight in the checked objective
+MESH_TIMING_ITERS = 5
+# MLA's attention at the train shape with its 128 heads over "model": each
+# rank runs 64 through the sharded flash_attention (fma), against its slice
+# of the unsharded call: the kernels run each head alone, so bitwise is
+# expected; phase 2's bf16 attention bound (2e-2 + 2e-2 |ref|) is checked
+MESH_ATTN_TOL = 2e-2
+
+
+def _err_over_tol(got, want):
+    """max |got - want| / (MESH_F32_TOL * (max |want| + |want|))."""
+    want = want.float()
+    tol = MESH_F32_TOL * (want.abs().max() + want.abs())
+    return ((got.float() - want).abs() / tol).max().item()
+
+
+def _in_turns(torch, rank, fn):
+    """fn() on one of two ranks at a time (the other waits), its result on
+    that rank: a peak of memory, or a time, of one rank alone."""
+    import torch.distributed as dist
+    res = None
+    for turn in range(2):
+        dist.barrier()
+        if turn == rank:
+            res = fn()
+            torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return res
+
+
+def _moe_layer_two_ranks(torch, rank, seed, mesh, cfg):
+    """Phase 22 (i), one rank's MoE layer of ``cfg`` at full width on a (1,
+    2) mesh: f32 and bf16 against one rank's unsharded layer, and the
+    per-rank times of the expert products and of the all-reduce."""
+    import torch.distributed as dist
+    from repro_torch.models import layers as L
+    B, S = MESH_TOKENS
+    D, E = cfg.d_model, cfg.n_experts
+    G, Tg, C = L.moe_groups(cfg, B * S)
+    El = E // 2
+    e0, e1 = rank * El, (rank + 1) * El
+    bf = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    # one draw rounded to bf16: the f32 and the bf16 layers hold one value
+    w = {n: ((0.006 if s.init == "small" else 0.02) * torch.randn(
+        s.shape, generator=gen, device="cuda")).to(bf)
+        for n, s in L.moe_spec(cfg).items()}
+    x = torch.randn((B, S, D), generator=gen, device="cuda").to(bf)
+    r = torch.randn((B, S, D), generator=gen, device="cuda")
+    red = L.moe_reduce(mesh, ("model",), ())
+    experts = ("w_gate", "w_up", "w_down")
+    shared = [n for n in w if n.startswith("shared_")]
+
+    def grads_of(y, aux, xt, leaves):
+        g = torch.autograd.grad((y.float() * r).sum() + MESH_AUX_W * aux,
+                                [xt, *leaves.values()])
+        return {"y": y.detach(), "aux": aux.detach(),
+                **dict(zip(["x", *leaves], g))}
+
+    def sharded(dt):
+        """This rank's layer: its experts through moe_local and the
+        all-reduce; the shared expert whole on each rank."""
+        leaves = {n: (w[n][e0:e1] if n in experts else w[n]).to(dt)
+                  .detach().requires_grad_() for n in w}
+        xt = x.to(dt).detach().requires_grad_()
+        y, aux = L.moe_local(leaves, cfg, xt.reshape(G, Tg, D), (e0, e1),
+                             red)
+        y = y.reshape(B, S, D)
+        if shared:
+            y = y + L.shared_experts(leaves, xt)
+        return grads_of(y, aux, xt, leaves)
+
+    def whole(dt):
+        """One rank's unsharded apply_moe; its experts' gradients cut to
+        this rank's slice."""
+        leaves = {n: v.to(dt).detach().requires_grad_()
+                  for n, v in w.items()}
+        xt = x.to(dt).detach().requires_grad_()
+        out = grads_of(*L.apply_moe(leaves, cfg, xt), xt, leaves)
+        for n in experts:
+            out[n] = out[n][e0:e1].clone()
+        return out
+
+    def in_turns(fn):
+        return _in_turns(torch, rank, fn)
+
+    out = {"shape": {"G": G, "Tg": Tg, "C": C, "experts": (e0, e1)}}
+    got = sharded(torch.float32)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    f32 = in_turns(lambda: whole(torch.float32))
+    out["f32_err_over_tol"] = {k: _err_over_tol(got[k], f32[k])
+                               for k in f32}
+    out["own_widths"] = {n: tuple(got[n].shape) for n in experts}
+    del got
+    torch.cuda.empty_cache()
+    got = sharded(bf)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    def bf16_errs():
+        want = whole(bf)
+        res = {}
+        for k, ref in want.items():
+            floor = (ref.float() - f32[k].float()).abs().max().item()
+            err = (got[k].float() - ref.float()).abs().max().item()
+            res[k] = {"err": err, "floor": floor,
+                      "over_bound": err / (SERVE_BF16_FLOOR_X * floor)
+                      if floor else (0.0 if err == 0 else math.inf)}
+        return res
+    out["bf16"] = in_turns(bf16_errs)
+    del got, f32
+    torch.cuda.empty_cache()
+
+    # per-rank times, bf16: this rank's expert products on its (G, E/2, C,
+    # D) buffer, forward and backward, each rank alone; then the combine's
+    # all-reduce of a (G, Tg, D) partial, both ranks
+    mine = {n: w[n][e0:e1].detach().requires_grad_() for n in experts}
+    xe = torch.randn((G, El, C, D), generator=gen, device="cuda").to(
+        bf).requires_grad_()
+
+    def products():
+        h = (torch.nn.functional.silu(torch.einsum(
+            "gecd,edf->gecf", xe, mine["w_gate"]))
+            * torch.einsum("gecd,edf->gecf", xe, mine["w_up"]))
+        ye = torch.einsum("gecf,efd->gecd", h, mine["w_down"])
+        torch.autograd.grad(ye, [xe, *mine.values()], ye)
+
+    out["experts_ms"] = in_turns(lambda: time_ms(
+        torch, products, MESH_TIMING_ITERS, warm=2))
+    part = torch.randn((G, Tg, D), generator=gen, device="cuda").to(bf)
+    group = mesh.get_group("model")
+    ms = []
+    for _ in range(MESH_TIMING_ITERS + 1):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.all_reduce(part, group=group)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    out["all_reduce_ms"] = min(ms[1:])
+    out["all_reduce_bytes"] = part.numel() * part.element_size()
+    del w, mine, xe, part
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mla_attention_two_ranks(torch, rank, seed, mesh):
+    """Phase 22 (i), MLA's attention at deepseek-v3's train shape with its
+    heads over "model": this rank's 64 heads through the sharded
+    flash_attention (forward and backward, counted) against its slice of
+    the unsharded call, then the three kernels' per-rank times beside
+    their bounds and SDPA on the same 64 heads, each rank alone."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.attention.attention import (_fwd_route,
+                                                         mha_bwd_dkv,
+                                                         mha_bwd_dq, mha_fwd)
+    from repro_torch.models.sharding import NamedSharding, P, place
+    bf = torch.bfloat16
+    B, S, T, H, K, hd, hdv = MLA_ATTN[MLA_TRAIN_ATTN]
+    gen = torch.Generator(device="cuda").manual_seed(seed + 22)
+    q, k, v = make_qkv(torch, gen, B, S, T, H, K, hd, bf, hdv)
+    do = torch.randn((B, S, H, hdv), generator=gen, device="cuda").to(bf)
+    kw = dict(scale=hd ** -0.5, causal=True)
+    sh = NamedSharding(mesh, P(None, None, "model", None))
+    plan = dispatch.attn_route(q.shape, k.shape, sh, sh)[1]
+    zero_train_counts()
+    zero_route_counts()
+    qd, kd, vd = (place(t, sh).detach().requires_grad_() for t in (q, k, v))
+    o = dispatch.flash_attention(qd, kd, vd, q_sharding=sh, kv_sharding=sh,
+                                 **kw)
+    got = [o] + list(torch.autograd.grad(o, [qd, kd, vd], place(do, sh)))
+    got = [t.to_local() for t in got]
+    torch.cuda.synchronize()
+    launches, routes = train_counts(), route_counts()
+
+    def one_rank():
+        qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+        ref = dispatch.flash_attention(qs, ks, vs, **kw)
+        return [ref] + list(torch.autograd.grad(ref, [qs, ks, vs], do))
+    want = [place(t, sh).to_local() for t in _uncounted(one_rank)]
+    errs = {}
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+        tol = MESH_ATTN_TOL * (1 + b.float().abs())
+        errs[name] = {"over_tol": ((a.float() - b.float()).abs()
+                                   / tol).max().item(),
+                      "bitwise": bool(torch.equal(a, b))}
+    Hl = got[0].shape[2]
+    ql, kl, vl, dol = (place(t, sh).to_local().contiguous()
+                       for t in (q, k, v, do))
+
+    def timing():
+        o_l, lse = mha_fwd(ql, kl, vl, None, **kw)
+        delta = (dol.float() * o_l.float()).sum(-1).transpose(1, 2) \
+            .contiguous()
+        args = (ql, kl, vl, dol, lse, delta, None)
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (ql, kl, vl))
+        backend, ctx = _sdpa_backend(torch, qt, kt, vt)
+        rows = {}
+        with ctx():
+            so = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                scale=kw["scale"])
+            sdpa = {"mha_fwd": time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, scale=kw["scale"]), 5, warm=2)}
+            sdpa["bwd"] = time_ms(torch, lambda: torch.autograd.grad(
+                so, [qt, kt, vt], dol.transpose(1, 2), retain_graph=True),
+                5, warm=2)
+        for name, fn in (("mha_fwd", lambda: mha_fwd(ql, kl, vl, None, **kw)),
+                         ("mha_bwd_dq", lambda: mha_bwd_dq(*args, **kw)),
+                         ("mha_bwd_dkv", lambda: mha_bwd_dkv(*args, **kw))):
+            ms = time_ms(torch, fn, 5, warm=2)
+            bound, by = (attention_bound_ms(B, S, T, Hl, Hl, hd, True, None,
+                                            2, hdv) if name == "mha_fwd"
+                         else bwd_bound_ms(B, S, T, Hl, Hl, hd, True, None,
+                                           2, name, hdv))
+            rows[name] = {"ms": ms, "bound_ms": bound, "bound_by": by,
+                          "sdpa_ms": sdpa["mha_fwd" if name == "mha_fwd"
+                                          else "bwd"],
+                          "sdpa_backend": backend}
+        return rows
+    rows = _in_turns(torch, rank, lambda: _uncounted(timing))
+    return {"plan": (plan.batch_axes, plan.head_axes), "heads": Hl,
+            "route": _fwd_route(ql, kl, vl), "launches": launches,
+            "routes": routes, "errs": errs, "times": rows}
+
+
+def _two_rank_moe_checks(torch, rank, seed):
+    """Rank ``rank``'s part of phase 22 (i) on a (1, 2) mesh: dbrx-132b's
+    and deepseek-v3's MoE layers at full width (phase 17's 64 experts)
+    through ``layers.moe_local`` with the eager all-reduce, and MLA's
+    attention with its heads over "model"."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(1, 2, device_type="cuda")
+    print(f"  rank {rank}: mesh up", flush=True)
+    out = {}
+    for arch, over in ((MOE_ARCH, {}),
+                       (MLA_ARCH, {"n_experts": MLA_TRAIN_EXPERTS})):
+        cfg = dataclasses.replace(get_arch(arch), **over)
+        out[arch] = _moe_layer_two_ranks(torch, rank, seed, mesh, cfg)
+        print(f"  rank {rank}: {arch}'s MoE layer done", flush=True)
+    out["mla"] = _mla_attention_two_ranks(torch, rank, seed, mesh)
+    print(f"  rank {rank}: MLA's attention done", flush=True)
+    return out
+
+
+def phase_mesh_two_ranks(torch, seed, power):
+    """Phase 22 (i): two ranks on the one card, each rank's results
+    printed and checked. -> the two ranks' launches on the sharded
+    attention, summed."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks
+    got = spawn_two_ranks(seed, "moe", 900)
+    for arch, over in ((MOE_ARCH, {}),
+                       (MLA_ARCH, {"n_experts": MLA_TRAIN_EXPERTS})):
+        cfg = dataclasses.replace(get_arch(arch), **over)
+        for rank, res in sorted(got.items()):
+            r = res[arch]
+            sh = r["shape"]
+            f32 = r["f32_err_over_tol"]
+            worst16 = max(v["over_bound"] for v in r["bf16"].values())
+            print(f"  rank {rank} {arch} MoE layer (d_model {cfg.d_model}, "
+                  f"{cfg.n_experts} experts top-{cfg.top_k}, moe_d_ff "
+                  f"{cfg.moe_d_ff}, {cfg.n_shared_experts} shared; "
+                  f"{MESH_TOKENS[0]} x {MESH_TOKENS[1]} tokens: {sh['G']} "
+                  f"groups of {sh['Tg']}, capacity {sh['C']}) experts "
+                  f"{sh['experts']} (widths {r['own_widths']}): f32 error "
+                  f"over tolerance ({MESH_F32_TOL:g} of max|ref| + "
+                  f"{MESH_F32_TOL:g} relative) "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in f32.items()))
+            print(f"    bf16 error / floor: " + ", ".join(
+                f"{k} {v['err']:.3e} / {v['floor']:.3e}"
+                for k, v in r["bf16"].items())
+                + f"; worst over {SERVE_BF16_FLOOR_X:g} x floor "
+                f"{worst16:.3f}")
+            print(f"  [{power}] rank {rank} {arch}: its expert products "
+                  f"(forward and backward, bf16, {cfg.n_experts // 2} "
+                  f"experts) {r['experts_ms']:.3f} ms alone; the combine's "
+                  f"all-reduce of {r['all_reduce_bytes'] / 2**20:.1f} MiB "
+                  f"over gloo {r['all_reduce_ms']:.3f} ms (host clock)")
+            if not (max(f32.values()) <= 1.0 and worst16 <= 1.0):
+                raise AssertionError(f"rank {rank}: {arch}'s sharded MoE "
+                                     "layer disagrees with one rank's")
+            if r["own_widths"]["w_gate"][0] != cfg.n_experts // 2:
+                raise AssertionError(f"rank {rank}: {arch}'s experts are "
+                                     "not half on each rank")
+    launches = {}
+    for rank, res in sorted(got.items()):
+        m = res["mla"]
+        worst = max(e["over_tol"] for e in m["errs"].values())
+        bitwise = all(e["bitwise"] for e in m["errs"].values())
+        print(f"  rank {rank} MLA attention {MLA_TRAIN_ATTN}, plan batch "
+              f"{m['plan'][0]} x heads {m['plan'][1]}: {m['heads']} heads a "
+              f"rank on {m['route']}; out, dQ, dK, dV against one rank's "
+              f"slice: worst error over tolerance {worst:.3f}"
+              f"{', bitwise' if bitwise else ''}; launches {m['launches']}")
+        if m["times"]:
+            for name, t in m["times"].items():
+                print(f"  [{power}] rank {rank} {name} at {m['heads']} of "
+                      f"128 heads: {t['ms']:.4f} ms (bound "
+                      f"{t['bound_ms']:.4f} ms by {t['bound_by']}, "
+                      f"{t['bound_ms'] / t['ms']:.4f} of it); "
+                      f"F.scaled_dot_product_attention "
+                      f"({t['sdpa_backend']}"
+                      f"{'' if name == 'mha_fwd' else ', backward'}) on "
+                      f"the same heads {t['sdpa_ms']:.4f} ms")
+        if not (worst <= 1.0 and m["route"] == "fma"
+                and m["plan"] == ((), ("model",))):
+            raise AssertionError(f"rank {rank}: the sharded MLA attention "
+                                 "disagrees with one rank's")
+        for k, n in m["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    return launches
+
+
+def phase_mesh_train(torch, seed, power, moe_train, mla_train):
+    """Phase 22 (ii): ``make_train_step(rules, mesh)`` on a (1, 1) NCCL
+    mesh at phase 16's dbrx-132b cut and phase 17's deepseek-v3 cut, from
+    their weights and batches: each step's launches by route as those
+    phases', the losses and aux against theirs, the step time, idle share
+    and peak beside theirs."""
+    import dataclasses
+    import socket
+    import torch.distributed as dist
+    from repro_torch.configs import get_arch
+    from repro_torch.core import linear_warmup_cosine, make_optimizer
+    from repro_torch.data import make_dataset
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import init_params
+    from repro_torch.models.model import place_params
+    from repro_torch.models.sharding import Rules
+    from repro_torch.training import init_state, make_train_step
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    out = {}
+    try:
+        mesh = make_host_mesh(1, 1, device_type="cuda")
+        cuts = ((MOE_ARCH, dataclasses.replace(get_arch(MOE_ARCH),
+                                               n_layers=MOE_LAYERS),
+                 MOE_STEPS, "mma", 6, moe_train),
+                (MLA_ARCH, dataclasses.replace(
+                    get_arch(MLA_ARCH), n_layers=MLA_LAYERS,
+                    n_experts=MLA_TRAIN_EXPERTS), MLA_STEPS, "fma", 18,
+                 mla_train))
+        for arch, cfg, steps, route, n_mat, ref in cuts:
+            torch.cuda.empty_cache()
+            B, S = MESH_TOKENS
+            ds = make_dataset(cfg, S, B, seed=seed, device="cuda")
+            batches = [ds.global_batch_at(i) for i in range(steps)]
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            tx = make_optimizer("scale_fused",
+                                linear_warmup_cosine(1e-3, steps))
+            params = place_params(init_params(cfg, gen, device="cuda"), cfg,
+                                  mesh)
+            step = make_train_step(cfg, tx, clip_norm=1.0, rules=Rules(),
+                                   mesh=mesh)
+            state = init_state(params, tx)
+            del params
+            state, per_step, per_route, secs, mets, peak = _step_counts(
+                torch, step, state, batches)
+            launches = train_counts()
+            want, want_r = train_want(cfg.n_layers, route, n_mat)
+            label = f"{arch} on a (1, 1) mesh"
+            _check_steps(per_step, per_route, want, want_r, label)
+            losses = [m["loss"] for m in mets]
+            auxs = [m["aux"] for m in mets]
+            gap = max(max(abs(a - b), abs(x - y)) for a, b, x, y in
+                      zip(losses, ref["losses"], auxs, ref["aux"]))
+            same = losses == ref["losses"] and auxs == ref["aux"]
+            step_s = min(secs[1:])
+            lay = str(tuple(state.params["segments"][
+                f"seg{len(cfg.segments) - 1}_moe"]["ffn"]["w_gate"]
+                .placements))
+            print(f"  {label} (parameters DTensors; the 4-D expert leaves "
+                  f"{lay}): losses {' '.join(f'{x:.6f}' for x in losses)}, "
+                  f"aux {' '.join(f'{x:.6f}' for x in auxs)}; unsharded "
+                  f"(phase {16 if arch == MOE_ARCH else 17}) "
+                  f"{' '.join(f'{x:.6f}' for x in ref['losses'])}, aux "
+                  f"{' '.join(f'{x:.6f}' for x in ref['aux'])} (max |diff| "
+                  f"{gap:.3e}{', bitwise' if same else ''}; tol "
+                  f"{LOSS_CURVE_ATOL:g})")
+            if not (all(map(math.isfinite, losses + auxs))
+                    and gap <= LOSS_CURVE_ATOL):
+                raise AssertionError(f"{label}: the steps leave the "
+                                     "unsharded curve")
+
+            def one():
+                nonlocal state
+                state, _ = step(state, batches[0])
+            busy, _ = moe_profile(torch, power, one, step_s * 1e3,
+                                  f"{label} train step")
+            idle = None if busy is None else 1 - busy / (step_s * 1e3)
+            print(f"  [{power}] {label}: train step {step_s * 1e3:.3f} ms "
+                  f"(best of steps 2-{steps}), idle share "
+                  f"{'not measured' if idle is None else f'{idle:.3f}'}, "
+                  f"peak {peak / 2**20:.1f} MiB; unsharded "
+                  f"{ref['step_ms']:.3f} ms, idle share "
+                  f"{ref['idle_share'] if ref['idle_share'] is None else round(ref['idle_share'], 3)}, "
+                  f"peak {ref['peak_mib']:.1f} MiB")
+            del state, step, tx
+            torch.cuda.empty_cache()
+            out[arch] = {"launches": launches, "per_step": per_step[0],
+                         "routes": per_route[0], "losses": losses,
+                         "aux": auxs, "loss_gap": gap, "bitwise": same,
+                         "step_ms": step_s * 1e3, "idle_share": idle,
+                         "busy_ms": busy, "peak_mib": peak / 2**20}
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_mesh(torch, seed, power, moe, mla):
+    """Phase 22: MoE and MLA on a mesh: (i) two ranks on the one card, (ii)
+    the sharded train steps of phases 16's and 17's cuts on a (1, 1) mesh.
+    The path's launches: (i)'s sharded attention and (ii)'s steps, each
+    from counts set to 0 just before it."""
+    t0 = time.perf_counter()
+    launches = phase_mesh_two_ranks(torch, seed, power)
+    train = phase_mesh_train(torch, seed, power, moe["train"], mla["train"])
+    for r in train.values():
+        for k, n in r["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    print(f"  phase 22 took {time.perf_counter() - t0:.1f} s")
+    return {"launches": launches, "train": train}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7425,6 +7910,11 @@ def main() -> int:
     say("phase 21: the audio musicgen-medium: training and serving at full "
         "width and all 48 layers")
     musicgen = phase_musicgen(torch, args.seed, power)
+    say("phase 22: MoE and MLA on a mesh: two ranks on the card (dbrx-132b's "
+        "and deepseek-v3's MoE layers at full width, MLA's attention with "
+        "its heads over model), the sharded train steps of phases 16's and "
+        "17's cuts")
+    mesh = phase_mesh(torch, args.seed, power, moe, mla)
     # one row per kernel; launches summed over the main paths that run it,
     # each counted from 0 just before its path and read just after
     by_path = {"serving": {"mha_fwd": serve["launches"]},
@@ -7481,7 +7971,12 @@ def main() -> int:
                # musicgen-medium's training (4 codebook heads: each xent
                # kernel 4 times a step) and serving
                "train musicgen": musicgen["train"]["launches"],
-               "serve musicgen": {"mha_fwd": musicgen["serve"]["launches"]}}
+               "serve musicgen": {"mha_fwd": musicgen["serve"]["launches"]},
+               # two ranks on the card (MLA's attention, its heads over
+               # model, forward and backward; the MoE layers launch no
+               # kernel) and the sharded train steps of dbrx-132b's and
+               # deepseek-v3's cuts
+               "train sharded moe": mesh["launches"]}
     # mha_fwd's prefill numbers, with both serving shapes and the eval and
     # training steps' shape beside them
     mha = {k: v for k, v in mha_rows[0].items() if k != "shape"}
@@ -7541,6 +8036,8 @@ def main() -> int:
                          (f"{VLM_ARCH} {VLM_BLOCKS * 5} layers, bf16 images",
                           vlm["bf16_images"]),
                          (MUSICGEN_ARCH, musicgen["train"]),
+                         *((f"{a} cut on a (1, 1) mesh", r)
+                           for a, r in mesh["train"].items()),
                          *((f"{a} {ARCH_LAYERS} layers", r)
                            for a, r in moe["arch"].items()))}
         if row["name"] in SEG_ROWS.values():
@@ -7562,7 +8059,7 @@ def main() -> int:
                               and name == "norm_apply"):
                 raise AssertionError(f"{name} was not launched on the "
                                      f"{path} path")
-    say("all twenty-one phases passed")
+    say("all twenty-two phases passed")
     print(power)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

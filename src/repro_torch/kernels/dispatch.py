@@ -62,6 +62,8 @@ from repro_torch.models.sharding import (NamedSharding, P, full_value,
                                          is_dtensor, lay_out, mesh_axes,
                                          placements, spec_mesh_axes, spec_of,
                                          wrap)
+from repro_torch.models.sharding import all_reduce as _all_reduce
+from repro_torch.models.sharding import shard_index as _shard_index
 
 from .attention import attention as _attn
 from .attention.attention import mha_bwd_dkv, mha_bwd_dq, mha_fwd
@@ -114,29 +116,6 @@ def _ref_on_card(op: str, layout, *xs) -> None:
             f"{op}: the sharded layout {layout} has no kernel plan (the JAX "
             "package's 'ref' route); the port runs no plain version on the "
             "card")
-
-
-def _all_reduce(x, mesh, axes, op=None):
-    """``x`` all-reduced in place over the mesh ``axes`` (one axis after
-    another; axes of one rank skipped): JAX's psum/pmax."""
-    sizes = mesh_axes(mesh)
-    for a in axes:
-        if sizes[a] > 1:
-            dist.all_reduce(x, op=op or dist.ReduceOp.SUM,
-                            group=mesh.get_group(a))
-    return x
-
-
-def _shard_index(mesh, axes) -> int:
-    """This rank's index along ``axes`` major to minor (JAX's
-    ``axis_index`` folded in that order, and DTensor's split of a dim over
-    mesh dims)."""
-    sizes = mesh_axes(mesh)
-    coord = dict(zip(sizes, mesh.get_coordinate()))
-    idx = 0
-    for a in axes:
-        idx = idx * sizes[a] + coord[a]
-    return idx
 
 
 def _fault_gate(op: str) -> None:

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import math
 import warnings
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -23,7 +23,9 @@ from torch.profiler import record_function
 from repro_torch.kernels import dispatch
 
 from .config import ModelConfig
-from .sharding import Rules
+from .sharding import (Rules, axes_size, gather, grad_psum, is_dtensor,
+                       lay_out, pmean, psum, scatter, shard, shard_index,
+                       spec_mesh_axes, spec_of, wrap)
 
 
 class Spec(NamedTuple):
@@ -271,10 +273,22 @@ def apply_mla_attention(p, cfg: ModelConfig, x, positions, mode: str = "train",
     (``_mla_absorbed``). ``segment_ids``: as ``apply_attention`` (train
     and prefill; decode raises). The profiler sees the projections as the
     span ``mla_proj`` and the absorbed decode as ``mla_decode``.
+
+    ``mesh`` (train and prefill; x and ``p`` DTensors laid out per
+    ``rules``): JAX's layouts. The latents ``cq``, ``c_kv`` and ``k_rope``
+    take their "lora" / None axes (replicated over "model"); ``wq_b`` and
+    ``wkv_b`` give per-head columns and ``wo``'s rows sum over the heads'
+    axes. q_full, k_full and vv are laid out per ("act_batch", None,
+    "act_heads", None), the shared rope key head expanded to each rank's
+    heads after its layout is fixed (``_shared_head``), and the attention
+    takes ``dispatch.flash_attention``'s sharded plan. Decode on a mesh
+    (sharded serving) raises ``NotImplementedError`` before any work.
     """
     if mode == "decode" and segment_ids is not None:
         raise ValueError("apply_mla_attention: segment_ids are not taken in "
                          "decode (decode serves one document per row)")
+    if mode == "decode" and mesh is not None:
+        raise NotImplementedError(MLA_DECODE_ON_A_MESH)
     B, S, D = x.shape
     H = cfg.n_heads
     qn, qr, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
@@ -310,14 +324,53 @@ def apply_mla_attention(p, cfg: ModelConfig, x, positions, mode: str = "train",
             # the latents expanded to per-head keys and values
             kv = (c_kv @ p["wkv_b"]).reshape(B, S, H, qn + vd)
             k_nope, vv = kv[..., :qn], kv[..., qn:]
-            k_full = torch.cat([k_nope, k_rope.expand(B, S, H, qr)], -1)
+            if mesh is None:
+                k_rope_h = k_rope.expand(B, S, H, qr)
+            else:
+                k_rope_h = _shared_head(k_rope, H, rules, mesh)
+            k_full = torch.cat([k_nope, k_rope_h], -1)
             q_full = torch.cat([q_nope, q_rope], -1)
+            if mesh is not None:
+                q_full = shard(q_full, ("act_batch", "act_seq", "act_heads",
+                                        None), rules, mesh)
+                k_full = shard(k_full, ("act_batch", None, "act_heads",
+                                        None), rules, mesh)
+                vv = shard(vv, ("act_batch", None, "act_heads", None), rules,
+                           mesh)
         seg = None if segment_ids is None else (segment_ids, segment_ids)
         out = causal_blockwise_attention(q_full, k_full, vv, scale,
                                          segments=seg, rules=rules, mesh=mesh)
     with record_function("mla_proj"):
         y = out.reshape(B, S, H * vd) @ p["wo"]
     return y, new_cache
+
+
+MLA_DECODE_ON_A_MESH = (
+    "apply_mla_attention: decode on a mesh (the absorbed decode over a "
+    "sequence-sharded latent cache) is sharded serving, not ported yet; "
+    "ROADMAP.md Queue 1 item 12 (its leftovers)")
+
+
+def _shared_head(k_rope, H: int, rules: Rules, mesh):
+    """MLA's one rope key head (B, S, 1, qr) expanded to the H query heads
+    on a mesh, laid out per ("act_batch", None, "act_heads", None): each
+    rank expands its local rows to its own heads, with no communication.
+    The gradient of a rank's heads sums over them into a partial sum of
+    the one head, summed over the head axes on the way back (the partial
+    sum XLA makes of JAX's broadcast; DTensor's own route would gather the
+    H-head gradient)."""
+    from torch.distributed.tensor import Partial
+    B, S, _, qr = k_rope.shape
+    head = rules.sharding(("act_batch", None, "act_heads", None), mesh,
+                          (B, S, H, qr))
+    one = lay_out(k_rope, rules.sharding(("act_batch", None, None, None),
+                                         mesh, k_rope.shape))
+    heads = spec_mesh_axes(head.spec, 4)[2]
+    grad = tuple(Partial() if name in heads else pl for name, pl in
+                 zip(mesh.mesh_dim_names, one.placements))
+    local = one.to_local(grad_placements=grad)
+    n = H // axes_size(mesh, heads)
+    return wrap(local.expand(local.shape[0], S, n, qr), head, (B, S, H, qr))
 
 
 def _mla_absorbed(p, cfg: ModelConfig, q_nope, q_rope, ckv, krope, kv_len,
@@ -382,16 +435,22 @@ def moe_spec(cfg: ModelConfig) -> dict:
     return s
 
 
+def moe_capacity(cfg: ModelConfig, Tg: int) -> int:
+    """Each expert's capacity C in a group of ``Tg`` tokens, in JAX's
+    Python arithmetic."""
+    C = max(1, int(cfg.capacity_factor * Tg * cfg.top_k / cfg.n_experts))
+    return min(C, Tg)
+
+
 def moe_groups(cfg: ModelConfig, T: int) -> tuple:
     """(G, Tg, C) of ``T`` tokens: G groups of Tg (the largest G <= T //
     moe_group_size that divides T, at least 1) and each expert's capacity
-    C per group, in JAX's Python arithmetic."""
+    C per group (``moe_capacity``), in JAX's Python arithmetic."""
     G = max(1, T // cfg.moe_group_size)
     while T % G:
         G -= 1
     Tg = T // G
-    C = max(1, int(cfg.capacity_factor * Tg * cfg.top_k / cfg.n_experts))
-    return G, Tg, min(C, Tg)
+    return G, Tg, moe_capacity(cfg, Tg)
 
 
 def top_k(x: torch.Tensor, k: int):
@@ -406,12 +465,13 @@ def moe_route(p, cfg: ModelConfig, xg):
     """The routing of ``xg`` (G, Tg, D) -> (probs, top_w, top_i, pos, keep):
     the f32 router softmax (G, Tg, E), the normalised top-k weights and
     experts (G, Tg, k), each (token, choice) pair's slot in its expert's
-    capacity and whether that slot is below C. The router logits are cast
-    to f32 after their product, and the slots count token-major and
-    choice-minor, as in JAX."""
+    capacity and whether that slot is below C (``moe_capacity`` of Tg, so
+    a rank's share of the groups routes as the whole does). The router
+    logits are cast to f32 after their product, and the slots count
+    token-major and choice-minor, as in JAX."""
     E, k = cfg.n_experts, cfg.top_k
     G, Tg, _ = xg.shape
-    C = moe_groups(cfg, G * Tg)[2]
+    C = moe_capacity(cfg, Tg)
     probs = torch.softmax((xg @ p["router"]).float(), -1)
     top_w, top_i = top_k(probs, k)                            # (G, Tg, k)
     top_w = top_w / top_w.sum(-1, keepdim=True)
@@ -420,7 +480,102 @@ def moe_route(p, cfg: ModelConfig, xg):
     return probs, top_w, top_i, pos, pos < C
 
 
-def apply_moe(p, cfg: ModelConfig, x):
+def _same(x):
+    return x
+
+
+class MoEReduce(NamedTuple):
+    """The collectives of an expert-parallel MoE layer (``moe_local``),
+    each the identity on one rank (``MOE_LOCAL``): ``expert_sum`` sums the
+    combine's partial outputs over the ranks that split the experts (its
+    gradient passes through); ``expert_grad_sum`` passes a replicated
+    operand through and sums the partial gradients those ranks form from
+    it; ``group_mean`` averages the ranks' means over the ranks that split
+    the groups (the load-balance loss's two means)."""
+    expert_sum: Callable = _same
+    expert_grad_sum: Callable = _same
+    group_mean: Callable = _same
+
+
+MOE_LOCAL = MoEReduce()
+
+
+def moe_reduce(mesh, expert_axes, group_axes) -> MoEReduce:
+    """The collectives of ``moe_local`` on ``mesh``: eager all-reduces over
+    the groups of ``expert_axes`` (the ranks that split the experts) and
+    ``group_axes`` (those that split the groups), inside autograd
+    functions (``sharding.psum``, ``grad_psum``, ``pmean``)."""
+    return MoEReduce(lambda t: psum(t, mesh, expert_axes),
+                     lambda t: grad_psum(t, mesh, expert_axes),
+                     lambda t: pmean(t, mesh, group_axes))
+
+
+def moe_local(p, cfg: ModelConfig, xg, experts=None,
+              reduce: MoEReduce = MOE_LOCAL):
+    """One rank's part of the MoE layer: the routed experts ``experts`` =
+    (e0, e1) of E (default all) on groups ``xg`` (G_l, Tg, D). -> (y
+    (G_l, Tg, D), aux).
+
+    ``p`` holds the whole router (D, E) and the experts' slices (e1 - e0,
+    D, F) and (e1 - e0, F, D). Every rank routes its groups in full
+    (``moe_route`` over all E experts, so the routing and the load-balance
+    loss are the same on every rank that holds the groups), keeps the
+    dispatch and combine masks' columns of its own experts, forms its
+    (G_l, e1 - e0, C, D) buffer and runs its experts on it. ``reduce``
+    (``MoEReduce``) makes the sums across ranks: the combine's partial y
+    (forward), the dispatch's partial d(xg) and the combine's partial
+    d(top_w) (backward); the router's gradient and the routing part of
+    d(xg) are then whole on every rank, and the aux gradient counted once.
+    ``aux`` = E * sum_e me_e * pe_e takes each mean over all the groups
+    (``reduce.group_mean``) before the product. The einsums run in xg's
+    dtype, as in JAX; the spans are ``apply_moe``'s."""
+    E = cfg.n_experts
+    e0, e1 = (0, E) if experts is None else experts
+    G, Tg, D = xg.shape
+    C = moe_capacity(cfg, Tg)
+    dt = xg.dtype
+
+    with record_function("moe_router"):
+        probs, top_w, top_i, pos, keep = moe_route(p, cfg, xg)
+        # load-balancing aux loss (Switch): E * sum_e f_e * P_e
+        me = reduce.group_mean(
+            F.one_hot(top_i[..., 0], E).float().mean((0, 1)))
+        aux = E * (me * reduce.group_mean(probs.mean((0, 1)))).sum()
+
+    with record_function("moe_dispatch"):
+        # a dropped pair's slot C is one past the last class: an all-zero
+        # row, as jax.nn.one_hot gives it
+        keep_f = keep.to(dt)
+        oh_c = F.one_hot(torch.where(keep, pos, C), C + 1)[..., :C].to(dt)
+        oh_e = F.one_hot(top_i, E)[..., e0:e1].to(dt)      # (G, t, k, El)
+        # the weighted combine mask, and the 0/1 dispatch mask
+        top_w = reduce.expert_grad_sum(top_w)
+        mask_c = torch.einsum("gtke,gtkc->gtec",
+                              oh_e * (top_w.to(dt) * keep_f)[..., None],
+                              oh_c)
+        mask_d = torch.einsum("gtke,gtkc->gtec", oh_e * keep_f[..., None],
+                              oh_c)
+        xe = torch.einsum("gtec,gtd->gecd", mask_d,
+                          reduce.expert_grad_sum(xg))      # (G, El, C, D)
+
+    with record_function("moe_experts"):
+        h = (F.silu(torch.einsum("gecd,edf->gecf", xe, p["w_gate"]))
+             * torch.einsum("gecd,edf->gecf", xe, p["w_up"]))
+        ye = torch.einsum("gecf,efd->gecd", h, p["w_down"])
+
+    with record_function("moe_combine"):
+        y = reduce.expert_sum(torch.einsum("gtec,gecd->gtd", mask_c, ye))
+    return y, aux
+
+
+def shared_experts(p, x):
+    """The shared experts' SwiGLU, which every token takes."""
+    return F.silu(x @ p["shared_gate"]) * (x @ p["shared_up"]) \
+        @ p["shared_down"]
+
+
+def apply_moe(p, cfg: ModelConfig, x, rules: Optional[Rules] = None,
+              mesh=None):
     """Capacity-based token-dropping MoE with group-local dispatch
     (GShard-style), JAX's ``apply_moe``. -> (y, aux).
 
@@ -433,48 +588,121 @@ def apply_moe(p, cfg: ModelConfig, x):
     E * sum_e f_e * P_e (f32; f from the first choice only). The einsums
     run in x's dtype, as in JAX. The profiler sees the parts as the spans
     ``moe_router``, ``moe_dispatch``, ``moe_experts`` and ``moe_combine``.
+
+    ``mesh`` (x and ``p`` DTensors laid out per ``rules``): expert
+    parallelism (``_apply_moe_sharded``); y is laid out as x, aux
+    replicated.
     """
+    if mesh is not None:
+        return _apply_moe_sharded(p, cfg, x, rules or Rules(
+            cfg.rule_overrides), mesh)
     B, S, D = x.shape
-    E = cfg.n_experts
     T = B * S
-    G, Tg, C = moe_groups(cfg, T)
-    xg = x.reshape(G, Tg, D)
-
-    with record_function("moe_router"):
-        probs, top_w, top_i, pos, keep = moe_route(p, cfg, xg)
-        # load-balancing aux loss (Switch): E * sum_e f_e * P_e
-        me = F.one_hot(top_i[..., 0], E).float().mean((0, 1))
-        aux = E * (me * probs.mean((0, 1))).sum()
-
-    with record_function("moe_dispatch"):
-        # a dropped pair's slot C is one past the last class: an all-zero
-        # row, as jax.nn.one_hot gives it
-        keep_f = keep.to(x.dtype)
-        oh_c = F.one_hot(torch.where(keep, pos, C), C + 1)[..., :C].to(
-            x.dtype)
-        oh_e = F.one_hot(top_i, E).to(x.dtype)                # (G, t, k, E)
-        # the weighted combine mask, and the 0/1 dispatch mask
-        mask_c = torch.einsum("gtke,gtkc->gtec",
-                              oh_e * (top_w.to(x.dtype) * keep_f)[..., None],
-                              oh_c)
-        mask_d = torch.einsum("gtke,gtkc->gtec", oh_e * keep_f[..., None],
-                              oh_c)
-        xe = torch.einsum("gtec,gtd->gecd", mask_d, xg)       # (G, E, C, D)
-
-    with record_function("moe_experts"):
-        h = (F.silu(torch.einsum("gecd,edf->gecf", xe, p["w_gate"]))
-             * torch.einsum("gecd,edf->gecf", xe, p["w_up"]))
-        ye = torch.einsum("gecf,efd->gecd", h, p["w_down"])
-
-    with record_function("moe_combine"):
-        y = torch.einsum("gtec,gecd->gtd", mask_c, ye).reshape(T, D)
-
+    G, Tg, _ = moe_groups(cfg, T)
+    y, aux = moe_local(p, cfg, x.reshape(G, Tg, D))
+    y = y.reshape(T, D)
     if cfg.n_shared_experts:
         with record_function("moe_experts"):
-            xf = x.reshape(T, D)
-            hs = F.silu(xf @ p["shared_gate"]) * (xf @ p["shared_up"])
-            y = y + hs @ p["shared_down"]
+            y = y + shared_experts(p, x.reshape(T, D))
     return y.reshape(B, S, D), aux
+
+
+def _moe_layout_error(what: str):
+    return NotImplementedError(
+        f"apply_moe on a mesh: {what}; the expert-parallel route takes "
+        "tokens over the groups' axes (or replicated), experts over "
+        "'act_experts', the embed dim of the expert leaves and the router "
+        "over any axes (gathered), and nothing else sharded")
+
+
+def _apply_moe_sharded(p, cfg: ModelConfig, x, rules: Rules, mesh):
+    """Expert parallelism: ``moe_local`` on this rank's groups and experts.
+
+    The layout is read off ``rules`` at the global shapes, as JAX's
+    annotations are: the groups (G, Tg, D) over ``act_moe_group``, the
+    experts of the (G, E, C, D) buffer over ``act_experts``. G, Tg and C
+    are the global token count's. Where G does not divide over the group
+    axes the groups are replicated: every rank gathers x and routes all T
+    tokens, and cuts its rows back out; where x is replicated and the
+    groups are not, every rank takes its groups. Where E does not divide
+    over the expert axes every rank holds every expert and no combine sum
+    runs. The router and the expert leaves are gathered over the axes that
+    shard their embed dim (an FSDP gather; the gradient is summed over the
+    group axes and cut back), never over the expert axes. The shared
+    experts run as an MLP on the DTensors (``apply_mlp``'s layout: "mlp"
+    over "model"). A layout the route cannot take raises
+    ``NotImplementedError`` naming it.
+    """
+    from torch.distributed.tensor import DTensor, Replicate
+    if not is_dtensor(x):
+        raise _moe_layout_error("x is a plain tensor, not a DTensor")
+    B, S, D = x.shape
+    # the layer's input as JAX annotates it (a pending partial sum summed)
+    x = lay_out(x, rules.sharding(("act_batch", "act_seq", "act_embed"),
+                                  mesh, x.shape))
+    E = cfg.n_experts
+    G, Tg, C = moe_groups(cfg, B * S)
+    # the (G, E, C, D) buffer's layout: its groups are those of the (G,
+    # Tg, D) tokens, its experts those of the expert leaves
+    g_axes, e_axes, _, emb = spec_mesh_axes(rules.spec(
+        ("act_moe_group", "act_experts", None, "act_embed"), mesh,
+        (G, E, C, D)), 4)
+    if emb:
+        raise _moe_layout_error(f"the embed dim over {emb}")
+    x_axes = spec_mesh_axes(spec_of(x).spec, 3)
+    if x_axes[1] or x_axes[2] or set(x_axes[0]) & set(e_axes):
+        raise _moe_layout_error(f"x laid out {x_axes}")
+    b_axes = x_axes[0]
+
+    def leaf(name, e_dim, embed_dim, f_dim):
+        """The leaf's local part, gathered whole over its embed dim."""
+        w = p[name]
+        axes = spec_mesh_axes(spec_of(w).spec, w.ndim) if is_dtensor(w) \
+            else ((),) * w.ndim
+        if (e_dim is not None and axes[e_dim] != e_axes) or (
+                e_dim is None and axes[1]) or (
+                f_dim is not None and axes[f_dim]):
+            raise _moe_layout_error(f"{name} laid out {axes} with the "
+                                    f"experts over {e_axes}")
+        local = w.to_local() if is_dtensor(w) else w
+        return gather(local, mesh, axes[embed_dim], embed_dim, g_axes)
+
+    pl = {"router": leaf("router", None, 0, None),
+          "w_gate": leaf("w_gate", 0, 1, 2),
+          "w_up": leaf("w_up", 0, 1, 2),
+          "w_down": leaf("w_down", 0, 2, 1)}
+    M = axes_size(mesh, e_axes)
+    El = E // M
+    if pl["w_gate"].shape[0] != El:
+        raise _moe_layout_error(f"{El} experts a rank, the leaves hold "
+                                f"{pl['w_gate'].shape[0]}")
+    r = shard_index(mesh, e_axes)
+
+    xl = x.to_local()
+    if b_axes == g_axes:
+        xg = xl.reshape(-1, Tg, D)
+    elif not b_axes:        # x replicated: each rank takes its groups
+        xg = scatter(xl.reshape(G, Tg, D), mesh, g_axes, 0)
+    elif not g_axes:        # the groups replicated: every rank routes all
+        xg = gather(xl, mesh, b_axes, 0).reshape(G, Tg, D)
+    else:
+        raise _moe_layout_error(f"tokens over {b_axes}, groups over "
+                                f"{g_axes}")
+    y, aux = moe_local(pl, cfg, xg, (r * El, (r + 1) * El),
+                       moe_reduce(mesh, e_axes, g_axes))
+    if b_axes == g_axes:
+        y = y.reshape(xl.shape)
+    elif not b_axes:
+        y = gather(y, mesh, g_axes, 0).reshape(B, S, D)
+    else:
+        y = scatter(y.reshape(B, S, D), mesh, b_axes, 0)
+    y = wrap(y, spec_of(x), x.shape)
+    aux = DTensor.from_local(aux, mesh, (Replicate(),) * mesh.ndim,
+                             run_check=False)
+    if cfg.n_shared_experts:
+        with record_function("moe_experts"):
+            y = y + shared_experts(p, x)
+    return y, aux
 
 
 # ------------------------------------------------------------------- Mamba2

@@ -128,16 +128,17 @@ def count_params(shapes: dict, cfg: ModelConfig = None,
     return total
 
 
-def check_mesh(cfg: ModelConfig, mesh, what: str) -> None:
-    """Raise before any work where ``cfg`` has no sharded route on a mesh:
-    an MoE segment (expert parallelism over "model" is not ported; a
-    DTensor einsum would silently replicate the experts), MLA attention
-    (its latents and absorbed decode have no sharded layout yet), an
-    ssm segment (Mamba2's head-sharded SSD is not ported), a hybrid
-    segment (it holds both MoE and Mamba2), a vlm segment (the image
-    embeddings and the cross-attention have no sharded layout yet) or
-    the audio family (its (C, V, D) embedding and (C, D, V) heads have
-    none either)."""
+def check_mesh(cfg: ModelConfig, mesh, what: str,
+               mode: str = "train") -> None:
+    """Raise before any work where ``cfg`` has no sharded route on a mesh
+    in ``mode``: an ssm segment (Mamba2's head-sharded SSD is not ported),
+    a hybrid segment (it holds Mamba2), a vlm segment (the image
+    embeddings and the cross-attention have no sharded layout yet), the
+    audio family (its (C, V, D) embedding and (C, D, V) heads have none
+    either) and MLA in mode decode (the absorbed decode over a
+    sequence-sharded latent cache is sharded serving). An moe segment
+    (expert parallelism over "model": ``layers.apply_moe``) and MLA in
+    modes train and prefill run sharded."""
     if mesh is None:
         return
     if any(k == "vlm" for k, _ in cfg.segments):
@@ -151,21 +152,14 @@ def check_mesh(cfg: ModelConfig, mesh, what: str) -> None:
             "not ported yet; ROADMAP.md Queue 1 item 12 (its leftovers)")
     if any(k == "hybrid" for k, _ in cfg.segments):
         raise NotImplementedError(
-            f"{what}: a hybrid segment on a mesh needs sharded MoE (expert "
-            "parallelism over 'model') and sharded Mamba2, neither ported "
-            "yet; ROADMAP.md Queue 1 item 12 (its leftovers)")
+            f"{what}: a hybrid segment on a mesh needs sharded Mamba2, not "
+            "ported yet; ROADMAP.md Queue 1 item 12 (its leftovers)")
     if any(k == "ssm" for k, _ in cfg.segments):
         raise NotImplementedError(
             f"{what}: Mamba2 (an ssm segment) on a mesh is not ported yet; "
             "ROADMAP.md Queue 1 item 12 (its leftovers)")
-    if any(k == "moe" for k, _ in cfg.segments):
-        raise NotImplementedError(
-            f"{what}: sharded MoE (expert parallelism over 'model') is not "
-            "ported yet; ROADMAP.md Queue 1 item 12 (its leftovers)")
-    if cfg.attention_kind == "mla":
-        raise NotImplementedError(
-            f"{what}: MLA attention on a mesh is not ported yet; ROADMAP.md "
-            "Queue 1 item 12 (its leftovers)")
+    if cfg.attention_kind == "mla" and mode == "decode":
+        raise NotImplementedError(f"{what}: {L.MLA_DECODE_ON_A_MESH}")
 
 
 class Params(nn.ModuleDict):
@@ -294,10 +288,12 @@ def forward(params, cfg: ModelConfig, tokens, *, image_embeds=None,
     ``rules``, default ``Rules(cfg.rule_overrides)``): the activations
     are laid out per their logical axes (``sharding.shard``, as JAX's
     annotations), attention takes the shardings of its operands, and
-    plain tensors (positions, masks) count as replicated. An MoE, MLA,
-    Mamba2, hybrid, vlm or audio model raises on a mesh (``check_mesh``).
+    plain tensors (positions, masks) count as replicated. The MoE layer
+    runs expert-parallel (``layers.apply_moe``) and MLA per JAX's head
+    layouts in modes train and prefill. A Mamba2, hybrid, vlm or audio
+    model, and MLA in mode decode, raise on a mesh (``check_mesh``).
     """
-    check_mesh(cfg, mesh, "forward")
+    check_mesh(cfg, mesh, "forward", mode)
     rules = rules or Rules(cfg.rule_overrides)
     with mesh_context(mesh):
         return _forward(params, cfg, tokens, mode, cache, cache_index,

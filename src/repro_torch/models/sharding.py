@@ -329,6 +329,178 @@ def embed_lookup(w, tokens, rules: Rules, mesh):
                 NamedSharding(mesh, PartitionSpec(*tok.spec, None)), shape)
 
 
+# ------------------------------------------------------ eager collectives
+#
+# The expert-parallel MoE route (``layers.moe_local``) runs on local
+# tensors; these are its collectives, eager ``torch.distributed`` calls
+# over the groups of named mesh axes (``mesh.get_group``), and the autograd
+# functions that place them. Each takes ``axes``, a tuple of mesh axis
+# names major to minor (a dim split over them as DTensor splits it); an
+# axis of one rank is skipped, so on a mesh of one device every one is the
+# identity. gloo has no reduce-scatter: a gradient is all-reduced and then
+# cut.
+
+def all_reduce(x, mesh, axes, op=None):
+    """``x`` all-reduced in place over the mesh ``axes`` (one axis after
+    another; axes of one rank skipped): JAX's psum/pmax."""
+    import torch.distributed as dist
+    sizes = mesh_axes(mesh)
+    for a in axes:
+        if sizes[a] > 1:
+            dist.all_reduce(x, op=op or dist.ReduceOp.SUM,
+                            group=mesh.get_group(a))
+    return x
+
+
+def shard_index(mesh, axes) -> int:
+    """This rank's index along ``axes`` major to minor (JAX's
+    ``axis_index`` folded in that order, and DTensor's split of a dim over
+    mesh dims)."""
+    sizes = mesh_axes(mesh)
+    coord = dict(zip(sizes, mesh.get_coordinate()))
+    idx = 0
+    for a in axes:
+        idx = idx * sizes[a] + coord[a]
+    return idx
+
+
+def axes_size(mesh, axes) -> int:
+    sizes = mesh_axes(mesh)
+    return math.prod(sizes[a] for a in axes)
+
+
+def _all_gather(x, mesh, axes, dim: int):
+    """The shards of ``x`` along ``dim`` over ``axes``, concatenated in
+    shard order (the minor axis first, so each step joins whole blocks)."""
+    import torch.distributed as dist
+    sizes = mesh_axes(mesh)
+    for a in reversed(tuple(axes)):
+        if sizes[a] > 1:
+            parts = [torch.empty_like(x) for _ in range(sizes[a])]
+            dist.all_gather(parts, x.contiguous(), group=mesh.get_group(a))
+            x = torch.cat(parts, dim)
+    return x
+
+
+def _own(x, mesh, axes, dim: int):
+    """This rank's shard of ``x`` along ``dim`` over ``axes`` (a
+    ``torch.chunk`` piece, as DTensor cuts it)."""
+    n = axes_size(mesh, axes)
+    return x if n == 1 else torch.chunk(x, n, dim)[shard_index(mesh, axes)]
+
+
+class _Sum(torch.autograd.Function):
+    """Forward: the partial values summed over ``axes``. Backward: the
+    (replicated) gradient passes to every partial as it is."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return all_reduce(x.clone(), mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _GradSum(torch.autograd.Function):
+    """Forward: a replicated value passes as it is. Backward: the partial
+    gradients the ranks form from it are summed over ``axes``."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.clone(), ctx.mesh, ctx.axes), None, None
+
+
+class _Mean(torch.autograd.Function):
+    """Forward: the mean over ``axes`` of each rank's value (each rank's a
+    mean over an equal share of the samples). Backward: each rank's share
+    of the (replicated) gradient, 1/n of it."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.n = axes_size(mesh, axes)
+        return all_reduce(x.clone(), mesh, axes) / ctx.n
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None, None
+
+
+class _Gather(torch.autograd.Function):
+    """Forward: the shards along ``dim`` over ``axes`` gathered whole.
+    Backward: the gradient summed over ``grad_axes`` (the axes over which
+    the ranks formed partial gradients of the whole), then this rank's
+    shard of it."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim, grad_axes):
+        ctx.args = (mesh, axes, dim, grad_axes)
+        out = _all_gather(x, mesh, axes, dim)
+        return x.view_as(x) if out is x else out
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes, dim, grad_axes = ctx.args
+        if any(mesh_axes(mesh)[a] > 1 for a in grad_axes):
+            g = all_reduce(g.contiguous().clone(), mesh, grad_axes)
+        return _own(g, mesh, axes, dim).contiguous(), None, None, None, None
+
+
+class _Scatter(torch.autograd.Function):
+    """Forward: this rank's shard along ``dim`` over ``axes`` of a
+    replicated value. Backward: the shards' gradients gathered whole (the
+    replicated value's gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.args = (mesh, axes, dim)
+        return _own(x, mesh, axes, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes, dim = ctx.args
+        return _all_gather(g, mesh, axes, dim), None, None, None
+
+
+def psum(x, mesh, axes):
+    """Partial values summed over ``axes``; the gradient passes through."""
+    return _Sum.apply(x, mesh, tuple(axes)) if axes_size(mesh, axes) > 1 \
+        else x
+
+
+def grad_psum(x, mesh, axes):
+    """``x`` as it is; its partial gradients summed over ``axes``."""
+    return _GradSum.apply(x, mesh, tuple(axes)) \
+        if axes_size(mesh, axes) > 1 else x
+
+
+def pmean(x, mesh, axes):
+    """The mean over ``axes`` of the ranks' means (see ``_Mean``)."""
+    return _Mean.apply(x, mesh, tuple(axes)) if axes_size(mesh, axes) > 1 \
+        else x
+
+
+def gather(x, mesh, axes, dim: int, grad_axes=()):
+    """``x``'s shards along ``dim`` over ``axes`` gathered whole (an FSDP
+    gather); its gradient summed over ``grad_axes`` and cut back (a
+    reduce-scatter where ``grad_axes`` are ``axes``)."""
+    if axes_size(mesh, axes) == 1 and axes_size(mesh, grad_axes) == 1:
+        return x
+    return _Gather.apply(x, mesh, tuple(axes), dim, tuple(grad_axes))
+
+
+def scatter(x, mesh, axes, dim: int):
+    """This rank's shard of the replicated ``x`` along ``dim`` over
+    ``axes``; the gradient gathered whole."""
+    return _Scatter.apply(x, mesh, tuple(axes), dim) \
+        if axes_size(mesh, axes) > 1 else x
+
+
 def tree_shardings(logical_tree, mesh, rules: Rules, shape_tree=None):
     """Map a tree of logical-axis tuples to NamedShardings (with
     ``shape_tree``, divisibility-guarded per leaf). Trees are nested

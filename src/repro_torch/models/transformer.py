@@ -96,7 +96,7 @@ def _apply_sub(sub: str, p, cfg: ModelConfig, x, positions, mode: str, cache,
         y, _ = L.apply_attention(p, cfg, h, positions, "train", rules=rules,
                                  mesh=mesh, kv_source=image_embeds)
     elif sub == "moe":
-        y, aux = L.apply_moe(p, cfg, h)
+        y, aux = L.apply_moe(p, cfg, h, rules=rules, mesh=mesh)
     elif sub == "mamba":
         y, cache = L.apply_mamba(p, cfg, h, mode, cache)
     elif sub == "mlp":

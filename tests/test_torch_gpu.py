@@ -1906,6 +1906,78 @@ def test_apply_moe_on_card_matches_cpu(cuda, case):
                                    atol=1e-5 * want.abs().max().item())
 
 
+# moe_local, the expert-parallel route's local computation, on the card in
+# two "virtual ranks" of one process: each runs half the experts on the
+# same groups with the plain reducer (``MOE_LOCAL``), the partial outputs
+# are summed here, and autograd sums the partial gradients of the shared
+# groups and router where the ranks' eager all-reduce would. The aux is
+# taken from one rank (every rank routes alike and forms the same one),
+# weighted 1.0 so its gradient shows in the router's. Against
+# ``apply_moe`` on the same card tensors: the routing and the aux are the
+# same operations (bitwise); y and the gradients are sums of the same
+# products split in two, so f32 agrees to 1e-5 of each tensor's largest
+# |value| and bf16 to 2e-2 of it + 2e-2 relative (the partials round to
+# bf16 before their sum: ``tests/test_torch_moe.py``'s bf16 bounds).
+MOE_LOCAL_CASE = (4, 64, 64, 8, 2, 96, 1.25, 128)  # B S D E k F cf group
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_moe_local_virtual_ranks_match_apply_moe_on_card(cuda, dtype):
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.models.layers import (apply_moe, moe_groups, moe_local,
+                                           moe_spec)
+    B, S, D, E, k, Fd, cf, gs = MOE_LOCAL_CASE
+    td = DTYPES[dtype]
+    cfg = ModelConfig(family="moe", d_model=D, n_experts=E, top_k=k,
+                      moe_d_ff=Fd, capacity_factor=cf, moe_group_size=gs,
+                      dtype={torch.float32: "float32",
+                             torch.bfloat16: "bfloat16"}[td])
+    G, Tg, _ = moe_groups(cfg, B * S)
+    assert G == 2
+    rng = np.random.default_rng(13)
+    p = {n: torch.tensor(np.round(rng.standard_normal(s.shape) * 8) / 64
+                         if n == "router" else
+                         rng.standard_normal(s.shape) / np.sqrt(s.shape[-2]),
+                         dtype=torch.float32).to(cuda, td)
+         for n, s in moe_spec(cfg).items()}
+    x = torch.tensor(np.round(rng.standard_normal((B, S, D)) * 4) / 4,
+                     dtype=torch.float32).to(cuda, td)
+    r = torch.tensor(rng.standard_normal((B, S, D)), dtype=torch.float32,
+                     device=cuda)
+
+    def run(split):
+        leaves = {n: v.clone().requires_grad_() for n, v in p.items()}
+        xt = x.clone().requires_grad_()
+        if split:
+            half, ys, auxs = E // 2, [], []
+            for rank in range(2):
+                sl = slice(rank * half, (rank + 1) * half)
+                pl = {"router": leaves["router"],
+                      **{n: leaves[n][sl] for n in
+                         ("w_gate", "w_up", "w_down")}}
+                y, aux = moe_local(pl, cfg, xt.reshape(G, Tg, D),
+                                   (sl.start, sl.stop))
+                ys.append(y)
+                auxs.append(aux)
+            assert torch.equal(auxs[0], auxs[1])
+            y, aux = (ys[0] + ys[1]).reshape(B, S, D), auxs[0]
+        else:
+            y, aux = apply_moe(leaves, cfg, xt)
+        g = torch.autograd.grad((y.float() * r).sum() + aux,
+                                [xt, *leaves.values()])
+        return [t.detach().float().cpu() for t in (y, aux, *g)]
+
+    (y, aux, *g), (wy, waux, *wg) = run(True), run(False)
+    assert torch.equal(aux, waux)
+    f32 = td == torch.float32
+    for got, want in zip((y, *g), (wy, *wg)):
+        scale = want.abs().max().item()
+        torch.testing.assert_close(
+            got, want, atol=(1e-5 if f32 else 2e-2) * scale,
+            rtol=0 if f32 else 2e-2)
+
+
 # MLA (deepseek-v3): queries and keys 128 + 64 wide, values 128, as many kv
 # heads as query heads: (B, S, T, H, K, hd, hdv), causal, every kernel on
 # the fma route. The forward at the tolerances above; the backward pair

@@ -314,8 +314,9 @@ def test_remat_policies_match_none():
 
 
 def test_hybrid_under_a_mesh_raises_before_any_work():
-    """A hybrid segment holds MoE and Mamba2, neither sharded yet: forward,
-    the train and eval steps raise on any mesh, naming both."""
+    """A hybrid segment holds MoE and Mamba2; MoE runs sharded, Mamba2 not
+    yet: forward, the train and eval steps raise on any mesh, naming
+    Mamba2."""
     tcfg = _tcfg(_hybrid_cfg())
     mesh = SimpleNamespace(mesh_dim_names=("data", "model"), shape=(1, 1))
     tx = t_make("scale_fused", 1e-2)
@@ -323,5 +324,5 @@ def test_hybrid_under_a_mesh_raises_before_any_work():
                  lambda: make_train_step(tcfg, tx, mesh=mesh),
                  lambda: make_eval_step(tcfg, mesh=mesh)):
         with pytest.raises(NotImplementedError,
-                           match="hybrid.*MoE.*Mamba2.*item 12"):
+                           match="hybrid.*Mamba2.*item 12"):
             call()

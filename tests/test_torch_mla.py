@@ -334,17 +334,30 @@ def test_unknown_attention_kind_raises_before_any_work():
             call()
 
 
-def test_mla_under_a_mesh_raises_before_any_work():
-    """MLA has no sharded layout yet: forward, the train and eval steps
-    raise on any mesh, for a dense MLA model too."""
-    tcfg = _tcfg(_mla_tiny())
+def test_mla_steps_build_on_a_mesh():
+    """MLA runs on a mesh in modes train and prefill: the train and eval
+    steps of a dense MLA model and of deepseek-v3's SMOKE twin build on a
+    (duck-typed) (1, 1) mesh (``tests/test_torch_sharded_moe.py`` runs
+    them on a gloo mesh)."""
     mesh = SimpleNamespace(mesh_dim_names=("data", "model"), shape=(1, 1))
     tx = t_make("scale_fused", 1e-2)
-    for call in (lambda: TM.forward(None, tcfg, None, mesh=mesh),
-                 lambda: make_train_step(tcfg, tx, mesh=mesh),
-                 lambda: make_eval_step(tcfg, mesh=mesh)):
-        with pytest.raises(NotImplementedError, match="MLA"):
-            call()
+    for tcfg in (_tcfg(_mla_tiny()),
+                 treg.get_arch("deepseek-v3-671b", smoke=True)):
+        assert callable(make_train_step(tcfg, tx, mesh=mesh))
+        assert callable(make_eval_step(tcfg, mesh=mesh))
+
+
+def test_mla_decode_on_a_mesh_raises_naming_sharded_serving():
+    """The absorbed decode over a sequence-sharded latent cache is sharded
+    serving, not ported: forward in mode decode on a mesh raises before
+    any work, and so does the layer itself."""
+    tcfg = _tcfg(_mla_tiny())
+    mesh = SimpleNamespace(mesh_dim_names=("data", "model"), shape=(1, 1))
+    with pytest.raises(NotImplementedError, match="sharded serving"):
+        TM.forward(None, tcfg, None, mode="decode", mesh=mesh)
+    with pytest.raises(NotImplementedError, match="sharded serving"):
+        TL.apply_mla_attention(None, tcfg, None, None, mode="decode",
+                               mesh=mesh)
 
 
 @pytest.mark.parametrize("name", list(MODEL_CFGS))

@@ -443,16 +443,34 @@ def test_moe_greedy_tokens_match_jax():
 
 # ------------------------------------------------------------ the mesh
 
-def test_moe_under_a_mesh_raises_before_any_work():
-    """Expert parallelism over "model" is not ported: forward, the train
-    and eval steps raise on any mesh before they touch a tensor."""
-    tcfg = treg.get_arch("dbrx-132b", smoke=True)
-    mesh = SimpleNamespace(mesh_dim_names=("data", "model"), shape=(1, 1))
+_DUCK_MESH = SimpleNamespace(mesh_dim_names=("data", "model"), shape=(1, 1))
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "deepseek-v3-671b"])
+def test_moe_steps_build_on_a_mesh(arch):
+    """Expert parallelism over "model" is ported: the SMOKE twins' train
+    and eval steps build on a (duck-typed) (1, 1) mesh, each parameter
+    given its sharding (``tests/test_torch_sharded_moe.py`` runs them on
+    a gloo mesh)."""
+    tcfg = treg.get_arch(arch, smoke=True)
     tx = t_make("scale_fused", 1e-2)
-    for call in (lambda: TM.forward(None, tcfg, None, mesh=mesh),
-                 lambda: make_train_step(tcfg, tx, mesh=mesh),
-                 lambda: make_eval_step(tcfg, mesh=mesh)):
-        with pytest.raises(NotImplementedError, match="item 12"):
+    assert callable(make_train_step(tcfg, tx, mesh=_DUCK_MESH))
+    assert callable(make_eval_step(tcfg, mesh=_DUCK_MESH))
+
+
+@pytest.mark.parametrize("arch,match", [
+    ("mamba2-370m", "Mamba2"),
+    ("jamba-1.5-large-398b", "hybrid.*Mamba2"),
+    ("llama-3.2-vision-11b", "vlm"),
+    ("musicgen-medium", "audio")])
+def test_unsharded_families_still_raise_on_a_mesh(arch, match):
+    """Mamba2, the hybrid (for Mamba2 alone now), the VLM and audio have
+    no sharded route: forward, the train and eval steps raise on any mesh
+    before they touch a tensor."""
+    tcfg = treg.get_arch(arch, smoke=True)
+    tx = t_make("scale_fused", 1e-2)
+    for call in (lambda: TM.forward(None, tcfg, None, mesh=_DUCK_MESH),
+                 lambda: make_train_step(tcfg, tx, mesh=_DUCK_MESH),
+                 lambda: make_eval_step(tcfg, mesh=_DUCK_MESH)):
+        with pytest.raises(NotImplementedError, match=match + ".*item 12"):
             call()
-    dense = treg.get_arch("qwen2-7b", smoke=True)
-    make_train_step(dense, tx, mesh=mesh)  # dense models build as before
