@@ -5,7 +5,7 @@ NVIDIA H100.
     python3 chip_smoke.py [--seed N]
 
 Run from the root of a checkout. It builds the port's CUDA kernels with
-nvcc (one process per source, in parallel), then runs twenty-two phases and fails
+nvcc (one process per source, in parallel), then runs twenty-three phases and fails
 (non-zero exit, no result line) if any of them fails:
 
 1. device: the card's name and power limit, the kernels' ptxas report;
@@ -413,6 +413,23 @@ nvcc (one process per source, in parallel), then runs twenty-two phases and fail
    launches by route as theirs, the losses and aux against theirs, step
    time, idle share and peak beside theirs. The kernels line gains the
    path ``train sharded moe`` and the two cuts' per-step launches.
+23. Mamba2 and the hybrid on a ("data", "model") mesh: (i) two ``gloo``
+   ranks on cuda:0 on a (1, 2) mesh: mamba2-370m's Mamba2 layer at full
+   width (d_model 1024, 32 heads of 64 over a state of 128) and jamba's
+   (d_model 8192, 256 heads), 16 and 128 heads a rank through
+   ``layers.mamba_local`` with the eager all-reduces, on phase 18's 4 x
+   1024 tokens, forward and backward: each rank's y, d(x) and every
+   leaf's gradient against one rank's unsharded ``apply_mamba``, in f32
+   within a stated tolerance or twice its floor (the distance of the f32
+   layer from its float64 twin) and in bf16 within twice its floor; the
+   widths its SSD saw (its own half of the heads), the SSD's per-rank
+   time at half and at all the heads, and each collective's bytes and
+   host-clock time; (ii) ``make_train_step(rules, mesh)`` on a (1, 1)
+   NCCL mesh at phase 18's mamba2-370m and phase 19's jamba cut, 3 steps
+   each from the same weights and batches: the losses and aux bitwise
+   theirs, each step's launches by route as theirs, step time, idle share
+   and peak beside theirs. The kernels line gains the path ``train
+   sharded mamba`` and the two models' per-step launches.
 
 The line before the last is a JSON ``{"kernels": [...]}`` summary, the
 last line ``{"ok": true, "device": {...}}``. It needs a CUDA card and
@@ -5305,7 +5322,7 @@ SHARDED_STEPS = 3  # make_train_step steps on the (1, 1) NCCL mesh
 TWO_RANK_LOSS_ATOL = 1e-4
 # seconds after which a rank of a two-rank job prints where it is and
 # exits (phase 15 (ii), phase 22 (i))
-TWO_RANK_LIMIT_S = {"sharded": 300, "moe": 420}
+TWO_RANK_LIMIT_S = {"sharded": 300, "moe": 420, "mamba": 420}
 
 
 def offset_counts():
@@ -5504,8 +5521,8 @@ def phase_sharded_kernels(torch, gen, power):
 
 
 def _two_rank_worker(rank, port, seed, q, task="sharded"):
-    """Phase 15 (ii) (``task`` "sharded") or 22 (i) ("moe"), one of two
-    ranks on cuda:0 under gloo."""
+    """Phase 15 (ii) (``task`` "sharded"), 22 (i) ("moe") or 23 (i)
+    ("mamba"), one of two ranks on cuda:0 under gloo."""
     import datetime
     import faulthandler
     import traceback
@@ -5525,7 +5542,8 @@ def _two_rank_worker(rank, port, seed, q, task="sharded"):
         torch.backends.cuda.matmul.allow_tf32 = False
         print(f"  rank {rank}: process group up", flush=True)
         checks = {"sharded": _two_rank_checks,
-                  "moe": _two_rank_moe_checks}[task]
+                  "moe": _two_rank_moe_checks,
+                  "mamba": _two_rank_mamba_checks}[task]
         q.put((rank, "ok", checks(torch, rank, seed)))
     except BaseException:
         q.put((rank, "error", traceback.format_exc()))
@@ -7677,6 +7695,88 @@ def phase_mesh_two_ranks(torch, seed, power):
     return launches
 
 
+def mesh_steps(torch, seed, power, label, cfg, steps, want, want_r, ref,
+               ref_phase, leaf, bitwise=False):
+    """``steps`` steps of ``make_train_step(rules, mesh)`` on a (1, 1) NCCL
+    mesh (the process group already up) at the cut ``cfg`` of phase
+    ``ref_phase``, from its weights and batches: each step's launches by
+    route ``want``/``want_r`` (that phase's), the losses and aux against
+    ``ref`` (its results; ``bitwise``: equal, else within LOSS_CURVE_ATOL),
+    the step time, idle share and peak beside its; ``leaf``'s layout
+    printed."""
+    from repro_torch.core import linear_warmup_cosine, make_optimizer
+    from repro_torch.data import make_dataset
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import init_params
+    from repro_torch.models.model import flatten, place_params
+    from repro_torch.models.sharding import Rules
+    from repro_torch.training import init_state, make_train_step
+    mesh = make_host_mesh(1, 1, device_type="cuda")
+    torch.cuda.empty_cache()
+    B, S = ref["shape"]
+    ds = make_dataset(cfg, S, B, seed=seed, device="cuda")
+    batches = [ds.global_batch_at(i) for i in range(steps)]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    tx = make_optimizer("scale_fused", linear_warmup_cosine(1e-3, steps))
+    params = place_params(init_params(cfg, gen, device="cuda"), cfg, mesh)
+    step = make_train_step(cfg, tx, clip_norm=1.0, rules=Rules(), mesh=mesh)
+    state = init_state(params, tx)
+    del params
+    state, per_step, per_route, secs, mets, peak = _step_counts(
+        torch, step, state, batches)
+    launches = train_counts()
+    _check_steps(per_step, per_route, want, want_r, label)
+    losses = [m["loss"] for m in mets]
+    auxs = [m["aux"] for m in mets]
+    gap = max(max(abs(a - b), abs(x - y)) for a, b, x, y in
+              zip(losses, ref["losses"], auxs, ref["aux"]))
+    same = losses == ref["losses"] and auxs == ref["aux"]
+    step_s = min(secs[1:])
+    lay = str(tuple(flatten(state.params)[leaf].placements))
+    print(f"  {label} (parameters DTensors; {leaf} {lay}): losses "
+          f"{' '.join(f'{x:.6f}' for x in losses)}, aux "
+          f"{' '.join(f'{x:.6f}' for x in auxs)}; unsharded (phase "
+          f"{ref_phase}) {' '.join(f'{x:.6f}' for x in ref['losses'])}, aux "
+          f"{' '.join(f'{x:.6f}' for x in ref['aux'])} (max |diff| "
+          f"{gap:.3e}{', bitwise' if same else ''}; "
+          f"{'bitwise required' if bitwise else f'tol {LOSS_CURVE_ATOL:g}'})")
+    if not (all(map(math.isfinite, losses + auxs))
+            and (same if bitwise else gap <= LOSS_CURVE_ATOL)):
+        raise AssertionError(f"{label}: the steps leave the unsharded "
+                             "curve")
+
+    def one():
+        nonlocal state
+        state, _ = step(state, batches[0])
+    busy, _ = moe_profile(torch, power, one, step_s * 1e3,
+                          f"{label} train step")
+    idle = None if busy is None else 1 - busy / (step_s * 1e3)
+    print(f"  [{power}] {label}: train step {step_s * 1e3:.3f} ms (best of "
+          f"steps 2-{steps}), idle share "
+          f"{'not measured' if idle is None else f'{idle:.3f}'}, peak "
+          f"{peak / 2**20:.1f} MiB; unsharded {ref['step_ms']:.3f} ms, idle "
+          f"share {ref['idle_share'] if ref['idle_share'] is None else round(ref['idle_share'], 3)}, "
+          f"peak {ref['peak_mib']:.1f} MiB")
+    del state, step, tx
+    torch.cuda.empty_cache()
+    return {"launches": launches, "per_step": per_step[0],
+            "routes": per_route[0], "losses": losses, "aux": auxs,
+            "loss_gap": gap, "bitwise": same, "step_ms": step_s * 1e3,
+            "idle_share": idle, "busy_ms": busy, "peak_mib": peak / 2**20}
+
+
+def nccl_world():
+    """A process group of one rank under NCCL (for a (1, 1) mesh); the
+    caller destroys it."""
+    import socket
+    import torch.distributed as dist
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+
+
 def phase_mesh_train(torch, seed, power, moe_train, mla_train):
     """Phase 22 (ii): ``make_train_step(rules, mesh)`` on a (1, 1) NCCL
     mesh at phase 16's dbrx-132b cut and phase 17's deepseek-v3 cut, from
@@ -7684,93 +7784,25 @@ def phase_mesh_train(torch, seed, power, moe_train, mla_train):
     phases', the losses and aux against theirs, the step time, idle share
     and peak beside theirs."""
     import dataclasses
-    import socket
     import torch.distributed as dist
     from repro_torch.configs import get_arch
-    from repro_torch.core import linear_warmup_cosine, make_optimizer
-    from repro_torch.data import make_dataset
-    from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.models import init_params
-    from repro_torch.models.model import place_params
-    from repro_torch.models.sharding import Rules
-    from repro_torch.training import init_state, make_train_step
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
-    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
-                            rank=0, world_size=1)
+    nccl_world()
     out = {}
     try:
-        mesh = make_host_mesh(1, 1, device_type="cuda")
         cuts = ((MOE_ARCH, dataclasses.replace(get_arch(MOE_ARCH),
                                                n_layers=MOE_LAYERS),
-                 MOE_STEPS, "mma", 6, moe_train),
+                 MOE_STEPS, "mma", 6, moe_train, 16),
                 (MLA_ARCH, dataclasses.replace(
                     get_arch(MLA_ARCH), n_layers=MLA_LAYERS,
                     n_experts=MLA_TRAIN_EXPERTS), MLA_STEPS, "fma", 18,
-                 mla_train))
-        for arch, cfg, steps, route, n_mat, ref in cuts:
-            torch.cuda.empty_cache()
-            B, S = MESH_TOKENS
-            ds = make_dataset(cfg, S, B, seed=seed, device="cuda")
-            batches = [ds.global_batch_at(i) for i in range(steps)]
-            gen = torch.Generator(device="cuda").manual_seed(seed)
-            tx = make_optimizer("scale_fused",
-                                linear_warmup_cosine(1e-3, steps))
-            params = place_params(init_params(cfg, gen, device="cuda"), cfg,
-                                  mesh)
-            step = make_train_step(cfg, tx, clip_norm=1.0, rules=Rules(),
-                                   mesh=mesh)
-            state = init_state(params, tx)
-            del params
-            state, per_step, per_route, secs, mets, peak = _step_counts(
-                torch, step, state, batches)
-            launches = train_counts()
-            want, want_r = train_want(cfg.n_layers, route, n_mat)
-            label = f"{arch} on a (1, 1) mesh"
-            _check_steps(per_step, per_route, want, want_r, label)
-            losses = [m["loss"] for m in mets]
-            auxs = [m["aux"] for m in mets]
-            gap = max(max(abs(a - b), abs(x - y)) for a, b, x, y in
-                      zip(losses, ref["losses"], auxs, ref["aux"]))
-            same = losses == ref["losses"] and auxs == ref["aux"]
-            step_s = min(secs[1:])
-            lay = str(tuple(state.params["segments"][
-                f"seg{len(cfg.segments) - 1}_moe"]["ffn"]["w_gate"]
-                .placements))
-            print(f"  {label} (parameters DTensors; the 4-D expert leaves "
-                  f"{lay}): losses {' '.join(f'{x:.6f}' for x in losses)}, "
-                  f"aux {' '.join(f'{x:.6f}' for x in auxs)}; unsharded "
-                  f"(phase {16 if arch == MOE_ARCH else 17}) "
-                  f"{' '.join(f'{x:.6f}' for x in ref['losses'])}, aux "
-                  f"{' '.join(f'{x:.6f}' for x in ref['aux'])} (max |diff| "
-                  f"{gap:.3e}{', bitwise' if same else ''}; tol "
-                  f"{LOSS_CURVE_ATOL:g})")
-            if not (all(map(math.isfinite, losses + auxs))
-                    and gap <= LOSS_CURVE_ATOL):
-                raise AssertionError(f"{label}: the steps leave the "
-                                     "unsharded curve")
-
-            def one():
-                nonlocal state
-                state, _ = step(state, batches[0])
-            busy, _ = moe_profile(torch, power, one, step_s * 1e3,
-                                  f"{label} train step")
-            idle = None if busy is None else 1 - busy / (step_s * 1e3)
-            print(f"  [{power}] {label}: train step {step_s * 1e3:.3f} ms "
-                  f"(best of steps 2-{steps}), idle share "
-                  f"{'not measured' if idle is None else f'{idle:.3f}'}, "
-                  f"peak {peak / 2**20:.1f} MiB; unsharded "
-                  f"{ref['step_ms']:.3f} ms, idle share "
-                  f"{ref['idle_share'] if ref['idle_share'] is None else round(ref['idle_share'], 3)}, "
-                  f"peak {ref['peak_mib']:.1f} MiB")
-            del state, step, tx
-            torch.cuda.empty_cache()
-            out[arch] = {"launches": launches, "per_step": per_step[0],
-                         "routes": per_route[0], "losses": losses,
-                         "aux": auxs, "loss_gap": gap, "bitwise": same,
-                         "step_ms": step_s * 1e3, "idle_share": idle,
-                         "busy_ms": busy, "peak_mib": peak / 2**20}
+                 mla_train, 17))
+        for arch, cfg, steps, route, n_mat, ref, phase in cuts:
+            seg = f"seg{len(cfg.segments) - 1}_moe"
+            out[arch] = mesh_steps(
+                torch, seed, power, f"{arch} on a (1, 1) mesh", cfg, steps,
+                *train_want(cfg.n_layers, route, n_mat),
+                {**ref, "shape": MESH_TOKENS}, phase,
+                f"segments/{seg}/ffn/w_gate")
         return out
     finally:
         dist.destroy_process_group()
@@ -7789,6 +7821,318 @@ def phase_mesh(torch, seed, power, moe, mla):
             launches[k] = launches.get(k, 0) + n
     print(f"  phase 22 took {time.perf_counter() - t0:.1f} s")
     return {"launches": launches, "train": train}
+
+
+# --------------------------- phase 23: Mamba2 and the hybrid on a mesh
+
+# Phase 23 (i) holds each rank's Mamba2 layer (``layers.mamba_local`` on
+# its half of the heads: its z, x and dt columns and the one group's B
+# and C, the gated norm's sum of squares, out_proj's partial output and
+# x's partial gradient summed by the eager all-reduce, the whole leaves'
+# partial gradients summed likewise) against one rank's unsharded
+# ``apply_mamba`` on the same tensors, at phase 18's 4 x 1024 tokens. f32
+# differs only where a sum is split (out_proj's and the norm's two halves,
+# d(x), the B and C gradients) or cuBLAS picks another order for half the
+# columns: each tensor within MESH_F32_TOL, phase 22's bound, or within
+# SERVE_BF16_FLOOR_X times its f32 floor, the distance of the unsharded
+# f32 layer from its float64 twin (``f64_casts``). The floor is there for
+# the (nh,) leaves: A_log's, dt_bias's and D's gradients sum, per head,
+# terms of both signs over every position and every pair of positions of
+# a chunk (some 2^19 at 4 x 1024 tokens and chunk 256), so any change of
+# order moves them by tens of f32 ulps of their size. bf16: within
+# SERVE_BF16_FLOOR_X times its floor, phase 22's rule. jamba's layer (d_model 8192, 256 heads)
+# keeps the 4096 tokens: its largest operands are the whole leaves and
+# their f32 gradients (in_proj 1.09 GB, out_proj 0.54 GB, each twice) and
+# the SSD's (4, 4, heads, 256, 256) f32 blocks, 0.54 GB a block at 128
+# heads and 1.07 GB at 256, a few of them live at once: under 20 GB a
+# rank, one rank's unsharded layer run at a time.
+MAMBA_MESH_ARCHS = (MAMBA_ARCH, JAMBA_ARCH)
+MAMBA_MESH_LEAVES = ("in_proj", "out_proj")  # timed alone; the rest as one
+
+
+def f64_casts(torch):
+    """A patch of ``torch.Tensor.float`` that leaves a float64 tensor as it
+    is: under it the model's f32 steps (JAX's casts) stay float64, so a
+    layer on float64 operands is its float64 twin."""
+    from unittest import mock
+    real = torch.Tensor.float
+
+    def float_(self, *args, **kw):
+        return self if self.dtype == torch.float64 else real(self, *args,
+                                                               **kw)
+    return mock.patch.object(torch.Tensor, "float", float_)
+
+
+def _allreduce_ms(torch, mesh, t):
+    """The host-clock ms of one eager all-reduce of ``t`` over "model"
+    (best of MESH_TIMING_ITERS after one), both ranks in step."""
+    import torch.distributed as dist
+    group = mesh.get_group("model")
+    ms = []
+    for _ in range(MESH_TIMING_ITERS + 1):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.all_reduce(t, group=group)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return min(ms[1:])
+
+
+def _mamba_layer_two_ranks(torch, rank, seed, mesh, cfg):
+    """Phase 23 (i), one rank's Mamba2 layer of ``cfg`` at full width on a
+    (1, 2) mesh: its half of the heads in f32 and bf16 against one rank's
+    unsharded layer, the widths its SSD saw, the SSD's per-rank time and
+    each collective's bytes and host-clock time."""
+    from unittest import mock
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import _init_leaf
+    from repro_torch.models.sharding import grad_psum
+    B, S = MAMBA_BATCH
+    D, nh, hd = cfg.d_model, cfg.ssm_nheads, cfg.ssm_headdim
+    heads = (rank * nh // 2, (rank + 1) * nh // 2)
+    axes = ("model",)
+    bf = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    # one draw by init_params' rules, rounded to bf16: the f32 and the bf16
+    # layers hold one value
+    w = {n: _init_leaf(s, gen).to(device="cuda", dtype=bf)
+         for n, s in L.mamba_spec(cfg).items()}
+    x = torch.randn((B, S, D), generator=gen, device="cuda").to(bf)
+    r = torch.randn((B, S, D), generator=gen, device="cuda")
+    seen = []
+    real_ssd = L._ssd_chunked
+
+    def ssd(xh, *args):
+        seen.append(tuple(xh.shape))
+        return real_ssd(xh, *args)
+
+    def grads_of(y, xt, leaves):
+        g = torch.autograd.grad((y.float() * r).sum(), [xt, *leaves.values()])
+        return {"y": y.detach(), **dict(zip(["x", *leaves], g))}
+
+    def sharded(dt):
+        """This rank's heads through mamba_local and the all-reduces; the
+        whole leaves' partial gradients summed (the gather's backward of
+        the DTensor route)."""
+        leaves = {n: v.to(dt).detach().requires_grad_() for n, v in w.items()}
+        xt = x.to(dt).detach().requires_grad_()
+        whole = {n: grad_psum(v, mesh, axes) for n, v in leaves.items()}
+        with mock.patch.object(L, "_ssd_chunked", ssd):
+            y, _ = L.mamba_local(L.mamba_slices(whole, cfg, heads), cfg, xt,
+                                 heads=heads,
+                                 reduce=L.mamba_reduce(mesh, axes))
+        return grads_of(y, xt, leaves)
+
+    def whole(dt):
+        """One rank's unsharded apply_mamba."""
+        leaves = {n: v.to(dt).detach().requires_grad_() for n, v in w.items()}
+        xt = x.to(dt).detach().requires_grad_()
+        return grads_of(L.apply_mamba(leaves, cfg, xt)[0], xt, leaves)
+
+    def in_turns(fn):
+        return _in_turns(torch, rank, fn)
+
+    out = {"heads": heads}
+    got = sharded(torch.float32)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    f32 = in_turns(lambda: whole(torch.float32))
+    out["f32_err_over_tol"] = {k: _err_over_tol(got[k], f32[k]) for k in f32}
+    out["f32_err"] = {k: (got[k] - f32[k]).abs().max().item() for k in f32}
+    out["ssd_widths"] = sorted(set(seen))
+    del got
+    torch.cuda.empty_cache()
+
+    def f32_floor():
+        with f64_casts(torch):
+            want = whole(torch.float64)
+        return {k: (f32[k].double() - ref).abs().max().item()
+                for k, ref in want.items()}
+    out["f32_floor"] = in_turns(f32_floor)
+    got = sharded(bf)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    def bf16_errs():
+        want = whole(bf)
+        res = {}
+        for k, ref in want.items():
+            floor = (ref.float() - f32[k].float()).abs().max().item()
+            err = (got[k].float() - ref.float()).abs().max().item()
+            res[k] = {"err": err, "floor": floor,
+                      "over_bound": err / (SERVE_BF16_FLOOR_X * floor)
+                      if floor else (0.0 if err == 0 else math.inf)}
+        return res
+    out["bf16"] = in_turns(bf16_errs)
+    del got, f32
+    torch.cuda.empty_cache()
+
+    # per-rank times, bf16: the SSD forward and backward on this rank's
+    # heads, and on all of them, each rank alone
+    G, N = cfg.ssm_ngroups, cfg.ssm_state
+
+    def ssd_inputs(n):
+        xh = torch.randn((B, S, n, hd), generator=gen, device="cuda").to(bf)
+        dt = torch.exp(math.log(1e-3) + math.log(100.0) * torch.rand(
+            (B, S, n), generator=gen, device="cuda"))
+        A = -torch.exp(math.log(16.0) * torch.rand((n,), generator=gen,
+                                                   device="cuda"))
+        Bm, Cm = (torch.randn((B, S, G, N), generator=gen, device="cuda")
+                  .to(bf) for _ in range(2))
+        return [t.requires_grad_() for t in (xh, dt, A, Bm, Cm)]
+
+    def ssd_ms(n):
+        args = ssd_inputs(n)
+
+        def fwd_bwd():
+            y = real_ssd(*args, cfg.ssm_chunk)
+            torch.autograd.grad(y, args, y)
+        return time_ms(torch, fwd_bwd, MESH_TIMING_ITERS, warm=2)
+    out["ssd_ms"] = in_turns(lambda: ssd_ms(nh // 2))
+    out["ssd_all_heads_ms"] = in_turns(lambda: ssd_ms(nh))
+    # each collective of a step at its size and dtype, both ranks
+    rest = sum(math.prod(s.shape) for n, s in L.mamba_spec(cfg).items()
+               if n not in MAMBA_MESH_LEAVES)
+    sizes = {"out_proj's partial y (head_sum)": ((B, S, D), bf),
+             "x's partial gradient (head_grad_sum)": ((B, S, D), bf),
+             "the norm's sums of squares (norm_sum, forward; backward the "
+             "same)": ((B, S, 1), torch.float32),
+             **{f"{n}'s gradient": (tuple(L.mamba_spec(cfg)[n].shape), bf)
+                for n in MAMBA_MESH_LEAVES},
+             "the other leaves' gradients (6 leaves, as one)": ((rest,), bf)}
+    out["collectives"] = {}
+    for name, (shape, dt) in sizes.items():
+        t = torch.randn(shape, generator=gen, device="cuda").to(dt)
+        out["collectives"][name] = {
+            "bytes": t.numel() * t.element_size(),
+            "ms": _allreduce_ms(torch, mesh, t)}
+        del t
+    del w, x, r
+    torch.cuda.empty_cache()
+    return out
+
+
+def _two_rank_mamba_checks(torch, rank, seed):
+    """Rank ``rank``'s part of phase 23 (i) on a (1, 2) mesh: mamba2-370m's
+    and jamba's Mamba2 layers at full width, half the heads a rank."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(1, 2, device_type="cuda")
+    print(f"  rank {rank}: mesh up", flush=True)
+    out = {}
+    for arch in MAMBA_MESH_ARCHS:
+        out[arch] = _mamba_layer_two_ranks(torch, rank, seed, mesh,
+                                           get_arch(arch))
+        print(f"  rank {rank}: {arch}'s Mamba2 layer done", flush=True)
+    return out
+
+
+def phase_mamba_mesh_two_ranks(torch, seed, power):
+    """Phase 23 (i): two ranks on the one card, each rank's results
+    printed and checked."""
+    from repro_torch.configs import get_arch
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks
+    got = spawn_two_ranks(seed, "mamba", 900)
+    B, S = MAMBA_BATCH
+    for arch in MAMBA_MESH_ARCHS:
+        cfg = get_arch(arch)
+        nh = cfg.ssm_nheads
+        for rank, res in sorted(got.items()):
+            r = res[arch]
+            f32 = r["f32_err_over_tol"]
+            # within MESH_F32_TOL, or within twice the f32 floor
+            worst32 = max(min(f32[k], r["f32_err"][k] / (
+                SERVE_BF16_FLOOR_X * r["f32_floor"][k])
+                if r["f32_floor"][k] else math.inf) for k in f32)
+            worst16 = max(v["over_bound"] for v in r["bf16"].values())
+            h0, h1 = r["heads"]
+            print(f"  rank {rank} {arch} Mamba2 layer (d_model {cfg.d_model}, "
+                  f"d_inner {cfg.d_inner}, {nh} heads of {cfg.ssm_headdim} "
+                  f"over a state of {cfg.ssm_state}, {cfg.ssm_ngroups} group, "
+                  f"chunk {cfg.ssm_chunk}; {B} x {S} tokens) heads "
+                  f"[{h0}, {h1}), its SSD on {r['ssd_widths']} (B, S, heads, "
+                  f"hd): f32 error over tolerance ({MESH_F32_TOL:g} of "
+                  f"max|ref| + {MESH_F32_TOL:g} relative) "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in f32.items()))
+            print("    f32 error / floor (the unsharded f32 layer's distance "
+                  "from its float64 twin): " + ", ".join(
+                      f"{k} {r['f32_err'][k]:.3e} / {r['f32_floor'][k]:.3e}"
+                      for k in f32)
+                  + f"; worst over the bound (either) {worst32:.3f}")
+            print("    bf16 error / floor: " + ", ".join(
+                f"{k} {v['err']:.3e} / {v['floor']:.3e}"
+                for k, v in r["bf16"].items())
+                + f"; worst over {SERVE_BF16_FLOOR_X:g} x floor "
+                f"{worst16:.3f}")
+            print(f"  [{power}] rank {rank} {arch}: the SSD (forward and "
+                  f"backward, bf16) at its {h1 - h0} heads {r['ssd_ms']:.3f} "
+                  f"ms alone, at all {nh} {r['ssd_all_heads_ms']:.3f} ms")
+            for name, c in r["collectives"].items():
+                print(f"  [{power}] rank {rank} {arch}: all-reduce of {name}, "
+                      f"{c['bytes'] / 2**20:.3f} MiB over gloo: "
+                      f"{c['ms']:.3f} ms (host clock)")
+            if not (worst32 <= 1.0 and worst16 <= 1.0):
+                raise AssertionError(f"rank {rank}: {arch}'s sharded Mamba2 "
+                                     "layer disagrees with one rank's")
+            if (r["ssd_widths"] != [(B, S, nh // 2, cfg.ssm_headdim)]
+                    or (h0, h1) != (rank * nh // 2, (rank + 1) * nh // 2)):
+                raise AssertionError(f"rank {rank}: {arch}'s SSD did not run "
+                                     "on its own half of the heads")
+    return got
+
+
+def phase_mamba_mesh_train(torch, seed, power, mamba_train, jamba_train):
+    """Phase 23 (ii): ``make_train_step(rules, mesh)`` on a (1, 1) NCCL mesh
+    at phase 18's mamba2-370m (all 48 layers) and phase 19's jamba cut:
+    the losses and aux bitwise theirs, each step's launches by route as
+    theirs, the step time, idle share and peak beside theirs."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch.configs import get_arch
+    nccl_world()
+    out = {}
+    try:
+        jamba = dataclasses.replace(get_arch(JAMBA_ARCH),
+                                    n_layers=JAMBA_LAYERS,
+                                    hybrid_period=JAMBA_LAYERS,
+                                    n_experts=JAMBA_TRAIN_EXPERTS)
+        cuts = ((MAMBA_ARCH, get_arch(MAMBA_ARCH), MAMBA_STEPS, 0, 3,
+                 mamba_train, 18, "segments/seg0_ssm/mamba/in_proj"),
+                (JAMBA_ARCH, jamba, JAMBA_STEPS, 1, 11, jamba_train, 19,
+                 "segments/seg0_hybrid/mamba1/in_proj"))
+        for arch, cfg, steps, n_attn, n_mat, ref, phase, leaf in cuts:
+            label = f"{arch} on a (1, 1) mesh"
+            r = out[arch] = mesh_steps(
+                torch, seed, power, label, cfg, steps,
+                *train_want(n_attn, "mma", n_mat),
+                {**ref, "shape": MAMBA_BATCH}, phase, leaf, bitwise=True)
+            if r["per_step"] != ref["per_step"] or r["routes"] != ref[
+                    "routes"]:
+                raise AssertionError(f"{label}: launches by route "
+                                     f"{r['per_step']} {r['routes']}, phase "
+                                     f"{phase}'s {ref['per_step']} "
+                                     f"{ref['routes']}")
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_mamba_mesh(torch, seed, power, mamba, jamba):
+    """Phase 23: Mamba2 and the hybrid on a mesh: (i) two ranks on the one
+    card, (ii) the sharded train steps of phases 18's and 19's models on a
+    (1, 1) mesh. The path's launches: (ii)'s steps, each from counts set
+    to 0 just before it ((i)'s Mamba2 layers launch no kernel)."""
+    t0 = time.perf_counter()
+    layers = phase_mamba_mesh_two_ranks(torch, seed, power)
+    train = phase_mamba_mesh_train(torch, seed, power, mamba["train"],
+                                   jamba["train"])
+    launches = {}
+    for r in train.values():
+        for k, n in r["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    print(f"  phase 23 took {time.perf_counter() - t0:.1f} s")
+    return {"launches": launches, "train": train, "layers": layers}
 
 
 def main() -> int:
@@ -7915,6 +8259,11 @@ def main() -> int:
         "its heads over model), the sharded train steps of phases 16's and "
         "17's cuts")
     mesh = phase_mesh(torch, args.seed, power, moe, mla)
+    say("phase 23: Mamba2 and the hybrid on a mesh: two ranks on the card "
+        "(mamba2-370m's and jamba's Mamba2 layers at full width, half the "
+        "heads a rank), the sharded train steps of phases 18's and 19's "
+        "models")
+    mamba_mesh = phase_mamba_mesh(torch, args.seed, power, mamba, jamba)
     # one row per kernel; launches summed over the main paths that run it,
     # each counted from 0 just before its path and read just after
     by_path = {"serving": {"mha_fwd": serve["launches"]},
@@ -7976,7 +8325,10 @@ def main() -> int:
                # model, forward and backward; the MoE layers launch no
                # kernel) and the sharded train steps of dbrx-132b's and
                # deepseek-v3's cuts
-               "train sharded moe": mesh["launches"]}
+               "train sharded moe": mesh["launches"],
+               # the sharded train steps of mamba2-370m and of jamba's cut
+               # (the two ranks' Mamba2 layers launch no kernel)
+               "train sharded mamba": mamba_mesh["launches"]}
     # mha_fwd's prefill numbers, with both serving shapes and the eval and
     # training steps' shape beside them
     mha = {k: v for k, v in mha_rows[0].items() if k != "shape"}
@@ -8038,6 +8390,9 @@ def main() -> int:
                          (MUSICGEN_ARCH, musicgen["train"]),
                          *((f"{a} cut on a (1, 1) mesh", r)
                            for a, r in mesh["train"].items()),
+                         *((f"{a} {'cut ' if a == JAMBA_ARCH else ''}on a "
+                            "(1, 1) mesh", r)
+                           for a, r in mamba_mesh["train"].items()),
                          *((f"{a} {ARCH_LAYERS} layers", r)
                            for a, r in moe["arch"].items()))}
         if row["name"] in SEG_ROWS.values():
@@ -8059,7 +8414,7 @@ def main() -> int:
                               and name == "norm_apply"):
                 raise AssertionError(f"{name} was not launched on the "
                                      f"{path} path")
-    say("all twenty-two phases passed")
+    say("all twenty-three phases passed")
     print(power)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

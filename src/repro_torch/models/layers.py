@@ -23,8 +23,9 @@ from torch.profiler import record_function
 from repro_torch.kernels import dispatch
 
 from .config import ModelConfig
-from .sharding import (Rules, axes_size, gather, grad_psum, is_dtensor,
-                       lay_out, pmean, psum, scatter, shard, shard_index,
+from .sharding import (NamedSharding, P, Rules, axes_size, gather,
+                       grad_psum, is_dtensor, lay_out, pmean, psum,
+                       psum_shared, scatter, shard, shard_index,
                        spec_mesh_axes, spec_of, wrap)
 
 
@@ -866,32 +867,114 @@ def _final_ssm_state(xh, dt, A, Bm, Cm):
     return torch.einsum("bjhn,bjhp->bhnp", sb.float(), xh.float())
 
 
-def apply_mamba(p, cfg: ModelConfig, x, mode: str = "train",
-                cache: Optional[dict] = None):
-    """Mamba2 block, JAX's ``apply_mamba``. mode: train | prefill | decode.
-    -> (y, new_cache); cache = {"conv": (B, dconv-1, conv_dim), "ssm": (B,
-    nh, N, hd) f32} (``mamba_cache``).
+MAMBA_DECODE_ON_A_MESH = (
+    "apply_mamba: decode on a mesh (the single-step recurrence over a "
+    "head-sharded conv and SSM cache) is sharded serving, not ported yet; "
+    "ROADMAP.md Queue 1 item 12 (its leftovers)")
 
-    train and prefill run the chunked SSD over the sequence; prefill
-    returns the conv window's last inputs and the final SSM state as the
-    cache. decode (S = 1) runs the single-step recurrence in f32 and
-    writes the new conv and SSM states into ``cache``'s tensors IN PLACE
-    (JAX returns new ones): the serving loop keeps the cache it was given
-    (``transformer.apply_segment``). The gate is rmsnorm(y * silu(z)) in
-    y's dtype. Packed rows need nothing: the sequence mixing has no
-    segment mask, as in JAX. The profiler sees the projections, the conv
-    and the gate as the span ``mamba_proj``, the SSD as ``mamba_ssd`` and
-    decode's recurrence as ``mamba_decode``.
-    """
+
+class MambaReduce(NamedTuple):
+    """The collectives of a head-sharded Mamba2 layer (``mamba_local``),
+    each the identity on one rank (``MAMBA_LOCAL``): ``head_grad_sum``
+    passes the replicated input through and sums the partial gradients the
+    ranks of the head axes form of it; ``norm_sum`` sums the gated
+    RMSNorm's partial sums of squares over the head axes, and the partial
+    gradients of that sum (None: the heads are whole, the norm is
+    ``rmsnorm``); ``head_sum`` sums out_proj's partial outputs (its
+    gradient passes through)."""
+    head_grad_sum: Callable = _same
+    norm_sum: Optional[Callable] = None
+    head_sum: Callable = _same
+
+
+MAMBA_LOCAL = MambaReduce()
+
+
+def mamba_reduce(mesh, head_axes) -> MambaReduce:
+    """The collectives of ``mamba_local`` on ``mesh``: eager all-reduces
+    over the groups of ``head_axes`` (the ranks that split the heads),
+    inside autograd functions (``sharding.grad_psum``, ``psum_shared``,
+    ``psum``)."""
+    return MambaReduce(lambda t: grad_psum(t, mesh, head_axes),
+                       lambda t: psum_shared(t, mesh, head_axes),
+                       lambda t: psum(t, mesh, head_axes))
+
+
+def mamba_groups(cfg: ModelConfig, heads) -> tuple:
+    """(g0, g1): the B/C groups the heads ``heads`` = (h0, h1) read. JAX's
+    ``jnp.repeat`` gives each group nh/G adjacent heads."""
+    rep = cfg.ssm_nheads // cfg.ssm_ngroups
+    h0, h1 = heads
+    return h0 // rep, -(-h1 // rep)
+
+
+def mamba_slices(p, cfg: ModelConfig, heads) -> dict:
+    """The leaves of the heads ``heads`` = (h0, h1) cut out of whole
+    leaves: ``in_proj``'s z, x, B, C and dt columns (B and C those of the
+    heads' groups, ``mamba_groups``), ``conv_w``'s and ``conv_b``'s x, B
+    and C channels, ``gate_norm``'s and ``out_proj``'s d_inner rows, and
+    ``A_log``, ``D`` and ``dt_bias`` at the heads. All the heads: the
+    leaves themselves."""
+    if tuple(heads) == (0, cfg.ssm_nheads):
+        return dict(p)
+    din, hd, N = cfg.d_inner, cfg.ssm_headdim, cfg.ssm_state
+    gn = cfg.ssm_ngroups * N
+    h0, h1 = heads
+    g0, g1 = mamba_groups(cfg, heads)
+
+    def cols(w, *starts):
+        """w's last-dim blocks [s + lo, s + hi) of the heads (d_inner) or
+        their groups, concatenated."""
+        return torch.cat([w[..., s + lo:s + hi] for s, (lo, hi) in starts],
+                         -1)
+    inner, grp, head = (h0 * hd, h1 * hd), (g0 * N, g1 * N), (h0, h1)
+    xbc = ((0, inner), (din, grp), (din + gn, grp))
+    return {"in_proj": cols(p["in_proj"], (0, inner), (din, inner),
+                            (2 * din, grp), (2 * din + gn, grp),
+                            (2 * din + 2 * gn, head)),
+            "conv_w": cols(p["conv_w"], *xbc),
+            "conv_b": cols(p["conv_b"], *xbc),
+            "gate_norm": p["gate_norm"][h0 * hd:h1 * hd],
+            "out_proj": p["out_proj"][h0 * hd:h1 * hd],
+            **{k: p[k][h0:h1] for k in ("A_log", "D", "dt_bias")}}
+
+
+def _norm_over(x, scale, eps: float, width: int, total):
+    """``rmsnorm`` of x's last dim as the part of a ``width``-wide row:
+    the sum of squares summed over the ranks by ``total``."""
+    xf = x.float()
+    var = total((xf * xf).sum(dim=-1, keepdim=True)) / width
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * scale
+
+
+def mamba_local(p, cfg: ModelConfig, x, mode: str = "train",
+                cache: Optional[dict] = None, heads=None,
+                reduce: MambaReduce = MAMBA_LOCAL):
+    """One rank's part of the Mamba2 layer: the heads ``heads`` = (h0, h1)
+    of nh (default all) on its rows of x (B, S, D). -> (y (B, S, D),
+    new_cache), the cache of the rank's heads and channels.
+
+    ``p`` holds the heads' leaves (``mamba_slices``; the whole leaves for
+    all heads). The projection gives the heads' z, x and dt and their
+    groups' B and C; the causal conv runs on those channels (it is
+    depthwise); the SSD and the D skip on the heads alone. Where the heads
+    do not cover whole groups, B and C repeat to the heads before the SSD.
+    ``reduce`` (``MambaReduce``) makes the sums across the ranks that
+    split the heads: the gated RMSNorm's sum of squares over d_inner and
+    out_proj's partial (B, S, D) (forward), x's partial gradient
+    (backward). With all heads and ``MAMBA_LOCAL`` this is the unsharded
+    layer, op for op; spans and modes are ``apply_mamba``'s."""
     B, S, D = x.shape
-    din, nh, hd = cfg.d_inner, cfg.ssm_nheads, cfg.ssm_headdim
-    G, N = cfg.ssm_ngroups, cfg.ssm_state
+    nh, hd, N = cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state
+    h0, h1 = (0, nh) if heads is None else heads
+    g0, g1 = mamba_groups(cfg, (h0, h1))
+    nl, dl, gn = h1 - h0, (h1 - h0) * hd, (g1 - g0) * N
 
     with record_function("mamba_proj"):
-        zxbcdt = x @ p["in_proj"]
-        z = zxbcdt[..., :din]
-        xbc = zxbcdt[..., din:din + cfg.conv_dim]
-        dt_raw = zxbcdt[..., din + cfg.conv_dim:]
+        zxbcdt = reduce.head_grad_sum(x) @ p["in_proj"]
+        z = zxbcdt[..., :dl]
+        xbc = zxbcdt[..., dl:2 * dl + 2 * gn]
+        dt_raw = zxbcdt[..., 2 * dl + 2 * gn:]
         dt = F.softplus(dt_raw.float() + p["dt_bias"].float())
         A = -torch.exp(p["A_log"].float())
         xbc, conv_state = _causal_conv(
@@ -899,19 +982,26 @@ def apply_mamba(p, cfg: ModelConfig, x, mode: str = "train",
             cache["conv"] if mode == "decode" else None)
         # conv_state holds the last dconv-1 pre-activation inputs: what
         # decode needs after a prefill
-        xs = xbc[..., :din].reshape(B, S, nh, hd)
-        Bm = xbc[..., din:din + G * N].reshape(B, S, G, N)
-        Cm = xbc[..., din + G * N:].reshape(B, S, G, N)
+        xs = xbc[..., :dl].reshape(B, S, nl, hd)
+        Bm = xbc[..., dl:dl + gn].reshape(B, S, g1 - g0, N)
+        Cm = xbc[..., dl + gn:].reshape(B, S, g1 - g0, N)
+        rep = nh // cfg.ssm_ngroups
+        if h0 % rep or h1 % rep:
+            # part of a group: each head its own copy of B and C
+            off = h0 - g0 * rep
+            Bm = Bm.repeat_interleave(rep, 2)[:, :, off:off + nl]
+            Cm = Cm.repeat_interleave(rep, 2)[:, :, off:off + nl]
 
     new_cache = cache
     if mode == "decode":
         with record_function("mamba_decode"):
             # h = h * exp(dt A) + dt * x B^T ; y = C.h + D x
+            rep_l = nl // Bm.shape[2]
             h = cache["ssm"].float()                        # (B, nh, N, hd)
             dt1 = dt[:, 0]                                  # (B, nh)
             dA = torch.exp(dt1 * A)
-            Bm1 = Bm[:, 0].repeat_interleave(nh // G, 1)    # (B, nh, N)
-            Cm1 = Cm[:, 0].repeat_interleave(nh // G, 1)
+            Bm1 = Bm[:, 0].repeat_interleave(rep_l, 1)      # (B, nh, N)
+            Cm1 = Cm[:, 0].repeat_interleave(rep_l, 1)
             x1 = xs[:, 0].float()                           # (B, nh, hd)
             h = h * dA[..., None, None] + (dt1[..., None, None]
                                            * Bm1[..., :, None]
@@ -930,7 +1020,153 @@ def apply_mamba(p, cfg: ModelConfig, x, mode: str = "train",
                              "ssm": _final_ssm_state(xs, dt, A, Bm, Cm)}
 
     with record_function("mamba_proj"):
-        y = y.reshape(B, S, din)
-        y = rmsnorm(y * F.silu(z.float()).to(y.dtype), p["gate_norm"],
-                    cfg.rms_eps)
-        return y @ p["out_proj"], new_cache
+        y = y.reshape(B, S, dl)
+        y = y * F.silu(z.float()).to(y.dtype)
+        if reduce.norm_sum is None:
+            y = rmsnorm(y, p["gate_norm"], cfg.rms_eps)
+        else:
+            y = _norm_over(y, p["gate_norm"], cfg.rms_eps, cfg.d_inner,
+                           reduce.norm_sum)
+        return reduce.head_sum(y @ p["out_proj"]), new_cache
+
+
+def apply_mamba(p, cfg: ModelConfig, x, mode: str = "train",
+                cache: Optional[dict] = None, rules: Optional[Rules] = None,
+                mesh=None):
+    """Mamba2 block, JAX's ``apply_mamba``. mode: train | prefill | decode.
+    -> (y, new_cache); cache = {"conv": (B, dconv-1, conv_dim), "ssm": (B,
+    nh, N, hd) f32} (``mamba_cache``).
+
+    train and prefill run the chunked SSD over the sequence; prefill
+    returns the conv window's last inputs and the final SSM state as the
+    cache. decode (S = 1) runs the single-step recurrence in f32 and
+    writes the new conv and SSM states into ``cache``'s tensors IN PLACE
+    (JAX returns new ones): the serving loop keeps the cache it was given
+    (``transformer.apply_segment``). The gate is rmsnorm(y * silu(z)) in
+    y's dtype. Packed rows need nothing: the sequence mixing has no
+    segment mask, as in JAX. The profiler sees the projections, the conv
+    and the gate as the span ``mamba_proj``, the SSD as ``mamba_ssd`` and
+    decode's recurrence as ``mamba_decode``.
+
+    ``mesh`` (x and ``p`` DTensors laid out per ``rules``): the heads
+    split over "act_ssm_heads" (``_apply_mamba_sharded``) in modes train
+    and prefill; y is laid out as x, prefill's cache per (batch, ...) with
+    the heads and channels whole. decode on a mesh raises
+    (``MAMBA_DECODE_ON_A_MESH``).
+    """
+    if mesh is not None:
+        if mode == "decode":
+            raise NotImplementedError(MAMBA_DECODE_ON_A_MESH)
+        return _apply_mamba_sharded(p, cfg, x, mode, rules or Rules(
+            cfg.rule_overrides), mesh)
+    return mamba_local(p, cfg, x, mode, cache)
+
+
+def _mamba_layout_error(what: str):
+    return NotImplementedError(
+        f"apply_mamba on a mesh: {what}; the head-sharded route takes the "
+        "rows over 'act_batch' (or replicated), the heads over "
+        "'act_ssm_heads' (or whole), the leaves over any axes that divide "
+        "them (gathered), and nothing else sharded")
+
+
+def _whole_leaf(w, mesh, grad_axes):
+    """A leaf whole on every rank: its local shard gathered over the axes
+    of each sharded dim (``sharding.gather``); the gradient the rank forms
+    of the whole leaf summed over ``grad_axes`` (the axes that split the
+    work: the rows and the heads) and cut back to the shard."""
+    if not is_dtensor(w):
+        return grad_psum(w, mesh, grad_axes)
+    axes = spec_mesh_axes(spec_of(w).spec, w.ndim)
+    dims = [d for d in range(w.ndim) if axes_size(mesh, axes[d]) > 1]
+    for d in dims:
+        if w.shape[d] % axes_size(mesh, axes[d]):
+            raise _mamba_layout_error(f"a leaf of shape {tuple(w.shape)} "
+                                      f"laid out {axes}, unevenly")
+    local = w.to_local()
+    if not dims:
+        return grad_psum(local, mesh, grad_axes)
+    for i, d in enumerate(dims):
+        local = gather(local, mesh, axes[d], d,
+                       grad_axes if i == len(dims) - 1 else ())
+    return local
+
+
+def _owned_channels(conv, cfg: ModelConfig, heads):
+    """The conv cache (B, dconv-1, conv_dim) with this rank's channels of
+    ``conv`` (B, dconv-1, its x, B and C channels) in place and zeros
+    elsewhere; a group read by several ranks' heads is placed by the rank
+    that holds its first head, so a sum over the head axes is the whole
+    cache."""
+    din, hd, N = cfg.d_inner, cfg.ssm_headdim, cfg.ssm_state
+    gn = cfg.ssm_ngroups * N
+    rep = cfg.ssm_nheads // cfg.ssm_ngroups
+    h0, h1 = heads
+    g0, g1 = mamba_groups(cfg, heads)
+    go = -(-h0 // rep)                     # the first group this rank owns
+    dl, gl = (h1 - h0) * hd, (g1 - g0) * N
+    out = conv.new_zeros(conv.shape[:2] + (cfg.conv_dim,))
+    out[..., h0 * hd:h1 * hd] = conv[..., :dl]
+    for start, src in ((din, dl), (din + gn, dl + gl)):
+        out[..., start + go * N:start + g1 * N] = \
+            conv[..., src + (go - g0) * N:src + gl]
+    return out
+
+
+def _apply_mamba_sharded(p, cfg: ModelConfig, x, mode: str, rules: Rules,
+                         mesh):
+    """The head-sharded Mamba2 layer: ``mamba_local`` on this rank's heads
+    and rows.
+
+    The layout is read off ``rules`` at the global shapes, as JAX's
+    annotations are: the rows over ``act_batch``, the heads (B, S, nh, hd)
+    over ``act_ssm_heads`` (JAX's ``_ssd_chunked`` head layout with the
+    chunk dims folded). Where nh does not divide over the head axes every
+    rank holds every head and no head sum runs. JAX's "ssm_inner" cuts of
+    ``in_proj`` ([z | x | B | C | dt], and so of ``zxbcdt``) and of
+    ``conv_w``/``conv_b`` ([x | B | C]) are contiguous blocks that do not
+    follow the heads: every leaf is gathered whole over the axes that
+    shard it, and the rank takes its heads' columns (``mamba_slices``);
+    the gradient of the whole leaf, partial over the rows and the heads,
+    is summed over both and cut back to the leaf's shard. x with its
+    sequence or features sharded, or a leaf cut unevenly, raises
+    ``NotImplementedError`` naming the layout.
+
+    prefill's cache: the SSM state gathered over the head axes, the conv
+    window's channels summed from each rank's own (``_owned_channels``);
+    both laid out with the rows, the rest whole.
+    """
+    if not is_dtensor(x):
+        raise _mamba_layout_error("x is a plain tensor, not a DTensor")
+    B, S, D = x.shape
+    nh, hd = cfg.ssm_nheads, cfg.ssm_headdim
+    # the layer's input as JAX annotates it (a pending partial sum summed)
+    x = lay_out(x, rules.sharding(("act_batch", "act_seq", "act_embed"),
+                                  mesh, x.shape))
+    x_axes = spec_mesh_axes(spec_of(x).spec, 3)
+    if x_axes[1] or x_axes[2]:
+        raise _mamba_layout_error(f"x laid out {x_axes}")
+    b_axes = x_axes[0]
+    h_axes = spec_mesh_axes(rules.spec(
+        ("act_batch", None, "act_ssm_heads", None), mesh, (B, S, nh, hd)),
+        4)[2]
+    M = axes_size(mesh, h_axes)
+    r = shard_index(mesh, h_axes)
+    heads = (r * nh // M, (r + 1) * nh // M)
+    grad_axes = b_axes + (h_axes if M > 1 else ())
+    whole = {k: _whole_leaf(p[k], mesh, grad_axes) for k in mamba_spec(cfg)}
+    y, cache = mamba_local(mamba_slices(whole, cfg, heads), cfg,
+                           x.to_local(), mode, None, heads,
+                           mamba_reduce(mesh, h_axes) if M > 1
+                           else MAMBA_LOCAL)
+    y = wrap(y, spec_of(x), x.shape)
+    if mode == "prefill":
+        conv, ssm = cache["conv"], cache["ssm"]
+        if M > 1:
+            conv = psum(_owned_channels(conv, cfg, heads), mesh, h_axes)
+            ssm = gather(ssm, mesh, h_axes, 1)
+        rows = NamedSharding(mesh, P(None if not b_axes else b_axes[0]
+                                     if len(b_axes) == 1 else b_axes))
+        cache = {"conv": wrap(conv, rows, (B,) + conv.shape[1:]),
+                 "ssm": wrap(ssm, rows, (B,) + ssm.shape[1:])}
+    return y, cache

@@ -131,14 +131,15 @@ def count_params(shapes: dict, cfg: ModelConfig = None,
 def check_mesh(cfg: ModelConfig, mesh, what: str,
                mode: str = "train") -> None:
     """Raise before any work where ``cfg`` has no sharded route on a mesh
-    in ``mode``: an ssm segment (Mamba2's head-sharded SSD is not ported),
-    a hybrid segment (it holds Mamba2), a vlm segment (the image
-    embeddings and the cross-attention have no sharded layout yet), the
-    audio family (its (C, V, D) embedding and (C, D, V) heads have none
-    either) and MLA in mode decode (the absorbed decode over a
-    sequence-sharded latent cache is sharded serving). An moe segment
-    (expert parallelism over "model": ``layers.apply_moe``) and MLA in
-    modes train and prefill run sharded."""
+    in ``mode``: a vlm segment (the image embeddings and the
+    cross-attention have no sharded layout yet), the audio family (its (C,
+    V, D) embedding and (C, D, V) heads have none either), and in mode
+    decode Mamba2 (an ssm or hybrid segment: the recurrence over a
+    head-sharded cache) and MLA (the absorbed decode over a
+    sequence-sharded latent cache), both sharded serving. An moe segment
+    (expert parallelism over "model": ``layers.apply_moe``), MLA, and
+    Mamba2 with its heads over "model" (``layers.apply_mamba``; an ssm or
+    hybrid segment) in modes train and prefill run sharded."""
     if mesh is None:
         return
     if any(k == "vlm" for k, _ in cfg.segments):
@@ -150,14 +151,11 @@ def check_mesh(cfg: ModelConfig, mesh, what: str,
         raise NotImplementedError(
             f"{what}: the audio codebook embedding and heads on a mesh are "
             "not ported yet; ROADMAP.md Queue 1 item 12 (its leftovers)")
-    if any(k == "hybrid" for k, _ in cfg.segments):
+    mamba = [k for k, _ in cfg.segments if k in ("ssm", "hybrid")]
+    if mode == "decode" and mamba:
         raise NotImplementedError(
-            f"{what}: a hybrid segment on a mesh needs sharded Mamba2, not "
-            "ported yet; ROADMAP.md Queue 1 item 12 (its leftovers)")
-    if any(k == "ssm" for k, _ in cfg.segments):
-        raise NotImplementedError(
-            f"{what}: Mamba2 (an ssm segment) on a mesh is not ported yet; "
-            "ROADMAP.md Queue 1 item 12 (its leftovers)")
+            f"{what}: the {mamba[0]} segment's Mamba2: "
+            f"{L.MAMBA_DECODE_ON_A_MESH}")
     if cfg.attention_kind == "mla" and mode == "decode":
         raise NotImplementedError(f"{what}: {L.MLA_DECODE_ON_A_MESH}")
 
@@ -289,9 +287,11 @@ def forward(params, cfg: ModelConfig, tokens, *, image_embeds=None,
     are laid out per their logical axes (``sharding.shard``, as JAX's
     annotations), attention takes the shardings of its operands, and
     plain tensors (positions, masks) count as replicated. The MoE layer
-    runs expert-parallel (``layers.apply_moe``) and MLA per JAX's head
-    layouts in modes train and prefill. A Mamba2, hybrid, vlm or audio
-    model, and MLA in mode decode, raise on a mesh (``check_mesh``).
+    runs expert-parallel (``layers.apply_moe``), and MLA and Mamba2
+    (``layers.apply_mamba``: the heads over "model"; an ssm or hybrid
+    model) per JAX's head layouts in modes train and prefill. A vlm or
+    audio model, and MLA and Mamba2 in mode decode, raise on a mesh
+    (``check_mesh``).
     """
     check_mesh(cfg, mesh, "forward", mode)
     rules = rules or Rules(cfg.rule_overrides)

@@ -331,8 +331,9 @@ def embed_lookup(w, tokens, rules: Rules, mesh):
 
 # ------------------------------------------------------ eager collectives
 #
-# The expert-parallel MoE route (``layers.moe_local``) runs on local
-# tensors; these are its collectives, eager ``torch.distributed`` calls
+# The expert-parallel MoE route (``layers.moe_local``) and the head-sharded
+# Mamba2 route (``layers.mamba_local``) run on local tensors; these are
+# their collectives, eager ``torch.distributed`` calls
 # over the groups of named mesh axes (``mesh.get_group``), and the autograd
 # functions that place them. Each takes ``axes``, a tuple of mesh axis
 # names major to minor (a dim split over them as DTensor splits it); an
@@ -416,6 +417,21 @@ class _GradSum(torch.autograd.Function):
         return all_reduce(g.clone(), ctx.mesh, ctx.axes), None, None
 
 
+class _SharedSum(torch.autograd.Function):
+    """Forward: the partial values summed over ``axes``. Backward: the
+    partial gradients the ranks form of that sum (each uses it for its own
+    part of the work) summed over ``axes`` too."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return all_reduce(x.clone(), mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.clone(), ctx.mesh, ctx.axes), None, None
+
+
 class _Mean(torch.autograd.Function):
     """Forward: the mean over ``axes`` of each rank's value (each rank's a
     mean over an equal share of the samples). Backward: each rank's share
@@ -476,6 +492,14 @@ def psum(x, mesh, axes):
 def grad_psum(x, mesh, axes):
     """``x`` as it is; its partial gradients summed over ``axes``."""
     return _GradSum.apply(x, mesh, tuple(axes)) \
+        if axes_size(mesh, axes) > 1 else x
+
+
+def psum_shared(x, mesh, axes):
+    """Partial values summed over ``axes``, where each rank uses the sum
+    for its own part of the work: the partial gradients are summed too
+    (``grad_psum(psum(x))``)."""
+    return _SharedSum.apply(x, mesh, tuple(axes)) \
         if axes_size(mesh, axes) > 1 else x
 
 

@@ -41,7 +41,7 @@ from torch.utils import checkpoint as _ckpt
 
 from . import layers as L
 from .config import ModelConfig
-from .sharding import shard
+from .sharding import lay_out, shard
 
 
 _SPECS = {"mlp": L.mlp_spec, "moe": L.moe_spec, "mamba": L.mamba_spec}
@@ -98,7 +98,8 @@ def _apply_sub(sub: str, p, cfg: ModelConfig, x, positions, mode: str, cache,
     elif sub == "moe":
         y, aux = L.apply_moe(p, cfg, h, rules=rules, mesh=mesh)
     elif sub == "mamba":
-        y, cache = L.apply_mamba(p, cfg, h, mode, cache)
+        y, cache = L.apply_mamba(p, cfg, h, mode, cache, rules=rules,
+                                 mesh=mesh)
     elif sub == "mlp":
         y = L.apply_mlp(p, cfg, h)
     else:
@@ -145,6 +146,26 @@ def superblock_cache(cfg: ModelConfig, kind: str, batch: int, max_seq: int,
             out[name] = _attention(cfg)[2](cfg, batch, max_seq, dtype, device)
         elif sub == "mamba":
             out[name] = L.mamba_cache(cfg, batch, dtype, device)
+    return out
+
+
+def cache_axes(cfg: ModelConfig, kind: str) -> dict:
+    """The logical axes of one super-block's stacked (L, ...) cache, per
+    sub-layer that keeps one, JAX's."""
+    out = {}
+    for name, sub in superblock_layout(cfg, kind):
+        if sub == "attn":
+            if cfg.attention_kind == "mla":
+                out[name] = {"ckv": (None, "cache_batch", "cache_seq",
+                                     "cache_kv"),
+                             "krope": (None, "cache_batch", "cache_seq",
+                                       None, None)}
+            else:
+                ax = (None, "cache_batch", "cache_seq", None, "cache_kv")
+                out[name] = {"k": ax, "v": ax}
+        elif sub == "mamba":
+            out[name] = {"conv": (None, "cache_batch", None, "ssm_inner"),
+                         "ssm": (None, "cache_batch", None, None, None)}
     return out
 
 
@@ -201,6 +222,12 @@ def apply_superblock(kind: str, cfg: ModelConfig, params, x, positions,
                                      mode, sub_cache, cache_index,
                                      segment_ids, rules=rules, mesh=mesh,
                                      image_embeds=image_embeds)
+        if mesh is not None and mode == "prefill" and sub == "mamba":
+            # one layer's Mamba2 cache laid out per JAX's cache_axes
+            axes = cache_axes(cfg, kind)[name]
+            sub_cache = {k: lay_out(v, rules.sharding(axes[k][1:], mesh,
+                                                      v.shape))
+                         for k, v in sub_cache.items()}
         if new_cache is not None and sub in _CACHED:
             new_cache[name] = sub_cache
         if a is not None:

@@ -164,7 +164,7 @@ def make_train_step(cfg, tx: GradientTransformation, grad_accum: int = 1,
       takes the global batch, and ``update_params`` gets every
       parameter's sharding (``tree_shardings``). The global norm is the
       norm over the full gradients. A model with no sharded route (a
-      Mamba2, hybrid, vlm or audio model) raises here, before any work
+      vlm or audio model) raises here, before any work
       (``models.model.check_mesh``).
 
     ``donate`` has no counterpart: ``update_params`` already writes the

@@ -314,15 +314,17 @@ def test_remat_policies_match_none():
 
 
 def test_hybrid_under_a_mesh_raises_before_any_work():
-    """A hybrid segment holds MoE and Mamba2; MoE runs sharded, Mamba2 not
-    yet: forward, the train and eval steps raise on any mesh, naming
-    Mamba2."""
+    """A hybrid segment holds attention, MoE and Mamba2, each with a
+    sharded route in modes train and prefill: the train and eval steps
+    build on a (duck-typed) (1, 1) mesh
+    (``tests/test_torch_sharded_mamba.py`` runs them on a gloo mesh).
+    Decode on a mesh is sharded serving, not ported: forward in mode
+    decode raises before any work, naming it."""
     tcfg = _tcfg(_hybrid_cfg())
     mesh = SimpleNamespace(mesh_dim_names=("data", "model"), shape=(1, 1))
     tx = t_make("scale_fused", 1e-2)
-    for call in (lambda: TM.forward(None, tcfg, None, mesh=mesh),
-                 lambda: make_train_step(tcfg, tx, mesh=mesh),
-                 lambda: make_eval_step(tcfg, mesh=mesh)):
-        with pytest.raises(NotImplementedError,
-                           match="hybrid.*Mamba2.*item 12"):
-            call()
+    assert callable(make_train_step(tcfg, tx, mesh=mesh))
+    assert callable(make_eval_step(tcfg, mesh=mesh))
+    with pytest.raises(NotImplementedError,
+                       match="sharded serving.*item 12"):
+        TM.forward(None, tcfg, None, mode="decode", mesh=mesh)
