@@ -5,8 +5,8 @@ NVIDIA H100.
     python3 chip_smoke.py [--seed N]
 
 Run from the root of a checkout. It builds the port's CUDA kernels with
-nvcc (one process per source, in parallel), then runs twenty-three phases and fails
-(non-zero exit, no result line) if any of them fails:
+nvcc (one process per source, in parallel), then runs twenty-four phases
+and fails (non-zero exit, no result line) if any of them fails:
 
 1. device: the card's name and power limit, the kernels' ptxas report;
 2. every kernel against its plain PyTorch version on the card, at the
@@ -430,6 +430,34 @@ nvcc (one process per source, in parallel), then runs twenty-three phases and fa
    theirs, each step's launches by route as theirs, step time, idle share
    and peak beside theirs. The kernels line gains the path ``train
    sharded mamba`` and the two models' per-step launches.
+24. The VLM and audio on a ("data", "model") mesh: (i) two ``gloo``
+   ranks on cuda:0 on a (1, 2) mesh: llama-3.2-vision-11b's
+   cross-attention at phase 20's shape (4 x 1024 text queries over 4 x
+   4096 image keys, 32 heads over 8 of 128, non-causal) with its heads
+   over "model", each rank's 16 query heads over 4 kv heads through the
+   sharded ``flash_attention`` in f32 (``fma``, the route f32 images
+   give it) and bf16 (``mma``), forward and backward, against its slice
+   of the unsharded call (bitwise expected), and the three kernels at
+   the rank's heads against their plain versions (phase 2's bounds),
+   timed beside the unsharded call, the plain version, SDPA on the same
+   heads and the bound (phase 22's MLA attention takes the same helper);
+   musicgen-medium's four codebook heads
+   (N 4096, D 1536, V 2048) with the vocabulary over "model" through the
+   sharded ``xent_loss`` (rank 1's 1024 columns at col_offset 1024, its
+   launches there counted), forward and backward against one rank's
+   whole-vocabulary loss, the codebook embedding's lookup through
+   ``model._embed`` and its gradient from each rank's shard, and the
+   three xent kernels on a rank's shard against their plain versions,
+   timed beside the bound and the library call; (ii)
+   ``make_train_step(rules, mesh)`` on a (1, 1) NCCL mesh at phase 20's
+   uncut VLM and phase 21's musicgen, 3 steps each from the same weights
+   and batches: the losses and aux bitwise theirs, each step's launches
+   by route as theirs, step time, idle share and peak beside theirs;
+   then the host-clock time musicgen's lookups and heads add on the
+   mesh, against the step's extra time. The
+   kernels line gains the path ``train sharded vlm``, the per-rank shapes
+   of the attention and ``col_offset`` rows and the two models' per-step
+   launches.
 
 The line before the last is a JSON ``{"kernels": [...]}`` summary, the
 last line ``{"ok": true, "device": {...}}``. It needs a CUDA card and
@@ -5322,7 +5350,8 @@ SHARDED_STEPS = 3  # make_train_step steps on the (1, 1) NCCL mesh
 TWO_RANK_LOSS_ATOL = 1e-4
 # seconds after which a rank of a two-rank job prints where it is and
 # exits (phase 15 (ii), phase 22 (i))
-TWO_RANK_LIMIT_S = {"sharded": 300, "moe": 420, "mamba": 420}
+TWO_RANK_LIMIT_S = {"sharded": 300, "moe": 420, "mamba": 420,
+                    "vlm": 420}
 
 
 def offset_counts():
@@ -5521,8 +5550,9 @@ def phase_sharded_kernels(torch, gen, power):
 
 
 def _two_rank_worker(rank, port, seed, q, task="sharded"):
-    """Phase 15 (ii) (``task`` "sharded"), 22 (i) ("moe") or 23 (i)
-    ("mamba"), one of two ranks on cuda:0 under gloo."""
+    """Phase 15 (ii) (``task`` "sharded"), 22 (i) ("moe"), 23 (i)
+    ("mamba") or 24 (i) ("vlm"), one of two ranks on cuda:0 under
+    gloo."""
     import datetime
     import faulthandler
     import traceback
@@ -5543,7 +5573,8 @@ def _two_rank_worker(rank, port, seed, q, task="sharded"):
         print(f"  rank {rank}: process group up", flush=True)
         checks = {"sharded": _two_rank_checks,
                   "moe": _two_rank_moe_checks,
-                  "mamba": _two_rank_mamba_checks}[task]
+                  "mamba": _two_rank_mamba_checks,
+                  "vlm": _two_rank_vlm_checks}[task]
         q.put((rank, "ok", checks(torch, rank, seed)))
     except BaseException:
         q.put((rank, "error", traceback.format_exc()))
@@ -7523,85 +7554,216 @@ def _moe_layer_two_ranks(torch, rank, seed, mesh, cfg):
     return out
 
 
-def _mla_attention_two_ranks(torch, rank, seed, mesh):
-    """Phase 22 (i), MLA's attention at deepseek-v3's train shape with its
-    heads over "model": this rank's 64 heads through the sharded
-    flash_attention (forward and backward, counted) against its slice of
-    the unsharded call, then the three kernels' per-rank times beside
-    their bounds and SDPA on the same 64 heads, each rank alone."""
+def _attn_plain_over_tol(torch, name, got, want, dtype):
+    """A kernel's output against its plain version's on the same inputs,
+    at phase 2's bounds: -> (max abs error, largest error over its
+    element's tolerance). ``got``/``want``: (out, lse) for mha_fwd, (dK,
+    dV) for mha_bwd_dkv, dQ for mha_bwd_dq."""
+    tag = str(dtype).replace("torch.", "")
+    pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
+    err = over = 0.0
+    for i, (a, b) in enumerate(pairs):
+        a, b = a.float(), b.float()
+        if not bool(torch.isfinite(a).all()):
+            return math.inf, math.inf
+        if name == "mha_fwd" and i == 1:  # lse
+            tol = LSE_ATOL + LSE_RTOL * b.abs()
+        elif name == "mha_fwd":
+            tol = (F32_OUT_ATOL if tag == "float32"
+                   else BF16_OUT_ATOL + BF16_OUT_RTOL * b.abs())
+        else:
+            tol = (BWD_SCALE_ATOL[tag] * b.abs().max()
+                   + BWD_RTOL[tag] * b.abs())
+        d = (a - b).abs()
+        err = max(err, d.max().item())
+        over = max(over, (d / tol).max().item())
+    return err, over
+
+
+def _attention_two_ranks(torch, rank, seed, mesh, shape, dtypes, causal):
+    """Phases 22 and 24 (i): an attention of ``shape`` (B, S, T, H, K, hd,
+    hdv) with its heads over "model": this rank's H/2 query heads over
+    K/2 kv heads through the sharded flash_attention, forward and backward
+    (counted), in each of ``dtypes`` (one draw rounded to bf16, so every
+    dtype holds one value), against its slice of the unsharded call on the
+    same tensors. The kernels compute each head alone, so bitwise is
+    expected; where not, f32 is held within MESH_F32_TOL (``_err_over_tol``)
+    and bf16 within SERVE_BF16_FLOOR_X times its floor, the distance of the
+    unsharded bf16 call from the unsharded f32 call, where f32 runs too,
+    else within phase 2's bf16 bound (MESH_ATTN_TOL + MESH_ATTN_TOL |ref|).
+    Then, each rank alone, the three kernels at the rank's heads against
+    their plain versions on the same inputs (phase 2's bounds), timed
+    beside the unsharded call, the plain version, SDPA on the same heads
+    and the bound."""
     import torch.nn.functional as F
     from repro_torch.kernels import dispatch
     from repro_torch.kernels.attention.attention import (_fwd_route,
                                                          mha_bwd_dkv,
                                                          mha_bwd_dq, mha_fwd)
+    from repro_torch.kernels.attention.ref import (mha_bwd_dkv_ref,
+                                                   mha_bwd_dq_ref,
+                                                   mha_fwd_ref)
     from repro_torch.models.sharding import NamedSharding, P, place
-    bf = torch.bfloat16
-    B, S, T, H, K, hd, hdv = MLA_ATTN[MLA_TRAIN_ATTN]
-    gen = torch.Generator(device="cuda").manual_seed(seed + 22)
-    q, k, v = make_qkv(torch, gen, B, S, T, H, K, hd, bf, hdv)
-    do = torch.randn((B, S, H, hdv), generator=gen, device="cuda").to(bf)
-    kw = dict(scale=hd ** -0.5, causal=True)
+    B, S, T, H, K, hd, hdv = shape
+    f32 = torch.float32
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = make_qkv(torch, gen, B, S, T, H, K, hd, torch.bfloat16, hdv)
+    do = torch.randn((B, S, H, hdv), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    kw = dict(scale=hd ** -0.5, causal=causal)
     sh = NamedSharding(mesh, P(None, None, "model", None))
     plan = dispatch.attn_route(q.shape, k.shape, sh, sh)[1]
+
+    def tag(dt):
+        return str(dt).replace("torch.", "")
+
+    def run(dt, sharded):
+        ts = [t.to(dt) for t in (q, k, v)]
+        g = do.to(dt)
+        if sharded:
+            ts, g = [place(t, sh) for t in ts], place(g, sh)
+        ts = [t.detach().requires_grad_() for t in ts]
+        o = dispatch.flash_attention(
+            *ts, **kw, **({"q_sharding": sh, "kv_sharding": sh}
+                          if sharded else {}))
+        res = [o, *torch.autograd.grad(o, ts, g)]
+        # a rank's shard, or the same slice of the unsharded call
+        return [t.to_local() if sharded else place(t, sh).to_local()
+                for t in res]
+
     zero_train_counts()
     zero_route_counts()
-    qd, kd, vd = (place(t, sh).detach().requires_grad_() for t in (q, k, v))
-    o = dispatch.flash_attention(qd, kd, vd, q_sharding=sh, kv_sharding=sh,
-                                 **kw)
-    got = [o] + list(torch.autograd.grad(o, [qd, kd, vd], place(do, sh)))
-    got = [t.to_local() for t in got]
+    got = {dt: run(dt, True) for dt in dtypes}
     torch.cuda.synchronize()
     launches, routes = train_counts(), route_counts()
-
-    def one_rank():
-        qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
-        ref = dispatch.flash_attention(qs, ks, vs, **kw)
-        return [ref] + list(torch.autograd.grad(ref, [qs, ks, vs], do))
-    want = [place(t, sh).to_local() for t in _uncounted(one_rank)]
+    want = _uncounted(lambda: {dt: run(dt, False) for dt in dtypes})
     errs = {}
-    for name, a, b in zip(("out", "dq", "dk", "dv"), got, want):
-        tol = MESH_ATTN_TOL * (1 + b.float().abs())
-        errs[name] = {"over_tol": ((a.float() - b.float()).abs()
-                                   / tol).max().item(),
-                      "bitwise": bool(torch.equal(a, b))}
-    Hl = got[0].shape[2]
-    ql, kl, vl, dol = (place(t, sh).to_local().contiguous()
-                       for t in (q, k, v, do))
+    for dt in dtypes:
+        for i, name in enumerate(("out", "dq", "dk", "dv")):
+            a, b = got[dt][i].float(), want[dt][i].float()
+            err = (a - b).abs().max().item()
+            e = errs[f"{name} {tag(dt)}"] = {
+                "bitwise": bool(torch.equal(got[dt][i], want[dt][i])),
+                "err": err}
+            if dt == f32:
+                e["over_bound"] = _err_over_tol(a, b)
+            elif f32 in dtypes:
+                floor = (b - want[f32][i].float()).abs().max().item()
+                e["over_bound"] = (err / (SERVE_BF16_FLOOR_X * floor)
+                                   if floor else
+                                   (0.0 if err == 0 else math.inf))
+            else:
+                e["over_bound"] = ((a - b).abs() / (
+                    MESH_ATTN_TOL * (1 + b.abs()))).max().item()
+    Hl, Kl = got[dtypes[0]][0].shape[2], got[dtypes[0]][2].shape[2]
+    local = {dt: [place(t.to(dt), sh).to_local().contiguous()
+                  for t in (q, k, v, do)] for dt in dtypes}
+    kernel_routes = {tag(dt): _fwd_route(*local[dt][:3]) for dt in dtypes}
+    del got, want
 
     def timing():
-        o_l, lse = mha_fwd(ql, kl, vl, None, **kw)
-        delta = (dol.float() * o_l.float()).sum(-1).transpose(1, 2) \
-            .contiguous()
-        args = (ql, kl, vl, dol, lse, delta, None)
-        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
-                      for t in (ql, kl, vl))
-        backend, ctx = _sdpa_backend(torch, qt, kt, vt)
-        rows = {}
-        with ctx():
-            so = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                scale=kw["scale"])
-            sdpa = {"mha_fwd": time_ms(torch, lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, scale=kw["scale"]), 5, warm=2)}
-            sdpa["bwd"] = time_ms(torch, lambda: torch.autograd.grad(
-                so, [qt, kt, vt], dol.transpose(1, 2), retain_graph=True),
-                5, warm=2)
-        for name, fn in (("mha_fwd", lambda: mha_fwd(ql, kl, vl, None, **kw)),
-                         ("mha_bwd_dq", lambda: mha_bwd_dq(*args, **kw)),
-                         ("mha_bwd_dkv", lambda: mha_bwd_dkv(*args, **kw))):
-            ms = time_ms(torch, fn, 5, warm=2)
-            bound, by = (attention_bound_ms(B, S, T, Hl, Hl, hd, True, None,
-                                            2, hdv) if name == "mha_fwd"
-                         else bwd_bound_ms(B, S, T, Hl, Hl, hd, True, None,
-                                           2, name, hdv))
-            rows[name] = {"ms": ms, "bound_ms": bound, "bound_by": by,
-                          "sdpa_ms": sdpa["mha_fwd" if name == "mha_fwd"
-                                          else "bwd"],
-                          "sdpa_backend": backend}
+        rows = []
+        for dt in dtypes:
+            ql, kl, vl, dol = local[dt]
+            whole = [t.to(dt) for t in (q, k, v, do)]
+            o_l, lse = mha_fwd(ql, kl, vl, None, **kw)
+            delta = (dol.float() * o_l.float()).sum(-1).transpose(1, 2) \
+                .contiguous()
+            args = (ql, kl, vl, dol, lse, delta, None)
+            o_w, lse_w = mha_fwd(*whole[:3], None, **kw)
+            delta_w = (whole[3].float() * o_w.float()).sum(-1) \
+                .transpose(1, 2).contiguous()
+            args_w = (*whole, lse_w, delta_w, None)
+            qt = ql.transpose(1, 2).contiguous().requires_grad_()
+            kt, vt = (t.transpose(1, 2).repeat_interleave(Hl // Kl, 1)
+                      .contiguous().requires_grad_() for t in (kl, vl))
+            backend, ctx = _sdpa_backend(torch, qt, kt, vt)
+            with ctx():
+                so = F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal, scale=kw["scale"])
+                sdpa = {"mha_fwd": time_ms(
+                    torch, lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=causal, scale=kw["scale"]),
+                    5, warm=2),
+                    "bwd": time_ms(torch, lambda: torch.autograd.grad(
+                        so, [qt, kt, vt], dol.transpose(1, 2),
+                        retain_graph=True), 5, warm=2)}
+            el = 4 if dt == f32 else 2
+            peak = F32_FLOPS_PER_S if dt == f32 else BF16_FLOPS_PER_S
+            for name, fn, fn_w, plain in (
+                    ("mha_fwd", lambda: mha_fwd(ql, kl, vl, None, **kw),
+                     lambda: mha_fwd(*whole[:3], None, **kw),
+                     lambda: mha_fwd_ref(ql, kl, vl, None, **kw)),
+                    ("mha_bwd_dq", lambda: mha_bwd_dq(*args, **kw),
+                     lambda: mha_bwd_dq(*args_w, **kw),
+                     lambda: mha_bwd_dq_ref(*args, **kw)),
+                    ("mha_bwd_dkv", lambda: mha_bwd_dkv(*args, **kw),
+                     lambda: mha_bwd_dkv(*args_w, **kw),
+                     lambda: mha_bwd_dkv_ref(*args, **kw))):
+                err, over = _attn_plain_over_tol(torch, name, fn(), plain(),
+                                                 dt)
+                bound, by = (
+                    attention_bound_ms(B, S, T, Hl, Kl, hd, causal, None, el,
+                                       hdv, peak=peak) if name == "mha_fwd"
+                    else bwd_bound_ms(B, S, T, Hl, Kl, hd, causal, None, el,
+                                      name, hdv, peak=peak))
+                rows.append({
+                    "name": name, "dtype": tag(dt),
+                    "route": kernel_routes[tag(dt)],
+                    "plain_err": err, "plain_over_tol": over,
+                    "ms": time_ms(torch, fn, 5, warm=2),
+                    "unsharded_ms": time_ms(torch, fn_w, 5, warm=2),
+                    "plain_ms": time_ms(torch, plain, 2, warm=1),
+                    "bound_ms": bound, "bound_by": by,
+                    "library_ms": sdpa["mha_fwd" if name == "mha_fwd"
+                                       else "bwd"],
+                    "library_note": "F.scaled_dot_product_attention, "
+                                    f"{backend} backend" + (
+                                        f", kv repeated to {Hl} heads"
+                                        if Hl != Kl else "") + (
+                                        "" if name == "mha_fwd" else
+                                        ", backward (dQ, dK, dV together)")})
+            del whole, o_w, lse_w, delta_w, args_w, qt, kt, vt, so
+            torch.cuda.empty_cache()
         return rows
     rows = _in_turns(torch, rank, lambda: _uncounted(timing))
-    return {"plan": (plan.batch_axes, plan.head_axes), "heads": Hl,
-            "route": _fwd_route(ql, kl, vl), "launches": launches,
-            "routes": routes, "errs": errs, "times": rows}
+    return {"plan": (plan.batch_axes, plan.head_axes), "heads": (Hl, Kl),
+            "routes": routes, "kernel_routes": kernel_routes,
+            "launches": launches, "errs": errs, "times": rows}
+
+
+def _attention_two_ranks_report(power, rank, label, c, want_routes):
+    """Prints one rank's ``_attention_two_ranks`` result and checks it:
+    every tensor within its bound of the unsharded slice, every kernel
+    within phase 2's bound of its plain version, the heads over "model"
+    and the kernels on ``want_routes`` ({dtype: route})."""
+    worst = max(e["over_bound"] for e in c["errs"].values())
+    plain = max(t["plain_over_tol"] for t in c["times"])
+    print(f"  rank {rank} {label}, plan batch {c['plan'][0]} x heads "
+          f"{c['plan'][1]}: {c['heads'][0]} query heads over "
+          f"{c['heads'][1]} kv heads a rank, routes {c['kernel_routes']}; "
+          f"out, dQ, dK, dV against one rank's slice: "
+          + ", ".join(f"{k} {e['err']:.3e}"
+                      + (" (bitwise)" if e["bitwise"] else "")
+                      for k, e in c["errs"].items())
+          + f"; worst over its bound {worst:.3f}; launches by route "
+          f"{ {k: c['routes'][k] for k in ('mha_fwd', *BWD_KERNELS)} }")
+    for t in c["times"]:
+        print(f"  [{power}] rank {rank} {t['name']} {t['dtype']} on "
+              f"{t['route']} at {c['heads'][0]} heads: {t['ms']:.4f} ms "
+              f"(all heads {t['unsharded_ms']:.4f} ms; bound "
+              f"{t['bound_ms']:.4f} ms by {t['bound_by']}"
+              f"{' at the f32 peak' if t['dtype'] == 'float32' else ''}"
+              f", {t['bound_ms'] / t['ms']:.4f} of it; plain "
+              f"{t['plain_ms']:.4f} ms, max abs error against it "
+              f"{t['plain_err']:.3e}, {t['plain_over_tol']:.3f} of phase "
+              f"2's bound; {t['library_note']} {t['library_ms']:.4f} ms)")
+    if not (worst <= 1.0 and plain <= 1.0
+            and c["plan"] == ((), ("model",))
+            and c["kernel_routes"] == want_routes):
+        raise AssertionError(f"rank {rank}: the sharded {label} disagrees "
+                             "with one rank's or with the plain version, or "
+                             "its plan or routes are not the expected ones")
 
 
 def _two_rank_moe_checks(torch, rank, seed):
@@ -7620,15 +7782,17 @@ def _two_rank_moe_checks(torch, rank, seed):
         cfg = dataclasses.replace(get_arch(arch), **over)
         out[arch] = _moe_layer_two_ranks(torch, rank, seed, mesh, cfg)
         print(f"  rank {rank}: {arch}'s MoE layer done", flush=True)
-    out["mla"] = _mla_attention_two_ranks(torch, rank, seed, mesh)
+    out["mla"] = _attention_two_ranks(torch, rank, seed + 22, mesh,
+                                      MLA_ATTN[MLA_TRAIN_ATTN],
+                                      (torch.bfloat16,), True)
     print(f"  rank {rank}: MLA's attention done", flush=True)
     return out
 
 
 def phase_mesh_two_ranks(torch, seed, power):
     """Phase 22 (i): two ranks on the one card, each rank's results
-    printed and checked. -> the two ranks' launches on the sharded
-    attention, summed."""
+    printed and checked. -> {"launches": the two ranks' launches on the
+    sharded attention, summed}."""
     import dataclasses
     from repro_torch.configs import get_arch
     torch.cuda.empty_cache()  # the earlier phases' cached blocks
@@ -7669,30 +7833,12 @@ def phase_mesh_two_ranks(torch, seed, power):
     launches = {}
     for rank, res in sorted(got.items()):
         m = res["mla"]
-        worst = max(e["over_tol"] for e in m["errs"].values())
-        bitwise = all(e["bitwise"] for e in m["errs"].values())
-        print(f"  rank {rank} MLA attention {MLA_TRAIN_ATTN}, plan batch "
-              f"{m['plan'][0]} x heads {m['plan'][1]}: {m['heads']} heads a "
-              f"rank on {m['route']}; out, dQ, dK, dV against one rank's "
-              f"slice: worst error over tolerance {worst:.3f}"
-              f"{', bitwise' if bitwise else ''}; launches {m['launches']}")
-        if m["times"]:
-            for name, t in m["times"].items():
-                print(f"  [{power}] rank {rank} {name} at {m['heads']} of "
-                      f"128 heads: {t['ms']:.4f} ms (bound "
-                      f"{t['bound_ms']:.4f} ms by {t['bound_by']}, "
-                      f"{t['bound_ms'] / t['ms']:.4f} of it); "
-                      f"F.scaled_dot_product_attention "
-                      f"({t['sdpa_backend']}"
-                      f"{'' if name == 'mha_fwd' else ', backward'}) on "
-                      f"the same heads {t['sdpa_ms']:.4f} ms")
-        if not (worst <= 1.0 and m["route"] == "fma"
-                and m["plan"] == ((), ("model",))):
-            raise AssertionError(f"rank {rank}: the sharded MLA attention "
-                                 "disagrees with one rank's")
+        _attention_two_ranks_report(power, rank,
+                                    f"MLA attention {MLA_TRAIN_ATTN}", m,
+                                    {"bfloat16": "fma"})
         for k, n in m["launches"].items():
             launches[k] = launches.get(k, 0) + n
-    return launches
+    return {"launches": launches}
 
 
 def mesh_steps(torch, seed, power, label, cfg, steps, want, want_r, ref,
@@ -7777,50 +7923,70 @@ def nccl_world():
                             rank=0, world_size=1)
 
 
-def phase_mesh_train(torch, seed, power, moe_train, mla_train):
-    """Phase 22 (ii): ``make_train_step(rules, mesh)`` on a (1, 1) NCCL
-    mesh at phase 16's dbrx-132b cut and phase 17's deepseek-v3 cut, from
-    their weights and batches: each step's launches by route as those
-    phases', the losses and aux against theirs, the step time, idle share
-    and peak beside theirs."""
-    import dataclasses
+def mesh_train(torch, seed, power, cuts, same):
+    """(ii) of phases 22-24: ``make_train_step(rules, mesh)`` on a (1, 1)
+    NCCL mesh at each of ``cuts``, (arch, cfg, steps, (want, want_r), ref,
+    phase, leaf, (B, S)): the cut of phase ``phase`` whose results are
+    ``ref``, from its weights and batches, through ``mesh_steps``.
+    ``same``: the losses and aux bitwise theirs and each step's launches
+    by route theirs. -> {arch: ``mesh_steps``' result}."""
     import torch.distributed as dist
-    from repro_torch.configs import get_arch
     nccl_world()
     out = {}
     try:
-        cuts = ((MOE_ARCH, dataclasses.replace(get_arch(MOE_ARCH),
-                                               n_layers=MOE_LAYERS),
-                 MOE_STEPS, "mma", 6, moe_train, 16),
-                (MLA_ARCH, dataclasses.replace(
-                    get_arch(MLA_ARCH), n_layers=MLA_LAYERS,
-                    n_experts=MLA_TRAIN_EXPERTS), MLA_STEPS, "fma", 18,
-                 mla_train, 17))
-        for arch, cfg, steps, route, n_mat, ref, phase in cuts:
-            seg = f"seg{len(cfg.segments) - 1}_moe"
-            out[arch] = mesh_steps(
-                torch, seed, power, f"{arch} on a (1, 1) mesh", cfg, steps,
-                *train_want(cfg.n_layers, route, n_mat),
-                {**ref, "shape": MESH_TOKENS}, phase,
-                f"segments/{seg}/ffn/w_gate")
+        for arch, cfg, steps, want, ref, phase, leaf, shape in cuts:
+            label = f"{arch} on a (1, 1) mesh"
+            r = out[arch] = mesh_steps(
+                torch, seed, power, label, cfg, steps, *want,
+                {**ref, "shape": shape}, phase, leaf, bitwise=same)
+            if same and (r["per_step"] != ref["per_step"]
+                         or r["routes"] != ref["routes"]):
+                raise AssertionError(f"{label}: launches by route "
+                                     f"{r['per_step']} {r['routes']}, phase "
+                                     f"{phase}'s {ref['per_step']} "
+                                     f"{ref['routes']}")
         return out
     finally:
         dist.destroy_process_group()
 
 
+def mesh_phase(torch, seed, power, phase, two_ranks, cuts, same):
+    """Phases 22-24: (i) ``two_ranks()`` (two ranks on the one card: ->
+    {"launches": ..., and what else the phase reports}), (ii)
+    ``mesh_train`` at ``cuts``. The path's launches: (i)'s and (ii)'s
+    steps', each from counts set to 0 just before it. -> (i)'s result
+    with "launches" summed over both and "train" (ii)'s."""
+    t0 = time.perf_counter()
+    out = two_ranks(torch, seed, power)
+    out["train"] = mesh_train(torch, seed, power, cuts, same)
+    for r in out["train"].values():
+        for k, n in r["launches"].items():
+            out["launches"][k] = out["launches"].get(k, 0) + n
+    print(f"  phase {phase} took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def phase_mesh(torch, seed, power, moe, mla):
     """Phase 22: MoE and MLA on a mesh: (i) two ranks on the one card, (ii)
-    the sharded train steps of phases 16's and 17's cuts on a (1, 1) mesh.
-    The path's launches: (i)'s sharded attention and (ii)'s steps, each
-    from counts set to 0 just before it."""
-    t0 = time.perf_counter()
-    launches = phase_mesh_two_ranks(torch, seed, power)
-    train = phase_mesh_train(torch, seed, power, moe["train"], mla["train"])
-    for r in train.values():
-        for k, n in r["launches"].items():
-            launches[k] = launches.get(k, 0) + n
-    print(f"  phase 22 took {time.perf_counter() - t0:.1f} s")
-    return {"launches": launches, "train": train}
+    the sharded train steps of phases 16's and 17's cuts on a (1, 1) mesh,
+    each step's launches by route as those phases', the losses and aux
+    against theirs, the step time, idle share and peak beside theirs."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    cuts = []
+    for arch, cfg, steps, route, n_mat, ref, phase in (
+            (MOE_ARCH, dataclasses.replace(get_arch(MOE_ARCH),
+                                           n_layers=MOE_LAYERS),
+             MOE_STEPS, "mma", 6, moe["train"], 16),
+            (MLA_ARCH, dataclasses.replace(
+                get_arch(MLA_ARCH), n_layers=MLA_LAYERS,
+                n_experts=MLA_TRAIN_EXPERTS), MLA_STEPS, "fma", 18,
+             mla["train"], 17)):
+        seg = f"seg{len(cfg.segments) - 1}_moe"
+        cuts.append((arch, cfg, steps, train_want(cfg.n_layers, route, n_mat),
+                     ref, phase, f"segments/{seg}/ffn/w_gate", MESH_TOKENS))
+    return mesh_phase(torch, seed, power, 22, phase_mesh_two_ranks, cuts,
+                      same=False)
 
 
 # --------------------------- phase 23: Mamba2 and the hybrid on a mesh
@@ -8030,7 +8196,8 @@ def _two_rank_mamba_checks(torch, rank, seed):
 
 def phase_mamba_mesh_two_ranks(torch, seed, power):
     """Phase 23 (i): two ranks on the one card, each rank's results
-    printed and checked."""
+    printed and checked. -> {"launches": none (the Mamba2 layers launch
+    no kernel), "layers": each rank's results}."""
     from repro_torch.configs import get_arch
     torch.cuda.empty_cache()  # the earlier phases' cached blocks
     got = spawn_two_ranks(seed, "mamba", 900)
@@ -8079,60 +8246,525 @@ def phase_mamba_mesh_two_ranks(torch, seed, power):
                     or (h0, h1) != (rank * nh // 2, (rank + 1) * nh // 2)):
                 raise AssertionError(f"rank {rank}: {arch}'s SSD did not run "
                                      "on its own half of the heads")
-    return got
-
-
-def phase_mamba_mesh_train(torch, seed, power, mamba_train, jamba_train):
-    """Phase 23 (ii): ``make_train_step(rules, mesh)`` on a (1, 1) NCCL mesh
-    at phase 18's mamba2-370m (all 48 layers) and phase 19's jamba cut:
-    the losses and aux bitwise theirs, each step's launches by route as
-    theirs, the step time, idle share and peak beside theirs."""
-    import dataclasses
-    import torch.distributed as dist
-    from repro_torch.configs import get_arch
-    nccl_world()
-    out = {}
-    try:
-        jamba = dataclasses.replace(get_arch(JAMBA_ARCH),
-                                    n_layers=JAMBA_LAYERS,
-                                    hybrid_period=JAMBA_LAYERS,
-                                    n_experts=JAMBA_TRAIN_EXPERTS)
-        cuts = ((MAMBA_ARCH, get_arch(MAMBA_ARCH), MAMBA_STEPS, 0, 3,
-                 mamba_train, 18, "segments/seg0_ssm/mamba/in_proj"),
-                (JAMBA_ARCH, jamba, JAMBA_STEPS, 1, 11, jamba_train, 19,
-                 "segments/seg0_hybrid/mamba1/in_proj"))
-        for arch, cfg, steps, n_attn, n_mat, ref, phase, leaf in cuts:
-            label = f"{arch} on a (1, 1) mesh"
-            r = out[arch] = mesh_steps(
-                torch, seed, power, label, cfg, steps,
-                *train_want(n_attn, "mma", n_mat),
-                {**ref, "shape": MAMBA_BATCH}, phase, leaf, bitwise=True)
-            if r["per_step"] != ref["per_step"] or r["routes"] != ref[
-                    "routes"]:
-                raise AssertionError(f"{label}: launches by route "
-                                     f"{r['per_step']} {r['routes']}, phase "
-                                     f"{phase}'s {ref['per_step']} "
-                                     f"{ref['routes']}")
-        return out
-    finally:
-        dist.destroy_process_group()
+    return {"launches": {}, "layers": got}
 
 
 def phase_mamba_mesh(torch, seed, power, mamba, jamba):
     """Phase 23: Mamba2 and the hybrid on a mesh: (i) two ranks on the one
-    card, (ii) the sharded train steps of phases 18's and 19's models on a
-    (1, 1) mesh. The path's launches: (ii)'s steps, each from counts set
-    to 0 just before it ((i)'s Mamba2 layers launch no kernel)."""
-    t0 = time.perf_counter()
-    layers = phase_mamba_mesh_two_ranks(torch, seed, power)
-    train = phase_mamba_mesh_train(torch, seed, power, mamba["train"],
-                                   jamba["train"])
-    launches = {}
-    for r in train.values():
-        for k, n in r["launches"].items():
-            launches[k] = launches.get(k, 0) + n
-    print(f"  phase 23 took {time.perf_counter() - t0:.1f} s")
-    return {"launches": launches, "train": train, "layers": layers}
+    card, (ii) the sharded train steps of phase 18's mamba2-370m (all 48
+    layers) and phase 19's jamba cut on a (1, 1) mesh: the losses and aux
+    bitwise theirs, each step's launches by route as theirs, the step
+    time, idle share and peak beside theirs."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    jamba_cut = dataclasses.replace(get_arch(JAMBA_ARCH),
+                                    n_layers=JAMBA_LAYERS,
+                                    hybrid_period=JAMBA_LAYERS,
+                                    n_experts=JAMBA_TRAIN_EXPERTS)
+    cuts = ((MAMBA_ARCH, get_arch(MAMBA_ARCH), MAMBA_STEPS,
+             train_want(0, "mma", 3), mamba["train"], 18,
+             "segments/seg0_ssm/mamba/in_proj", MAMBA_BATCH),
+            (JAMBA_ARCH, jamba_cut, JAMBA_STEPS, train_want(1, "mma", 11),
+             jamba["train"], 19, "segments/seg0_hybrid/mamba1/in_proj",
+             MAMBA_BATCH))
+    return mesh_phase(torch, seed, power, 23, phase_mamba_mesh_two_ranks,
+                      cuts, same=True)
+
+
+# ------------------------------ phase 24: the VLM and audio on a mesh
+
+# Phase 24 (i) holds each rank's share of the VLM's cross-attention (phase
+# 20's shape: 4 x 1024 text queries over 4 x 4096 image keys, 32 query
+# heads over 8 kv heads of 128, non-causal) against its slice of one
+# rank's unsharded call on the same tensors: the kernels compute each head
+# alone, so the slice is expected bitwise. Where it is not, f32 is held
+# within MESH_F32_TOL of each tensor's largest |ref| + MESH_F32_TOL
+# relative (phase 22's bound) and bf16 within SERVE_BF16_FLOOR_X times its
+# floor, the distance of the unsharded bf16 call from the unsharded f32
+# call on the same bf16-rounded inputs. musicgen-medium's four codebook
+# heads run in vocabulary shards, rank 1's at col_offset V/2, with the
+# xent plan's eager all-reduces; against one rank's whole-vocabulary loss
+# they are held to phase 15 (ii)'s bounds (the losses within
+# TWO_RANK_LOSS_ATOL, dH and dW within one bf16 ulp of the tensor's
+# scale), and so is the codebook embedding's lookup and its gradient.
+# Each rank's kernels are held, besides, against their plain versions at
+# the rank's shapes, at phase 2's bounds.
+VLM_MESH_ATTN = (4, 1024, 4096, 32, 8, 128, 128)  # B, S, T, H, K, hd, hdv
+VLM_MESH_LEAF = "segments/seg0_vlm/cross/wk"
+
+
+def _codebook_heads_two_ranks(torch, rank, seed, mesh):
+    """Phase 24 (i), musicgen-medium's four codebook heads (N = 4 x 1024
+    tokens, D 1536, V 2048) with the vocabulary over "model": each head
+    through the sharded ``dispatch.xent_loss`` (rank 1's 1024 columns at
+    col_offset 1024; the plan's eager all-reduces combine the shards),
+    forward and backward, counted, against one rank's whole-vocabulary
+    loss; the codebook embedding's lookup through the port's mesh route
+    (``model._embed``) on this rank's (C, V/2, D) shard gathered whole (an
+    eager all-reduce of the zero-padded shards: gloo takes CUDA tensors
+    only in all-reduce and broadcast) and its gradient cut to the shard,
+    against the unsharded route; then, each rank alone, the three xent
+    kernels on its shard of one head against their plain versions (phase
+    2's bounds), timed beside the whole head, the plain version, the
+    library call and the bound."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.xent import ref as XR
+    from repro_torch.kernels.xent import xent as X
+    from repro_torch.models.model import _embed
+    from repro_torch.models.sharding import (NamedSharding, P, Rules, place,
+                                             psum)
+    cfg = get_arch(MUSICGEN_ARCH)
+    C, D, V = cfg.n_codebooks, cfg.d_model, cfg.padded_vocab
+    B, S = MUSICGEN_BATCH
+    N, bf = B * S, torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(seed + 24)
+    h = torch.randn((B, S, D), generator=gen, device="cuda").to(bf)
+    w = (torch.randn((C, D, V), generator=gen, device="cuda")
+         / D ** 0.5).to(bf)
+    labels = torch.randint(0, cfg.vocab_size, (B, C, S), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    labels[..., -1] = -1  # the data pipeline's last position
+    cot = torch.rand((B, C, S), generator=gen, device="cuda")
+    h_sh = NamedSharding(mesh, P("data", None, None))
+    w_sh = NamedSharding(mesh, P(None, "model"))
+    plan = dispatch.xent_route(h.shape, w.shape[1:], h_sh, w_sh)[1]
+
+    def heads(sharded):
+        hl = (place(h, h_sh) if sharded else h).detach().requires_grad_()
+        ws = [(place(w[c].contiguous(), w_sh) if sharded else w[c])
+              .detach().requires_grad_() for c in range(C)]
+        losses = [dispatch.xent_loss(hl, ws[c], labels[:, c],
+                                     vocab_size=cfg.vocab_size)
+                  for c in range(C)]
+        if sharded:
+            losses = [ls.to_local() for ls in losses]
+        total = sum((ls * cot[:, c]).sum() for c, ls in enumerate(losses))
+        gh, *gw = torch.autograd.grad(total, [hl, *ws])
+        if sharded:
+            return losses, gh.to_local(), [g.to_local() for g in gw]
+        return losses, gh, [place(g, w_sh).to_local() for g in gw]
+
+    zero_train_counts()
+    zero_offset_counts()
+    losses, gh, gw = heads(True)
+    torch.cuda.synchronize()
+    launches = {**train_counts(), **offset_counts()}
+    want = _uncounted(lambda: heads(False))
+    res = {"plan": (plan.tok_axes, plan.voc_axes),
+           "cols": (rank * V // 2, (rank + 1) * V // 2),
+           "loss": max((a - b).abs().max().item()
+                       for a, b in zip(losses, want[0])),
+           "dh": ((gh.float() - want[1].float()).abs()
+                  / ulp(torch, want[1].float().abs().max(), bf)).max().item(),
+           "dw": max(((a.float() - b.float()).abs()
+                      / ulp(torch, b.float().abs().max(), bf)).max().item()
+                     for a, b in zip(gw, want[2])),
+           "abs_err": {"xent_fwd": max((a - b).abs().max().item()
+                                       for a, b in zip(losses, want[0])),
+                       "xent_bwd_dh": (gh.float() - want[1].float()).abs()
+                       .max().item(),
+                       "xent_bwd_dw": max((a.float() - b.float()).abs()
+                                          .max().item()
+                                          for a, b in zip(gw, want[2]))},
+           "dw_width": tuple(gw[0].shape)}
+    del losses, gh, gw, want
+
+    # the codebook embedding: its (C, V, D) table with V over "model",
+    # through the port's audio lookup (``model._embed``: each codebook's
+    # ``sharding.embed_lookup``, on the default rules' layout of the
+    # tokens). embed_lookup gathers the table whole by a DTensor
+    # redistribute, which never finishes over gloo on CUDA tensors; here
+    # an eager all-reduce of the zero-padded shards gathers it, and its
+    # gradient passes through to the rank's rows, as the redistribute's
+    # backward cuts it
+    ew = (0.02 * torch.randn((C, V, D), generator=gen, device="cuda")).to(bf)
+    toks = torch.randint(0, cfg.vocab_size, (B, C, S), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    r = torch.randn((B, S, D), generator=gen, device="cuda")
+    r0, r1 = res["cols"]
+    own = place(ew, NamedSharding(mesh, P(None, "model", None))).to_local() \
+        .detach().requires_grad_()
+    whole = psum(torch.nn.functional.pad(own, (0, 0, r0, V - r1)), mesh,
+                 ("model",))
+    emb = _embed(whole, cfg, toks, Rules(), mesh)
+    (g_own,) = torch.autograd.grad((emb.to_local().float() * r).sum(),
+                                   [own])
+    emb = emb.to_local()
+    one = ew.detach().requires_grad_()
+    emb_w = _embed(one, cfg, toks, None, None)
+    (g_w,) = torch.autograd.grad((emb_w.float() * r).sum(), [one])
+    g_w = g_w[:, r0:r1]
+    res["embed"] = {
+        "bitwise": bool(torch.equal(emb, emb_w) and torch.equal(g_own, g_w)),
+        "emb": ((emb.float() - emb_w.float()).abs()
+                / ulp(torch, emb_w.float().abs().max(), bf)).max().item(),
+        "grad": ((g_own.float() - g_w.float()).abs()
+                 / ulp(torch, g_w.float().abs().max(), bf)).max().item(),
+        "grad_width": tuple(g_own.shape)}
+    del ew, own, whole, emb, emb_w, one, g_own, g_w
+
+    # times on one head's shard (bf16, the step's dtype)
+    hf = h.reshape(N, D)
+    lab = labels[:, 0].reshape(N)
+    gl = cot[:, 0].reshape(N) * (lab >= 0)
+    wl = place(w[0].contiguous(), w_sh).to_local().contiguous()
+    off = r0
+    kw = {"vocab_size": cfg.vocab_size, "col_offset": off}
+    lse_w, _ = X.xent_fwd(hf, w[0], lab, vocab_size=cfg.vocab_size)
+    v = wl.shape[1]
+    local = (lab - off).long()
+    mine = (local >= 0) & (local < v)
+
+    def lib_fwd():
+        x = (hf @ wl).float()
+        got = torch.where(mine, x.gather(1, local.clamp(0, v - 1)[:, None])[
+            :, 0], 0.0)
+        return torch.logsumexp(x, 1), got
+
+    def lib_bwd():
+        g = torch.exp((hf @ wl).float() - lse_w[:, None])
+        g[mine, local[mine]] -= 1.0
+        g = (g * gl[:, None]).to(bf)
+        return g @ wl.T, hf.T @ g
+
+    fns = {"xent_fwd": X.xent_fwd, "xent_bwd_dh": X.xent_bwd_dh,
+           "xent_bwd_dw": X.xent_bwd_dw}
+    refs = {"xent_fwd": XR.xent_fwd_ref, "xent_bwd_dh": XR.xent_bwd_dh_ref,
+            "xent_bwd_dw": XR.xent_bwd_dw_ref}
+
+    def timing():
+        lib = {"xent_fwd": time_ms(torch, lib_fwd, 5),
+               "bwd": time_ms(torch, lib_bwd, 5)}
+        rows = []
+        for name, fn in fns.items():
+            a = (hf, wl, lab) if name == "xent_fwd" else (hf, wl, lab,
+                                                          lse_w, gl)
+            aw = (hf, w[0], lab) if name == "xent_fwd" else (
+                hf, w[0], lab, lse_w, gl)
+            okw = {} if name == "xent_fwd" else {"out_dtype": torch.float32}
+            was = dict(fn.route_launches)
+            out = fn(*a, **kw, **okw)
+            route = _route_of(fn, was)
+            want = refs[name](*a, **kw, **okw)
+            if name == "xent_fwd":
+                d = [(x - y).abs() for x, y in zip(out, want)]
+                err = max(x.max().item() for x in d)
+                over = max((x / (XENT_LSE_ATOL + XENT_LSE_RTOL * y.abs()))
+                           .max().item() for x, y in zip(d, want))
+            else:
+                err, over = _grad_check(torch, name, out, want,
+                                        torch.float32, "a codebook head's "
+                                        f"shard at col_offset {off}")
+            bound, by = xent_bound_ms(N, D, v, 2, name)
+            rows.append({
+                "name": name, "route": route,
+                "plain_err": err, "plain_over_tol": over,
+                "ms": time_ms(torch, lambda: fn(*a, **kw, **okw), 5),
+                "unsharded_ms": time_ms(torch, lambda: fn(
+                    *aw, vocab_size=cfg.vocab_size, **okw), 5),
+                "plain_ms": time_ms(torch, lambda: refs[name](
+                    *a, **kw, **okw), 2, warm=1),
+                "bound_ms": bound, "bound_by": by,
+                "library_ms": lib["xent_fwd" if name == "xent_fwd"
+                                  else "bwd"],
+                "library_note": (
+                    "matmul + logsumexp and the label's logit"
+                    if name == "xent_fwd" else
+                    "matmul, softmax - onehot, and the two products (dH "
+                    "and dW together, logits recomputed)")})
+        return rows
+    res["times"] = _in_turns(torch, rank, lambda: _uncounted(timing))
+    res["opt_times"] = _in_turns(torch, rank, lambda: _uncounted(
+        lambda: _head_step_timing(torch, gen, (C, D, V // 2))))
+    res["launches"] = launches
+    return res
+
+
+def _head_step_timing(torch, gen, shape):
+    """SCALE's head step on one rank's (C, D, V/2) shard of musicgen's
+    (C, D, V) heads, col (the norm over D): ``momentum_sumsq`` (f32 m,
+    bf16 g) and the head's ``update_apply`` (bf16 theta, f32 m'), each
+    against its plain version on copies (max abs error) and timed beside
+    the bound by bytes and one library call."""
+    from repro_torch.kernels.colnorm import colnorm as CN
+    from repro_torch.kernels.colnorm import ref as CR
+    from repro_torch.kernels.scale_head import ref as HR
+    from repro_torch.kernels.scale_head import scale_head as SH
+    bf = torch.bfloat16
+    g = torch.randn(shape, generator=gen, device="cuda").to(bf)
+    theta = (0.02 * torch.randn(shape, generator=gen, device="cuda")).to(bf)
+    m = 1e-3 * torch.randn(shape, generator=gen, device="cuda")
+    g32 = g.float()
+    lr = torch.tensor(1e-6, device="cuda")
+    m_k, ss = SH.momentum_sumsq(m.clone(), g, 0.9, "col")
+    m_r, _ = HR.momentum_sumsq_ref(m.clone(), g, 0.9, "col")
+    th_k = CN.update_apply(theta.clone(), m_k, ss, lr, "col")
+    th_r = CR.update_apply_ref(theta.clone(), m_k, ss, lr, "col")
+    denom = torch.sqrt(ss) + 1e-8  # the library call's divisor, f32
+    n, cols = g.numel(), shape[0] * shape[2]
+    rows = []
+    for name, nbytes, err, kern, plain, lib, note in (
+            ("momentum_sumsq", (4 + 2 + 4) * n + 4 * cols,
+             (m_k - m_r).abs().max().item(),
+             lambda: SH.momentum_sumsq(m, g, 0.9, "col"),
+             lambda: HR.momentum_sumsq_ref(m, g, 0.9, "col"),
+             lambda: m.lerp_(g32, 0.1),
+             "m.lerp_(g, 1-beta), EMA only, g in f32"),
+            ("update_apply", (2 + 4 + 2) * n + 4 * cols,
+             (th_k.float() - th_r.float()).abs().max().item(),
+             lambda: CN.update_apply(theta, m_k, ss, lr, "col"),
+             lambda: CR.update_apply_ref(theta, m_k, ss, lr, "col"),
+             lambda: theta.addcdiv_(m_k, denom, value=-1e-6),
+             "theta.addcdiv_(m', sqrt(ss)+eps, value=-lr)")):
+        rows.append({"name": name, "max_abs_err": err,
+                     "ms": time_ms(torch, kern, 20),
+                     "plain_ms": time_ms(torch, plain, 5, warm=1),
+                     "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
+                     "bound_by": "bytes",
+                     "library_ms": time_ms(torch, lib, 20),
+                     "library_note": note})
+    return rows
+
+
+def _two_rank_vlm_checks(torch, rank, seed):
+    """Rank ``rank``'s part of phase 24 (i) on a (1, 2) mesh: the VLM's
+    cross-attention with its heads over "model", musicgen-medium's
+    codebook heads with the vocabulary over "model" and its embedding."""
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(1, 2, device_type="cuda")
+    print(f"  rank {rank}: mesh up", flush=True)
+    out = {"cross": _attention_two_ranks(
+        torch, rank, seed + 24, mesh, VLM_MESH_ATTN,
+        (torch.float32, torch.bfloat16), False)}
+    print(f"  rank {rank}: the VLM's cross-attention done", flush=True)
+    out["heads"] = _codebook_heads_two_ranks(torch, rank, seed, mesh)
+    print(f"  rank {rank}: musicgen's codebook heads done", flush=True)
+    return out
+
+
+def phase_vlm_mesh_two_ranks(torch, seed, power):
+    """Phase 24 (i): two ranks on the one card, each rank's results
+    printed and checked. -> {"launches": the two ranks' launches summed,
+    "entries": per-rank "shapes" entries of the kernels line's rows}."""
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks
+    got = spawn_two_ranks(seed, "vlm", 600)
+    B, S, T, H, K, hd, _ = VLM_MESH_ATTN
+    launches, entries = {}, {}
+    for rank, res in sorted(got.items()):
+        c = res["cross"]
+        _attention_two_ranks_report(
+            power, rank, f"the VLM's cross-attention (B={B} S={S} T={T} H={H}"
+            f" K={K} hd={hd}, non-causal)", c,
+            {"float32": "fma", "bfloat16": "mma"})
+        if c["heads"] != (H // 2, K // 2):
+            raise AssertionError(f"rank {rank}: the cross-attention ran on "
+                                 f"{c['heads']} heads, not half of them")
+        for t in c["times"]:
+            entries.setdefault(t["name"], []).append({
+                "name": t["name"], "route": "cuda",
+                "kernel_route": t["route"],
+                "shape": f"rank {rank} of 2, the VLM's cross-attention on "
+                         f"a (1, 2) mesh: B={B} S={S} T={T} H={H // 2} of "
+                         f"{H} K={K // 2} of {K} hd={hd} non-causal "
+                         f"{t['dtype']}",
+                "source": SRC_MHA if t["name"] == "mha_fwd" else SRC_MHA_BWD,
+                "replaces": TPU_MHA if t["name"] == "mha_fwd"
+                else TPU_KERNELS[t["name"]],
+                # this rank's sharded call, forward and backward, on the
+                # dtype's route
+                "launches": c["routes"][t["name"]][t["route"]],
+                # against the plain version at the rank's shape
+                "max_abs_err": t["plain_err"],
+                # against the unsharded call's slice
+                "sharded_max_abs_err": max(
+                    e["err"] for k, e in c["errs"].items()
+                    if k.endswith(t["dtype"])),
+                **{k: t[k] for k in ("ms", "unsharded_ms", "plain_ms",
+                                     "bound_ms", "bound_by", "library_ms",
+                                     "library_note")}})
+        m = res["heads"]
+        e = m["embed"]
+        print(f"  rank {rank} musicgen's {MUSICGEN_HEAD.split(' ', 1)[1]} "
+              f"codebook heads on (1, 2), plan tokens {m['plan'][0]} x vocab "
+              f"{m['plan'][1]}: columns [{m['cols'][0]}, {m['cols'][1]}) "
+              f"(dW {m['dw_width']}); losses {m['loss']:.3e} off one "
+              f"rank's, dH {m['dh']:.2f} and dW {m['dw']:.2f} bf16 ulps of "
+              f"the tensor's scale; the codebook embedding's lookup "
+              f"{e['emb']:.2f} and its gradient {e['grad']:.2f} bf16 ulps "
+              f"(rows {e['grad_width']}){', bitwise' if e['bitwise'] else ''}"
+              f"; offset launches "
+              f"{ {k: m['launches'][k] for k in SHARD_ROWS.values()} }")
+        if not (m["loss"] <= TWO_RANK_LOSS_ATOL and m["dh"] <= 1.0
+                and m["dw"] <= 1.0 and e["emb"] <= 1.0 and e["grad"] <= 1.0
+                and m["plan"] == (("data",), ("model",))):
+            raise AssertionError(f"rank {rank}: musicgen's sharded heads or "
+                                 "embedding disagree with one rank's")
+        want_off = 4 if rank else 0
+        if any(m["launches"][k] != want_off for k in SHARD_ROWS.values()):
+            raise AssertionError(f"rank {rank}: launches at a non-zero "
+                                 f"col_offset {m['launches']}")
+        for t in m["times"]:
+            print(f"  [{power}] rank {rank} {t['name']} on {t['route']} at "
+                  f"its 1024 of 2048 columns (col_offset {m['cols'][0]}): "
+                  f"{t['ms']:.4f} ms (the whole head {t['unsharded_ms']:.4f}"
+                  f" ms; bound {t['bound_ms']:.4f} ms by {t['bound_by']}, "
+                  f"{t['bound_ms'] / t['ms']:.4f} of it; plain "
+                  f"{t['plain_ms']:.4f} ms, max abs error against it "
+                  f"{t['plain_err']:.3e}, {t['plain_over_tol']:.3f} of phase "
+                  f"2's bound; library ({t['library_note']}) "
+                  f"{t['library_ms']:.4f} ms)")
+            if not t["plain_over_tol"] <= 1.0:
+                raise AssertionError(f"rank {rank}: {t['name']} on its shard "
+                                     "disagrees with the plain version")
+            if rank:
+                entries.setdefault(SHARD_ROWS[t["name"]], []).append({
+                    "name": SHARD_ROWS[t["name"]], "route": "cuda",
+                    "kernel_route": t["route"],
+                    "shape": f"rank 1 of 2, a musicgen codebook head on a "
+                             f"(1, 2) mesh: N=4096 D=1536 V=1024 of 2048 "
+                             f"(col_offset 1024) bf16",
+                    "source": SRC_XENT, "replaces": TPU_KERNELS[t["name"]],
+                    "launches": m["launches"][SHARD_ROWS[t["name"]]],
+                    # against the plain version at the shard's shape
+                    "max_abs_err": t["plain_err"],
+                    # the sharded losses', dH's and dW's against one
+                    # rank's whole-vocabulary loss
+                    "sharded_max_abs_err": m["abs_err"][t["name"]],
+                    **{k: t[k] for k in ("ms", "unsharded_ms", "plain_ms",
+                                         "bound_ms", "bound_by",
+                                         "library_ms", "library_note")}})
+        for t in m["opt_times"]:
+            print(f"  [{power}] rank {rank} {t['name']} on its (4, 1536, "
+                  f"1024) shard of musicgen's heads, col: {t['ms']:.4f} ms "
+                  f"(bound {t['bound_ms']:.4f} ms by bytes, "
+                  f"{t['bound_ms'] / t['ms']:.4f} of it; plain "
+                  f"{t['plain_ms']:.4f} ms; {t['library_note']} "
+                  f"{t['library_ms']:.4f} ms; max abs error against the "
+                  f"plain version {t['max_abs_err']:.3e})")
+            if rank:
+                entries.setdefault(t["name"], []).append({
+                    "name": t["name"], "route": "cuda",
+                    "shape": "rank 1 of 2, musicgen's heads on a (1, 2) "
+                             "mesh: (4, 1536, 1024) of (4, 1536, 2048), "
+                             "col, f32 m, bf16 g and theta",
+                    "source": SRC_MOMENTUM if t["name"] == "momentum_sumsq"
+                    else SRC_COLNORM, "replaces": TPU_KERNELS[t["name"]],
+                    "launches": None,
+                    **{k: t[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                         "bound_ms", "bound_by",
+                                         "library_ms", "library_note")}})
+        for part in (c["launches"], m["launches"]):
+            for k, n in part.items():
+                launches[k] = launches.get(k, 0) + n
+    return {"launches": launches, "entries": entries}
+
+
+def musicgen_host_parts(torch, seed, power, step_gap):
+    """The (1, 1) mesh's extra host time in musicgen-medium's step, in
+    part: its four codebook lookups (``model._embed``, one
+    ``embed_lookup`` each) and its four heads' loss (``model.lm_loss``,
+    one sharded ``xent_loss`` plan each), forward and backward, each on
+    the host clock (the best of 5 calls, synchronized) with DTensor leaves
+    and batch on a (1, 1) NCCL mesh against plain tensors, on the step's
+    shapes and layouts. ``step_gap``: the step's ms on the mesh less
+    phase 21's; what the two parts do not take of it is the 48 layers'
+    and the optimizer's. -> {part: (mesh ms, plain ms)}."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models.sharding import Rules, place, shard_batch
+    cfg = get_arch(MUSICGEN_ARCH)
+    C, D, V = cfg.n_codebooks, cfg.d_model, cfg.padded_vocab
+    B, S = MUSICGEN_BATCH
+    dt = getattr(torch, cfg.dtype)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    ew = (0.02 * torch.randn((C, V, D), generator=gen, device="cuda")).to(dt)
+    w = (torch.randn((C, D, V), generator=gen, device="cuda")
+         / D ** 0.5).to(dt)
+    h = torch.randn((B, S, D), generator=gen, device="cuda").to(dt)
+    batch = {k: torch.randint(0, cfg.vocab_size, (B, C, S), generator=gen,
+                              device="cuda", dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    rules = Rules(cfg.rule_overrides)
+    nccl_world()
+    try:
+        mesh = make_host_mesh(1, 1, device_type="cuda")
+        axes = {"ew": M._embed_spec(cfg)["w"].axes,
+                "w": M._head_spec(cfg)["w"].axes,
+                "h": ("act_batch", "act_seq", "act_embed")}
+
+        def on(mesh_):
+            if mesh_ is None:
+                return {"ew": ew, "w": w, "h": h, **batch}
+            return {**{k: place(t, rules.sharding(axes[k], mesh_, t.shape),
+                                copy=True) for k, t in
+                       (("ew", ew), ("w", w), ("h", h))},
+                    **shard_batch(batch, mesh_, rules)}
+
+        def embed(t, mesh_):
+            leaf = t["ew"].detach().requires_grad_()
+            x = M._embed(leaf, cfg, t["tokens"], rules, mesh_)
+            x.sum().backward()
+
+        def heads(t, mesh_):
+            leaf = t["w"].detach().requires_grad_()
+            hid = t["h"].detach().requires_grad_()
+            loss, _ = M.lm_loss({"lm_head": {"w": leaf}}, cfg, hid,
+                                t["labels"], rules=rules, mesh=mesh_)
+            loss.backward()
+
+        def host_ms(fn, t, mesh_):
+            times = []
+            for i in range(7):
+                t0 = time.perf_counter()
+                fn(t, mesh_)
+                torch.cuda.synchronize()
+                if i >= 2:
+                    times.append(1e3 * (time.perf_counter() - t0))
+            return min(times)
+        parts = {}
+        for name, fn in (("the four codebook lookups", embed),
+                         ("the four heads' loss", heads)):
+            parts[name] = (host_ms(fn, on(mesh), mesh),
+                           host_ms(fn, on(None), None))
+    finally:
+        dist.destroy_process_group()
+    extra = sum(a - b for a, b in parts.values())
+    print(f"  [{power}] musicgen-medium's step on the (1, 1) mesh, "
+          f"{step_gap:+.3f} ms over phase 21's; forward and backward, host "
+          f"clock, on the mesh against plain tensors: "
+          + "; ".join(f"{k} {a:.3f} against {b:.3f} ms ({a - b:+.3f})"
+                      for k, (a, b) in parts.items())
+          + f"; the rest (the 48 layers and the optimizer) "
+          f"{step_gap - extra:+.3f} ms")
+    return parts
+
+
+def phase_vlm_mesh(torch, seed, power, vlm, musicgen):
+    """Phase 24: the VLM and audio on a mesh: (i) two ranks on the one
+    card, (ii) the sharded train steps of phase 20's VLM (uncut: all 8
+    super-blocks, f32 images) and phase 21's musicgen-medium on a (1, 1)
+    mesh: the losses and aux bitwise theirs, each step's launches by route
+    as theirs, the step time, idle share and peak beside theirs; then how
+    much of musicgen's extra host time its lookups and heads take."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    full = get_arch(VLM_ARCH)
+    cut = dataclasses.replace(full, n_layers=VLM_BLOCKS * full.cross_attn_every)
+    music = get_arch(MUSICGEN_ARCH)
+    cuts = ((VLM_ARCH, cut, VLM_STEPS, vlm_want(cut, "fma"), vlm["train"],
+             20, VLM_MESH_LEAF, VLM_BATCH),
+            (MUSICGEN_ARCH, music, MUSICGEN_STEPS, musicgen_want(music),
+             musicgen["train"], 21, "lm_head/w", MUSICGEN_BATCH))
+    out = mesh_phase(torch, seed, power, 24, phase_vlm_mesh_two_ranks, cuts,
+                     same=True)
+    gap = (out["train"][MUSICGEN_ARCH]["step_ms"]
+           - musicgen["train"]["step_ms"])
+    out["host_parts"] = _uncounted(
+        lambda: musicgen_host_parts(torch, seed, power, gap))
+    return out
 
 
 def main() -> int:
@@ -8264,6 +8896,11 @@ def main() -> int:
         "heads a rank), the sharded train steps of phases 18's and 19's "
         "models")
     mamba_mesh = phase_mamba_mesh(torch, args.seed, power, mamba, jamba)
+    say("phase 24: the VLM and audio on a mesh: two ranks on the card (the "
+        "VLM's cross-attention with its heads over model, musicgen's "
+        "codebook heads and embedding with the vocabulary over model), the "
+        "sharded train steps of phases 20's and 21's models")
+    vlm_mesh = phase_vlm_mesh(torch, args.seed, power, vlm, musicgen)
     # one row per kernel; launches summed over the main paths that run it,
     # each counted from 0 just before its path and read just after
     by_path = {"serving": {"mha_fwd": serve["launches"]},
@@ -8328,7 +8965,13 @@ def main() -> int:
                "train sharded moe": mesh["launches"],
                # the sharded train steps of mamba2-370m and of jamba's cut
                # (the two ranks' Mamba2 layers launch no kernel)
-               "train sharded mamba": mamba_mesh["launches"]}
+               "train sharded mamba": mamba_mesh["launches"],
+               # two ranks on the card (the VLM's cross-attention, its
+               # heads over model, f32 and bf16; musicgen's four codebook
+               # heads in vocabulary shards, rank 1's launches at
+               # col_offset 1024 under the col_offset rows) and the
+               # sharded train steps of the VLM and musicgen
+               "train sharded vlm": vlm_mesh["launches"]}
     # mha_fwd's prefill numbers, with both serving shapes and the eval and
     # training steps' shape beside them
     mha = {k: v for k, v in mha_rows[0].items() if k != "shape"}
@@ -8364,6 +9007,12 @@ def main() -> int:
                 0]][row["kernel_route"]]
     rows = ([mha] + bwd_rows + opt_rows + xent_rows + tied_rows + seg_rows
             + sharded["rows"])
+    # phase 24's per-rank shapes: the cross-attention's and rank 1's
+    # codebook-head shard
+    for row in rows:
+        if row["name"] in vlm_mesh["entries"]:
+            row.setdefault("shapes", []).extend(
+                vlm_mesh["entries"][row["name"]])
     for row in rows:
         row["launches_by_path"] = {p: c[row["name"]]
                                    for p, c in by_path.items()
@@ -8393,6 +9042,8 @@ def main() -> int:
                          *((f"{a} {'cut ' if a == JAMBA_ARCH else ''}on a "
                             "(1, 1) mesh", r)
                            for a, r in mamba_mesh["train"].items()),
+                         *((f"{a} on a (1, 1) mesh", r)
+                           for a, r in vlm_mesh["train"].items()),
                          *((f"{a} {ARCH_LAYERS} layers", r)
                            for a, r in moe["arch"].items()))}
         if row["name"] in SEG_ROWS.values():
@@ -8414,7 +9065,7 @@ def main() -> int:
                               and name == "norm_apply"):
                 raise AssertionError(f"{name} was not launched on the "
                                      f"{path} path")
-    say("all twenty-three phases passed")
+    say("all twenty-four phases passed")
     print(power)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

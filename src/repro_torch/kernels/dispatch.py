@@ -60,8 +60,8 @@ import torch.distributed as dist
 
 from repro_torch.models.sharding import (NamedSharding, P, full_value,
                                          is_dtensor, lay_out, mesh_axes,
-                                         placements, spec_mesh_axes, spec_of,
-                                         wrap)
+                                         placements, replicated_plain,
+                                         spec_mesh_axes, spec_of, wrap)
 from repro_torch.models.sharding import all_reduce as _all_reduce
 from repro_torch.models.sharding import shard_index as _shard_index
 
@@ -256,10 +256,8 @@ def flash_attention(q, k, v, *, scale: float, causal: bool = True,
     route, plan = attn_route(q.shape, k.shape, q_sh, kv_sh)
     if route == "ref":
         _ref_on_card("flash_attention", (q_sh, kv_sh), q, k, v)
-        from torch.distributed.tensor.experimental import \
-            implicit_replication
         from .attention.ref import mha_fwd_ref
-        with implicit_replication():
+        with replicated_plain():
             return mha_fwd_ref(q, k, v, kv_len, scale=scale, causal=causal,
                                segments=segments)[0]
     mesh = (q_sh or kv_sh).mesh
@@ -473,9 +471,8 @@ def xent_loss(h, w, labels, *, vocab_size: int, weights=None,
 def _xent_ref(h, w, labels, vocab_size: int, transposed: bool):
     """The full-logit plain loss, differentiable, on the layouts DTensor
     partitions (JAX's ``_xent_ref``)."""
-    from torch.distributed.tensor.experimental import implicit_replication
     from .xent.ref import losses
-    with implicit_replication():
+    with replicated_plain():
         return losses(h, w.T if transposed else w, labels, vocab_size)
 
 

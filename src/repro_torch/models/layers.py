@@ -147,6 +147,13 @@ def apply_attention(p, cfg: ModelConfig, x, positions, mode: str = "train",
     cache either). The profiler sees the image keys' and values'
     projections as the span ``cross_kv`` and the attention over them as
     ``cross_attn``.
+
+    ``mesh`` (x, ``p`` and ``kv_source`` DTensors laid out per ``rules``):
+    the attention takes ``dispatch.flash_attention``'s sharded plan from
+    the rules' ("act_batch", None, "act_heads", None) layout of q and kv,
+    each rank on its (B/n, S, H/m, hd) x (B/n, T, K/m, hd) shard; the
+    cross sub-layer first lays its keys and values out as JAX's does
+    (``_cross_kv``).
     """
     if mode == "decode" and segment_ids is not None:
         raise ValueError("apply_attention: segment_ids and decode's kv_len "
@@ -161,7 +168,7 @@ def apply_attention(p, cfg: ModelConfig, x, positions, mode: str = "train",
         k, v = x @ p["wk"], x @ p["wv"]
     else:
         with record_function("cross_kv"):
-            k, v = _cross_kv(p, kv_source)
+            k, v = _cross_kv(p, cfg, kv_source, rules, mesh)
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = q.reshape(B, S, H, hd)
@@ -176,7 +183,7 @@ def apply_attention(p, cfg: ModelConfig, x, positions, mode: str = "train",
     scale = 1.0 / math.sqrt(hd)
     new_cache = cache
     if kv_source is not None:
-        out = _cross_attention(q, k, v, scale)
+        out = _cross_attention(q, k, v, scale, rules, mesh)
     elif mode == "decode":
         idx = cache_index + torch.arange(S, device=x.device)
         ck, cv = cache["k"], cache["v"]
@@ -194,7 +201,8 @@ def apply_attention(p, cfg: ModelConfig, x, positions, mode: str = "train",
     return y, new_cache
 
 
-def _cross_kv(p, images):
+def _cross_kv(p, cfg: ModelConfig, images, rules: Optional[Rules] = None,
+              mesh=None):
     """The image keys and values (B, T, K*hd), before any bias (a cross
     sub-layer has none).
 
@@ -202,13 +210,24 @@ def _cross_kv(p, images):
     f32 images against a bf16 model's wk and wv promote k and v to f32
     there. Torch's ``@`` refuses mixed dtypes, so the promotion is spelled
     out; the weights' gradients come back through the cast in their own
-    dtype, as JAX's do."""
+    dtype, as JAX's do. ``mesh``: k and v laid out per ("act_batch",
+    "act_seq", "act_kv"), JAX's annotation of them, with the
+    divisibility guard at whole kv heads: a split of the K*hd columns
+    that cuts a head (2 kv heads over "model" 4) could not be viewed as
+    (B, T, K, hd), so those heads stay whole, as the attention's own
+    ("act_batch", None, "act_heads", None) layout has them."""
     dt = torch.promote_types(images.dtype, p["wk"].dtype)
     x = images.to(dt)
-    return x @ p["wk"].to(dt), x @ p["wv"].to(dt)
+    k, v = x @ p["wk"].to(dt), x @ p["wv"].to(dt)
+    if mesh is not None and is_dtensor(k):
+        sh = rules.sharding(("act_batch", "act_seq", "act_kv"), mesh,
+                            (*k.shape[:2], cfg.n_kv_heads))
+        k, v = lay_out(k, sh), lay_out(v, sh)
+    return k, v
 
 
-def _cross_attention(q, k, v, scale: float) -> torch.Tensor:
+def _cross_attention(q, k, v, scale: float, rules: Optional[Rules] = None,
+                     mesh=None) -> torch.Tensor:
     """Non-causal attention of the text queries over the image keys, with
     no ``kv_len`` (JAX's ``cross_blockwise_attention``, and its
     ``decode_attention`` for one query: the attention wrappers route S <=
@@ -220,10 +239,15 @@ def _cross_attention(q, k, v, scale: float) -> torch.Tensor:
     take one dtype, so q is promoted here and the f32 kernels (the fma
     route) compute that arithmetic; the cast back gives dQ in q's dtype.
     Images in the model's dtype keep everything bf16, on the tensor-core
-    route."""
+    route. ``mesh``: q and kv take JAX's ("act_batch", None, "act_heads",
+    None) shardings (``_attn_shardings``), so each rank runs the kernels on
+    its rows and its heads; a layout the plan sends to "ref" (heads their
+    axes do not divide) runs the plain version on the CPU and raises on
+    the card."""
     qa = q.to(torch.promote_types(q.dtype, k.dtype))
     with record_function("cross_attn"):
-        out = dispatch.flash_attention(qa, k, v, scale=scale, causal=False)
+        out = dispatch.flash_attention(qa, k, v, scale=scale, causal=False,
+                                       **_attn_shardings(qa, k, rules, mesh))
     return out.to(q.dtype)
 
 

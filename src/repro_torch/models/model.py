@@ -30,7 +30,8 @@ from repro_torch.kernels import dispatch
 from . import layers as L
 from . import transformer as T
 from .config import ModelConfig
-from .sharding import Rules, embed_lookup, mesh_context, shard
+from .sharding import (IMAGE_AXES, Rules, embed_lookup, lay_out,
+                       mesh_context, shard)
 
 
 # ----------------------------------------------------------------- spec tree
@@ -128,29 +129,34 @@ def count_params(shapes: dict, cfg: ModelConfig = None,
     return total
 
 
+DECODE_ON_A_MESH = (
+    "decode on a mesh is sharded serving, not ported yet; ROADMAP.md "
+    "Queue 1 item 12 (its leftovers)")
+
+
 def check_mesh(cfg: ModelConfig, mesh, what: str,
                mode: str = "train") -> None:
     """Raise before any work where ``cfg`` has no sharded route on a mesh
-    in ``mode``: a vlm segment (the image embeddings and the
-    cross-attention have no sharded layout yet), the audio family (its (C,
-    V, D) embedding and (C, D, V) heads have none either), and in mode
-    decode Mamba2 (an ssm or hybrid segment: the recurrence over a
+    in ``mode``: in mode decode, sharded serving, for a vlm segment, the
+    audio family, Mamba2 (an ssm or hybrid segment: the recurrence over a
     head-sharded cache) and MLA (the absorbed decode over a
-    sequence-sharded latent cache), both sharded serving. An moe segment
-    (expert parallelism over "model": ``layers.apply_moe``), MLA, and
-    Mamba2 with its heads over "model" (``layers.apply_mamba``; an ssm or
-    hybrid segment) in modes train and prefill run sharded."""
+    sequence-sharded latent cache). Every family runs sharded in modes
+    train and prefill: an moe segment (expert parallelism over "model":
+    ``layers.apply_moe``), MLA, Mamba2 with its heads over "model"
+    (``layers.apply_mamba``; an ssm or hybrid segment), the VLM's cross
+    sub-layer (``layers.apply_attention`` with ``kv_source``: the images'
+    rows over the batch axes, the heads over "model") and audio's codebook
+    embedding and heads (each codebook's lookup through
+    ``sharding.embed_lookup``, each head on the sharded xent route with
+    its ``col_offset``)."""
     if mesh is None:
         return
-    if any(k == "vlm" for k, _ in cfg.segments):
-        raise NotImplementedError(
-            f"{what}: a vlm segment (cross-attention over image "
-            "embeddings) on a mesh is not ported yet; ROADMAP.md Queue 1 "
-            "item 12 (its leftovers)")
-    if cfg.family == "audio":
-        raise NotImplementedError(
-            f"{what}: the audio codebook embedding and heads on a mesh are "
-            "not ported yet; ROADMAP.md Queue 1 item 12 (its leftovers)")
+    if mode == "decode" and any(k == "vlm" for k, _ in cfg.segments):
+        raise NotImplementedError(f"{what}: the vlm segment: "
+                                  f"{DECODE_ON_A_MESH}")
+    if mode == "decode" and cfg.family == "audio":
+        raise NotImplementedError(f"{what}: the audio model: "
+                                  f"{DECODE_ON_A_MESH}")
     mamba = [k for k, _ in cfg.segments if k in ("ssm", "hybrid")]
     if mode == "decode" and mamba:
         raise NotImplementedError(
@@ -289,12 +295,18 @@ def forward(params, cfg: ModelConfig, tokens, *, image_embeds=None,
     plain tensors (positions, masks) count as replicated. The MoE layer
     runs expert-parallel (``layers.apply_moe``), and MLA and Mamba2
     (``layers.apply_mamba``: the heads over "model"; an ssm or hybrid
-    model) per JAX's head layouts in modes train and prefill. A vlm or
-    audio model, and MLA and Mamba2 in mode decode, raise on a mesh
-    (``check_mesh``).
+    model) per JAX's head layouts in modes train and prefill. The image
+    embeddings are laid out per ("act_batch", None, "act_embed")
+    (``sharding.IMAGE_AXES``, JAX's input layout) before they reach the
+    cross sub-layers; an audio model sums its codebooks' sharded lookups.
+    Mode decode on a mesh (sharded serving) raises for a vlm, audio, MLA
+    or Mamba2 model (``check_mesh``).
     """
     check_mesh(cfg, mesh, "forward", mode)
     rules = rules or Rules(cfg.rule_overrides)
+    if mesh is not None and image_embeds is not None:
+        image_embeds = lay_out(image_embeds, rules.sharding(
+            IMAGE_AXES, mesh, image_embeds.shape))
     with mesh_context(mesh):
         return _forward(params, cfg, tokens, mode, cache, cache_index,
                         positions, segment_ids, image_embeds, rules, mesh)
@@ -307,13 +319,17 @@ def _embed(ew, cfg: ModelConfig, tokens, rules, mesh):
     past the codebook axis: its greedy generation feeds (B, 1, 1) tokens
     back to an audio model, so every codebook embeds that one row
     (ROADMAP.md reference caveat 15). Torch raises there, so the index is
-    clamped here, explicitly."""
+    clamped here, explicitly. ``mesh``: each lookup is
+    ``sharding.embed_lookup``'s, laid out per ("act_batch", "act_seq",
+    "act_embed")."""
+    def lookup(w, toks):
+        return (embed_lookup(w, toks, rules, mesh) if mesh is not None
+                else w[toks])
     if cfg.family == "audio":
         last = tokens.shape[1] - 1
-        return sum(ew[c][tokens[:, min(c, last)]]
+        return sum(lookup(ew[c], tokens[:, min(c, last)])
                    for c in range(cfg.n_codebooks))
-    return (embed_lookup(ew, tokens, rules, mesh) if mesh is not None
-            else ew[tokens])
+    return lookup(ew, tokens)
 
 
 def _forward(params, cfg, tokens, mode, cache, cache_index, positions,
@@ -354,17 +370,23 @@ def head_weight(params, cfg: ModelConfig):
     return params["lm_head"]["w"], False
 
 
+LOGITS_AXES = ("act_batch", "act_seq", "act_vocab")
+
+
 def logits_from_hidden(params, cfg: ModelConfig, hidden,
                        rules: Rules = None):
     """Full-vocab logits (serving). hidden (B, S, D) -> (B, S, V_padded),
     audio (B, C, S, V_padded), one row per codebook head; on a mesh laid
-    out per ("act_batch", "act_seq", "act_vocab")."""
+    out per :data:`LOGITS_AXES`. The audio logits take those three axes on
+    their first three dims, as JAX's annotation does: "act_vocab" lands on
+    S and V stays whole (ROADMAP.md reference caveat 16)."""
     w, tied = head_weight(params, cfg)
     if cfg.family == "audio":
-        return _mask_pad_vocab(torch.einsum(
-            "bsd,cvd->bcsv" if tied else "bsd,cdv->bcsv", hidden, w), cfg)
-    out = _mask_pad_vocab(hidden @ (w.T if tied else w), cfg)
-    return shard(out, ("act_batch", "act_seq", "act_vocab"),
+        out = torch.einsum("bsd,cvd->bcsv" if tied else "bsd,cdv->bcsv",
+                           hidden, w)
+    else:
+        out = hidden @ (w.T if tied else w)
+    return shard(_mask_pad_vocab(out, cfg), LOGITS_AXES,
                  rules or Rules(cfg.rule_overrides))
 
 
@@ -402,29 +424,33 @@ def lm_loss(params, cfg: ModelConfig, hidden, labels, weights=None,
     ``mesh``: the loss takes the hidden states' ("act_batch", "act_seq",
     "act_embed") and the head's ("embed", "vocab") shardings (tied:
     ("vocab", "embed")) from ``rules``, as JAX does, so the vocabulary
-    shards of the head each run the kernels with their ``col_offset``.
+    shards of the head each run the kernels with their ``col_offset``. An
+    audio model's heads all take the sharding of one head (the rules at
+    ``w.shape[-2:]``, JAX's ``head_shape``).
     """
     if weights is not None and cfg.family == "audio":
         raise ValueError("lm_loss: per-token weights are not supported for "
                          "the audio multi-codebook head")
     rules = rules or Rules(cfg.rule_overrides)
     w, tied = head_weight(params, cfg)
-    if cfg.family == "audio":
-        tot_l = tot_w = 0.0
-        for c in range(cfg.n_codebooks):
-            labs = labels[:, c]
-            losses = dispatch.xent_loss(hidden, w[c], labs,
-                                        vocab_size=cfg.vocab_size,
-                                        transposed=tied)
-            tot_l = tot_l + losses.sum()
-            tot_w = tot_w + (labs >= 0).float().sum()
-        return tot_l / torch.where(tot_w > 0, tot_w, 1.0), tot_w
     h_sh = w_sh = None
     if mesh is not None:
         h_sh = rules.sharding(("act_batch", "act_seq", "act_embed"), mesh,
                               hidden.shape)
         w_sh = rules.sharding(("vocab", "embed") if tied
-                              else ("embed", "vocab"), mesh, w.shape)
+                              else ("embed", "vocab"), mesh, w.shape[-2:])
+    if cfg.family == "audio":
+        with mesh_context(mesh):
+            tot_l = tot_w = 0.0
+            for c in range(cfg.n_codebooks):
+                labs = labels[:, c]
+                losses = dispatch.xent_loss(hidden, w[c], labs,
+                                            vocab_size=cfg.vocab_size,
+                                            transposed=tied,
+                                            h_sharding=h_sh, w_sharding=w_sh)
+                tot_l = tot_l + losses.sum()
+                tot_w = tot_w + (labs >= 0).float().sum()
+            return tot_l / torch.where(tot_w > 0, tot_w, 1.0), tot_w
     with mesh_context(mesh):
         losses = dispatch.xent_loss(hidden, w, labels,
                                     vocab_size=cfg.vocab_size,

@@ -259,15 +259,20 @@ def shard(x, logical_axes, rules: Rules, mesh=None):
     return lay_out(x, rules.sharding(logical_axes, mesh, x.shape))
 
 
-@contextlib.contextmanager
 def mesh_context(mesh):
     """Under a mesh, plain tensors that meet DTensors (positions, rope
-    tables, masks: the same on every rank) count as replicated; a no-op
-    without one. Nests: an inner context leaves the outer one on (torch's
-    ``implicit_replication`` switches it off on every exit)."""
-    if mesh is None:
-        yield
-        return
+    tables, masks: the same on every rank) count as replicated
+    (:func:`replicated_plain`); a no-op without one."""
+    return contextlib.nullcontext() if mesh is None else replicated_plain()
+
+
+@contextlib.contextmanager
+def replicated_plain():
+    """Plain tensors that meet DTensors count as replicated. Nests: an
+    inner context leaves the outer one on (torch's
+    ``implicit_replication`` switches it off on every exit, so a plain
+    version run under it inside a model's forward would switch it off for
+    the rest of the forward)."""
     from torch.distributed.tensor import DTensor
     from torch.distributed.tensor.experimental import implicit_replication
     if getattr(DTensor._op_dispatcher, "_allow_implicit_replication", False):
@@ -293,17 +298,37 @@ def laid_out_as(g, p):
     return g
 
 
+# The VLM's image embeddings (B, n_image_tokens, D) and an audio model's
+# (B, n_codebooks, S) tokens and labels, as JAX lays them out
+# (``repro.launch.dryrun.input_specs``)
+IMAGE_AXES = ("act_batch", None, "act_embed")
+CODEBOOK_AXES = ("act_batch", None, "act_seq")
+
+
+def batch_axes(name: str, ndim: int) -> tuple:
+    """The logical axes of the batch leaf ``name`` of ``ndim`` dims, JAX's
+    input layouts: ``image_embeds`` per :data:`IMAGE_AXES`, a 3-D leaf
+    (an audio model's tokens and labels) per :data:`CODEBOOK_AXES`, and
+    the (B, S) leaves (``tokens``, ``labels``, ``positions``,
+    ``segment_ids``, ``loss_weights``) per ("act_batch", "act_seq")."""
+    if name == "image_embeds":
+        return IMAGE_AXES
+    if ndim == 3:
+        return CODEBOOK_AXES
+    return ("act_batch", "act_seq")[:ndim]
+
+
 def shard_batch(batch: dict, mesh, rules: Rules) -> dict:
     """The global batch (the same plain tensors on every rank: ``tokens``,
-    ``labels``, ...) as DTensors laid out per ("act_batch", "act_seq"):
-    each rank keeps its data shard."""
+    ``labels``, ...) as DTensors laid out per :func:`batch_axes`: each
+    rank keeps its data shard."""
     out = {}
     for k, v in batch.items():
         if v is None or not torch.is_tensor(v):
             out[k] = v
             continue
-        axes = (("act_batch", "act_seq") + (None,) * v.ndim)[:v.ndim]
-        out[k] = lay_out(v, rules.sharding(axes, mesh, v.shape))
+        out[k] = lay_out(v, rules.sharding(batch_axes(k, v.ndim), mesh,
+                                           v.shape))
     return out
 
 

@@ -13,9 +13,13 @@ tensors on the device. The host keeps its own mirror of the step counter
 Both steps take a ``torch.distributed`` mesh (``rules`` and ``mesh``, as
 the JAX package's): the parameters are then DTensors laid out per the
 rules (``models.model.place_params``), each step lays the global batch it
-is given out per ("act_batch", "act_seq"), the loss runs on the mesh, each
-gradient comes back in its parameter's layout, and the optimizer's
-kernels run on the local shards (``update_params(shardings=...)``).
+is given out per JAX's input layouts (``models.sharding.batch_axes``: the
+(B, S) leaves per ("act_batch", "act_seq"), an audio model's (B, C, S)
+tokens and labels per ("act_batch", None, "act_seq"), the VLM's image
+embeddings per ("act_batch", None, "act_embed")), the loss runs on the
+mesh, each gradient comes back in its parameter's layout, and the
+optimizer's kernels run on the local shards
+(``update_params(shardings=...)``).
 Every metric is a plain 0-d tensor, the same on every rank.
 """
 from __future__ import annotations
@@ -163,9 +167,8 @@ def make_train_step(cfg, tx: GradientTransformation, grad_accum: int = 1,
       per ``rules`` (default ``Rules(cfg.rule_overrides)``), the step
       takes the global batch, and ``update_params`` gets every
       parameter's sharding (``tree_shardings``). The global norm is the
-      norm over the full gradients. A model with no sharded route (a
-      vlm or audio model) raises here, before any work
-      (``models.model.check_mesh``).
+      norm over the full gradients. Every family trains on a mesh
+      (``models.model.check_mesh`` raises only in mode decode).
 
     ``donate`` has no counterpart: ``update_params`` already writes the
     parameters and the momentum in place.

@@ -63,7 +63,8 @@ against their plain versions, with lse from the plain forward:
     the same bounds in the inputs' dtype;
   * the ``col_offset`` clause, at vocabulary shards of llama-1b's head
     (untied column slices and tied row slices, 2 and 4 shards, bf16 and
-    f32, and a padded vocabulary's shard past vocab_size on the
+    f32), of a musicgen-medium codebook head in the two shards of a (1,
+    2) mesh, and a padded vocabulary's shard past vocab_size on the
     wrappers' ``empty`` route): each shard against the plain version with
     its col_offset, with the bounds above, bitwise on rerun, counted by
     route and in ``offset_launches``; the shards combined against the
@@ -181,6 +182,10 @@ GPU_CASES = {
     "prefill_vlm_gqa32x8_hd128": (4, 512, 512, 32, 8, 128, True, None),
     "decode_vlm_gqa32x8_kl512": (4, 1, 544, 32, 8, 128, False, 512),
     "decode_vlm_gqa32x8_kl543": (4, 1, 544, 32, 8, 128, False, 543),
+    # one rank's share of the cross-attention on a (1, 2) mesh (phase 24):
+    # its 16 of 32 query heads over 4 of 8 kv heads
+    "cross_vlm_rank_gqa16x4_1024x4096": (4, 1024, 4096, 16, 4, 128, False,
+                                         None),
     # musicgen-medium's (phase 21): 24 heads of 64, causal, at its train
     # batch, its serving prefill and first and last decode step
     "train_musicgen_h24_hd64": (4, 1024, 1024, 24, 24, 64, True, None),
@@ -1027,6 +1032,9 @@ BWD_CASES = {
     "cross_vlm_gqa32x8_1024x4096": (4, 1024, 4096, 32, 8, 128, False, None),
     "train_vlm_gqa32x8_hd128": (4, 1024, 1024, 32, 8, 128, True, None),
     "train_musicgen_h24_hd64": (4, 1024, 1024, 24, 24, 64, True, None),
+    # one rank's share of the cross-attention on a (1, 2) mesh (phase 24)
+    "cross_vlm_rank_gqa16x4_1024x4096": (4, 1024, 4096, 16, 4, 128, False,
+                                         None),
 }
 
 
@@ -1691,6 +1699,10 @@ SHARD_CASES = {
     "f32_4": (300, 2048, 32000, 32000, 4, False, "f32"),
     "f32_tied_4": (300, 2048, 32000, 32000, 4, True, "f32"),
     "padded_empty_4": (1000, 2048, 32000, 24000, 4, False, "bf16"),
+    # a musicgen-medium codebook head (N 4 x 1024, D 1536, V 2048) in the
+    # two shards of a (1, 2) mesh, at col_offset 0 and 1024 (phase 24)
+    "musicgen_head_2": (4096, 1536, 2048, 2048, 2, False, "bf16"),
+    "musicgen_head_f32_2": (4096, 1536, 2048, 2048, 2, False, "f32"),
 }
 
 

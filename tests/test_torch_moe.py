@@ -464,21 +464,14 @@ def test_moe_steps_build_on_a_mesh(arch):
     ("llama-3.2-vision-11b", "vlm"),
     ("musicgen-medium", "audio")])
 def test_unsharded_families_still_raise_on_a_mesh(arch, match):
-    """The VLM and audio have no sharded route: forward, the train and eval
-    steps raise on any mesh before they touch a tensor. Mamba2 and the
-    hybrid run sharded in modes train and prefill
-    (``tests/test_torch_sharded_mamba.py``): their train and eval steps
-    build, and forward raises in mode decode (sharded serving), naming the
-    segment, before it touches a tensor."""
+    """Mamba2, the hybrid (``tests/test_torch_sharded_mamba.py``), the VLM
+    and audio (``tests/test_torch_sharded_vlm.py``) run sharded in modes
+    train and prefill: their train and eval steps build, and forward
+    raises in mode decode (sharded serving), naming the segment or the
+    family, before it touches a tensor."""
     tcfg = treg.get_arch(arch, smoke=True)
     tx = t_make("scale_fused", 1e-2)
-    calls = (lambda: TM.forward(None, tcfg, None, mesh=_DUCK_MESH),
-             lambda: make_train_step(tcfg, tx, mesh=_DUCK_MESH),
-             lambda: make_eval_step(tcfg, mesh=_DUCK_MESH))
-    if tcfg.family in ("ssm", "hybrid"):
-        assert callable(calls[1]()) and callable(calls[2]())
-        calls = (lambda: TM.forward(None, tcfg, None, mode="decode",
-                                    mesh=_DUCK_MESH),)
-    for call in calls:
-        with pytest.raises(NotImplementedError, match=match + ".*item 12"):
-            call()
+    assert callable(make_train_step(tcfg, tx, mesh=_DUCK_MESH))
+    assert callable(make_eval_step(tcfg, mesh=_DUCK_MESH))
+    with pytest.raises(NotImplementedError, match=match + ".*item 12"):
+        TM.forward(None, tcfg, None, mode="decode", mesh=_DUCK_MESH)

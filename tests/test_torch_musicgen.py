@@ -343,13 +343,16 @@ def test_codebook_batches_in_the_data_pipeline():
 
 
 def test_audio_under_a_mesh_raises_before_any_work():
-    """The codebook embedding and heads have no sharded layout yet:
-    forward, the train and eval steps raise on any mesh."""
+    """The audio model runs on a mesh in modes train and prefill: the
+    train and eval steps build on a (duck-typed) (1, 1) mesh
+    (``tests/test_torch_sharded_vlm.py`` runs them on a gloo mesh).
+    Decode on a mesh is sharded serving, not ported: forward in mode
+    decode raises before any work, naming it."""
     _, tcfg = _cfgs()
     mesh = SimpleNamespace(mesh_dim_names=("data", "model"), shape=(1, 1))
     tx = t_make("scale_fused", 1e-2)
-    for call in (lambda: TM.forward(None, tcfg, None, mesh=mesh),
-                 lambda: make_train_step(tcfg, tx, mesh=mesh),
-                 lambda: make_eval_step(tcfg, mesh=mesh)):
-        with pytest.raises(NotImplementedError, match="audio.*item 12"):
-            call()
+    assert callable(make_train_step(tcfg, tx, mesh=mesh))
+    assert callable(make_eval_step(tcfg, mesh=mesh))
+    with pytest.raises(NotImplementedError,
+                       match="audio.*sharded serving.*item 12"):
+        TM.forward(None, tcfg, None, mode="decode", mesh=mesh)

@@ -8,9 +8,16 @@ so the meshes here are duck-typed — (1, 1), (2, 2), (4, 2), (16, 16) and
 under this JAX; ROADMAP.md reference caveat 2). Every leaf of llama-130m,
 llama-1b, gemma-2b and a tied llama-1b must get the same spec, with and
 without its shape (the divisibility guard), and the same per-dim axes.
+The batch's layouts (``shard_batch``'s ``batch_axes``) are held against
+JAX's ``launch/dryrun.input_specs`` for the VLM's images and an audio
+model's (B, C, S) tokens, under the default rules and under an override
+that maps "act_seq" to "model"; the audio logits' layout against JAX's
+three-axis annotation (ROADMAP.md reference caveat 16).
 Exact equality throughout: these are tables, not numbers.
 """
 import dataclasses
+import math
+import os
 from types import SimpleNamespace
 
 import pytest
@@ -169,3 +176,85 @@ def test_make_production_mesh_needs_its_ranks():
     for multi, n in ((False, 256), (True, 512)):
         with pytest.raises(ValueError, match=f"needs {n} ranks"):
             tmesh.make_production_mesh(multi_pod=multi)
+
+
+def _dryrun():
+    """``repro.launch.dryrun`` without its 512 host devices: the module
+    sets XLA_FLAGS when it is imported, so JAX's backend is started first
+    (with this process's devices) and the variable is put back after."""
+    jax.devices()
+    before = os.environ.get("XLA_FLAGS")
+    try:
+        from repro.launch import dryrun
+    finally:
+        if before is None:
+            os.environ.pop("XLA_FLAGS", None)
+        else:
+            os.environ["XLA_FLAGS"] = before
+    return dryrun
+
+
+def jax_input_specs(jcfg, batch: int, seq: int, mesh, rules) -> dict:
+    """{leaf: (shape, JAX spec as a tuple)} of ``dryrun.input_specs`` for
+    a train cell of ``jcfg``, its shardings' specs taken by ``rules``
+    (JAX's ``Rules``) on ``mesh`` (duck-typed: ``Rules.spec`` reads only
+    the axis names and sizes)."""
+    cell = SimpleNamespace(global_batch=batch, seq_len=seq, kind="train")
+    specs, sh = _dryrun().input_specs(jcfg, cell, mesh, SimpleNamespace(
+        sharding=lambda axes, m, shape: rules.spec(axes, m, shape)))
+    return {k: (tuple(specs[k].shape), tuple(sh[k])) for k in specs}
+
+
+BATCH_ARCHS = ("llama-130m", "llama-3.2-vision-11b", "musicgen-medium")
+SEQ_OVER_MODEL = (("act_seq", ("model",)),)
+
+
+@pytest.mark.parametrize("over", [(), SEQ_OVER_MODEL],
+                         ids=["default", "seq_over_model"])
+@pytest.mark.parametrize("mesh", ["2x2", "4x2", "pod2x16x16"])
+@pytest.mark.parametrize("arch", BATCH_ARCHS)
+def test_batch_layouts_match_jax_input_specs(arch, mesh, over):
+    """Each batch leaf's spec and DTensor placements (``batch_axes``,
+    which ``shard_batch`` lays the leaf out by) equal JAX's over
+    ``dryrun.input_specs``' axes: (B, S) tokens and labels per
+    ("act_batch", "act_seq"), audio's (B, C, S) per ("act_batch", None,
+    "act_seq"), the images per ("act_batch", None, "act_embed"). With
+    "act_seq" over "model" the text's S splits, the codebook axis and the
+    images' T do not."""
+    names, shape = MESHES[mesh]
+    jm, tm = _jax_mesh(names, shape), _torch_mesh(names, shape)
+    jcfg = jreg.get_arch(arch, smoke=True) if arch != "llama-130m" \
+        else jreg.get_arch(arch)
+    B = math.prod(shape) * 2
+    want = jax_input_specs(jcfg, B, 32, jm, JS.Rules(over))
+    leaves = {"tokens", "labels"} | (
+        {"image_embeds"} if jcfg.family == "vlm" else set())
+    assert set(want) == leaves
+    for k, (shp, spec) in want.items():
+        got = TS.Rules(over).spec(TS.batch_axes(k, len(shp)), tm, shp)
+        assert tuple(got) == spec, k
+        assert TS.placements(got, tm, len(shp)) == TS.placements(
+            TS.P(*spec), tm, len(shp)), k
+    if over and mesh == "2x2":
+        seq = {"llama-130m": ("data", "model"),
+               "llama-3.2-vision-11b": ("data", "model"),
+               "musicgen-medium": ("data", None, "model")}[arch]
+        assert want["tokens"][1] == seq
+        if "image_embeds" in want:
+            assert want["image_embeds"][1] == ("data", None, None)
+
+
+@pytest.mark.parametrize("mesh", ["2x2", "4x2", "16x16"])
+def test_audio_logits_layout_matches_jax(mesh):
+    """The audio logits (B, C, S, V) take ``logits_from_hidden``'s three
+    logical axes on their first three dims, as JAX's annotation does:
+    "act_vocab" lands on S, V stays whole (caveat 16)."""
+    names, shape = MESHES[mesh]
+    jm, tm = _jax_mesh(names, shape), _torch_mesh(names, shape)
+    cfg = treg.get_arch("musicgen-medium")
+    full = (16, cfg.n_codebooks, 256, cfg.padded_vocab)
+    want = tuple(JS.Rules().spec(("act_batch", "act_seq", "act_vocab"), jm,
+                                 full))
+    got = TS.Rules().spec(TM.LOGITS_AXES, tm, full)
+    assert tuple(got) == want == ("data", None, "model")
+    assert TS.spec_mesh_axes(got, 4)[3] == ()

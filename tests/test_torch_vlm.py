@@ -4,7 +4,7 @@ the cross sub-layer's spec (no q/k/v bias even under ``qkv_bias``), the
 cross-attention layer alone in f32 and in bf16 with f32 image embeddings
 (JAX promotes k and v to f32 there: ROADMAP.md reference caveat 13),
 remat, prefill and decode with images, the image stubs of the data
-pipeline, and what raises on a mesh. The ``SMOKE`` twin's loss and
+pipeline, and what raises on a mesh (decode). The ``SMOKE`` twin's loss and
 gradients, the no-image route (caveat 14) and a train step:
 ``tests/test_torch_vlm_smoke.py``, which takes this file's helpers.
 
@@ -351,13 +351,16 @@ def test_image_stubs_in_the_data_pipeline():
 
 
 def test_vlm_under_a_mesh_raises_before_any_work():
-    """The cross-attention over image embeddings has no sharded layout
-    yet: forward, the train and eval steps raise on any mesh."""
+    """The VLM runs on a mesh in modes train and prefill: the train and
+    eval steps build on a (duck-typed) (1, 1) mesh
+    (``tests/test_torch_sharded_vlm.py`` runs them on a gloo mesh).
+    Decode on a mesh is sharded serving, not ported: forward in mode
+    decode raises before any work, naming it."""
     tcfg = treg.get_arch(ARCH, smoke=True)
     mesh = SimpleNamespace(mesh_dim_names=("data", "model"), shape=(1, 1))
     tx = t_make("scale_fused", 1e-2)
-    for call in (lambda: TM.forward(None, tcfg, None, mesh=mesh),
-                 lambda: make_train_step(tcfg, tx, mesh=mesh),
-                 lambda: make_eval_step(tcfg, mesh=mesh)):
-        with pytest.raises(NotImplementedError, match="vlm.*item 12"):
-            call()
+    assert callable(make_train_step(tcfg, tx, mesh=mesh))
+    assert callable(make_eval_step(tcfg, mesh=mesh))
+    with pytest.raises(NotImplementedError,
+                       match="vlm.*sharded serving.*item 12"):
+        TM.forward(None, tcfg, None, mode="decode", mesh=mesh)
