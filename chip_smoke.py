@@ -458,6 +458,35 @@ and fails (non-zero exit, no result line) if any of them fails:
    kernels line gains the path ``train sharded vlm``, the per-rank shapes
    of the attention and ``col_offset`` rows and the two models' per-step
    launches.
+25. Sharded serving of the GQA families: (i) two ``gloo`` ranks on
+   cuda:0 on a (1, 2) mesh run ``dispatch.seq_split_decode`` (the
+   sequence-split decode plan: each rank's half of the cache's T on
+   ``mha_fwd``'s ``decode`` route at its local fill, the partial (out,
+   lse) pairs combined over "model" by ``lse_combine``) at llama-130m's
+   serving decode (batch 8, a cache of 576, 12 heads of 64) and the
+   VLM's self-attention decode (batch 4, a cache of 544, 32 heads over 8
+   of 128), in f32 and bf16, at three fills (inside rank 0's half, so
+   rank 1 has no valid key; on the boundary; past it): against the
+   unsharded ``decode`` call, f32 within a stated tolerance and bf16
+   within twice its floor (the distance of the unsharded bf16 call from
+   the f32 one) plus one bf16 rounding of the largest partial output
+   (each rank's output is rounded to bf16 before the combine), the
+   launches counted by route; each rank's kernel
+   alone (CUDA events and device time) against its plain version,
+   beside the bound and SDPA over its filled keys, and the combine's
+   all-reduce on the host clock; (ii) serving on a (1, 1) NCCL mesh
+   (``make_prefill_step``/``make_decode_step`` with ``rules`` and
+   ``mesh``, the parameters ``place_params``' DTensors, the cache
+   ``init_cache``'s sequence-sharded one) of phase 3's llama-130m, phase
+   16's dbrx cut (cf E/k), phase 20's VLM with images and phase 21's
+   musicgen, from the same weights and prompts, each beside the same
+   serving without a mesh in this phase: tokens equal, every step's
+   logits bitwise (one "model" rank: the combine is exp(0) out / 1),
+   launches by route equal, and the tokens those phases chose; prefill
+   ms, decode ms a step, busy and idle share of a decode step and the
+   peak above the weights, each beside the unsharded run. The kernels
+   line gains the path ``serve sharded`` and the per-rank decode shapes
+   on the ``mha_fwd`` row.
 
 The line before the last is a JSON ``{"kernels": [...]}`` summary, the
 last line ``{"ok": true, "device": {...}}``. It needs a CUDA card and
@@ -1371,7 +1400,8 @@ def phase_serving(torch, seed, power):
     print(f"  [{power}] torch.cuda.max_memory_allocated {peak / 2**20:.1f} MiB")
     return {"launches": launches, "prefill_launches": n_prefill,
             "decode_launches": n_decode, "prefill_ms": prefill_s * 1e3,
-            "decode_ms": decode_ms, "mean_kv_len": P + N // 2}
+            "decode_ms": decode_ms, "mean_kv_len": P + N // 2,
+            "tokens": out}
 
 
 def time_ms(torch, fn, iters, warm=5):
@@ -5351,7 +5381,7 @@ TWO_RANK_LOSS_ATOL = 1e-4
 # seconds after which a rank of a two-rank job prints where it is and
 # exits (phase 15 (ii), phase 22 (i))
 TWO_RANK_LIMIT_S = {"sharded": 300, "moe": 420, "mamba": 420,
-                    "vlm": 420}
+                    "vlm": 420, "serve": 300}
 
 
 def offset_counts():
@@ -5551,8 +5581,8 @@ def phase_sharded_kernels(torch, gen, power):
 
 def _two_rank_worker(rank, port, seed, q, task="sharded"):
     """Phase 15 (ii) (``task`` "sharded"), 22 (i) ("moe"), 23 (i)
-    ("mamba") or 24 (i) ("vlm"), one of two ranks on cuda:0 under
-    gloo."""
+    ("mamba"), 24 (i) ("vlm") or 25 (i) ("serve"), one of two ranks on
+    cuda:0 under gloo."""
     import datetime
     import faulthandler
     import traceback
@@ -5574,7 +5604,8 @@ def _two_rank_worker(rank, port, seed, q, task="sharded"):
         checks = {"sharded": _two_rank_checks,
                   "moe": _two_rank_moe_checks,
                   "mamba": _two_rank_mamba_checks,
-                  "vlm": _two_rank_vlm_checks}[task]
+                  "vlm": _two_rank_vlm_checks,
+                  "serve": _two_rank_serve_checks}[task]
         q.put((rank, "ok", checks(torch, rank, seed)))
     except BaseException:
         q.put((rank, "error", traceback.format_exc()))
@@ -5987,6 +6018,24 @@ def moe_profile(torch, power, step, untraced_ms, label, serving=False):
             elif k.name != ev.name and k.name not in spans:
                 kernels.append((f"{span}|{k.name}" if span else k.name, 1,
                                 k.duration / 1e3))
+    # the sequence-split decode's ctypes launch of mha_fwd is under its
+    # record_function span only, and no op lists it: each such span's one
+    # unlisted mha_fwd kernel is the model's, keyed by its own name; any
+    # other unlisted kernel stays outside the model
+    n_split = sum(1 for ev in events if ev.device_type.name == "CPU"
+                  and ev.name == "seq_split_decode")
+    if n_split:
+        listed = {}
+        for name, _, _ in kernels:
+            name = name.split("|")[-1]
+            listed[name] = listed.get(name, 0) + 1
+        for ev in device:
+            if listed.get(ev.name):
+                listed[ev.name] -= 1
+            elif n_split and "mha_fwd" in ev.name:
+                n_split -= 1
+                kernels.append((ev.name, 1, (ev.time_range.end
+                                             - ev.time_range.start) / 1e3))
     fams = by_family(kernels)
     model = sum(t for t, _ in fams.values())
     if busy - model > 0.005 * busy:
@@ -6490,6 +6539,7 @@ def serve_moe(torch, seed, power, cfg):
                                    toks)[0]
     del p32
     torch.cuda.empty_cache()
+    out["tokens"] = toks
     return out
 
 
@@ -7002,7 +7052,7 @@ def serve_mamba(torch, seed, power, cfg):
             else 1 - busy / decode_ms,
             "decode_device_ms_by_family": {f: ms for f, (ms, _) in
                                            fams.items()},
-            "witness": witness}
+            "witness": witness, "tokens": toks}
 
 
 def phase_mamba(torch, seed, power):
@@ -7276,7 +7326,7 @@ def serve_dense(torch, seed, power, arch, cfg, want_routes, shape,
             else 1 - busy / decode_ms,
             "decode_device_ms_by_family": {f: ms for f, (ms, _) in
                                            fams.items()},
-            "witness": witness}
+            "witness": witness, "tokens": toks}
 
 
 def phase_vlm(torch, seed, power):
@@ -8767,6 +8817,400 @@ def phase_vlm_mesh(torch, seed, power, vlm, musicgen):
     return out
 
 
+# ----------------------------- phase 25: sharded serving, the GQA families
+
+# Phase 25 (i): the sequence-split decode plan on two ranks, at the decode
+# shapes of phase 3 (llama-130m) and phase 20 (the VLM's self-attention):
+# (B, T, H, K, hd), T the cache, split in two halves over "model"
+SERVE_MESH_ATTN = {"llama-130m": (8, 576, 12, 12, 64),
+                   "the VLM's self-attention": (4, 544, 32, 8, 128)}
+# the three fills of the cache: inside rank 0's half (rank 1 attends over
+# no valid key), on the boundary of the halves, past it
+SERVE_MESH_FILLS = ("inside", "on", "past")
+# Against the unsharded call, f32 within MESH_F32_TOL (``_err_over_tol``:
+# the combine rescales each half's partial sum, a few f32 ulps). bf16:
+# SERVE_BF16_FLOOR_X times its floor, the distance of the unsharded bf16
+# call from the unsharded f32 one (phases 22-24's rule, printed as
+# "of twice it"), plus one bf16 rounding of the largest partial output:
+# each rank's output leaves the kernel rounded to bf16 before the f32
+# combine, a rounding the unsharded call does not make (it moved the
+# combined output one bf16 ulp, 1.30 times twice the floor alone, at the
+# fill past the boundary; PERF.md §6). Where one rank holds every
+# valid key the combine returns its output exactly.
+SERVE_MESH_BF16_ROUNDING = 2.0 ** -8
+SERVE_MESH_TIMING_ITERS = 20
+
+
+def _fill(T, fill):
+    half = T // 2
+    return {"inside": half // 2 + 3, "on": half, "past": half + half // 2
+            + 7}[fill]
+
+
+def _seq_split_two_ranks(torch, rank, seed, mesh, label, shape):
+    """Phase 25 (i), one shape: this rank's half of the cache through
+    ``dispatch.seq_split_decode`` (counted) in f32 and bf16 at each fill,
+    against the unsharded ``mha_fwd`` call on the same tensors; then, the
+    rank alone, its kernel at its local fill against its plain version,
+    timed (CUDA events, device time) beside the bound, the plain version
+    and SDPA over its filled keys; the combine's all-reduce on the host
+    clock, both ranks in step."""
+    import torch.distributed as dist
+    import torch.nn.functional as F
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.attention.attention import mha_fwd
+    from repro_torch.kernels.attention.ref import mha_fwd_ref
+    B, T, H, K, hd = shape
+    T_l = T // 2
+    f32, bf16 = torch.float32, torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    base = make_qkv(torch, gen, B, 1, T, H, K, hd, bf16)  # one value
+    ops = {dt: [t.to(dt) for t in base] for dt in (f32, bf16)}
+    mine = {dt: [ops[dt][0]] + [t[:, rank * T_l:(rank + 1) * T_l]
+                                .contiguous() for t in ops[dt][1:]]
+            for dt in ops}
+    fills = {f: _fill(T, f) for f in SERVE_MESH_FILLS}
+    kw = dict(scale=hd ** -0.5)
+
+    def kv(n):
+        return torch.tensor(n, dtype=torch.int32, device="cuda")
+    zero_train_counts()
+    zero_route_counts()
+    got, each = {}, {}
+    for dt in ops:
+        for f, n in fills.items():
+            was = mha_fwd.route_launches["decode"]
+            got[(dt, f)] = dispatch.seq_split_decode(
+                *mine[dt], kv(n), mesh=mesh, seq_axes=("model",), **kw)
+            each[(str(dt).replace("torch.", ""), f)] = \
+                mha_fwd.route_launches["decode"] - was
+    torch.cuda.synchronize()
+    launches, routes = train_counts(), route_counts()["mha_fwd"]
+    want = _uncounted(lambda: {
+        (dt, f): mha_fwd(*ops[dt], kv(n), causal=False, **kw)[0]
+        for dt in ops for f, n in fills.items()})
+    errs = {}
+    for f, n in fills.items():
+        a32, b32 = got[(f32, f)].float(), want[(f32, f)].float()
+        a16, b16 = got[(bf16, f)].float(), want[(bf16, f)].float()
+        floor = (b16 - b32).abs().max().item()
+        e16 = (a16 - b16).abs().max().item()
+        # the largest |partial output| of the two ranks (their bf16 outs
+        # before the combine)
+        part = _uncounted(lambda: mha_fwd(*mine[bf16], kv(max(
+            0, min(n - rank * T_l, T_l))), causal=False, **kw)[0])
+        part = part.float().abs().max().reshape(1)
+        dist.all_reduce(part, op=dist.ReduceOp.MAX,
+                        group=mesh.get_group("model"))
+        bound = (SERVE_BF16_FLOOR_X * floor
+                 + SERVE_MESH_BF16_ROUNDING * part.item())
+        errs[f] = {"float32": {"err": (a32 - b32).abs().max().item(),
+                               "over_bound": _err_over_tol(a32, b32)},
+                   "bfloat16": {"err": e16, "floor": floor,
+                                "over_floor": e16 / (SERVE_BF16_FLOOR_X
+                                                     * floor)
+                                if floor else (0.0 if e16 == 0
+                                               else math.inf),
+                                "partial_max": part.item(),
+                                "over_bound": e16 / bound if bound
+                                else (0.0 if e16 == 0 else math.inf),
+                                "bitwise": bool(torch.equal(
+                                    got[(bf16, f)], want[(bf16, f)]))}}
+    parts = torch.zeros((2, B * H * (hd + 1)), device="cuda")
+    allreduce_ms = _allreduce_ms(torch, mesh, parts)
+
+    def timing():
+        rows = []
+        for dt in ops:
+            q, k, v = mine[dt]
+            el = 4 if dt == f32 else 2
+            peak = F32_FLOPS_PER_S if dt == f32 else BF16_FLOPS_PER_S
+            for f, n in fills.items():
+                local = max(0, min(n - rank * T_l, T_l))
+                lk = kv(local)
+
+                def fn():
+                    return mha_fwd(q, k, v, lk, causal=False, **kw)
+
+                def plain():
+                    return mha_fwd_ref(q, k, v, lk, causal=False, **kw)
+                err, over = _attn_plain_over_tol(torch, "mha_fwd", fn(),
+                                                 plain(), dt)
+                bound, by = attention_bound_ms(B, 1, T_l, H, K, hd, False,
+                                               local, el, peak=peak)
+                lib = None
+                if local:
+                    qt = q.transpose(1, 2).contiguous()
+                    kt, vt = (t[:, :local].transpose(1, 2)
+                              .repeat_interleave(H // K, 1).contiguous()
+                              for t in (k, v))
+                    lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, scale=kw["scale"]),
+                        SERVE_MESH_TIMING_ITERS, warm=3)
+                rows.append({
+                    "dtype": str(dt).replace("torch.", ""), "fill": f,
+                    "kv_len": n, "local": local, "plain_err": err,
+                    "plain_over_tol": over,
+                    "ms": time_ms(torch, fn, SERVE_MESH_TIMING_ITERS,
+                                  warm=3),
+                    "device_ms": device_ms(torch, fn, 10),
+                    "plain_ms": time_ms(torch, plain, 3, warm=1),
+                    "bound_ms": bound, "bound_by": by, "library_ms": lib})
+        return rows
+    rows = _in_turns(torch, rank, lambda: _uncounted(timing))
+    return {"label": label, "shape": shape, "fills": fills, "errs": errs,
+            "launches": launches, "routes": routes, "each": each,
+            "times": rows,
+            "allreduce_ms": allreduce_ms,
+            "allreduce_bytes": parts.numel() * 4}
+
+
+def _two_rank_serve_checks(torch, rank, seed):
+    """Rank ``rank``'s part of phase 25 (i) on a (1, 2) mesh."""
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(1, 2, device_type="cuda")
+    print(f"  rank {rank}: mesh up", flush=True)
+    out = []
+    for i, (label, shape) in enumerate(SERVE_MESH_ATTN.items()):
+        out.append(_seq_split_two_ranks(torch, rank, seed + 25 + i, mesh,
+                                        label, shape))
+        print(f"  rank {rank}: {label} done", flush=True)
+    return out
+
+
+def phase_serve_mesh_two_ranks(torch, seed, power):
+    """Phase 25 (i): two ranks on the one card, each rank's results printed
+    and checked. -> {"launches": the two ranks' launches summed,
+    "entries": per-rank "shapes" entries of the kernels line's rows}."""
+    torch.cuda.empty_cache()
+    got = spawn_two_ranks(seed, "serve", 300)
+    launches, entries = {}, {}
+    for rank, res in sorted(got.items()):
+        for c in res:
+            B, T, H, K, hd = c["shape"]
+            worst = max(e["over_bound"] for d in c["errs"].values()
+                        for e in d.values())
+            print(f"  rank {rank} {c['label']} decode (B={B} T={T}, "
+                  f"{T // 2} a rank, H={H} K={K} hd={hd}) at kv_len "
+                  f"{c['fills']}: combined against the unsharded call "
+                  + "; ".join(
+                      f"{f} f32 {e['float32']['err']:.3e} "
+                      f"({e['float32']['over_bound']:.3f} of its bound), "
+                      f"bf16 {e['bfloat16']['err']:.3e} (floor "
+                      f"{e['bfloat16']['floor']:.3e}, "
+                      f"{e['bfloat16']['over_floor']:.3f} of twice it; "
+                      f"{e['bfloat16']['over_bound']:.3f} of that plus one "
+                      f"bf16 rounding of the largest partial "
+                      f"{e['bfloat16']['partial_max']:.3f}"
+                      f"{', bitwise' if e['bfloat16']['bitwise'] else ''})"
+                      for f, e in c["errs"].items())
+                  + f"; mha_fwd by route {c['routes']}; the combine's "
+                  f"all-reduce of {c['allreduce_bytes']} bytes "
+                  f"{c['allreduce_ms']:.3f} ms (host clock, gloo)")
+            if not (worst <= 1.0 and c["routes"] == {
+                    "mma": 0, "fma": 0, "decode": 2 * len(c["fills"])}
+                    and not any(n for k, n in c["launches"].items()
+                                if k != "mha_fwd")):
+                raise AssertionError(f"rank {rank} {c['label']}: the "
+                                     "sequence-split decode disagrees with "
+                                     "the unsharded call, or ran off the "
+                                     "decode route")
+            for t in c["times"]:
+                print(f"  [{power}] rank {rank} {c['label']} mha_fwd "
+                      f"{t['dtype']} on decode, kv_len {t['kv_len']} "
+                      f"({t['local']} of its {T // 2} keys): "
+                      f"{t['ms']:.4f} ms (device {fmt_ms(t['device_ms'])};"
+                      f" bound {t['bound_ms']:.4f} ms by {t['bound_by']}; "
+                      f"plain {t['plain_ms']:.4f} ms, max abs error "
+                      f"{t['plain_err']:.3e}, {t['plain_over_tol']:.3f} of "
+                      f"phase 2's bound; SDPA over its filled keys "
+                      f"{fmt_ms(t['library_ms'])})")
+                if not t["plain_over_tol"] <= 1.0:
+                    raise AssertionError(f"rank {rank}: mha_fwd on its shard"
+                                         " disagrees with the plain version")
+                entries.setdefault("mha_fwd", []).append({
+                    "name": "mha_fwd", "route": "cuda",
+                    "kernel_route": "decode",
+                    "shape": f"rank {rank} of 2, the sequence-split decode "
+                             f"on a (1, 2) mesh ({c['label']}): B={B} S=1 "
+                             f"T={T // 2} of {T} H={H} K={K} hd={hd} "
+                             f"kv_len {t['kv_len']} (local {t['local']}) "
+                             f"{t['dtype']}",
+                    "source": SRC_MHA, "replaces": TPU_MHA,
+                    # this case's launches on the rank's sharded path
+                    "launches": c["each"][(t["dtype"], t["fill"])],
+                    "max_abs_err": t["plain_err"],
+                    "sharded_max_abs_err": c["errs"][t["fill"]][
+                        t["dtype"]]["err"],
+                    "allreduce_ms": c["allreduce_ms"],
+                    **{k: t[k] for k in ("ms", "device_ms", "plain_ms",
+                                         "bound_ms", "bound_by",
+                                         "library_ms")},
+                    "library_note": "F.scaled_dot_product_attention over "
+                                    "the shard's filled keys"
+                                    + (f", kv repeated to {H} heads"
+                                       if H != K else "")})
+            # the decode plan launches mha_fwd alone (checked above)
+            launches["mha_fwd"] = (launches.get("mha_fwd", 0)
+                                   + c["launches"]["mha_fwd"])
+    return {"launches": launches, "entries": entries}
+
+
+def _serve_pass(torch, power, label, c, params, prompt, images, N,
+                rules=None, mesh=None):
+    """One serving run of ``c`` (prefill, then N - 1 greedy decode steps,
+    fed ``next_tokens`` of the full logits), counted from 0 after an
+    untimed prefill and decode step: -> its
+    tokens, every step's full logits, prefill ms, decode ms a step, mha_fwd
+    launches by route, the peak above what was allocated before it, and
+    one decode step's busy time and idle share (``moe_profile``)."""
+    from repro_torch.kernels.attention.attention import mha_fwd
+    from repro_torch.models.sharding import full_value
+    from repro_torch.training import make_decode_step, make_prefill_step
+    P = prompt.shape[-1]
+    prefill = make_prefill_step(c, P + N, rules, mesh)
+    decode = make_decode_step(c, rules, mesh)
+    # warm-up, not counted: a prefill and one decode step (on a mesh, the
+    # first collectives and DTensor's first sharding propagation at S = 1)
+    state, logits = prefill(params, prompt, images)
+    decode(params, state, next_tokens(torch, full_value(logits)), images)
+    del state, logits
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    zero_route_counts()
+    mha_fwd.launches = 0
+    t0 = time.perf_counter()
+    state, logits = prefill(params, prompt, images)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    steps, toks = [full_value(logits)], []
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(N - 1):
+        toks.append(next_tokens(torch, steps[-1]))
+        state, logits = decode(params, state, toks[-1], images)
+        steps.append(full_value(logits))
+    end.record()
+    torch.cuda.synchronize()
+    decode_ms = start.elapsed_time(end) / (N - 1)
+    routes, launches = route_counts()["mha_fwd"], mha_fwd.launches
+    peak = torch.cuda.max_memory_allocated() - before
+    toks.append(next_tokens(torch, steps[-1]))
+    del state
+    state, _ = prefill(params, prompt, images)
+    busy, _ = moe_profile(torch, power, lambda: decode(
+        params, state, toks[0], images), decode_ms, f"{label} decode step",
+        serving=True)
+    return {"tokens": torch.cat(toks, dim=-1), "logits": steps,
+            "prefill_ms": prefill_s * 1e3, "decode_ms": decode_ms,
+            "routes": routes, "launches": launches,
+            "peak_mib": peak / 2**20, "busy_ms": busy,
+            "idle_share": None if busy is None else 1 - busy / decode_ms}
+
+
+def serve_on_mesh(torch, seed, power, arch, cfg, serve_cfg, shape, ref,
+                  phase, mesh):
+    """Phase 25 (ii), one model: phase ``phase``'s serving (``cfg``'s
+    seeded weights, prompt and images, as that phase draws them; served
+    at ``serve_cfg``) without a mesh and on the (1, 1) NCCL ``mesh``
+    (``place_params``' DTensors, ``rules`` and ``mesh`` through the
+    serving factories): tokens equal, every step's logits bitwise, the
+    launches by route equal, the tokens phase ``phase`` chose (``ref``'s)
+    as these (``ref`` None: not compared). -> {"plain": ..., "mesh": ...}
+    of ``_serve_pass``."""
+    from repro_torch.models import init_params
+    from repro_torch.models.model import place_params
+    from repro_torch.models.sharding import Rules
+    B, P, N = shape
+    lead = (B, cfg.n_codebooks) if cfg.n_codebooks else (B,)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = init_params(cfg, gen, device="cuda")
+    prompt = torch.randint(0, cfg.vocab_size, (*lead, P), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    images = None if not cfg.n_image_tokens else 0.02 * torch.randn(
+        (B, cfg.n_image_tokens, cfg.d_model), generator=gen, device="cuda")
+    plain = _serve_pass(torch, power, f"{arch} unsharded", serve_cfg, params,
+                        prompt, images, N)
+    placed = place_params(params, serve_cfg, mesh)
+    del params
+    torch.cuda.empty_cache()
+    sharded = _serve_pass(torch, power, f"{arch} on a (1, 1) mesh",
+                          serve_cfg, placed, prompt, images, N,
+                          Rules(serve_cfg.rule_overrides), mesh)
+    lay = str(tuple(placed["tok_embed"]["w"].placements))
+    del placed
+    torch.cuda.empty_cache()
+    same_toks = torch.equal(plain["tokens"], sharded["tokens"])
+    same_logits = all(torch.equal(a, b) for a, b in
+                      zip(plain["logits"], sharded["logits"]))
+    as_phase = ref is None or torch.equal(
+        plain["tokens"][..., :ref["tokens"].shape[-1]], ref["tokens"])
+    print(f"  {arch} on a (1, 1) mesh (tok_embed {lay}), {N} new tokens: "
+          f"tokens equal the unsharded run's {same_toks}, every step's "
+          f"logits bitwise {same_logits}, the unsharded tokens phase "
+          f"{phase}'s {'not compared' if ref is None else as_phase}; "
+          f"mha_fwd by route {sharded['routes']} "
+          f"(unsharded {plain['routes']})")
+    for tag, r in (("mesh", sharded), ("unsharded", plain)):
+        print(f"  [{power}] {arch} serving {tag}: prefill "
+              f"{r['prefill_ms']:.3f} ms, decode {r['decode_ms']:.3f} ms a "
+              f"step, busy {fmt_ms(r['busy_ms'])} (idle share "
+              f"{'not measured' if r['idle_share'] is None else round(r['idle_share'], 3)}"
+              f"), peak {r['peak_mib']:.1f} MiB above the weights")
+    if not (same_toks and same_logits and as_phase
+            and sharded["routes"] == plain["routes"]
+            and sharded["launches"] == plain["launches"]):
+        raise AssertionError(f"{arch}: serving on the (1, 1) mesh differs "
+                             f"from the unsharded serving")
+    for r in (plain, sharded):
+        del r["logits"]
+    return {"plain": plain, "mesh": sharded}
+
+
+def phase_serve_mesh(torch, seed, power, serve, moe, vlm, musicgen):
+    """Phase 25: sharded serving of the GQA families: (i) two ranks on the
+    one card, (ii) phases 3's, 16's (cf E/k), 20's and 21's serving on a
+    (1, 1) NCCL mesh beside the same serving unsharded. ``serve``,
+    ``moe``, ``vlm``, ``musicgen``: those phases' results (their
+    tokens; None to run phase 25 alone). -> {"launches": (i)'s and the
+    mesh runs' summed, "entries", "serve": {arch: ``serve_on_mesh``'
+    result}}."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import make_host_mesh
+    t0 = time.perf_counter()
+    out = phase_serve_mesh_two_ranks(torch, seed, power)
+    dbrx = dataclasses.replace(get_arch(MOE_ARCH), n_layers=MOE_LAYERS)
+    full = get_arch(VLM_ARCH)
+    vlm_cfg = dataclasses.replace(
+        full, n_layers=VLM_BLOCKS * full.cross_attn_every)
+    music = get_arch(MUSICGEN_ARCH)
+    models = (("llama-130m", get_arch("llama-130m"), None, (8, 512, 64),
+               serve, 3),
+              (MOE_ARCH, dbrx, no_drop(dbrx), SERVE_MOE,
+               moe and moe["serve"], 16),
+              (VLM_ARCH, vlm_cfg, None, SERVE_VLM, vlm and vlm["serve"], 20),
+              (MUSICGEN_ARCH, music, None, SERVE_MUSICGEN,
+               musicgen and musicgen["serve"], 21))
+    nccl_world()
+    out["serve"] = {}
+    try:
+        mesh = make_host_mesh(1, 1, device_type="cuda")
+        for arch, cfg, serve_cfg, shape, ref, phase in models:
+            r = out["serve"][arch] = _uncounted(lambda: serve_on_mesh(
+                torch, seed, power, arch, cfg, serve_cfg or cfg, shape, ref,
+                phase, mesh))
+            out["launches"]["mha_fwd"] = (out["launches"].get("mha_fwd", 0)
+                                          + r["mesh"]["launches"])
+    finally:
+        dist.destroy_process_group()
+    print(f"  phase 25 took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -8901,6 +9345,12 @@ def main() -> int:
         "codebook heads and embedding with the vocabulary over model), the "
         "sharded train steps of phases 20's and 21's models")
     vlm_mesh = phase_vlm_mesh(torch, args.seed, power, vlm, musicgen)
+    say("phase 25: sharded serving of the GQA families: two ranks on the "
+        "card (the sequence-split decode at llama-130m's and the VLM's "
+        "decode shapes), phases 3's, 16's, 20's and 21's serving on a "
+        "(1, 1) mesh")
+    serve_mesh = phase_serve_mesh(torch, args.seed, power, serve, moe, vlm,
+                                  musicgen)
     # one row per kernel; launches summed over the main paths that run it,
     # each counted from 0 just before its path and read just after
     by_path = {"serving": {"mha_fwd": serve["launches"]},
@@ -8971,7 +9421,12 @@ def main() -> int:
                # heads in vocabulary shards, rank 1's launches at
                # col_offset 1024 under the col_offset rows) and the
                # sharded train steps of the VLM and musicgen
-               "train sharded vlm": vlm_mesh["launches"]}
+               "train sharded vlm": vlm_mesh["launches"],
+               # two ranks on the card (the sequence-split decode, each
+               # rank's half of the cache on decode) and the serving runs
+               # on the (1, 1) mesh: llama-130m, dbrx's cut, the VLM with
+               # images, musicgen
+               "serve sharded": serve_mesh["launches"]}
     # mha_fwd's prefill numbers, with both serving shapes and the eval and
     # training steps' shape beside them
     mha = {k: v for k, v in mha_rows[0].items() if k != "shape"}
@@ -9008,11 +9463,12 @@ def main() -> int:
     rows = ([mha] + bwd_rows + opt_rows + xent_rows + tied_rows + seg_rows
             + sharded["rows"])
     # phase 24's per-rank shapes: the cross-attention's and rank 1's
-    # codebook-head shard
+    # codebook-head shard; phase 25's: each rank's half of the cache
     for row in rows:
-        if row["name"] in vlm_mesh["entries"]:
-            row.setdefault("shapes", []).extend(
-                vlm_mesh["entries"][row["name"]])
+        for phase in (vlm_mesh, serve_mesh):
+            if row["name"] in phase["entries"]:
+                row.setdefault("shapes", []).extend(
+                    phase["entries"][row["name"]])
     for row in rows:
         row["launches_by_path"] = {p: c[row["name"]]
                                    for p, c in by_path.items()
@@ -9065,7 +9521,7 @@ def main() -> int:
                               and name == "norm_apply"):
                 raise AssertionError(f"{name} was not launched on the "
                                      f"{path} path")
-    say("all twenty-four phases passed")
+    say("all twenty-five phases passed")
     print(power)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -23,7 +23,9 @@ vocabulary axes and f32 dW over the token axes, each cast after the sum
 (``XentPlan``; every vocabulary shard passes its ``col_offset``, the
 global id of its first column, into the kernels, and w's embed dim is
 gathered at entry); attention needs none (``AttnPlan``: batch and heads
-are local). A layout the plans cannot express exactly (``"ref"``, as
+are local); serving's decode over a sequence-sharded KV cache combines
+each rank's partial (out, lse) over the T axes (``SeqSplitPlan``,
+forward only; ``decode_attention``). A layout the plans cannot express exactly (``"ref"``, as
 in JAX: a dim its axes do not divide, hidden states sharded past the
 batch dim, tokens and vocabulary on one mesh axis, q and kv sharded
 apart) takes the plain versions on the DTensors, whose ops DTensor
@@ -42,7 +44,8 @@ update theta and the momentum in place on every route and return them;
 ``momentum_norm`` updates the momentum in place.
 
 Attention (``flash_attention``) is the autograd ``FlashAttention`` over
-``mha_fwd``, ``mha_bwd_dq`` and ``mha_bwd_dkv``.
+``mha_fwd``, ``mha_bwd_dq`` and ``mha_bwd_dkv``; ``decode_attention`` is
+``mha_fwd`` alone (no gradient), on a mesh per the cache's own layout.
 
 Cross-entropy (``xent_loss``) is the LM head's loss as a
 ``torch.autograd.Function`` over the three xent kernels, with the contract
@@ -57,6 +60,7 @@ from typing import NamedTuple
 
 import torch
 import torch.distributed as dist
+from torch.profiler import record_function
 
 from repro_torch.models.sharding import (NamedSharding, P, full_value,
                                          is_dtensor, lay_out, mesh_axes,
@@ -272,6 +276,125 @@ def flash_attention(q, k, v, *, scale: float, causal: bool = True,
     kv_len = full_value(kv_len)
     out = _attention(ql, kl, vl, kv_len, segments, scale, causal)
     return wrap(out, sh, tuple(q.shape[:3]) + (v.shape[3],))
+
+
+# ------------------------------------------------ sequence-split decode
+
+class SeqSplitPlan(NamedTuple):
+    """The sharded decode's recipe over a sequence-sharded KV cache (JAX's
+    ``cache_seq`` -> "model"): ``batch_axes`` shard the leading dim of q
+    and the cache, ``seq_axes`` the cache's T; every rank keeps every
+    head. Each rank attends over its own T/n keys, and the partial (out,
+    lse) pairs are combined over ``seq_axes`` (``lse_combine``)."""
+    mesh: object
+    batch_axes: tuple
+    seq_axes: tuple
+
+
+def _plan_decode(kv_sharding, kv_shape):
+    """The cache's layout -> AttnPlan (its T whole: its batch axes only) |
+    SeqSplitPlan. A layout the plan cannot express raises
+    ``NotImplementedError`` naming it: no mesh, the cache's kv heads or
+    head dim sharded (every rank needs every head of its rows), or dims
+    their axes do not divide. q is re-laid out to the cache's rows."""
+    if kv_sharding is None:
+        raise NotImplementedError(
+            "decode_attention: the cache is not on a mesh; off a mesh "
+            "decode takes flash_attention")
+    mesh = kv_sharding.mesh
+    kper = spec_mesh_axes(kv_sharding.spec, 4)
+    batch_axes, seq_axes = tuple(kper[0]), tuple(kper[1])
+    if any(kper[2]) or any(kper[3]):
+        raise NotImplementedError(
+            f"decode_attention: the cache layout {kv_sharding.spec} shards "
+            "its kv heads or head dim; the sequence-split plan takes the "
+            "cache's batch and T sharded, each rank with every head")
+    kb, ks = _axes_prod(mesh, batch_axes), _axes_prod(mesh, seq_axes)
+    if kb is None or ks is None or kv_shape[0] % kb or kv_shape[1] % ks:
+        raise NotImplementedError(
+            f"decode_attention: the layout {kv_sharding.spec} does not "
+            f"divide the cache {tuple(kv_shape)}")
+    if seq_axes:
+        return SeqSplitPlan(mesh, batch_axes, seq_axes)
+    return AttnPlan(mesh, batch_axes, ())
+
+
+def lse_combine(outs, lses):
+    """The attention over all keys from its partials over disjoint key
+    sets: ``outs`` (R, B, S, H, hdv) (any float dtype) and their ``lses``
+    (R, B, H, S) f32 -> (B, S, H, hdv) f32. In f32: M = max of the lse;
+    out = sum_r exp(lse_r - M) out_r / sum_r exp(lse_r - M), as
+    ``XentLoss.forward`` combines its vocabulary shards. A partial with no
+    valid key (out 0, lse about -1e30) weighs 0; one partial returns its
+    out exactly (exp(0) = 1)."""
+    w = torch.exp(lses - lses.amax(0)).transpose(-1, -2)[..., None]
+    return (w * outs.float()).sum(0) / w.sum(0)
+
+
+def seq_split_decode(q, k, v, kv_len, *, scale: float, mesh, seq_axes):
+    """One rank's part of the sequence-split decode, on local tensors: q
+    (B, S, H, hd) with every head, this rank's cache shard k (B, T_l, K,
+    hd) and v (B, T_l, K, hdv), the global fill ``kv_len`` (a 0-d int32
+    tensor or an int; None: every key). ``mha_fwd`` runs on the shard with
+    the local fill clamp(kv_len - r * T_l, 0, T_l), computed on the device;
+    the partials are summed into this rank's slot of an (R, ...) f32
+    buffer of both over ``seq_axes`` (the plan's one collective: every
+    rank then holds every partial, exactly) and combined by
+    ``lse_combine``. -> (B, S, H, hdv) in q's dtype, the same on every
+    rank of ``seq_axes``. The profiler sees it as the span
+    ``seq_split_decode``."""
+    n, r = _axes_prod(mesh, seq_axes), _shard_index(mesh, seq_axes)
+    T_l = k.shape[1]
+    with record_function("seq_split_decode"):
+        if kv_len is not None:
+            kv_len = (torch.as_tensor(kv_len, dtype=torch.int32,
+                                      device=q.device)
+                      - r * T_l).clamp(0, T_l).to(torch.int32)
+        out, lse = mha_fwd(q, k, v, kv_len, scale=scale, causal=False)
+        parts = out.new_zeros((n, out.numel() + lse.numel()),
+                              dtype=torch.float32)
+        parts[r, :out.numel()] = out.reshape(-1)
+        parts[r, out.numel():] = lse.reshape(-1)
+        _all_reduce(parts, mesh, seq_axes)
+        return lse_combine(parts[:, :out.numel()].reshape(n, *out.shape),
+                           parts[:, out.numel():].reshape(n, *lse.shape)
+                           ).to(q.dtype)
+
+
+def decode_attention(q, k, v, *, scale: float, kv_len=None):
+    """Forward-only non-causal attention of S <= 4 queries over a KV cache
+    on a mesh (serving's decode), keys bounded by ``kv_len``.
+
+    q (B, S, H, hd); k (B, T, K, hd), v (B, T, K, hdv), the cache
+    DTensors. The plan follows the cache's own layout: a cache whose T is
+    sharded (JAX's ("cache_batch", "cache_seq", None, "cache_kv")) takes
+    ``SeqSplitPlan`` — q re-laid out with its batch over the cache's batch
+    axes and every head on every rank, each rank's shard on
+    ``seq_split_decode`` — and a cache whose T the divisibility guard
+    left whole takes ``flash_attention``'s batch-only ``AttnPlan``. JAX
+    sends the sequence-sharded cache to its chunked jnp route under GSPMD
+    (a local softmax per T-shard plus small lse all-reduces); this is that
+    arithmetic on the kernel. Returns a DTensor laid out as q's rows.
+    Raises ``RuntimeError`` if an operand requires grad (no backward), and
+    ``NotImplementedError`` for a layout the plan cannot express.
+    """
+    _fault_gate("decode_attention")
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        raise RuntimeError("decode_attention: forward only (serving's "
+                           "decode); an operand requires grad")
+    plan = _plan_decode(spec_of(k), k.shape)
+    bt = plan.batch_axes or None
+    row = NamedSharding(plan.mesh, P(bt, None, None, None))
+    if isinstance(plan, AttnPlan):
+        return flash_attention(q, k, v, scale=scale, causal=False,
+                               kv_len=kv_len, q_sharding=row,
+                               kv_sharding=row)
+    kv_l = NamedSharding(plan.mesh, P(bt, plan.seq_axes, None, None))
+    ql = lay_out(q, row).to_local()
+    kl, vl = (lay_out(x, kv_l).to_local() for x in (k, v))
+    out = seq_split_decode(ql, kl, vl, full_value(kv_len), scale=scale,
+                           mesh=plan.mesh, seq_axes=plan.seq_axes)
+    return wrap(out, row, tuple(q.shape[:3]) + (v.shape[3],))
 
 
 # --------------------------------------------------------- cross-entropy

@@ -92,10 +92,60 @@ def causal_blockwise_attention(q, k, v, scale: float, segments=None, *,
                                     **_attn_shardings(q, k, rules, mesh))
 
 
-def decode_attention(q, k, v, scale: float, kv_len=None) -> torch.Tensor:
-    """Non-causal attention over a T-length cache, keys bounded by ``kv_len``."""
-    return dispatch.flash_attention(q, k, v, scale=scale, causal=False,
-                                    kv_len=kv_len)
+def decode_attention(q, k, v, scale: float, kv_len=None, *,
+                     mesh=None) -> torch.Tensor:
+    """Non-causal attention over a T-length cache, keys bounded by
+    ``kv_len``. ``mesh``: the cache DTensors laid out per JAX's
+    ("cache_batch", "cache_seq", None, "cache_kv"), through
+    ``dispatch.decode_attention``'s plan for their layout (a T split over
+    "model": each rank's shard on the kernel, the partials combined by
+    their lse)."""
+    if mesh is None:
+        return dispatch.flash_attention(q, k, v, scale=scale, causal=False,
+                                        kv_len=kv_len)
+    return dispatch.decode_attention(q, k, v, scale=scale, kv_len=kv_len)
+
+
+# the layout of one layer's GQA cache (B, T, K, hd): JAX's decode
+# annotation of it (``transformer.cache_axes`` less the layer axis)
+CACHE_KV_AXES = ("cache_batch", "cache_seq", None, "cache_kv")
+
+
+def write_cache(c, new, index) -> None:
+    """Write ``new`` (B, S, K, hd) into the cache ``c`` (B, T, K, hd) at
+    positions ``index`` .. ``index`` + S - 1 IN PLACE (``index`` a 0-d
+    int32 tensor on the device, never read on the host).
+
+    On a mesh ``c`` is a DTensor (its T split over "model": this rank
+    holds positions [r T_l, (r + 1) T_l)). Each rank writes its local
+    shard, and only where it owns the position: the local rows at the
+    positions mod T_l are read and ``where(owned, new, old)`` written
+    back, so a rank that owns none writes back what it holds. The S
+    positions are consecutive, so mod T_l keeps them apart (S <= T_l)."""
+    S = new.shape[1]
+    if not is_dtensor(c):
+        c.index_copy_(1, index + torch.arange(S, device=c.device),
+                      new.to(c.dtype))
+        return
+    sh = spec_of(c)
+    per = spec_mesh_axes(sh.spec, 4)
+    if any(per[2]) or any(per[3]):
+        raise NotImplementedError(
+            f"write_cache: the cache layout {sh.spec} shards its kv heads "
+            "or head dim; the decode write takes its batch and T sharded")
+    local = c.to_local()
+    T_l = local.shape[1]
+    if S > T_l:
+        raise NotImplementedError(f"write_cache: {S} positions over a "
+                                  f"shard of {T_l}")
+    new_l = lay_out(new, NamedSharding(sh.mesh, P(per[0] or None, None,
+                                                  None, None))).to_local()
+    pos = (index + torch.arange(S, device=local.device)
+           - shard_index(sh.mesh, per[1]) * T_l)
+    slot = pos.remainder(T_l)
+    owned = ((pos >= 0) & (pos < T_l))[None, :, None, None]
+    old = local.index_select(1, slot)
+    local.index_copy_(1, slot, torch.where(owned, new_l.to(c.dtype), old))
 
 
 def attn_spec(cfg: ModelConfig, cross: bool = False) -> dict:
@@ -151,9 +201,13 @@ def apply_attention(p, cfg: ModelConfig, x, positions, mode: str = "train",
     ``mesh`` (x, ``p`` and ``kv_source`` DTensors laid out per ``rules``):
     the attention takes ``dispatch.flash_attention``'s sharded plan from
     the rules' ("act_batch", None, "act_heads", None) layout of q and kv,
-    each rank on its (B/n, S, H/m, hd) x (B/n, T, K/m, hd) shard; the
-    cross sub-layer first lays its keys and values out as JAX's does
-    (``_cross_kv``).
+    each rank on its (B/n, S, H/m, hd) x (B/n, T, K/m, hd) shard; q, k and
+    v are first laid out per JAX's ("act_batch", "act_seq", "act_heads" /
+    "act_kv") annotation at whole heads (``_whole_heads``; the cross
+    sub-layer's keys and values in ``_cross_kv``). In mode decode the
+    cache is ``models.model.init_cache``'s on the mesh (T over "model"):
+    ``write_cache`` writes each rank's shard, and ``decode_attention``
+    runs ``dispatch.decode_attention``'s plan for that layout.
     """
     if mode == "decode" and segment_ids is not None:
         raise ValueError("apply_attention: segment_ids and decode's kv_len "
@@ -171,6 +225,10 @@ def apply_attention(p, cfg: ModelConfig, x, positions, mode: str = "train",
             k, v = _cross_kv(p, cfg, kv_source, rules, mesh)
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    if mesh is not None and is_dtensor(q):
+        q = _whole_heads(q, "act_heads", H, rules, mesh)
+        if kv_source is None:
+            k, v = (_whole_heads(t, "act_kv", K, rules, mesh) for t in (k, v))
     q = q.reshape(B, S, H, hd)
     k = k.reshape(B, T, K, hd)
     v = v.reshape(B, T, K, hd)
@@ -185,11 +243,11 @@ def apply_attention(p, cfg: ModelConfig, x, positions, mode: str = "train",
     if kv_source is not None:
         out = _cross_attention(q, k, v, scale, rules, mesh)
     elif mode == "decode":
-        idx = cache_index + torch.arange(S, device=x.device)
         ck, cv = cache["k"], cache["v"]
-        ck.index_copy_(1, idx, k.to(ck.dtype))
-        cv.index_copy_(1, idx, v.to(cv.dtype))
-        out = decode_attention(q, ck, cv, scale, kv_len=cache_index + S)
+        write_cache(ck, k, cache_index)
+        write_cache(cv, v, cache_index)
+        out = decode_attention(q, ck, cv, scale, kv_len=cache_index + S,
+                               mesh=mesh)
     else:
         if mode == "prefill":
             new_cache = {"k": k, "v": v}
@@ -220,10 +278,19 @@ def _cross_kv(p, cfg: ModelConfig, images, rules: Optional[Rules] = None,
     x = images.to(dt)
     k, v = x @ p["wk"].to(dt), x @ p["wv"].to(dt)
     if mesh is not None and is_dtensor(k):
-        sh = rules.sharding(("act_batch", "act_seq", "act_kv"), mesh,
-                            (*k.shape[:2], cfg.n_kv_heads))
-        k, v = lay_out(k, sh), lay_out(v, sh)
+        k, v = (_whole_heads(t, "act_kv", cfg.n_kv_heads, rules, mesh)
+                for t in (k, v))
     return k, v
+
+
+def _whole_heads(x, heads_axis: str, n: int, rules: Rules, mesh):
+    """x (B, S, n*hd) laid out per ("act_batch", "act_seq", ``heads_axis``),
+    JAX's annotation of q, k and v before their reshape, with the
+    divisibility guard at whole heads (at (B, S, n)): a split of the
+    columns that cuts a head (2 kv heads over "model" 4) could not be
+    viewed as (B, S, n, hd), so those heads stay whole."""
+    return lay_out(x, rules.sharding(("act_batch", "act_seq", heads_axis),
+                                     mesh, (*x.shape[:2], n)))
 
 
 def _cross_attention(q, k, v, scale: float, rules: Optional[Rules] = None,

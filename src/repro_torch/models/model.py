@@ -31,7 +31,7 @@ from . import layers as L
 from . import transformer as T
 from .config import ModelConfig
 from .sharding import (IMAGE_AXES, Rules, embed_lookup, lay_out,
-                       mesh_context, shard)
+                       mesh_context, place, shard)
 
 
 # ----------------------------------------------------------------- spec tree
@@ -105,7 +105,7 @@ def place_params(params, cfg: ModelConfig, mesh, rules: Rules = None):
     ``mesh`` per the rules (default ``Rules(cfg.rule_overrides)``): a
     :class:`Params` of DTensor leaves, each rank holding its shards (the
     JAX launcher's ``device_put`` with ``tree_shardings``)."""
-    from .sharding import place, tree_shardings
+    from .sharding import tree_shardings
     rules = rules or Rules(cfg.rule_overrides)
     shardings = tree_shardings(param_logical_axes(cfg), mesh, rules,
                                param_shapes(cfg))
@@ -129,40 +129,31 @@ def count_params(shapes: dict, cfg: ModelConfig = None,
     return total
 
 
-DECODE_ON_A_MESH = (
-    "decode on a mesh is sharded serving, not ported yet; ROADMAP.md "
-    "Queue 1 item 12 (its leftovers)")
-
-
 def check_mesh(cfg: ModelConfig, mesh, what: str,
                mode: str = "train") -> None:
     """Raise before any work where ``cfg`` has no sharded route on a mesh
-    in ``mode``: in mode decode, sharded serving, for a vlm segment, the
-    audio family, Mamba2 (an ssm or hybrid segment: the recurrence over a
-    head-sharded cache) and MLA (the absorbed decode over a
-    sequence-sharded latent cache). Every family runs sharded in modes
-    train and prefill: an moe segment (expert parallelism over "model":
-    ``layers.apply_moe``), MLA, Mamba2 with its heads over "model"
-    (``layers.apply_mamba``; an ssm or hybrid segment), the VLM's cross
-    sub-layer (``layers.apply_attention`` with ``kv_source``: the images'
-    rows over the batch axes, the heads over "model") and audio's codebook
-    embedding and heads (each codebook's lookup through
+    in ``mode``: in mode decode, MLA (the absorbed decode over a
+    sequence-sharded latent cache) and Mamba2 (an ssm or hybrid segment:
+    the recurrence over a head-sharded cache). Every family runs sharded
+    in modes train and prefill: an moe segment (expert parallelism over
+    "model": ``layers.apply_moe``), MLA, Mamba2 with its heads over
+    "model" (``layers.apply_mamba``; an ssm or hybrid segment), the VLM's
+    cross sub-layer (``layers.apply_attention`` with ``kv_source``: the
+    images' rows over the batch axes, the heads over "model") and audio's
+    codebook embedding and heads (each codebook's lookup through
     ``sharding.embed_lookup``, each head on the sharded xent route with
-    its ``col_offset``)."""
-    if mesh is None:
+    its ``col_offset``). GQA attention decodes on a mesh too (dense, MoE,
+    the VLM and audio): its cache's T over "model"
+    (``cache_logical_axes``), each rank's shard on the decode kernel
+    (``dispatch.decode_attention``)."""
+    if mesh is None or mode != "decode":
         return
-    if mode == "decode" and any(k == "vlm" for k, _ in cfg.segments):
-        raise NotImplementedError(f"{what}: the vlm segment: "
-                                  f"{DECODE_ON_A_MESH}")
-    if mode == "decode" and cfg.family == "audio":
-        raise NotImplementedError(f"{what}: the audio model: "
-                                  f"{DECODE_ON_A_MESH}")
     mamba = [k for k, _ in cfg.segments if k in ("ssm", "hybrid")]
-    if mode == "decode" and mamba:
+    if mamba:
         raise NotImplementedError(
             f"{what}: the {mamba[0]} segment's Mamba2: "
             f"{L.MAMBA_DECODE_ON_A_MESH}")
-    if cfg.attention_kind == "mla" and mode == "decode":
+    if cfg.attention_kind == "mla":
         raise NotImplementedError(f"{what}: {L.MLA_DECODE_ON_A_MESH}")
 
 
@@ -246,22 +237,48 @@ def _init_leaf(spec: L.Spec, generator: torch.Generator) -> torch.Tensor:
 # -------------------------------------------------------------------- cache
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
-               device=None) -> dict:
+               device=None, rules: Rules = None, mesh=None) -> dict:
     """Zero cache, per segment and sub-layer that keeps one, like the JAX
     one: GQA's k and v (L, B, max_seq, K, hd); MLA's latent ckv (L, B,
     max_seq, kv_lora_rank) and shared rope key krope (L, B, max_seq, 1,
     qk_rope_dim); Mamba2's conv (L, B, dconv-1, conv_dim) and ssm (L, B,
     nh, N, hd). Each leaf keeps its own dtype: ``dtype`` (default the
-    model's), but Mamba2's ssm state always f32."""
+    model's), but Mamba2's ssm state always f32.
+
+    ``mesh``: each leaf a DTensor laid out per ``cache_logical_axes``
+    under ``rules`` (default ``Rules(cfg.rule_overrides)``), with the
+    divisibility guard of ``Rules.spec`` (GQA's T over "model" where it
+    divides, else whole); each rank allocates only its shard."""
     dtype = dtype or cfg.torch_dtype
     device = resolve_device(device)
+    where = device if mesh is None else torch.device("meta")
+    if mesh is not None:
+        rules = rules or Rules(cfg.rule_overrides)
+        axes = cache_logical_axes(cfg)
     out = {}
     for i, (kind, n) in enumerate(cfg.segments):
-        one = T.superblock_cache(cfg, kind, batch, max_seq, dtype, device)
-        out[f"seg{i}_{kind}"] = {
-            name: {k: x.new_zeros((n,) + x.shape) for k, x in c.items()}
-            for name, c in one.items()}
+        seg = f"seg{i}_{kind}"
+        one = T.superblock_cache(cfg, kind, batch, max_seq, dtype, where)
+        if mesh is None:
+            out[seg] = {name: {k: x.new_zeros((n,) + x.shape)
+                               for k, x in c.items()}
+                        for name, c in one.items()}
+            continue
+        out[seg] = {name: {k: place(
+            torch.zeros((), dtype=x.dtype, device=device).expand(
+                (n,) + x.shape),
+            rules.sharding(axes[seg][name][k], mesh, (n,) + x.shape),
+            copy=True) for k, x in c.items()} for name, c in one.items()}
     return out
+
+
+def cache_logical_axes(cfg: ModelConfig) -> dict:
+    """{segment: {sub-layer: {leaf: logical axes}}} of the stacked cache,
+    JAX's ``model.cache_logical_axes`` (``transformer.cache_axes`` per
+    segment): GQA's k and v per (None, "cache_batch", "cache_seq", None,
+    "cache_kv"), MLA's and Mamba2's leaves as there."""
+    return {f"seg{i}_{kind}": T.cache_axes(cfg, kind)
+            for i, (kind, n) in enumerate(cfg.segments)}
 
 
 # ------------------------------------------------------------------ forward
@@ -299,8 +316,10 @@ def forward(params, cfg: ModelConfig, tokens, *, image_embeds=None,
     embeddings are laid out per ("act_batch", None, "act_embed")
     (``sharding.IMAGE_AXES``, JAX's input layout) before they reach the
     cross sub-layers; an audio model sums its codebooks' sharded lookups.
-    Mode decode on a mesh (sharded serving) raises for a vlm, audio, MLA
-    or Mamba2 model (``check_mesh``).
+    In mode decode ``cache`` is ``init_cache``'s on the mesh: GQA writes
+    each rank's shard of the sequence-sharded cache and attends through
+    ``dispatch.decode_attention``; an MLA or Mamba2 model raises
+    (``check_mesh``).
     """
     check_mesh(cfg, mesh, "forward", mode)
     rules = rules or Rules(cfg.rule_overrides)
@@ -382,8 +401,10 @@ def logits_from_hidden(params, cfg: ModelConfig, hidden,
     S and V stays whole (ROADMAP.md reference caveat 16)."""
     w, tied = head_weight(params, cfg)
     if cfg.family == "audio":
-        out = torch.einsum("bsd,cvd->bcsv" if tied else "bsd,cdv->bcsv",
-                           hidden, w)
+        # one product a codebook head, as the dense head's (a (B, S, D) x
+        # (C, D, V) einsum flattens dims DTensor cannot flatten sharded)
+        out = torch.stack([hidden @ (w[c].T if tied else w[c])
+                           for c in range(cfg.n_codebooks)], dim=1)
     else:
         out = hidden @ (w.T if tied else w)
     return shard(_mask_pad_vocab(out, cfg), LOGITS_AXES,

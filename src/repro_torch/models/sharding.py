@@ -207,7 +207,9 @@ def place(x: torch.Tensor, sharding: NamedSharding, copy: bool = False):
     (``torch.chunk`` along each sharded dim, mesh dims in order), with no
     communication and the autograd history of ``x`` kept. The shard is a
     view of ``x`` unless ``copy`` (then it owns contiguous storage: a
-    parameter that is written in place)."""
+    parameter or a cache that is written in place; ``x`` may then be an
+    expanded view, a zero cache of which each rank allocates only its
+    shard)."""
     from torch.distributed.tensor import DTensor, Shard
     mesh = sharding.mesh
     pls = placements(sharding.spec, mesh, x.ndim)
@@ -215,10 +217,20 @@ def place(x: torch.Tensor, sharding: NamedSharding, copy: bool = False):
     for pl, n, i in zip(pls, mesh.shape, mesh.get_coordinate()):
         if isinstance(pl, Shard):
             local = torch.chunk(local, n, pl.dim)[i]
+    stride = x.stride()
     if copy:
         local = local.clone(memory_format=torch.contiguous_format)
+        stride = _contiguous_strides(x.shape)
     return DTensor.from_local(local, mesh, pls, run_check=False,
-                              shape=x.shape, stride=x.stride())
+                              shape=x.shape, stride=stride)
+
+
+def _contiguous_strides(shape) -> tuple:
+    strides, acc = [], 1
+    for d in reversed(tuple(shape)):
+        strides.append(acc)
+        acc *= d
+    return tuple(reversed(strides))
 
 
 def lay_out(x, sharding: NamedSharding):
@@ -237,15 +249,11 @@ def wrap(local: torch.Tensor, sharding: NamedSharding, shape):
     """This rank's local part of a value of global ``shape`` laid out per
     ``sharding``, as that DTensor (contiguous, as its strides say)."""
     from torch.distributed.tensor import DTensor
-    strides, acc = [], 1
-    for d in reversed(tuple(shape)):
-        strides.append(acc)
-        acc *= d
     return DTensor.from_local(
         local.contiguous(), sharding.mesh,
         placements(sharding.spec, sharding.mesh, local.ndim),
         run_check=False, shape=torch.Size(shape),
-        stride=tuple(reversed(strides)))
+        stride=_contiguous_strides(shape))
 
 
 def shard(x, logical_axes, rules: Rules, mesh=None):

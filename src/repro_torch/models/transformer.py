@@ -161,7 +161,7 @@ def cache_axes(cfg: ModelConfig, kind: str) -> dict:
                              "krope": (None, "cache_batch", "cache_seq",
                                        None, None)}
             else:
-                ax = (None, "cache_batch", "cache_seq", None, "cache_kv")
+                ax = (None, *L.CACHE_KV_AXES)
                 out[name] = {"k": ax, "v": ax}
         elif sub == "mamba":
             out[name] = {"conv": (None, "cache_batch", None, "ssm_inner"),

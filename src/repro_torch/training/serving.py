@@ -10,6 +10,12 @@ The VLM's prefill and decode take ``image_embeds`` (B, T, D); its cross
 sub-layers keep no cache and recompute their keys and values from them
 at every step, as JAX does. An audio model's prompts are (B, C, S), its
 decode tokens (B, C, 1) and its logits (B, C, 1, V).
+
+On a ("data", "model") mesh (``rules``, ``mesh``) the cache is JAX's
+sequence-sharded one (``models.model.cache_logical_axes``: its batch over
+"data", its T over "model"), written in place shard by shard, for every
+family whose attention is GQA (dense, MoE, the VLM, audio); MLA and
+Mamba2 decode on a mesh raise (``models.model.check_mesh``).
 """
 from __future__ import annotations
 
@@ -20,6 +26,10 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import forward, init_cache, logits_from_hidden
+from repro_torch.models.sharding import (NamedSharding, P, Rules,
+                                         batch_axes, full_value, is_dtensor,
+                                         lay_out, shard_index,
+                                         spec_mesh_axes, spec_of)
 
 
 class ServeState(NamedTuple):
@@ -28,51 +38,109 @@ class ServeState(NamedTuple):
 
 
 def _merge(full: dict, pre: dict) -> None:
-    """Write the prefill's S-length caches into the front of ``full``."""
+    """Write the prefill's S-length caches into the front of ``full``.
+
+    On a mesh (``full`` DTensors laid out per ``cache_logical_axes``) the
+    prefill's leaf takes the cache's layout with its S dim whole, and each
+    rank copies only the positions of its own shard of T: [r T_l, (r + 1)
+    T_l) cut to the S written."""
     for k, f in full.items():
         if isinstance(f, dict):
             _merge(f, pre[k])
-        else:
-            f[tuple(slice(0, n) for n in pre[k].shape)] = pre[k]
+            continue
+        p = pre[k]
+        if not is_dtensor(f):
+            f[tuple(slice(0, n) for n in p.shape)] = p
+            continue
+        sh = spec_of(f)
+        cut = [d for d in range(f.ndim) if p.shape[d] != f.shape[d]]
+        spec = tuple(None if d in cut else e for d, e in
+                     enumerate(tuple(sh.spec) + (None,) * f.ndim))[:f.ndim]
+        local = f.to_local()
+        pl = lay_out(p, NamedSharding(sh.mesh, P(*spec))).to_local()
+        for d in cut:  # the sequence dim: this rank's positions of S
+            T_l = local.shape[d]
+            lo = shard_index(sh.mesh, spec_mesh_axes(sh.spec, f.ndim)[d]) \
+                * T_l
+            lo = min(lo, p.shape[d])
+            n = min(p.shape[d] - lo, T_l)
+            local, pl = local.narrow(d, 0, n), pl.narrow(d, lo, n)
+        local.copy_(pl)
 
 
-def make_prefill_step(cfg, max_seq: int):
+def _lay_out_tokens(tokens, rules, mesh):
+    """The prompt or decode tokens ((B, S), audio (B, C, S)) laid out per
+    ``sharding.batch_axes`` on ``mesh`` (as they are without one)."""
+    if mesh is None:
+        return tokens
+    return lay_out(tokens, rules.sharding(batch_axes("tokens", tokens.ndim),
+                                          mesh, tokens.shape))
+
+
+def _local(x):
+    return x.to_local() if is_dtensor(x) else x
+
+
+def make_prefill_step(cfg, max_seq: int, rules: Rules = None, mesh=None):
     """prefill(params, tokens[, image_embeds]) -> (ServeState, last_logits
     (B, 1, V); audio (B, C, 1, V)).
 
     The cache is sized ``max_seq`` so decode can continue in place. Runs
-    on the device of ``tokens``.
+    on the device of ``tokens``. ``mesh`` (params DTensors laid out per
+    ``rules``, default ``Rules(cfg.rule_overrides)``): the tokens are
+    laid out per ``sharding.batch_axes`` (the images per ``IMAGE_AXES``,
+    in ``forward``), the cache per ``cache_logical_axes`` (T over
+    "model"), each rank writing its own positions of the prefill's k/v,
+    and the logits per ``LOGITS_AXES``.
     """
+    rules = rules or Rules(cfg.rule_overrides)
 
     @torch.no_grad()
     def prefill_step(params, tokens, image_embeds=None):
         B, S = tokens.shape[0], tokens.shape[-1]
-        cache = init_cache(cfg, B, max_seq, device=tokens.device)
+        device = _local(tokens).device
+        tokens = _lay_out_tokens(tokens, rules, mesh)
+        cache = init_cache(cfg, B, max_seq, device=device, rules=rules,
+                           mesh=mesh)
         hidden, pre_cache, _ = forward(params, cfg, tokens,
                                        image_embeds=image_embeds,
-                                       mode="prefill", cache=cache)
+                                       mode="prefill", cache=cache,
+                                       rules=rules, mesh=mesh)
         _merge(cache, pre_cache)
-        logits = logits_from_hidden(params, cfg, hidden[:, -1:])
-        index = torch.tensor(S, dtype=torch.int32, device=tokens.device)
+        logits = logits_from_hidden(params, cfg, hidden[:, -1:], rules)
+        index = torch.tensor(S, dtype=torch.int32, device=device)
         return ServeState(cache, index), logits
 
     return prefill_step
 
 
-def make_decode_step(cfg):
+def make_decode_step(cfg, rules: Rules = None, mesh=None):
     """decode(params, state, tokens[, image_embeds]) -> (state, logits).
-    tokens (B, 1); audio (B, C, 1)."""
+    tokens (B, 1); audio (B, C, 1). ``mesh``: as ``make_prefill_step``;
+    each rank writes the new k/v into its shard of the cache only where it
+    owns ``state.index``, and attention runs each rank's shard on the
+    decode kernel, the partials combined over "model" by their lse
+    (``dispatch.decode_attention``)."""
+    rules = rules or Rules(cfg.rule_overrides)
 
     @torch.no_grad()
     def decode_step(params, state: ServeState, tokens, image_embeds=None):
-        hidden, cache, _ = forward(params, cfg, tokens,
+        hidden, cache, _ = forward(params, cfg,
+                                   _lay_out_tokens(tokens, rules, mesh),
                                    image_embeds=image_embeds, mode="decode",
                                    cache=state.cache,
-                                   cache_index=state.index)
-        logits = logits_from_hidden(params, cfg, hidden)
+                                   cache_index=state.index, rules=rules,
+                                   mesh=mesh)
+        logits = logits_from_hidden(params, cfg, hidden, rules)
         return ServeState(cache, state.index + tokens.shape[-1]), logits
 
     return decode_step
+
+
+def _next_token(logits) -> torch.Tensor:
+    """(B, 1) int32: the argmax of the last row of the full logits (an
+    audio model's last codebook's, as JAX's)."""
+    return full_value(logits)[:, -1].argmax(dim=-1).to(torch.int32)[:, None]
 
 
 def _quantile(sorted_vals: list, q: float) -> float:
@@ -83,7 +151,8 @@ def _quantile(sorted_vals: list, q: float) -> float:
 
 
 def greedy_generate(cfg, params, prompt, n_steps: int, max_seq: int,
-                    device=None, logger=None) -> torch.Tensor:
+                    rules: Rules = None, mesh=None, device=None,
+                    logger=None) -> torch.Tensor:
     """Greedy generation: one prefill, then ``n_steps - 1`` decode steps.
 
     ``prompt`` (B, S) int tokens (tensor or array); ``params`` must live on
@@ -106,6 +175,12 @@ def greedy_generate(cfg, params, prompt, n_steps: int, max_seq: int,
     are real step latencies. The first decode step is reported apart as
     ``compile_ms``: in the port it carries the decode kernels' lazy
     loads (JAX's carries its compile).
+
+    ``rules``, ``mesh``: serving on a mesh (``make_prefill_step``,
+    ``make_decode_step``; ``params`` laid out by
+    ``models.model.place_params``); each next token is the argmax of the
+    full logits (``sharding.full_value``), so the result is a plain
+    tensor, the same on every rank.
     """
     device = resolve_device(device)
     prompt = torch.as_tensor(prompt, device=device)
@@ -114,7 +189,7 @@ def greedy_generate(cfg, params, prompt, n_steps: int, max_seq: int,
         # cannot be checked there without a host sync
         raise ValueError(f"prompt of {prompt.shape[-1]} + {n_steps - 1} "
                          f"decode steps exceeds max_seq={max_seq}")
-    w = params["tok_embed"]["w"]
+    w = _local(params["tok_embed"]["w"])
     if w.device != prompt.device:
         raise ValueError(f"params on {w.device}, generation on {device}")
 
@@ -122,8 +197,8 @@ def greedy_generate(cfg, params, prompt, n_steps: int, max_seq: int,
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
-    prefill = make_prefill_step(cfg, max_seq)
-    decode = make_decode_step(cfg)
+    prefill = make_prefill_step(cfg, max_seq, rules, mesh)
+    decode = make_decode_step(cfg, rules, mesh)
     B = int(prompt.shape[0])
     if logger is not None:
         wait()
@@ -136,13 +211,13 @@ def greedy_generate(cfg, params, prompt, n_steps: int, max_seq: int,
         logger.log("serve", 0, phase="prefill", batch=B,
                    prompt_tokens=n_prompt, latency_ms=1e3 * dt,
                    tokens_per_s=n_prompt / max(dt, 1e-9))
-    tok = logits[:, -1].argmax(dim=-1).to(torch.int32)[:, None]
+    tok = _next_token(logits)
     out = [tok]
     lat: list = []
     for _ in range(n_steps - 1):
         t0 = time.perf_counter()
         state, logits = decode(params, state, tok)
-        tok = logits[:, -1].argmax(dim=-1).to(torch.int32)[:, None]
+        tok = _next_token(logits)
         if logger is not None:
             wait()
             lat.append(time.perf_counter() - t0)

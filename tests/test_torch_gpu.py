@@ -85,6 +85,11 @@ versions, with lse and delta from the plain forward:
     ``mha_fwd_ref``: the forward's tolerances, scaled by max|ref| (2e-5 in
     f32, 1e-2 in bf16). A direct CUDA ``mha_fwd`` call under grad raises
     (its output has no autograd history).
+The sequence-split decode of serving on a mesh (each T-shard of the cache
+on the decode kernel at its local fill, the partials combined by
+``dispatch.lse_combine``), at llama-130m's and the VLM's decode shapes in
+two and four shards, is held against the unsharded kernel call and the
+plain version at the attention tolerances above.
 MLA's attention (queries and keys 192 wide, values 128, H == K, causal)
 holds the three kernels on the fma route at the tolerances above, and
 deepseek-v3's SMOKE twin takes a train step through every kernel of its
@@ -2542,3 +2547,56 @@ def test_vlm_and_audio_smoke_serving_on_card_matches_full_forward(cuda,
         h, _, _ = forward(params, cfg, toks, image_embeds=images)
         ref = logits_from_hidden(params, cfg, h)[..., -1, :]
     torch.testing.assert_close(logits[..., -1, :], ref, atol=2e-4, rtol=0)
+
+
+# The sequence-split decode (``dispatch.SeqSplitPlan``, serving on a mesh
+# whose cache's T lies over "model"), in one process: the cache cut into
+# T-shards, ``mha_fwd``'s decode route on each at its local fill
+# clamp(kv_len - r T_l, 0, T_l), the partials combined by
+# ``dispatch.lse_combine``. (B, T, H, K, hd): llama-130m's serving decode
+# (phase 3) and the VLM's self-attention decode (phase 20).
+SEQ_SPLIT_CASES = {"llama130m_decode": (8, 576, 12, 12, 64),
+                   "vlm_decode_gqa32x8_hd128": (4, 544, 32, 8, 128)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fill", ["inside", "on", "past"])
+@pytest.mark.parametrize("splits", [2, 4])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", list(SEQ_SPLIT_CASES))
+def test_seq_split_decode_matches_the_unsharded_kernel_on_card(
+        cuda, case, dtype, splits, fill):
+    """Each T-shard on the decode kernel (one launch a shard, on route
+    ``decode``), combined, against the unsharded kernel call and against
+    the plain version, at a fill inside the first shard (the others have
+    no valid key), on a shard boundary and past one: the attention
+    tolerances above (f32 2e-5; bf16 2e-2 + 2e-2*|ref|: each shard's
+    output is rounded to bf16 before the f32 combine)."""
+    from repro_torch.kernels.dispatch import lse_combine
+    B, T, H, K, hd = SEQ_SPLIT_CASES[case]
+    td = DTYPES[dtype]
+    q, k, v = (torch.from_numpy(x).to(cuda, td)
+               for x in _inputs(3, B, 1, T, H, K, hd))
+    T_l = T // splits
+    kv_len = {"inside": T_l // 2, "on": T_l, "past": T_l + 37}[fill]
+    kl = torch.tensor(kv_len, dtype=torch.int32, device=cuda)
+    was = dict(mha_fwd.route_launches)
+    parts = [mha_fwd(q, kr.contiguous(), vr.contiguous(),
+                     (kl - r * T_l).clamp(0, T_l).to(torch.int32),
+                     scale=hd ** -0.5, causal=False)
+             for r, (kr, vr) in enumerate(zip(k.split(T_l, 1),
+                                              v.split(T_l, 1)))]
+    got = lse_combine(torch.stack([o for o, _ in parts]),
+                      torch.stack([s for _, s in parts])).to(td)
+    torch.cuda.synchronize()
+    assert mha_fwd.route_launches == {**was,
+                                      "decode": was["decode"] + splits}
+    whole = mha_fwd(q, k, v, kl, scale=hd ** -0.5, causal=False)[0]
+    ref = mha_fwd_ref(q, k, v, kl, scale=hd ** -0.5, causal=False)[0]
+    atol, rtol = _tol(dtype)
+    for want in (whole, ref):
+        torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                                   rtol=rtol)
+    if fill == "inside":  # every shard past the first has no valid key
+        assert all((o == 0).all() and (s < -1e29).all()
+                   for o, s in parts[1:])

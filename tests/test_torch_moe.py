@@ -460,15 +460,13 @@ def test_moe_steps_build_on_a_mesh(arch):
 
 @pytest.mark.parametrize("arch,match", [
     ("mamba2-370m", "Mamba2"),
-    ("jamba-1.5-large-398b", "hybrid.*Mamba2"),
-    ("llama-3.2-vision-11b", "vlm"),
-    ("musicgen-medium", "audio")])
+    ("jamba-1.5-large-398b", "hybrid.*Mamba2")])
 def test_unsharded_families_still_raise_on_a_mesh(arch, match):
-    """Mamba2, the hybrid (``tests/test_torch_sharded_mamba.py``), the VLM
-    and audio (``tests/test_torch_sharded_vlm.py``) run sharded in modes
-    train and prefill: their train and eval steps build, and forward
-    raises in mode decode (sharded serving), naming the segment or the
-    family, before it touches a tensor."""
+    """Mamba2 and the hybrid (``tests/test_torch_sharded_mamba.py``) run
+    sharded in modes train and prefill: their train and eval steps build,
+    and forward raises in mode decode (sharded serving), naming the
+    segment, before it touches a tensor. (The VLM and audio decode on a
+    mesh: ``tests/test_torch_sharded_serving.py``.)"""
     tcfg = treg.get_arch(arch, smoke=True)
     tx = t_make("scale_fused", 1e-2)
     assert callable(make_train_step(tcfg, tx, mesh=_DUCK_MESH))

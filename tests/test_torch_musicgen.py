@@ -346,13 +346,14 @@ def test_audio_under_a_mesh_raises_before_any_work():
     """The audio model runs on a mesh in modes train and prefill: the
     train and eval steps build on a (duck-typed) (1, 1) mesh
     (``tests/test_torch_sharded_vlm.py`` runs them on a gloo mesh).
-    Decode on a mesh is sharded serving, not ported: forward in mode
-    decode raises before any work, naming it."""
+    Decode on a mesh (sharded serving) is ported too: ``check_mesh``,
+    which raises before any work where a mode has no sharded route, lets
+    mode decode through (``tests/test_torch_sharded_serving.py`` serves it
+    on a gloo mesh)."""
     _, tcfg = _cfgs()
     mesh = SimpleNamespace(mesh_dim_names=("data", "model"), shape=(1, 1))
     tx = t_make("scale_fused", 1e-2)
     assert callable(make_train_step(tcfg, tx, mesh=mesh))
     assert callable(make_eval_step(tcfg, mesh=mesh))
-    with pytest.raises(NotImplementedError,
-                       match="audio.*sharded serving.*item 12"):
-        TM.forward(None, tcfg, None, mode="decode", mesh=mesh)
+    for mode in ("train", "prefill", "decode"):
+        assert TM.check_mesh(tcfg, mesh, "forward", mode) is None

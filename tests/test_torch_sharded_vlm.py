@@ -34,9 +34,8 @@ Checks:
     "act_vocab" on S, V whole);
   * the VLM's forward without images (caveat 14) on (2, 2);
   * ``shard_batch``'s layouts of both batches under a rule override that
-    maps "act_seq" to "model" (JAX's ``dryrun.input_specs`` axes), and
-    mode decode on a mesh raising before any work, naming sharded
-    serving.
+    maps "act_seq" to "model" (JAX's ``dryrun.input_specs`` axes). (Both
+    models' decode on a mesh: ``tests/test_torch_sharded_serving.py``.)
 
 Tolerances (sums across ranks run in another order than one device's):
   * the layer, f32: ``tests/test_torch_vlm.py``'s 1e-5 of the tensor's
@@ -57,7 +56,6 @@ Tolerances (sums across ranks run in another order than one device's):
 """
 import concurrent.futures
 import dataclasses
-import re
 import traceback
 
 import numpy as np
@@ -304,7 +302,7 @@ def _layer_check(mesh, case) -> dict:
 
 def _forward_check(mesh, ref) -> dict:
     """Prefill on the mesh (hidden states, cache, logits and their
-    layout), the VLM's forward without images, and mode decode raising."""
+    layout) and the VLM's forward without images."""
     from repro_torch.models import init_cache
     from repro_torch.models.model import (flatten, forward,
                                           logits_from_hidden, place_params)
@@ -329,17 +327,10 @@ def _forward_check(mesh, ref) -> dict:
         logits = logits_from_hidden(params, cfg, h, rules)
         bare = (forward(params, cfg, toks, rules=rules, mesh=mesh)[0]
                 if img is not None else h)
-    try:
-        forward(params, cfg, toks[..., :1], mode="decode",
-                cache=init_cache(cfg, B, S, device="cpu"),
-                cache_index=torch.tensor(S - 1), rules=rules, mesh=mesh)
-        decode = None
-    except NotImplementedError as e:
-        decode = str(e)
     return {"hidden": _np(h), "logits": _np(logits),
             "logits_layout": str(tuple(logits.placements)),
             "cache": {k: _np(v) for k, v in flatten(cache).items()},
-            "no_images": _np(bare), "decode": decode}
+            "no_images": _np(bare)}
 
 
 def _batch_layouts(mesh, train) -> dict:
@@ -572,15 +563,6 @@ def test_shard_batch_lays_leaves_out_as_jax_under_an_override(job, arch):
         assert refs["layouts"][(AUDIO, "tokens")] == ("data", None, "model")
     else:
         assert refs["layouts"][(VLM, "image_embeds")] == ("data", None, None)
-
-
-@pytest.mark.parametrize("arch", ARCHS)
-def test_sharded_decode_raises_naming_sharded_serving(job, arch):
-    _, got = job
-    for res in got.values():
-        msg = res["forward"][arch]["decode"]
-        assert msg is not None and re.search(
-            "(vlm|audio).*sharded serving", msg), msg
 
 
 def test_batch_axes_follow_the_leaf():
